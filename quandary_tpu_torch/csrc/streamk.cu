@@ -1,0 +1,466 @@
+// streamK propagation kernels for Hopper (sm_90a): the whole IMR time loop
+// of dv/dt = -i H(t) v in ONE launch per direction, H(t) = sum_k c_k(t) S_k
+// contracted in-kernel from operator stacks held in shared memory.
+//
+// Replaces quandary_tpu/ops/pallas_stream.py::make_streamk_propagate (the
+// TPU kernel pair: forward pallas_call at :907, backward at :967) together
+// with the step core it inlines (_stage_fwd :217, _stage_bwd :331,
+// _bwd_step :429). Same contract and the same algebra:
+//   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
+//   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
+//   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
+//              V the off-diagonal remainder (an extra stack slot -diag(h)
+//              with coefficient 1, appended by the wrapper).
+// The backward is the exact real transpose of the computed forward step; the
+// step's H cotangent Hb = sum_pairs c u^T is reduced in-kernel against every
+// stack slot into Cb[t, k] = <Hb_r, Sr_k> + <Hb_i, Si_k> (pallas_stream.py
+// :947-958). Stack cotangents are not computed (zero by the same contract).
+//
+// Layout: one thread block per control candidate; the sequential time loop
+// runs inside the block (the TPU's sequential grid axis). The stacks, the
+// per-step H planes, the state and the stage iterates live in shared memory;
+// one thread owns one (b, i) state entry and keeps its own b, k, x values in
+// registers. Arithmetic is exact f32 FMA on the CUDA cores (the TPU kernel's
+// default is a 3-pass bf16 emulation of f32 matmuls, pallas_stream.py:52-119;
+// this one is more accurate, not less). No tensor cores: at N = 16 a
+// complex matvec is 4 * N^2 * B = 4 kFLOP.
+//
+// What bounds it on the H100: neither bytes nor FLOPs. The CNOT flagship
+// (N = 16, B = 4, ntime = 1221, split with 3 iterations) does about 40 MFLOP
+// per forward sweep, under a microsecond of the card's f32 rate, and reads
+// (ntime * Ke) coefficients. The bound is latency: a chain of
+// ntime * (iters + 1) dependent matvecs, each followed by a block-wide
+// barrier. The design keeps that chain on-chip (no global round trip per
+// step, no per-step launch) and runs E candidates as E independent blocks,
+// so a batch of up to one block per SM costs the same wall time as one.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+enum { MODE_NEUMANN = 0, MODE_JACOBI = 1, MODE_SPLIT = 2 };
+
+struct Dims {
+  int E, nt, B, N, Ke, iters, mode, store;
+  float dt, a;
+};
+
+// H = sum_k c_k S_k into row-major planes with row stride N + 1 (the pad
+// keeps both the row reads of T and the column reads of Tt conflict-free).
+__device__ __forceinline__ void contract(const float* Sr, const float* Si,
+                                         const float* __restrict__ c,
+                                         float* Hr, float* Hi, int Ke,
+                                         int N) {
+  const int NN = N * N, ld = N + 1;
+  for (int e = threadIdx.x; e < NN; e += blockDim.x) {
+    float hr = 0.f, hi = 0.f;
+    for (int k = 0; k < Ke; ++k) {
+      const float ck = __ldg(c + k);
+      hr = fmaf(ck, Sr[k * NN + e], hr);
+      hi = fmaf(ck, Si[k * NN + e], hi);
+    }
+    const int p = e / N, q = e - p * N;
+    Hr[p * ld + q] = hr;
+    Hi[p * ld + q] = hi;
+  }
+}
+
+// Entry (b, i) of T(v) = -i H v: (Im (Hv)_i, -Re (Hv)_i).
+__device__ __forceinline__ void apply_T(const float* Hr, const float* Hi,
+                                        const float* vr, const float* vi,
+                                        int b, int i, int N, float& outr,
+                                        float& outi) {
+  const float* hr = Hr + i * (N + 1);
+  const float* hi = Hi + i * (N + 1);
+  const float* xr = vr + b * N;
+  const float* xi = vi + b * N;
+  float ar = 0.f, ai = 0.f;
+  for (int j = 0; j < N; ++j) {
+    ar = fmaf(hr[j], xr[j], ar);
+    ar = fmaf(-hi[j], xi[j], ar);
+    ai = fmaf(hr[j], xi[j], ai);
+    ai = fmaf(hi[j], xr[j], ai);
+  }
+  outr = ai;
+  outi = -ar;
+}
+
+// Entry (b, q) of the real transpose of T applied to the cotangent u.
+__device__ __forceinline__ void apply_Tt(const float* Hr, const float* Hi,
+                                         const float* ur, const float* ui,
+                                         int b, int q, int N, float& outr,
+                                         float& outi) {
+  const int ld = N + 1;
+  const float* cr = ur + b * N;
+  const float* ci = ui + b * N;
+  float sr = 0.f, si = 0.f;
+  for (int p = 0; p < N; ++p) {
+    const float hr = Hr[p * ld + q], hi = Hi[p * ld + q];
+    sr = fmaf(cr[p], hi, sr);
+    sr = fmaf(-ci[p], hr, sr);
+    si = fmaf(cr[p], hr, si);
+    si = fmaf(ci[p], hi, si);
+  }
+  outr = sr;
+  outi = si;
+}
+
+// elementwise complex products with the per-entry solver rows
+__device__ __forceinline__ void cmul(float ar, float ai, float& vr,
+                                     float& vi) {  // v <- a v
+  const float r = ar * vr - ai * vi;
+  vi = ai * vr + ar * vi;
+  vr = r;
+}
+
+__device__ __forceinline__ void cmul_conj(float ar, float ai, float& vr,
+                                          float& vi) {  // v <- conj(a) v
+  const float r = ar * vr + ai * vi;
+  vi = ar * vi - ai * vr;
+  vr = r;
+}
+
+}  // namespace
+
+// Forward: x0 (B, N) shared by all candidates; C (E, nt, Ke); rows: jacobi
+// (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Writes xT
+// (E, B, N), hist (E, nt, B, N) and, with store, the stage iterates
+// k_0..k_{iters-1} (E, nt, iters, B, N).
+__global__ void __launch_bounds__(1024)
+streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
+            const float* __restrict__ C, const float* __restrict__ x0r,
+            const float* __restrict__ x0i, const float* __restrict__ rows,
+            float* __restrict__ xTr, float* __restrict__ xTi,
+            float* __restrict__ hr, float* __restrict__ hi,
+            float* __restrict__ ksr, float* __restrict__ ksi, Dims d) {
+  extern __shared__ float sm[];
+  const int N = d.N, NN = N * N, BN = d.B * N, Ke = d.Ke, iters = d.iters;
+  float* Sr = sm;
+  float* Si = Sr + Ke * NN;
+  float* Hr = Si + Ke * NN;
+  float* Hi = Hr + N * (N + 1);
+  float* xs_r = Hi + N * (N + 1);
+  float* xs_i = xs_r + BN;
+  float* kb_r = xs_i + BN;
+  float* kb_i = kb_r + (iters + 1) * BN;
+
+  const int e = blockIdx.x, tid = threadIdx.x;
+  for (int idx = tid; idx < Ke * NN; idx += blockDim.x) {
+    Sr[idx] = gSr[idx];
+    Si[idx] = gSi[idx];
+  }
+  const bool act = tid < BN;
+  const int b = tid / N, i = tid - (tid / N) * N;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  float xr = 0.f, xi = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f;
+  if (act) {
+    xr = x0r[tid];
+    xi = x0i[tid];
+    if (jac || split) {
+      r0 = rows[i];
+      r1 = rows[N + i];
+    }
+    if (jac) {
+      r2 = rows[2 * N + i];
+      r3 = rows[3 * N + i];
+    }
+  }
+  __syncthreads();
+
+  for (int t = 0; t < d.nt; ++t) {
+    const size_t st = (size_t)e * d.nt + t;
+    contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
+    if (act) {
+      if (split) cmul(r0, r1, xr, xi);
+      xs_r[tid] = xr;
+      xs_i[tid] = xi;
+    }
+    __syncthreads();
+    float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
+    if (act) {
+      apply_T(Hr, Hi, xs_r, xs_i, b, i, N, br, bi);
+      kr = br;
+      ki = bi;
+      if (jac) cmul(r2, r3, kr, ki);
+      kb_r[tid] = kr;
+      kb_i[tid] = ki;
+      if (d.store && iters > 0) {
+        const size_t o = st * iters * BN + tid;
+        ksr[o] = kr;
+        ksi[o] = ki;
+      }
+    }
+    __syncthreads();
+    for (int j = 0; j < iters; ++j) {
+      if (act) {
+        float mr, mi;
+        apply_T(Hr, Hi, kb_r + j * BN, kb_i + j * BN, b, i, N, mr, mi);
+        if (jac) {
+          const float ur = mr - (r0 * kr - r1 * ki);
+          const float ui = mi - (r0 * ki + r1 * kr);
+          kr = br + d.a * ur;
+          ki = bi + d.a * ui;
+          cmul(r2, r3, kr, ki);
+        } else {
+          kr = br + d.a * mr;
+          ki = bi + d.a * mi;
+        }
+        kb_r[(j + 1) * BN + tid] = kr;
+        kb_i[(j + 1) * BN + tid] = ki;
+        if (d.store && j + 1 < iters) {
+          const size_t o = (st * iters + j + 1) * BN + tid;
+          ksr[o] = kr;
+          ksi[o] = ki;
+        }
+      }
+      __syncthreads();
+    }
+    if (act) {
+      xr = xr + d.dt * kr;
+      xi = xi + d.dt * ki;
+      if (split) cmul(r0, r1, xr, xi);
+      hr[st * BN + tid] = xr;
+      hi[st * BN + tid] = xi;
+    }
+  }
+  if (act) {
+    xTr[(size_t)e * BN + tid] = xr;
+    xTi[(size_t)e * BN + tid] = xi;
+  }
+}
+
+// Backward: runs the steps in reverse. Inputs as the forward's plus the
+// history (E, nt, B, N), its cotangent j (E, nt, B, N), the final-state
+// cotangent gT (E, B, N) and, with store, the forward's stage iterates.
+// Writes the x0 cotangent per candidate g0 (E, B, N) and the coefficient
+// cotangents Cb (E, nt, Ke).
+__global__ void __launch_bounds__(1024)
+streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
+            const float* __restrict__ C, const float* __restrict__ x0r,
+            const float* __restrict__ x0i, const float* __restrict__ hr,
+            const float* __restrict__ hi, const float* __restrict__ jr,
+            const float* __restrict__ ji, const float* __restrict__ gTr,
+            const float* __restrict__ gTi, const float* __restrict__ rows,
+            const float* __restrict__ ksr, const float* __restrict__ ksi,
+            float* __restrict__ g0r, float* __restrict__ g0i,
+            float* __restrict__ Cb, Dims d) {
+  extern __shared__ float sm[];
+  const int N = d.N, NN = N * N, BN = d.B * N, Ke = d.Ke, iters = d.iters;
+  float* Sr = sm;
+  float* Si = Sr + Ke * NN;
+  float* Hr = Si + Ke * NN;
+  float* Hi = Hr + N * (N + 1);
+  float* Hbr = Hi + N * (N + 1);
+  float* Hbi = Hbr + NN;
+  float* xp_r = Hbi + NN;
+  float* xp_i = xp_r + BN;
+  float* ks_r = xp_i + BN;                // k_0..k_{iters-1}
+  float* ks_i = ks_r + iters * BN;
+  float* cb_r = ks_i + iters * BN;        // cotangents of the iters+1 pairs
+  float* cb_i = cb_r + (iters + 1) * BN;
+  float* red = cb_i + (iters + 1) * BN;   // (nwarps, Ke)
+
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  for (int idx = tid; idx < Ke * NN; idx += blockDim.x) {
+    Sr[idx] = gSr[idx];
+    Si[idx] = gSi[idx];
+  }
+  const bool act = tid < BN;
+  const int b = tid / N, i = tid - (tid / N) * N;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  float gr = 0.f, gi = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f;
+  if (act) {
+    gr = gTr[(size_t)e * BN + tid];
+    gi = gTi[(size_t)e * BN + tid];
+    if (jac || split) {
+      r0 = rows[i];
+      r1 = rows[N + i];
+    }
+    if (jac) {
+      r2 = rows[2 * N + i];
+      r3 = rows[3 * N + i];
+    }
+  }
+  __syncthreads();
+
+  for (int t = d.nt - 1; t >= 0; --t) {
+    const size_t st = (size_t)e * d.nt + t;
+    contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
+    if (act) {
+      gr += jr[st * BN + tid];
+      gi += ji[st * BN + tid];
+      // pre-step state: x0 at t = 0, else the previous history entry
+      float xr = t == 0 ? x0r[tid] : hr[(st - 1) * BN + tid];
+      float xi = t == 0 ? x0i[tid] : hi[(st - 1) * BN + tid];
+      if (split) {            // cotangent and pre-state into the rotated frame
+        cmul_conj(r0, r1, gr, gi);
+        cmul(r0, r1, xr, xi);
+      }
+      xp_r[tid] = xr;
+      xp_i[tid] = xi;
+      if (d.store) {
+        for (int j = 0; j < iters; ++j) {
+          const size_t o = (st * iters + j) * BN + tid;
+          ks_r[j * BN + tid] = ksr[o];
+          ks_i[j * BN + tid] = ksi[o];
+        }
+      }
+    }
+    __syncthreads();
+    if (!d.store && iters > 0) {  // replay the stage iterates
+      float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
+      if (act) {
+        apply_T(Hr, Hi, xp_r, xp_i, b, i, N, br, bi);
+        kr = br;
+        ki = bi;
+        if (jac) cmul(r2, r3, kr, ki);
+        ks_r[tid] = kr;
+        ks_i[tid] = ki;
+      }
+      __syncthreads();
+      for (int j = 1; j < iters; ++j) {
+        if (act) {
+          float mr, mi;
+          apply_T(Hr, Hi, ks_r + (j - 1) * BN, ks_i + (j - 1) * BN, b, i, N,
+                  mr, mi);
+          if (jac) {
+            const float ur = mr - (r0 * kr - r1 * ki);
+            const float ui = mi - (r0 * ki + r1 * kr);
+            kr = br + d.a * ur;
+            ki = bi + d.a * ui;
+            cmul(r2, r3, kr, ki);
+          } else {
+            kr = br + d.a * mr;
+            ki = bi + d.a * mi;
+          }
+          ks_r[j * BN + tid] = kr;
+          ks_i[j * BN + tid] = ki;
+        }
+        __syncthreads();
+      }
+    }
+
+    // transpose of the stage chain, j = iters..1; pair p = iters - j has
+    // input u = k_{j-1}; the last pair (b-bar, x_pre)
+    float bbr = 0.f, bbi = 0.f, kbr = d.dt * gr, kbi = d.dt * gi;
+    for (int p = 0; p < iters; ++p) {
+      float cr = 0.f, ci = 0.f;
+      if (act) {
+        if (jac) cmul_conj(r2, r3, kbr, kbi);   // Wt
+        bbr += kbr;
+        bbi += kbi;
+        cr = d.a * kbr;
+        ci = d.a * kbi;
+        cb_r[p * BN + tid] = cr;
+        cb_i[p * BN + tid] = ci;
+      }
+      __syncthreads();
+      if (act) {
+        apply_Tt(Hr, Hi, cb_r + p * BN, cb_i + p * BN, b, i, N, kbr, kbi);
+        if (jac) {              // minus the transpose of v -> d v
+          kbr -= r0 * cr + r1 * ci;
+          kbi -= r0 * ci - r1 * cr;
+        }
+      }
+    }
+    if (act) {
+      if (jac) cmul_conj(r2, r3, kbr, kbi);
+      bbr += kbr;
+      bbi += kbi;
+      cb_r[iters * BN + tid] = bbr;
+      cb_i[iters * BN + tid] = bbi;
+    }
+    __syncthreads();
+    if (act) {
+      float tr, ti;
+      apply_Tt(Hr, Hi, cb_r + iters * BN, cb_i + iters * BN, b, i, N, tr, ti);
+      gr += tr;
+      gi += ti;
+      if (split) cmul_conj(r0, r1, gr, gi);
+    }
+
+    // H cotangent of the step, Hb[p][q] = sum over pairs and rows of
+    // c[b][p] (x) u[b][q], then reduced against every stack slot
+    for (int ent = tid; ent < NN; ent += blockDim.x) {
+      const int p = ent / N, q = ent - (ent / N) * N;
+      float sr = 0.f, si = 0.f;
+      for (int pr = 0; pr <= iters; ++pr) {
+        const float* ur = pr < iters ? ks_r + (iters - 1 - pr) * BN : xp_r;
+        const float* ui = pr < iters ? ks_i + (iters - 1 - pr) * BN : xp_i;
+        const float* cr = cb_r + pr * BN;
+        const float* ci = cb_i + pr * BN;
+        for (int bb = 0; bb < d.B; ++bb) {
+          const float c_r = cr[bb * N + p], c_i = ci[bb * N + p];
+          const float u_r = ur[bb * N + q], u_i = ui[bb * N + q];
+          sr = fmaf(c_r, u_i, sr);
+          sr = fmaf(-c_i, u_r, sr);
+          si = fmaf(c_r, u_r, si);
+          si = fmaf(c_i, u_i, si);
+        }
+      }
+      Hbr[ent] = sr;
+      Hbi[ent] = si;
+    }
+    for (int k = 0; k < Ke; ++k) {
+      float v = 0.f;
+      for (int ent = tid; ent < NN; ent += blockDim.x)
+        v += Hbr[ent] * Sr[k * NN + ent] + Hbi[ent] * Si[k * NN + ent];
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) red[warp * Ke + k] = v;
+    }
+    __syncthreads();
+    if (tid < Ke) {
+      float v = 0.f;
+      for (int w = 0; w < nwarps; ++w) v += red[w * Ke + tid];
+      Cb[st * Ke + tid] = v;
+    }
+  }
+  if (act) {
+    g0r[(size_t)e * BN + tid] = gr;
+    g0i[(size_t)e * BN + tid] = gi;
+  }
+}
+
+// Plain C entry points, bound from Python with ctypes. Each launches on the
+// given stream and returns cudaGetLastError() (0 on success).
+extern "C" int streamk_fwd_launch(
+    const void* Sr, const void* Si, const void* C, const void* x0r,
+    const void* x0i, const void* rows, void* xTr, void* xTi, void* hr,
+    void* hi, void* ksr, void* ksi, int E, int nt, int B, int N, int Ke,
+    int iters, int mode, int store, float dt, float a, int threads,
+    int smem_bytes, void* stream) {
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a};
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(streamk_fwd,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes);
+  streamk_fwd<<<E, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)Sr, (const float*)Si, (const float*)C,
+      (const float*)x0r, (const float*)x0i, (const float*)rows,
+      (float*)xTr, (float*)xTi, (float*)hr, (float*)hi, (float*)ksr,
+      (float*)ksi, d);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int streamk_bwd_launch(
+    const void* Sr, const void* Si, const void* C, const void* x0r,
+    const void* x0i, const void* hr, const void* hi, const void* jr,
+    const void* ji, const void* gTr, const void* gTi, const void* rows,
+    const void* ksr, const void* ksi, void* g0r, void* g0i, void* Cb, int E,
+    int nt, int B, int N, int Ke, int iters, int mode, int store, float dt,
+    float a, int threads, int smem_bytes, void* stream) {
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a};
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(streamk_bwd,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes);
+  streamk_bwd<<<E, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)Sr, (const float*)Si, (const float*)C,
+      (const float*)x0r, (const float*)x0i, (const float*)hr,
+      (const float*)hi, (const float*)jr, (const float*)ji,
+      (const float*)gTr, (const float*)gTi, (const float*)rows,
+      (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
+      (float*)Cb, d);
+  return (int)cudaGetLastError();
+}

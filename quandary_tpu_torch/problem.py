@@ -1,0 +1,403 @@
+"""Problem assembly: from a resolved setup to differentiable objective
+functions, in PyTorch.
+
+Counterpart of quandary_tpu/problem.py for closed systems with the dense
+operator-stack engine and the single-stage IMR stepper. The multi-initial-
+condition objective (forward propagation of the whole batch, final-time
+cost, fidelity, the penalty integrals and the regularizers) is one torch
+function of the control parameters, evaluated for a (E, nparams) batch of
+control candidates at once.
+
+Two propagation paths, as in the JAX package:
+
+* fused (the default): the streamK propagation of ops/streamk.py, which runs
+  the CUDA kernel pair on the GPU and its plain torch version on the CPU;
+  the objective tail runs on (re, im) planes;
+* plain (``fused=False``, CPU only): the complex-arithmetic step function
+  in a Python time loop, differentiated by autograd.
+
+Out of this slice, and refused with NotImplementedError: open systems,
+structured engines, IMR4/IMR8/EE, GMRES, the time-parallel scan; on CUDA
+also complex128 and the plain path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .models import initialconditions as ic
+from .models.controls import control_variation_penalty, eval_controls
+from .models.hamiltonian import HamiltonianModel
+from .ops import solvers
+from .ops.rhs import DenseEngine
+from .ops.steppers import make_step_fn, stage_midpoint_times
+from .ops.streamk import make_streamk_propagate
+from .utils.indexing import flat_index, guard_mask
+from .utils.splines import OscillatorControl, build_control_plan
+
+
+@dataclasses.dataclass
+class Setup:
+    """Fully-resolved problem specification in internal units (rad/ns, ns).
+    Field names and meanings follow quandary_tpu.problem.Setup; ``fused``
+    plays the role of its ``pallas`` flag."""
+    model: HamiltonianModel
+    nessential: Tuple[int, ...]
+    ntime: int
+    dt: float
+    timestepper: str = "IMR"
+    linsolve_iters: int = 20
+    linsolver: str = "neumann"
+
+    oscillators: Tuple[OscillatorControl, ...] = ()
+    pipulses: Optional[tuple] = None
+    ground_freqs_radns: Tuple[float, ...] = ()
+
+    initcond_type: str = "basis"
+    initcond_ids: Tuple[int, ...] = ()
+    pure_levels: Optional[Tuple[int, ...]] = None
+    initial_state_ess: Optional[np.ndarray] = None
+
+    target_type: str = "none"                  # 'gate' | 'pure' | 'file' | 'state' | 'none'
+    target_gate_full: Optional[np.ndarray] = None
+    target_state_full: Optional[np.ndarray] = None
+    target_batch: Optional[np.ndarray] = None
+    pure_target_levels: Optional[Tuple[int, ...]] = None
+
+    objective_type: str = "Jtrace"
+    obj_weights: Optional[np.ndarray] = None
+
+    gamma_tik: float = 1e-4
+    gamma_tik_interpolate: bool = False
+    gamma_penalty: float = 0.0
+    penalty_param: float = 0.0
+    gamma_penalty_dpdm: float = 0.0
+    gamma_penalty_energy: float = 0.0
+    gamma_penalty_variation: float = 0.0
+
+    dtype: torch.dtype = torch.complex128
+    # True: streamK propagation (kernel on CUDA, plain torch on CPU);
+    # False: the plain complex time loop (CPU only)
+    fused: bool = True
+
+    @property
+    def total_time(self) -> float:
+        return self.ntime * self.dt
+
+    @property
+    def nparams(self) -> int:
+        return sum(o.nparams for o in self.oscillators)
+
+
+class Problem:
+    """Device-ready problem: control plans, state batches and constants on
+    `device`, and the objective built from them."""
+
+    def __init__(self, setup: Setup, device="cpu"):
+        s = self.setup = setup
+        model = self.model = setup.model
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        if model.lindblad:
+            raise NotImplementedError(
+                "open (Lindblad) systems are not ported to "
+                "quandary_tpu_torch yet")
+        if s.dtype not in (torch.complex64, torch.complex128):
+            raise ValueError(f"dtype must be complex64/complex128, got {s.dtype}")
+        if cuda and s.dtype != torch.complex64:
+            raise NotImplementedError(
+                "complex128 is not ported to CUDA: the streamK kernels run "
+                "float32 planes (dtype=torch.complex64)")
+        # the fused-path gate, reduced to the closed dense single-stage
+        # branch (make_step_fn below refuses every other stepper/solver)
+        self.use_fused = bool(s.fused)
+        if cuda and not self.use_fused:
+            raise NotImplementedError(
+                "on CUDA only the fused streamK path is ported; the plain "
+                "complex time loop (fused=False) runs on the CPU")
+        self.N = model.N
+        self.rdtype = (torch.float64 if s.dtype == torch.complex128
+                       else torch.float32)
+        self.engine = DenseEngine(model, s.dtype, self.device)
+        npdt = np.complex64 if s.dtype == torch.complex64 else np.complex128
+        nprdt = np.float32 if s.dtype == torch.complex64 else np.float64
+
+        # --- time grids and control plans ---
+        ntime, dt = s.ntime, s.dt
+        self.ts_mid = stage_midpoint_times(ntime, dt, s.timestepper)
+        self.nstages = self.ts_mid.shape[1]
+        self.plan_mid = build_control_plan(s.oscillators, self.ts_mid.reshape(-1))
+        self.ts_stop = np.arange(1, ntime + 1) * dt
+        self.plan_stop = build_control_plan(s.oscillators, self.ts_stop)
+
+        # --- initial conditions ---
+        osc_ids = s.initcond_ids if len(s.initcond_ids) > 0 \
+            else tuple(range(model.n_osc))
+        x0_np, _ = ic.build_initial_states(
+            s.initcond_type, model.dims, s.nessential, osc_ids, False,
+            pure_levels=s.pure_levels, from_file_state=s.initial_state_ess)
+        self.ninit = x0_np.shape[0]
+        self.x0 = x0_np.astype(npdt)
+
+        # --- objective weights (optimproblem.cpp:71-91) ---
+        w = np.asarray(s.obj_weights if s.obj_weights is not None else [1.0],
+                       dtype=float)
+        if w.size < self.ninit:
+            w = np.concatenate([w, np.full(self.ninit - w.size, w[-1])])
+        w = w[: self.ninit]
+        self.weights = (w / w.sum()).astype(nprdt)
+
+        # --- targets ---
+        self.pure_target_id = None
+        self.target = None
+        if s.target_batch is not None:
+            self.target = np.asarray(s.target_batch).astype(npdt)
+        elif s.target_type == "gate" and s.target_gate_full is not None:
+            V = np.asarray(s.target_gate_full, dtype=np.complex128)
+            self.target = np.einsum("ij,bj->bi", V, x0_np).astype(npdt)
+        elif s.target_type in ("file", "state") \
+                and s.target_state_full is not None:
+            t1 = np.asarray(s.target_state_full, dtype=np.complex128)
+            tgt = np.broadcast_to(t1, (self.ninit,) + t1.shape)
+            self.target = np.ascontiguousarray(tgt).astype(npdt)
+        elif s.target_type == "pure":
+            levels = s.pure_target_levels or tuple([0] * model.n_osc)
+            self.pure_target_id = flat_index(levels, model.dims)
+        elif s.target_type not in ("none", None):
+            raise ValueError(
+                f"target_type {s.target_type!r} provided without a usable "
+                "target (expected gate/file/state/pure/none with the "
+                "matching target_* field set)")
+
+        flat0 = x0_np.reshape(self.ninit, -1)
+        self.purity = np.maximum(np.sum(np.abs(flat0) ** 2, axis=1),
+                                 1e-300).astype(nprdt)
+
+        # --- penalty precomputations ---
+        gmask = guard_mask(model.dims, s.nessential)
+        self.has_guard = bool(gmask.any())
+        self.guard_mask = gmask
+        if s.penalty_param > 1e-13:
+            a, T = s.penalty_param, s.total_time
+            self.jt_weight = ((1.0 / a) * np.exp(
+                -(((self.ts_stop - T) / a) ** 2))).astype(nprdt)
+        else:
+            self.jt_weight = None
+        self.measure_weights = None if self.pure_target_id is None else \
+            np.abs(np.arange(self.N) - self.pure_target_id).astype(nprdt)
+
+        # --- stiffness guard (problem.py:386-438 of the JAX package): past
+        # u = dt/2 * max|H_diag| the truncated Neumann series is inaccurate
+        # long before it diverges; switch to the Jacobi-preconditioned
+        # solve, which the dense engine's diagonal always allows ---
+        self.linsolver = s.linsolver
+        self.gen_diag = self.engine.gen_diag()
+        lam = float(np.abs(np.diagonal(self.engine.stack_np[0])).max())
+        u_stiff = 0.5 * dt * lam
+        u_ok = float(np.exp(np.log(1e-6) / (s.linsolve_iters + 1)))
+        if self.linsolver == "neumann" and u_stiff > u_ok:
+            self.linsolver = "jacobi"
+        self.step_fn = make_step_fn(self.engine.rhs, dt, s.timestepper,
+                                    s.linsolve_iters, self.linsolver,
+                                    gen_diag=self.gen_diag)
+
+        # --- constants on the device: real planes of x0, the target and
+        # the operator stack ---
+        dev = dict(device=self.device)
+        rt = lambda a: torch.as_tensor(np.ascontiguousarray(a), **dev).to(
+            self.rdtype)
+        self._x0r, self._x0i = rt(self.x0.real), rt(self.x0.imag)
+        self._x0c = torch.as_tensor(self.x0, **dev)
+        if self.target is not None:
+            self._tgtr, self._tgti = rt(self.target.real), rt(self.target.imag)
+        self._weights = rt(self.weights)
+        self._purity = rt(self.purity)
+        self._gmask = rt(self.guard_mask.astype(nprdt))
+        self._jt_weight = None if self.jt_weight is None else rt(self.jt_weight)
+        self._measure = None if self.measure_weights is None \
+            else rt(self.measure_weights)
+        self._Sr = rt(self.engine.stack_np.real)
+        self._Si = rt(self.engine.stack_np.imag)
+        _, gd = self._real_layout()
+        self._prop = make_streamk_propagate(s.dt, s.linsolve_iters,
+                                            gen_diag=gd,
+                                            linsolver=self.linsolver)
+
+    def _real_layout(self):
+        """(dim, gen_diag) in the streamK kernels' flat conventions (closed
+        systems: the state dimension and the engine's diagonal)."""
+        return self.N, self.gen_diag
+
+    # ------------------------------------------------------------------
+    # objective tail on (re, im) planes; every function takes leading
+    # candidate axes (..., B, N) / (..., ntime, B, N)
+    # ------------------------------------------------------------------
+
+    def _overlaps_real(self, xr, xi):
+        """<target, x> per initial condition: (Re, Im) of shape (..., B)."""
+        if self.target is not None:
+            re = torch.sum(self._tgtr * xr + self._tgti * xi, dim=-1)
+            im = torch.sum(self._tgtr * xi - self._tgti * xr, dim=-1)
+            return re, im
+        if self.pure_target_id is not None:
+            return xr[..., self.pure_target_id], xi[..., self.pure_target_id]
+        z = xr.new_zeros(xr.shape[:-1])
+        return z, z
+
+    def _eval_J_parts_real(self, xr, xi):
+        """Per-initial-condition raw objective parts (J_re, J_im), (..., B)."""
+        obj = self.setup.objective_type
+        if obj == "Jtrace":
+            re, im = self._overlaps_real(xr, xi)
+            return re / self._purity, im
+        if obj == "Jfrobenius":
+            if self.target is not None:
+                dr, di = xr - self._tgtr, xi - self._tgti
+                J = 0.5 * torch.sum(dr * dr + di * di, dim=-1)
+            else:
+                m = self.pure_target_id
+                norm2 = torch.sum(xr * xr + xi * xi, dim=-1)
+                J = 0.5 * (norm2 - 2.0 * xr[..., m] + 1.0)
+            return J, torch.zeros_like(J)
+        if obj == "Jmeasure":
+            J = (xr * xr + xi * xi) @ self._measure
+            return J, torch.zeros_like(J)
+        raise ValueError(obj)
+
+    def _finalize_J(self, J_re, J_im):
+        if self.setup.objective_type == "Jtrace":
+            return 1.0 - (J_re ** 2 + J_im ** 2)
+        return J_re
+
+    def _history_penalties_real(self, hr, hi):
+        """Integral penalties over the (..., ntime, B, N) history: guard
+        leakage, the weighted-J window and the population second
+        difference (dpdm); each (..., B) or None when off."""
+        s = self.setup
+        pen_leak = pen_jt = pen_dpdm = None
+        if self.has_guard and s.gamma_penalty > 1e-13:
+            leak = torch.sum((hr * hr + hi * hi) * self._gmask, dim=-1)
+            pen_leak = torch.sum(leak, dim=-2) / s.ntime
+        if self._jt_weight is not None and s.gamma_penalty > 1e-13:
+            re, im = self._eval_J_parts_real(hr, hi)
+            Jtb = self._finalize_J(re, im)
+            pen_jt = torch.sum(self._jt_weight[:, None] * Jtb, dim=-2) * s.dt
+        if s.gamma_penalty_dpdm > 1e-13:
+            pop0 = (self._x0r ** 2 + self._x0i ** 2).expand(
+                hr.shape[:-3] + (1,) + self._x0r.shape)
+            pop = torch.cat([pop0, hr * hr + hi * hi], dim=-3)
+            sec = pop[..., 2:, :, :] - 2.0 * pop[..., 1:-1, :, :] \
+                + pop[..., :-2, :, :]
+            pen_dpdm = torch.sum(sec * sec, dim=(-3, -1)) / s.dt ** 4
+        return pen_leak, pen_jt, pen_dpdm
+
+    def _energy_integral(self, params):
+        s = self.setup
+        if s.gamma_penalty_energy > 1e-13:
+            p, q = eval_controls(self.plan_stop, params, s.pipulses)
+            return torch.sum(p ** 2 + q ** 2, dim=(-2, -1)) / s.ntime
+        return params.new_zeros(params.shape[:-1])
+
+    def _assemble_objective_real(self, params, params_ref, xTr, xTi,
+                                 pen_leak, pen_jt, pen_dpdm, energy_int):
+        """Final-time cost, fidelity, regularizers and totals, (...,)."""
+        s = self.setup
+        w = self._weights
+        J_re_b, J_im_b = self._eval_J_parts_real(xTr, xTi)
+        obj_cost = self._finalize_J(torch.sum(w * J_re_b, dim=-1),
+                                    torch.sum(w * J_im_b, dim=-1))
+        ov_re, ov_im = self._overlaps_real(xTr, xTi)
+        fid_re = torch.sum(ov_re, dim=-1) / self.ninit
+        fid_im = torch.sum(ov_im, dim=-1) / self.ninit
+        fidelity = fid_re ** 2 + fid_im ** 2
+
+        dx = params - params_ref if s.gamma_tik_interpolate else params
+        obj_regul = 0.5 * s.gamma_tik * torch.sum(dx * dx, dim=-1)
+        zero = torch.zeros_like(obj_cost)
+        obj_penal = zero
+        if pen_leak is not None:
+            obj_penal = obj_penal + s.gamma_penalty * torch.sum(w * pen_leak, -1)
+        if pen_jt is not None:
+            obj_penal = obj_penal + s.gamma_penalty * torch.sum(w * pen_jt, -1)
+        obj_penal_dpdm = zero if pen_dpdm is None else (
+            s.gamma_penalty_dpdm * torch.sum(w * pen_dpdm, -1) / s.ntime)
+        obj_penal_energy = s.gamma_penalty_energy * energy_int
+        obj_penal_variation = zero
+        if s.gamma_penalty_variation > 1e-13:
+            obj_penal_variation = 0.5 * s.gamma_penalty_variation * \
+                control_variation_penalty(self.plan_mid, params)
+        J = (obj_cost + obj_regul + obj_penal + obj_penal_dpdm
+             + obj_penal_energy + obj_penal_variation)
+        aux = {
+            "obj_cost": obj_cost,
+            "obj_regul": obj_regul,
+            "obj_penal": obj_penal,
+            "obj_penal_dpdm": obj_penal_dpdm,
+            "obj_penal_energy": obj_penal_energy,
+            "obj_penal_variation": obj_penal_variation,
+            "fidelity": fidelity,
+        }
+        return J, aux
+
+    # ------------------------------------------------------------------
+    # objective
+    # ------------------------------------------------------------------
+
+    def coeff_rows_mid(self, params):
+        """(..., ntime, nstages, K) coefficient rows at the stage midpoints."""
+        p, q = eval_controls(self.plan_mid, params, self.setup.pipulses)
+        C = self.model.coeff_rows(p, q, self.plan_mid.ts)
+        return C.reshape(params.shape[:-1]
+                         + (self.setup.ntime, self.nstages, self.model.K))
+
+    def _objective_batch(self, Ps, params_ref):
+        """Objective of the (E, nparams) candidates Ps: (J (E,), aux)."""
+        C = self.coeff_rows_mid(Ps)
+        energy_int = self._energy_integral(Ps)
+        if self.use_fused:
+            (xTr, xTi), (hr, hi) = self._prop(
+                self._Sr, self._Si, (self._x0r, self._x0i), C[..., 0, :])
+        else:
+            x0 = self._x0c.expand((Ps.shape[0],) + self._x0c.shape)
+            traj = solvers.propagate_trajectory(self.step_fn, x0,
+                                                C.movedim(-3, 0))
+            hist = traj[1:].movedim(0, 1)
+            hr, hi = hist.real, hist.imag
+            xTr, xTi = hr[:, -1], hi[:, -1]
+        pens = self._history_penalties_real(hr, hi)
+        return self._assemble_objective_real(Ps, params_ref, xTr, xTi,
+                                             *pens, energy_int)
+
+    def objective(self, params, params_ref):
+        """Full objective of one control vector: (J, aux) with every term
+        and the fidelity (optimproblem.cpp:224-338 semantics)."""
+        J, aux = self._objective_batch(params[None], params_ref)
+        return J[0], {k: v[0] for k, v in aux.items()}
+
+    def _param_tensor(self, x):
+        return torch.as_tensor(x, device=self.device).to(self.rdtype).detach()
+
+    def build_value_and_grad(self):
+        """fn(params, params_ref) -> ((J, aux), grad), one gradient sweep."""
+        def vg(params, params_ref):
+            p = self._param_tensor(params).requires_grad_(True)
+            J, aux = self.objective(p, self._param_tensor(params_ref))
+            (g,) = torch.autograd.grad(J, p)
+            return (J.detach(), {k: v.detach() for k, v in aux.items()}), g
+        return vg
+
+    def build_ensemble_value_and_grad(self):
+        """fn(Ps, params_ref) -> ((J (E,), aux (E,)), grad (E, nparams)):
+        E control candidates through one streamK launch per direction. Each
+        J_e depends on Ps[e] only, so the gradient of sum(J) is the stack of
+        per-candidate gradients."""
+        def evg(Ps, params_ref):
+            P = self._param_tensor(Ps).requires_grad_(True)
+            J, aux = self._objective_batch(P, self._param_tensor(params_ref))
+            (g,) = torch.autograd.grad(J.sum(), P)
+            return (J.detach(), {k: v.detach() for k, v in aux.items()}), g
+        return evg
