@@ -13,7 +13,9 @@ to) and returns :class:`quandary_tpu_torch.problem.Setup`:
   targets, objective, the gammas, the solver settings).
 
 The control vector keeps the JAX package's layout (that of params.dat), so
-parameters carry across unchanged.
+parameters carry across unchanged. An ensemble of system realizations
+(optim/robust.py) carries across as a list of such dicts, one
+``setup_from_arrays`` call each: the samples differ only in ``stack``.
 """
 
 from __future__ import annotations

@@ -11,6 +11,13 @@
 //   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
 //              V the off-diagonal remainder (an extra stack slot -diag(h)
 //              with coefficient 1, appended by the wrapper).
+// The same pair also replaces make_streamk_packed_propagate (:1059, forward
+// pallas_call at :1324, backward at :1415) with per_block_stacks: every
+// candidate of a launch may carry its own operator stack and its own solver
+// rows (strideS, strideR below), so one launch propagates S realizations of
+// the system under one control. The TPU kernel packs the candidates into
+// the lanes of one 128-lane tile with block-diagonal planes; here a
+// candidate is a thread block and reads its own stack from global memory.
 // The backward is the exact real transpose of the computed forward step; the
 // step's H cotangent Hb = sum_pairs c u^T is reduced in-kernel against every
 // stack slot into Cb[t, k] = <Hb_r, Sr_k> + <Hb_i, Si_k> (pallas_stream.py
@@ -40,9 +47,12 @@ namespace {
 
 enum { MODE_NEUMANN = 0, MODE_JACOBI = 1, MODE_SPLIT = 2 };
 
+// strideS, strideR: floats between two candidates' operator stacks
+// (Ke * N * N) and solver rows (nrows * N); 0 when all candidates share one.
 struct Dims {
   int E, nt, B, N, Ke, iters, mode, store;
   float dt, a;
+  size_t strideS, strideR;
 };
 
 // H = sum_k c_k S_k into row-major planes with row stride N + 1 (the pad
@@ -123,7 +133,8 @@ __device__ __forceinline__ void cmul_conj(float ar, float ai, float& vr,
 }  // namespace
 
 // Forward: x0 (B, N) shared by all candidates; C (E, nt, Ke); rows: jacobi
-// (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Writes xT
+// (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Block e reads
+// the stack at gS + e * strideS and the rows at rows + e * strideR. Writes xT
 // (E, B, N), hist (E, nt, B, N) and, with store, the stage iterates
 // k_0..k_{iters-1} (E, nt, iters, B, N).
 __global__ void __launch_bounds__(1024)
@@ -145,6 +156,9 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
   float* kb_i = kb_r + (iters + 1) * BN;
 
   const int e = blockIdx.x, tid = threadIdx.x;
+  gSr += (size_t)e * d.strideS;
+  gSi += (size_t)e * d.strideS;
+  rows += (size_t)e * d.strideR;
   for (int idx = tid; idx < Ke * NN; idx += blockDim.x) {
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
@@ -262,6 +276,9 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
 
   const int e = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  gSr += (size_t)e * d.strideS;
+  gSi += (size_t)e * d.strideS;
+  rows += (size_t)e * d.strideR;
   for (int idx = tid; idx < Ke * NN; idx += blockDim.x) {
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
@@ -423,24 +440,58 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
 }
 
 // Plain C entry points, bound from Python with ctypes. Each launches on the
-// given stream and returns cudaGetLastError() (0 on success).
+// given stream and returns cudaGetLastError() (0 on success). The packed
+// entry points take the per-candidate strides of the stacks and the solver
+// rows; the plain ones run every candidate on one shared stack (stride 0).
+namespace {
+
+int launch_fwd(const void* Sr, const void* Si, const void* C, const void* x0r,
+               const void* x0i, const void* rows, void* xTr, void* xTi,
+               void* hr, void* hi, void* ksr, void* ksi, const Dims& d,
+               int threads, int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(streamk_fwd,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes);
+  streamk_fwd<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)Sr, (const float*)Si, (const float*)C,
+      (const float*)x0r, (const float*)x0i, (const float*)rows,
+      (float*)xTr, (float*)xTi, (float*)hr, (float*)hi, (float*)ksr,
+      (float*)ksi, d);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd(const void* Sr, const void* Si, const void* C, const void* x0r,
+               const void* x0i, const void* hr, const void* hi,
+               const void* jr, const void* ji, const void* gTr,
+               const void* gTi, const void* rows, const void* ksr,
+               const void* ksi, void* g0r, void* g0i, void* Cb, const Dims& d,
+               int threads, int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(streamk_bwd,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes);
+  streamk_bwd<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)Sr, (const float*)Si, (const float*)C,
+      (const float*)x0r, (const float*)x0i, (const float*)hr,
+      (const float*)hi, (const float*)jr, (const float*)ji,
+      (const float*)gTr, (const float*)gTi, (const float*)rows,
+      (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
+      (float*)Cb, d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int streamk_fwd_launch(
     const void* Sr, const void* Si, const void* C, const void* x0r,
     const void* x0i, const void* rows, void* xTr, void* xTi, void* hr,
     void* hi, void* ksr, void* ksi, int E, int nt, int B, int N, int Ke,
     int iters, int mode, int store, float dt, float a, int threads,
     int smem_bytes, void* stream) {
-  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a};
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(streamk_fwd,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
-  streamk_fwd<<<E, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)Sr, (const float*)Si, (const float*)C,
-      (const float*)x0r, (const float*)x0i, (const float*)rows,
-      (float*)xTr, (float*)xTi, (float*)hr, (float*)hi, (float*)ksr,
-      (float*)ksi, d);
-  return (int)cudaGetLastError();
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a, 0, 0};
+  return launch_fwd(Sr, Si, C, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, d,
+                    threads, smem_bytes, stream);
 }
 
 extern "C" int streamk_bwd_launch(
@@ -450,17 +501,35 @@ extern "C" int streamk_bwd_launch(
     const void* ksr, const void* ksi, void* g0r, void* g0i, void* Cb, int E,
     int nt, int B, int N, int Ke, int iters, int mode, int store, float dt,
     float a, int threads, int smem_bytes, void* stream) {
-  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a};
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(streamk_bwd,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
-  streamk_bwd<<<E, threads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)Sr, (const float*)Si, (const float*)C,
-      (const float*)x0r, (const float*)x0i, (const float*)hr,
-      (const float*)hi, (const float*)jr, (const float*)ji,
-      (const float*)gTr, (const float*)gTi, (const float*)rows,
-      (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
-      (float*)Cb, d);
-  return (int)cudaGetLastError();
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a, 0, 0};
+  return launch_bwd(Sr, Si, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr,
+                    ksi, g0r, g0i, Cb, d, threads, smem_bytes, stream);
+}
+
+// Sr, Si: (E, Ke, N, N); rows: (E, nrows, N). stride_s = Ke * N * N and
+// stride_r = nrows * N floats.
+extern "C" int streamk_packed_fwd_launch(
+    const void* Sr, const void* Si, const void* C, const void* x0r,
+    const void* x0i, const void* rows, void* xTr, void* xTi, void* hr,
+    void* hi, void* ksr, void* ksi, int E, int nt, int B, int N, int Ke,
+    int iters, int mode, int store, float dt, float a, int threads,
+    int smem_bytes, void* stream, long long stride_s, long long stride_r) {
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a, (size_t)stride_s,
+         (size_t)stride_r};
+  return launch_fwd(Sr, Si, C, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, d,
+                    threads, smem_bytes, stream);
+}
+
+extern "C" int streamk_packed_bwd_launch(
+    const void* Sr, const void* Si, const void* C, const void* x0r,
+    const void* x0i, const void* hr, const void* hi, const void* jr,
+    const void* ji, const void* gTr, const void* gTi, const void* rows,
+    const void* ksr, const void* ksi, void* g0r, void* g0i, void* Cb, int E,
+    int nt, int B, int N, int Ke, int iters, int mode, int store, float dt,
+    float a, int threads, int smem_bytes, void* stream, long long stride_s,
+    long long stride_r) {
+  Dims d{E, nt, B, N, Ke, iters, mode, store, dt, a, (size_t)stride_s,
+         (size_t)stride_r};
+  return launch_bwd(Sr, Si, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr,
+                    ksi, g0r, g0i, Cb, d, threads, smem_bytes, stream);
 }

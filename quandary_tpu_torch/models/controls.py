@@ -14,6 +14,7 @@ their time windows.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -23,8 +24,23 @@ from ..utils.splines import ControlEvalPlan, ControlSegment
 
 
 def _const(a, like):
-    """Host array -> tensor with the dtype and device of `like`."""
+    """Host array (or a tensor of plan_on_device) -> tensor with the dtype
+    and device of `like`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=like.dtype, device=like.device)
     return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+
+
+def plan_on_device(plan: ControlEvalPlan, dtype, device) -> ControlEvalPlan:
+    """The plan with its time grid, basis matrices and carrier tables as
+    tensors on `device`: eval_controls then copies nothing from the host,
+    which a loop on the device (and its capture as a CUDA graph) needs."""
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return dataclasses.replace(
+        plan, ts=t(plan.ts),
+        basis=tuple(tuple(t(B) for B in segs) for segs in plan.basis),
+        cos_t=tuple(t(c) for c in plan.cos_t),
+        sin_t=tuple(t(c) for c in plan.sin_t))
 
 
 def _eval_segment_pq(seg: ControlSegment, B, cos_t, sin_t, seg_params, nf, ts):
@@ -118,6 +134,18 @@ def eval_controls(plan: ControlEvalPlan, params,
         p_cols.append(p_k)
         q_cols.append(q_k)
     return torch.stack(p_cols, dim=-1), torch.stack(q_cols, dim=-1)
+
+
+def eval_controls_labframe(plan: ControlEvalPlan, params, ground_freqs_radns,
+                           pipulses: Optional[Sequence] = None):
+    """Lab-frame pulse f_k(t) = 2(p cos(w_k t) - q sin(w_k t)) where w_k is
+    the oscillator ground frequency (oscillator.cpp:383-428): the rotating-
+    frame p, q with their carrier waves, modulated by the ground
+    frequency."""
+    p, q = eval_controls(plan, params, pipulses)
+    wt = _const(plan.ts, params)[:, None] \
+        * _const(np.asarray(ground_freqs_radns, dtype=float), params)[None, :]
+    return 2.0 * (p * torch.cos(wt) - q * torch.sin(wt))
 
 
 def control_variation_penalty(plan: ControlEvalPlan, params):

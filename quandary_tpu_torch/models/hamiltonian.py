@@ -67,19 +67,26 @@ class HamiltonianModel:
     def n_jc(self) -> int:
         return len(self.etas)
 
-    def coeff_rows(self, p, q, ts):
+    def jc_columns(self, ts) -> np.ndarray:
+        """(nt, 2 n_jc) f64 columns [cos(eta t).., sin(eta t)..] of the JC
+        phases on the host time grid ts."""
+        phase = np.asarray(ts, dtype=np.float64)[:, None] \
+            * np.asarray(self.etas, dtype=np.float64)[None, :]
+        return np.concatenate([np.cos(phase), np.sin(phase)], axis=1)
+
+    def coeff_rows(self, p, q, ts, jc=None):
         """Assemble the (..., nt, K) coefficient tensor from control tensors
         p, q of shape (..., nt, Q) and the host time grid ts (nt,) for the
         JC phases. The phases are computed in f64 on the host and cast to
-        p's dtype and device; leading (candidate) axes broadcast."""
+        p's dtype and device, unless `jc` hands them over as a tensor
+        (jc_columns of the same grid, already on the device); leading
+        (candidate) axes broadcast."""
         cols = [torch.ones(p.shape[:-1] + (1,), dtype=p.dtype,
                            device=p.device), p, q]
         if self.n_jc > 0:
-            phase = np.asarray(ts, dtype=np.float64)[:, None] \
-                * np.asarray(self.etas, dtype=np.float64)[None, :]
-            for f in (np.cos, np.sin):
-                col = torch.as_tensor(f(phase), dtype=p.dtype, device=p.device)
-                cols.append(col.expand(p.shape[:-1] + col.shape[-1:]))
+            col = torch.as_tensor(self.jc_columns(ts) if jc is None else jc,
+                                  dtype=p.dtype, device=p.device)
+            cols.append(col.expand(p.shape[:-1] + col.shape[-1:]))
         return torch.cat(cols, dim=-1)
 
 

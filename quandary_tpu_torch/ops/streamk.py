@@ -14,6 +14,14 @@ candidates sharing x0 (one thread block each); hist is (ntime, B, N), or
 (E, ntime, B, N). Stack cotangents are not computed: the stacks are
 constants of the optimization, as in the JAX kernel.
 
+make_streamk_packed_propagate is the port of the packed TPU kernel
+(pallas_stream.py:1059) in its argument layout, Cg (ntime, G, K) in and hist
+(ntime, G, B, N) out. With ``per_block_stacks`` every candidate carries its
+own operator stack, Sr/Si (G, K, N, N), and its own solver rows from
+gen_diag (G, N): one launch propagates G realizations of the system. The
+same CUDA kernels run it, reading each block's stack and rows at a
+per-candidate stride; the plan then holds (G, Ke, N, N) stacks.
+
 Device dispatch: a CUDA tensor goes to the kernel pair (built with nvcc at
 first use, bound with ctypes); a CPU tensor goes to ``streamk_propagate_plain``,
 the same function in plain torch with the hand-written transpose as its
@@ -36,6 +44,10 @@ import torch
 # launches of each kernel since the counters were last set to 0
 streamk_fwd_launches = 0
 streamk_bwd_launches = 0
+streamk_packed_fwd_launches = 0
+streamk_packed_bwd_launches = 0
+_COUNTERS = ("streamk_fwd_launches", "streamk_bwd_launches",
+             "streamk_packed_fwd_launches", "streamk_packed_bwd_launches")
 
 _MODES = {"neumann": 0, "jacobi": 1, "split": 2}
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
@@ -44,12 +56,30 @@ _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "build", "quandary_tpu_torch")
 _MAX_SMEM = 227 * 1024
-_LIB = None
+_LIBS = {}      # source path -> (loaded library, its path): one per process
+
+
+def launch_counts() -> dict:
+    """The four launch counters by name."""
+    return {k: globals()[k] for k in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for k in _COUNTERS:
+        globals()[k] = 0
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` x `counts` to the counters: the replay of a CUDA graph
+    launches the kernels it captured without passing through the wrappers."""
+    for k, v in counts.items():
+        globals()[k] += times * v
 
 
 def solver_rows(gen_diag, dt: float, linsolver: str) -> np.ndarray:
-    """(nrows, N) f64 per-entry rows of the stage solver, computed on the
-    host: jacobi (d_r, d_i, minv_r, minv_i) with Minv = 1/(1 - (dt/2) d);
+    """(nrows, N) f64 per-entry rows of the stage solver ((G, nrows, N) for
+    a (G, N) gen_diag, one system per candidate), computed on the host:
+    jacobi (d_r, d_i, minv_r, minv_i) with Minv = 1/(1 - (dt/2) d);
     split (e_r, e_i) with E = exp((dt/2) d); neumann none
     (pallas_stream.py:141-159)."""
     if linsolver not in _MODES:
@@ -59,7 +89,10 @@ def solver_rows(gen_diag, dt: float, linsolver: str) -> np.ndarray:
         return np.zeros((0, 0))
     if gen_diag is None:
         raise ValueError(f"streamK {linsolver} requires gen_diag")
-    d = np.asarray(gen_diag, dtype=np.complex128).reshape(-1)
+    d = np.asarray(gen_diag, dtype=np.complex128)
+    if d.ndim == 2:     # one diagonal per candidate: (G, nrows, N)
+        return np.stack([solver_rows(dg, dt, linsolver) for dg in d])
+    d = d.reshape(-1)
     if linsolver == "jacobi":
         m = 1.0 / (1.0 - 0.5 * dt * d)
         return np.stack([d.real, d.imag, m.real, m.imag])
@@ -71,7 +104,8 @@ def solver_rows(gen_diag, dt: float, linsolver: str) -> np.ndarray:
 class StreamKPlan:
     """Everything a launch needs besides x0 and the coefficients: the
     extended (Ke, N, N) stacks (split appends the -diag(h) slot), the
-    solver rows, and the step constants."""
+    solver rows (nrows, N), and the step constants. With one system per
+    candidate the stacks are (G, Ke, N, N) and the rows (G, nrows, N)."""
     Sr: torch.Tensor
     Si: torch.Tensor
     rows: torch.Tensor
@@ -82,7 +116,11 @@ class StreamKPlan:
 
     @property
     def Ke(self) -> int:
-        return self.Sr.shape[0]
+        return self.Sr.shape[-3]
+
+    @property
+    def per_block(self) -> bool:
+        return self.Sr.dim() == 4
 
 
 # ----------------------------------------------------------------------
@@ -91,18 +129,31 @@ class StreamKPlan:
 
 def _solver_parts(plan):
     """(jac, split) row tuples in the form _stage_fwd/_stage_bwd take."""
-    r = plan.rows
+    if plan.linsolver == "neumann":
+        return None, None
+    # (N,) rows, or (G, 1, N) against the (G, B, N) states
+    r = plan.rows.unsqueeze(-2).unbind(-3) if plan.per_block \
+        else plan.rows.unbind(0)
     if plan.linsolver == "jacobi":
-        return (r[0], r[1], r[2], r[3]), None
-    if plan.linsolver == "split":
-        return None, (r[0], r[1])
-    return None, None
+        return tuple(r), None
+    return None, tuple(r)
 
 
 def _planes(plan, Ce):
     """(E, nt, N, N) real and imaginary H planes."""
+    if plan.per_block:
+        _check_group(plan, Ce)
+        return (torch.einsum("etk,ekpq->etpq", Ce, plan.Sr),
+                torch.einsum("etk,ekpq->etpq", Ce, plan.Si))
     return (torch.tensordot(Ce, plan.Sr, dims=1),
             torch.tensordot(Ce, plan.Si, dims=1))
+
+
+def _check_group(plan, Ce):
+    if Ce.shape[0] != plan.Sr.shape[0]:
+        raise ValueError(
+            f"{Ce.shape[0]} coefficient candidates for a plan of "
+            f"{plan.Sr.shape[0]} per-candidate stacks")
 
 
 def _ops(Hr, Hi):
@@ -233,8 +284,8 @@ def plain_backward(plan, x0r, x0i, Ce, hr, hi, gTr, gTi, jr, ji):
         Hb[t] = (cr @ ui - ci @ ur, cr @ ur + ci @ ui)
     Hbr = torch.stack([h[0] for h in Hb], dim=1)
     Hbi = torch.stack([h[1] for h in Hb], dim=1)
-    Cb = (torch.einsum("etpq,kpq->etk", Hbr, plan.Sr)
-          + torch.einsum("etpq,kpq->etk", Hbi, plan.Si))
+    sub = "etpq,ekpq->etk" if plan.per_block else "etpq,kpq->etk"
+    Cb = torch.einsum(sub, Hbr, plan.Sr) + torch.einsum(sub, Hbi, plan.Si)
     return gr.sum(0), gi.sum(0), Cb
 
 
@@ -273,10 +324,12 @@ def streamk_propagate_plain(plan, x0r, x0i, Ce):
 
 def build_kernels(verbose: bool = False):
     """Compile csrc/streamk.cu with nvcc into build/quandary_tpu_torch/ (keyed
-    on a hash of the source) and load it. Returns (library path, build
-    seconds, compiler output); seconds is 0 when the library was already
-    built."""
-    global _LIB
+    on a hash of the source) and load it, once per process: later calls
+    return the loaded library without touching the source file. Returns
+    (library path, build seconds, compiler output); seconds is 0 when the
+    library was already built."""
+    if _SRC in _LIBS:
+        return _LIBS[_SRC][1], 0.0, ""
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     path = os.path.join(_BUILD_DIR, f"libstreamk_{digest}.so")
@@ -297,46 +350,70 @@ def build_kernels(verbose: bool = False):
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
         os.replace(tmp, path)
-    if _LIB is None or _LIB._name != path:
-        lib = ctypes.CDLL(path)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.streamk_fwd_launch.argtypes = [p] * 12 + [i] * 8 + [f, f, i, i, p]
-        lib.streamk_fwd_launch.restype = i
-        lib.streamk_bwd_launch.argtypes = [p] * 17 + [i] * 8 + [f, f, i, i, p]
-        lib.streamk_bwd_launch.restype = i
-        _LIB = lib
+    lib = ctypes.CDLL(path)
+    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    fwd = [p] * 12 + [i] * 8 + [f, f, i, i, p]
+    bwd = [p] * 17 + [i] * 8 + [f, f, i, i, p]
+    for name, args in (("streamk_fwd_launch", fwd),
+                       ("streamk_bwd_launch", bwd),
+                       ("streamk_packed_fwd_launch", fwd + [ll, ll]),
+                       ("streamk_packed_bwd_launch", bwd + [ll, ll])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, i
+    _LIBS[_SRC] = (lib, path)
     return path, seconds, log
 
 
-def _launch_shape(plan, B, N, backward: bool):
-    """(threads per block, dynamic shared-memory bytes) of one launch; raises
-    NotImplementedError past what one block can hold."""
+def launch_refusal(plan, B, N):
+    """Why one thread block cannot hold a candidate of this plan (a
+    sentence naming the limit), or None when both kernels take it."""
     BN, NN, Ke, it = B * N, N * N, plan.Ke, plan.iters
     if BN > 1024:
-        raise NotImplementedError(
-            f"streamK kernel: B*N = {BN} state entries exceed one block "
-            "(1024 threads); multi-block candidates are not implemented")
-    threads = max(32, -(-max(BN, min(NN, 1024)) // 32) * 32)
+        return (f"streamK kernel: B*N = {BN} state entries exceed one block "
+                "(1024 threads); multi-block candidates are not implemented")
+    smem = _smem_bytes(plan, B, N, _threads(B, N), backward=True)
+    if smem > _MAX_SMEM:
+        return (f"streamK kernel: {smem} bytes of shared memory exceed the "
+                f"{_MAX_SMEM} a block can use (N={N}, Ke={Ke}, B={B}, "
+                f"iters={it})")
+    return None
+
+
+def _threads(B, N):
+    return max(32, -(-max(B * N, min(N * N, 1024)) // 32) * 32)
+
+
+def _smem_bytes(plan, B, N, threads, backward: bool):
+    BN, NN, Ke, it = B * N, N * N, plan.Ke, plan.iters
     floats = 2 * Ke * NN + 2 * N * (N + 1)
     if backward:
         floats += 2 * NN + 2 * BN + 2 * it * BN + 2 * (it + 1) * BN \
             + (threads // 32) * Ke
     else:
         floats += 2 * BN + 2 * (it + 1) * BN
-    smem = 4 * floats
-    if smem > _MAX_SMEM:
-        raise NotImplementedError(
-            f"streamK kernel: {smem} bytes of shared memory exceed the "
-            f"{_MAX_SMEM} a block can use (N={N}, Ke={Ke}, B={B})")
-    return threads, smem
+    return 4 * floats
+
+
+def _launch_shape(plan, B, N, backward: bool):
+    """(threads per block, dynamic shared-memory bytes) of one launch; raises
+    NotImplementedError past what one block can hold (the backward needs
+    more than the forward, so both refuse together)."""
+    why = launch_refusal(plan, B, N)
+    if why is not None:
+        raise NotImplementedError(why)
+    threads = _threads(B, N)
+    return threads, _smem_bytes(plan, B, N, threads, backward)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_cuda(plan, *ts):
-    for t in (plan.Sr, plan.Si, plan.rows) + ts:
+def _check_cuda(plan, Ce, *ts):
+    if plan.per_block:
+        _check_group(plan, Ce)
+    for t in (plan.Sr, plan.Si, plan.rows, Ce) + ts:
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise NotImplementedError(
                 "streamK kernel runs float32 CUDA tensors only (complex128 "
@@ -350,10 +427,23 @@ def _dims(plan, E, nt, B, N):
             int(plan.store_iters), plan.dt, plan.dt / 2.0)
 
 
-def _kernel_fwd(plan, x0r, x0i, Ce):
-    global streamk_fwd_launches
-    _check_cuda(plan, x0r, x0i, Ce)
+def _strides(plan):
+    """The packed launchers' trailing arguments: floats between two
+    candidates' stacks and solver rows."""
+    return (plan.Sr.stride(0), plan.rows.stride(0)) if plan.per_block else ()
+
+
+def _lib():
     build_kernels()
+    return _LIBS[_SRC][0]
+
+
+def _kernel_fwd(plan, x0r, x0i, Ce):
+    global streamk_fwd_launches, streamk_packed_fwd_launches
+    _check_cuda(plan, Ce, x0r, x0i)
+    lib = _lib()
+    launch = lib.streamk_packed_fwd_launch if plan.per_block \
+        else lib.streamk_fwd_launch
     E, nt, _ = Ce.shape
     B, N = x0r.shape
     threads, smem = _launch_shape(plan, B, N, backward=False)
@@ -363,34 +453,43 @@ def _kernel_fwd(plan, x0r, x0i, Ce):
     ksr = ksi = None
     if plan.store_iters and plan.iters > 0:
         ksr, ksi = new(E, nt, plan.iters, B, N), new(E, nt, plan.iters, B, N)
-    err = _LIB.streamk_fwd_launch(
+    err = launch(
         *map(_ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, plan.rows, xTr, xTi, hr,
                     hi, ksr, ksi)),
         *_dims(plan, E, nt, B, N), threads, smem,
-        torch.cuda.current_stream(Ce.device).cuda_stream)
+        torch.cuda.current_stream(Ce.device).cuda_stream, *_strides(plan))
     if err != 0:
         raise RuntimeError(f"streamk_fwd launch failed: CUDA error {err}")
-    streamk_fwd_launches += 1
+    if plan.per_block:
+        streamk_packed_fwd_launches += 1
+    else:
+        streamk_fwd_launches += 1
     return xTr, xTi, hr, hi, ksr, ksi
 
 
 def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
-    global streamk_bwd_launches
-    _check_cuda(plan, x0r, x0i, Ce, hr, hi, gTr, gTi, jr, ji)
+    global streamk_bwd_launches, streamk_packed_bwd_launches
+    _check_cuda(plan, Ce, x0r, x0i, hr, hi, gTr, gTi, jr, ji)
+    lib = _lib()
+    launch = lib.streamk_packed_bwd_launch if plan.per_block \
+        else lib.streamk_bwd_launch
     E, nt, Ke = Ce.shape
     B, N = x0r.shape
     threads, smem = _launch_shape(plan, B, N, backward=True)
     g0r = torch.empty((E, B, N), dtype=torch.float32, device=Ce.device)
     g0i = torch.empty_like(g0r)
     Cb = torch.empty((E, nt, Ke), dtype=torch.float32, device=Ce.device)
-    err = _LIB.streamk_bwd_launch(
+    err = launch(
         *map(_ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, hr, hi, jr, ji, gTr, gTi,
                     plan.rows, ksr, ksi, g0r, g0i, Cb)),
         *_dims(plan, E, nt, B, N), threads, smem,
-        torch.cuda.current_stream(Ce.device).cuda_stream)
+        torch.cuda.current_stream(Ce.device).cuda_stream, *_strides(plan))
     if err != 0:
         raise RuntimeError(f"streamk_bwd launch failed: CUDA error {err}")
-    streamk_bwd_launches += 1
+    if plan.per_block:
+        streamk_packed_bwd_launches += 1
+    else:
+        streamk_bwd_launches += 1
     return g0r.sum(0), g0i.sum(0), Cb
 
 
@@ -435,18 +534,29 @@ def streamk_propagate(plan, x0r, x0i, Ce):
 def make_plan(Sr, Si, dt: float, iters: int, gen_diag=None,
               linsolver: str = "neumann") -> StreamKPlan:
     """The launch plan for the (K, N, N) stack planes Sr, Si, on their
-    device and in their dtype. Split appends the off-diagonal remainder's
-    slot -diag(h), h = i * gen_diag the H diagonal, whose coefficient is 1
-    (extend_coeffs). With iters <= 4 the forward stores its stage iterates
-    for the backward; past that the backward replays them (the JAX
-    kernel's rule)."""
+    device and in their dtype; (G, K, N, N) planes with a (G, N) gen_diag
+    plan one system per candidate. Split appends the off-diagonal
+    remainder's slot -diag(h), h = i * gen_diag the H diagonal (each
+    candidate's own), whose coefficient is 1 (extend_coeffs). With
+    iters <= 4 the forward stores its stage iterates for the backward; past
+    that the backward replays them (the JAX kernel's rule)."""
     dt, iters = float(dt), int(iters)
     kw = dict(dtype=Sr.dtype, device=Sr.device)
+    if gen_diag is not None:
+        gen_diag = np.asarray(gen_diag, dtype=np.complex128)
+        want = (Sr.shape[0], Sr.shape[-1]) if Sr.dim() == 4 \
+            else (Sr.shape[-1],)
+        if Sr.dim() == 3:
+            gen_diag = gen_diag.reshape(-1)
+        if gen_diag.shape != want:
+            raise ValueError(f"gen_diag must have shape {want} for stacks "
+                             f"{tuple(Sr.shape)}, got {gen_diag.shape}")
     rows = torch.as_tensor(solver_rows(gen_diag, dt, linsolver), **kw)
     if linsolver == "split":
-        h = 1j * np.asarray(gen_diag, dtype=np.complex128).reshape(-1)
-        Sr = torch.cat([Sr, -torch.diag(torch.as_tensor(h.real, **kw))[None]])
-        Si = torch.cat([Si, -torch.diag(torch.as_tensor(h.imag, **kw))[None]])
+        h = 1j * gen_diag
+        slot = lambda a: -torch.diag_embed(torch.as_tensor(a, **kw))
+        Sr = torch.cat([Sr, slot(h.real).unsqueeze(-3)], dim=-3)
+        Si = torch.cat([Si, slot(h.imag).unsqueeze(-3)], dim=-3)
     return StreamKPlan(Sr=Sr.contiguous(), Si=Si.contiguous(),
                        rows=rows.contiguous(), dt=dt, iters=iters,
                        linsolver=linsolver, store_iters=iters <= 4)
@@ -460,6 +570,21 @@ def extend_coeffs(plan, C):
     return C.contiguous()
 
 
+def _plan_once(dt, iters, gen_diag, linsolver):
+    """plan_for(Sr, Si): make_plan, built anew only when other stack tensors
+    arrive, so a propagate called in a loop does its host work (the solver
+    rows and their copy to the device) once."""
+    held = []
+
+    def plan_for(Sr, Si):
+        if not held or held[0] is not Sr or held[1] is not Si:
+            held[:] = [Sr, Si, make_plan(Sr, Si, dt, iters, gen_diag,
+                                         linsolver)]
+        return held[2]
+
+    return plan_for
+
+
 def make_streamk_propagate(dt: float, iters: int = 10, gen_diag=None,
                            linsolver: str = "neumann"):
     """Build propagate(Sr, Si, (x0r, x0i), C) -> ((xTr, xTi), (hr, hi)).
@@ -467,9 +592,10 @@ def make_streamk_propagate(dt: float, iters: int = 10, gen_diag=None,
     Sr, Si: (K, N, N) real/imaginary operator stack; C: (ntime, K) or
     (E, ntime, K) coefficient rows. linsolver 'jacobi' and 'split' need
     gen_diag, the (N,) generator diagonal."""
+    plan_for = _plan_once(dt, iters, gen_diag, linsolver)
 
     def propagate(Sr, Si, x0, C):
-        plan = make_plan(Sr, Si, dt, iters, gen_diag, linsolver)
+        plan = plan_for(Sr, Si)
         Ce = extend_coeffs(plan, C if C.dim() == 3 else C[None])
         dt_ = plan.Sr.dtype
         xTr, xTi, hr, hi = streamk_propagate(plan, x0[0].to(dt_),
@@ -477,5 +603,36 @@ def make_streamk_propagate(dt: float, iters: int = 10, gen_diag=None,
         if C.dim() == 2:
             xTr, xTi, hr, hi = xTr[0], xTi[0], hr[0], hi[0]
         return (xTr, xTi), (hr, hi)
+
+    return propagate
+
+
+def make_streamk_packed_propagate(dt: float, iters: int = 10, gen_diag=None,
+                                  linsolver: str = "neumann", group=None,
+                                  per_block_stacks: bool = False):
+    """Build propagate(Sr, Si, (x0r, x0i), Cg) -> ((xTr, xTi), (hr, hi)) in
+    the layout of the packed TPU kernel: Cg (ntime, G, K), one coefficient
+    row per candidate, x0 (B, N) shared by the group, xT (G, B, N), hist
+    (ntime, G, B, N) (a view of the kernels' (G, ntime, B, N)).
+
+    per_block_stacks: Sr, Si are (G, K, N, N) and gen_diag (G, N), one
+    system realization per candidate. Otherwise Sr, Si are (K, N, N) and
+    the G candidates share them. `group`, when given, must equal G."""
+    plan_for = _plan_once(dt, iters, gen_diag, linsolver)
+
+    def propagate(Sr, Si, x0, Cg):
+        if Sr.dim() != (4 if per_block_stacks else 3):
+            raise ValueError(
+                f"stacks of shape {tuple(Sr.shape)} with "
+                f"per_block_stacks={per_block_stacks}")
+        G = Cg.shape[1]
+        if group is not None and int(group) != G:
+            raise ValueError(f"group={group} != {G} coefficient candidates")
+        plan = plan_for(Sr, Si)
+        Ce = extend_coeffs(plan, Cg.transpose(0, 1))
+        dt_ = plan.Sr.dtype
+        xTr, xTi, hr, hi = streamk_propagate(plan, x0[0].to(dt_),
+                                             x0[1].to(dt_), Ce)
+        return (xTr, xTi), (hr.transpose(0, 1), hi.transpose(0, 1))
 
     return propagate

@@ -16,9 +16,14 @@ Two propagation paths, as in the JAX package:
 * plain (``fused=False``, CPU only): the complex-arithmetic step function
   in a Python time loop, differentiated by autograd.
 
-Out of this slice, and refused with NotImplementedError: open systems,
+The problem lives on the CUDA device unless the caller names another
+(``device="cpu"``, as the CPU tests do); without a CUDA device and without
+that argument the constructor raises.
+
+Not ported yet, and refused with NotImplementedError: open systems,
 structured engines, IMR4/IMR8/EE, GMRES, the time-parallel scan; on CUDA
-also complex128 and the plain path.
+also complex128, the plain path, and systems past what one thread block of
+the streamK kernels holds (``Problem.fused_ok``).
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ import numpy as np
 import torch
 
 from .models import initialconditions as ic
-from .models.controls import control_variation_penalty, eval_controls
+from .models.controls import (control_variation_penalty, eval_controls,
+                              eval_controls_labframe, plan_on_device)
 from .models.hamiltonian import HamiltonianModel
 from .ops import solvers
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
-from .ops.streamk import make_streamk_propagate
+from .ops import streamk
 from .utils.indexing import flat_index, guard_mask
 from .utils.splines import OscillatorControl, build_control_plan
 
@@ -95,11 +101,19 @@ class Setup:
 
 class Problem:
     """Device-ready problem: control plans, state batches and constants on
-    `device`, and the objective built from them."""
+    `device`, and the objective built from them. `device=None` is the CUDA
+    device, and raises where there is none."""
 
-    def __init__(self, setup: Setup, device="cpu"):
+    def __init__(self, setup: Setup, device=None):
         s = self.setup = setup
         model = self.model = setup.model
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Problem runs on the CUDA device by default and "
+                    "torch.cuda.is_available() is false; pass device='cpu' "
+                    "to run the plain torch version on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
         if model.lindblad:
@@ -119,6 +133,9 @@ class Problem:
             raise NotImplementedError(
                 "on CUDA only the fused streamK path is ported; the plain "
                 "complex time loop (fused=False) runs on the CPU")
+        if cuda and self.device.index is None:
+            # with its index ("cuda" -> "cuda:0"), as tensors report it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.N = model.N
         self.rdtype = (torch.float64 if s.dtype == torch.complex128
                        else torch.float32)
@@ -133,6 +150,8 @@ class Problem:
         self.plan_mid = build_control_plan(s.oscillators, self.ts_mid.reshape(-1))
         self.ts_stop = np.arange(1, ntime + 1) * dt
         self.plan_stop = build_control_plan(s.oscillators, self.ts_stop)
+        self.ts_out = np.arange(ntime + 1) * dt
+        self.plan_out = build_control_plan(s.oscillators, self.ts_out)
 
         # --- initial conditions ---
         osc_ids = s.initcond_ids if len(s.initcond_ids) > 0 \
@@ -222,15 +241,38 @@ class Problem:
             else rt(self.measure_weights)
         self._Sr = rt(self.engine.stack_np.real)
         self._Si = rt(self.engine.stack_np.imag)
-        _, gd = self._real_layout()
-        self._prop = make_streamk_propagate(s.dt, s.linsolve_iters,
-                                            gen_diag=gd,
-                                            linsolver=self.linsolver)
+        # the control plans and the JC phase columns as device tensors, so
+        # that an objective evaluation copies nothing from the host
+        self._plan_mid = plan_on_device(self.plan_mid, self.rdtype,
+                                        self.device)
+        self._plan_stop = plan_on_device(self.plan_stop, self.rdtype,
+                                         self.device)
+        self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
+        # the streamK launch plan (extended stacks, solver rows), built once
+        self._plan = self._refusal = None
+        if self.use_fused:
+            self._plan = streamk.make_plan(
+                self._Sr, self._Si, s.dt, s.linsolve_iters, self.gen_diag,
+                self.linsolver)
+            self._refusal = streamk.launch_refusal(self._plan, self.ninit,
+                                                   self.N)
+            if cuda and self._refusal is not None:
+                raise NotImplementedError(self._refusal)
 
-    def _real_layout(self):
-        """(dim, gen_diag) in the streamK kernels' flat conventions (closed
-        systems: the state dimension and the engine's diagonal)."""
-        return self.N, self.gen_diag
+    @property
+    def fused_ok(self) -> bool:
+        """Whether the streamK kernels admit this problem: the fused path is
+        on and one candidate (B*N state entries, the stacks, the stage
+        iterates) fits one thread block. `fused_refusal` names the limit
+        otherwise. On the CPU it tells what the card would do; the plain
+        version there runs any size."""
+        return self.use_fused and self._refusal is None
+
+    @property
+    def fused_refusal(self) -> Optional[str]:
+        if not self.use_fused:
+            return "the fused streamK path is off (Setup.fused=False)"
+        return self._refusal
 
     # ------------------------------------------------------------------
     # objective tail on (re, im) planes; every function takes leading
@@ -298,7 +340,9 @@ class Problem:
     def _energy_integral(self, params):
         s = self.setup
         if s.gamma_penalty_energy > 1e-13:
-            p, q = eval_controls(self.plan_stop, params, s.pipulses)
+            p, q = eval_controls(self._host_or_device(self._plan_stop,
+                                                      self.plan_stop, params),
+                                 params, s.pipulses)
             return torch.sum(p ** 2 + q ** 2, dim=(-2, -1)) / s.ntime
         return params.new_zeros(params.shape[:-1])
 
@@ -347,10 +391,19 @@ class Problem:
     # objective
     # ------------------------------------------------------------------
 
+    def _host_or_device(self, dev_plan, host_plan, params):
+        """The device plan for parameters in the problem's dtype on its
+        device; else the f64 host plan, cast to the parameters' dtype."""
+        same = params.dtype == self.rdtype and params.device == self.device
+        return dev_plan if same else host_plan
+
     def coeff_rows_mid(self, params):
         """(..., ntime, nstages, K) coefficient rows at the stage midpoints."""
-        p, q = eval_controls(self.plan_mid, params, self.setup.pipulses)
-        C = self.model.coeff_rows(p, q, self.plan_mid.ts)
+        plan = self._host_or_device(self._plan_mid, self.plan_mid, params)
+        p, q = eval_controls(plan, params, self.setup.pipulses)
+        C = self.model.coeff_rows(
+            p, q, self.plan_mid.ts,
+            jc=self._jc_mid if plan is self._plan_mid else None)
         return C.reshape(params.shape[:-1]
                          + (self.setup.ntime, self.nstages, self.model.K))
 
@@ -359,8 +412,9 @@ class Problem:
         C = self.coeff_rows_mid(Ps)
         energy_int = self._energy_integral(Ps)
         if self.use_fused:
-            (xTr, xTi), (hr, hi) = self._prop(
-                self._Sr, self._Si, (self._x0r, self._x0i), C[..., 0, :])
+            xTr, xTi, hr, hi = streamk.streamk_propagate(
+                self._plan, self._x0r, self._x0i,
+                streamk.extend_coeffs(self._plan, C[..., 0, :]))
         else:
             x0 = self._x0c.expand((Ps.shape[0],) + self._x0c.shape)
             traj = solvers.propagate_trajectory(self.step_fn, x0,
@@ -381,14 +435,27 @@ class Problem:
     def _param_tensor(self, x):
         return torch.as_tensor(x, device=self.device).to(self.rdtype).detach()
 
+    @staticmethod
+    def _detached(J, aux):
+        return J.detach(), {k: v.detach() for k, v in aux.items()}
+
     def build_value_and_grad(self):
         """fn(params, params_ref) -> ((J, aux), grad), one gradient sweep."""
         def vg(params, params_ref):
             p = self._param_tensor(params).requires_grad_(True)
             J, aux = self.objective(p, self._param_tensor(params_ref))
             (g,) = torch.autograd.grad(J, p)
-            return (J.detach(), {k: v.detach() for k, v in aux.items()}), g
+            return self._detached(J, aux), g
         return vg
+
+    def build_objective(self):
+        """fn(params, params_ref) -> (J, aux): the forward propagation and
+        the objective tail only."""
+        def obj(params, params_ref):
+            with torch.no_grad():
+                return self.objective(self._param_tensor(params),
+                                      self._param_tensor(params_ref))
+        return obj
 
     def build_ensemble_value_and_grad(self):
         """fn(Ps, params_ref) -> ((J (E,), aux (E,)), grad (E, nparams)):
@@ -399,5 +466,61 @@ class Problem:
             P = self._param_tensor(Ps).requires_grad_(True)
             J, aux = self._objective_batch(P, self._param_tensor(params_ref))
             (g,) = torch.autograd.grad(J.sum(), P)
-            return (J.detach(), {k: v.detach() for k, v in aux.items()}), g
+            return self._detached(J, aux), g
         return evg
+
+    def _ensemble_objective(self):
+        """fn(Ps, params_ref) -> (J (E,), aux (E,)): the objective-only
+        companion of the ensemble value_and_grad, one forward launch and no
+        backward (batched line searches, population evaluation)."""
+        def eobj(Ps, params_ref):
+            with torch.no_grad():
+                return self._objective_batch(
+                    self._param_tensor(Ps), self._param_tensor(params_ref))
+        return eobj
+
+    def packed_batch_fns(self, params_ref):
+        """The batch hooks of optim.batched_lbfgs.batched_lbfgsb: a
+        population's objective and gradient evaluations as ensemble
+        launches. Returns dict(objective_batch, grad_batch, vg_batch), to
+        be splatted into batched_lbfgsb(**kw); they take and return
+        tensors on the problem's device."""
+        ref = self._param_tensor(params_ref)
+        eobj = self._ensemble_objective()
+        evg = self.build_ensemble_value_and_grad()
+
+        def vg_batch(xs):
+            (J, _), g = evg(xs, ref)
+            return J, g
+
+        return dict(objective_batch=lambda xs: eobj(xs, ref)[0],
+                    grad_batch=lambda xs: vg_batch(xs)[1],
+                    vg_batch=vg_batch)
+
+    def build_ensemble_sweeps(self):
+        """f(Ps (reps, E, nparams), params_ref) -> scalar tensor: reps
+        ensemble gradient sweeps enqueued back to back, summed into one
+        scalar (J and the gradients), with one synchronization at the end.
+        The throughput probe: nothing is fetched between the sweeps."""
+        evg = self.build_ensemble_value_and_grad()
+
+        def reps(Ps, params_ref):
+            Ps = self._param_tensor(Ps)
+            ref = self._param_tensor(params_ref)
+            acc = torch.zeros((), dtype=self.rdtype, device=self.device)
+            for P in Ps:
+                (J, _), g = evg(P, ref)
+                acc = acc + J.sum() + g.sum()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return acc
+        return reps
+
+    def controls_on_output_grid(self, params):
+        """(ts, p, q, f_lab) on the output time grid t_n = n*dt."""
+        params = self._param_tensor(params)
+        p, q = eval_controls(self.plan_out, params, self.setup.pipulses)
+        f = eval_controls_labframe(self.plan_out, params,
+                                   self.setup.ground_freqs_radns,
+                                   self.setup.pipulses)
+        return self.ts_out, p, q, f

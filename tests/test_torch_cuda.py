@@ -1,6 +1,8 @@
 """quandary_tpu_torch on a CUDA device: the streamK kernel pair against its
-plain torch version, and the problem's value_and_grad on the card against
-the CPU. Every test here is marked `cuda` and skips without a device (the
+plain torch version (shared and per-candidate stacks), the problem's
+value_and_grad and the packed robust objective on the card against the
+CPU, and the device optimizer's CUDA-graph chunk against its eager chunk.
+Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
 
@@ -61,6 +63,139 @@ def test_kernel_matches_plain_on_card(cuda, solver, iters):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("solver,iters", [("split", 3), ("jacobi", 6),
+                                          ("neumann", 4)])
+def test_packed_kernel_matches_plain_on_card(cuda, solver, iters):
+    """Per-candidate stacks and solver rows (G = 3 systems in one launch)
+    against the plain version on the card; only the packed counters move.
+    Bounds as test_kernel_matches_plain_on_card."""
+    G = 3
+    rng = np.random.default_rng(8)
+    stack = (rng.normal(size=(G, K, N, N))
+             + 1j * rng.normal(size=(G, K, N, N))).astype(np.complex64)
+    gen_diag = np.stack([-1j * np.diag(s[0]) for s in stack]).astype(
+        np.complex128)
+    plan = streamk.make_plan(cuda(stack.real), cuda(stack.imag), DT, iters,
+                             gen_diag, solver)
+    assert plan.per_block
+    C = streamk.extend_coeffs(plan, cuda(
+        (rng.normal(size=(G, NT, K)) * 0.3).astype(np.float32)))
+    x0 = rng.normal(size=(2, B, N)).astype(np.float32)
+    w = cuda(rng.normal(size=(G, NT, B, N)).astype(np.float32))
+
+    def run(fn):
+        Cg = C.clone().requires_grad_()
+        x0r, x0i = cuda(x0[0]).requires_grad_(), cuda(x0[1]).requires_grad_()
+        xTr, _, hr, hi = fn(plan, x0r, x0i, Cg)
+        (torch.sum(w * hr * hi) + torch.sum(xTr * xTr)).backward()
+        torch.cuda.synchronize()
+        return hr.detach(), Cg.grad, x0r.grad, x0i.grad
+
+    before = streamk.launch_counts()
+    kern = run(streamk.streamk_propagate_kernel)
+    after = streamk.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "streamk_fwd_launches": 0, "streamk_bwd_launches": 0,
+        "streamk_packed_fwd_launches": 1, "streamk_packed_bwd_launches": 1}
+    plain = run(streamk.streamk_propagate_plain)
+    for a, b, tol in zip(kern, plain, (1e-5, 1e-4, 1e-4, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _qutrit_samples(device):
+    from quandary_tpu_torch.optim.robust import sample_standard_models
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    T, ntime = 60.0, 300
+    osc = OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=10, tstart=0.0, tstop=T),),
+        carrier_freqs=(0.0,))
+    common = dict(
+        nessential=(2,), ntime=ntime, dt=T / ntime, oscillators=(osc,),
+        ground_freqs_radns=(1.0,), initcond_type="pure", pure_levels=(0,),
+        target_type="pure", pure_target_levels=(1,), objective_type="Jtrace",
+        gamma_tik=1e-6, dtype=torch.complex64, gamma_penalty=0.05,
+        gamma_penalty_energy=0.02)
+    return sample_standard_models(
+        dict(nlevels=[3], freq01_ghz=[4.1], rotfreq_ghz=[4.1],
+             selfkerr_ghz=[0.2]),
+        [{"freq01_ghz": [4.1 + d]} for d in (0.0, 0.002, -0.003)], common,
+        device=device)
+
+
+@pytest.mark.cuda
+def test_packed_robust_on_card_matches_cpu(cuda):
+    """build_packed_robust_objective on the card: one launch of each packed
+    kernel per gradient; J, aux and gradient against the per-sample
+    objective on the card and the packed one on the CPU (f32, 1e-5 / 1e-4
+    of max)."""
+    from quandary_tpu_torch.optim import robust
+    w = [0.5, 0.3, 0.2]
+    pc, ph = _qutrit_samples(None), _qutrit_samples("cpu")
+    assert pc[0].device.type == "cuda"
+    x = (np.random.default_rng(0).normal(size=pc[0].setup.nparams)
+         * 0.02).astype(np.float32)
+
+    def vg(objective, device):
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        J, aux = objective(xt, torch.zeros_like(xt))
+        (g,) = torch.autograd.grad(J, xt)
+        return J.detach().cpu(), g.cpu(), aux
+
+    before = streamk.launch_counts()
+    Jc, gc, auxc = vg(robust.build_packed_robust_objective(pc, w), "cuda")
+    after = streamk.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "streamk_fwd_launches": 0, "streamk_bwd_launches": 0,
+        "streamk_packed_fwd_launches": 1, "streamk_packed_bwd_launches": 1}
+    for objective, device in (
+            (robust.build_robust_objective(pc, w), "cuda"),
+            (robust.build_packed_robust_objective(ph, w), "cpu")):
+        J, g, aux = vg(objective, device)
+        assert abs(float(Jc) - float(J)) <= 1e-5 * abs(float(J))
+        assert float((gc - g).abs().max()) <= 1e-4 * float(g.abs().max())
+        for k in aux:
+            torch.testing.assert_close(auxc[k].detach().cpu(),
+                                       aux[k].detach().cpu(), rtol=1e-4,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_device_optimizer_graph_matches_eager(cuda):
+    """The CUDA-graph chunk replays the eager chunk: the same history to
+    f32 rounding for as long as the picks agree, J falls, the launch
+    counters advance by the captured launches per replay, and a second run
+    reuses the captured graph."""
+    from quandary_tpu_torch.optim.device_driver import run_optimization_device
+    prob = _qutrit_samples(None)[0]
+    n = prob.setup.nparams
+    x0 = np.random.default_rng(5).normal(size=n) * 0.01
+    lb, ub = np.full(n, -0.06), np.full(n, 0.06)
+    kw = dict(maxiter=12, chunk=4, gatol=1e-14, grtol=1e-30, inftol=1e-12,
+              fatol=1e-14, verbose=False)
+    re = run_optimization_device(prob, x0, lb, ub, graph=False, **kw)
+    before = streamk.launch_counts()
+    rg = run_optimization_device(prob, x0, lb, ub, graph=True, **kw)
+    after = streamk.launch_counts()
+    assert rg.niter == re.niter == 12
+    assert rg.history[-1].objective < rg.history[0].objective
+    for he, hg in zip(re.history[:4], rg.history[:4]):
+        assert he.step == hg.step
+        assert abs(he.objective - hg.objective) <= 1e-5 * abs(he.objective)
+    assert abs(rg.objective - re.objective) <= 0.05 * abs(re.objective)
+    # init (1 + 1), the warm-up chunk (4 + 4) and 3 replays of 4 iterations
+    assert after["streamk_fwd_launches"] - before["streamk_fwd_launches"] \
+        == 1 + 4 + 12
+    assert after["streamk_bwd_launches"] - before["streamk_bwd_launches"] \
+        == 1 + 4 + 12
+    mid = streamk.launch_counts()
+    run_optimization_device(prob, x0, lb, ub, graph=True, **kw)
+    assert streamk.launch_counts()["streamk_fwd_launches"] \
+        - mid["streamk_fwd_launches"] == 1 + 12
+
+
+@pytest.mark.cuda
 def test_problem_on_card_matches_cpu(cuda):
     """A small guarded two-transmon problem: value_and_grad on the card
     (kernels) against the same problem on the CPU (plain), both f32."""
@@ -89,10 +224,10 @@ def test_problem_on_card_matches_cpu(cuda):
         dtype=torch.complex64, linsolve_iters=3, linsolver="split")
     x = np.random.default_rng(3).uniform(-1, 1, setup.nparams) * 0.05
     before = streamk.streamk_fwd_launches, streamk.streamk_bwd_launches
-    (Jc, _), gc = Problem(setup, device="cuda").build_value_and_grad()(x, x)
+    (Jc, _), gc = Problem(setup).build_value_and_grad()(x, x)
     assert streamk.streamk_fwd_launches == before[0] + 1
     assert streamk.streamk_bwd_launches == before[1] + 1
-    (Jh, _), gh = Problem(setup).build_value_and_grad()(x, x)
+    (Jh, _), gh = Problem(setup, device="cpu").build_value_and_grad()(x, x)
     assert abs(float(Jc) - float(Jh)) <= 1e-5 * abs(float(Jh))
     assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
     with pytest.raises(NotImplementedError):

@@ -151,7 +151,7 @@ def test_host_arrays_bit_equal(builder):
     te = TEngine(st.model, st.dtype, "cpu")
     _bit_equal(je.gen_diag(), te.gen_diag())
 
-    pj, pt = JProblem(sj), TProblem(st)
+    pj, pt = JProblem(sj), TProblem(st, device="cpu")
     _bit_equal(pj.x0, pt.x0)
     if pj.target is not None:
         _bit_equal(pj.target, pt.target)
@@ -196,7 +196,7 @@ def test_coeff_rows_match_f64():
     from quandary_tpu_torch.problem import Problem as TProblem
 
     sj = flagship_setup("jax", dtype=jnp.complex128)
-    pj, pt = JProblem(sj), TProblem(port_setup(sj))
+    pj, pt = JProblem(sj), TProblem(port_setup(sj), device="cpu")
     assert pt.model.K == 7
     rng = np.random.default_rng(3)
     Ps = rng.normal(size=(2, sj.nparams)) * 0.02

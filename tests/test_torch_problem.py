@@ -44,7 +44,7 @@ def test_flagship_f64_matches_jax_scan(fused):
     sj = flagship_setup("jax", dtype=jnp.complex128, pallas=False)
     pj = JProblem(sj)
     assert not pj.use_pallas and pj.linsolver == "split"
-    pt = TProblem(port_setup(sj, fused=fused))
+    pt = TProblem(port_setup(sj, fused=fused), device="cpu")
     assert pt.use_fused == fused and pt.linsolver == "split"
     x = _params(sj.nparams)
     (Jj, auxj), gj = pj.build_value_and_grad()(jnp.asarray(x), jnp.asarray(x))
@@ -60,7 +60,7 @@ def test_flagship_f32_matches_jax_pallas_streamk():
     sj = flagship_setup("jax", pallas=True)
     pj = JProblem(sj)
     assert pj.use_pallas and pj.real_glue
-    pt = TProblem(port_setup(sj))
+    pt = TProblem(port_setup(sj), device="cpu")
     assert pt.use_fused and pt.rdtype == torch.float32
     x = _params(sj.nparams)
     (Jj, _), gj = pj.build_value_and_grad()(jnp.asarray(x), jnp.asarray(x))
@@ -72,7 +72,7 @@ def test_flagship_f32_matches_jax_pallas_streamk():
 def test_flagship_ensemble_matches_jax():
     sj = flagship_setup("jax", pallas=True)
     pj = JProblem(sj)
-    pt = TProblem(port_setup(sj))
+    pt = TProblem(port_setup(sj), device="cpu")
     Ps = _params(sj.nparams, E=3, seed=7)
     ref = np.zeros(sj.nparams)
     (Jj, auxj), gj = pj.build_ensemble_value_and_grad()(jnp.asarray(Ps),
@@ -96,7 +96,7 @@ def test_plain_time_loop_matches_jax_solvers():
     from quandary_tpu_torch.ops import solvers as tsolvers
 
     sj = flagship_setup("jax", dtype=jnp.complex128, pallas=False, ntime=8)
-    pj, pt = JProblem(sj), TProblem(port_setup(sj))
+    pj, pt = JProblem(sj), TProblem(port_setup(sj), device="cpu")
     x = _params(sj.nparams)
     Cj = pj.coeff_rows_mid(jnp.asarray(x))
     Ct = pt.coeff_rows_mid(torch.as_tensor(x))
@@ -131,4 +131,4 @@ def test_lindblad_raises():
     st = dataclasses.replace(flagship_setup("torch"), model=model,
                              nessential=(2,))
     with pytest.raises(NotImplementedError, match="Lindblad"):
-        TProblem(st)
+        TProblem(st, device="cpu")
