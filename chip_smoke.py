@@ -11,7 +11,8 @@ optim.batched_lbfgs.batched_lbfgsb. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
-2. builds the streamK kernels (csrc/streamk.cu) from the checkout;
+2. builds the kernels from the checkout, one nvcc per source and both at
+   once: csrc/streamk.cu here, csrc/rho.cu reported in phase 11;
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -44,15 +45,46 @@ optim.batched_lbfgs.batched_lbfgsb. Phases:
 10. batched_lbfgsb through Problem.packed_batch_fns, 128 starts x 60
    iterations in the box and from the seed of bench.py:303-309.
 
-Each main path (4-5, 8, 9, 10) is driven with the launch counters set to 0
-just before and read just after. Before the device record one line lists
-the four kernels with their launches, error, time, plain time and bound.
+Open (Lindblad) systems, three configurations at full width:
+(1) the unguarded open CNOT of scripts/perf/lindblad_pallas_bench.py:29-63
+(N = 4, 16 basis density matrices, ntime = 1221, 8 iterations, T1/T2
+collapse), which the route gate sends down the superoperator route on the
+streamK kernels; (2) the guarded one (N = 16), which it sends to the
+density-matrix kernels, also with E = 8 control candidates; (3) the
+mid-size systems of scripts/perf/rho_bench.py:25-65 (3 qutrits, N = 27, six
+collapse operators, and two 8-level qudits, N = 64, four collapse
+operators; 3 initial conditions, ntime = 1000, 6 iterations).
+
+11. the build of csrc/rho.cu (registers and spills as ptxas reports them);
+12. rho_fwd / rho_bwd against rho_propagate_plain on the card at the stacks
+   of configurations 2 and 3 and a short ntime: neumann, jacobi, split;
+   with and without jump operators; E = 1 and 8; stored and replayed stage
+   iterates; also both against the plain version in f64 on the card;
+13. configuration 1 value_and_grad on the superop route against plain on
+   the card and the f64 port on the CPU, and the same problem forced down
+   the rho route: the two routes agree;
+14. configurations 2 (E = 1 and E = 8) and 3 (N = 27, N = 64) at full
+   depth on the rho route: one launch of each kernel per sweep for any E;
+   J, fidelity and gradient against plain on the card at a short ntime and
+   against the f64 port on the CPU at full depth;
+15. a few L-BFGS-B iterations on configuration 2 through
+   run_optimization_device (J falls; the CUDA graph's launches counted);
+16. times: rho_fwd / rho_bwd at N = 16 (E = 1, 8), 27, 64, sweeps/s of the
+   three configurations, the plain version's times, the bounds; the history
+   and cotangents of the timed kernels against those of the timed plain
+   runs, at the configurations' full depth.
+
+Each main path (4-5, 8, 9, 10, 13, 14, 15) is driven with the launch
+counters set to 0 just before and read just after. Before the device record
+one line lists the six kernels with their launches, error, time, plain time
+and bound.
 Any failure raises (non-zero exit). The last line is the device record:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -65,7 +97,7 @@ import torch
 
 from quandary_tpu_torch.models import gates
 from quandary_tpu_torch.models.hamiltonian import build_standard_model
-from quandary_tpu_torch.ops import streamk
+from quandary_tpu_torch.ops import rho, streamk
 from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
@@ -113,6 +145,38 @@ TOL_DETUNED_F64_ABS = 2e-5
 # on the CPU: measured 5.2e-5 x max (against 7.3e-6 on the nominal system),
 # while the packed kernels and the 8 shared-stack launches agree to 1.1e-7
 TOL_DETUNED_G_F64 = 2.5e-4
+# Open systems (phases 12-14), measured on an H100 80GB HBM3 (700 W); the
+# bounds are about 5x the errors. rho kernels against the plain version on
+# the card at NT_SHORT steps, over the three solvers, with and without jump
+# operators, stored and replayed iterates, N = 16, 27, 64: states 1.5e-7
+# abs, cotangents 1.6e-5 x max (neumann at N = 64, where C-bar itself is
+# 5e-7; 7.5e-6 otherwise), and both 5.0e-7 from the plain version in f64
+TOL_RHO_STATE_ABS = 1e-6
+TOL_RHO_GRAD_REL = 1e-4
+TOL_RHO_F64_ABS = 2.5e-6
+# the same at the configurations' full depth (1221 and 1000 steps, jacobi,
+# E = 1), against the plain runs that phase 16 times: states 1.8e-7 abs,
+# cotangents 6.9e-6 x max (x0-bar at N = 64; 1.3e-6 otherwise)
+TOL_RHO_FULL_STATE_ABS = 1e-6
+TOL_RHO_FULL_GRAD_REL = 3.5e-5
+# value_and_grad of the three configurations, relative (gradient x max):
+# (J, g) against plain on the card (configuration 1 at full depth, the rho
+# route at NT_SHORT steps) and against the f64 port on the CPU at full
+# depth. Measured: cnot4 plain 8.1e-8 / 1.7e-7, f64 8.4e-8 / 1.4e-6;
+# cnot16 plain 1.0e-7 / 8.6e-7, f64 5.6e-8 / 9.6e-7; qutrits27 plain 0 /
+# 6.6e-7, f64 9.3e-7 / 2.9e-7; qudits64 plain 0 / 1.6e-6, f64 3.3e-8 /
+# 5.7e-7. The open systems' f32 drift is that of the nominal closed
+# flagship (phase 4), not the detuned systems' (phase 7).
+TOL_OPEN = {
+    "cnot4": dict(J_plain=1e-6, g_plain=1e-6, J_f64=1e-6, g_f64=1e-5),
+    "cnot16": dict(J_plain=1e-6, g_plain=5e-6, J_f64=1e-6, g_f64=5e-6),
+    "qutrits27": dict(J_plain=1e-6, g_plain=5e-6, J_f64=5e-6, g_f64=2e-6),
+    "qudits64": dict(J_plain=1e-6, g_plain=1e-5, J_f64=1e-6, g_f64=5e-6),
+}
+# superop against rho route on configuration 1: measured J 0, gradient 1.7e-7
+TOL_ROUTES_J, TOL_ROUTES_G = 1e-6, 1e-6
+NT_SHORT = 40           # steps of the comparisons with the plain version
+E_OPEN = 8
 
 
 def flagship_setup(linsolver="split", linsolve_iters=3, dtype=torch.complex64,
@@ -150,20 +214,90 @@ def bench_params(n, E=None, seed=1234):
     return np.random.default_rng(seed).uniform(-1, 1, shape) * 0.005
 
 
+def open_cnot_setup(guards, dtype=torch.complex64, ntime=1221,
+                    fused_rho="auto"):
+    """scripts/perf/lindblad_pallas_bench.py:29-63, built with the port's
+    own functions: the CNOT with T1/T2 collapse, without guard levels
+    (N = 4) or with two per qubit (N = 16), 16 basis density matrices.
+    `ntime` below 1221 cuts the horizon at the same step."""
+    Ne, Ng = [2, 2], ([2, 2] if guards else [0, 0])
+    nlevels = [e + g for e, g in zip(Ne, Ng)]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=FREQ01, rotfreq_ghz=FREQ01,
+        selfkerr_ghz=SELFKERR, jkl_ghz=[0.005], crosskerr_ghz=[],
+        decay_time=[80.0, 90.0], dephase_time=[40.0, 45.0], lindblad=True)
+    dt = 200.0 / 1221
+    T = ntime * dt
+    oscs = tuple(
+        OscillatorControl(
+            segments=(ControlSegment("spline", nsplines=30, tstart=0.0,
+                                     tstop=T),),
+            carrier_freqs=(0.0, 2 * np.pi * (FREQ01[1 - k] - FREQ01[k])))
+        for k in range(2))
+    V = gates.assemble_gate(gates.cnot(), nlevels, Ne, [0.0, 0.0], T)
+    return Setup(
+        model=model, nessential=tuple(Ne), ntime=ntime, dt=dt,
+        oscillators=oscs,
+        ground_freqs_radns=tuple(2 * np.pi * f for f in FREQ01),
+        initcond_type="basis", target_type="gate", target_gate_full=V,
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        gamma_penalty_energy=0.1, dtype=dtype, linsolve_iters=8,
+        fused_rho=fused_rho)
+
+
+def midsize_setup(N, dtype=torch.complex64, ntime=1000):
+    """scripts/perf/rho_bench.py:25-65: 3 qutrits (N = 27) or two 8-level
+    qudits (N = 64) with T1/T2 collapse, '3states' initial conditions, a
+    random pure target state. `ntime` below 1000 cuts the horizon at the
+    same step."""
+    cfg = {
+        27: dict(nlevels=[3, 3, 3], freq01=[4.80595, 4.8601, 4.9],
+                 selfkerr=[0.2198, 0.2252, 0.22], jkl=[0.005, 0.0, 0.004],
+                 decay=[80.0, 90.0, 85.0], dephase=[40.0, 45.0, 42.0]),
+        64: dict(nlevels=[8, 8], freq01=[4.80595, 4.8601],
+                 selfkerr=[0.2198, 0.2252], jkl=[0.005],
+                 decay=[80.0, 90.0], dephase=[40.0, 45.0]),
+    }[N]
+    model = build_standard_model(
+        nlevels=cfg["nlevels"], freq01_ghz=cfg["freq01"],
+        rotfreq_ghz=cfg["freq01"], selfkerr_ghz=cfg["selfkerr"],
+        jkl_ghz=cfg["jkl"], crosskerr_ghz=[], decay_time=cfg["decay"],
+        dephase_time=cfg["dephase"], lindblad=True)
+    dt = 100.0 / 1000
+    T = ntime * dt
+    oscs = tuple(
+        OscillatorControl(
+            segments=(ControlSegment("spline", nsplines=20, tstart=0.0,
+                                     tstop=T),),
+            carrier_freqs=(0.0,)) for _ in cfg["nlevels"])
+    rng = np.random.default_rng(42)
+    tgt = rng.normal(size=N) + 1j * rng.normal(size=N)
+    tgt = tgt / np.linalg.norm(tgt)
+    return Setup(
+        model=model, nessential=tuple(cfg["nlevels"]), ntime=ntime, dt=dt,
+        oscillators=oscs,
+        ground_freqs_radns=tuple(2 * np.pi * f for f in cfg["freq01"]),
+        initcond_type="3states", target_type="state",
+        target_state_full=np.outer(tgt, tgt.conj()),
+        objective_type="Jtrace", gamma_tik=1e-4, dtype=dtype,
+        linsolve_iters=6)
+
+
 def phase(n, msg):
     print(f"phase {n}: {msg}", flush=True)
 
 
 @contextlib.contextmanager
 def plain_on_card():
-    """Route the problem's streamK propagation through the plain torch
-    version for CUDA tensors too (the reference run of phases 4 and 6)."""
-    saved = streamk.streamk_propagate
+    """Route the problem's propagation through the plain torch versions
+    for CUDA tensors too (the reference runs on the card)."""
+    saved = streamk.streamk_propagate, rho.rho_propagate
     streamk.streamk_propagate = streamk.streamk_propagate_plain
+    rho.rho_propagate = rho.rho_propagate_plain
     try:
         yield
     finally:
-        streamk.streamk_propagate = saved
+        streamk.streamk_propagate, rho.rho_propagate = saved
 
 
 def max_rel(a, b):
@@ -257,8 +391,9 @@ def median_seconds(fn, reps=5):
     return statistics.median(ts)
 
 
-def event_ms(fn, reps):
-    fn()
+def event_ms(fn, reps, warm=True):
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
@@ -274,7 +409,8 @@ def work_bound(plan, E, nt, B, N, backward):
     """(bound_ms, bound_by) of one launch: the least time the card could
     take, the larger of the bytes the function must move (each input read
     once, each output written once) over the memory rate and its f32
-    operations over the CUDA cores' peak."""
+    operations over the CUDA cores' peak. A backward that replays its
+    stage iterates recomputes by its own choice: the replay is not counted."""
     BN, NN, Ke, it = B * N, N * N, plan.Ke, plan.iters
     stacks = (E if plan.per_block else 1) * (2 * Ke * NN) + plan.rows.numel()
     ks = 2 * E * nt * it * BN if plan.store_iters else 0
@@ -284,8 +420,7 @@ def work_bound(plan, E, nt, B, N, backward):
     if backward:
         words = stacks + E * nt * Ke + 2 * BN + 2 * hist + 2 * E * BN + ks \
             + 2 * E * BN + E * nt * Ke
-        replay = 0 if plan.store_iters else it * matvec
-        flops = contract + replay + (it + 1) * matvec \
+        flops = contract + (it + 1) * matvec \
             + (it + 1) * 8 * B * NN + 4 * Ke * NN
     else:
         words = stacks + E * nt * Ke + 2 * BN + 2 * E * BN + hist + ks
@@ -320,10 +455,182 @@ def kernel_ms(plan, x0r, x0i, C, reps, plain_reps):
     return out
 
 
+@contextlib.contextmanager
+def iterates_budget(nbytes):
+    """The rho forward stores its stage iterates up to this many bytes."""
+    saved, rho.KS_BUDGET_BYTES = rho.KS_BUDGET_BYTES, nbytes
+    try:
+        yield
+    finally:
+        rho.KS_BUDGET_BYTES = saved
+
+
+def rho_compare(plan, x0r, x0i, C, rng, store):
+    """rho kernels against rho_propagate_plain for one plan and its
+    (E, nt, K) coefficients, with stored or replayed stage iterates: max abs
+    errors (states, C-bar, x0-bar), the relative ones, and the state errors
+    of both against the plain version in f64 on the card."""
+    E, nt = C.shape[:2]
+    w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
+                                   dtype=torch.float32)
+    wT, wh = w(E, *x0r.shape), w(E, nt, *x0r.shape)
+    out = {}
+    for name, fn in (("kernel", rho.rho_propagate_kernel),
+                     ("plain", rho.rho_propagate_plain)):
+        Cg = C.clone().requires_grad_()
+        xr, xi = x0r.clone().requires_grad_(), x0i.clone().requires_grad_()
+        before = rho.launch_counts()
+        with iterates_budget((1 << 62) if store else 0):
+            xTr, xTi, hr, hi = fn(plan, xr, xi, Cg)
+            L = torch.sum(wT * xTr) + torch.sum(wT * xTi) \
+                + torch.sum(wh * (hr * hr + hi * hi))
+            L.backward()
+        torch.cuda.synchronize()
+        moved = [v - before[k] for k, v in rho.launch_counts().items()]
+        if moved != ([1, 1] if name == "kernel" else [0, 0]):
+            raise RuntimeError(f"{name}: rho launches {moved}")
+        out[name] = (torch.cat([hr.flatten(), hi.flatten()]).detach(),
+                     Cg.grad, torch.cat([xr.grad.flatten(),
+                                         xi.grad.flatten()]))
+    (sk, ck, xk), (sp, cp, xp) = out["kernel"], out["plain"]
+    if not all(bool(torch.isfinite(t).all()) for t in (sk, ck, xk)):
+        raise RuntimeError("rho kernel produced non-finite values")
+    d = lambda t: None if t is None else t.double()
+    plan64 = dataclasses.replace(plan, Sr=d(plan.Sr), Si=d(plan.Si),
+                                 L=d(plan.L), planes=d(plan.planes))
+    with torch.no_grad():
+        s64 = torch.cat([t.flatten() for t in rho.plain_forward(
+            plan64, x0r.double(), x0i.double(), C.double())])
+    return dict(state=float((sk - sp).abs().max()),
+                cbar=float((ck - cp).abs().max()),
+                x0bar=float((xk - xp).abs().max()),
+                cbar_rel=max_rel(ck, cp), x0bar_rel=max_rel(xk, xp),
+                kernel_f64=float((sk - s64).abs().max()),
+                plain_f64=float((sp - s64).abs().max()))
+
+
+def rho_work_bound(plan, E, nt, B, store, backward):
+    """work_bound for one launch of a rho kernel. Bytes: stacks, jump and
+    solver planes, coefficients and x0 once, the history (and its cotangent)
+    and the stored iterates once. Operations: one T or Tt is 2 + 2 J complex
+    (N, N) products, (8 + 8 J) 2 N^3 real operations; a step applies
+    iters + 1 of them forward, and backward iters + 1 Tt and one complex
+    product per (cotangent, input) pair: W = c u^dag + (c u^dag)^dag is
+    Hermitian, so c u^dag, four real products of 2 N^3, is all it needs (the
+    kernel computes both halves). A backward that replays its stage
+    iterates recomputes them by its own choice: the replay is not
+    counted."""
+    N, K, J, it = plan.N, plan.K, plan.njump, plan.iters
+    NN, EB = N * N, E * B
+    const = 2 * K * NN + 4 * J * NN + plan.planes.numel() + E * nt * K \
+        + 2 * B * NN
+    hist = 2 * EB * nt * NN
+    ks = 2 * EB * nt * it * NN if store else 0
+    gen = (8 + 8 * J) * 2 * N ** 3
+    if backward:
+        words = const + 2 * hist + ks + 4 * EB * NN + EB * nt * K
+        flops = (it + 1) * gen + (it + 1) * 4 * 2 * N ** 3 + 8 * K * NN
+    else:
+        words = const + hist + ks + 2 * EB * NN
+        flops = (it + 1) * gen + 4 * K * NN
+    t_bytes = 4 * words / PEAK_BYTES_S
+    t_flops = EB * nt * flops / PEAK_F32_FLOP_S
+    return (1e3 * max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
+    """CUDA-event times of both rho kernels at the sizes of a sweep (stage
+    iterates stored where the gate on bytes stores them), their bounds and,
+    with `plain`, one timed run of each plain version at the same depth,
+    whose history and cotangents the kernels' are held against
+    (`full_depth`: states abs, cotangents x max)."""
+    E, nt = C.shape[:2]
+    fwd = rho._kernel_fwd(plan, x0r, x0i, C)
+    hr, hi, ksr, ksi = fwd[2:]
+    store = ksr is not None
+    oT, oh = torch.ones_like(fwd[0]), torch.ones_like(hr)
+    out = dict(
+        stored=store,
+        fwd=event_ms(lambda: rho._kernel_fwd(plan, x0r, x0i, C), reps),
+        bwd=event_ms(lambda: rho._kernel_bwd(
+            plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh, oh), reps),
+        fwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], store, False),
+        bwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], store, True))
+    if plain:
+        got = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh,
+                              oh)
+    del fwd, ksr, ksi
+    if plain:
+        kept = {}
+        with torch.no_grad():
+            out["plain_fwd"] = event_ms(lambda: kept.update(
+                fwd=rho.plain_forward(plan, x0r, x0i, C)), 1, warm=False)
+            out["plain_bwd"] = event_ms(lambda: kept.update(
+                bwd=rho.plain_backward(plan, x0r, x0i, C, hr, hi, oT, oT, oh,
+                                       oh)), 1, warm=False)
+        flat = lambda ts: torch.cat([t.flatten() for t in ts])
+        out["full_depth"] = dict(
+            state=float((flat((hr, hi)) - flat(kept["fwd"])).abs().max()),
+            x0bar_rel=max_rel(flat(got[:2]), flat(kept["bwd"][:2])),
+            cbar_rel=max_rel(got[2], kept["bwd"][2]))
+    return out
+
+
+def open_vg(prob, P):
+    """(J (E,), fidelity (E,), grad (E, n)) of the candidates P (E, n),
+    through the single-candidate entry point when E = 1."""
+    if P.shape[0] == 1:
+        (J, aux), g = prob.build_value_and_grad()(P[0], P[0])
+        return J[None], aux["fidelity"][None], g[None]
+    (J, aux), g = prob.build_ensemble_value_and_grad()(P, P[0])
+    return J, aux["fidelity"], g
+
+
+def open_errors(got, ref):
+    """Relative errors of (J, fidelity, grad) against a reference."""
+    (J, f, g), (Jr, fr, gr) = ([t.double().cpu() for t in x]
+                               for x in (got, ref))
+    return (float(((J - Jr).abs() / Jr.abs()).max()),
+            float((f - fr).abs().max()), max_rel(g, gr))
+
+
+OPEN_CONFIGS = {
+    "cnot4": lambda **kw: open_cnot_setup(False, **kw),
+    "cnot16": lambda **kw: open_cnot_setup(True, **kw),
+    "qutrits27": lambda **kw: midsize_setup(27, **kw),
+    "qudits64": lambda **kw: midsize_setup(64, **kw),
+}
+
+
+def f64_reference(name):
+    """((J, fidelity, grad), seconds) of open configuration `name` through
+    the complex128 port on the CPU, at the bench's parameter draw rounded to
+    float32 as the card takes it."""
+    prob = Problem(OPEN_CONFIGS[name](dtype=torch.complex128), device="cpu")
+    P = torch.as_tensor(bench_params(prob.setup.nparams),
+                        dtype=torch.float32).double()[None]
+    t0 = time.perf_counter()
+    out = open_vg(prob, P)
+    return out, time.perf_counter() - t0
+
+
+def ptxas_lines(log):
+    """What ptxas reports per kernel: entry, registers, spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "Compiling entry" in ln
+            or ("spill" in ln and "0 bytes spill stores" not in ln)]
+
+
+def reset_counts():
+    streamk.reset_launch_counts()
+    rho.reset_launch_counts()
+
+
 def main_path_launches(names):
     """Reads the counters after a main path was driven (they were set to 0
     just before it) and fails if a kernel of that path never launched."""
-    counts = streamk.launch_counts()
+    counts = {**streamk.launch_counts(), **rho.launch_counts()}
     missing = [k for k in names if counts[k] < 1]
     if missing:
         raise RuntimeError(f"main path did not launch {missing}: {counts}")
@@ -332,6 +639,7 @@ def main_path_launches(names):
 
 B1 = ("streamk_fwd_launches", "streamk_bwd_launches")
 B2 = ("streamk_packed_fwd_launches", "streamk_packed_bwd_launches")
+B4 = ("rho_fwd_launches", "rho_bwd_launches")
 
 
 def vg_errors(J, g, Jp, gp, J64, g64):
@@ -365,10 +673,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. build ----
-    path, secs, log = streamk.build_kernels(verbose=True)
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    phase(2, f"built {path} in {secs:.2f} s; " + " | ".join(ptxas))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        rho_build = pool.submit(rho.build_kernels, True)
+        path, secs, log = streamk.build_kernels(verbose=True)
+        rho_build = rho_build.result()
+    phase(2, f"built {path} in {secs:.2f} s (both sources in "
+             f"{time.perf_counter() - t0:.2f} s); " + " | ".join(ptxas_lines(log)))
 
     # ---- 3. kernel against plain at the flagship shapes ----
     setup = flagship_setup()
@@ -397,7 +708,7 @@ def main():
     # ---- 4. flagship value_and_grad through the kernels ----
     x = bench_params(setup.nparams)
     vg = prob.build_value_and_grad()
-    streamk.reset_launch_counts()
+    reset_counts()
     (J, aux), g = vg(x, x)
     torch.cuda.synchronize()
     launches = main_path_launches(B1)
@@ -515,11 +826,11 @@ def main():
 
     packed_obj = robust.build_packed_robust_objective(samples, w)
     x32 = x.astype(np.float32)
-    streamk.reset_launch_counts()
+    reset_counts()
     Jr, gr, auxr = robust_vg(packed_obj, x32, "cuda")
     torch.cuda.synchronize()
     launches_robust = main_path_launches(B2)
-    if launches_robust != dict(zip(B1 + B2, (0, 0, 1, 1))):
+    if launches_robust != dict(zip(B1 + B2 + B4, (0, 0, 1, 1, 0, 0))):
         raise RuntimeError("a packed robust gradient must be one launch of "
                            f"each packed kernel: {launches_robust}")
     J1, g1, _ = robust_vg(robust.build_robust_objective(samples, w), x32,
@@ -547,7 +858,7 @@ def main():
     walls = {}
     for label, kw in (("eager", dict(graph=False)), ("graph_cold", {}),
                       ("graph_warm", {})):
-        streamk.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res_d = run_optimization_device(prob, x, lb, ub, chunk=10, **tight,
                                         **kw)
@@ -579,7 +890,7 @@ def main():
     hooks = prob.packed_batch_fns(np.zeros(n))
     walls10 = []
     for _ in range(2):
-        streamk.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         xb, fb, tr, stats = batched_lbfgsb(
             None, None, x0s, lb10, ub10, iters=iters10, ls_lengths=8,
@@ -604,16 +915,229 @@ def main():
         raise RuntimeError("population optimizer: f_best is not the running "
                            "minimum of a finite trace inside the box")
 
-    src = "quandary_tpu_torch/csrc/streamk.cu"
-    tpu = "quandary_tpu/ops/pallas_stream.py"
+    # ---- 11. the build of the density-matrix kernels ----
+    rpath, rsecs, rlog = rho_build
+    phase(11, f"built {rpath} in {rsecs:.2f} s; "
+              + " | ".join(ptxas_lines(rlog)))
 
-    def record(name, line, n_launch, err, t, key, **more):
+    # ---- 12. rho kernels against plain at the open systems' stacks ----
+    c64 = torch.complex64
+    short = {
+        "cnot16": Problem(open_cnot_setup(True, ntime=NT_SHORT)),
+        "qutrits27": Problem(midsize_setup(27, ntime=NT_SHORT)),
+        "qudits64": Problem(midsize_setup(64, ntime=NT_SHORT)),
+    }
+    worst_r = dict(state=0.0, cbar=0.0, x0bar=0.0, kernel_f64=0.0,
+                   plain_f64=0.0)
+    for name, pr in short.items():
+        if pr.fused_form != "rho" or pr.linsolver != "jacobi":
+            raise RuntimeError(f"{name}: route {pr.fused_form}, solver "
+                               f"{pr.linsolver}; expected rho, jacobi")
+        st = pr.setup
+        it = st.linsolve_iters
+        # (solver, dt, jump operators, E, stored iterates); plain Neumann at
+        # dt/8, where its series converges on these stiff diagonals
+        cases = [("jacobi", st.dt, True, 1, True),
+                 ("jacobi", st.dt, True, 1, False),
+                 ("jacobi", st.dt, False, 1, True),
+                 ("split", st.dt, True, 1, True),
+                 ("split", st.dt, False, 1, False),
+                 ("neumann", st.dt / 8, True, 1, True),
+                 ("neumann", st.dt / 8, False, 1, False)]
+        if name == "cnot16":
+            cases += [("jacobi", st.dt, True, E_OPEN, False),
+                      ("split", st.dt, True, E_OPEN, True)]
+        for solver, dt, jumps, E, store in cases:
+            plan = rho.make_plan(pr._Sr, pr._Si,
+                                 pr.engine.Ls_np if jumps else None, dt, it,
+                                 pr.gen_diag, solver)
+            P = to_card(bench_params(st.nparams, E,
+                                     seed=int(rng.integers(1 << 30))))
+            C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+            err = rho_compare(plan, pr._x0r, pr._x0i, C, rng, store)
+            print(f"  rho {name} N={pr.N} {solver}-{it} jumps="
+                  f"{plan.njump} E={E} stored={store}: {json.dumps(err)}",
+                  flush=True)
+            for k in worst_r:
+                worst_r[k] = max(worst_r[k], err[k])
+            if err["state"] > TOL_RHO_STATE_ABS \
+                    or err["cbar_rel"] > TOL_RHO_GRAD_REL \
+                    or err["x0bar_rel"] > TOL_RHO_GRAD_REL \
+                    or err["kernel_f64"] > max(TOL_RHO_F64_ABS,
+                                               err["plain_f64"]):
+                raise RuntimeError(f"rho kernel disagrees with plain: {name} "
+                                   f"{solver} {err}")
+    phase(12, f"rho kernel == plain within abs {TOL_RHO_STATE_ABS} (states), "
+              f"{TOL_RHO_GRAD_REL} x max (cotangents), and within "
+              f"{TOL_RHO_F64_ABS} of plain f64 or closer than plain f32; "
+              f"worst {json.dumps(worst_r)}")
+
+    # ---- 13. configuration 1: the superop route on the streamK kernels ----
+    def drive(prob, P, want):
+        """One value_and_grad sweep of a main path: counters set to 0 just
+        before, read just after; `want` names the pair that must have
+        launched exactly once each, and nothing else may have."""
+        reset_counts()
+        out = open_vg(prob, P)
+        torch.cuda.synchronize()
+        counts = main_path_launches(want)
+        if any(v != (1 if k in want else 0) for k, v in counts.items()):
+            raise RuntimeError(f"a sweep must be one launch of each of "
+                               f"{want}: {counts}")
+        J, f, g = out
+        if not (bool(torch.isfinite(J).all()) and bool(torch.isfinite(g).all())
+                and g.shape == P.shape):
+            raise RuntimeError("non-finite or misshapen value_and_grad")
+        return out, counts
+
+    def against(name, got, ref, keyJ, keyg, what):
+        eJ, ef, eg = open_errors(got, ref)
+        tol = TOL_OPEN[name]
+        if eJ > tol[keyJ] or ef > tol[keyJ] or eg > tol[keyg]:
+            raise RuntimeError(f"{name} against {what}: J {eJ}, fidelity "
+                               f"{ef}, gradient {eg}; bounds {tol}")
+        return dict(J=eJ, fidelity=ef, grad=eg)
+
+    open_launches, open_report = {}, {}
+    cnot4 = OPEN_CONFIGS["cnot4"]
+    p4 = Problem(cnot4())
+    if p4.fused_form != "superop" or not p4.fused_ok:
+        raise RuntimeError(f"configuration 1 took route {p4.fused_form}")
+    P1 = to_card(bench_params(p4.setup.nparams))[None]
+    got4, open_launches["cnot4"] = drive(p4, P1, B1)
+    with plain_on_card():
+        plain4 = open_vg(p4, P1)
+    ref4, secs4 = f64_reference("cnot4")
+    p4r = Problem(cnot4(fused_rho="rho"))
+    got4r, _ = drive(p4r, P1, B4)
+    eJ, ef, eg = open_errors(got4r, got4)
+    open_report["cnot4"] = dict(
+        J=float(got4[0][0]), fidelity=float(got4[1][0]),
+        plain=against("cnot4", got4, plain4, "J_plain", "g_plain", "plain"),
+        f64=against("cnot4", got4, ref4, "J_f64", "g_f64", "the f64 port"),
+        rho_route_f64=against("cnot4", got4r, ref4, "J_f64", "g_f64",
+                              "the f64 port (rho route)"),
+        routes=dict(J=eJ, fidelity=ef, grad=eg), f64_cpu_seconds=secs4)
+    phase(13, f"configuration 1 (N=4, B=16, dim 16) on the superop route: "
+              f"launches {json.dumps(open_launches['cnot4'])}; "
+              f"{json.dumps(open_report['cnot4'])}")
+    if eJ > TOL_ROUTES_J or eg > TOL_ROUTES_G:
+        raise RuntimeError(f"the two routes disagree: J {eJ}, gradient {eg}")
+
+    # ---- 14. the rho route at full width and depth ----
+    full = {}
+    for name in ("cnot16", "qutrits27", "qudits64"):
+        fn = OPEN_CONFIGS[name]
+        pr = full[name] = Problem(fn())
+        if pr.fused_form != "rho" or not pr.fused_ok:
+            raise RuntimeError(f"{name} took route {pr.fused_form}")
+        P = to_card(bench_params(pr.setup.nparams))[None]
+        got, open_launches[name] = drive(pr, P, B4)
+        ps = short[name]
+        got_s = open_vg(ps, P)
+        with plain_on_card():
+            plain_s = open_vg(ps, P)
+        ref, secs = f64_reference(name)
+        open_report[name] = dict(
+            N=pr.N, ninit=pr.ninit, ntime=pr.setup.ntime,
+            J=float(got[0][0]), fidelity=float(got[1][0]),
+            plain_short=against(name, got_s, plain_s, "J_plain", "g_plain",
+                                f"plain at {NT_SHORT} steps"),
+            f64=against(name, got, ref, "J_f64", "g_f64", "the f64 port"),
+            f64_cpu_seconds=secs)
+        if name == "cnot16":
+            # E candidates: candidate 0 is the E = 1 control
+            PE = to_card(bench_params(pr.setup.nparams, E_OPEN, seed=7))
+            PE[0] = P[0]
+            gotE, open_launches["cnot16_E8"] = drive(pr, PE, B4)
+            with plain_on_card():
+                plain_E = open_vg(ps, PE)
+            open_report["cnot16_E8"] = dict(
+                J=[float(v) for v in gotE[0]],
+                first=against(name, [t[:1] for t in gotE], got, "J_plain",
+                              "g_plain", "the E = 1 sweep"),
+                plain_short=against(name, open_vg(ps, PE), plain_E, "J_plain",
+                                    "g_plain", f"plain at {NT_SHORT} steps"))
+    phase(14, f"rho route, one launch of each kernel per sweep: launches "
+              f"{json.dumps(open_launches)}; {json.dumps(open_report)}; "
+              f"bounds {json.dumps(TOL_OPEN)}")
+
+    # ---- 15. the device optimizer on configuration 2 ----
+    p16 = full["cnot16"]
+    lb16, ub16 = build_bounds(p16.setup.oscillators, [[0.045]] * 2)
+    x16 = bench_params(p16.setup.nparams)
+    reset_counts()
+    t0 = time.perf_counter()
+    res16 = run_optimization_device(p16, x16, lb16, ub16, chunk=2, maxiter=4,
+                                    gatol=1e-14, grtol=1e-30, inftol=1e-12,
+                                    fatol=1e-14, verbose=False)
+    wall16 = time.perf_counter() - t0
+    launches_dev16 = main_path_launches(B4)
+    objs16 = [h.objective for h in res16.history]
+    phase(15, f"device L-BFGS-B on configuration 2, {res16.niter} iterations "
+              f"in chunks of 2 (warm-up chunk, capture and 2 replays) in "
+              f"{wall16:.2f} s: J {' '.join(f'{v:.8f}' for v in objs16)}; "
+              f"launches {json.dumps(launches_dev16)}")
+    if not (res16.niter == 4 and np.all(np.isfinite(objs16))
+            and objs16[-1] < objs16[0]
+            and launches_dev16[B1[0]] == launches_dev16[B1[1]] == 0):
+        raise RuntimeError(f"device optimizer on the open problem: {objs16}")
+
+    # ---- 16. times ----
+    ms_r, rates_open = {}, {}
+    for name, pr, E, reps in (("cnot16", p16, 1, 3), ("cnot16_E8", p16,
+                                                      E_OPEN, 3),
+                              ("qutrits27", full["qutrits27"], 1, 2),
+                              ("qudits64", full["qudits64"], 1, 2)):
+        P = to_card(bench_params(pr.setup.nparams, E, seed=7))
+        C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+        ms_r[name] = rho_kernel_ms(pr._plan, pr._x0r, pr._x0i, C, reps,
+                                   plain=E == 1)
+        rates_open[name] = E / median_seconds(lambda: open_vg(pr, P), reps=3)
+    rates_open["cnot4"] = 1 / median_seconds(lambda: open_vg(p4, P1), reps=3)
+    C4 = streamk.extend_coeffs(p4._plan, p4.coeff_rows_mid(P1)[..., 0, :])
+    ms_4 = kernel_ms(p4._plan, p4._x0r, p4._x0i, C4, 5, 1)
+    phase(16, f"rho kernel ms {json.dumps(ms_r)}; configuration 1 on the "
+              f"streamK kernels {json.dumps(ms_4)}; sweeps/s (delivered, "
+              f"candidates per second) "
+              f"{json.dumps({k: round(v, 4) for k, v in rates_open.items()})}"
+              f"; card: {smi}")
+    for name, t in ms_r.items():
+        deep = t.get("full_depth")
+        if deep and (deep["state"] > TOL_RHO_FULL_STATE_ABS
+                     or deep["cbar_rel"] > TOL_RHO_FULL_GRAD_REL
+                     or deep["x0bar_rel"] > TOL_RHO_FULL_GRAD_REL):
+            raise RuntimeError(
+                f"rho kernel disagrees with plain at full depth: {name} "
+                f"{deep}; bounds {TOL_RHO_FULL_STATE_ABS} (states), "
+                f"{TOL_RHO_FULL_GRAD_REL} x max (cotangents)")
+
+    def record(name, line, n_launch, err, t, key,
+               src="quandary_tpu_torch/csrc/streamk.cu",
+               tpu="quandary_tpu/ops/pallas_stream.py", **more):
         bound_ms, bound_by = t[f"{key}_bound"]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": f"{tpu}:{line}", "launches": n_launch,
                 "max_abs_err": err, "ms": t[key],
                 "plain_ms": t[f"plain_{key}"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None, **more}
+
+    def rho_more(i):
+        key = ("fwd", "bwd")[i]
+        more = dict(src="quandary_tpu_torch/csrc/rho.cu",
+                    tpu="quandary_tpu/ops/pallas_rho.py",
+                    launches_superop_route=open_launches["cnot4"][B1[i]],
+                    launches_device_optimizer=launches_dev16[B4[i]])
+        for name, t in ms_r.items():
+            if "full_depth" in t:
+                more[f"full_depth_{name}"] = t["full_depth"]
+            if name != "cnot16":
+                more[f"launches_{name}"] = open_launches[name][B4[i]]
+                more[f"ms_{name}"] = t[key]
+                more[f"bound_ms_{name}"] = t[f"{key}_bound"][0]
+                if f"plain_{key}" in t:
+                    more[f"plain_ms_{name}"] = t[f"plain_{key}"]
+        return more
 
     # library_ms is null: no single PyTorch call computes a whole
     # propagation (a time loop of stage solves) or its transpose
@@ -628,7 +1152,14 @@ def main():
         record("streamk_packed_fwd", 1324, launches_robust[B2[0]],
                worst_p["state"], ms_p, "fwd"),
         record("streamk_packed_bwd", 1415, launches_robust[B2[1]],
-               max(worst_p["cbar"], worst_p["x0bar"]), ms_p, "bwd")]}))
+               max(worst_p["cbar"], worst_p["x0bar"]), ms_p, "bwd"),
+        # the rho kernels at configuration 2 (N = 16, B = 16, E = 1); the
+        # other sizes ride along
+        record("rho_fwd", 374, open_launches["cnot16"][B4[0]],
+               worst_r["state"], ms_r["cnot16"], "fwd", **rho_more(0)),
+        record("rho_bwd", 494, open_launches["cnot16"][B4[1]],
+               max(worst_r["cbar"], worst_r["x0bar"]), ms_r["cnot16"], "bwd",
+               **rho_more(1))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

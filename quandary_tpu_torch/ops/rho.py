@@ -1,0 +1,486 @@
+"""Density-matrix-form Lindblad propagation: the open system's state stays an
+(N, N) matrix and the generator is applied as two-sided matrix products,
+
+    T(rho) = M rho + rho M^dag + sum_l L_l rho L_l^dag,   M = -i H_eff(t),
+    H_eff(t) = sum_k c_k(t) S_k
+
+(the engine folds -i/2 sum L^dag L into stack slot 0, ops/rhs.py), never the
+N^2-dimensional vectorized superoperator. The whole IMR time loop runs in one
+kernel launch per direction.
+
+Port of quandary_tpu/ops/pallas_rho.py::make_rho_propagate (its forward and
+backward Pallas calls, with the step core of pallas_stream.py they inline)
+to hand-written CUDA for Hopper, csrc/rho.cu. The contract is the JAX one
+with ``real_io=True``:
+
+    propagate(Sr, Si, (x0r, x0i), C) -> ((xTr, xTi), (hr, hi))
+
+x0 (B, N, N), C (ntime, K) or (E, ntime, K) for E control candidates sharing
+x0, hist (ntime, B, N, N) or (E, ntime, B, N, N); differentiable in x0 and C.
+Stack and jump-operator cotangents are not computed: they are constants of
+the optimization, as in the JAX kernel. The backward applies the exact real
+transpose Tt(g) = M^dag g + g M + sum_l L_l^dag g L_l and reduces the H_eff
+cotangent of every (cotangent, input) pair against the stacks into
+coefficient cotangent rows.
+
+What differs from the TPU kernel: one thread block per (candidate, initial
+condition) with the time loop inside, exact f32 FMA (the TPU default is a
+3-pass bf16 emulation of f32 products), arrays of exactly (N, N) and
+(ntime, K) (no 128-lane padding, no lane-group packing of initial
+conditions), and E candidates in one launch.
+
+Device dispatch: a CUDA tensor goes to the kernel pair (built with nvcc at
+first use, bound with ctypes); a CPU tensor goes to ``rho_propagate_plain``,
+the same recursion on (re, im) planes in plain torch with the hand-written
+transpose as its backward, in any float dtype. There is no fallback from one
+to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .streamk import _MODES, _stage_bwd, _stage_fwd, _zeros_if_none
+
+# launches of each kernel since the counters were last set to 0
+rho_fwd_launches = 0
+rho_bwd_launches = 0
+_COUNTERS = ("rho_fwd_launches", "rho_bwd_launches")
+
+_SRC = os.path.join(cuda_build.CSRC_DIR, "rho.cu")
+_PLANES = 8             # (N, N) shared-memory planes of either kernel
+_RED_WARPS = 32         # rows of the backward's cross-warp reduction
+# the forward stores its stage iterates for the backward while they take no
+# more than this (iters x the history); past it the backward replays them
+KS_BUDGET_BYTES = int(1.5 * (1 << 30))
+
+
+def launch_counts() -> dict:
+    """The two launch counters by name."""
+    return {k: globals()[k] for k in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for k in _COUNTERS:
+        globals()[k] = 0
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` x `counts` to the counters: the replay of a CUDA graph
+    launches the kernels it captured without passing through the wrappers."""
+    for k, v in counts.items():
+        globals()[k] += times * v
+
+
+def solver_planes(gen_diag, dt: float, linsolver: str) -> np.ndarray:
+    """(nplanes, N, N) f64 entrywise planes of the stage solver in MATRIX
+    layout, from the (N, N) generator diagonal d: jacobi
+    (d_r, d_i, minv_r, minv_i) with Minv = 1/(1 - (dt/2) d); split
+    (e_r, e_i, d_r, d_i) with E = exp((dt/2) d), d being subtracted inside T;
+    neumann none (pallas_rho.py:101-120)."""
+    if linsolver not in _MODES:
+        raise NotImplementedError(
+            f"rho kernel supports neumann/jacobi/split, got {linsolver!r}")
+    if linsolver == "neumann":
+        return np.zeros((0, 0, 0))
+    if gen_diag is None:
+        raise ValueError(f"rho {linsolver} solve requires gen_diag")
+    d = np.asarray(gen_diag, dtype=np.complex128)
+    if d.ndim != 2 or d.shape[0] != d.shape[1]:
+        raise ValueError(f"gen_diag must be (N, N), got {d.shape}")
+    if linsolver == "jacobi":
+        m = 1.0 / (1.0 - 0.5 * dt * d)
+        return np.stack([d.real, d.imag, m.real, m.imag])
+    E = np.exp(0.5 * dt * d)
+    return np.stack([E.real, E.imag, d.real, d.imag])
+
+
+@dataclasses.dataclass
+class RhoPlan:
+    """Everything a launch needs besides x0 and the coefficients: the
+    (K, N, N) stack planes, the jump planes L (4, J, N, N) =
+    [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag (None without jump operators),
+    the entrywise solver planes (nplanes, N, N), the step constants and the
+    kernels' tile (entries per thread and axis)."""
+    Sr: torch.Tensor
+    Si: torch.Tensor
+    L: Optional[torch.Tensor]
+    planes: torch.Tensor
+    dt: float
+    iters: int
+    linsolver: str
+    tile: int
+
+    @property
+    def N(self) -> int:
+        return self.Sr.shape[-1]
+
+    @property
+    def K(self) -> int:
+        return self.Sr.shape[0]
+
+    @property
+    def njump(self) -> int:
+        return 0 if self.L is None else self.L.shape[1]
+
+
+def pick_tile(N: int) -> Optional[int]:
+    """Matrix entries per thread and axis, by what one block holds: 1 up to
+    N = 32 (one entry per thread, at most 1024 threads), else 4 up to N = 64
+    (256 threads of up to 255 registers hold 16 entries each). None past
+    64."""
+    if N <= 32:
+        return 1
+    return 4 if N <= 64 else None
+
+
+def _threads(N, tile):
+    return max(32, -(-(-(-N // tile)) ** 2 // 32) * 32)
+
+
+def _smem_bytes(N, K):
+    return 4 * (_PLANES * N * (N | 1) + _RED_WARPS * K)
+
+
+def launch_refusal(N: int, K: int):
+    """Why one thread block cannot hold an (N, N) density matrix with K
+    stack slots (a sentence naming the limit), or None when both kernels
+    take it."""
+    if pick_tile(N) is None:
+        return (f"rho kernel: N = {N} exceeds one block (N <= 64: a 4 x 4 "
+                "tile of entries per thread, 256 threads); multi-block "
+                "density matrices are not implemented")
+    smem = _smem_bytes(N, K)
+    if smem > cuda_build.MAX_SMEM:
+        return (f"rho kernel: {smem} bytes of shared memory exceed the "
+                f"{cuda_build.MAX_SMEM} a block can use (N={N}, K={K})")
+    return None
+
+
+def make_plan(Sr, Si, Ls, dt: float, iters: int, gen_diag=None,
+              linsolver: str = "neumann") -> RhoPlan:
+    """The launch plan for the (K, N, N) stack planes Sr, Si, on their device
+    and in their dtype. Ls: the jump operators, complex (J, N, N) array-like
+    or None; gen_diag: the (N, N) generator diagonal, for jacobi and split."""
+    dt, iters = float(dt), int(iters)
+    kw = dict(dtype=Sr.dtype, device=Sr.device)
+    N = Sr.shape[-1]
+    L = None
+    if Ls is not None and len(Ls) > 0:
+        Lc = np.stack([np.asarray(M, dtype=np.complex128) for M in Ls])
+        Lh = np.conj(np.swapaxes(Lc, -1, -2))
+        L = torch.as_tensor(np.stack([Lc.real, Lc.imag, Lh.real, Lh.imag]),
+                            **kw).contiguous()
+    planes = torch.as_tensor(solver_planes(gen_diag, dt, linsolver), **kw)
+    if planes.numel() and planes.shape[-1] != N:
+        raise ValueError(f"gen_diag must be ({N}, {N})")
+    return RhoPlan(Sr=Sr.contiguous(), Si=Si.contiguous(), L=L,
+                   planes=planes.contiguous(), dt=dt, iters=iters,
+                   linsolver=linsolver, tile=pick_tile(N) or 4)
+
+
+# ----------------------------------------------------------------------
+# plain torch version (CPU path and the kernels' oracle)
+# ----------------------------------------------------------------------
+
+def _cmm(ar, ai, br, bi):
+    """Complex matrix product on plane pairs."""
+    return ar @ br - ai @ bi, ar @ bi + ai @ br
+
+
+def _dagger(ar, ai):
+    return ar.transpose(-1, -2), -ai.transpose(-1, -2)
+
+
+def _solver_parts(plan):
+    """(jac, split, dsub) plane tuples: what _stage_fwd/_stage_bwd take, and
+    the diagonal that split subtracts inside the generator."""
+    p = plan.planes
+    if plan.linsolver == "jacobi":
+        return tuple(p), None, None
+    if plan.linsolver == "split":
+        return None, (p[0], p[1]), (p[2], p[3])
+    return None, None, None
+
+
+def _gen_ops(plan, Mr, Mi, dsub):
+    """T and its real transpose Tt on (E, B, N, N) plane pairs for this
+    step's M planes (E, 1, N, N) (pallas_rho.py:255-308):
+    T(v) = M v + v M^dag + sum_l (L_l v) L_l^dag - d v,
+    Tt(u) = M^dag u + u M + sum_l (L_l^dag u) L_l - conj(d) u."""
+    Mh = _dagger(Mr, Mi)
+    L = plan.L
+
+    def gen(A, Ah, adj):
+        def f(vr, vi):
+            lr, li = _cmm(A[0], A[1], vr, vi)
+            rr, ri = _cmm(vr, vi, Ah[0], Ah[1])
+            outr, outi = lr + rr, li + ri
+            if L is not None:
+                first, second = (L[2:], L[:2]) if adj else (L[:2], L[2:])
+                tr, ti = _cmm(first[0], first[1], vr.unsqueeze(-3),
+                              vi.unsqueeze(-3))
+                jr, ji = _cmm(tr, ti, second[0], second[1])
+                outr, outi = outr + jr.sum(-3), outi + ji.sum(-3)
+            if dsub is not None:
+                dr, di = dsub[0], (-dsub[1] if adj else dsub[1])
+                outr = outr - (dr * vr - di * vi)
+                outi = outi - (dr * vi + di * vr)
+            return outr, outi
+        return f
+
+    return gen((Mr, Mi), Mh, False), gen(Mh, (Mr, Mi), True)
+
+
+def _m_planes(plan, C):
+    """(E, nt, 1, N, N) planes of M = -i sum_k c_k S_k: M_r = A_i,
+    M_i = -A_r."""
+    Ar = torch.tensordot(C, plan.Sr, dims=1)
+    Ai = torch.tensordot(C, plan.Si, dims=1)
+    return Ai.unsqueeze(2), -Ar.unsqueeze(2)
+
+
+def plain_forward(plan, x0r, x0i, C):
+    """Plain forward (autograd-differentiable): x0 (B, N, N), C (E, nt, K)
+    -> hist pair (E, nt, B, N, N)."""
+    jac, split, dsub = _solver_parts(plan)
+    Mr, Mi = _m_planes(plan, C)
+    E = C.shape[0]
+    xr, xi = x0r.expand((E,) + x0r.shape), x0i.expand((E,) + x0i.shape)
+    hr, hi = [], []
+    for t in range(C.shape[1]):
+        T, _ = _gen_ops(plan, Mr[:, t], Mi[:, t], dsub)
+        xr, xi, _ = _stage_fwd(T, xr, xi, dt=plan.dt, iters=plan.iters,
+                               jac=jac, split=split)
+        hr.append(xr)
+        hi.append(xi)
+    return torch.stack(hr, dim=1), torch.stack(hi, dim=1)
+
+
+def plain_backward(plan, x0r, x0i, C, hr, hi, gTr, gTi, jr, ji):
+    """Hand-written transpose of plain_forward: the final-state and history
+    cotangents -> (x0 cotangent (B, N, N) pair, coefficient cotangent
+    (E, nt, K))."""
+    jac, split, dsub = _solver_parts(plan)
+    Mr, Mi = _m_planes(plan, C)
+    E, nt = C.shape[:2]
+    gr, gi = gTr, gTi
+    x0e = (x0r.expand((E,) + x0r.shape), x0i.expand((E,) + x0i.shape))
+    Cb = [None] * nt
+    for t in range(nt - 1, -1, -1):
+        gr, gi = gr + jr[:, t], gi + ji[:, t]
+        xpr, xpi = x0e if t == 0 else (hr[:, t - 1], hi[:, t - 1])
+        T, Tt = _gen_ops(plan, Mr[:, t], Mi[:, t], dsub)
+        pairs = []
+        gr, gi = _stage_bwd(T, Tt, xpr, xpi, gr, gi, pairs, dt=plan.dt,
+                            iters=plan.iters, jac=jac, split=split)
+        # H_eff cotangent W = sum over pairs and initial conditions of
+        # c u^dag + c^dag u, as two block products over the stacked pairs
+        cr, ci, ur, ui = (torch.cat(z, dim=1) for z in zip(*pairs))
+        Wr, Wi = _cmm(cr, ci, *_dagger(ur, ui))
+        Vr, Vi = _cmm(*_dagger(cr, ci), ur, ui)
+        Wr, Wi = (Wr + Vr).sum(1), (Wi + Vi).sum(1)        # (E, N, N)
+        # dA_i = Re W, dA_r = -Im W; C-bar_k = <dA_r, Sr_k> + <dA_i, Si_k>
+        Cb[t] = torch.einsum("epq,kpq->ek", Wr, plan.Si) \
+            - torch.einsum("epq,kpq->ek", Wi, plan.Sr)
+    return gr.sum(0), gi.sum(0), torch.stack(Cb, dim=1)
+
+
+class _PlainFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, x0r, x0i, C):
+        hr, hi = plain_forward(plan, x0r, x0i, C)
+        ctx.plan = plan
+        ctx.save_for_backward(x0r, x0i, C, hr, hi)
+        return hr[:, -1].clone(), hi[:, -1].clone(), hr, hi
+
+    @staticmethod
+    def backward(ctx, gxTr, gxTi, ghr, ghi):
+        x0r, x0i, C, hr, hi = ctx.saved_tensors
+        gr, gi, Cb = plain_backward(
+            ctx.plan, x0r, x0i, C, hr, hi,
+            _zeros_if_none(gxTr, hr[:, -1]), _zeros_if_none(gxTi, hi[:, -1]),
+            _zeros_if_none(ghr, hr), _zeros_if_none(ghi, hi))
+        return None, gr, gi, Cb
+
+
+def rho_propagate_plain(plan, x0r, x0i, C):
+    """Plain torch density-matrix propagation on any device and float dtype:
+    x0 (B, N, N) pair, C (E, nt, K) -> (xTr, xTi, hr, hi) with xT
+    (E, B, N, N) and hist (E, nt, B, N, N); the backward is the hand-written
+    transpose."""
+    return _PlainFn.apply(plan, x0r, x0i, C)
+
+
+# ----------------------------------------------------------------------
+# CUDA kernel pair
+# ----------------------------------------------------------------------
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 9 + [f, f, i, i, i, p]
+    for name, n_ptr in (("rho_fwd_launch", 13), ("rho_bwd_launch", 18)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [p] * n_ptr + tail, i
+
+
+def build_kernels(verbose: bool = False):
+    """Compile csrc/rho.cu (cuda_build.build_library) and load it, once per
+    process. Returns (library path, build seconds, compiler output)."""
+    return cuda_build.build_library(_SRC, _bind, verbose)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_cuda(plan, *ts):
+    why = launch_refusal(plan.N, plan.K)
+    if why is not None:
+        raise NotImplementedError(why)
+    own = (plan.Sr, plan.Si, plan.planes) + (() if plan.L is None
+                                             else (plan.L,))
+    for t in own + ts:
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise NotImplementedError(
+                "rho kernel runs float32 CUDA tensors only (complex128 is "
+                f"not ported to the GPU); got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("rho kernel needs contiguous tensors")
+
+
+def _launch_args(plan, E, nt, B, store):
+    N = plan.N
+    return (E, nt, B, N, plan.K, plan.njump, plan.iters,
+            _MODES[plan.linsolver], int(store), plan.dt, plan.dt / 2.0,
+            plan.tile, _threads(N, plan.tile), _smem_bytes(N, plan.K))
+
+
+def stores_iterates(plan, E, nt, B) -> bool:
+    """Whether a forward of this size keeps its stage iterates for the
+    backward (the gate on bytes of pallas_rho.py's store_iters)."""
+    ks_bytes = 2 * E * B * nt * plan.iters * plan.N * plan.N * 4
+    return plan.iters > 0 and ks_bytes <= KS_BUDGET_BYTES
+
+
+def _kernel_fwd(plan, x0r, x0i, C):
+    global rho_fwd_launches
+    _check_cuda(plan, x0r, x0i, C)
+    lib = cuda_build.library(_SRC, _bind)
+    E, nt, _ = C.shape
+    B, N, _ = x0r.shape
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=C.device)
+    xTr, xTi = new(E, B, N, N), new(E, B, N, N)
+    hr, hi = new(E, nt, B, N, N), new(E, nt, B, N, N)
+    ksr = ksi = None
+    store = stores_iterates(plan, E, nt, B)
+    if store:
+        ksr = new(E, B, nt, plan.iters, N, N)
+        ksi = new(E, B, nt, plan.iters, N, N)
+    err = lib.rho_fwd_launch(
+        *map(_ptr, (plan.Sr, plan.Si, plan.L, C, x0r, x0i, plan.planes, xTr,
+                    xTi, hr, hi, ksr, ksi)),
+        *_launch_args(plan, E, nt, B, store),
+        torch.cuda.current_stream(C.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rho_fwd launch failed: CUDA error {err}")
+    rho_fwd_launches += 1
+    return xTr, xTi, hr, hi, ksr, ksi
+
+
+def _kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+    global rho_bwd_launches
+    _check_cuda(plan, x0r, x0i, C, hr, hi, gTr, gTi, jr, ji)
+    lib = cuda_build.library(_SRC, _bind)
+    E, nt, K = C.shape
+    B, N, _ = x0r.shape
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=C.device)
+    store = ksr is not None
+    if not store:       # the replay's scratch: one step's iterates per block
+        ksr = new(E, B, max(plan.iters, 1), N, N)
+        ksi = torch.empty_like(ksr)
+    g0r, g0i = new(E, B, N, N), new(E, B, N, N)
+    Cb = new(E, B, nt, K)
+    err = lib.rho_bwd_launch(
+        *map(_ptr, (plan.Sr, plan.Si, plan.L, C, x0r, x0i, hr, hi, jr, ji,
+                    gTr, gTi, plan.planes, ksr, ksi, g0r, g0i, Cb)),
+        *_launch_args(plan, E, nt, B, store),
+        torch.cuda.current_stream(C.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rho_bwd launch failed: CUDA error {err}")
+    rho_bwd_launches += 1
+    # x0 is shared by the candidates; the coefficients by the initial
+    # conditions (pallas_rho.py:564)
+    return g0r.sum(0), g0i.sum(0), Cb.sum(1)
+
+
+class _KernelFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plan, x0r, x0i, C):
+        x0r, x0i, C = x0r.contiguous(), x0i.contiguous(), C.contiguous()
+        xTr, xTi, hr, hi, ksr, ksi = _kernel_fwd(plan, x0r, x0i, C)
+        ctx.plan = plan
+        ctx.has_ks = ksr is not None
+        saved = (x0r, x0i, C, hr, hi) + ((ksr, ksi) if ctx.has_ks else ())
+        ctx.save_for_backward(*saved)
+        return xTr, xTi, hr, hi
+
+    @staticmethod
+    def backward(ctx, gxTr, gxTi, ghr, ghi):
+        x0r, x0i, C, hr, hi = ctx.saved_tensors[:5]
+        ksr, ksi = ctx.saved_tensors[5:] if ctx.has_ks else (None, None)
+        gr, gi, Cb = _kernel_bwd(
+            ctx.plan, x0r, x0i, C, hr, hi, ksr, ksi,
+            _zeros_if_none(gxTr, hr[:, -1]), _zeros_if_none(gxTi, hi[:, -1]),
+            _zeros_if_none(ghr, hr), _zeros_if_none(ghi, hi))
+        return None, gr, gi, Cb
+
+
+def rho_propagate_kernel(plan, x0r, x0i, C):
+    """The CUDA kernel pair behind the same interface as rho_propagate_plain
+    (float32 CUDA tensors only)."""
+    return _KernelFn.apply(plan, x0r, x0i, C)
+
+
+def rho_propagate(plan, x0r, x0i, C):
+    """Device dispatch: the kernel pair for CUDA tensors, the plain version
+    for CPU tensors."""
+    if C.device.type == "cuda":
+        return rho_propagate_kernel(plan, x0r, x0i, C)
+    if C.device.type == "cpu":
+        return rho_propagate_plain(plan, x0r, x0i, C)
+    raise NotImplementedError(f"rho propagation has no path for {C.device}")
+
+
+def make_rho_propagate(Ls, dt: float, iters: int = 10, gen_diag=None,
+                       linsolver: str = "neumann"):
+    """Build propagate(Sr, Si, (x0r, x0i), C) -> ((xTr, xTi), (hr, hi)).
+
+    Sr, Si: (K, N, N) real/imaginary planes of the H_eff stack; Ls: the jump
+    operators (J, N, N) complex, or None; C: (ntime, K) or (E, ntime, K)
+    coefficient rows; x0 (B, N, N). linsolver 'jacobi' and 'split' need
+    gen_diag, the (N, N) generator diagonal. The plan is built anew only
+    when other stack tensors arrive."""
+    held = []
+
+    def propagate(Sr, Si, x0, C):
+        if not held or held[0] is not Sr or held[1] is not Si:
+            held[:] = [Sr, Si, make_plan(Sr, Si, Ls, dt, iters, gen_diag,
+                                         linsolver)]
+        plan = held[2]
+        dt_ = plan.Sr.dtype
+        Ce = (C if C.dim() == 3 else C[None]).to(dt_).contiguous()
+        xTr, xTi, hr, hi = rho_propagate(plan, x0[0].to(dt_), x0[1].to(dt_),
+                                         Ce)
+        if C.dim() == 2:
+            xTr, xTi, hr, hi = xTr[0], xTi[0], hr[0], hi[0]
+        return (xTr, xTi), (hr, hi)
+
+    return propagate

@@ -13,6 +13,8 @@ from typing import Callable
 
 import torch
 
+from .rhs import state_population
+
 
 def propagate(step_fn: Callable, x0, C):
     """Run the time loop and return the final state.
@@ -33,3 +35,11 @@ def propagate_trajectory(step_fn: Callable, x0, C):
     for n in range(C.shape[0]):
         xs.append(step_fn(xs[-1], C[n]))
     return torch.stack(xs, dim=0)
+
+
+# ----- observables (oscillator.cpp:430-566, mastereq.cpp:2897-2973) -----
+
+def population_full(x, lindblad: bool):
+    """Per-level population of the full system, shape (..., N):
+    |psi_i|^2 or Re(rho_ii)."""
+    return state_population(x, lindblad)

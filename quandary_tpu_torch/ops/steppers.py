@@ -66,8 +66,8 @@ def make_step_fn(rhs: Callable, dt: float, timestepper: str = "IMR",
     """Build the one-step update x_n -> x_{n+1}.
 
     rhs(c, x): applies M(t) given the coefficient row c.
-    gen_diag: host (N,) diagonal of the generator, needed by 'jacobi' and
-        'split'.
+    gen_diag: host diagonal of the generator in the state's shape ((N,), or
+        (N, N) for density matrices), needed by 'jacobi' and 'split'.
     linsolver: 'neumann' | 'jacobi' | 'split'. 'split' is a diagonally-split
         STEPPER: x -> E_{h/2} . IMR_V(h) . E_{h/2} x with the stiff diagonal
         D integrated exactly by E_s = exp(s*D) (computed in f64 on the host)

@@ -32,14 +32,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
+
+from . import cuda_build
 
 # launches of each kernel since the counters were last set to 0
 streamk_fwd_launches = 0
@@ -50,13 +48,9 @@ _COUNTERS = ("streamk_fwd_launches", "streamk_bwd_launches",
              "streamk_packed_fwd_launches", "streamk_packed_bwd_launches")
 
 _MODES = {"neumann": 0, "jacobi": 1, "split": 2}
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "streamk.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "build", "quandary_tpu_torch")
-_MAX_SMEM = 227 * 1024
-_LIBS = {}      # source path -> (loaded library, its path): one per process
+_SRC = os.path.join(cuda_build.CSRC_DIR, "streamk.cu")
+_MAX_SMEM = cuda_build.MAX_SMEM
+_LIBS = cuda_build.LIBS     # the loaded libraries, one table for all sources
 
 
 def launch_counts() -> dict:
@@ -322,35 +316,7 @@ def streamk_propagate_plain(plan, x0r, x0i, Ce):
 # CUDA kernel pair
 # ----------------------------------------------------------------------
 
-def build_kernels(verbose: bool = False):
-    """Compile csrc/streamk.cu with nvcc into build/quandary_tpu_torch/ (keyed
-    on a hash of the source) and load it, once per process: later calls
-    return the loaded library without touching the source file. Returns
-    (library path, build seconds, compiler output); seconds is 0 when the
-    library was already built."""
-    if _SRC in _LIBS:
-        return _LIBS[_SRC][1], 0.0, ""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libstreamk_{digest}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, _SRC]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
+def _bind(lib):
     p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                    ctypes.c_longlong)
     fwd = [p] * 12 + [i] * 8 + [f, f, i, i, p]
@@ -361,31 +327,41 @@ def build_kernels(verbose: bool = False):
                        ("streamk_packed_bwd_launch", bwd + [ll, ll])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i
-    _LIBS[_SRC] = (lib, path)
-    return path, seconds, log
 
 
-def launch_refusal(plan, B, N):
-    """Why one thread block cannot hold a candidate of this plan (a
-    sentence naming the limit), or None when both kernels take it."""
-    BN, NN, Ke, it = B * N, N * N, plan.Ke, plan.iters
+def build_kernels(verbose: bool = False):
+    """Compile csrc/streamk.cu (cuda_build.build_library) and load it, once
+    per process. Returns (library path, build seconds, compiler output)."""
+    return cuda_build.build_library(_SRC, _bind, verbose)
+
+
+def size_refusal(B, N, Ke, iters):
+    """Why one thread block cannot hold a candidate of B states of dimension
+    N with Ke stack slots and `iters` stage iterations (a sentence naming
+    the limit), or None when both kernels take it. Needs no stack."""
+    BN = B * N
     if BN > 1024:
         return (f"streamK kernel: B*N = {BN} state entries exceed one block "
                 "(1024 threads); multi-block candidates are not implemented")
-    smem = _smem_bytes(plan, B, N, _threads(B, N), backward=True)
+    smem = _smem_bytes(Ke, iters, B, N, _threads(B, N), backward=True)
     if smem > _MAX_SMEM:
         return (f"streamK kernel: {smem} bytes of shared memory exceed the "
                 f"{_MAX_SMEM} a block can use (N={N}, Ke={Ke}, B={B}, "
-                f"iters={it})")
+                f"iters={iters})")
     return None
+
+
+def launch_refusal(plan, B, N):
+    """size_refusal of a plan's stack slots and iterations."""
+    return size_refusal(B, N, plan.Ke, plan.iters)
 
 
 def _threads(B, N):
     return max(32, -(-max(B * N, min(N * N, 1024)) // 32) * 32)
 
 
-def _smem_bytes(plan, B, N, threads, backward: bool):
-    BN, NN, Ke, it = B * N, N * N, plan.Ke, plan.iters
+def _smem_bytes(Ke, it, B, N, threads, backward: bool):
+    BN, NN = B * N, N * N
     floats = 2 * Ke * NN + 2 * N * (N + 1)
     if backward:
         floats += 2 * NN + 2 * BN + 2 * it * BN + 2 * (it + 1) * BN \
@@ -403,7 +379,7 @@ def _launch_shape(plan, B, N, backward: bool):
     if why is not None:
         raise NotImplementedError(why)
     threads = _threads(B, N)
-    return threads, _smem_bytes(plan, B, N, threads, backward)
+    return threads, _smem_bytes(plan.Ke, plan.iters, B, N, threads, backward)
 
 
 def _ptr(t):
@@ -434,8 +410,7 @@ def _strides(plan):
 
 
 def _lib():
-    build_kernels()
-    return _LIBS[_SRC][0]
+    return cuda_build.library(_SRC, _bind)
 
 
 def _kernel_fwd(plan, x0r, x0i, Ce):
@@ -560,6 +535,25 @@ def make_plan(Sr, Si, dt: float, iters: int, gen_diag=None,
     return StreamKPlan(Sr=Sr.contiguous(), Si=Si.contiguous(),
                        rows=rows.contiguous(), dt=dt, iters=iters,
                        linsolver=linsolver, store_iters=iters <= 4)
+
+
+def lindblad_prime_stack(stack, Ls):
+    """(K, N^2, N^2) pseudo-Hamiltonian stack H' such that the streamK
+    kernels, which integrate dv/dt = -i H'(c) v, propagate the VECTORIZED
+    Lindblad equation: with the column-major vec(rho) generator
+    L(c) = -i A + i conj(B) + jump, set H' = i L, i.e. per slot
+    H'_j = I (x) O_j - conj(O_j) (x) I and slot 0 += i * sum_l conj(L_l)
+    (x) L_l. H' is NOT Hermitian (dissipation); the kernels never assume
+    Hermiticity (the backward applies the exact real transpose)."""
+    stack = np.asarray(stack)
+    K, N, _ = stack.shape
+    eye = np.eye(N)
+    Hp = np.stack([np.kron(eye, O) - np.kron(np.conj(O), eye)
+                   for O in stack]).astype(np.complex128)
+    if Ls is not None:
+        Hp[0] += 1j * sum(np.kron(np.conj(np.asarray(L)), np.asarray(L))
+                          for L in Ls)
+    return Hp.astype(stack.dtype)
 
 
 def extend_coeffs(plan, C):

@@ -32,13 +32,22 @@ import numpy as np
 import torch
 
 from ..io import output as out_io
-from ..ops import streamk
+from ..ops import rho, streamk
 from .batched_lbfgs import _direction, _remember
 from .driver import OptimHistoryRow, OptimResult
 from .lbfgsb import bounded_residual
 
 AUX_KEYS = ("fidelity", "obj_cost", "obj_regul", "obj_penal",
             "obj_penal_dpdm", "obj_penal_energy", "obj_penal_variation")
+
+
+# the modules whose wrappers count kernel launches
+_KERNEL_MODULES = (streamk, rho)
+
+
+def _add_launches(per_module, times=1):
+    for m, counts in zip(_KERNEL_MODULES, per_module):
+        m.add_launches(counts, times)
 
 
 def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
@@ -54,7 +63,7 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
     graph: replay the chunk as a CUDA graph (None: on a CUDA problem). The
     graph is captured at the first chunk_fn call, after one eager warm-up
     chunk; a capture that fails raises. Each replay adds the kernel
-    launches it stands for to the streamk launch counters."""
+    launches it stands for to the kernels' launch counters."""
     rdtype, dev = problem.rdtype, problem.device
     on_cuda = dev.type == "cuda"
     graph = on_cuda if graph is None else bool(graph)
@@ -67,7 +76,7 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
     ts = 0.5 ** torch.arange(ls_lengths, **kw)
 
     vg = problem.build_value_and_grad()
-    # With the fused streamK path the line search goes SPECULATIVE:
+    # With a fused path the line search goes SPECULATIVE:
     # value_and_grad at ALL trial lengths in one ensemble call (one forward
     # and one backward launch per iteration), then select; the gradient at
     # the accepted point comes out of the same launches, so the separate
@@ -198,16 +207,16 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
         with torch.cuda.stream(side):
             chunk_eager(static)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = streamk.launch_counts()
+        before = [m.launch_counts() for m in _KERNEL_MODULES]
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             new, rows, _ = chunk_eager(static)
             for k in static:
                 static[k].copy_(new[k])
         # the wrappers counted the captured launches, which did not run
-        per_chunk = {k: v - before[k]
-                     for k, v in streamk.launch_counts().items()}
-        streamk.add_launches(per_chunk, -1)
+        per_chunk = [{k: v - b[k] for k, v in m.launch_counts().items()}
+                     for m, b in zip(_KERNEL_MODULES, before)]
+        _add_launches(per_chunk, -1)
         captured.update(graph=g, static=static, rows=rows,
                         per_chunk=per_chunk)
 
@@ -219,7 +228,7 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
             for k in static:
                 static[k].copy_(st[k])
         captured["graph"].replay()
-        streamk.add_launches(captured["per_chunk"])
+        _add_launches(captured["per_chunk"])
         return static, captured["rows"], static["done"]
 
     return init, chunk_graph

@@ -115,6 +115,11 @@ def build_packed_robust_objective(problems: Sequence,
     p0 = problems[0]
     s0 = p0.setup
     for p in problems:
+        if p.lindblad:
+            raise NotImplementedError(
+                "the packed robust objective of open (Lindblad) systems is "
+                "not ported to quandary_tpu_torch yet; "
+                "build_robust_objective runs them sample by sample")
         if not p.use_fused:
             raise ValueError("packed robust objective needs the fused "
                              "streamK path on every sample Problem")

@@ -1,29 +1,37 @@
 """Problem assembly: from a resolved setup to differentiable objective
 functions, in PyTorch.
 
-Counterpart of quandary_tpu/problem.py for closed systems with the dense
-operator-stack engine and the single-stage IMR stepper. The multi-initial-
-condition objective (forward propagation of the whole batch, final-time
-cost, fidelity, the penalty integrals and the regularizers) is one torch
-function of the control parameters, evaluated for a (E, nparams) batch of
-control candidates at once.
+Counterpart of quandary_tpu/problem.py for closed and open (Lindblad)
+systems with the dense operator-stack engine and the single-stage IMR
+stepper. The multi-initial-condition objective (forward propagation of the
+whole batch, final-time cost, fidelity, the penalty integrals and the
+regularizers) is one torch function of the control parameters, evaluated
+for a (E, nparams) batch of control candidates at once.
 
 Two propagation paths, as in the JAX package:
 
-* fused (the default): the streamK propagation of ops/streamk.py, which runs
-  the CUDA kernel pair on the GPU and its plain torch version on the CPU;
-  the objective tail runs on (re, im) planes;
+* fused (the default): one kernel launch per direction, the CUDA kernel
+  pair on the GPU and its plain torch version on the CPU; the objective
+  tail runs on (re, im) planes. Closed systems run the streamK propagation
+  of ops/streamk.py. Open systems take one of two routes
+  (``Setup.fused_rho``): 'superop', the column-major vec(rho) of dimension
+  N^2 on the same streamK kernels with the pseudo-Hamiltonian stack
+  H' = i L (lindblad_prime_stack), or 'rho', the density-matrix kernels of
+  ops/rho.py, whose state stays an (N, N) matrix. 'auto' takes superop
+  where one thread block of the streamK kernels holds dimension N^2, else
+  rho;
 * plain (``fused=False``, CPU only): the complex-arithmetic step function
-  in a Python time loop, differentiated by autograd.
+  in a Python time loop, differentiated by autograd (density matrices in
+  matrix form).
 
 The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
 that argument the constructor raises.
 
-Not ported yet, and refused with NotImplementedError: open systems,
-structured engines, IMR4/IMR8/EE, GMRES, the time-parallel scan; on CUDA
-also complex128, the plain path, and systems past what one thread block of
-the streamK kernels holds (``Problem.fused_ok``).
+Not ported yet, and refused with NotImplementedError: structured engines,
+IMR4/IMR8/EE, GMRES, the time-parallel scan; on CUDA also complex128, the
+plain path, and systems past what one thread block of the route's kernels
+holds (``Problem.fused_ok``).
 """
 
 from __future__ import annotations
@@ -38,10 +46,9 @@ from .models import initialconditions as ic
 from .models.controls import (control_variation_penalty, eval_controls,
                               eval_controls_labframe, plan_on_device)
 from .models.hamiltonian import HamiltonianModel
-from .ops import solvers
+from .ops import rho, solvers, streamk
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
-from .ops import streamk
 from .utils.indexing import flat_index, guard_mask
 from .utils.splines import OscillatorControl, build_control_plan
 
@@ -86,9 +93,15 @@ class Setup:
     gamma_penalty_variation: float = 0.0
 
     dtype: torch.dtype = torch.complex128
-    # True: streamK propagation (kernel on CUDA, plain torch on CPU);
+    # True: fused propagation (kernel on CUDA, plain torch on CPU);
     # False: the plain complex time loop (CPU only)
     fused: bool = True
+    # Fused state form for OPEN systems (quandary_tpu's pallas_rho): 'auto'
+    # runs the vectorized superoperator on the streamK kernels where one
+    # thread block holds dimension N^2 and the density-matrix kernels
+    # (ops/rho.py) past that; 'rho' forces the matrix form, 'superop'
+    # forbids it.
+    fused_rho: str = "auto"
 
     @property
     def total_time(self) -> float:
@@ -116,23 +129,23 @@ class Problem:
             device = "cuda"
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
-        if model.lindblad:
-            raise NotImplementedError(
-                "open (Lindblad) systems are not ported to "
-                "quandary_tpu_torch yet")
+        self.lindblad = model.lindblad
+        if s.fused_rho not in ("auto", "rho", "superop"):
+            raise ValueError("fused_rho must be 'auto', 'rho' or 'superop', "
+                             f"got {s.fused_rho!r}")
         if s.dtype not in (torch.complex64, torch.complex128):
             raise ValueError(f"dtype must be complex64/complex128, got {s.dtype}")
         if cuda and s.dtype != torch.complex64:
             raise NotImplementedError(
-                "complex128 is not ported to CUDA: the streamK kernels run "
-                "float32 planes (dtype=torch.complex64)")
-        # the fused-path gate, reduced to the closed dense single-stage
-        # branch (make_step_fn below refuses every other stepper/solver)
+                "complex128 is not ported to CUDA: the kernels run float32 "
+                "planes (dtype=torch.complex64)")
+        # the fused-path gate, reduced to the dense single-stage branch
+        # (make_step_fn below refuses every other stepper/solver)
         self.use_fused = bool(s.fused)
         if cuda and not self.use_fused:
             raise NotImplementedError(
-                "on CUDA only the fused streamK path is ported; the plain "
-                "complex time loop (fused=False) runs on the CPU")
+                "on CUDA only the fused streamK and rho paths are ported; "
+                "the plain complex time loop (fused=False) runs on the CPU")
         if cuda and self.device.index is None:
             # with its index ("cuda" -> "cuda:0"), as tensors report it
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -157,7 +170,7 @@ class Problem:
         osc_ids = s.initcond_ids if len(s.initcond_ids) > 0 \
             else tuple(range(model.n_osc))
         x0_np, _ = ic.build_initial_states(
-            s.initcond_type, model.dims, s.nessential, osc_ids, False,
+            s.initcond_type, model.dims, s.nessential, osc_ids, self.lindblad,
             pure_levels=s.pure_levels, from_file_state=s.initial_state_ess)
         self.ninit = x0_np.shape[0]
         self.x0 = x0_np.astype(npdt)
@@ -177,10 +190,16 @@ class Problem:
             self.target = np.asarray(s.target_batch).astype(npdt)
         elif s.target_type == "gate" and s.target_gate_full is not None:
             V = np.asarray(s.target_gate_full, dtype=np.complex128)
-            self.target = np.einsum("ij,bj->bi", V, x0_np).astype(npdt)
+            if self.lindblad:
+                tgt = np.einsum("ij,bjk,lk->bil", V, x0_np, V.conj())
+            else:
+                tgt = np.einsum("ij,bj->bi", V, x0_np)
+            self.target = tgt.astype(npdt)
         elif s.target_type in ("file", "state") \
                 and s.target_state_full is not None:
             t1 = np.asarray(s.target_state_full, dtype=np.complex128)
+            if self.lindblad and t1.ndim == 1:
+                t1 = np.outer(t1, t1.conj())
             tgt = np.broadcast_to(t1, (self.ninit,) + t1.shape)
             self.target = np.ascontiguousarray(tgt).astype(npdt)
         elif s.target_type == "pure":
@@ -192,6 +211,7 @@ class Problem:
                 "target (expected gate/file/state/pure/none with the "
                 "matching target_* field set)")
 
+        # purity Tr(rho0^2) per initial condition (optimtarget.cpp:701-708)
         flat0 = x0_np.reshape(self.ninit, -1)
         self.purity = np.maximum(np.sum(np.abs(flat0) ** 2, axis=1),
                                  1e-300).astype(nprdt)
@@ -224,23 +244,51 @@ class Problem:
                                     s.linsolve_iters, self.linsolver,
                                     gen_diag=self.gen_diag)
 
+        # --- the fused route (the JAX package's pallas_form gate) ---
+        # closed: streamK on (B, N) vectors. Open: 'superop', streamK on the
+        # column-major vec(rho) of dimension N^2, where one thread block of
+        # those kernels holds it (or when forced); else 'rho', the
+        # density-matrix kernels on (B, N, N) matrices.
+        iters, K = s.linsolve_iters, model.K
+        self.fused_form = None
+        if self.use_fused:
+            self.fused_form = "streamk"
+            if self.lindblad:
+                too_big = streamk.size_refusal(
+                    self.ninit, self.N * self.N,
+                    K + (self.linsolver == "split"), iters) is not None
+                self.fused_form = "rho" if s.fused_rho == "rho" or (
+                    s.fused_rho == "auto" and too_big) else "superop"
+        # superop states are FLAT: diagonals become the strided j*(N+1)
+        # gather and the Hilbert-Schmidt overlap the same flat sum
+        self._flat = self.fused_form == "superop"
+        self._srank = 2 if self.lindblad and not self._flat else 1
+
         # --- constants on the device: real planes of x0, the target and
-        # the operator stack ---
+        # the operator stack, in the fused route's state layout ---
         dev = dict(device=self.device)
         rt = lambda a: torch.as_tensor(np.ascontiguousarray(a), **dev).to(
             self.rdtype)
-        self._x0r, self._x0i = rt(self.x0.real), rt(self.x0.imag)
+        vec = (lambda a: a.transpose(0, 2, 1).reshape(self.ninit, -1)) \
+            if self._flat else (lambda a: a)
+        x0k = vec(self.x0)
+        self._x0r, self._x0i = rt(x0k.real), rt(x0k.imag)
         self._x0c = torch.as_tensor(self.x0, **dev)
         if self.target is not None:
-            self._tgtr, self._tgti = rt(self.target.real), rt(self.target.imag)
+            tk = vec(self.target)
+            self._tgtr, self._tgti = rt(tk.real), rt(tk.imag)
         self._weights = rt(self.weights)
         self._purity = rt(self.purity)
         self._gmask = rt(self.guard_mask.astype(nprdt))
         self._jt_weight = None if self.jt_weight is None else rt(self.jt_weight)
         self._measure = None if self.measure_weights is None \
             else rt(self.measure_weights)
-        self._Sr = rt(self.engine.stack_np.real)
-        self._Si = rt(self.engine.stack_np.imag)
+        self._diag_idx = torch.arange(self.N, device=self.device) \
+            * (self.N + 1)
+        stack_k = streamk.lindblad_prime_stack(
+            self.engine.stack_np, self.engine.Ls_np) if self._flat \
+            else self.engine.stack_np
+        self._Sr, self._Si = rt(stack_k.real), rt(stack_k.imag)
         # the control plans and the JC phase columns as device tensors, so
         # that an objective evaluation copies nothing from the host
         self._plan_mid = plan_on_device(self.plan_mid, self.rdtype,
@@ -248,46 +296,70 @@ class Problem:
         self._plan_stop = plan_on_device(self.plan_stop, self.rdtype,
                                          self.device)
         self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
-        # the streamK launch plan (extended stacks, solver rows), built once
+        # the route's launch plan (stacks, solver rows or planes), built once
         self._plan = self._refusal = None
-        if self.use_fused:
-            self._plan = streamk.make_plan(
-                self._Sr, self._Si, s.dt, s.linsolve_iters, self.gen_diag,
-                self.linsolver)
-            self._refusal = streamk.launch_refusal(self._plan, self.ninit,
-                                                   self.N)
-            if cuda and self._refusal is not None:
-                raise NotImplementedError(self._refusal)
+        if self.fused_form == "rho":
+            self._plan = rho.make_plan(
+                self._Sr, self._Si, self.engine.Ls_np, s.dt, iters,
+                self.gen_diag, self.linsolver)
+            self._refusal = rho.launch_refusal(self.N, K)
+        elif self.use_fused:
+            gd = self.gen_diag.T.reshape(-1) if self._flat else self.gen_diag
+            self._plan = streamk.make_plan(self._Sr, self._Si, s.dt, iters,
+                                           gd, self.linsolver)
+            self._refusal = streamk.launch_refusal(
+                self._plan, self.ninit, self._Sr.shape[-1])
+        if cuda and self._refusal is not None:
+            raise NotImplementedError(self._refusal)
 
     @property
     def fused_ok(self) -> bool:
-        """Whether the streamK kernels admit this problem: the fused path is
-        on and one candidate (B*N state entries, the stacks, the stage
-        iterates) fits one thread block. `fused_refusal` names the limit
-        otherwise. On the CPU it tells what the card would do; the plain
-        version there runs any size."""
+        """Whether the kernels of the problem's fused route (`fused_form`)
+        admit it: the fused path is on and one thread block holds a
+        candidate (streamK: B*dim state entries, the stacks and the stage
+        iterates; rho: one (N, N) density matrix). `fused_refusal` names the
+        limit otherwise. On the CPU it tells what the card would do; the
+        plain version there runs any size."""
         return self.use_fused and self._refusal is None
 
     @property
     def fused_refusal(self) -> Optional[str]:
         if not self.use_fused:
-            return "the fused streamK path is off (Setup.fused=False)"
+            return "the fused path is off (Setup.fused=False)"
         return self._refusal
 
     # ------------------------------------------------------------------
     # objective tail on (re, im) planes; every function takes leading
-    # candidate axes (..., B, N) / (..., ntime, B, N)
+    # candidate axes: states (..., B, N) closed, (..., B, N^2) open on the
+    # superop route (column-major vec(rho)), (..., B, N, N) open otherwise;
+    # histories carry the time axis before B
     # ------------------------------------------------------------------
 
+    def _state_sum(self, t):
+        """Sum over the state axes (one, or two for (N, N) matrices)."""
+        return torch.sum(t, dim=tuple(range(-self._srank, 0)))
+
+    def _diag_real(self, xr):
+        """Diagonal entries of one plane, (..., N): rho_ii for open systems
+        (the strided j*(N+1) gather in the flat vec layout), the plane
+        itself for closed ones."""
+        if not self.lindblad:
+            return xr
+        if self._flat:
+            return xr[..., self._diag_idx]
+        return torch.diagonal(xr, dim1=-2, dim2=-1)
+
     def _overlaps_real(self, xr, xi):
-        """<target, x> per initial condition: (Re, Im) of shape (..., B)."""
+        """Hilbert-Schmidt overlap <target, x> per initial condition:
+        (Re, Im) of shape (..., B)."""
         if self.target is not None:
-            re = torch.sum(self._tgtr * xr + self._tgti * xi, dim=-1)
-            im = torch.sum(self._tgtr * xi - self._tgti * xr, dim=-1)
+            re = self._state_sum(self._tgtr * xr + self._tgti * xi)
+            im = self._state_sum(self._tgtr * xi - self._tgti * xr)
             return re, im
         if self.pure_target_id is not None:
-            return xr[..., self.pure_target_id], xi[..., self.pure_target_id]
-        z = xr.new_zeros(xr.shape[:-1])
+            m = self.pure_target_id
+            return self._diag_real(xr)[..., m], self._diag_real(xi)[..., m]
+        z = xr.new_zeros(xr.shape[:-self._srank])
         return z, z
 
     def _eval_J_parts_real(self, xr, xi):
@@ -299,36 +371,42 @@ class Problem:
         if obj == "Jfrobenius":
             if self.target is not None:
                 dr, di = xr - self._tgtr, xi - self._tgti
-                J = 0.5 * torch.sum(dr * dr + di * di, dim=-1)
+                J = 0.5 * self._state_sum(dr * dr + di * di)
             else:
-                m = self.pure_target_id
-                norm2 = torch.sum(xr * xr + xi * xi, dim=-1)
-                J = 0.5 * (norm2 - 2.0 * xr[..., m] + 1.0)
+                dm = self._diag_real(xr)[..., self.pure_target_id]
+                norm2 = self._state_sum(xr * xr + xi * xi)
+                J = 0.5 * (norm2 - 2.0 * dm + 1.0)
             return J, torch.zeros_like(J)
         if obj == "Jmeasure":
-            J = (xr * xr + xi * xi) @ self._measure
+            pop = self._diag_real(xr) if self.lindblad else xr * xr + xi * xi
+            J = pop @ self._measure
             return J, torch.zeros_like(J)
         raise ValueError(obj)
 
     def _finalize_J(self, J_re, J_im):
+        """Scalar objective from the J parts (optimtarget.cpp:864-879)."""
         if self.setup.objective_type == "Jtrace":
+            if self.lindblad:
+                return 1.0 - J_re
             return 1.0 - (J_re ** 2 + J_im ** 2)
         return J_re
 
     def _history_penalties_real(self, hr, hi):
-        """Integral penalties over the (..., ntime, B, N) history: guard
-        leakage, the weighted-J window and the population second
-        difference (dpdm); each (..., B) or None when off."""
+        """Integral penalties over the (..., ntime, B, state) history: guard
+        leakage (on the diagonal for open systems), the weighted-J window
+        and the population second difference (dpdm, closed systems only);
+        each (..., B) or None when off."""
         s = self.setup
         pen_leak = pen_jt = pen_dpdm = None
         if self.has_guard and s.gamma_penalty > 1e-13:
-            leak = torch.sum((hr * hr + hi * hi) * self._gmask, dim=-1)
+            dr, di = self._diag_real(hr), self._diag_real(hi)
+            leak = torch.sum((dr * dr + di * di) * self._gmask, dim=-1)
             pen_leak = torch.sum(leak, dim=-2) / s.ntime
         if self._jt_weight is not None and s.gamma_penalty > 1e-13:
             re, im = self._eval_J_parts_real(hr, hi)
             Jtb = self._finalize_J(re, im)
             pen_jt = torch.sum(self._jt_weight[:, None] * Jtb, dim=-2) * s.dt
-        if s.gamma_penalty_dpdm > 1e-13:
+        if s.gamma_penalty_dpdm > 1e-13 and not self.lindblad:
             pop0 = (self._x0r ** 2 + self._x0i ** 2).expand(
                 hr.shape[:-3] + (1,) + self._x0r.shape)
             pop = torch.cat([pop0, hr * hr + hi * hi], dim=-3)
@@ -357,7 +435,7 @@ class Problem:
         ov_re, ov_im = self._overlaps_real(xTr, xTi)
         fid_re = torch.sum(ov_re, dim=-1) / self.ninit
         fid_im = torch.sum(ov_im, dim=-1) / self.ninit
-        fidelity = fid_re ** 2 + fid_im ** 2
+        fidelity = fid_re if self.lindblad else fid_re ** 2 + fid_im ** 2
 
         dx = params - params_ref if s.gamma_tik_interpolate else params
         obj_regul = 0.5 * s.gamma_tik * torch.sum(dx * dx, dim=-1)
@@ -411,7 +489,11 @@ class Problem:
         """Objective of the (E, nparams) candidates Ps: (J (E,), aux)."""
         C = self.coeff_rows_mid(Ps)
         energy_int = self._energy_integral(Ps)
-        if self.use_fused:
+        if self.fused_form == "rho":
+            xTr, xTi, hr, hi = rho.rho_propagate(
+                self._plan, self._x0r, self._x0i,
+                C[..., 0, :].to(self.rdtype).contiguous())
+        elif self.use_fused:
             xTr, xTi, hr, hi = streamk.streamk_propagate(
                 self._plan, self._x0r, self._x0i,
                 streamk.extend_coeffs(self._plan, C[..., 0, :]))
@@ -459,7 +541,7 @@ class Problem:
 
     def build_ensemble_value_and_grad(self):
         """fn(Ps, params_ref) -> ((J (E,), aux (E,)), grad (E, nparams)):
-        E control candidates through one streamK launch per direction. Each
+        E control candidates through one kernel launch per direction. Each
         J_e depends on Ps[e] only, so the gradient of sum(J) is the stack of
         per-candidate gradients."""
         def evg(Ps, params_ref):

@@ -1,9 +1,7 @@
 """Physics sanity checks, the SANITY_CHECK build-flag analog
 (util.cpp:430-565; per-step assertions timestepper.cpp:156-158).
 
-Vectorized over whole trajectories instead of per step. The
-density-matrix check of quandary_tpu/utils/sanity.py waits for the open
-systems."""
+Vectorized over whole trajectories instead of per step."""
 
 from __future__ import annotations
 
@@ -14,6 +12,23 @@ def is_unitary(V: np.ndarray, tol: float = 1e-10) -> bool:
     """util.cpp:699 isUnitary."""
     V = np.asarray(V)
     return bool(np.abs(V @ V.conj().T - np.eye(V.shape[0])).max() < tol)
+
+
+def check_density_trajectory(traj, tol: float = 1e-8) -> dict:
+    """Hermiticity / trace-1 / near-positivity of a density-matrix
+    trajectory (..., N, N). Returns max violations."""
+    traj = np.asarray(traj)
+    herm = np.abs(traj - np.conj(np.swapaxes(traj, -1, -2))).max()
+    tr = np.abs(np.trace(traj, axis1=-2, axis2=-1).real - 1.0).max()
+    # smallest eigenvalue of the final state only (eigh over the full
+    # trajectory can be expensive)
+    w = np.linalg.eigvalsh(traj.reshape(-1, *traj.shape[-2:])[-1])
+    return {
+        "hermiticity": float(herm),
+        "trace": float(tr),
+        "min_eig_final": float(w.min()),
+        "ok": bool(herm < tol and tr < tol and w.min() > -tol),
+    }
 
 
 def check_state_trajectory(traj, tol: float = 1e-8) -> dict:

@@ -233,3 +233,130 @@ def test_problem_on_card_matches_cpu(cuda):
     with pytest.raises(NotImplementedError):
         Problem(dataclasses.replace(setup, dtype=torch.complex128),
                 device="cuda")
+
+
+def _random_open_system(rng, n, k, njump):
+    """Folded H_eff stack (k, n, n), jump operators (None when njump is 0)
+    and the (n, n) generator diagonal of a random open system."""
+    def herm():
+        A = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+        return (A + A.conj().T) / 2 / np.sqrt(n)
+
+    stack = np.stack([herm() for _ in range(k)])
+    Ls = [0.3 / np.sqrt(n) * (rng.normal(size=(n, n))
+                              + 1j * rng.normal(size=(n, n)))
+          for _ in range(njump)]
+    if Ls:
+        stack[0] = stack[0] - 0.5j * sum(L.conj().T @ L for L in Ls)
+    h = np.diagonal(stack[0])
+    gd = -1j * (h[:, None] - np.conj(h)[None, :])
+    for L in Ls:
+        dl = np.diagonal(L)
+        gd = gd + dl[:, None] * np.conj(dl)[None, :]
+    return stack, Ls or None, gd
+
+
+# N = 32 fills the 1024 threads of the one-entry tile; 33 is the first N of
+# the 4 x 4 tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump,E", [(16, 4, 1), (16, 0, 3), (27, 6, 2),
+                                       (32, 2, 1), (33, 2, 1), (64, 4, 2)])
+@pytest.mark.parametrize("solver,iters", [("neumann", 3), ("jacobi", 6),
+                                          ("split", 3), ("neumann", 0)])
+def test_rho_kernel_matches_plain_on_card(cuda, solver, iters, n, njump, E):
+    """The density-matrix kernel pair against its plain version on the card,
+    with stored and with replayed stage iterates: states to 1e-5 of max,
+    coefficient and x0 cotangents to 1e-4 of max; one launch each."""
+    from quandary_tpu_torch.ops import rho
+    rng = np.random.default_rng(n + njump)
+    stack, Ls, gd = _random_open_system(rng, n, 3, njump)
+    f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
+    plan = rho.make_plan(f32(stack.real), f32(stack.imag), Ls, 0.05, iters,
+                         gd, solver)
+    C = f32(rng.normal(size=(E, NT, 3)) * 0.5)
+    x0 = rng.normal(size=(2, B, n, n)) / np.sqrt(n)
+    wh = f32(rng.normal(size=(E, NT, B, n, n)))
+    wT = f32(rng.normal(size=(E, B, n, n)))
+
+    def run(fn):
+        Cg = C.clone().requires_grad_()
+        x0r, x0i = f32(x0[0]).requires_grad_(), f32(x0[1]).requires_grad_()
+        xTr, xTi, hr, hi = fn(plan, x0r, x0i, Cg)
+        (torch.sum(wT * xTr) + torch.sum(wT * xTi * xTi)
+         + torch.sum(wh * hr * hi)).backward()
+        torch.cuda.synchronize()
+        return xTr.detach(), hr.detach(), hi.detach(), Cg.grad, x0r.grad, \
+            x0i.grad
+
+    plain = run(rho.rho_propagate_plain)
+    for budget in (rho.KS_BUDGET_BYTES, 0):     # stored, then replayed
+        saved, rho.KS_BUDGET_BYTES = rho.KS_BUDGET_BYTES, budget
+        before = rho.launch_counts()
+        try:
+            kern = run(rho.rho_propagate_kernel)
+        finally:
+            rho.KS_BUDGET_BYTES = saved
+        after = rho.launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "rho_fwd_launches": 1, "rho_bwd_launches": 1}
+        for a, b, tol in zip(kern, plain, (1e-5, 1e-5, 1e-5, 1e-4, 1e-4,
+                                           1e-4)):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _open_cnot(guards, fused_rho="auto", ntime=48, T=8.0):
+    from quandary_tpu_torch.models import gates
+    from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.problem import Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    Ne, Ng = [2, 2], ([2, 2] if guards else [0, 0])
+    nlevels = [e + g for e, g in zip(Ne, Ng)]
+    freq = [4.80595, 4.8601]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=freq, rotfreq_ghz=freq,
+        selfkerr_ghz=[0.2198, 0.2252], jkl_ghz=[0.005], crosskerr_ghz=[],
+        decay_time=[80.0, 90.0], dephase_time=[40.0, 45.0], lindblad=True)
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=10, tstart=0.0,
+                                 tstop=T),),
+        carrier_freqs=(0.0,)) for _ in range(2))
+    return Setup(
+        model=model, nessential=tuple(Ne), ntime=ntime, dt=T / ntime,
+        oscillators=oscs, initcond_type="diagonal", target_type="gate",
+        target_gate_full=gates.assemble_gate(gates.cnot(), nlevels, Ne,
+                                             [0.0, 0.0], T),
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        gamma_penalty_energy=0.1, dtype=torch.complex64, linsolve_iters=4,
+        fused_rho=fused_rho)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guards,fused_rho,form", [
+    (True, "auto", "rho"), (False, "auto", "superop"), (False, "rho", "rho")])
+def test_open_problem_on_card_matches_cpu(cuda, guards, fused_rho, form):
+    """An open two-transmon CNOT on the card against the same problem on
+    the CPU (plain), both f32: J to 1e-5, gradient to 1e-4 of max; E = 3
+    candidates through one launch per direction; a dimension past one
+    thread block of the forced route raises."""
+    from quandary_tpu_torch.ops import rho
+    from quandary_tpu_torch.problem import Problem
+    setup = _open_cnot(guards, fused_rho)
+    pc, ph = Problem(setup), Problem(setup, device="cpu")
+    assert pc.fused_form == ph.fused_form == form and pc.fused_ok
+    Ps = np.random.default_rng(3).uniform(-1, 1, (3, setup.nparams)) * 0.05
+    before = {**streamk.launch_counts(), **rho.launch_counts()}
+    (Jc, auxc), gc = pc.build_ensemble_value_and_grad()(Ps, Ps[0])
+    after = {**streamk.launch_counts(), **rho.launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    name = "rho" if form == "rho" else "streamk"
+    assert moved == {f"{name}_fwd_launches": 1, f"{name}_bwd_launches": 1}
+    (Jh, auxh), gh = ph.build_ensemble_value_and_grad()(Ps, Ps[0])
+    assert float((Jc.cpu() - Jh).abs().max()) <= 1e-5 * float(Jh.abs().max())
+    assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
+    torch.testing.assert_close(auxc["fidelity"].cpu(), auxh["fidelity"],
+                               rtol=1e-4, atol=1e-6)
+    if guards:
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            Problem(dataclasses.replace(setup, fused_rho="superop"))

@@ -95,7 +95,8 @@ def arrays_from_jax_setup(setup):
     """The plain-data dict of a quandary_tpu Setup that
     quandary_tpu_torch.convert.setup_from_arrays takes. Fields that only
     schedule the JAX package's work (pallas, engine, time_parallel, ...)
-    are dropped."""
+    are dropped; the route gate of open systems, pallas_rho, carries across
+    under the port's name fused_rho."""
     from quandary_tpu_torch.problem import Setup as TorchSetup
     port_fields = {f.name for f in dataclasses.fields(TorchSetup)}
     d = {}
@@ -112,6 +113,8 @@ def arrays_from_jax_setup(setup):
                      enforce_bc=o.enforce_bc) for o in v]
         elif f.name == "dtype":
             d["dtype"] = np.dtype(v).name
+        elif f.name == "pallas_rho":    # the open-system route gate
+            d["fused_rho"] = v
         elif f.name in port_fields:
             d[f.name] = v
     return d

@@ -122,13 +122,3 @@ def test_out_of_slice_raises(change, device):
     with pytest.raises(NotImplementedError):
         TProblem(st, device=device)
 
-
-def test_lindblad_raises():
-    from quandary_tpu_torch.models.hamiltonian import build_standard_model
-    model = build_standard_model(
-        nlevels=[3], freq01_ghz=[4.1], rotfreq_ghz=[4.1],
-        selfkerr_ghz=[0.22], decay_time=[100.0], lindblad=True)
-    st = dataclasses.replace(flagship_setup("torch"), model=model,
-                             nessential=(2,))
-    with pytest.raises(NotImplementedError, match="Lindblad"):
-        TProblem(st, device="cpu")
