@@ -10,9 +10,10 @@ to) and returns :class:`quandary_tpu_torch.problem.Setup`:
   ControlSegment fields), ``carrier_freqs`` and ``enforce_bc``;
 * ``dtype``: 'complex64' or 'complex128';
 * every other key is a Setup field of the same name (initial conditions,
-  targets, objective, the gammas, the solver settings, and for open
-  systems ``fused_rho``, the route gate 'auto' | 'rho' | 'superop' that the
-  JAX package calls ``pallas_rho``).
+  targets, objective, the gammas, the solver settings, ``fused_mode``, the
+  kernel family 'streamk' | 'stream' | 'chunk' that the JAX package calls
+  ``pallas_mode``, and for open systems ``fused_rho``, the route gate
+  'auto' | 'rho' | 'superop' that the JAX package calls ``pallas_rho``).
 
 The control vector keeps the JAX package's layout (that of params.dat), so
 parameters carry across unchanged. An ensemble of system realizations

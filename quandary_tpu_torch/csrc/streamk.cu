@@ -5,12 +5,10 @@
 // Replaces quandary_tpu/ops/pallas_stream.py::make_streamk_propagate (the
 // TPU kernel pair: forward pallas_call at :907, backward at :967) together
 // with the step core it inlines (_stage_fwd :217, _stage_bwd :331,
-// _bwd_step :429). Same contract and the same algebra:
-//   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
-//   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
-//   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
-//              V the off-diagonal remainder (an extra stack slot -diag(h)
-//              with coefficient 1, appended by the wrapper).
+// _bwd_step :429). Same contract and the same algebra, the step of
+// imr_step.cuh (neumann, jacobi, split; for split the off-diagonal remainder
+// V is an extra stack slot -diag(h) with coefficient 1, appended by the
+// wrapper).
 // The same pair also replaces make_streamk_packed_propagate (:1059, forward
 // pallas_call at :1324, backward at :1415) with per_block_stacks: every
 // candidate of a launch may carry its own operator stack and its own solver
@@ -21,7 +19,9 @@
 // The backward is the exact real transpose of the computed forward step; the
 // step's H cotangent Hb = sum_pairs c u^T is reduced in-kernel against every
 // stack slot into Cb[t, k] = <Hb_r, Sr_k> + <Hb_i, Si_k> (pallas_stream.py
-// :947-958). Stack cotangents are not computed (zero by the same contract).
+// :947-958). Stack cotangents are not computed (zero by the same contract);
+// the streamed-plane kernels of stream.cu emit the per-step H cotangent
+// from which they follow.
 //
 // Layout: one thread block per control candidate; the sequential time loop
 // runs inside the block (the TPU's sequential grid axis). The stacks, the
@@ -43,9 +43,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "imr_step.cuh"
 
-enum { MODE_NEUMANN = 0, MODE_JACOBI = 1, MODE_SPLIT = 2 };
+namespace {
 
 // strideS, strideR: floats between two candidates' operator stacks
 // (Ke * N * N) and solver rows (nrows * N); 0 when all candidates share one.
@@ -73,61 +73,6 @@ __device__ __forceinline__ void contract(const float* Sr, const float* Si,
     Hr[p * ld + q] = hr;
     Hi[p * ld + q] = hi;
   }
-}
-
-// Entry (b, i) of T(v) = -i H v: (Im (Hv)_i, -Re (Hv)_i).
-__device__ __forceinline__ void apply_T(const float* Hr, const float* Hi,
-                                        const float* vr, const float* vi,
-                                        int b, int i, int N, float& outr,
-                                        float& outi) {
-  const float* hr = Hr + i * (N + 1);
-  const float* hi = Hi + i * (N + 1);
-  const float* xr = vr + b * N;
-  const float* xi = vi + b * N;
-  float ar = 0.f, ai = 0.f;
-  for (int j = 0; j < N; ++j) {
-    ar = fmaf(hr[j], xr[j], ar);
-    ar = fmaf(-hi[j], xi[j], ar);
-    ai = fmaf(hr[j], xi[j], ai);
-    ai = fmaf(hi[j], xr[j], ai);
-  }
-  outr = ai;
-  outi = -ar;
-}
-
-// Entry (b, q) of the real transpose of T applied to the cotangent u.
-__device__ __forceinline__ void apply_Tt(const float* Hr, const float* Hi,
-                                         const float* ur, const float* ui,
-                                         int b, int q, int N, float& outr,
-                                         float& outi) {
-  const int ld = N + 1;
-  const float* cr = ur + b * N;
-  const float* ci = ui + b * N;
-  float sr = 0.f, si = 0.f;
-  for (int p = 0; p < N; ++p) {
-    const float hr = Hr[p * ld + q], hi = Hi[p * ld + q];
-    sr = fmaf(cr[p], hi, sr);
-    sr = fmaf(-ci[p], hr, sr);
-    si = fmaf(cr[p], hr, si);
-    si = fmaf(ci[p], hi, si);
-  }
-  outr = sr;
-  outi = si;
-}
-
-// elementwise complex products with the per-entry solver rows
-__device__ __forceinline__ void cmul(float ar, float ai, float& vr,
-                                     float& vi) {  // v <- a v
-  const float r = ar * vr - ai * vi;
-  vi = ai * vr + ar * vi;
-  vr = r;
-}
-
-__device__ __forceinline__ void cmul_conj(float ar, float ai, float& vr,
-                                          float& vi) {  // v <- conj(a) v
-  const float r = ar * vr + ai * vi;
-  vi = ar * vi - ai * vr;
-  vr = r;
 }
 
 }  // namespace
@@ -163,81 +108,26 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
   }
-  const bool act = tid < BN;
-  const int b = tid / N, i = tid - (tid / N) * N;
-  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  float xr = 0.f, xi = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f;
-  if (act) {
+  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  float xr = 0.f, xi = 0.f;
+  if (s.act) {
     xr = x0r[tid];
     xi = x0i[tid];
-    if (jac || split) {
-      r0 = rows[i];
-      r1 = rows[N + i];
-    }
-    if (jac) {
-      r2 = rows[2 * N + i];
-      r3 = rows[3 * N + i];
-    }
   }
   __syncthreads();
 
   for (int t = 0; t < d.nt; ++t) {
     const size_t st = (size_t)e * d.nt + t;
     contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
-    if (act) {
-      if (split) cmul(r0, r1, xr, xi);
-      xs_r[tid] = xr;
-      xs_i[tid] = xi;
-    }
-    __syncthreads();
-    float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
-    if (act) {
-      apply_T(Hr, Hi, xs_r, xs_i, b, i, N, br, bi);
-      kr = br;
-      ki = bi;
-      if (jac) cmul(r2, r3, kr, ki);
-      kb_r[tid] = kr;
-      kb_i[tid] = ki;
-      if (d.store && iters > 0) {
-        const size_t o = st * iters * BN + tid;
-        ksr[o] = kr;
-        ksi[o] = ki;
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < iters; ++j) {
-      if (act) {
-        float mr, mi;
-        apply_T(Hr, Hi, kb_r + j * BN, kb_i + j * BN, b, i, N, mr, mi);
-        if (jac) {
-          const float ur = mr - (r0 * kr - r1 * ki);
-          const float ui = mi - (r0 * ki + r1 * kr);
-          kr = br + d.a * ur;
-          ki = bi + d.a * ui;
-          cmul(r2, r3, kr, ki);
-        } else {
-          kr = br + d.a * mr;
-          ki = bi + d.a * mi;
-        }
-        kb_r[(j + 1) * BN + tid] = kr;
-        kb_i[(j + 1) * BN + tid] = ki;
-        if (d.store && j + 1 < iters) {
-          const size_t o = (st * iters + j + 1) * BN + tid;
-          ksr[o] = kr;
-          ksi[o] = ki;
-        }
-      }
-      __syncthreads();
-    }
-    if (act) {
-      xr = xr + d.dt * kr;
-      xi = xi + d.dt * ki;
-      if (split) cmul(r0, r1, xr, xi);
+    const size_t ko = st * iters * BN;
+    stage_fwd(s, Hr, Hi, xs_r, xs_i, kb_r, kb_i, d.store ? ksr + ko : nullptr,
+              d.store ? ksi + ko : nullptr, xr, xi);
+    if (s.act) {
       hr[st * BN + tid] = xr;
       hi[st * BN + tid] = xi;
     }
   }
-  if (act) {
+  if (s.act) {
     xTr[(size_t)e * BN + tid] = xr;
     xTi[(size_t)e * BN + tid] = xi;
   }
@@ -283,139 +173,34 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
   }
-  const bool act = tid < BN;
-  const int b = tid / N, i = tid - (tid / N) * N;
-  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  float gr = 0.f, gi = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, r3 = 0.f;
-  if (act) {
+  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  float gr = 0.f, gi = 0.f;
+  if (s.act) {
     gr = gTr[(size_t)e * BN + tid];
     gi = gTi[(size_t)e * BN + tid];
-    if (jac || split) {
-      r0 = rows[i];
-      r1 = rows[N + i];
-    }
-    if (jac) {
-      r2 = rows[2 * N + i];
-      r3 = rows[3 * N + i];
-    }
   }
   __syncthreads();
 
   for (int t = d.nt - 1; t >= 0; --t) {
     const size_t st = (size_t)e * d.nt + t;
     contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
-    if (act) {
+    float xr = 0.f, xi = 0.f;
+    if (s.act) {
       gr += jr[st * BN + tid];
       gi += ji[st * BN + tid];
       // pre-step state: x0 at t = 0, else the previous history entry
-      float xr = t == 0 ? x0r[tid] : hr[(st - 1) * BN + tid];
-      float xi = t == 0 ? x0i[tid] : hi[(st - 1) * BN + tid];
-      if (split) {            // cotangent and pre-state into the rotated frame
-        cmul_conj(r0, r1, gr, gi);
-        cmul(r0, r1, xr, xi);
-      }
-      xp_r[tid] = xr;
-      xp_i[tid] = xi;
-      if (d.store) {
-        for (int j = 0; j < iters; ++j) {
-          const size_t o = (st * iters + j) * BN + tid;
-          ks_r[j * BN + tid] = ksr[o];
-          ks_i[j * BN + tid] = ksi[o];
-        }
-      }
+      xr = t == 0 ? x0r[tid] : hr[(st - 1) * BN + tid];
+      xi = t == 0 ? x0i[tid] : hi[(st - 1) * BN + tid];
     }
-    __syncthreads();
-    if (!d.store && iters > 0) {  // replay the stage iterates
-      float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
-      if (act) {
-        apply_T(Hr, Hi, xp_r, xp_i, b, i, N, br, bi);
-        kr = br;
-        ki = bi;
-        if (jac) cmul(r2, r3, kr, ki);
-        ks_r[tid] = kr;
-        ks_i[tid] = ki;
-      }
-      __syncthreads();
-      for (int j = 1; j < iters; ++j) {
-        if (act) {
-          float mr, mi;
-          apply_T(Hr, Hi, ks_r + (j - 1) * BN, ks_i + (j - 1) * BN, b, i, N,
-                  mr, mi);
-          if (jac) {
-            const float ur = mr - (r0 * kr - r1 * ki);
-            const float ui = mi - (r0 * ki + r1 * kr);
-            kr = br + d.a * ur;
-            ki = bi + d.a * ui;
-            cmul(r2, r3, kr, ki);
-          } else {
-            kr = br + d.a * mr;
-            ki = bi + d.a * mi;
-          }
-          ks_r[j * BN + tid] = kr;
-          ks_i[j * BN + tid] = ki;
-        }
-        __syncthreads();
-      }
-    }
+    const size_t ko = st * iters * BN;
+    stage_bwd(s, Hr, Hi, xr, xi, d.store ? ksr + ko : nullptr,
+              d.store ? ksi + ko : nullptr, xp_r, xp_i, ks_r, ks_i, cb_r,
+              cb_i, gr, gi);
 
-    // transpose of the stage chain, j = iters..1; pair p = iters - j has
-    // input u = k_{j-1}; the last pair (b-bar, x_pre)
-    float bbr = 0.f, bbi = 0.f, kbr = d.dt * gr, kbi = d.dt * gi;
-    for (int p = 0; p < iters; ++p) {
-      float cr = 0.f, ci = 0.f;
-      if (act) {
-        if (jac) cmul_conj(r2, r3, kbr, kbi);   // Wt
-        bbr += kbr;
-        bbi += kbi;
-        cr = d.a * kbr;
-        ci = d.a * kbi;
-        cb_r[p * BN + tid] = cr;
-        cb_i[p * BN + tid] = ci;
-      }
-      __syncthreads();
-      if (act) {
-        apply_Tt(Hr, Hi, cb_r + p * BN, cb_i + p * BN, b, i, N, kbr, kbi);
-        if (jac) {              // minus the transpose of v -> d v
-          kbr -= r0 * cr + r1 * ci;
-          kbi -= r0 * ci - r1 * cr;
-        }
-      }
-    }
-    if (act) {
-      if (jac) cmul_conj(r2, r3, kbr, kbi);
-      bbr += kbr;
-      bbi += kbi;
-      cb_r[iters * BN + tid] = bbr;
-      cb_i[iters * BN + tid] = bbi;
-    }
-    __syncthreads();
-    if (act) {
-      float tr, ti;
-      apply_Tt(Hr, Hi, cb_r + iters * BN, cb_i + iters * BN, b, i, N, tr, ti);
-      gr += tr;
-      gi += ti;
-      if (split) cmul_conj(r0, r1, gr, gi);
-    }
-
-    // H cotangent of the step, Hb[p][q] = sum over pairs and rows of
-    // c[b][p] (x) u[b][q], then reduced against every stack slot
+    // the step's H cotangent, then reduced against every stack slot
     for (int ent = tid; ent < NN; ent += blockDim.x) {
-      const int p = ent / N, q = ent - (ent / N) * N;
-      float sr = 0.f, si = 0.f;
-      for (int pr = 0; pr <= iters; ++pr) {
-        const float* ur = pr < iters ? ks_r + (iters - 1 - pr) * BN : xp_r;
-        const float* ui = pr < iters ? ks_i + (iters - 1 - pr) * BN : xp_i;
-        const float* cr = cb_r + pr * BN;
-        const float* ci = cb_i + pr * BN;
-        for (int bb = 0; bb < d.B; ++bb) {
-          const float c_r = cr[bb * N + p], c_i = ci[bb * N + p];
-          const float u_r = ur[bb * N + q], u_i = ui[bb * N + q];
-          sr = fmaf(c_r, u_i, sr);
-          sr = fmaf(-c_i, u_r, sr);
-          si = fmaf(c_r, u_r, si);
-          si = fmaf(c_i, u_i, si);
-        }
-      }
+      float sr, si;
+      hb_entry(s, ent, xp_r, xp_i, ks_r, ks_i, cb_r, cb_i, sr, si);
       Hbr[ent] = sr;
       Hbi[ent] = si;
     }
@@ -433,7 +218,7 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
       Cb[st * Ke + tid] = v;
     }
   }
-  if (act) {
+  if (s.act) {
     g0r[(size_t)e * BN + tid] = gr;
     g0i[(size_t)e * BN + tid] = gi;
   }

@@ -1,12 +1,15 @@
 """Build and load the package's CUDA sources: one shared library per
 ``csrc/*.cu`` file, compiled with nvcc for sm_90a at first use into
-``build/quandary_tpu_torch/`` (keyed on a hash of the source) and bound with
-ctypes. The sources have a plain C interface and include no PyTorch header,
-so a build takes seconds."""
+``build/quandary_tpu_torch/`` (keyed on a hash of the source and the shared
+``csrc/*.cuh`` headers) and bound with ctypes. The sources have a plain C
+interface and include no PyTorch header, so a build takes seconds;
+``build_parallel`` runs one nvcc per source, all at once."""
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,8 +41,11 @@ def build_library(src: str, bind, verbose: bool = False):
     when the library was already built."""
     if src in LIBS:
         return LIBS[src][1], 0.0, ""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for name in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(name, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(src))[0]
     path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     seconds, log = 0.0, ""
@@ -64,3 +70,12 @@ def library(src: str, bind):
     """The loaded library of `src`, built at first use."""
     build_library(src, bind)
     return LIBS[src][0]
+
+
+def build_parallel(build_fns, verbose: bool = False):
+    """Call every module's build_kernels(verbose) at once, one thread (and
+    so one nvcc) each; returns their results in order. A failed build
+    raises."""
+    with concurrent.futures.ThreadPoolExecutor(len(build_fns)) as pool:
+        futures = [pool.submit(b, verbose) for b in build_fns]
+        return [f.result() for f in futures]

@@ -12,7 +12,9 @@ is the JAX one with ``real_io=True``:
 differentiable in x0 and C. C is (ntime, K), or (E, ntime, K) for E control
 candidates sharing x0 (one thread block each); hist is (ntime, B, N), or
 (E, ntime, B, N). Stack cotangents are not computed: the stacks are
-constants of the optimization, as in the JAX kernel.
+constants of the optimization, as in the JAX kernel, and the result is not
+connected to Sr, Si in the autograd graph. The stream route
+(ops/stream.py::make_stream_propagate) differentiates the stacks.
 
 make_streamk_packed_propagate is the port of the packed TPU kernel
 (pallas_stream.py:1059) in its argument layout, Cg (ntime, G, K) in and hist
@@ -238,30 +240,30 @@ def _stage_bwd(T, Tt, xpr, xpi, gr, gi, pairs, *, dt, iters, jac, split):
     return outr, outi
 
 
-def plain_forward(plan, x0r, x0i, Ce):
-    """Plain forward (autograd-differentiable): x0 (B, N), Ce (E, nt, Ke)
-    -> hist pair (E, nt, B, N)."""
-    jac, split = _solver_parts(plan)
-    Hr, Hi = _planes(plan, Ce)
-    E = Ce.shape[0]
+def plane_forward(Hr, Hi, x0r, x0i, *, dt, iters, jac, split):
+    """Plain forward on given H planes (autograd-differentiable): planes
+    (E, nt, N, N), x0 (B, N) -> hist pair (E, nt, B, N). jac / split are
+    the solver rows of _stage_fwd."""
+    E = Hr.shape[0]
     xr, xi = x0r.expand((E,) + x0r.shape), x0i.expand((E,) + x0i.shape)
     hr, hi = [], []
-    for t in range(Ce.shape[1]):
+    for t in range(Hr.shape[1]):
         T, _ = _ops(Hr[:, t], Hi[:, t])
-        xr, xi, _ = _stage_fwd(T, xr, xi, dt=plan.dt, iters=plan.iters,
-                               jac=jac, split=split)
+        xr, xi, _ = _stage_fwd(T, xr, xi, dt=dt, iters=iters, jac=jac,
+                               split=split)
         hr.append(xr)
         hi.append(xi)
     return torch.stack(hr, dim=1), torch.stack(hi, dim=1)
 
 
-def plain_backward(plan, x0r, x0i, Ce, hr, hi, gTr, gTi, jr, ji):
-    """Hand-written transpose of plain_forward: the final-state and history
-    cotangents -> (x0 cotangent (B, N) pair, coefficient cotangent
-    (E, nt, Ke))."""
-    jac, split = _solver_parts(plan)
-    Hr, Hi = _planes(plan, Ce)
-    E, nt = Ce.shape[:2]
+def plane_backward(Hr, Hi, x0r, x0i, hr, hi, gTr, gTi, jr, ji, *, dt,
+                   iters, jac, split):
+    """Hand-written transpose of plane_forward: the final-state and history
+    cotangents -> (x0 cotangent per candidate (E, B, N) pair, H-plane
+    cotangent (E, nt, N, N) pair). The step's plane cotangent is
+    Hb[p, q] = sum over its (cotangent c, input u) pairs of c[b, p] u[b, q]
+    in complex form (pallas_stream.py:481-486)."""
+    E, nt = Hr.shape[:2]
     gr, gi = gTr, gTi
     x0e = (x0r.expand((E,) + x0r.shape), x0i.expand((E,) + x0i.shape))
     Hb = [None] * nt
@@ -270,14 +272,33 @@ def plain_backward(plan, x0r, x0i, Ce, hr, hi, gTr, gTi, jr, ji):
         xpr, xpi = x0e if t == 0 else (hr[:, t - 1], hi[:, t - 1])
         T, Tt = _ops(Hr[:, t], Hi[:, t])
         pairs = []
-        gr, gi = _stage_bwd(T, Tt, xpr, xpi, gr, gi, pairs, dt=plan.dt,
-                            iters=plan.iters, jac=jac, split=split)
+        gr, gi = _stage_bwd(T, Tt, xpr, xpi, gr, gi, pairs, dt=dt,
+                            iters=iters, jac=jac, split=split)
         # sum_pairs of the H-plane outer products as one block product
         cr, ci, ur, ui = (torch.cat(z, dim=-2) for z in zip(*pairs))
         cr, ci = cr.transpose(-1, -2), ci.transpose(-1, -2)
         Hb[t] = (cr @ ui - ci @ ur, cr @ ur + ci @ ui)
     Hbr = torch.stack([h[0] for h in Hb], dim=1)
     Hbi = torch.stack([h[1] for h in Hb], dim=1)
+    return gr, gi, Hbr, Hbi
+
+
+def plain_forward(plan, x0r, x0i, Ce):
+    """Plain forward (autograd-differentiable): x0 (B, N), Ce (E, nt, Ke)
+    -> hist pair (E, nt, B, N)."""
+    jac, split = _solver_parts(plan)
+    return plane_forward(*_planes(plan, Ce), x0r, x0i, dt=plan.dt,
+                         iters=plan.iters, jac=jac, split=split)
+
+
+def plain_backward(plan, x0r, x0i, Ce, hr, hi, gTr, gTi, jr, ji):
+    """Hand-written transpose of plain_forward: the final-state and history
+    cotangents -> (x0 cotangent (B, N) pair, coefficient cotangent
+    (E, nt, Ke))."""
+    jac, split = _solver_parts(plan)
+    gr, gi, Hbr, Hbi = plane_backward(
+        *_planes(plan, Ce), x0r, x0i, hr, hi, gTr, gTi, jr, ji, dt=plan.dt,
+        iters=plan.iters, jac=jac, split=split)
     sub = "etpq,ekpq->etk" if plan.per_block else "etpq,kpq->etk"
     Cb = torch.einsum(sub, Hbr, plan.Sr) + torch.einsum(sub, Hbi, plan.Si)
     return gr.sum(0), gi.sum(0), Cb

@@ -15,9 +15,10 @@ overhead of the many small operations of an iteration.
 
 Line search: parallel Armijo backtracking. All `ls_lengths` trial steps
 are evaluated in ONE ensemble call and the first satisfying length is
-selected. With the fused streamK path the search is speculative: value and
-gradient at all trial points come out of one forward and one backward
-launch, and the gradient at the accepted point is already there.
+selected. With a fused path (streamK, stream or rho kernels) the search is
+speculative: value and gradient at all trial points come out of one forward
+and one backward launch, and the gradient at the accepted point is already
+there.
 
 Counterpart of quandary_tpu/optim/device_driver.py (its jitted lax.scan
 chunk is the CUDA-graph chunk here).
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..io import output as out_io
-from ..ops import rho, streamk
+from ..ops import rho, stream, streamk
 from .batched_lbfgs import _direction, _remember
 from .driver import OptimHistoryRow, OptimResult
 from .lbfgsb import bounded_residual
@@ -42,7 +43,7 @@ AUX_KEYS = ("fidelity", "obj_cost", "obj_regul", "obj_penal",
 
 
 # the modules whose wrappers count kernel launches
-_KERNEL_MODULES = (streamk, rho)
+_KERNEL_MODULES = (streamk, rho, stream)
 
 
 def _add_launches(per_module, times=1):

@@ -107,10 +107,11 @@ def build_packed_robust_objective(problems: Sequence,
     """Packed variant of build_robust_objective: ALL system realizations
     propagate through ONE kernel launch per direction, one thread block per
     sample with its own operator stack. Requirements (validated): every
-    Problem runs the fused streamK path on the same device, same
-    discretization and shape, identical initial conditions. The size limit
-    is the kernels' own, one thread block per sample, which each Problem on
-    the card has already passed (Problem.fused_ok)."""
+    Problem runs the fused streamK path (Setup.fused_mode 'streamk': the
+    packed route is streamK's only) on the same device, same discretization
+    and shape, identical initial conditions. The size limit is the kernels'
+    own, one thread block per sample, which each such Problem on the card
+    has already passed (Problem.fused_ok)."""
     S = len(problems)
     p0 = problems[0]
     s0 = p0.setup
@@ -120,6 +121,11 @@ def build_packed_robust_objective(problems: Sequence,
                 "the packed robust objective of open (Lindblad) systems is "
                 "not ported to quandary_tpu_torch yet; "
                 "build_robust_objective runs them sample by sample")
+        if p.setup.fused_mode != "streamk":
+            raise NotImplementedError(
+                f"the packed robust objective runs the streamK kernels only, "
+                f"not fused_mode={p.setup.fused_mode!r}; "
+                f"build_robust_objective runs such samples one by one")
         if not p.use_fused:
             raise ValueError("packed robust objective needs the fused "
                              "streamK path on every sample Problem")

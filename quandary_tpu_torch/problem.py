@@ -12,17 +12,27 @@ Two propagation paths, as in the JAX package:
 
 * fused (the default): one kernel launch per direction, the CUDA kernel
   pair on the GPU and its plain torch version on the CPU; the objective
-  tail runs on (re, im) planes. Closed systems run the streamK propagation
-  of ops/streamk.py. Open systems take one of two routes
+  tail runs on (re, im) planes. ``Setup.fused_mode`` (the JAX package's
+  ``pallas_mode``) picks the kernel family: 'streamk' (the default), the
+  streamK propagation of ops/streamk.py with the H planes contracted
+  in-kernel; 'stream', the streamed-plane kernels of ops/stream.py, whose
+  planes are built outside the kernel and whose backward emits the plane
+  cotangents; 'chunk', the cross-check path of ops/adjoint.py (closed
+  systems, plain Neumann). Open systems take one of two routes
   (``Setup.fused_rho``): 'superop', the column-major vec(rho) of dimension
-  N^2 on the same streamK kernels with the pseudo-Hamiltonian stack
-  H' = i L (lindblad_prime_stack), or 'rho', the density-matrix kernels of
-  ops/rho.py, whose state stays an (N, N) matrix. 'auto' takes superop
-  where one thread block of the streamK kernels holds dimension N^2, else
-  rho;
+  N^2 with the pseudo-Hamiltonian stack H' = i L (lindblad_prime_stack) on
+  the streamK or the stream kernels, or 'rho', the density-matrix kernels
+  of ops/rho.py (streamK mode only), whose state stays an (N, N) matrix.
+  'auto' takes superop where one thread block of the streamK kernels holds
+  dimension N^2, else rho;
 * plain (``fused=False``, CPU only): the complex-arithmetic step function
   in a Python time loop, differentiated by autograd (density matrices in
   matrix form).
+
+A Problem's operator stacks are constants, as in the JAX Problem: only the
+controls are differentiated here. Stack cotangents, for calibrating the
+Hamiltonian itself, come from ops/stream.py::make_stream_propagate (the
+stream route); the streamK route has none by contract.
 
 The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
@@ -46,7 +56,7 @@ from .models import initialconditions as ic
 from .models.controls import (control_variation_penalty, eval_controls,
                               eval_controls_labframe, plan_on_device)
 from .models.hamiltonian import HamiltonianModel
-from .ops import rho, solvers, streamk
+from .ops import rho, solvers, stream, streamk
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
 from .utils.indexing import flat_index, guard_mask
@@ -102,6 +112,12 @@ class Setup:
     # (ops/rho.py) past that; 'rho' forces the matrix form, 'superop'
     # forbids it.
     fused_rho: str = "auto"
+    # Fused kernel family (quandary_tpu's pallas_mode): 'streamk' contracts
+    # the H planes in-kernel (ops/streamk.py); 'stream' builds them outside
+    # and streams them (ops/stream.py; open systems on the superop route
+    # only); 'chunk' is the cross-check path (ops/adjoint.py; closed
+    # systems with plain Neumann only).
+    fused_mode: str = "streamk"
 
     @property
     def total_time(self) -> float:
@@ -133,6 +149,9 @@ class Problem:
         if s.fused_rho not in ("auto", "rho", "superop"):
             raise ValueError("fused_rho must be 'auto', 'rho' or 'superop', "
                              f"got {s.fused_rho!r}")
+        if s.fused_mode not in ("streamk", "stream", "chunk"):
+            raise ValueError("fused_mode must be 'streamk', 'stream' or "
+                             f"'chunk', got {s.fused_mode!r}")
         if s.dtype not in (torch.complex64, torch.complex128):
             raise ValueError(f"dtype must be complex64/complex128, got {s.dtype}")
         if cuda and s.dtype != torch.complex64:
@@ -244,16 +263,34 @@ class Problem:
                                     s.linsolve_iters, self.linsolver,
                                     gen_diag=self.gen_diag)
 
-        # --- the fused route (the JAX package's pallas_form gate) ---
-        # closed: streamK on (B, N) vectors. Open: 'superop', streamK on the
-        # column-major vec(rho) of dimension N^2, where one thread block of
-        # those kernels holds it (or when forced); else 'rho', the
-        # density-matrix kernels on (B, N, N) matrices.
+        # --- the fused route (the JAX package's pallas_form gate,
+        # problem.py:440-499) ---
+        # closed: the fused_mode's kernels on (B, N) vectors. Open:
+        # 'superop', the column-major vec(rho) of dimension N^2, where one
+        # thread block of the streamK kernels holds it (or when forced, and
+        # always in 'stream' mode); else 'rho', the density-matrix kernels
+        # on (B, N, N) matrices. 'chunk' takes closed plain-Neumann
+        # problems only.
         iters, K = s.linsolve_iters, model.K
         self.fused_form = None
         if self.use_fused:
-            self.fused_form = "streamk"
-            if self.lindblad:
+            self.fused_form = s.fused_mode
+            if s.fused_mode == "chunk" and (self.lindblad
+                                            or self.linsolver != "neumann"):
+                raise NotImplementedError(
+                    "fused_mode='chunk' runs closed systems with plain "
+                    "Neumann stage solves only; this problem is "
+                    + ("open" if self.lindblad else
+                       f"closed with linsolver={self.linsolver!r}")
+                    + " (use fused_mode='stream')")
+            if self.lindblad and s.fused_mode == "stream":
+                if s.fused_rho == "rho":
+                    raise NotImplementedError(
+                        "the density-matrix (rho) route runs on the streamK "
+                        "kernels only; fused_mode='stream' takes open "
+                        "systems on the superop route")
+                self.fused_form = "superop"
+            elif self.lindblad:
                 too_big = streamk.size_refusal(
                     self.ninit, self.N * self.N,
                     K + (self.linsolver == "split"), iters) is not None
@@ -298,17 +335,23 @@ class Problem:
         self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
         # the route's launch plan (stacks, solver rows or planes), built once
         self._plan = self._refusal = None
+        gd = self.gen_diag.T.reshape(-1) if self._flat else self.gen_diag
         if self.fused_form == "rho":
             self._plan = rho.make_plan(
                 self._Sr, self._Si, self.engine.Ls_np, s.dt, iters,
                 self.gen_diag, self.linsolver)
             self._refusal = rho.launch_refusal(self.N, K)
-        elif self.use_fused:
-            gd = self.gen_diag.T.reshape(-1) if self._flat else self.gen_diag
+        elif self.use_fused and s.fused_mode == "streamk":
             self._plan = streamk.make_plan(self._Sr, self._Si, s.dt, iters,
                                            gd, self.linsolver)
             self._refusal = streamk.launch_refusal(
                 self._plan, self.ninit, self._Sr.shape[-1])
+        elif self.use_fused:
+            self._plan = stream.make_plan(self._Sr, s.dt, iters,
+                                          gd, self.linsolver,
+                                          kind=s.fused_mode)
+            self._refusal = stream.launch_refusal(
+                self._plan, self.ninit, self._Sr.shape[-1], ntime)
         if cuda and self._refusal is not None:
             raise NotImplementedError(self._refusal)
 
@@ -317,9 +360,11 @@ class Problem:
         """Whether the kernels of the problem's fused route (`fused_form`)
         admit it: the fused path is on and one thread block holds a
         candidate (streamK: B*dim state entries, the stacks and the stage
-        iterates; rho: one (N, N) density matrix). `fused_refusal` names the
-        limit otherwise. On the CPU it tells what the card would do; the
-        plain version there runs any size."""
+        iterates; stream and chunk: B*dim state entries, the step's planes
+        and the stage iterates, and the sweep's plane arrays at E = 1 under
+        stream.PLANE_BUDGET_BYTES; rho: one (N, N) density matrix).
+        `fused_refusal` names the limit otherwise. On the CPU it tells what
+        the card would do; the plain version there runs any size."""
         return self.use_fused and self._refusal is None
 
     @property
@@ -493,10 +538,15 @@ class Problem:
             xTr, xTi, hr, hi = rho.rho_propagate(
                 self._plan, self._x0r, self._x0i,
                 C[..., 0, :].to(self.rdtype).contiguous())
-        elif self.use_fused:
+        elif self.use_fused and self.setup.fused_mode == "streamk":
             xTr, xTi, hr, hi = streamk.streamk_propagate(
                 self._plan, self._x0r, self._x0i,
                 streamk.extend_coeffs(self._plan, C[..., 0, :]))
+        elif self.use_fused:
+            Hr, Hi = stream.planes(self._plan, self._Sr, self._Si,
+                                   C[..., 0, :].to(self.rdtype))
+            xTr, xTi, hr, hi = stream.stream_propagate(
+                self._plan, Hr, Hi, self._x0r, self._x0i)
         else:
             x0 = self._x0c.expand((Ps.shape[0],) + self._x0c.shape)
             traj = solvers.propagate_trajectory(self.step_fn, x0,

@@ -1,7 +1,10 @@
 """quandary_tpu_torch on a CUDA device: the streamK kernel pair against its
 plain torch version (shared and per-candidate stacks), the problem's
 value_and_grad and the packed robust objective on the card against the
-CPU, and the device optimizer's CUDA-graph chunk against its eager chunk.
+CPU, and the device optimizer's CUDA-graph chunk against its eager chunk;
+the density-matrix kernels; the streamed-plane kernels (stream, chunk,
+dense) against their plain version, on the problem's routes, in the device
+optimizer and in the Kerr calibration.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -103,7 +106,7 @@ def test_packed_kernel_matches_plain_on_card(cuda, solver, iters):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-def _qutrit_samples(device):
+def _qutrit_samples(device, **setup_kw):
     from quandary_tpu_torch.optim.robust import sample_standard_models
     from quandary_tpu_torch.utils.splines import (ControlSegment,
                                                   OscillatorControl)
@@ -116,7 +119,7 @@ def _qutrit_samples(device):
         ground_freqs_radns=(1.0,), initcond_type="pure", pure_levels=(0,),
         target_type="pure", pure_target_levels=(1,), objective_type="Jtrace",
         gamma_tik=1e-6, dtype=torch.complex64, gamma_penalty=0.05,
-        gamma_penalty_energy=0.02)
+        gamma_penalty_energy=0.02, **setup_kw)
     return sample_standard_models(
         dict(nlevels=[3], freq01_ghz=[4.1], rotfreq_ghz=[4.1],
              selfkerr_ghz=[0.2]),
@@ -360,3 +363,150 @@ def test_open_problem_on_card_matches_cpu(cuda, guards, fused_rho, form):
     if guards:
         with pytest.raises(NotImplementedError, match="shared memory"):
             Problem(dataclasses.replace(setup, fused_rho="superop"))
+
+
+def _stream_case(cuda, rng, E, n=N):
+    stack = (rng.normal(size=(K, n, n))
+             + 1j * rng.normal(size=(K, n, n))).astype(np.complex64)
+    gen_diag = -1j * np.diag(stack[0]).astype(np.complex128)
+    C = cuda((rng.normal(size=(E, NT, K)) * 0.3).astype(np.float32))
+    x0 = rng.normal(size=(2, B, n)).astype(np.float32)
+    w = cuda(rng.normal(size=(E, NT, B, n)).astype(np.float32))
+    return stack, gen_diag, C, x0, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,iters", [("split", 3), ("jacobi", 4),
+                                          ("jacobi", 6), ("neumann", 8),
+                                          ("neumann", 0)])
+def test_stream_kernel_matches_plain_on_card(cuda, solver, iters):
+    """stream_fwd / stream_bwd against the plain version on the card at
+    E = 3 through make_stream_propagate's pieces, non-Hermitian stacks:
+    states to 1e-5 of max, the coefficient, x0 and stack cotangents to 1e-4
+    of max; one launch each."""
+    from quandary_tpu_torch.ops import stream
+    rng = np.random.default_rng(11)
+    stack, gen_diag, C, x0, w = _stream_case(cuda, rng, 3)
+    plan = stream.make_plan(cuda(stack.real), DT, iters, gen_diag, solver)
+    assert plan.store_iters == (iters <= 4)
+
+    def run(fn):
+        Sr, Si = cuda(stack.real).requires_grad_(), \
+            cuda(stack.imag).requires_grad_()
+        Cg = C.clone().requires_grad_()
+        x0r, x0i = cuda(x0[0]).requires_grad_(), cuda(x0[1]).requires_grad_()
+        Hr, Hi = stream.planes(plan, Sr, Si, Cg)
+        xTr, _, hr, hi = fn(plan, Hr, Hi, x0r, x0i)
+        (torch.sum(w * hr * hi) + torch.sum(xTr * xTr)).backward()
+        torch.cuda.synchronize()
+        return hr.detach(), Cg.grad, x0r.grad, x0i.grad, Sr.grad, Si.grad
+
+    before = stream.launch_counts()
+    kern = run(stream.stream_propagate_kernel)
+    after = stream.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"stream_fwd_launches": 1, "stream_bwd_launches": 1}
+    plain = run(stream.stream_propagate_plain)
+    for a, b, tol in zip(kern, plain, (1e-5,) + (1e-4,) * 5):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_chunk_and_dense_kernels_match_plain_on_card(cuda):
+    """make_pallas_propagate (chunk kernels) and pallas_propagate_dense on
+    the card against the same on the CPU: states to 1e-5 of max,
+    cotangents to 1e-4 of max; the dense xT is the chunk forward's."""
+    from quandary_tpu_torch.ops import adjoint, dense, stream
+    rng = np.random.default_rng(12)
+    stack, _, C, x0, w = _stream_case(cuda, rng, 1)
+    C, w = C[0], w[0]
+    prop = adjoint.make_pallas_propagate(DT, 8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        Sr, Si = (t(p).requires_grad_() for p in adjoint.plane_args(stack))
+        Cg = C.to(dev).clone().requires_grad_()
+        x0r, x0i = t(x0[0]).requires_grad_(), t(x0[1]).requires_grad_()
+        before = stream.launch_counts()
+        (xTr, xTi), (hr, hi) = prop(Sr, Si, (x0r, x0i), Cg)
+        (torch.sum(w.to(dev) * hr * hi) + torch.sum(xTr * xTr)).backward()
+        xd = dense.pallas_propagate_dense(stack, C.cpu().numpy(),
+                                          t(x0[0] + 1j * x0[1]), DT, 8)
+        after = stream.launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == ({"chunk_fwd_launches": 1, "chunk_bwd_launches": 1,
+                          "dense_fwd_launches": 1} if dev == "cuda" else {})
+        assert torch.equal(xd, torch.complex(xTr, xTi).detach())
+        out[dev] = [a.detach().cpu() for a in (hr, Cg.grad, x0r.grad,
+                                               Sr.grad, Si.grad)]
+    for a, b, tol in zip(out["cuda"], out["cpu"], (1e-5,) + (1e-4,) * 4):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stream", "chunk"])
+def test_stream_problem_on_card_matches_cpu(cuda, mode):
+    """A qutrit problem (plain Neumann, so both modes take it) on the
+    stream / chunk route: E = 3 candidates on the card in one launch per
+    direction against the CPU, J to 1e-5 and the gradient to 1e-4 of max."""
+    from quandary_tpu_torch.ops import stream
+    pc = _qutrit_samples(None, fused_mode=mode)[0]
+    ph = _qutrit_samples("cpu", fused_mode=mode)[0]
+    assert pc.fused_form == mode and pc.linsolver == "neumann"
+    Ps = np.random.default_rng(3).normal(size=(3, pc.setup.nparams)) * 0.02
+    before = {**streamk.launch_counts(), **stream.launch_counts()}
+    (Jc, _), gc = pc.build_ensemble_value_and_grad()(Ps, Ps[0])
+    after = {**streamk.launch_counts(), **stream.launch_counts()}
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {f"{mode}_fwd_launches": 1, f"{mode}_bwd_launches": 1}
+    (Jh, _), gh = ph.build_ensemble_value_and_grad()(Ps, Ps[0])
+    assert float((Jc.cpu() - Jh).abs().max()) <= 1e-5 * float(Jh.abs().max())
+    assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
+
+
+@pytest.mark.cuda
+def test_device_optimizer_stream_matches_streamk(cuda):
+    """run_optimization_device on fused_mode='stream' (CUDA graph) gives the
+    streamK route's J history to f32 rounding while the picks agree, and the
+    stream counters advance by the captured launches per replay."""
+    from quandary_tpu_torch.ops import stream
+    from quandary_tpu_torch.optim.device_driver import run_optimization_device
+    pk = _qutrit_samples(None)[0]
+    ps = _qutrit_samples(None, fused_mode="stream")[0]
+    n = pk.setup.nparams
+    x0 = np.random.default_rng(5).normal(size=n) * 0.01
+    lb, ub = np.full(n, -0.06), np.full(n, 0.06)
+    kw = dict(maxiter=12, chunk=4, gatol=1e-14, grtol=1e-30, inftol=1e-12,
+              fatol=1e-14, verbose=False)
+    rk = run_optimization_device(pk, x0, lb, ub, **kw)
+    before = {**streamk.launch_counts(), **stream.launch_counts()}
+    rs = run_optimization_device(ps, x0, lb, ub, **kw)
+    after = {**streamk.launch_counts(), **stream.launch_counts()}
+    assert rs.niter == rk.niter == 12
+    for hk, hs in zip(rk.history[:4], rs.history[:4]):
+        assert hk.step == hs.step
+        assert abs(hk.objective - hs.objective) <= 1e-5 * abs(hk.objective)
+    assert abs(rs.objective - rk.objective) <= 0.05 * abs(rk.objective)
+    # init (1 + 1), the warm-up chunk (4 + 4) and 3 replays of 4 iterations
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"stream_fwd_launches": 1 + 4 + 12,
+            "stream_bwd_launches": 1 + 4 + 12}
+
+
+@pytest.mark.cuda
+def test_kerr_calibration_on_card(cuda):
+    """The example's Kerr recovery on the card, rel err < 1e-4, one launch
+    of each stream kernel per gradient."""
+    from quandary_tpu_torch import calibration
+    from quandary_tpu_torch.ops import stream
+    before = stream.launch_counts()
+    xi, err, iterations = calibration.KerrCalibration().run()
+    after = stream.launch_counts()
+    assert err < 1e-4, (xi, err)
+    # the data trajectory (one forward) and one sweep per gradient
+    assert after["stream_bwd_launches"] - before["stream_bwd_launches"] \
+        == iterations + 1
+    assert after["stream_fwd_launches"] - before["stream_fwd_launches"] \
+        == iterations + 2

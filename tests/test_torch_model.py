@@ -95,8 +95,9 @@ def arrays_from_jax_setup(setup):
     """The plain-data dict of a quandary_tpu Setup that
     quandary_tpu_torch.convert.setup_from_arrays takes. Fields that only
     schedule the JAX package's work (pallas, engine, time_parallel, ...)
-    are dropped; the route gate of open systems, pallas_rho, carries across
-    under the port's name fused_rho."""
+    are dropped; the route gate of open systems, pallas_rho, and the kernel
+    family, pallas_mode, carry across under the port's names fused_rho and
+    fused_mode."""
     from quandary_tpu_torch.problem import Setup as TorchSetup
     port_fields = {f.name for f in dataclasses.fields(TorchSetup)}
     d = {}
@@ -115,6 +116,8 @@ def arrays_from_jax_setup(setup):
             d["dtype"] = np.dtype(v).name
         elif f.name == "pallas_rho":    # the open-system route gate
             d["fused_rho"] = v
+        elif f.name == "pallas_mode":   # the fused kernel family
+            d["fused_mode"] = v
         elif f.name in port_fields:
             d[f.name] = v
     return d

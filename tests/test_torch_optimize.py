@@ -145,9 +145,12 @@ def test_package_imports_without_jax():
         "quandary_tpu_torch.__path__, 'quandary_tpu_torch.')]\n"
         "[importlib.import_module(n) for n in names]\n"
         "assert 'quandary_tpu' not in sys.modules\n"
+        "assert {'quandary_tpu_torch.ops.stream', 'quandary_tpu_torch.ops."
+        "adjoint', 'quandary_tpu_torch.ops.dense', 'quandary_tpu_torch."
+        "calibration'} <= set(names)\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 21
+    assert int(out.stdout.strip()) >= 25

@@ -148,3 +148,15 @@ def test_packed_robust_validation():
         with pytest.raises(ValueError):
             trobust.build_packed_robust_objective(
                 [pt[0], TProblem(s, device="cpu")])
+
+
+@pytest.mark.parametrize("mode", ["stream", "chunk"])
+def test_packed_robust_refuses_streamed_plane_modes(mode):
+    """The packed route is streamK's only: a sample on the streamed-plane
+    kernels (fused_mode 'stream' or 'chunk') is refused by name, not run
+    on the streamK kernels."""
+    _, pt = _packed_problems()
+    s = dataclasses.replace(pt[0].setup, fused_mode=mode, linsolver="neumann")
+    with pytest.raises(NotImplementedError, match=f"fused_mode='{mode}'"):
+        trobust.build_packed_robust_objective(
+            [pt[0], TProblem(s, device="cpu")])
