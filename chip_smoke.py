@@ -902,9 +902,12 @@ def main():
     x0r, x0i = prob._x0r, prob._x0i
     ms = kernel_ms(plan, x0r, x0i, C1, 20, 2)
     ms_big = kernel_ms(plan, x0r, x0i, CE, 10, 0)
-    # the dependent chain: per time step the forward passes iters + 2
-    # block-wide barriers (contraction, b = T(x), one per stage iterate)
-    # and the backward with stored iterates iters + 3
+    # the dependent chain per time step: the forward passes iters + 2
+    # block-wide barriers (contraction, b = T(x), one per stage iterate);
+    # the backward's chain iters + 1 stage syncs (its transposed stages; a
+    # replay adds iters), each on the state threads alone (a __syncwarp
+    # where a state's N entries lie in one warp), and no block-wide barrier
+    # where helper warps contract H and reduce C-bar beside it
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True,
@@ -915,11 +918,21 @@ def main():
         sm_mhz = 1980.0     # the H100 SXM's published boost clock
     floor_us = (2 * prob.N * FMA_CYCLES + SMEM_CYCLES + BARRIER_CYCLES) \
         / sm_mhz
-    chain = {k: dict(stages_per_step=st, us_per_step=1e3 * ms[k] / setup.ntime,
+    B, N = x0r.shape
+    helpers = streamk._bwd_shape(plan.Ke, plan.iters, B, N)[2]
+    bwd_stages = plan.iters + 1 + (0 if plan.store_iters else plan.iters)
+    chain = {k: dict(stages_per_step=st,
+                     us_per_step=1e3 * ms[k] / setup.ntime,
+                     us_per_step_E128=1e3 * ms_big[k] / setup.ntime,
                      us_per_stage=1e3 * ms[k] / setup.ntime / st,
                      floor_us_per_stage=floor_us,
                      floor_ms_per_sweep=1e-3 * floor_us * st * setup.ntime)
-             for k, st in (("fwd", plan.iters + 2), ("bwd", plan.iters + 3))}
+             for k, st in (("fwd", plan.iters + 2), ("bwd", bwd_stages))}
+    chain["fwd"]["block_barriers_per_step"] = plan.iters + 2
+    chain["bwd"].update(
+        helper_threads=helpers,
+        stage_sync="warp" if 32 % N == 0 else "state warps",
+        block_barriers_per_step=0 if helpers else 4)
     phase(6, "sweeps/s " + json.dumps({k: round(v, 3) for k, v in
                                       rates.items()})
           + f"; kernel ms at E=1 split-3 {json.dumps(ms)}; at E={E_BIG} "
@@ -1467,20 +1480,35 @@ def main():
                     more[f"plain_ms_{name}"] = t[f"plain_{key}"]
         return more
 
+    def streamk_more(i):
+        """B1 at E = 128 and on open configuration 1 (superop), and its
+        time per reversed (forward) step."""
+        key = ("fwd", "bwd")[i]
+        return dict(ms_E128=ms_big[key],
+                    bound_ms_E128=ms_big[f"{key}_bound"][0],
+                    us_per_step=chain[key]["us_per_step"],
+                    us_per_step_E128=chain[key]["us_per_step_E128"],
+                    launches_open1=open_launches["cnot4"][B1[i]],
+                    ms_open1=ms_4[key],
+                    bound_ms_open1=ms_4[f"{key}_bound"][0],
+                    plain_ms_open1=ms_4[f"plain_{key}"])
+
     # library_ms is null: no single PyTorch call computes a whole
     # propagation (a time loop of stage solves) or its transpose
     print(json.dumps({"kernels": [
         record("streamk_fwd", 907, launches[B1[0]], worst["state"], ms, "fwd",
                launches_device_optimizer=launches_dev[B1[0]],
-               launches_population=launches_pop[B1[0]]),
+               launches_population=launches_pop[B1[0]], **streamk_more(0)),
         record("streamk_bwd", 967, launches[B1[1]],
                max(worst["cbar"], worst["x0bar"]), ms, "bwd",
                launches_device_optimizer=launches_dev[B1[1]],
-               launches_population=launches_pop[B1[1]]),
+               launches_population=launches_pop[B1[1]], **streamk_more(1)),
         record("streamk_packed_fwd", 1324, launches_robust[B2[0]],
-               worst_p["state"], ms_p, "fwd"),
+               worst_p["state"], ms_p, "fwd", ms_S128=ms_pbig["fwd"],
+               bound_ms_S128=ms_pbig["fwd_bound"][0]),
         record("streamk_packed_bwd", 1415, launches_robust[B2[1]],
-               max(worst_p["cbar"], worst_p["x0bar"]), ms_p, "bwd"),
+               max(worst_p["cbar"], worst_p["x0bar"]), ms_p, "bwd",
+               ms_S128=ms_pbig["bwd"], bound_ms_S128=ms_pbig["bwd_bound"][0]),
         # the rho kernels at configuration 2 (N = 16, B = 16, E = 1); the
         # other sizes ride along
         record("rho_fwd", 374, open_launches["cnot16"][B4[0]],

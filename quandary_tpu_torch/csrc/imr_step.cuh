@@ -5,7 +5,10 @@
 // chain, and the step's H cotangent. H lives in shared memory as two
 // row-major (N, N) planes with row stride N + 1 (the pad keeps both the row
 // reads of T and the column reads of Tt conflict-free); the kernels differ
-// only in how H gets there and where its cotangent goes.
+// only in how H gets there and where its cotangent goes. The second part of
+// the file is the same backward step for a block split into roles (the
+// state threads' chain, H's contraction and its cotangent), which
+// streamk_bwd runs.
 //   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
 //   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
 //   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
@@ -311,6 +314,388 @@ __device__ __forceinline__ void hb_entry(const StepThread& s, int ent,
       sr = fmaf(-c_i, u_r, sr);
       si = fmaf(c_r, u_r, si);
       si = fmaf(c_i, u_i, si);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward step on a block split into roles (streamk_bwd): the S state
+// threads run the transposed chain and nothing else, other warps contract H
+// and reduce its cotangent beside them. The same algebra as stage_bwd,
+// stage_replay, apply_T, apply_Tt and hb_entry above, with the step's
+// operands in registers loaded a step ahead, the (cotangent, input) pairs
+// left in a ring slot for the other roles, stage syncs over the state
+// threads only, and a compile-time N (NC > 0) that unrolls the matvecs over
+// registers.
+
+// named barrier 1 (0 is __syncthreads): the state warps, where a stage's
+// states span warps; a kernel's own hand-offs take ids from 2
+enum { BAR_STATE = 1 };
+
+constexpr int MAX_STORED = 4;   // stored iterates a state thread prefetches
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// One slot of the pairs ring, each (B, N) re/im: the rotated pre-state xp,
+// the stage iterates k_0..k_{it-1} and the cotangents cb_0..cb_it. Pair
+// p < it is (cb_p, k_{it-1-p}), pair it is (cb_it, xp) (stage_bwd's).
+struct Pairs {
+  float *xr, *xi, *kr, *ki, *cr, *ci;
+};
+
+__device__ __forceinline__ Pairs pairs_slot(float* P, int BN, int it) {
+  Pairs q;
+  q.xr = P;
+  q.xi = P + BN;
+  q.kr = P + 2 * BN;
+  q.ki = q.kr + it * BN;
+  q.cr = q.ki + it * BN;
+  q.ci = q.cr + (it + 1) * BN;
+  return q;
+}
+
+// A state thread's operands of one reversed step: the pre-state (x0 at
+// t = 0, else the previous history entry), the history cotangent and,
+// when stored, the stage iterates.
+struct StepOps {
+  float xr, xi, jr, ji, kr[MAX_STORED], ki[MAX_STORED];
+};
+
+__device__ __forceinline__ void load_ops(
+    const StepThread& s, int t, size_t st, const float* __restrict__ x0r,
+    const float* __restrict__ x0i, const float* __restrict__ hr,
+    const float* __restrict__ hi, const float* __restrict__ jr,
+    const float* __restrict__ ji, const float* __restrict__ ksr,
+    const float* __restrict__ ksi, StepOps& o) {
+  if (!s.act) return;
+  const size_t BN = s.BN, at = st * BN + s.tid;
+  o.jr = jr[at];
+  o.ji = ji[at];
+  o.xr = t == 0 ? x0r[s.tid] : hr[at - BN];
+  o.xi = t == 0 ? x0i[s.tid] : hi[at - BN];
+  if (ksr) {
+    const size_t ko = st * s.iters * BN + s.tid;
+#pragma unroll
+    for (int j = 0; j < MAX_STORED; ++j)
+      if (j < s.iters) {
+        o.kr[j] = ksr[ko + j * BN];
+        o.ki[j] = ksi[ko + j * BN];
+      }
+  }
+}
+
+// The end of a stage: a state's N entries are written for its threads.
+__device__ __forceinline__ void stage_sync(bool warp_rows, int S) {
+  if (warp_rows)
+    __syncwarp();
+  else
+    bar_sync(BAR_STATE, S);
+}
+
+// A chain thread's column q of H(t) (Tt reads H by columns), held in
+// registers for the step where N is the compile-time NC.
+template <int NC>
+struct HCol {
+  float r[NC > 0 ? NC : 1], i[NC > 0 ? NC : 1];
+};
+
+template <int NC>
+__device__ __forceinline__ void load_col(const float* Hr, const float* Hi,
+                                         int q, HCol<NC>& h) {
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int p = 0; p < NC; ++p) {
+      h.r[p] = Hr[p * (NC + 1) + q];
+      h.i[p] = Hi[p * (NC + 1) + q];
+    }
+  }
+}
+
+// A (NC,) row of a plane in shared memory into registers, 16 bytes a load
+// (the rows of the (B, N) planes start on 16-byte boundaries).
+template <int NC>
+__device__ __forceinline__ void load_row(const float* v, float (&out)[NC]) {
+  static_assert(NC % 4 == 0, "rows of whole float4s");
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+#pragma unroll
+  for (int m = 0; m < NC / 4; ++m) {
+    const float4 t = v4[m];
+    out[4 * m] = t.x;
+    out[4 * m + 1] = t.y;
+    out[4 * m + 2] = t.z;
+    out[4 * m + 3] = t.w;
+  }
+}
+
+// apply_T / apply_Tt of imr_step.cuh (NC: the compile-time N, or 0) with
+// the two products of each output on their own accumulators, and at a
+// compile-time N also the even and odd terms: dependent chains of N / 2
+// FMAs, not 2 N.
+template <int NC>
+__device__ __forceinline__ void apply_T_n(const float* Hr, const float* Hi,
+                                          const float* vr, const float* vi,
+                                          int b, int i, int N, float& outr,
+                                          float& outi) {
+  const int n = NC ? NC : N;
+  const float* hr = Hr + i * (n + 1);
+  const float* hi = Hi + i * (n + 1);
+  float a[8] = {};          // ar0, ar1, ai0, ai1 of the even and odd terms
+  if constexpr (NC > 0) {
+    float xr[NC], xi[NC];
+    load_row<NC>(vr + b * NC, xr);
+    load_row<NC>(vi + b * NC, xi);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      float* c = a + 4 * (j & 1);
+      c[0] = fmaf(hr[j], xr[j], c[0]);
+      c[1] = fmaf(-hi[j], xi[j], c[1]);
+      c[2] = fmaf(hr[j], xi[j], c[2]);
+      c[3] = fmaf(hi[j], xr[j], c[3]);
+    }
+  } else {
+    const float* xr = vr + b * n;
+    const float* xi = vi + b * n;
+    for (int j = 0; j < n; ++j) {
+      a[0] = fmaf(hr[j], xr[j], a[0]);
+      a[1] = fmaf(-hi[j], xi[j], a[1]);
+      a[2] = fmaf(hr[j], xi[j], a[2]);
+      a[3] = fmaf(hi[j], xr[j], a[3]);
+    }
+  }
+  outr = (a[2] + a[6]) + (a[3] + a[7]);
+  outi = -((a[0] + a[4]) + (a[1] + a[5]));
+}
+
+template <int NC>
+__device__ __forceinline__ void apply_Tt_n(const HCol<NC>& hc,
+                                           const float* Hr, const float* Hi,
+                                           const float* ur, const float* ui,
+                                           int b, int q, int N, float& outr,
+                                           float& outi) {
+  float a[8] = {};          // sr0, sr1, si0, si1 of the even and odd terms
+  if constexpr (NC > 0) {
+    float cr[NC], ci[NC];
+    load_row<NC>(ur + b * NC, cr);
+    load_row<NC>(ui + b * NC, ci);
+#pragma unroll
+    for (int p = 0; p < NC; ++p) {
+      float* c = a + 4 * (p & 1);
+      c[0] = fmaf(cr[p], hc.i[p], c[0]);
+      c[1] = fmaf(-ci[p], hc.r[p], c[1]);
+      c[2] = fmaf(cr[p], hc.r[p], c[2]);
+      c[3] = fmaf(ci[p], hc.i[p], c[3]);
+    }
+  } else {
+    const int ld = N + 1;
+    const float* cr = ur + b * N;
+    const float* ci = ui + b * N;
+    for (int p = 0; p < N; ++p) {
+      const float hr = Hr[p * ld + q], hi = Hi[p * ld + q];
+      a[0] = fmaf(cr[p], hi, a[0]);
+      a[1] = fmaf(-ci[p], hr, a[1]);
+      a[2] = fmaf(cr[p], hr, a[2]);
+      a[3] = fmaf(ci[p], hi, a[3]);
+    }
+  }
+  outr = (a[0] + a[4]) + (a[1] + a[5]);
+  outi = (a[2] + a[6]) + (a[3] + a[7]);
+}
+
+// One reversed step of the chain, run by all S state threads: the exact
+// real transpose of stage_fwd (stage_bwd's algebra). g, the cotangent of the
+// post-step state, becomes that of the pre-step state; the step's pairs are
+// left in q for Hb.
+template <int NC>
+__device__ __forceinline__ void chain_step(const StepThread& s,
+                                           const float* Hr, const float* Hi,
+                                           const Pairs& q, const StepOps& o,
+                                           bool stored, bool warp_rows, int S,
+                                           float& gr, float& gi) {
+  const int BN = s.BN, tid = s.tid, it = s.iters;
+  HCol<NC> hc;
+  load_col<NC>(Hr, Hi, s.i, hc);
+  if (s.act) {
+    float xr = o.xr, xi = o.xi;
+    gr += o.jr;
+    gi += o.ji;
+    if (s.split) {            // cotangent and pre-state into the rotated frame
+      cmul_conj(s.r0, s.r1, gr, gi);
+      cmul(s.r0, s.r1, xr, xi);
+    }
+    q.xr[tid] = xr;
+    q.xi[tid] = xi;
+    if (stored) {
+#pragma unroll
+      for (int j = 0; j < MAX_STORED; ++j)
+        if (j < it) {
+          q.kr[j * BN + tid] = o.kr[j];
+          q.ki[j * BN + tid] = o.ki[j];
+        }
+    }
+  }
+  if (!stored && it > 0) {    // replay k_0..k_{it-1} from xp (stage_replay)
+    float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
+    stage_sync(warp_rows, S);
+    if (s.act) {
+      apply_T_n<NC>(Hr, Hi, q.xr, q.xi, s.b, s.i, s.N, br, bi);
+      stage_first(s, br, bi, kr, ki);
+      q.kr[tid] = kr;
+      q.ki[tid] = ki;
+    }
+    for (int j = 1; j < it; ++j) {
+      stage_sync(warp_rows, S);
+      if (s.act) {
+        float mr, mi;
+        apply_T_n<NC>(Hr, Hi, q.kr + (j - 1) * BN, q.ki + (j - 1) * BN, s.b,
+                      s.i, s.N, mr, mi);
+        stage_next(s, br, bi, mr, mi, kr, ki);
+        q.kr[j * BN + tid] = kr;
+        q.ki[j * BN + tid] = ki;
+      }
+    }
+  }
+  // transpose of the stage chain, j = it..1; pair p = it - j has input
+  // u = k_{j-1}; the last pair (b-bar, x_pre)
+  float bbr = 0.f, bbi = 0.f, kbr = s.dt * gr, kbi = s.dt * gi;
+  for (int p = 0; p < it; ++p) {
+    float cr = 0.f, ci = 0.f;
+    if (s.act) {
+      if (s.jac) cmul_conj(s.r2, s.r3, kbr, kbi);   // Wt
+      bbr += kbr;
+      bbi += kbi;
+      cr = s.a * kbr;
+      ci = s.a * kbi;
+      q.cr[p * BN + tid] = cr;
+      q.ci[p * BN + tid] = ci;
+    }
+    stage_sync(warp_rows, S);
+    if (s.act) {
+      apply_Tt_n<NC>(hc, Hr, Hi, q.cr + p * BN, q.ci + p * BN, s.b, s.i, s.N,
+                     kbr, kbi);
+      if (s.jac) {              // minus the transpose of v -> d v
+        kbr -= s.r0 * cr + s.r1 * ci;
+        kbi -= s.r0 * ci - s.r1 * cr;
+      }
+    }
+  }
+  if (s.act) {
+    if (s.jac) cmul_conj(s.r2, s.r3, kbr, kbi);
+    bbr += kbr;
+    bbi += kbi;
+    q.cr[it * BN + tid] = bbr;
+    q.ci[it * BN + tid] = bbi;
+  }
+  stage_sync(warp_rows, S);
+  if (s.act) {
+    float tr, ti;
+    apply_Tt_n<NC>(hc, Hr, Hi, q.cr + it * BN, q.ci + it * BN, s.b, s.i, s.N,
+                   tr, ti);
+    gr += tr;
+    gi += ti;
+    if (s.split) cmul_conj(s.r0, s.r1, gr, gi);
+  }
+}
+
+// Entries e0, e0 + ne, ... of H = sum_k c_k S_k from a coefficient row in
+// shared memory: the arithmetic of streamk.cu's contract (the forward's), so
+// both directions step on the same bits of H. At a compile-time N a thread
+// takes the entries in pairs (2 e0, 2 e0 + 1), ..., reading the stacks 8
+// bytes a load.
+template <int NC>
+__device__ __forceinline__ void contract_part(const float* Sr, const float* Si,
+                                              const float* c, float* Hr,
+                                              float* Hi, int Ke, int N,
+                                              int e0, int ne) {
+  if constexpr (NC > 0) {
+    constexpr int NN = NC * NC, ld = NC + 1;
+    for (int e = 2 * e0; e < NN; e += 2 * ne) {
+      float hr0 = 0.f, hr1 = 0.f, hi0 = 0.f, hi1 = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < Ke; ++k) {
+        const float ck = c[k];
+        const float2 sr = *reinterpret_cast<const float2*>(Sr + k * NN + e);
+        const float2 si = *reinterpret_cast<const float2*>(Si + k * NN + e);
+        hr0 = fmaf(ck, sr.x, hr0);
+        hr1 = fmaf(ck, sr.y, hr1);
+        hi0 = fmaf(ck, si.x, hi0);
+        hi1 = fmaf(ck, si.y, hi1);
+      }
+      const int p = e / NC, q = e - p * NC;
+      Hr[p * ld + q] = hr0;
+      Hr[p * ld + q + 1] = hr1;
+      Hi[p * ld + q] = hi0;
+      Hi[p * ld + q + 1] = hi1;
+    }
+  } else {
+    const int NN = N * N, ld = N + 1;
+    for (int e = e0; e < NN; e += ne) {
+      float hr = 0.f, hi = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < Ke; ++k) {
+        const float ck = c[k];
+        hr = fmaf(ck, Sr[k * NN + e], hr);
+        hi = fmaf(ck, Si[k * NN + e], hi);
+      }
+      const int p = e / N, q = e - p * N;
+      Hr[p * ld + q] = hr;
+      Hi[p * ld + q] = hi;
+    }
+  }
+}
+
+// Entries e0, e0 + ne, ... of the step's H cotangent, Hb[p][q] = sum over
+// the pairs and the rows b of c[b][p] (x) u[b][q] (hb_entry's sum, the two
+// products of each output on their own accumulators). At a compile-time N
+// a thread takes the entries in pairs, as contract_part.
+template <int NC>
+__device__ __forceinline__ void hb_part(const Pairs& q, float* Hbr,
+                                        float* Hbi, int B, int N, int it,
+                                        int e0, int ne) {
+  const int n = NC ? NC : N, NN = n * n, BN = B * n, w = NC ? 2 : 1;
+  for (int ent = w * e0; ent < NN; ent += w * ne) {
+    const int p = ent / n, qq = ent - p * n;
+    float a[8] = {};        // sr0, sr1, si0, si1 of entries qq and qq + 1
+    for (int pr = 0; pr <= it; ++pr) {
+      const float* ur = pr < it ? q.kr + (it - 1 - pr) * BN : q.xr;
+      const float* ui = pr < it ? q.ki + (it - 1 - pr) * BN : q.xi;
+      const float* cr = q.cr + pr * BN;
+      const float* ci = q.ci + pr * BN;
+#pragma unroll 4
+      for (int bb = 0; bb < B; ++bb) {
+        const float c_r = cr[bb * n + p], c_i = ci[bb * n + p];
+        if constexpr (NC > 0) {
+          const float2 u_r =
+              *reinterpret_cast<const float2*>(ur + bb * NC + qq);
+          const float2 u_i =
+              *reinterpret_cast<const float2*>(ui + bb * NC + qq);
+          a[0] = fmaf(c_r, u_i.x, a[0]);
+          a[1] = fmaf(-c_i, u_r.x, a[1]);
+          a[2] = fmaf(c_r, u_r.x, a[2]);
+          a[3] = fmaf(c_i, u_i.x, a[3]);
+          a[4] = fmaf(c_r, u_i.y, a[4]);
+          a[5] = fmaf(-c_i, u_r.y, a[5]);
+          a[6] = fmaf(c_r, u_r.y, a[6]);
+          a[7] = fmaf(c_i, u_i.y, a[7]);
+        } else {
+          const float u_r = ur[bb * n + qq], u_i = ui[bb * n + qq];
+          a[0] = fmaf(c_r, u_i, a[0]);
+          a[1] = fmaf(-c_i, u_r, a[1]);
+          a[2] = fmaf(c_r, u_r, a[2]);
+          a[3] = fmaf(c_i, u_i, a[3]);
+        }
+      }
+    }
+    Hbr[ent] = a[0] + a[1];
+    Hbi[ent] = a[2] + a[3];
+    if constexpr (NC > 0) {
+      Hbr[ent + 1] = a[4] + a[5];
+      Hbi[ent + 1] = a[6] + a[7];
     }
   }
 }

@@ -36,10 +36,24 @@
 // (N = 16, B = 4, ntime = 1221, split with 3 iterations) does about 40 MFLOP
 // per forward sweep, under a microsecond of the card's f32 rate, and reads
 // (ntime * Ke) coefficients. The bound is latency: a chain of
-// ntime * (iters + 1) dependent matvecs, each followed by a block-wide
-// barrier. The design keeps that chain on-chip (no global round trip per
-// step, no per-step launch) and runs E candidates as E independent blocks,
-// so a batch of up to one block per SM costs the same wall time as one.
+// ntime * (iters + 1) dependent matvecs. The design keeps that chain on-chip
+// (no global round trip per step, no per-step launch) and runs E candidates
+// as E independent blocks, so a batch of up to one block per SM costs the
+// same wall time as one. In the forward each matvec of the chain is followed
+// by a block-wide barrier, and the step's contraction and global reads lie
+// on it.
+// The backward's chain is its transposed stages alone (steps 1-4 of its
+// redesign for Hopper): (1) no global load on it, the step's operands come
+// from registers loaded a step ahead and the coefficient rows from shared
+// memory; (2) C-bar is reduced by helper warps one step behind the chain,
+// each warp owning stack slots k, k + nwarps, ..., without atomics; (3) the
+// same helpers contract H(t - 1) into a second buffer while the chain runs
+// step t; (4) a stage synchronizes only the state threads (a warp at
+// N = 16), never the block.
+// What bounds it then is one transposed matvec per stage: a shared-memory
+// round trip and N / 2 dependent FMAs on each of 8 accumulators, iters + 1
+// times per step, with the helpers' contraction and C-bar reduction about as
+// long beside it (the role split is described above streamk_bwd).
 
 #include <cuda_runtime.h>
 
@@ -49,10 +63,12 @@ namespace {
 
 // strideS, strideR: floats between two candidates' operator stacks
 // (Ke * N * N) and solver rows (nrows * N); 0 when all candidates share one.
+// helpers: the backward's helper threads (set by its launcher).
 struct Dims {
   int E, nt, B, N, Ke, iters, mode, store;
   float dt, a;
   size_t strideS, strideR;
+  int helpers;
 };
 
 // H = sum_k c_k S_k into row-major planes with row stride N + 1 (the pad
@@ -133,12 +149,147 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Roles: the state threads (the first S = roundup32(B N), one per
+// (b, i) entry as in the forward) run the dependent chain of each reversed
+// step and nothing else: its transposed stages and, without stored
+// iterates, their replay. The helper threads after them (d.helpers of them,
+// whole warps, one per two entries of H) run what the recursion for g never
+// reads, beside the chain:
+//   * while the chain runs step t - 1 they contract H(t - 2) from the stacks
+//     into the H buffer that step t released (two buffers, a ring);
+//   * at the same time they reduce the (cotangent, input) pairs that step t
+//     left in one slot of a two-slot ring into Hb(t), once, into shared
+//     memory, and then into Cb[t, :]: each helper warp owns stack slots
+//     k, k + nwarps, ... and writes each Cb[t, k] from one shuffle tree (no
+//     atomics: two launches give the same bits);
+//   * they copy each coefficient row into shared memory (cp.async, strided
+//     over the helpers, so any Ke) a step before the contraction reads it.
+// The chain reads its step operands (the injection, the pre-state, the
+// stored iterates) from registers it loaded one step ahead; at the
+// compile-time N = 16 a chain thread also holds its column of H(t) and, per
+// stage, the cotangent row it contracts in registers (16-byte loads). A stage
+// synchronizes only the threads of one basis state: where N divides 32 a
+// state's N entries lie in one warp and a stage ends on __syncwarp,
+// otherwise on a named barrier over the state warps. The hand-offs between
+// the roles are named barriers per ring slot (bar.arrive by the producer,
+// bar.sync by the consumer); no stage waits on a block-wide barrier. The
+// chain, the contraction and Hb are imr_step.cuh's split-role step.
+// Inline branch: where the helpers or the second buffers do not fit (1024
+// threads, 227 KB) the launcher gives no helpers, and the whole block
+// contracts H(t) and reduces Cb[t, :] around the chain of step t, on one
+// buffer of each kind: the same device functions and arithmetic, four
+// block-wide barriers per step.
+namespace {
+
+// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
+// id + slot
+enum {
+  BAR_HELP = 2,     // the helper warps among themselves
+  BAR_H_FULL = 3,   // H(t) contracted: helpers arrive, the chain waits
+  BAR_P_FULL = 5,   // step t's pairs written and its H read: chain arrives
+  BAR_P_FREE = 7,   // step t's pairs reduced into Cb: helpers arrive
+};
+
+// Entries first, first + step, ... of a coefficient row into shared memory
+// by cp.async, which does not stall the thread; cp_async_wait() waits for
+// all of the thread's copies (a barrier after it shows them to the block).
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int Ke, int first, int step) {
+  for (int k = first; k < Ke; k += step) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + k);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(src + k)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Floats of the backward's shared memory: the stacks; per slot (two with
+// helpers, one inline) the H planes and the pairs; Hb; per slot a
+// coefficient row. Every buffer but the last starts on a 16-byte boundary
+// where N is a multiple of 4.
+__host__ __device__ inline size_t bwd_floats(int B, int N, int Ke, int it,
+                                             bool split) {
+  const size_t NN = (size_t)N * N, BN = (size_t)B * N, slots = split ? 2 : 1;
+  return 2 * Ke * NN + slots * (2 * N * (N + 1) + (4 * it + 4) * BN + Ke) +
+         2 * NN;
+}
+
+
+// cb[k] = <Hb_r, Sr_k> + <Hb_i, Si_k> for k = warp, warp + nwarps, ...: one
+// warp per stack slot, one shuffle tree each, written by its lane 0. At a
+// compile-time N a lane holds its NN / 32 entries of Hb in registers for
+// all its warp's slots and reads 16 bytes a load.
+template <int NC>
+__device__ __forceinline__ void cbar_part(const float* Sr, const float* Si,
+                                          const float* Hbr, const float* Hbi,
+                                          float* __restrict__ cb, int Ke,
+                                          int NN, int warp, int nwarps,
+                                          int lane) {
+  if constexpr (NC > 0) {
+    constexpr int V = NC * NC / 128;  // float4s of Hb a lane holds
+    static_assert(NC * NC % 128 == 0, "whole float4s per lane");
+    if (warp >= Ke) return;
+    float4 hr[V], hi[V];
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      hr[m] = reinterpret_cast<const float4*>(Hbr)[lane + 32 * m];
+      hi[m] = reinterpret_cast<const float4*>(Hbi)[lane + 32 * m];
+    }
+    for (int k = warp; k < Ke; k += nwarps) {
+      const float4* sr = reinterpret_cast<const float4*>(Sr + k * NC * NC);
+      const float4* si = reinterpret_cast<const float4*>(Si + k * NC * NC);
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+      for (int m = 0; m < V; ++m) {
+        const float4 a = sr[lane + 32 * m], b = si[lane + 32 * m];
+        v0 = fmaf(hr[m].x, a.x, v0);
+        v0 = fmaf(hr[m].y, a.y, v0);
+        v0 = fmaf(hr[m].z, a.z, v0);
+        v0 = fmaf(hr[m].w, a.w, v0);
+        v1 = fmaf(hi[m].x, b.x, v1);
+        v1 = fmaf(hi[m].y, b.y, v1);
+        v1 = fmaf(hi[m].z, b.z, v1);
+        v1 = fmaf(hi[m].w, b.w, v1);
+      }
+      float v = v0 + v1;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) cb[k] = v;
+    }
+  } else {
+    for (int k = warp; k < Ke; k += nwarps) {
+      const float* sr = Sr + k * NN;
+      const float* si = Si + k * NN;
+      float v0 = 0.f, v1 = 0.f;
+#pragma unroll 8
+      for (int ent = lane; ent < NN; ent += 32) {
+        v0 = fmaf(Hbr[ent], sr[ent], v0);
+        v1 = fmaf(Hbi[ent], si[ent], v1);
+      }
+      float v = v0 + v1;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) cb[k] = v;
+    }
+  }
+}
+
+}  // namespace
+
 // Backward: runs the steps in reverse. Inputs as the forward's plus the
 // history (E, nt, B, N), its cotangent j (E, nt, B, N), the final-state
 // cotangent gT (E, B, N) and, with store, the forward's stage iterates.
 // Writes the x0 cotangent per candidate g0 (E, B, N) and the coefficient
-// cotangents Cb (E, nt, Ke).
-__global__ void __launch_bounds__(1024)
+// cotangents Cb (E, nt, Ke). d.helpers: the helper threads after the S state
+// threads, 0 for the inline branch. NC: N, where the kernel is compiled for
+// it (16: the flagship's, and open configuration 1's superop dimension;
+// helpers only, at most 512 threads, so up to 128 registers a thread), or 0
+// for any N.
+template <int NC>
+__global__ void __launch_bounds__(NC > 0 ? 512 : 1024)
 streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
             const float* __restrict__ C, const float* __restrict__ x0r,
             const float* __restrict__ x0i, const float* __restrict__ hr,
@@ -149,23 +300,19 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
             float* __restrict__ g0r, float* __restrict__ g0i,
             float* __restrict__ Cb, Dims d) {
   extern __shared__ float sm[];
-  const int N = d.N, NN = N * N, BN = d.B * N, Ke = d.Ke, iters = d.iters;
+  const int N = NC ? NC : d.N, NN = N * N, BN = d.B * N, Ke = d.Ke;
+  const int it = d.iters, nt = d.nt, S = (BN + 31) & ~31, Hh = d.helpers;
+  const int slots = Hh > 0 ? 2 : 1, ldH = N * (N + 1);
+  const int Hsz = 2 * ldH, Psz = (4 * it + 4) * BN;
   float* Sr = sm;
   float* Si = Sr + Ke * NN;
-  float* Hr = Si + Ke * NN;
-  float* Hi = Hr + N * (N + 1);
-  float* Hbr = Hi + N * (N + 1);
+  float* Hbuf = Si + Ke * NN;           // slots x (Hr, Hi)
+  float* Pbuf = Hbuf + slots * Hsz;     // slots x pairs
+  float* Hbr = Pbuf + slots * Psz;
   float* Hbi = Hbr + NN;
-  float* xp_r = Hbi + NN;
-  float* xp_i = xp_r + BN;
-  float* ks_r = xp_i + BN;                // k_0..k_{iters-1}
-  float* ks_i = ks_r + iters * BN;
-  float* cb_r = ks_i + iters * BN;        // cotangents of the iters+1 pairs
-  float* cb_i = cb_r + (iters + 1) * BN;
-  float* red = cb_i + (iters + 1) * BN;   // (nwarps, Ke)
+  float* crow = Hbi + NN;               // slots x coefficient row
 
-  const int e = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int e = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
   gSr += (size_t)e * d.strideS;
   gSi += (size_t)e * d.strideS;
   rows += (size_t)e * d.strideR;
@@ -173,49 +320,101 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
   }
-  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  const StepThread s = step_thread(d.B, N, it, d.mode, d.dt, d.a, rows);
+  const size_t base = (size_t)e * nt;
+  const float* Ce = C + base * Ke;      // this candidate's coefficient rows
+  const bool stored = d.store != 0, warp_rows = 32 % N == 0;
+  const float* kr_ = stored ? ksr : nullptr;
   float gr = 0.f, gi = 0.f;
+  StepOps cur = {}, nxt = {};
   if (s.act) {
     gr = gTr[(size_t)e * BN + tid];
     gi = gTi[(size_t)e * BN + tid];
   }
+  if (tid < S && nt > 0)
+    load_ops(s, nt - 1, base + nt - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+             cur);
   __syncthreads();
 
-  for (int t = d.nt - 1; t >= 0; --t) {
-    const size_t st = (size_t)e * d.nt + t;
-    contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
-    float xr = 0.f, xi = 0.f;
-    if (s.act) {
-      gr += jr[st * BN + tid];
-      gi += ji[st * BN + tid];
-      // pre-step state: x0 at t = 0, else the previous history entry
-      xr = t == 0 ? x0r[tid] : hr[(st - 1) * BN + tid];
-      xi = t == 0 ? x0i[tid] : hi[(st - 1) * BN + tid];
+  if (Hh > 0) {
+    const int nall = S + Hh;
+    if (tid < S) {            // the chain
+      for (int t = nt - 1; t >= 0; --t) {
+        const int sl = t & 1;
+        bar_sync(BAR_H_FULL + sl, nall);
+        if (t <= nt - 3) bar_sync(BAR_P_FREE + sl, nall);
+        if (t > 0)
+          load_ops(s, t - 1, base + t - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+                   nxt);
+        chain_step<NC>(s, Hbuf + sl * Hsz, Hbuf + sl * Hsz + ldH,
+                       pairs_slot(Pbuf + sl * Psz, BN, it), cur, stored,
+                       warp_rows, S, gr, gi);
+        bar_arrive(BAR_P_FULL + sl, nall);
+        cur = nxt;
+      }
+    } else {                  // the helpers, one step apart from the chain
+      const int h = tid - S, hw = h >> 5, nhw = Hh >> 5;
+      // coefficient row c(u) into crow slot u & 1, a step before its use
+      auto stage = [&](int u) {
+        stage_row(crow + (u & 1) * Ke, Ce + (size_t)u * Ke, Ke, h, Hh);
+      };
+      stage(nt - 1);
+      if (nt >= 2) stage(nt - 2);
+      cp_async_wait();
+      bar_sync(BAR_HELP, Hh);
+      for (int u = nt - 1; u >= 0 && u >= nt - 2; --u) {
+        const int sl = u & 1;
+        contract_part<NC>(Sr, Si, crow + sl * Ke, Hbuf + sl * Hsz,
+                          Hbuf + sl * Hsz + ldH, Ke, N, h, Hh);
+        bar_arrive(BAR_H_FULL + sl, nall);
+      }
+      bar_sync(BAR_HELP, Hh);
+      if (nt >= 3) stage(nt - 3);   // contracted at t = nt - 1
+      cp_async_wait();
+      for (int t = nt - 1; t >= 0; --t) {
+        const int sl = t & 1;
+        bar_sync(BAR_P_FULL + sl, nall);
+        if (t >= 2) {               // H(t - 2) into the buffer step t released
+          contract_part<NC>(Sr, Si, crow + sl * Ke, Hbuf + sl * Hsz,
+                            Hbuf + sl * Hsz + ldH, Ke, N, h, Hh);
+          bar_arrive(BAR_H_FULL + sl, nall);
+        }
+        if (t >= 3) stage(t - 3);   // contracted at t - 1
+        hb_part<NC>(pairs_slot(Pbuf + sl * Psz, BN, it), Hbr, Hbi, d.B, N, it,
+                    h, Hh);
+        cp_async_wait();
+        bar_sync(BAR_HELP, Hh);
+        cbar_part<NC>(Sr, Si, Hbr, Hbi, Cb + (base + t) * Ke, Ke, NN, hw, nhw,
+                      lane);
+        if (t >= 2) bar_arrive(BAR_P_FREE + sl, nall);
+      }
     }
-    const size_t ko = st * iters * BN;
-    stage_bwd(s, Hr, Hi, xr, xi, d.store ? ksr + ko : nullptr,
-              d.store ? ksi + ko : nullptr, xp_r, xp_i, ks_r, ks_i, cb_r,
-              cb_i, gr, gi);
-
-    // the step's H cotangent, then reduced against every stack slot
-    for (int ent = tid; ent < NN; ent += blockDim.x) {
-      float sr, si;
-      hb_entry(s, ent, xp_r, xp_i, ks_r, ks_i, cb_r, cb_i, sr, si);
-      Hbr[ent] = sr;
-      Hbi[ent] = si;
-    }
-    for (int k = 0; k < Ke; ++k) {
-      float v = 0.f;
-      for (int ent = tid; ent < NN; ent += blockDim.x)
-        v += Hbr[ent] * Sr[k * NN + ent] + Hbi[ent] * Si[k * NN + ent];
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) red[warp * Ke + k] = v;
-    }
-    __syncthreads();
-    if (tid < Ke) {
-      float v = 0.f;
-      for (int w = 0; w < nwarps; ++w) v += red[w * Ke + tid];
-      Cb[st * Ke + tid] = v;
+  } else if constexpr (NC == 0) {   // inline: every role in turn
+    float* Hr = Hbuf;
+    float* Hi = Hbuf + ldH;
+    const Pairs q = pairs_slot(Pbuf, BN, it);
+    if (nt > 0)
+      stage_row(crow, Ce + (size_t)(nt - 1) * Ke, Ke, tid, blockDim.x);
+    cp_async_wait();
+    for (int t = nt - 1; t >= 0; --t) {
+      __syncthreads();
+      contract_part<0>(Sr, Si, crow, Hr, Hi, Ke, N, tid, blockDim.x);
+      __syncthreads();
+      if (t >= 1)                   // c(t - 1) for the next step
+        stage_row(crow, Ce + (size_t)(t - 1) * Ke, Ke, tid, blockDim.x);
+      if (tid < S) {
+        if (t > 0)
+          load_ops(s, t - 1, base + t - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+                   nxt);
+        chain_step<0>(s, Hr, Hi, q, cur, stored, warp_rows, S, gr, gi);
+        cur = nxt;
+      }
+      cp_async_wait();
+      __syncthreads();
+      hb_part<0>(q, Hbr, Hbi, d.B, N, it, tid, blockDim.x);
+      __syncthreads();
+      cbar_part<0>(Sr, Si, Hbr, Hbi, Cb + (base + t) * Ke, Ke, NN, tid >> 5,
+                   blockDim.x >> 5, lane);
     }
   }
   if (s.act) {
@@ -228,6 +427,13 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
 // given stream and returns cudaGetLastError() (0 on success). The packed
 // entry points take the per-candidate strides of the stacks and the solver
 // rows; the plain ones run every candidate on one shared stack (stride 0).
+// STREAMK_BWD_NC: the N of the backward's compile-time instance, 16 (0
+// builds none and runs every N on streamk_bwd<0>: a build with
+// -DSTREAMK_BWD_NC=0 times the two against each other).
+#ifndef STREAMK_BWD_NC
+#define STREAMK_BWD_NC 16
+#endif
+
 namespace {
 
 int launch_fwd(const void* Sr, const void* Si, const void* C, const void* x0r,
@@ -252,17 +458,32 @@ int launch_bwd(const void* Sr, const void* Si, const void* C, const void* x0r,
                const void* gTi, const void* rows, const void* ksr,
                const void* ksi, void* g0r, void* g0i, void* Cb, const Dims& d,
                int threads, int smem_bytes, void* stream) {
+  // The roles go to helper warps when the caller's launch shape holds them:
+  // threads past the state warps and the two-slot layout's shared memory.
+  Dims db = d;
+  const int S = (d.B * d.N + 31) & ~31;
+  const size_t split_bytes = 4 * bwd_floats(d.B, d.N, d.Ke, d.iters, true);
+  db.helpers = threads > S && (size_t)smem_bytes >= split_bytes ? threads - S
+                                                                 : 0;
+  if (threads < S || threads % 32 != 0 ||
+      (size_t)smem_bytes <
+          4 * bwd_floats(d.B, d.N, d.Ke, d.iters, db.helpers > 0) ||
+      (d.store && d.iters > MAX_STORED))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = STREAMK_BWD_NC > 0 && d.N == STREAMK_BWD_NC &&
+                        db.helpers > 0 && threads <= 512
+                    ? streamk_bwd<STREAMK_BWD_NC>
+                    : streamk_bwd<0>;
   if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(streamk_bwd,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem_bytes);
-  streamk_bwd<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+  kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Sr, (const float*)Si, (const float*)C,
       (const float*)x0r, (const float*)x0i, (const float*)hr,
       (const float*)hi, (const float*)jr, (const float*)ji,
       (const float*)gTr, (const float*)gTi, (const float*)rows,
       (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
-      (float*)Cb, d);
+      (float*)Cb, db);
   return (int)cudaGetLastError();
 }
 

@@ -359,12 +359,14 @@ def build_kernels(verbose: bool = False):
 def size_refusal(B, N, Ke, iters):
     """Why one thread block cannot hold a candidate of B states of dimension
     N with Ke stack slots and `iters` stage iterations (a sentence naming
-    the limit), or None when both kernels take it. Needs no stack."""
+    the limit), or None when both kernels take it. Needs no stack. The
+    backward's inline layout is the larger of the two kernels' least
+    layouts."""
     BN = B * N
     if BN > 1024:
         return (f"streamK kernel: B*N = {BN} state entries exceed one block "
                 "(1024 threads); multi-block candidates are not implemented")
-    smem = _smem_bytes(Ke, iters, B, N, _threads(B, N), backward=True)
+    smem = _bwd_smem_bytes(Ke, iters, B, N, split=False)
     if smem > _MAX_SMEM:
         return (f"streamK kernel: {smem} bytes of shared memory exceed the "
                 f"{_MAX_SMEM} a block can use (N={N}, Ke={Ke}, B={B}, "
@@ -381,15 +383,32 @@ def _threads(B, N):
     return max(32, -(-max(B * N, min(N * N, 1024)) // 32) * 32)
 
 
-def _smem_bytes(Ke, it, B, N, threads, backward: bool):
+def _fwd_smem_bytes(Ke, it, B, N):
     BN, NN = B * N, N * N
-    floats = 2 * Ke * NN + 2 * N * (N + 1)
-    if backward:
-        floats += 2 * NN + 2 * BN + 2 * it * BN + 2 * (it + 1) * BN \
-            + (threads // 32) * Ke
-    else:
-        floats += 2 * BN + 2 * (it + 1) * BN
-    return 4 * floats
+    return 4 * (2 * Ke * NN + 2 * N * (N + 1) + 2 * BN + 2 * (it + 1) * BN)
+
+
+def _bwd_smem_bytes(Ke, it, B, N, split: bool):
+    """csrc/streamk.cu bwd_floats, in bytes: the stacks, per slot (two with
+    helper warps, one inline) the H planes and the step's pairs, Hb, and
+    per slot a coefficient row."""
+    BN, NN, slots = B * N, N * N, 2 if split else 1
+    return 4 * (2 * Ke * NN + slots * (2 * N * (N + 1) + (4 * it + 4) * BN
+                                       + Ke) + 2 * NN)
+
+
+def _bwd_shape(Ke, it, B, N):
+    """(threads, shared-memory bytes, helpers) of a backward launch: the
+    state warps (one thread per state entry) and one helper thread for two
+    entries of H and of Hb, with two slots of each ring, where that fits one
+    block; else the inline layout on the forward's thread count (helpers
+    0)."""
+    S = -(-B * N // 32) * 32
+    helpers = min(1024 - S, 32 * -(-N * N // 64))
+    smem = _bwd_smem_bytes(Ke, it, B, N, split=True)
+    if helpers >= 32 and smem <= _MAX_SMEM:
+        return S + helpers, smem, helpers
+    return _threads(B, N), _bwd_smem_bytes(Ke, it, B, N, split=False), 0
 
 
 def _launch_shape(plan, B, N, backward: bool):
@@ -399,8 +418,9 @@ def _launch_shape(plan, B, N, backward: bool):
     why = launch_refusal(plan, B, N)
     if why is not None:
         raise NotImplementedError(why)
-    threads = _threads(B, N)
-    return threads, _smem_bytes(plan.Ke, plan.iters, B, N, threads, backward)
+    if backward:
+        return _bwd_shape(plan.Ke, plan.iters, B, N)[:2]
+    return _threads(B, N), _fwd_smem_bytes(plan.Ke, plan.iters, B, N)
 
 
 def _ptr(t):

@@ -1,7 +1,10 @@
 """quandary_tpu_torch on a CUDA device: the streamK kernel pair against its
-plain torch version (shared and per-candidate stacks), the problem's
-value_and_grad and the packed robust objective on the card against the
-CPU, and the device optimizer's CUDA-graph chunk against its eager chunk;
+plain torch version (shared and per-candidate stacks), the backward over
+its branches (helper warps at N = 16 and where states span warps, the
+inline layout at the largest N and at B*N = 1024) and its determinism, the
+problem's value_and_grad and the packed robust objective on the card
+against the CPU, and the device optimizer's CUDA-graph chunk against its
+eager chunk;
 the density-matrix kernels; the streamed-plane kernels (stream, chunk,
 dense) against their plain version, on the problem's routes, in the device
 optimizer and in the Kerr calibration.
@@ -104,6 +107,93 @@ def test_packed_kernel_matches_plain_on_card(cuda, solver, iters):
     for a, b, tol in zip(kern, plain, (1e-5, 1e-4, 1e-4, 1e-4)):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _bwd_case(cuda, solver, iters, B, n, k, E, per_block=False, seed=11):
+    """One streamk_bwd launch (per-candidate stacks with per_block) on the
+    history of the kernel forward, and plain_backward on the same inputs:
+    (kernel (g0r, g0i, Cb), plain (g0r, g0i, Cb), the launch's helper
+    threads)."""
+    rng = np.random.default_rng(seed)
+    shape = (E, k, n, n) if per_block else (k, n, n)
+    stack = (rng.normal(size=shape)
+             + 1j * rng.normal(size=shape)).astype(np.complex64)
+    diag = lambda s: -1j * np.diag(s[0]).astype(np.complex128)
+    gen_diag = np.stack([diag(s) for s in stack]) if per_block \
+        else diag(stack)
+    plan = streamk.make_plan(cuda(stack.real), cuda(stack.imag), DT, iters,
+                             gen_diag, solver)
+    C = streamk.extend_coeffs(plan, cuda(
+        (rng.normal(size=(E, NT, k)) * 0.3).astype(np.float32)))
+    x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, n)).astype(
+        np.float32))
+    _, _, hr, hi, ksr, ksi = streamk._kernel_fwd(plan, x0r, x0i, C)
+    w = lambda *s: cuda(rng.normal(size=s).astype(np.float32))
+    gT, jh = (w(E, B, n), w(E, B, n)), (w(E, NT, B, n), w(E, NT, B, n))
+    kern = streamk._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, *gT,
+                               *jh)
+    plain = streamk.plain_backward(plan, x0r, x0i, C, hr, hi, *gT, *jh)
+    torch.cuda.synchronize()
+    return kern, plain, streamk._bwd_shape(plan.Ke, iters, B, n)[2]
+
+
+def _assert_bwd_close(kern, plain):
+    """x0 and coefficient cotangents to 1e-4 of max, as
+    test_kernel_matches_plain_on_card."""
+    for a, b in zip(kern, plain):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 3, 128])
+@pytest.mark.parametrize("solver,iters", [("split", 3), ("jacobi", 8),
+                                          ("neumann", 8)])
+def test_streamk_bwd_matches_plain_on_card(cuda, solver, iters, E):
+    """The backward with helper warps at the flagship's widths (N = 16,
+    B = 4, K = 7; a state's entries in one warp): split-3 with stored
+    iterates, jacobi-8 and neumann-8 replayed, E = 1, 3 and 128."""
+    kern, plain, helpers = _bwd_case(cuda, solver, iters, 4, 16, 7, E)
+    assert helpers > 0
+    _assert_bwd_close(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # per-candidate stacks, all distinct
+    dict(solver="split", iters=3, B=4, n=16, k=7, E=3, per_block=True),
+    dict(solver="jacobi", iters=8, B=4, n=16, k=7, E=5, per_block=True),
+    # open configuration 1's B N = 256, replayed
+    dict(solver="jacobi", iters=8, B=16, n=16, k=5, E=1),
+    # states spanning warps (named-barrier stages)
+    dict(solver="jacobi", iters=6, B=3, n=12, k=4, E=3),
+    # the largest N admitted at the flagship's B, Ke and iters, and
+    # B N = 1024: the inline branch
+    dict(solver="split", iters=3, B=4, n=52, k=7, E=2),
+    dict(solver="split", iters=3, B=64, n=16, k=7, E=1),
+    # Ke = 40 stack slots, more than the 32 helper threads at N = 8
+    dict(solver="split", iters=3, B=8, n=8, k=39, E=2),
+], ids=["packed-split3", "packed-jacobi8", "open1", "rows-span-warps",
+        "inline-N52", "inline-BN1024", "Ke40-over-helpers"])
+def test_streamk_bwd_shapes_on_card(cuda, case):
+    """The backward against plain_backward over its branches: helper warps
+    where they fit, the inline layout where they do not."""
+    kern, plain, helpers = _bwd_case(cuda, **case)
+    assert (helpers == 0) == (case["n"] == 52 or case["B"] == 64)
+    if case["k"] == 39:
+        assert 0 < helpers < 40
+    _assert_bwd_close(kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16, 4), (52, 4)])
+def test_streamk_bwd_is_deterministic_on_card(cuda, n, B):
+    """Two launches on the same inputs give the same bits of g0 and Cb
+    (no atomics; the helpers' and the inline reduction order is fixed)."""
+    a, _, _ = _bwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
+    b, _, _ = _bwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def _qutrit_samples(device, **setup_kw):

@@ -149,3 +149,66 @@ def test_candidate_axis_matches_single_runs():
         assert hr1.shape == (NT, B, N)
         torch.testing.assert_close(hr[e], hr1, rtol=0, atol=1e-6)
         torch.testing.assert_close(xTr[e], xTr1, rtol=0, atol=1e-6)
+
+
+# (B, N, Ke, iters): the flagship (split-3, Ke = K + 1 = 8), its jacobi-8
+# request, open configuration 1 on the superop route (B = 16 basis density
+# matrices of dimension 16, 8 iterations), B*N = 1024, the largest N the
+# backward admitted at the flagship's B, Ke and iters (52; 53 with B = 1),
+# the first refused, shapes whose states span warps (N = 12, 27, 48), and
+# more stack slots than helper threads (N = 8: 32 helpers, Ke = 40)
+SHAPES = [(4, 16, 8, 3), (4, 16, 8, 8), (16, 16, 5, 8), (16, 16, 9, 8),
+          (64, 16, 8, 3), (32, 32, 8, 3), (256, 4, 5, 8), (4, 52, 8, 3),
+          (1, 53, 8, 3), (4, 53, 8, 3), (3, 12, 4, 6), (3, 27, 7, 6),
+          (4, 48, 8, 8), (2, 40, 12, 4), (8, 8, 40, 3)]
+
+
+def _admitted_before(B, N, Ke, it):
+    """The size gate of the one-role backward kernel (every thread did
+    every role in turn, with a (warps, Ke) reduction scratch), kept as a
+    literal: the redesign must admit at least these shapes."""
+    BN, NN = B * N, N * N
+    threads = max(32, -(-max(BN, min(NN, 1024)) // 32) * 32)
+    floats = 2 * Ke * NN + 2 * N * (N + 1) + 2 * NN + 2 * BN + 2 * it * BN \
+        + 2 * (it + 1) * BN + (threads // 32) * Ke
+    return BN <= 1024 and 4 * floats <= 227 * 1024
+
+
+@pytest.mark.parametrize("B,N,Ke,iters", SHAPES)
+def test_size_refusal_admits_what_it_admitted(B, N, Ke, iters):
+    """size_refusal admits every shape the previous backward admitted, and
+    a refusal names its limit."""
+    why = streamk.size_refusal(B, N, Ke, iters)
+    if _admitted_before(B, N, Ke, iters):
+        assert why is None, why
+    else:
+        assert why is not None and ("shared memory" in why or "1024" in why)
+
+
+@pytest.mark.parametrize("B,N,Ke,iters", SHAPES)
+def test_backward_launch_shape(B, N, Ke, iters):
+    """The backward's launch: whole warps, a thread for every state entry,
+    at most 1024 threads and 227 KB of shared memory, at least the layout
+    csrc/streamk.cu carves for the roles it is given. Helper warps (two
+    ring slots) at the flagship and open configuration 1; the inline
+    layout on the forward's threads where the helpers' slots do not fit."""
+    if streamk.size_refusal(B, N, Ke, iters) is not None:
+        return
+    threads, smem, helpers = streamk._bwd_shape(Ke, iters, B, N)
+    S = -(-B * N // 32) * 32
+    assert threads % 32 == 0 and B * N <= threads <= 1024
+    assert 0 < smem <= 227 * 1024
+    assert smem >= streamk._bwd_smem_bytes(Ke, iters, B, N, helpers > 0)
+    if helpers:
+        assert threads == S + helpers and helpers % 32 == 0
+    else:
+        assert threads == streamk._threads(B, N)
+        assert smem < streamk._bwd_smem_bytes(Ke, iters, B, N, split=True)
+    if (B, N) in ((4, 16), (16, 16)):
+        assert helpers >= 32
+    if (B, N, Ke, iters) in ((4, 52, 8, 3), (64, 16, 8, 3)):
+        assert helpers == 0
+    z = torch.zeros(Ke, N, N)
+    plan = streamk.make_plan(z, z, DT, iters)
+    assert streamk._launch_shape(plan, B, N, backward=True) == (threads,
+                                                                 smem)
