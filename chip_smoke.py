@@ -902,12 +902,13 @@ def main():
     x0r, x0i = prob._x0r, prob._x0i
     ms = kernel_ms(plan, x0r, x0i, C1, 20, 2)
     ms_big = kernel_ms(plan, x0r, x0i, CE, 10, 0)
-    # the dependent chain per time step: the forward passes iters + 2
-    # block-wide barriers (contraction, b = T(x), one per stage iterate);
-    # the backward's chain iters + 1 stage syncs (its transposed stages; a
-    # replay adds iters), each on the state threads alone (a __syncwarp
-    # where a state's N entries lie in one warp), and no block-wide barrier
-    # where helper warps contract H and reduce C-bar beside it
+    # the dependent chain per time step: iters + 1 stage syncs in each
+    # direction (the forward's matvecs, the backward's transposed stages; a
+    # backward replay adds iters), each on the state threads alone (a
+    # __syncwarp where a state's N entries lie in one warp), and no
+    # block-wide barrier where helper warps contract H (and in the backward
+    # reduce C-bar) beside it; the inline branch passes 2 (forward) or 4
+    # (backward) per step
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True,
@@ -919,24 +920,28 @@ def main():
     floor_us = (2 * prob.N * FMA_CYCLES + SMEM_CYCLES + BARRIER_CYCLES) \
         / sm_mhz
     B, N = x0r.shape
-    helpers = streamk._bwd_shape(plan.Ke, plan.iters, B, N)[2]
     bwd_stages = plan.iters + 1 + (0 if plan.store_iters else plan.iters)
-    chain = {k: dict(stages_per_step=st,
-                     us_per_step=1e3 * ms[k] / setup.ntime,
-                     us_per_step_E128=1e3 * ms_big[k] / setup.ntime,
-                     us_per_stage=1e3 * ms[k] / setup.ntime / st,
-                     floor_us_per_stage=floor_us,
-                     floor_ms_per_sweep=1e-3 * floor_us * st * setup.ntime)
-             for k, st in (("fwd", plan.iters + 2), ("bwd", bwd_stages))}
-    chain["fwd"]["block_barriers_per_step"] = plan.iters + 2
-    chain["bwd"].update(
-        helper_threads=helpers,
-        stage_sync="warp" if 32 % N == 0 else "state warps",
-        block_barriers_per_step=0 if helpers else 4)
+    chain = {}
+    for k, st, shape, inline in (
+            ("fwd", plan.iters + 1, streamk._fwd_shape, 2),
+            ("bwd", bwd_stages, streamk._bwd_shape, 4)):
+        helpers = shape(plan.Ke, plan.iters, B, N)[2]
+        chain[k] = dict(
+            stages_per_step=st, us_per_step=1e3 * ms[k] / setup.ntime,
+            us_per_step_E128=1e3 * ms_big[k] / setup.ntime,
+            us_per_stage=1e3 * ms[k] / setup.ntime / st,
+            floor_us_per_stage=floor_us,
+            floor_ms_per_sweep=1e-3 * floor_us * st * setup.ntime,
+            helper_threads=helpers,
+            stage_sync="warp" if 32 % N == 0 else "state warps",
+            block_barriers_per_step=0 if helpers else inline)
     phase(6, "sweeps/s " + json.dumps({k: round(v, 3) for k, v in
                                       rates.items()})
           + f"; kernel ms at E=1 split-3 {json.dumps(ms)}; at E={E_BIG} "
           + f"{json.dumps(ms_big)}; chain {json.dumps(chain)}; card: {smi}")
+    if any(c["block_barriers_per_step"] for c in chain.values()):
+        raise RuntimeError("the flagship's chain passes block-wide barriers "
+                           "(no helper warps)")
 
     # ---- 7. packed kernels: one stack and one set of rows per candidate ----
     det = np.random.default_rng(5).uniform(-0.002, 0.002, (S_ROBUST, 2))

@@ -6,9 +6,9 @@
 // row-major (N, N) planes with row stride N + 1 (the pad keeps both the row
 // reads of T and the column reads of Tt conflict-free); the kernels differ
 // only in how H gets there and where its cotangent goes. The second part of
-// the file is the same backward step for a block split into roles (the
-// state threads' chain, H's contraction and its cotangent), which
-// streamk_bwd runs.
+// the file is the same step, both directions, for a block split into roles
+// (the state threads' chain, H's contraction and its cotangent), which
+// streamk_fwd and streamk_bwd run.
 //   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
 //   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
 //   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
@@ -319,13 +319,14 @@ __device__ __forceinline__ void hb_entry(const StepThread& s, int ent,
 }
 
 // ---------------------------------------------------------------------------
-// The backward step on a block split into roles (streamk_bwd): the S state
-// threads run the transposed chain and nothing else, other warps contract H
-// and reduce its cotangent beside them. The same algebra as stage_bwd,
-// stage_replay, apply_T, apply_Tt and hb_entry above, with the step's
-// operands in registers loaded a step ahead, the (cotangent, input) pairs
-// left in a ring slot for the other roles, stage syncs over the state
-// threads only, and a compile-time N (NC > 0) that unrolls the matvecs over
+// The step on a block split into roles (streamk_fwd, streamk_bwd): the S
+// state threads run the chain and nothing else, other warps contract H and
+// reduce its cotangent beside them. The same algebra as stage_fwd,
+// stage_bwd, stage_replay, apply_T, apply_Tt and hb_entry above, with the
+// step's operands in registers (H's row or column, and in the backward the
+// history loaded a step ahead), the backward's (cotangent, input) pairs left
+// in a ring slot for the other roles, stage syncs over the state threads
+// only, and a compile-time N (NC > 0) that unrolls the matvecs over
 // registers.
 
 // named barrier 1 (0 is __syncthreads): the state warps, where a stage's
@@ -340,6 +341,23 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Entries first, first + step, ... of a coefficient row into shared memory
+// by cp.async, which does not stall the thread; cp_async_wait() waits for
+// all of the thread's copies (a barrier after it shows them to the block).
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int Ke, int first, int step) {
+  for (int k = first; k < Ke; k += step) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + k);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(src + k)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // One slot of the pairs ring, each (B, N) re/im: the rotated pre-state xp,
@@ -417,6 +435,25 @@ __device__ __forceinline__ void load_col(const float* Hr, const float* Hi,
   }
 }
 
+// A chain thread's row i of H(t) (T reads H by rows), held in registers
+// for the step where N is the compile-time NC.
+template <int NC>
+struct HRow {
+  float r[NC > 0 ? NC : 1], i[NC > 0 ? NC : 1];
+};
+
+template <int NC>
+__device__ __forceinline__ void load_hrow(const float* Hr, const float* Hi,
+                                          int i, HRow<NC>& h) {
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      h.r[j] = Hr[i * (NC + 1) + j];
+      h.i[j] = Hi[i * (NC + 1) + j];
+    }
+  }
+}
+
 // A (NC,) row of a plane in shared memory into registers, 16 bytes a load
 // (the rows of the (B, N) planes start on 16-byte boundaries).
 template <int NC>
@@ -470,6 +507,94 @@ __device__ __forceinline__ void apply_T_n(const float* Hr, const float* Hi,
   }
   outr = (a[2] + a[6]) + (a[3] + a[7]);
   outi = -((a[0] + a[4]) + (a[1] + a[5]));
+}
+
+// apply_T with row i of H from registers at a compile-time N, the state
+// row read 16 bytes a load: the same terms in the same order, so the same
+// bits as apply_T (and so as stage_fwd, which stream.cu runs); apply_T
+// itself at NC = 0.
+template <int NC>
+__device__ __forceinline__ void apply_T_row(const HRow<NC>& h,
+                                            const float* Hr, const float* Hi,
+                                            const float* vr, const float* vi,
+                                            int b, int i, int N, float& outr,
+                                            float& outi) {
+  if constexpr (NC > 0) {
+    float xr[NC], xi[NC];
+    load_row<NC>(vr + b * NC, xr);
+    load_row<NC>(vi + b * NC, xi);
+    float ar = 0.f, ai = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      ar = fmaf(h.r[j], xr[j], ar);
+      ar = fmaf(-h.i[j], xi[j], ar);
+      ai = fmaf(h.r[j], xi[j], ai);
+      ai = fmaf(h.i[j], xr[j], ai);
+    }
+    outr = ai;
+    outi = -ar;
+  } else {
+    apply_T(Hr, Hi, vr, vi, b, i, N, outr, outi);
+  }
+}
+
+// One forward step of the chain, run by all S state threads: stage_fwd's
+// algebra on H's row h (registers at NC > 0, else the planes Hr, Hi). The
+// matvec inputs x, k_0, ..., k_{iters-1} go in turn to the two (B, N) slots
+// of V (slot q: re at V + 2 q BN, im after it), p the slot the next one
+// takes: stage j reads only k_{j-1}, and a stage sync lies between a
+// slot's last read and its next write, also across steps. ksr/ksi: the
+// step's (iters, B, N) slice of the stored iterates, or null. iters + 1
+// stage syncs.
+template <int NC>
+__device__ __forceinline__ void fwd_chain_step(const StepThread& s,
+                                               const HRow<NC>& h,
+                                               const float* Hr,
+                                               const float* Hi, float* V,
+                                               int& p, float* ksr, float* ksi,
+                                               bool warp_rows, int S,
+                                               float& xr, float& xi) {
+  const int BN = s.BN, tid = s.tid;
+  if (s.act) {
+    if (s.split) cmul(s.r0, s.r1, xr, xi);
+    V[2 * p * BN + tid] = xr;
+    V[(2 * p + 1) * BN + tid] = xi;
+  }
+  stage_sync(warp_rows, S);
+  float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
+  if (s.act) {
+    apply_T_row<NC>(h, Hr, Hi, V + 2 * p * BN, V + (2 * p + 1) * BN, s.b,
+                    s.i, s.N, br, bi);
+    stage_first(s, br, bi, kr, ki);
+    if (ksr && s.iters > 0) {
+      ksr[tid] = kr;
+      ksi[tid] = ki;
+    }
+  }
+  for (int j = 0; j < s.iters; ++j) {
+    p ^= 1;
+    if (s.act) {
+      V[2 * p * BN + tid] = kr;
+      V[(2 * p + 1) * BN + tid] = ki;
+    }
+    stage_sync(warp_rows, S);
+    if (s.act) {
+      float mr, mi;
+      apply_T_row<NC>(h, Hr, Hi, V + 2 * p * BN, V + (2 * p + 1) * BN, s.b,
+                      s.i, s.N, mr, mi);
+      stage_next(s, br, bi, mr, mi, kr, ki);
+      if (ksr && j + 1 < s.iters) {
+        ksr[(j + 1) * BN + tid] = kr;
+        ksi[(j + 1) * BN + tid] = ki;
+      }
+    }
+  }
+  p ^= 1;
+  if (s.act) {
+    xr = xr + s.dt * kr;
+    xi = xi + s.dt * ki;
+    if (s.split) cmul(s.r0, s.r1, xr, xi);
+  }
 }
 
 template <int NC>
@@ -603,8 +728,8 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
 }
 
 // Entries e0, e0 + ne, ... of H = sum_k c_k S_k from a coefficient row in
-// shared memory: the arithmetic of streamk.cu's contract (the forward's), so
-// both directions step on the same bits of H. At a compile-time N a thread
+// shared memory, one fmaf chain per entry in k order, so both directions of
+// streamk.cu step on the same bits of H. At a compile-time N a thread
 // takes the entries in pairs (2 e0, 2 e0 + 1), ..., reading the stacks 8
 // bytes a load.
 template <int NC>

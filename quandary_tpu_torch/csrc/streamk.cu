@@ -25,8 +25,8 @@
 //
 // Layout: one thread block per control candidate; the sequential time loop
 // runs inside the block (the TPU's sequential grid axis). The stacks, the
-// per-step H planes, the state and the stage iterates live in shared memory;
-// one thread owns one (b, i) state entry and keeps its own b, k, x values in
+// per-step H planes and the matvec inputs live in shared memory; one thread
+// owns one (b, i) state entry and keeps its own b, k, x values in
 // registers. Arithmetic is exact f32 FMA on the CUDA cores (the TPU kernel's
 // default is a 3-pass bf16 emulation of f32 matmuls, pallas_stream.py:52-119;
 // this one is more accurate, not less). No tensor cores: at N = 16 a
@@ -39,21 +39,33 @@
 // ntime * (iters + 1) dependent matvecs. The design keeps that chain on-chip
 // (no global round trip per step, no per-step launch) and runs E candidates
 // as E independent blocks, so a batch of up to one block per SM costs the
-// same wall time as one. In the forward each matvec of the chain is followed
-// by a block-wide barrier, and the step's contraction and global reads lie
-// on it.
-// The backward's chain is its transposed stages alone (steps 1-4 of its
-// redesign for Hopper): (1) no global load on it, the step's operands come
-// from registers loaded a step ahead and the coefficient rows from shared
-// memory; (2) C-bar is reduced by helper warps one step behind the chain,
-// each warp owning stack slots k, k + nwarps, ..., without atomics; (3) the
-// same helpers contract H(t - 1) into a second buffer while the chain runs
-// step t; (4) a stage synchronizes only the state threads (a warp at
-// N = 16), never the block.
-// What bounds it then is one transposed matvec per stage: a shared-memory
-// round trip and N / 2 dependent FMAs on each of 8 accumulators, iters + 1
-// times per step, with the helpers' contraction and C-bar reduction about as
-// long beside it (the role split is described above streamk_bwd).
+// same wall time as one.
+// Both kernels split the block into roles (imr_step.cuh's second part). The
+// state threads, the first S = roundup32(B N), run the chain and nothing
+// else. Helper warps after them contract H a step or two ahead into a
+// two-slot ring, from coefficient rows they copy into shared memory
+// (cp.async, strided over the helpers, so any Ke) a step before use; in the
+// backward they also reduce C-bar a step behind. So the chain waits on no
+// global load (x0 or the backward's operands are loaded ahead; history and
+// stored iterates are plain stores), runs no contraction and passes no
+// block-wide barrier: a stage synchronizes only the threads of one basis
+// state (__syncwarp where N divides 32, else a named barrier over the state
+// warps), and the roles hand off through named barriers per ring slot
+// (bar.arrive by the producer, bar.sync by the consumer). At the
+// compile-time N = 16 a chain thread holds the step's row (forward) or
+// column (backward) of H in registers and reads each operand row 16 bytes
+// a load. The forward keeps apply_T's order of terms (two chains of 2 N
+// FMAs), so it gives the bits of stream.cu's forward on the same H; the
+// backward sums over 8 accumulators, N / 2 FMAs deep.
+// What bounds it then is one matvec per stage, a shared-memory round trip
+// and its FMA chain, iters + 1 times per step (a backward replay adds
+// iters), with the helpers' work beside it.
+// Inline branch: where the helpers or the second slots do not fit (1024
+// threads, 227 KB) the launcher gives no helpers, and the whole block
+// contracts H(t) (and in the backward reduces Cb[t, :]) around the chain of
+// step t, on one buffer of each kind: the same device functions and
+// arithmetic, with two (forward) or four (backward) block-wide barriers per
+// step.
 
 #include <cuda_runtime.h>
 
@@ -63,7 +75,8 @@ namespace {
 
 // strideS, strideR: floats between two candidates' operator stacks
 // (Ke * N * N) and solver rows (nrows * N); 0 when all candidates share one.
-// helpers: the backward's helper threads (set by its launcher).
+// helpers: the helper threads after the state threads, 0 for the inline
+// branch (set by the launcher).
 struct Dims {
   int E, nt, B, N, Ke, iters, mode, store;
   float dt, a;
@@ -71,24 +84,24 @@ struct Dims {
   int helpers;
 };
 
-// H = sum_k c_k S_k into row-major planes with row stride N + 1 (the pad
-// keeps both the row reads of T and the column reads of Tt conflict-free).
-__device__ __forceinline__ void contract(const float* Sr, const float* Si,
-                                         const float* __restrict__ c,
-                                         float* Hr, float* Hi, int Ke,
-                                         int N) {
-  const int NN = N * N, ld = N + 1;
-  for (int e = threadIdx.x; e < NN; e += blockDim.x) {
-    float hr = 0.f, hi = 0.f;
-    for (int k = 0; k < Ke; ++k) {
-      const float ck = __ldg(c + k);
-      hr = fmaf(ck, Sr[k * NN + e], hr);
-      hi = fmaf(ck, Si[k * NN + e], hi);
-    }
-    const int p = e / N, q = e - p * N;
-    Hr[p * ld + q] = hr;
-    Hi[p * ld + q] = hi;
-  }
+// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
+// id + slot
+enum {
+  BAR_HELP = 2,     // the helper warps among themselves
+  BAR_H_FULL = 3,   // H(t) contracted: helpers arrive, the chain waits
+  BAR_H_FREE = 5,   // forward: step t is done with H(t)'s slot
+  BAR_P_FULL = 5,   // backward: step t's pairs written and its H read
+  BAR_P_FREE = 7,   // backward: step t's pairs reduced into Cb
+};
+
+// Floats of the forward's shared memory: the stacks; per slot (two with
+// helpers, one inline) the H planes; the two (B, N) slots of the matvec
+// inputs; per slot a coefficient row. Every buffer but the last starts on a
+// 16-byte boundary where N is a multiple of 4.
+__host__ __device__ inline size_t fwd_floats(int B, int N, int Ke,
+                                             bool split) {
+  const size_t NN = (size_t)N * N, BN = (size_t)B * N, slots = split ? 2 : 1;
+  return 2 * Ke * NN + slots * (2 * N * (N + 1) + Ke) + 4 * BN;
 }
 
 }  // namespace
@@ -97,8 +110,18 @@ __device__ __forceinline__ void contract(const float* Sr, const float* Si,
 // (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Block e reads
 // the stack at gS + e * strideS and the rows at rows + e * strideR. Writes xT
 // (E, B, N), hist (E, nt, B, N) and, with store, the stage iterates
-// k_0..k_{iters-1} (E, nt, iters, B, N).
-__global__ void __launch_bounds__(1024)
+// k_0..k_{iters-1} (E, nt, iters, B, N). Roles: the S state threads run
+// fwd_chain_step for t = 0, 1, ...; the d.helpers helper threads contract
+// H(t) into ring slot t & 1 and copy c(t + 1) into the other row slot while
+// the chain runs step t - 1 or t - 2. A chain step waits for H_FULL of its
+// slot and gives the slot back on H_FREE as soon as it no longer reads it:
+// at the compile-time N = 16 (NC; helpers only, at most 512 threads) right
+// after it has read its row of H into registers, at NC = 0 (any N) at the
+// end of the step. The launch bounds ask for one block per SM so that
+// ptxas may give a thread up to 128 registers (asked for none, it held
+// streamk_fwd<16> to 64 and spilled).
+template <int NC>
+__global__ void __launch_bounds__(NC > 0 ? 512 : 1024, 1)
 streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
             const float* __restrict__ C, const float* __restrict__ x0r,
             const float* __restrict__ x0i, const float* __restrict__ rows,
@@ -106,15 +129,14 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
             float* __restrict__ hr, float* __restrict__ hi,
             float* __restrict__ ksr, float* __restrict__ ksi, Dims d) {
   extern __shared__ float sm[];
-  const int N = d.N, NN = N * N, BN = d.B * N, Ke = d.Ke, iters = d.iters;
+  const int N = NC ? NC : d.N, NN = N * N, BN = d.B * N, Ke = d.Ke;
+  const int nt = d.nt, S = (BN + 31) & ~31, Hh = d.helpers;
+  const int slots = Hh > 0 ? 2 : 1, ldH = N * (N + 1), Hsz = 2 * ldH;
   float* Sr = sm;
   float* Si = Sr + Ke * NN;
-  float* Hr = Si + Ke * NN;
-  float* Hi = Hr + N * (N + 1);
-  float* xs_r = Hi + N * (N + 1);
-  float* xs_i = xs_r + BN;
-  float* kb_r = xs_i + BN;
-  float* kb_i = kb_r + (iters + 1) * BN;
+  float* Hbuf = Si + Ke * NN;           // slots x (Hr, Hi)
+  float* V = Hbuf + slots * Hsz;        // two (B, N) slots, re and im
+  float* crow = V + 4 * BN;             // slots x coefficient row
 
   const int e = blockIdx.x, tid = threadIdx.x;
   gSr += (size_t)e * d.strideS;
@@ -124,7 +146,10 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
     Sr[idx] = gSr[idx];
     Si[idx] = gSi[idx];
   }
-  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  const StepThread s = step_thread(d.B, N, d.iters, d.mode, d.dt, d.a, rows);
+  const size_t base = (size_t)e * nt;
+  const float* Ce = C + base * Ke;      // this candidate's coefficient rows
+  const bool warp_rows = 32 % N == 0;
   float xr = 0.f, xi = 0.f;
   if (s.act) {
     xr = x0r[tid];
@@ -132,15 +157,67 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
   }
   __syncthreads();
 
-  for (int t = 0; t < d.nt; ++t) {
-    const size_t st = (size_t)e * d.nt + t;
-    contract(Sr, Si, C + st * Ke, Hr, Hi, Ke, N);
-    const size_t ko = st * iters * BN;
-    stage_fwd(s, Hr, Hi, xs_r, xs_i, kb_r, kb_i, d.store ? ksr + ko : nullptr,
-              d.store ? ksi + ko : nullptr, xr, xi);
+  // the chain's step t on H(t) in Hr, Hi; its outputs are plain stores
+  int p = 0;
+  auto step = [&](int t, const HRow<NC>& h, const float* Hr, const float* Hi) {
+    const size_t st = base + t, ko = st * d.iters * BN;
+    fwd_chain_step<NC>(s, h, Hr, Hi, V, p, d.store ? ksr + ko : nullptr,
+                       d.store ? ksi + ko : nullptr, warp_rows, S, xr, xi);
     if (s.act) {
       hr[st * BN + tid] = xr;
       hi[st * BN + tid] = xi;
+    }
+  };
+
+  if (Hh > 0) {
+    const int nall = S + Hh;
+    if (tid < S) {            // the chain
+      for (int t = 0; t < nt; ++t) {
+        const int sl = t & 1;
+        const float* Hr = Hbuf + sl * Hsz;
+        const bool reused = t + 2 < nt;   // the helpers contract H(t + 2) here
+        bar_sync(BAR_H_FULL + sl, nall);
+        HRow<NC> h;
+        load_hrow<NC>(Hr, Hr + ldH, s.i, h);
+        if (NC > 0 && reused) bar_arrive(BAR_H_FREE + sl, nall);
+        step(t, h, Hr, Hr + ldH);
+        if (NC == 0 && reused) bar_arrive(BAR_H_FREE + sl, nall);
+      }
+    } else {                  // the helpers, one or two steps ahead
+      const int hh = tid - S;
+      auto stage = [&](int u) {
+        stage_row(crow + (u & 1) * Ke, Ce + (size_t)u * Ke, Ke, hh, Hh);
+      };
+      if (nt > 0) stage(0);
+      cp_async_wait();
+      for (int u = 0; u < nt; ++u) {
+        const int sl = u & 1;
+        // c(u) copied by every helper; from u = 2 the chain has released
+        // the slot (H(u - 2)); c(u + 1) overwrites the row H(u - 1) read
+        if (u >= 2)
+          bar_sync(BAR_H_FREE + sl, nall);
+        else
+          bar_sync(BAR_HELP, Hh);
+        if (u + 1 < nt) stage(u + 1);
+        contract_part<NC>(Sr, Si, crow + sl * Ke, Hbuf + sl * Hsz,
+                          Hbuf + sl * Hsz + ldH, Ke, N, hh, Hh);
+        bar_arrive(BAR_H_FULL + sl, nall);
+        cp_async_wait();
+      }
+    }
+  } else if constexpr (NC == 0) {   // inline: every role in turn
+    const HRow<0> h{};
+    if (nt > 0) stage_row(crow, Ce, Ke, tid, blockDim.x);
+    cp_async_wait();
+    for (int t = 0; t < nt; ++t) {
+      __syncthreads();              // c(t) copied; the chain is done with H
+      contract_part<0>(Sr, Si, crow, Hbuf, Hbuf + ldH, Ke, N, tid,
+                       blockDim.x);
+      __syncthreads();
+      if (t + 1 < nt)
+        stage_row(crow, Ce + (size_t)(t + 1) * Ke, Ke, tid, blockDim.x);
+      if (tid < S) step(t, h, Hbuf, Hbuf + ldH);
+      cp_async_wait();
     }
   }
   if (s.act) {
@@ -182,32 +259,6 @@ streamk_fwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
 // block-wide barriers per step.
 namespace {
 
-// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
-// id + slot
-enum {
-  BAR_HELP = 2,     // the helper warps among themselves
-  BAR_H_FULL = 3,   // H(t) contracted: helpers arrive, the chain waits
-  BAR_P_FULL = 5,   // step t's pairs written and its H read: chain arrives
-  BAR_P_FREE = 7,   // step t's pairs reduced into Cb: helpers arrive
-};
-
-// Entries first, first + step, ... of a coefficient row into shared memory
-// by cp.async, which does not stall the thread; cp_async_wait() waits for
-// all of the thread's copies (a barrier after it shows them to the block).
-__device__ __forceinline__ void stage_row(float* dst, const float* src,
-                                          int Ke, int first, int step) {
-  for (int k = first; k < Ke; k += step) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + k);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
-                 "l"(src + k)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
 // Floats of the backward's shared memory: the stacks; per slot (two with
 // helpers, one inline) the H planes and the pairs; Hb; per slot a
 // coefficient row. Every buffer but the last starts on a 16-byte boundary
@@ -218,7 +269,6 @@ __host__ __device__ inline size_t bwd_floats(int B, int N, int Ke, int it,
   return 2 * Ke * NN + slots * (2 * N * (N + 1) + (4 * it + 4) * BN + Ke) +
          2 * NN;
 }
-
 
 // cb[k] = <Hb_r, Sr_k> + <Hb_i, Si_k> for k = warp, warp + nwarps, ...: one
 // warp per stack slot, one shuffle tree each, written by its lane 0. At a
@@ -424,31 +474,61 @@ streamk_bwd(const float* __restrict__ gSr, const float* __restrict__ gSi,
 }
 
 // Plain C entry points, bound from Python with ctypes. Each launches on the
-// given stream and returns cudaGetLastError() (0 on success). The packed
-// entry points take the per-candidate strides of the stacks and the solver
-// rows; the plain ones run every candidate on one shared stack (stride 0).
-// STREAMK_BWD_NC: the N of the backward's compile-time instance, 16 (0
-// builds none and runs every N on streamk_bwd<0>: a build with
-// -DSTREAMK_BWD_NC=0 times the two against each other).
-#ifndef STREAMK_BWD_NC
-#define STREAMK_BWD_NC 16
+// given stream and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue, launching nothing, for a launch shape that cannot
+// hold the roles. The packed entry points take the per-candidate strides of
+// the stacks and the solver rows; the plain ones run every candidate on one
+// shared stack (stride 0).
+// STREAMK_NC: the N of both kernels' compile-time instances, 16 (0 builds
+// none and runs every N on streamk_fwd<0> / streamk_bwd<0>: a build with
+// -DSTREAMK_NC=0 times the two against each other).
+#ifndef STREAMK_NC
+#define STREAMK_NC 16
 #endif
 
 namespace {
+
+// The roles go to helper warps when the caller's launch shape holds them:
+// threads past the state warps and the two-slot layout's shared memory
+// (floats(true) bytes); else the inline branch, on floats(false).
+template <typename Floats>
+int helper_threads(const Dims& d, int threads, int smem_bytes,
+                   Floats floats) {
+  const int S = (d.B * d.N + 31) & ~31;
+  const int helpers =
+      threads > S && (size_t)smem_bytes >= 4 * floats(true) ? threads - S : 0;
+  if (threads < S || threads % 32 != 0 ||
+      (size_t)smem_bytes < 4 * floats(helpers > 0))
+    return -1;
+  return helpers;
+}
+
+template <typename Kernel>
+void allow_smem(Kernel kernel, int smem_bytes) {
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes);
+}
 
 int launch_fwd(const void* Sr, const void* Si, const void* C, const void* x0r,
                const void* x0i, const void* rows, void* xTr, void* xTi,
                void* hr, void* hi, void* ksr, void* ksi, const Dims& d,
                int threads, int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(streamk_fwd,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
-  streamk_fwd<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+  Dims df = d;
+  df.helpers = helper_threads(d, threads, smem_bytes, [&](bool split) {
+    return fwd_floats(d.B, d.N, d.Ke, split);
+  });
+  if (df.helpers < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = STREAMK_NC > 0 && d.N == STREAMK_NC && df.helpers > 0 &&
+                        threads <= 512
+                    ? streamk_fwd<STREAMK_NC>
+                    : streamk_fwd<0>;
+  allow_smem(kernel, smem_bytes);
+  kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Sr, (const float*)Si, (const float*)C,
       (const float*)x0r, (const float*)x0i, (const float*)rows,
       (float*)xTr, (float*)xTi, (float*)hr, (float*)hi, (float*)ksr,
-      (float*)ksi, d);
+      (float*)ksi, df);
   return (int)cudaGetLastError();
 }
 
@@ -458,25 +538,17 @@ int launch_bwd(const void* Sr, const void* Si, const void* C, const void* x0r,
                const void* gTi, const void* rows, const void* ksr,
                const void* ksi, void* g0r, void* g0i, void* Cb, const Dims& d,
                int threads, int smem_bytes, void* stream) {
-  // The roles go to helper warps when the caller's launch shape holds them:
-  // threads past the state warps and the two-slot layout's shared memory.
   Dims db = d;
-  const int S = (d.B * d.N + 31) & ~31;
-  const size_t split_bytes = 4 * bwd_floats(d.B, d.N, d.Ke, d.iters, true);
-  db.helpers = threads > S && (size_t)smem_bytes >= split_bytes ? threads - S
-                                                                 : 0;
-  if (threads < S || threads % 32 != 0 ||
-      (size_t)smem_bytes <
-          4 * bwd_floats(d.B, d.N, d.Ke, d.iters, db.helpers > 0) ||
-      (d.store && d.iters > MAX_STORED))
+  db.helpers = helper_threads(d, threads, smem_bytes, [&](bool split) {
+    return bwd_floats(d.B, d.N, d.Ke, d.iters, split);
+  });
+  if (db.helpers < 0 || (d.store && d.iters > MAX_STORED))
     return (int)cudaErrorInvalidValue;
-  auto kernel = STREAMK_BWD_NC > 0 && d.N == STREAMK_BWD_NC &&
-                        db.helpers > 0 && threads <= 512
-                    ? streamk_bwd<STREAMK_BWD_NC>
+  auto kernel = STREAMK_NC > 0 && d.N == STREAMK_NC && db.helpers > 0 &&
+                        threads <= 512
+                    ? streamk_bwd<STREAMK_NC>
                     : streamk_bwd<0>;
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
+  allow_smem(kernel, smem_bytes);
   kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Sr, (const float*)Si, (const float*)C,
       (const float*)x0r, (const float*)x0i, (const float*)hr,

@@ -383,9 +383,12 @@ def _threads(B, N):
     return max(32, -(-max(B * N, min(N * N, 1024)) // 32) * 32)
 
 
-def _fwd_smem_bytes(Ke, it, B, N):
-    BN, NN = B * N, N * N
-    return 4 * (2 * Ke * NN + 2 * N * (N + 1) + 2 * BN + 2 * (it + 1) * BN)
+def _fwd_smem_bytes(Ke, B, N, split: bool):
+    """csrc/streamk.cu fwd_floats, in bytes: the stacks, per slot (two with
+    helper warps, one inline) the H planes and a coefficient row, and the
+    two (B, N) slots of the matvec inputs."""
+    BN, NN, slots = B * N, N * N, 2 if split else 1
+    return 4 * (2 * Ke * NN + slots * (2 * N * (N + 1) + Ke) + 4 * BN)
 
 
 def _bwd_smem_bytes(Ke, it, B, N, split: bool):
@@ -397,30 +400,41 @@ def _bwd_smem_bytes(Ke, it, B, N, split: bool):
                                        + Ke) + 2 * NN)
 
 
-def _bwd_shape(Ke, it, B, N):
-    """(threads, shared-memory bytes, helpers) of a backward launch: the
-    state warps (one thread per state entry) and one helper thread for two
-    entries of H and of Hb, with two slots of each ring, where that fits one
-    block; else the inline layout on the forward's thread count (helpers
-    0)."""
+def _role_shape(B, N, smem_bytes):
+    """(threads, shared-memory bytes, helpers) of a launch: the state warps
+    (one thread per state entry) and one helper thread for two entries of H
+    (and of Hb), with two slots of each ring, where that fits one block;
+    else the inline layout on _threads(B, N) (helpers 0). smem_bytes(split)
+    is the kernel's layout."""
     S = -(-B * N // 32) * 32
     helpers = min(1024 - S, 32 * -(-N * N // 64))
-    smem = _bwd_smem_bytes(Ke, it, B, N, split=True)
+    smem = smem_bytes(True)
     if helpers >= 32 and smem <= _MAX_SMEM:
         return S + helpers, smem, helpers
-    return _threads(B, N), _bwd_smem_bytes(Ke, it, B, N, split=False), 0
+    return _threads(B, N), smem_bytes(False), 0
+
+
+def _fwd_shape(Ke, it, B, N):
+    """_role_shape of a forward launch (its layout does not depend on the
+    iterations `it`: the stage iterates take turns in two slots)."""
+    return _role_shape(B, N, lambda split: _fwd_smem_bytes(Ke, B, N, split))
+
+
+def _bwd_shape(Ke, it, B, N):
+    """_role_shape of a backward launch."""
+    return _role_shape(B, N,
+                       lambda split: _bwd_smem_bytes(Ke, it, B, N, split))
 
 
 def _launch_shape(plan, B, N, backward: bool):
     """(threads per block, dynamic shared-memory bytes) of one launch; raises
-    NotImplementedError past what one block can hold (the backward needs
-    more than the forward, so both refuse together)."""
+    NotImplementedError past what one block can hold (the backward's inline
+    layout needs more than the forward's, so both refuse together)."""
     why = launch_refusal(plan, B, N)
     if why is not None:
         raise NotImplementedError(why)
-    if backward:
-        return _bwd_shape(plan.Ke, plan.iters, B, N)[:2]
-    return _threads(B, N), _fwd_smem_bytes(plan.Ke, plan.iters, B, N)
+    shape = _bwd_shape if backward else _fwd_shape
+    return shape(plan.Ke, plan.iters, B, N)[:2]
 
 
 def _ptr(t):

@@ -1,15 +1,16 @@
-"""Time the streamK backward's two instances against each other on one CUDA
-card: streamk_bwd<16>, compiled for N = 16 (the launcher's pick at N = 16
-with helper warps), and streamk_bwd<0>, which takes any N, from one build of
-csrc/streamk.cu each (the second with -DSTREAMK_BWD_NC=0, built beside the
-first). Shapes: the closed CNOT flagship at E = 1 and E = 128 (split-3,
-stored iterates) and open configuration 1 on the superop route (B = 16,
-dim 16, jacobi-8 replayed), as chip_smoke.py phases 6 and 16 build them.
-Each shape is timed <16>, <0>, <0>, <16> with CUDA events, and the two
+"""Time the streamK kernels' two instances against each other on one CUDA
+card: streamk_fwd<16> / streamk_bwd<16>, compiled for N = 16 (the
+launchers' pick at N = 16 with helper warps), and streamk_fwd<0> /
+streamk_bwd<0>, which take any N, from one build of csrc/streamk.cu each
+(the second with -DSTREAMK_NC=0, built beside the first). Shapes: the
+closed CNOT flagship at E = 1 and E = 128 (split-3, stored iterates) and
+open configuration 1 on the superop route (B = 16, dim 16, jacobi-8
+replayed), as chip_smoke.py phases 6 and 16 build them. Each shape is
+timed <16>, <0>, <0>, <16> with CUDA events, both directions, and the two
 instances' outputs are compared. Prints one JSON line with the card's name
 and power limit.
 
-    python3 scripts/streamk_bwd_instances.py
+    python3 scripts/streamk_instances.py
 """
 
 import concurrent.futures
@@ -30,17 +31,22 @@ from quandary_tpu_torch.problem import Problem  # noqa: E402
 
 
 def build_generic():
-    """csrc/streamk.cu built with no compile-time instance of the
-    backward: every N runs streamk_bwd<0>."""
-    out = os.path.join(cuda_build.BUILD_DIR, "libstreamk_generic_bwd.so")
+    """csrc/streamk.cu built with no compile-time instance: every N runs
+    streamk_fwd<0> and streamk_bwd<0>."""
+    out = os.path.join(cuda_build.BUILD_DIR, "libstreamk_generic.so")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    cmd = cuda_build.nvcc_command(streamk._SRC, out) + ["-DSTREAMK_BWD_NC=0"]
+    cmd = cuda_build.nvcc_command(streamk._SRC, out) + ["-DSTREAMK_NC=0"]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(out)
     streamk._bind(lib)
     return lib, out
+
+
+def max_rel_diff(a, b):
+    return max(float((x - y).abs().max() / y.abs().max())
+               for x, y in zip(a, b) if y is not None)
 
 
 def main():
@@ -74,24 +80,28 @@ def main():
     for name, (pr, C, reps) in shapes.items():
         plan, x0r, x0i = pr._plan, pr._x0r, pr._x0i
         B, N = x0r.shape
-        times = {"nc16": [], "generic": []}
-        outs = {}
+        times = {(w, k): [] for w in ("nc16", "generic")
+                 for k in ("fwd", "bwd")}
+        fwds, bwds = {}, {}
         for which in ("nc16", "generic", "generic", "nc16"):
             cuda_build.LIBS[streamk._SRC] = libs[which]
-            times[which].append(cs.kernel_ms(plan, x0r, x0i, C, reps,
-                                             0)["bwd"])
-            fwd = streamk._kernel_fwd(plan, x0r, x0i, C)
-            ones_T, ones_h = torch.ones_like(fwd[0]), torch.ones_like(fwd[2])
-            outs[which] = streamk._kernel_bwd(plan, x0r, x0i, C, *fwd[2:],
-                                              ones_T, ones_T, ones_h, ones_h)
+            ms = cs.kernel_ms(plan, x0r, x0i, C, reps, 0)
+            for k in ("fwd", "bwd"):
+                times[which, k].append(ms[k])
+            fwds[which] = streamk._kernel_fwd(plan, x0r, x0i, C)
+            ones_T = torch.ones_like(fwds[which][0])
+            ones_h = torch.ones_like(fwds[which][2])
+            bwds[which] = streamk._kernel_bwd(plan, x0r, x0i, C,
+                                              *fwds[which][2:], ones_T,
+                                              ones_T, ones_h, ones_h)
         torch.cuda.synchronize()
         report[name] = dict(
             B=B, N=N, E=C.shape[0], Ke=plan.Ke, iters=plan.iters,
-            helpers=streamk._bwd_shape(plan.Ke, plan.iters, B, N)[2],
-            bwd_ms_nc16=times["nc16"], bwd_ms_generic=times["generic"],
-            max_rel_diff=max(
-                float((a - b).abs().max() / b.abs().max())
-                for a, b in zip(outs["generic"], outs["nc16"])))
+            fwd_helpers=streamk._fwd_shape(plan.Ke, plan.iters, B, N)[2],
+            bwd_helpers=streamk._bwd_shape(plan.Ke, plan.iters, B, N)[2],
+            **{f"{k}_ms_{w}": v for (w, k), v in times.items()},
+            fwd_max_rel_diff=max_rel_diff(fwds["generic"], fwds["nc16"]),
+            bwd_max_rel_diff=max_rel_diff(bwds["generic"], bwds["nc16"]))
     cuda_build.LIBS[streamk._SRC] = libs["nc16"]
     print(json.dumps(report))
 

@@ -1,7 +1,8 @@
 """quandary_tpu_torch on a CUDA device: the streamK kernel pair against its
-plain torch version (shared and per-candidate stacks), the backward over
+plain torch version (shared and per-candidate stacks), each direction over
 its branches (helper warps at N = 16 and where states span warps, the
-inline layout at the largest N and at B*N = 1024) and its determinism, the
+inline layout at B*N = 1024, and for the backward at the largest N) and
+its determinism, the
 problem's value_and_grad and the packed robust objective on the card
 against the CPU, and the device optimizer's CUDA-graph chunk against its
 eager chunk;
@@ -109,11 +110,9 @@ def test_packed_kernel_matches_plain_on_card(cuda, solver, iters):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-def _bwd_case(cuda, solver, iters, B, n, k, E, per_block=False, seed=11):
-    """One streamk_bwd launch (per-candidate stacks with per_block) on the
-    history of the kernel forward, and plain_backward on the same inputs:
-    (kernel (g0r, g0i, Cb), plain (g0r, g0i, Cb), the launch's helper
-    threads)."""
+def _launch_case(cuda, solver, iters, B, n, k, E, per_block, seed):
+    """A random streamK launch on the card: (rng, plan, C, x0r, x0i), with
+    per-candidate stacks and solver rows when per_block."""
     rng = np.random.default_rng(seed)
     shape = (E, k, n, n) if per_block else (k, n, n)
     stack = (rng.normal(size=shape)
@@ -127,6 +126,16 @@ def _bwd_case(cuda, solver, iters, B, n, k, E, per_block=False, seed=11):
         (rng.normal(size=(E, NT, k)) * 0.3).astype(np.float32)))
     x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, n)).astype(
         np.float32))
+    return rng, plan, C, x0r, x0i
+
+
+def _bwd_case(cuda, solver, iters, B, n, k, E, per_block=False, seed=11):
+    """One streamk_bwd launch (per-candidate stacks with per_block) on the
+    history of the kernel forward, and plain_backward on the same inputs:
+    (kernel (g0r, g0i, Cb), plain (g0r, g0i, Cb), the launch's helper
+    threads)."""
+    rng, plan, C, x0r, x0i = _launch_case(cuda, solver, iters, B, n, k, E,
+                                          per_block, seed)
     _, _, hr, hi, ksr, ksi = streamk._kernel_fwd(plan, x0r, x0i, C)
     w = lambda *s: cuda(rng.normal(size=s).astype(np.float32))
     gT, jh = (w(E, B, n), w(E, B, n)), (w(E, NT, B, n), w(E, NT, B, n))
@@ -192,6 +201,85 @@ def test_streamk_bwd_is_deterministic_on_card(cuda, n, B):
     (no atomics; the helpers' and the inline reduction order is fixed)."""
     a, _, _ = _bwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
     b, _, _ = _bwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _fwd_case(cuda, solver, iters, B, n, k, E, per_block=False, seed=11):
+    """One streamk_fwd launch (per-candidate stacks with per_block) and
+    the plain forward on the same inputs: (kernel (xTr, xTi, hr, hi, ksr,
+    ksi), plain ones (the stage iterates of _stage_fwd from the plain
+    history, or None when the plan replays them), the launch's helper
+    threads)."""
+    _, plan, C, x0r, x0i = _launch_case(cuda, solver, iters, B, n, k, E,
+                                        per_block, seed)
+    kern = streamk._kernel_fwd(plan, x0r, x0i, C)
+    hr, hi = streamk.plain_forward(plan, x0r, x0i, C)
+    ksr = ksi = None
+    if kern[4] is not None:
+        jac, split = streamk._solver_parts(plan)
+        Hr, Hi = streamk._planes(plan, C)
+        ks = []
+        for t in range(NT):
+            xr, xi = (x0r.expand(E, B, n), x0i.expand(E, B, n)) if t == 0 \
+                else (hr[:, t - 1], hi[:, t - 1])
+            T, _ = streamk._ops(Hr[:, t], Hi[:, t])
+            if split is not None:   # _stage_fwd's rotation before the stages
+                er, ei = split
+                xr, xi = er * xr - ei * xi, er * xi + ei * xr
+            ks.append(streamk._stage_fwd(T, xr, xi, dt=plan.dt, iters=iters,
+                                         jac=jac, split=None)[2])
+        ksr = torch.stack([torch.stack([k[0] for k in s], 1) for s in ks], 1)
+        ksi = torch.stack([torch.stack([k[1] for k in s], 1) for s in ks], 1)
+    torch.cuda.synchronize()
+    plain = (hr[:, -1], hi[:, -1], hr, hi, ksr, ksi)
+    return kern, plain, streamk._fwd_shape(plan.Ke, iters, B, n)[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # per-candidate stacks, all distinct
+    dict(solver="split", iters=3, B=4, n=16, k=7, E=3, per_block=True),
+    dict(solver="jacobi", iters=8, B=4, n=16, k=7, E=5, per_block=True),
+    # open configuration 1's B N = 256, replayed
+    dict(solver="jacobi", iters=8, B=16, n=16, k=5, E=1),
+    # states spanning warps (named-barrier stages)
+    dict(solver="jacobi", iters=6, B=3, n=12, k=4, E=3),
+    # the largest N admitted at the flagship's B, Ke and iters (helpers:
+    # the forward's two-slot layout fits), and B N = 1024: the inline
+    # branch
+    dict(solver="split", iters=3, B=4, n=52, k=7, E=2),
+    dict(solver="split", iters=3, B=64, n=16, k=7, E=1),
+    # Ke = 40 stack slots, more than the 32 helper threads at N = 8
+    dict(solver="split", iters=3, B=8, n=8, k=39, E=2),
+], ids=["packed-split3", "packed-jacobi8", "open1", "rows-span-warps",
+        "N52", "inline-BN1024", "Ke40-over-helpers"])
+def test_streamk_fwd_shapes_on_card(cuda, case):
+    """The forward against the plain version over its branches: final
+    state, history and stored iterates to 1e-5 of max (the state bound of
+    test_kernel_matches_plain_on_card); helper warps where they fit, the
+    inline layout where they do not."""
+    kern, plain, helpers = _fwd_case(cuda, **case)
+    assert (helpers == 0) == (case["B"] == 64)
+    if case["k"] == 39:
+        assert 0 < helpers < 40
+    assert (kern[4] is None) == (plain[4] is None) == (case["iters"] > 4)
+    for a, b in zip(kern, plain):
+        if b is None:
+            continue
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16, 4), (52, 4), (16, 64)])
+def test_streamk_fwd_is_deterministic_on_card(cuda, n, B):
+    """Two launches on the same inputs give the same bits of xT, the
+    history and the stored iterates (helpers at N = 16 and 52, the inline
+    branch at B N = 1024)."""
+    a, _, _ = _fwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
+    b, _, _ = _fwd_case(cuda, "split", 3, B, n, 7, 8, seed=3)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

@@ -212,3 +212,35 @@ def test_backward_launch_shape(B, N, Ke, iters):
     plan = streamk.make_plan(z, z, DT, iters)
     assert streamk._launch_shape(plan, B, N, backward=True) == (threads,
                                                                  smem)
+
+
+@pytest.mark.parametrize("B,N,Ke,iters", SHAPES)
+def test_forward_launch_shape(B, N, Ke, iters):
+    """The forward's launch: whole warps, a thread for every state entry,
+    at most 1024 threads and 227 KB of shared memory, at least the layout
+    csrc/streamk.cu carves for the roles it is given. Helper warps (two H
+    slots) at the flagship and open configuration 1, and at N = 52, where
+    the forward's two-slot layout fits; the inline layout at B*N = 1024 and
+    wherever the two-slot layout does not fit."""
+    if streamk.size_refusal(B, N, Ke, iters) is not None:
+        return
+    threads, smem, helpers = streamk._fwd_shape(Ke, iters, B, N)
+    S = -(-B * N // 32) * 32
+    split_smem = streamk._fwd_smem_bytes(Ke, B, N, split=True)
+    assert threads % 32 == 0 and B * N <= threads <= 1024
+    assert 0 < smem <= 227 * 1024
+    assert smem >= streamk._fwd_smem_bytes(Ke, B, N, helpers > 0)
+    if helpers:
+        assert threads == S + helpers and helpers % 32 == 0
+    else:
+        assert threads == streamk._threads(B, N)
+        assert smem < split_smem
+        assert S > 1024 - 32 or split_smem > 227 * 1024
+    if (B, N) in ((4, 16), (16, 16)) or (B, N, Ke, iters) == (4, 52, 8, 3):
+        assert helpers >= 32
+    if (B, N, Ke, iters) == (64, 16, 8, 3):
+        assert helpers == 0
+    z = torch.zeros(Ke, N, N)
+    plan = streamk.make_plan(z, z, DT, iters)
+    assert streamk._launch_shape(plan, B, N, backward=False) == (threads,
+                                                                  smem)
