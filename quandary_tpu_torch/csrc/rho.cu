@@ -23,27 +23,59 @@
 // Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> (pallas_rho.py:464-486). Stack and
 // jump-operator cotangents are not computed (zero by the same contract).
 //
-// Layout: one thread block per (control candidate, initial condition); the
-// sequential time loop runs inside the block (the TPU's sequential grid
-// axis). A thread owns a TS x TS set of matrix entries, strided by the tile
-// count so that neighbouring lanes read neighbouring columns; entries past N
-// compute on clamped indices and are never written. M, the operand of the
-// current product, the jump intermediate L v and one more (N, N) pair live in
-// shared memory (8 planes, row stride N | 1 so that transposed reads of M
-// for the M^dag factors are free of bank conflicts); the stacks, the jump
-// planes and the entrywise solver planes are read from global memory (a few
-// hundred KB, resident in L2). Nothing is padded: the 128-lane tiles, Hs rows
-// and lane-group packing of the TPU kernel have no counterpart here.
-// Arithmetic is exact f32 FMA on the CUDA cores (the TPU kernel's default is
-// a 3-pass bf16 emulation of f32 matmuls).
+// Forward layout: one thread block per (control candidate, initial
+// condition); the sequential time loop runs inside the block (the TPU's
+// sequential grid axis). A thread owns a TS x TS set of matrix entries,
+// strided by the tile count so that neighbouring lanes read neighbouring
+// columns; entries past N compute on clamped indices and are never written.
+// M, the operand of the current product, the jump intermediate L v and one
+// more (N, N) pair live in shared memory (8 planes, row stride N | 1 so that
+// transposed reads of M for the M^dag factors are free of bank conflicts);
+// the stacks, the jump planes and the entrywise solver planes are read from
+// global memory (a few hundred KB, resident in L2). Nothing is padded: the
+// 128-lane tiles, Hs rows and lane-group packing of the TPU kernel have no
+// counterpart here. Arithmetic is exact f32 FMA on the CUDA cores (the TPU
+// kernel's default is a 3-pass bf16 emulation of f32 matmuls).
 //
-// What bounds it on the H100: operations, on the few SMs that have a block.
-// One T is (8 + 8 J) real N^3 products, 21 MFLOP at N = 64 with 4 jump
-// operators, and a step runs iters + 1 of them in a dependent chain; a
-// launch has E * B blocks, so at E = 1 most of the 132 SMs idle. Spreading a
-// density matrix over a cluster and tensor-core products are later work.
+// Backward layout: one thread-block cluster of G CTAs per (candidate,
+// initial condition), G in {1, 2, 4, 8, 16} a launch-time value. CTA q of the
+// cluster owns rows [q N / G, (q + 1) N / G) of every (N, N) quantity the
+// backward produces (g, the cotangents k-bar and b-bar, the replayed stage
+// iterates); its threads own TS x TS entries of that band. Every product of
+// Tt needs the whole of only one factor that the chain produces, the operand
+// c: M^dag c and L_l^dag c need all of c, the band of c M only c's band, and
+// the band of (L_l^dag c) L_l only that band of L_l^dag c. So in each pair
+// every thread stores its entries of c in its CTA's copy and pushes them by
+// st.async into the other CTAs' copies through distributed shared memory;
+// one mbarrier per copy counts the bytes, and the CTA waits on it alone.
+// The copy is double-buffered, so no other barrier guards it. A cluster
+// barrier would do the same, but its acquire drops the SM's L1, from which
+// every pair reads the jump and solver planes (the exchange section below).
+// The pair's input u (a stored or replayed iterate, or the pre-step state)
+// is whole in device memory: each CTA copies all of it by cp.async a pair
+// ahead, into a second buffer. Each jump operator has its own scratch band
+// for L_l^dag c, so a Tt passes one CTA barrier between the J first factors
+// and the J second factors (where J bands do not fit, as at G = 1 and
+// N = 64, the jumps go in groups, one barrier pair per group). Each CTA
+// contracts M(t) whole. Cb[t, k] is reduced over each CTA's warps, pushed
+// into rank 0, and summed there in rank order: no atomics, and g0 has the
+// same bits at any G (every entry is the same chain of fmaf, and the
+// backward's entrywise products are rounded as written, never contracted).
+//
+// What bounds it on the H100: operations. One T is (8 + 8 J) real N^3
+// products, 21 MFLOP at N = 64 with 4 jump operators, and a step runs
+// iters + 1 of them in a dependent chain. The forward has E * B blocks, so at
+// E = 1 most of the 132 SMs idle; the backward spreads each matrix over G
+// SMs and pays, per pair, an exchange of 8 N^2 (G - 1) / G bytes of
+// distributed shared memory into each CTA and one mbarrier wait for it.
+// Tensor-core products are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -114,15 +146,14 @@ __device__ __forceinline__ void contract(const float* __restrict__ Sr,
   }
 }
 
-// acc = T(v) (ADJ = false) or Tt(v) (ADJ = true) on the thread's entries:
-//   T(v)  = M v + v M^dag + sum_l (L_l v) L_l^dag - d * v
-//   Tt(u) = M^dag u + u M + sum_l (L_l^dag u) L_l - conj(d) * u
+// acc = T(v) on the thread's entries (the forward's layout):
+//   T(v) = M v + v M^dag + sum_l (L_l v) L_l^dag - d * v.
 // v and M are shared-memory plane pairs (row stride ld); L is the global
 // (4, J, N, N) array [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag; (dr, di) are the
 // global planes of the split stepper's diagonal, or null. (tr, ti) is the
 // shared scratch pair for L v. Every thread of the block must call it (it
 // synchronizes when J > 0); the caller synchronizes before v is rewritten.
-template <int TS, bool ADJ>
+template <int TS>
 __device__ __forceinline__ void apply_gen(
     float (&accr)[TS][TS], float (&acci)[TS][TS], const float* Mr,
     const float* Mi, const float* vr, const float* vi, float* tr, float* ti,
@@ -133,20 +164,15 @@ __device__ __forceinline__ void apply_gen(
   for (int a = 0; a < TS; ++a)
 #pragma unroll
     for (int b = 0; b < TS; ++b) accr[a][b] = acci[a][b] = 0.f;
-  if (!ADJ) {
-    cmm<TS, false, false>(accr, acci, Mr, Mi, ld, 1, vr, vi, ld, 1, r, c, N);
-    cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, Mr, Mi, 1, ld, r, c, N);
-  } else {
-    cmm<TS, true, false>(accr, acci, Mr, Mi, 1, ld, vr, vi, ld, 1, r, c, N);
-    cmm<TS, false, false>(accr, acci, vr, vi, ld, 1, Mr, Mi, ld, 1, r, c, N);
-  }
+  cmm<TS, false, false>(accr, acci, Mr, Mi, ld, 1, vr, vi, ld, 1, r, c, N);
+  cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, Mr, Mi, 1, ld, r, c, N);
   const int NN = N * N;
   for (int l = 0; l < J; ++l) {
-    // first factor L_l (T) or L_l^dag (Tt), second factor the other one
-    const float* Ar = L + (size_t)((ADJ ? 2 : 0) * J + l) * NN;
-    const float* Ai = L + (size_t)((ADJ ? 3 : 1) * J + l) * NN;
-    const float* Br = L + (size_t)((ADJ ? 0 : 2) * J + l) * NN;
-    const float* Bi = L + (size_t)((ADJ ? 1 : 3) * J + l) * NN;
+    // first factor L_l, second factor L_l^dag
+    const float* Ar = L + (size_t)l * NN;
+    const float* Ai = L + (size_t)(J + l) * NN;
+    const float* Br = L + (size_t)(2 * J + l) * NN;
+    const float* Bi = L + (size_t)(3 * J + l) * NN;
     float zr[TS][TS], zi[TS][TS];
 #pragma unroll
     for (int a = 0; a < TS; ++a)
@@ -171,7 +197,7 @@ __device__ __forceinline__ void apply_gen(
 #pragma unroll
       for (int b = 0; b < TS; ++b) {
         const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        const float d_r = dr[o], d_i = ADJ ? -di[o] : di[o];
+        const float d_r = dr[o], d_i = di[o];
         const float v_r = vr[so], v_i = vi[so];
         accr[a][b] -= d_r * v_r - d_i * v_i;
         acci[a][b] -= d_r * v_i + d_i * v_r;
@@ -179,7 +205,7 @@ __device__ __forceinline__ void apply_gen(
   }
 }
 
-// v <- p v and v <- conj(p) v for an entrywise solver plane pair at offset o
+// v <- p v for an entrywise solver plane pair at offset o
 __device__ __forceinline__ void cmul(const float* __restrict__ pr,
                                      const float* __restrict__ pi, int o,
                                      float& vr, float& vi) {
@@ -189,14 +215,6 @@ __device__ __forceinline__ void cmul(const float* __restrict__ pr,
   vr = t;
 }
 
-__device__ __forceinline__ void cmul_conj(const float* __restrict__ pr,
-                                          const float* __restrict__ pi, int o,
-                                          float& vr, float& vi) {
-  const float ar = pr[o], ai = pi[o];
-  const float t = ar * vr + ai * vi;
-  vi = ar * vi - ai * vr;
-  vr = t;
-}
 
 // The thread's rows and columns (clamped into range) and which of its
 // entries exist.
@@ -302,7 +320,7 @@ rho_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       }
     __syncthreads();
     float kr[TS][TS], ki[TS][TS];
-    apply_gen<TS, false>(kr, ki, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c, ok,
+    apply_gen<TS>(kr, ki, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c, ok,
                          N, ld, d.J);
 #pragma unroll
     for (int a = 0; a < TS; ++a)
@@ -330,7 +348,7 @@ rho_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
           }
       __syncthreads();
       float mr[TS][TS], mi[TS][TS];
-      apply_gen<TS, false>(mr, mi, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c,
+      apply_gen<TS>(mr, mi, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c,
                            ok, N, ld, d.J);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
@@ -371,15 +389,267 @@ rho_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       }
 }
 
-// Backward: runs the steps in reverse. Inputs as the forward's plus the
-// history (E, nt, B, N, N), its cotangent j (same shape) and the final-state
-// cotangent gT (E, B, N, N). ks holds the forward's stage iterates
-// (E, B, nt, iters, N, N) with store, else it is a scratch (E, B, iters, N, N)
-// that the replay of each step fills. Writes the x0 cotangent of every block
-// g0 (E, B, N, N), which also parks the running cotangent during a step, and
-// the coefficient cotangents of every block Cb (E, B, nt, K).
+namespace {
+
+// v <- p v and v <- conj(p) v, rounded as written: no product is contracted
+// into an FMA, so an entry's bits do not depend on the instance of the
+// backward that computes it.
+__device__ __forceinline__ void cmul_rn(const float* __restrict__ pr,
+                                        const float* __restrict__ pi, int o,
+                                        float& vr, float& vi) {
+  const float ar = pr[o], ai = pi[o];
+  const float t = __fsub_rn(__fmul_rn(ar, vr), __fmul_rn(ai, vi));
+  vi = __fadd_rn(__fmul_rn(ai, vr), __fmul_rn(ar, vi));
+  vr = t;
+}
+
+__device__ __forceinline__ void cmul_conj_rn(const float* __restrict__ pr,
+                                             const float* __restrict__ pi,
+                                             int o, float& vr, float& vi) {
+  const float ar = pr[o], ai = pi[o];
+  const float t = __fadd_rn(__fmul_rn(ar, vr), __fmul_rn(ai, vi));
+  vi = __fsub_rn(__fmul_rn(ar, vi), __fmul_rn(ai, vr));
+  vr = t;
+}
+
+// stage_update rounded as written (the replay's stage solve)
+__device__ __forceinline__ void stage_update_rn(
+    bool jac, float a, float br, float bi, float mr, float mi, const float* e0,
+    const float* e1, const float* e2, const float* e3, int o, float& kr,
+    float& ki) {
+  if (jac) {
+    const float d_r = e0[o], d_i = e1[o];
+    const float ur =
+        __fsub_rn(mr, __fsub_rn(__fmul_rn(d_r, kr), __fmul_rn(d_i, ki)));
+    const float ui =
+        __fsub_rn(mi, __fadd_rn(__fmul_rn(d_r, ki), __fmul_rn(d_i, kr)));
+    kr = __fadd_rn(br, __fmul_rn(a, ur));
+    ki = __fadd_rn(bi, __fmul_rn(a, ui));
+    cmul_rn(e2, e3, o, kr, ki);
+  } else {
+    kr = __fadd_rn(br, __fmul_rn(a, mr));
+    ki = __fadd_rn(bi, __fmul_rn(a, mi));
+  }
+}
+
+// The thread's entries of the band of R rows from row r0 (clamped into
+// range) and which of them exist. Tile rows are strided by the tile-row
+// count of the longest band, Rmax, so every CTA of a cluster maps its
+// threads alike.
 template <int TS>
-__global__ void __launch_bounds__(TS == 4 ? 256 : 1024)
+__device__ __forceinline__ void band_ownership(int N, int r0, int R, int Rmax,
+                                               int (&r)[TS], int (&c)[TS],
+                                               bool (&ok)[TS][TS]) {
+  const int nrt = (Rmax + TS - 1) / TS, nct = (N + TS - 1) / TS;
+  const bool active = (int)threadIdx.x < nrt * nct;
+  const int t0 = active ? (int)threadIdx.x : 0;
+  const int tr = t0 / nct, tc = t0 - tr * nct;
+#pragma unroll
+  for (int a = 0; a < TS; ++a) {
+    r[a] = r0 + min(tr + a * nrt, R - 1);
+    c[a] = min(tc + a * nct, N - 1);
+  }
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b)
+      ok[a][b] = active && tr + a * nrt < R && tc + b * nct < N;
+}
+
+// acc = T(v) (ADJ = false) or Tt(v) (ADJ = true) on the thread's entries of
+// its band, v whole in shared memory (row stride ld):
+//   T(v)  = M v + v M^dag + sum_l (L_l v) L_l^dag - d * v
+//   Tt(u) = M^dag u + u M + sum_l (L_l^dag u) L_l - conj(d) * u.
+// The jump operators go in groups of jb: each has its own scratch band of
+// Rmax x ld (re, then im) at tb, so a group passes one barrier between its
+// first and its second factors; the accumulation keeps l's order. Every
+// thread of the block must call it (it synchronizes when J > 0); the
+// caller synchronizes before v or the bands are rewritten.
+template <int TS, bool ADJ>
+__device__ __forceinline__ void band_gen(
+    float (&accr)[TS][TS], float (&acci)[TS][TS], const float* Mr,
+    const float* Mi, const float* vr, const float* vi, float* tb,
+    const float* __restrict__ L, const float* __restrict__ dr,
+    const float* __restrict__ di, const int (&r)[TS], const int (&c)[TS],
+    const bool (&ok)[TS][TS], int r0, int N, int ld, int Rmax, int J,
+    int jb) {
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b) accr[a][b] = acci[a][b] = 0.f;
+  if (!ADJ) {
+    cmm<TS, false, false>(accr, acci, Mr, Mi, ld, 1, vr, vi, ld, 1, r, c, N);
+    cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, Mr, Mi, 1, ld, r, c, N);
+  } else {
+    cmm<TS, true, false>(accr, acci, Mr, Mi, 1, ld, vr, vi, ld, 1, r, c, N);
+    cmm<TS, false, false>(accr, acci, vr, vi, ld, 1, Mr, Mi, ld, 1, r, c, N);
+  }
+  const int NN = N * N, bplane = Rmax * ld;
+  int rl[TS];
+#pragma unroll
+  for (int a = 0; a < TS; ++a) rl[a] = r[a] - r0;
+  for (int l0 = 0; l0 < J; l0 += jb) {
+    const int l1 = min(J, l0 + jb);
+    if (l0 > 0) __syncthreads();    // the previous group's reads are done
+    for (int l = l0; l < l1; ++l) {
+      // first factor L_l (T) or L_l^dag (Tt), on the band's rows
+      const float* Ar = L + (size_t)((ADJ ? 2 : 0) * J + l) * NN;
+      const float* Ai = L + (size_t)((ADJ ? 3 : 1) * J + l) * NN;
+      float zr[TS][TS], zi[TS][TS];
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b) zr[a][b] = zi[a][b] = 0.f;
+      cmm<TS, false, false>(zr, zi, Ar, Ai, N, 1, vr, vi, ld, 1, r, c, N);
+      float* tr = tb + (size_t)2 * (l - l0) * bplane;
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b)
+          if (ok[a][b]) {
+            tr[rl[a] * ld + c[b]] = zr[a][b];
+            tr[bplane + rl[a] * ld + c[b]] = zi[a][b];
+          }
+    }
+    __syncthreads();
+    for (int l = l0; l < l1; ++l) {
+      // second factor, the other one of L_l and L_l^dag
+      const float* Br = L + (size_t)((ADJ ? 0 : 2) * J + l) * NN;
+      const float* Bi = L + (size_t)((ADJ ? 1 : 3) * J + l) * NN;
+      const float* tr = tb + (size_t)2 * (l - l0) * bplane;
+      cmm<TS, false, false>(accr, acci, tr, tr + bplane, ld, 1, Br, Bi, N, 1,
+                            rl, c, N);
+    }
+  }
+  if (dr != nullptr) {
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) {
+        const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
+        const float d_r = dr[o], d_i = ADJ ? -di[o] : di[o];
+        const float v_r = vr[so], v_i = vi[so];
+        accr[a][b] = __fsub_rn(
+            accr[a][b], __fsub_rn(__fmul_rn(d_r, v_r), __fmul_rn(d_i, v_i)));
+        acci[a][b] = __fsub_rn(
+            acci[a][b], __fadd_rn(__fmul_rn(d_r, v_i), __fmul_rn(d_i, v_r)));
+      }
+  }
+}
+
+// The exchange of the operand between the CTAs of a cluster. Each thread
+// stores its entries of the operand in its CTA's buffer and pushes them by
+// st.async into the same place of every other CTA's buffer; each push counts
+// its bytes on the destination's mbarrier of that buffer. Every thread then
+// arrives on its own CTA's mbarrier (one with the bytes the others push) and
+// waits for the phase: the whole operand is in shared memory. The wait
+// acquires at CTA scope only: a cluster barrier's acquire would drop the
+// L1 lines of the jump and solver planes, which every pair reads (measured
+// on an H100, scripts/cluster_barrier_l1.py: 64 KB of L1-resident loads
+// took 2.1 us around a block barrier or an mbarrier, 11 us around
+// barrier.cluster).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned mapa(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void push(float* dst, float v, unsigned bar,
+                                     int G, int rank) {
+  const unsigned a = smem_u32(dst);
+  for (int q = 0; q < G; ++q) {
+    if (q == rank) continue;
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
+        "%1, [%2];" ::"r"(mapa(a, q)),
+        "r"(__float_as_uint(v)), "r"(mapa(bar, q))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive on a local mbarrier, expecting tx more bytes of pushes (tx > 0 on
+// one thread only), and wait for the phase of the given parity to complete
+__device__ __forceinline__ void bar_sync(unsigned bar, unsigned tx,
+                                         int parity) {
+  if (tx > 0)
+    asm volatile(
+        "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, "
+        "[%0], %1;\n}" ::"r"(bar),
+        "r"(tx)
+        : "memory");
+  else
+    asm volatile(
+        "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::
+            "r"(bar)
+        : "memory");
+  asm volatile(
+      "{\n .reg .pred P;\n WAIT_%=:\n mbarrier.try_wait.parity.shared::cta.b64 "
+      "P, [%0], %1;\n @!P bra WAIT_%=;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Start the copy of a whole (N, N) pair (sr, si) from device memory into the
+// shared planes (Ur, Ui) of row stride ld by cp.async: the thread does not
+// wait. finish_u waits for the thread's own copies and, with rot, rotates
+// the entries it copied by E (the split frame); a barrier after it shows
+// the whole pair to the block.
+__device__ __forceinline__ void issue_u(float* Ur, float* Ui, const float* sr,
+                                        const float* si, int N, int ld) {
+  const int NN = N * N;
+  for (int e = threadIdx.x; e < NN; e += blockDim.x) {
+    const int p = e / N, o = p * ld + (e - p * N);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                     smem_u32(Ur + o)),
+                 "l"(sr + e)
+                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                     smem_u32(Ui + o)),
+                 "l"(si + e)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void finish_u(float* Ur, float* Ui, int N, int ld,
+                                         const float* e0, const float* e1,
+                                         bool rot) {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  if (!rot) return;
+  const int NN = N * N;
+  for (int e = threadIdx.x; e < NN; e += blockDim.x) {
+    const int p = e / N, o = p * ld + (e - p * N);
+    cmul_rn(e0, e1, e, Ur[o], Ui[o]);
+  }
+}
+
+}  // namespace
+
+// Backward: runs the steps in reverse, on a cluster of G CTAs per (candidate
+// e, initial condition ib), each CTA on its band of rows (see the header).
+// Inputs as the forward's plus the history (E, nt, B, N, N), its cotangent j
+// (same shape) and the final-state cotangent gT (E, B, N, N). ks holds the
+// forward's stage iterates (E, B, nt, iters, N, N) with store, else it is a
+// scratch (E, B, iters, N, N) that the replay of each step fills, band by
+// band. Writes the x0 cotangent of every matrix g0 (E, B, N, N), which also
+// parks the running cotangent during a step, and the coefficient cotangents
+// of every matrix Cb (E, B, nt, K). Shared memory: three mbarriers (the two
+// operand buffers, C-bar), M, the operand F and the pair's input U (two
+// buffers each), jb jump scratch bands, the warps' C-bar partials and the
+// cluster's (rank 0's).
+template <int TS>
+__global__ void __launch_bounds__(TS == 4 ? 256 : 512)
 rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         const float* __restrict__ L, const float* __restrict__ C,
         const float* __restrict__ x0r, const float* __restrict__ x0i,
@@ -387,21 +657,24 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         const float* __restrict__ jr, const float* __restrict__ ji,
         const float* __restrict__ gTr, const float* __restrict__ gTi,
         const float* __restrict__ el, float* ksr, float* ksi, float* g0r,
-        float* g0i, float* __restrict__ Cb, Dims d) {
-  extern __shared__ float sm[];
+        float* g0i, float* __restrict__ Cb, Dims d, int G, int jb) {
+  extern __shared__ __align__(16) float smb[];
+  cg::cluster_group cl = cg::this_cluster();
   const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
   const int iters = d.iters, K = d.K;
-  float* Mr = sm;
+  const int rank = (int)cl.block_rank();
+  const int r0 = rank * N / G, R = (rank + 1) * N / G - r0;
+  const int Rmax = (N + G - 1) / G;
+  const unsigned bars = smem_u32(smb);    // 3 mbarriers of 8 bytes
+  float* Mr = smb + 8;
   float* Mi = Mr + plane;
-  float* cr = Mi + plane;       // cotangent operand of Tt and of the pairs
-  float* ci = cr + plane;
-  float* tr = ci + plane;
-  float* ti = tr + plane;
-  float* ur = ti + plane;       // the pair's input u (and the replay's operand)
-  float* ui = ur + plane;
-  float* red = ui + plane;      // (nwarps, K)
+  float* F = Mi + plane;        // the operand, 2 buffers of (re, im)
+  float* U = F + 4 * plane;     // the pair's input, 2 buffers of (re, im)
+  float* tb = U + 4 * plane;    // jb jump bands of (re, im) Rmax x ld
+  float* red = tb + (size_t)2 * jb * Rmax * ld;     // (nwarps, K)
+  float* slots = red + (blockDim.x >> 5) * K;       // (G, K), rank 0's
 
-  const int blk = blockIdx.x, e = blk / d.B, ib = blk - e * d.B;
+  const int blk = blockIdx.x / G, e = blk / d.B, ib = blk - e * d.B;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
@@ -410,8 +683,34 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   const float* dsi = split ? e3 : nullptr;
   int r[TS], c[TS];
   bool ok[TS][TS];
-  ownership<TS>(N, r, c, ok);
+  band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
   const size_t gb = (size_t)blk * NN;
+  // bytes the other CTAs push per exchange (thread 0 expects them), and
+  // per C-bar reduction into rank 0
+  const unsigned tx_f = tid == 0 ? 8u * N * (N - R) : 0u;
+  const unsigned tx_c = tid == 0 ? 4u * (G - 1) * K : 0u;
+  if (tid == 0) {
+    for (int k = 0; k < 3; ++k) bar_init(bars + 8 * k, blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();            // every CTA's mbarriers exist before any push
+  int p = 0;            // exchanges so far: buffer p & 1, parity (p >> 1) & 1
+  int pu = 0;           // pair inputs so far: U buffer pu & 1
+  auto Fbuf = [&](int k) { return F + (k & 1) * 2 * plane; };
+  auto Ubuf = [&](int k) { return U + (k & 1) * 2 * plane; };
+  // this thread's entry `so` of the operand in buffer fr, here and in the
+  // other CTAs (one call per entry)
+  auto put = [&](float* fr, int so, float vr, float vi) {
+    const unsigned bar = bars + 8 * (p & 1);
+    fr[so] = vr;
+    fr[plane + so] = vi;
+    push(fr + so, vr, bar, G, rank);
+    push(fr + plane + so, vi, bar, G, rank);
+  };
+  auto exchanged = [&]() {
+    bar_sync(bars + 8 * (p & 1), tx_f, (p >> 1) & 1);
+    ++p;
+  };
 
   float gr[TS][TS], gi[TS][TS];
 #pragma unroll
@@ -428,7 +727,11 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
     const size_t h0 = (st * d.B + ib) * NN;           // hist[e, t, ib]
     const size_t ks0 = d.store ? ((size_t)blk * d.nt + t) * iters * NN
                                : (size_t)blk * iters * NN;
-    __syncthreads();
+    // pre-step state: x0 at t = 0, else the previous history entry
+    const size_t xp = t == 0 ? (size_t)ib * NN : h0 - (size_t)d.B * NN;
+    const float* xpr = (t == 0 ? x0r : hr) + xp;
+    const float* xpi = (t == 0 ? x0i : hi) + xp;
+    // (the previous step's reads of M ended before the C-bar block barrier)
     contract(Sr, Si, C + st * K, Mr, Mi, K, N, ld);
     // history cotangent in, cotangent into the split frame, and parked
 #pragma unroll
@@ -439,31 +742,19 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         const int o = r[a] * N + c[b];
         gr[a][b] += jr[h0 + o];
         gi[a][b] += ji[h0 + o];
-        if (split) cmul_conj(e0, e1, o, gr[a][b], gi[a][b]);
+        if (split) cmul_conj_rn(e0, e1, o, gr[a][b], gi[a][b]);
         g0r[gb + o] = gr[a][b];
         g0i[gb + o] = gi[a][b];
       }
 
     if (!d.store && iters > 0) {      // replay the stage iterates into ks
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b) {
-          if (!ok[a][b]) continue;
-          const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-          // pre-step state: x0 at t = 0, else the previous history entry
-          float pr = t == 0 ? x0r[(size_t)ib * NN + o]
-                            : hr[h0 - (size_t)d.B * NN + o];
-          float pi = t == 0 ? x0i[(size_t)ib * NN + o]
-                            : hi[h0 - (size_t)d.B * NN + o];
-          if (split) cmul(e0, e1, o, pr, pi);
-          ur[so] = pr;
-          ui[so] = pi;
-        }
+      float* ur = Ubuf(pu++);
+      issue_u(ur, ur + plane, xpr, xpi, N, ld);
+      finish_u(ur, ur + plane, N, ld, e0, e1, split);
       __syncthreads();
       float b_r[TS][TS], b_i[TS][TS], kr[TS][TS], ki[TS][TS];
-      apply_gen<TS, false>(b_r, b_i, Mr, Mi, ur, ui, tr, ti, L, dsr, dsi, r,
-                           c, ok, N, ld, d.J);
+      band_gen<TS, false>(b_r, b_i, Mr, Mi, ur, ur + plane, tb, L, dsr, dsi,
+                          r, c, ok, r0, N, ld, Rmax, d.J, jb);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -472,40 +763,50 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
           ki[a][b] = b_i[a][b];
           if (!ok[a][b]) continue;
           const int o = r[a] * N + c[b];
-          if (jac) cmul(e2, e3, o, kr[a][b], ki[a][b]);
+          if (jac) cmul_rn(e2, e3, o, kr[a][b], ki[a][b]);
           ksr[ks0 + o] = kr[a][b];
           ksi[ks0 + o] = ki[a][b];
         }
       for (int j = 1; j < iters; ++j) {
-        __syncthreads();
+        float* fr = Fbuf(p);
 #pragma unroll
         for (int a = 0; a < TS; ++a)
 #pragma unroll
           for (int b = 0; b < TS; ++b)
-            if (ok[a][b]) {
-              ur[r[a] * ld + c[b]] = kr[a][b];
-              ui[r[a] * ld + c[b]] = ki[a][b];
-            }
-        __syncthreads();
+            if (ok[a][b]) put(fr, r[a] * ld + c[b], kr[a][b], ki[a][b]);
+        exchanged();
         float mr[TS][TS], mi[TS][TS];
-        apply_gen<TS, false>(mr, mi, Mr, Mi, ur, ui, tr, ti, L, dsr, dsi, r,
-                             c, ok, N, ld, d.J);
+        band_gen<TS, false>(mr, mi, Mr, Mi, fr, fr + plane, tb, L, dsr, dsi,
+                            r, c, ok, r0, N, ld, Rmax, d.J, jb);
 #pragma unroll
         for (int a = 0; a < TS; ++a)
 #pragma unroll
           for (int b = 0; b < TS; ++b) {
             if (!ok[a][b]) continue;
             const int o = r[a] * N + c[b];
-            stage_update(jac, d.a, b_r[a][b], b_i[a][b], mr[a][b], mi[a][b],
-                         e0, e1, e2, e3, o, kr[a][b], ki[a][b]);
+            stage_update_rn(jac, d.a, b_r[a][b], b_i[a][b], mr[a][b],
+                            mi[a][b], e0, e1, e2, e3, o, kr[a][b], ki[a][b]);
             ksr[ks0 + (size_t)j * NN + o] = kr[a][b];
             ksi[ks0 + (size_t)j * NN + o] = ki[a][b];
           }
       }
+      // the other CTAs' replayed bands of ks are read whole below: a
+      // cluster barrier (its acquire covers device memory) once per step
+      if (G > 1)
+        cl.sync();
+      else
+        __syncthreads();
     }
 
-    // transpose of the stage chain, j = iters..1: the pair's cotangent is
-    // c = a * k-bar, its input u = k_{j-1}; the last pair is (b-bar, x_pre)
+    // transpose of the stage chain, pairs i = 0..iters: for i < iters the
+    // pair's cotangent is c = a * k-bar and its input u = k_{iters-1-i};
+    // the last pair is (b-bar + k-bar, x_pre). Each pair's u is copied a
+    // pair ahead, the first one here.
+    {
+      const size_t o = ks0 + (size_t)(iters - 1) * NN;
+      issue_u(Ubuf(pu), Ubuf(pu) + plane, iters == 0 ? xpr : ksr + o,
+              iters == 0 ? xpi : ksi + o, N, ld);
+    }
     float bbr[TS][TS], bbi[TS][TS], kbr[TS][TS], kbi[TS][TS];
     float wr[TS][TS], wi[TS][TS];
 #pragma unroll
@@ -519,64 +820,54 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         kbr[a][b] = d.dt * g0r[gb + r[a] * N + c[b]];
         kbi[a][b] = d.dt * g0i[gb + r[a] * N + c[b]];
       }
-    for (int j = iters; j >= 1; --j) {
-      __syncthreads();          // the previous pair's reads of c, u are done
+    for (int i = 0; i <= iters; ++i) {
+      const bool last = i == iters;
+      float* fr = Fbuf(p);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
         for (int b = 0; b < TS; ++b) {
           if (!ok[a][b]) continue;
           const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-          if (jac) cmul_conj(e2, e3, o, kbr[a][b], kbi[a][b]);    // Wt
-          bbr[a][b] += kbr[a][b];
-          bbi[a][b] += kbi[a][b];
-          cr[so] = d.a * kbr[a][b];
-          ci[so] = d.a * kbi[a][b];
-          ur[so] = ksr[ks0 + (size_t)(j - 1) * NN + o];
-          ui[so] = ksi[ks0 + (size_t)(j - 1) * NN + o];
+          if (jac) cmul_conj_rn(e2, e3, o, kbr[a][b], kbi[a][b]);    // Wt
+          if (last) {
+            put(fr, so, bbr[a][b] + kbr[a][b], bbi[a][b] + kbi[a][b]);
+          } else {
+            bbr[a][b] += kbr[a][b];
+            bbi[a][b] += kbi[a][b];
+            put(fr, so, d.a * kbr[a][b], d.a * kbi[a][b]);
+          }
         }
-      __syncthreads();
-      apply_gen<TS, true>(kbr, kbi, Mr, Mi, cr, ci, tr, ti, L, dsr, dsi, r, c,
-                          ok, N, ld, d.J);
-      if (jac) {                // minus the transpose of v -> d v
+      float* ur = Ubuf(pu++);
+      finish_u(ur, ur + plane, N, ld, e0, e1, split && last);
+      exchanged();
+      if (!last) {
+        float* un = Ubuf(pu);
+        const bool nl = i + 1 == iters;
+        const size_t o = ks0 + (size_t)(iters - 2 - i) * NN;
+        issue_u(un, un + plane, nl ? xpr : ksr + o, nl ? xpi : ksi + o, N,
+                ld);
+      }
+      band_gen<TS, true>(kbr, kbi, Mr, Mi, fr, fr + plane, tb, L, dsr, dsi, r,
+                         c, ok, r0, N, ld, Rmax, d.J, jb);
+      if (jac && !last) {       // minus the transpose of v -> d v
 #pragma unroll
         for (int a = 0; a < TS; ++a)
 #pragma unroll
           for (int b = 0; b < TS; ++b) {
             if (!ok[a][b]) continue;
             const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-            float qr = cr[so], qi = ci[so];
-            cmul_conj(e0, e1, o, qr, qi);
+            float qr = fr[so], qi = fr[plane + so];
+            cmul_conj_rn(e0, e1, o, qr, qi);
             kbr[a][b] -= qr;
             kbi[a][b] -= qi;
           }
       }
-      cmm<TS, false, true>(wr, wi, cr, ci, ld, 1, ur, ui, 1, ld, r, c, N);
-      cmm<TS, true, false>(wr, wi, cr, ci, 1, ld, ur, ui, ld, 1, r, c, N);
+      cmm<TS, false, true>(wr, wi, fr, fr + plane, ld, 1, ur, ur + plane, 1,
+                           ld, r, c, N);
+      cmm<TS, true, false>(wr, wi, fr, fr + plane, 1, ld, ur, ur + plane, ld,
+                           1, r, c, N);
     }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        if (jac) cmul_conj(e2, e3, o, kbr[a][b], kbi[a][b]);
-        cr[so] = bbr[a][b] + kbr[a][b];
-        ci[so] = bbi[a][b] + kbi[a][b];
-        float pr = t == 0 ? x0r[(size_t)ib * NN + o]
-                          : hr[h0 - (size_t)d.B * NN + o];
-        float pi = t == 0 ? x0i[(size_t)ib * NN + o]
-                          : hi[h0 - (size_t)d.B * NN + o];
-        if (split) cmul(e0, e1, o, pr, pi);
-        ur[so] = pr;
-        ui[so] = pi;
-      }
-    __syncthreads();
-    apply_gen<TS, true>(kbr, kbi, Mr, Mi, cr, ci, tr, ti, L, dsr, dsi, r, c,
-                        ok, N, ld, d.J);
-    cmm<TS, false, true>(wr, wi, cr, ci, ld, 1, ur, ui, 1, ld, r, c, N);
-    cmm<TS, true, false>(wr, wi, cr, ci, 1, ld, ur, ui, ld, 1, r, c, N);
 #pragma unroll
     for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -586,10 +877,13 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         const int o = r[a] * N + c[b];
         gr[a][b] = g0r[gb + o] + kbr[a][b];
         gi[a][b] = g0i[gb + o] + kbi[a][b];
-        if (split) cmul_conj(e0, e1, o, gr[a][b], gi[a][b]);
+        if (split) cmul_conj_rn(e0, e1, o, gr[a][b], gi[a][b]);
       }
 
-    // Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> with dA_i = Re W, dA_r = -Im W
+    // Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> with dA_i = Re W, dA_r = -Im W:
+    // each warp's partial over its entries, the CTA's over its warps in
+    // order, pushed into rank 0's slot of this rank; rank 0 sums the slots
+    // in rank order
     for (int k = 0; k < K; ++k) {
       float v = 0.f;
 #pragma unroll
@@ -607,7 +901,24 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
     if (tid < K) {
       float v = 0.f;
       for (int w = 0; w < nwarps; ++w) v += red[w * K + tid];
-      Cb[((size_t)blk * d.nt + t) * K + tid] = v;
+      float* slot = slots + rank * K + tid;
+      if (rank == 0) {
+        *slot = v;
+      } else {
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+            "[%0], %1, [%2];" ::"r"(mapa(smem_u32(slot), 0)),
+            "r"(__float_as_uint(v)), "r"(mapa(bars + 16, 0))
+            : "memory");
+      }
+    }
+    if (rank == 0) {
+      bar_sync(bars + 16, tx_c, (d.nt - 1 - t) & 1);
+      if (tid < K) {
+        float v = 0.f;
+        for (int q = 0; q < G; ++q) v += slots[q * K + tid];
+        Cb[((size_t)blk * d.nt + t) * K + tid] = v;
+      }
     }
   }
 #pragma unroll
@@ -618,13 +929,16 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         g0r[gb + r[a] * N + c[b]] = gr[a][b];
         g0i[gb + r[a] * N + c[b]] = gi[a][b];
       }
+  cl.sync();            // no CTA leaves while another may still push to it
 }
 
-// Plain C entry points, bound from Python with ctypes. Each launches
-// E * B blocks of `threads` threads on the given stream and returns
-// cudaGetLastError() (0 on success); tile is TS: 1 (one entry per thread, up
-// to 1024 threads of 64 registers, N <= 32) or 4 (16 entries per thread, up
-// to 256 threads of 255 registers, N <= 64).
+// Plain C entry points, bound from Python with ctypes. Each launches on the
+// given stream and returns the launch's error (0 on success). The forward
+// launches E * B blocks of `threads` threads; its tile is TS: 1 (one entry
+// per thread, up to 1024 threads of 64 registers, N <= 32) or 4 (16 entries
+// per thread, up to 256 threads of 255 registers, N <= 64). The backward
+// launches E * B clusters of `cluster` CTAs; its tile is 1, 2 (up to 512
+// threads) or 4 (up to 256), on the CTA's band.
 namespace {
 
 template <int TS>
@@ -642,21 +956,55 @@ int launch_fwd(const float* Sr, const float* Si, const float* L,
   return (int)cudaGetLastError();
 }
 
+// The backward's launch: E * B clusters of G CTAs. Its shape is checked
+// against what the kernel carves before anything is launched: G in
+// {1, 2, 4, 8, 16} and at most N (a row per CTA), whole warps covering the
+// band's tiles and the K stack slots within the instance's bound, and
+// shared memory for the mbarriers, M, F, U, the partials and at least one
+// jump band; jb, the jump bands, is what the rest of smem_bytes holds, at
+// most J.
 template <int TS>
 int launch_bwd(const float* Sr, const float* Si, const float* L,
                const float* C, const float* x0r, const float* x0i,
                const float* hr, const float* hi, const float* jr,
                const float* ji, const float* gTr, const float* gTi,
                const float* el, float* ksr, float* ksi, float* g0r, float* g0i,
-               float* Cb, const Dims& d, int threads, int smem_bytes,
+               float* Cb, const Dims& d, int G, int threads, int smem_bytes,
                cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(rho_bwd<TS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
-  rho_bwd<TS><<<d.E * d.B, threads, smem_bytes, stream>>>(
-      Sr, Si, L, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, el, ksr, ksi, g0r, g0i,
-      Cb, d);
+  const int N = d.N, ld = N | 1, Rmax = (N + G - 1) / G;
+  const long tiles = (long)((Rmax + TS - 1) / TS) * ((N + TS - 1) / TS);
+  const long fixed =
+      8 + 10L * N * ld + (long)(threads / 32) * d.K + (long)G * d.K;
+  const long jb = d.J == 0 ? 0
+                           : std::min<long>(d.J, (smem_bytes / 4 - fixed) /
+                                                     (2L * Rmax * ld));
+  if ((G != 1 && G != 2 && G != 4 && G != 8 && G != 16) || G > N ||
+      threads % 32 != 0 || threads < tiles || threads < d.K ||
+      threads > (TS == 4 ? 256 : 512) || smem_bytes > 227 * 1024 ||
+      smem_bytes / 4 < fixed || (d.J > 0 && jb < 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = rho_bwd<TS>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  if (G > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(d.E * d.B * G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, Sr, Si, L, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, el, ksr,
+      ksi, g0r, g0i, Cb, d, G, (int)jb);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -688,19 +1036,58 @@ extern "C" int rho_bwd_launch(
     const void* jr, const void* ji, const void* gTr, const void* gTi,
     const void* el, void* ksr, void* ksi, void* g0r, void* g0i, void* Cb,
     int E, int nt, int B, int N, int K, int J, int iters, int mode, int store,
-    float dt, float a, int tile, int threads, int smem_bytes, void* stream) {
+    float dt, float a, int tile, int cluster, int threads, int smem_bytes,
+    void* stream) {
   Dims d{E, nt, B, N, K, J, iters, mode, store, dt, a};
 #define RHO_BWD_ARGS                                                          \
   (const float*)Sr, (const float*)Si, (const float*)L, (const float*)C,       \
       (const float*)x0r, (const float*)x0i, (const float*)hr,                 \
       (const float*)hi, (const float*)jr, (const float*)ji,                   \
       (const float*)gTr, (const float*)gTi, (const float*)el, (float*)ksr,    \
-      (float*)ksi, (float*)g0r, (float*)g0i, (float*)Cb, d, threads,          \
-      smem_bytes, (cudaStream_t)stream
+      (float*)ksi, (float*)g0r, (float*)g0i, (float*)Cb, d, cluster,         \
+      threads, smem_bytes, (cudaStream_t)stream
   switch (tile) {
     case 1: return launch_bwd<1>(RHO_BWD_ARGS);
+    case 2: return launch_bwd<2>(RHO_BWD_ARGS);
     case 4: return launch_bwd<4>(RHO_BWD_ARGS);
   }
 #undef RHO_BWD_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of G CTAs of the backward's instance `tile`, with
+// `threads` threads and smem_bytes of shared memory each, the card can hold
+// at once (cudaOccupancyMaxActiveClusters; 0 where it holds none, or on an
+// error): clusters of 16 are beyond the portable size.
+extern "C" int rho_bwd_max_clusters(int tile, int cluster, int threads,
+                                    int smem_bytes) {
+  void (*kernel)(const float*, const float*, const float*, const float*,
+                 const float*, const float*, const float*, const float*,
+                 const float*, const float*, const float*, const float*,
+                 const float*, float*, float*, float*, float*, float*, Dims,
+                 int, int) = tile == 1   ? rho_bwd<1>
+                             : tile == 2 ? rho_bwd<2>
+                                         : rho_bwd<4>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  if (cluster > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
 }

@@ -23,9 +23,11 @@ transpose Tt(g) = M^dag g + g M + sum_l L_l^dag g L_l and reduces the H_eff
 cotangent of every (cotangent, input) pair against the stacks into
 coefficient cotangent rows.
 
-What differs from the TPU kernel: one thread block per (candidate, initial
-condition) with the time loop inside, exact f32 FMA (the TPU default is a
-3-pass bf16 emulation of f32 products), arrays of exactly (N, N) and
+What differs from the TPU kernel: the time loop inside the kernel, with one
+thread block per (candidate, initial condition) forward and one
+thread-block cluster of G CTAs, each on a band of rows, backward; exact
+f32 FMA (the TPU default is a 3-pass bf16 emulation of f32 products),
+arrays of exactly (N, N) and
 (ntime, K) (no 128-lane padding, no lane-group packing of initial
 conditions), and E candidates in one launch.
 
@@ -147,6 +149,84 @@ def _threads(N, tile):
 
 def _smem_bytes(N, K):
     return 4 * (_PLANES * N * (N | 1) + _RED_WARPS * K)
+
+
+# the backward: one thread-block cluster of G CTAs per density matrix, each
+# CTA on a band of about N / G rows (csrc/rho.cu)
+_CLUSTERS = (1, 2, 4, 8, 16)
+_SMS = 132              # streaming multiprocessors of an H100
+_BWD_PLANES = 10        # (N, N) planes: M, and F and U double-buffered
+_PAIR_WORK = 24576      # least complex multiply-adds per CTA and pair
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _band_tile(N, G):
+    """Entries per thread and axis of the backward's band of ceil(N / G)
+    rows: the smallest of 1, 2, 4 whose tiles take at most 512 threads (more
+    warps hide more of each product's latency: at N = 64 and G = 8 one
+    entry per thread ran 1.56x faster than 2 x 2 tiles on an H100,
+    scripts/rho_bwd_clusters.py)."""
+    R = _cdiv(N, G)
+    for ts in (1, 2):
+        if _cdiv(R, ts) * _cdiv(N, ts) <= 512:
+            return ts
+    return 4
+
+
+def _bwd_layout_bytes(N, G, K, jb, threads):
+    """Shared memory the backward carves: three mbarriers (8 floats), M, the
+    operand F and the pair's input U (two buffers each), jb jump scratch
+    bands of ceil(N / G) rows, the warps' C-bar partials and the cluster's
+    (G x K)."""
+    ld, R = N | 1, _cdiv(N, G)
+    return 4 * (8 + _BWD_PLANES * N * ld + 2 * jb * R * ld
+                + (threads // 32 + G) * K)
+
+
+def _bwd_shape(E, B, N, K, J, G=None, max_g=16):
+    """(G, tile, threads, shared-memory bytes) of a backward launch of E x B
+    density matrices of size N with K stack slots and J jump operators.
+
+    G, the CTAs per matrix, doubles from 1 (up to max_g) while E B G stays
+    within the card's SMs, each CTA keeps two rows or more, and each CTA's
+    share of a pair's products, (4 + 2 J) N^3 / G complex multiply-adds,
+    stays at _PAIR_WORK or more: below it the exchange of the operand costs
+    more than the products it spreads (on an H100 at 700 W, open 2, N = 16
+    with J = 4, ran fastest at G = 2 and N = 27 with J = 6 at G = 8;
+    scripts/rho_bwd_clusters.py). It grows past that only where a CTA cannot
+    hold the layout. The shared memory holds all J jump bands where it can
+    (one barrier per T for all of them), else as many as fit. An explicit G
+    is taken as it is (G in 1, 2, 4, 8, 16 and at most N). Raises
+    NotImplementedError where nothing fits."""
+    if G is None:
+        G = 1
+        while (2 * G <= max_g and 2 * G <= N // 2 and 2 * G * E * B <= _SMS
+               and (4 + 2 * J) * N ** 3 >= 2 * G * _PAIR_WORK):
+            G *= 2
+        grow = True
+    else:
+        if G not in _CLUSTERS or G > N:
+            raise ValueError(f"rho_bwd cluster of {G} CTAs for N = {N}: G "
+                             f"must be one of {_CLUSTERS} and at most N")
+        grow = False
+    while True:
+        tile = _band_tile(N, G)
+        tiles = _cdiv(_cdiv(N, G), tile) * _cdiv(N, tile)
+        threads = 32 * _cdiv(max(tiles, K), 32)
+        base = _bwd_layout_bytes(N, G, K, 0, threads)
+        band = _bwd_layout_bytes(N, G, 0, 1, 0) - _bwd_layout_bytes(
+            N, G, 0, 0, 0)
+        jb = min(J, (cuda_build.MAX_SMEM - base) // band)
+        if base <= cuda_build.MAX_SMEM and (jb >= 1 or J == 0):
+            return G, tile, threads, base + jb * band
+        if not grow or 2 * G > min(N, max_g):
+            raise NotImplementedError(
+                f"rho_bwd: a cluster of {G} CTAs cannot hold N = {N}, "
+                f"K = {K}, J = {J} in {cuda_build.MAX_SMEM} bytes each")
+        G *= 2
 
 
 def launch_refusal(N: int, K: int):
@@ -325,10 +405,14 @@ def rho_propagate_plain(plan, x0r, x0i, C):
 
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 9 + [f, f, i, i, i, p]
-    for name, n_ptr in (("rho_fwd_launch", 13), ("rho_bwd_launch", 18)):
+    head = [i] * 9 + [f, f]
+    # forward: tile, threads, smem; backward: tile, cluster, threads, smem
+    for name, n_ptr, n_int in (("rho_fwd_launch", 13, 3),
+                               ("rho_bwd_launch", 18, 4)):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [p] * n_ptr + tail, i
+        fn.argtypes, fn.restype = [p] * n_ptr + head + [i] * n_int + [p], i
+    lib.rho_bwd_max_clusters.argtypes = [i] * 4
+    lib.rho_bwd_max_clusters.restype = i
 
 
 def build_kernels(verbose: bool = False):
@@ -356,11 +440,29 @@ def _check_cuda(plan, *ts):
             raise ValueError("rho kernel needs contiguous tensors")
 
 
-def _launch_args(plan, E, nt, B, store):
-    N = plan.N
-    return (E, nt, B, N, plan.K, plan.njump, plan.iters,
-            _MODES[plan.linsolver], int(store), plan.dt, plan.dt / 2.0,
-            plan.tile, _threads(N, plan.tile), _smem_bytes(N, plan.K))
+def _dims(plan, E, nt, B, store):
+    return (E, nt, B, plan.N, plan.K, plan.njump, plan.iters,
+            _MODES[plan.linsolver], int(store), plan.dt, plan.dt / 2.0)
+
+
+def _fwd_args(plan, E, nt, B, store):
+    """The forward launcher's trailing arguments: dims, tile, threads,
+    shared-memory bytes."""
+    return _dims(plan, E, nt, B, store) + (
+        plan.tile, _threads(plan.N, plan.tile), _smem_bytes(plan.N, plan.K))
+
+
+def _bwd_args(lib, plan, E, nt, B, store, G=None):
+    """The backward launcher's trailing arguments: dims, tile, cluster,
+    threads, shared-memory bytes (_bwd_shape). Clusters of 16 CTAs are
+    beyond the portable size: the rule takes them only where the card's
+    occupancy query schedules one, else it stops at 8."""
+    shape = _bwd_shape(E, B, plan.N, plan.K, plan.njump, G)
+    if G is None and shape[0] == 16 and lib.rho_bwd_max_clusters(
+            shape[1], 16, shape[2], shape[3]) < 1:
+        shape = _bwd_shape(E, B, plan.N, plan.K, plan.njump, max_g=8)
+    G, tile, threads, smem = shape
+    return _dims(plan, E, nt, B, store) + (tile, G, threads, smem)
 
 
 def stores_iterates(plan, E, nt, B) -> bool:
@@ -387,7 +489,7 @@ def _kernel_fwd(plan, x0r, x0i, C):
     err = lib.rho_fwd_launch(
         *map(_ptr, (plan.Sr, plan.Si, plan.L, C, x0r, x0i, plan.planes, xTr,
                     xTi, hr, hi, ksr, ksi)),
-        *_launch_args(plan, E, nt, B, store),
+        *_fwd_args(plan, E, nt, B, store),
         torch.cuda.current_stream(C.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rho_fwd launch failed: CUDA error {err}")
@@ -395,7 +497,11 @@ def _kernel_fwd(plan, x0r, x0i, C):
     return xTr, xTi, hr, hi, ksr, ksi
 
 
-def _kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+def _kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
+                _cluster=None):
+    """One rho_bwd launch; `_cluster` forces the CTAs per matrix (the card
+    tests and the timing script compare them), else _bwd_shape picks G. A
+    refused launch raises: no other G and no plain version stands in."""
     global rho_bwd_launches
     _check_cuda(plan, x0r, x0i, C, hr, hi, gTr, gTi, jr, ji)
     lib = cuda_build.library(_SRC, _bind)
@@ -411,7 +517,7 @@ def _kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
     err = lib.rho_bwd_launch(
         *map(_ptr, (plan.Sr, plan.Si, plan.L, C, x0r, x0i, hr, hi, jr, ji,
                     gTr, gTi, plan.planes, ksr, ksi, g0r, g0i, Cb)),
-        *_launch_args(plan, E, nt, B, store),
+        *_bwd_args(lib, plan, E, nt, B, store, _cluster),
         torch.cuda.current_stream(C.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rho_bwd launch failed: CUDA error {err}")

@@ -486,6 +486,79 @@ def test_rho_kernel_matches_plain_on_card(cuda, solver, iters, n, njump, E):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
+def _rho_bwd_case(cuda, n, njump, solver, iters, store, E=1, seed=5):
+    """One rho_fwd launch (stage iterates stored or replayed) and what
+    rho_bwd needs beside it: (plan, arguments of _kernel_bwd, the plain
+    backward's (g0r, g0i, Cb) on the same inputs)."""
+    from quandary_tpu_torch.ops import rho
+    rng = np.random.default_rng(seed + n)
+    stack, Ls, gd = _random_open_system(rng, n, 3, njump)
+    f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
+    plan = rho.make_plan(f32(stack.real), f32(stack.imag), Ls, 0.05, iters,
+                         gd, solver)
+    C = f32(rng.normal(size=(E, NT, 3)) * 0.5)
+    x0 = rng.normal(size=(2, B, n, n)) / np.sqrt(n)
+    x0r, x0i = f32(x0[0]), f32(x0[1])
+    saved, rho.KS_BUDGET_BYTES = rho.KS_BUDGET_BYTES, (1 << 62) if store \
+        else 0
+    try:
+        _, _, hr, hi, ksr, ksi = rho._kernel_fwd(plan, x0r, x0i, C)
+    finally:
+        rho.KS_BUDGET_BYTES = saved
+    assert (ksr is not None) == store
+    gT = f32(rng.normal(size=(E, B, n, n)))
+    jh = f32(rng.normal(size=(E, NT, B, n, n)))
+    args = (plan, x0r, x0i, C, hr, hi, ksr, ksi, gT, gT, jh, jh)
+    plain = rho.plain_backward(plan, x0r, x0i, C, hr, hi, gT, gT, jh, jh)
+    return args, plain
+
+
+# N = 33 and 64 run two and four tiles of the band per thread at some G;
+# N = 27 has bands of 3 and 4 rows at G = 8
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump", [(16, 4), (27, 6), (33, 2), (64, 4)])
+@pytest.mark.parametrize("solver,iters", [("jacobi", 6), ("split", 3)])
+def test_rho_bwd_cluster_sizes_on_card(cuda, n, njump, solver, iters):
+    """rho_bwd on clusters of 1, 2, 4 and 8 CTAs per density matrix, with
+    stored and with replayed stage iterates: g0 equal to the bit across G
+    (every entry is the same chain of fmaf), Cb within 1e-6 of max (its
+    cross-CTA sum changes order with G), both against the plain backward
+    to 1e-4 of max; one rho_bwd launch each."""
+    from quandary_tpu_torch.ops import rho
+    for store in (True, False):
+        args, plain = _rho_bwd_case(cuda, n, njump, solver, iters, store)
+        got = {}
+        for G in (1, 2, 4, 8):
+            before = rho.rho_bwd_launches
+            got[G] = rho._kernel_bwd(*args, _cluster=G)
+            torch.cuda.synchronize()
+            assert rho.rho_bwd_launches - before == 1
+        for G, (g0r, g0i, Cb) in got.items():
+            assert torch.equal(g0r, got[1][0]) and torch.equal(g0i, got[1][1])
+            assert float((Cb - got[1][2]).abs().max()) \
+                <= 1e-6 * float(got[1][2].abs().max())
+            for a, b in zip((g0r, g0i, Cb), plain):
+                assert bool(torch.isfinite(a).all())
+                assert float((a - b).abs().max()) \
+                    <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump,E", [(16, 4, 2), (27, 6, 1), (64, 4, 1)])
+def test_rho_bwd_is_deterministic_on_card(cuda, n, njump, E):
+    """Two rho_bwd launches at the cluster size the shape rule picks give
+    the same bits of g0 and Cb (no atomics; rank 0 sums the CTAs' partials
+    in a fixed order)."""
+    from quandary_tpu_torch.ops import rho
+    args, _ = _rho_bwd_case(cuda, n, njump, "jacobi", 6, False, E=E)
+    G = rho._bwd_shape(E, B, n, 3, njump)[0]
+    assert G > 1
+    a = rho._kernel_bwd(*args)
+    b = rho._kernel_bwd(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 def _open_cnot(guards, fused_rho="auto", ntime=48, T=8.0):
     from quandary_tpu_torch.models import gates
     from quandary_tpu_torch.models.hamiltonian import build_standard_model

@@ -242,6 +242,73 @@ def test_solver_planes_and_launch_refusal():
     assert rho.launch_counts() == dict(rho_fwd_launches=0, rho_bwd_launches=0)
 
 
+@pytest.mark.parametrize("EB,J", [(1, 4), (3, 6), (16, 0), (128, 4),
+                                  (264, 6)])
+@pytest.mark.parametrize("n", [4, 16, 27, 32, 33, 64])
+def test_rho_bwd_launch_shape(n, EB, J):
+    """The backward's launch shape (a cluster of G CTAs per density matrix,
+    each on a band of rows) against the layout csrc/rho.cu carves: every
+    CTA owns a row, whole warps cover the band's tiles and the stack slots,
+    the shared memory holds the mbarriers, M, the operand and the pair's
+    input (two buffers each), the C-bar partials and at least one jump band
+    (all J where G >= 4), and one matrix per SM keeps G = 1."""
+    k = 7
+    G, tile, threads, smem = rho._bwd_shape(1, EB, n, k, J)
+    assert G in (1, 2, 4, 8, 16)
+    assert min((q + 1) * n // G - q * n // G for q in range(G)) >= 1
+    R, ld = -(-n // G), n | 1
+    tiles = -(-R // tile) * -(-n // tile)
+    assert threads % 32 == 0 and max(tiles, k) <= threads
+    assert threads <= (256 if tile == 4 else 512) <= 1024
+    layout = lambda jb: 4 * (8 + 10 * n * ld + 2 * jb * R * ld
+                             + (threads // 32 + G) * k)
+    assert layout(min(J, 1)) <= smem <= 227 * 1024
+    if G >= 4:
+        assert smem >= layout(J)
+    if EB >= 132:
+        assert G == 1
+    if n in (27, 64) and EB <= 3:
+        assert G > 1
+    # a forced G is taken as it is, within 1..16 and at most N
+    assert rho._bwd_shape(1, EB, n, k, J, G=2)[0] == 2
+    with pytest.raises(ValueError):
+        rho._bwd_shape(1, EB, n, k, J, G=3)
+    # the range of the kernels is unchanged
+    assert rho.launch_refusal(64, k) is None
+    assert "N = 65" in rho.launch_refusal(65, k)
+
+
+def test_rho_bwd_takes_sixteen_only_where_the_card_holds_them():
+    """Clusters of 16 CTAs are beyond the portable size: the rule asks the
+    library's occupancy query, and takes 8 where the card holds none of
+    16; a G asked for is never changed."""
+    class Lib:
+        def __init__(self, n):
+            self.n, self.asked = n, []
+
+        def rho_bwd_max_clusters(self, *shape):
+            self.asked.append(shape)
+            return self.n
+
+    t = torch.zeros(7, 64, 64)
+    plan = rho.make_plan(t, t, [np.eye(64)] * 4, DT, 6)
+    # trailing arguments: tile, G, threads, shared-memory bytes
+    yes, no = Lib(1), Lib(0)
+    assert rho._bwd_args(yes, plan, 1, 10, 3, True)[-3] == 16
+    assert yes.asked == [rho._bwd_shape(1, 3, 64, 7, 4)[1:2] + (16,)
+                         + rho._bwd_shape(1, 3, 64, 7, 4)[2:]]
+    assert rho._bwd_args(no, plan, 1, 10, 3, True)[-4:] \
+        == rho._bwd_shape(1, 3, 64, 7, 4, max_g=8)[1:2] + (8,) \
+        + rho._bwd_shape(1, 3, 64, 7, 4, max_g=8)[2:]
+    assert rho._bwd_args(Lib(0), plan, 1, 10, 3, True, 16)[-3] == 16
+    # N = 16 with 16 matrices stays far below 16 CTAs: no query
+    small = Lib(0)
+    s16 = torch.zeros(7, 16, 16)
+    rho._bwd_args(small, rho.make_plan(s16, s16, None, DT, 8), 1, 10, 16,
+                  True)
+    assert small.asked == []
+
+
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     """The dispatch sends a CUDA tensor to the kernels and a CPU tensor to
     the plain version; no other device has a path."""
