@@ -58,7 +58,7 @@ collapse operators, and two 8-level qudits, N = 64, four collapse
 operators; 3 initial conditions, ntime = 1000, 6 iterations).
 
 11. the build of csrc/rho.cu (registers and spills as ptxas reports them,
-   for rho_fwd and the three instances of rho_bwd, tiles 1, 2 and 4);
+   for the three instances of rho_fwd and of rho_bwd, tiles 1, 2 and 4);
 12. rho_fwd / rho_bwd against rho_propagate_plain on the card at the stacks
    of configurations 2 and 3 and a short ntime: neumann, jacobi, split;
    with and without jump operators; E = 1 and 8; stored and replayed stage
@@ -73,9 +73,9 @@ operators; 3 initial conditions, ntime = 1000, 6 iterations).
    host's time: phase 16 holds the kernels against plain at full depth);
 15. a few L-BFGS-B iterations on configuration 2 through
    run_optimization_device (J falls; the CUDA graph's launches counted);
-16. times: rho_fwd / rho_bwd at N = 16 (E = 1, 8), 27, 64, with rho_bwd's
-   cluster (CTAs per density matrix, CTAs launched) and time per reversed
-   step, sweeps/s of the
+16. times: rho_fwd / rho_bwd at N = 16 (E = 1, 8), 27, 64, with each
+   kernel's cluster (CTAs per density matrix, CTAs launched, tile, threads)
+   and time per step, sweeps/s of the
    three configurations, the plain version's times, the bounds; the history
    and cotangents of the timed kernels against those of the timed plain
    runs, at the configurations' full depth.
@@ -678,12 +678,11 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
     whose history and cotangents the kernels' are held against
     (`full_depth`: states abs, cotangents x max)."""
     E, nt = C.shape[:2]
+    B = x0r.shape[0]
     fwd = rho._kernel_fwd(plan, x0r, x0i, C)
     hr, hi, ksr, ksi = fwd[2:]
     store = ksr is not None
     oT, oh = torch.ones_like(fwd[0]), torch.ones_like(hr)
-    tile, G, threads, _ = rho._bwd_args(cuda_build.library(
-        rho._SRC, rho._bind), plan, E, nt, x0r.shape[0], store)[-4:]
     out = dict(
         stored=store,
         fwd=event_ms(lambda: rho._kernel_fwd(plan, x0r, x0i, C), reps),
@@ -691,10 +690,13 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
             plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh, oh), reps),
         fwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], False),
         bwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], True))
-    # rho_bwd's cluster: CTAs per matrix, CTAs launched, tile, threads
-    out["bwd_cluster"] = dict(G=G, ctas=E * x0r.shape[0] * G, tile=tile,
-                              threads=threads)
-    out["bwd_us_per_step"] = 1e3 * out["bwd"] / nt
+    # each kernel's cluster: CTAs per matrix, CTAs launched, tile, threads
+    lib = cuda_build.library(rho._SRC, rho._bind)
+    for key, args in (("fwd", rho._fwd_args), ("bwd", rho._bwd_args)):
+        tile, G, threads, _ = args(lib, plan, E, nt, B, store)[-4:]
+        out[f"{key}_cluster"] = dict(G=G, ctas=E * B * G, tile=tile,
+                                     threads=threads)
+        out[f"{key}_us_per_step"] = 1e3 * out[key] / nt
     if plain:
         got = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh,
                               oh)
@@ -1090,6 +1092,11 @@ def main():
     rpath, rsecs, rlog = rho_build
     phase(11, f"built {rpath} in {rsecs:.2f} s; "
               + " | ".join(ptxas_lines(rlog)))
+    # every instance, where this process built the library (rsecs > 0)
+    missing = [f"{k}<{ts}>" for k in ("rho_fwd", "rho_bwd") for ts in (1, 2, 4)
+               if f"{k}ILi{ts}E" not in rlog]
+    if rsecs > 0 and missing:
+        raise RuntimeError(f"ptxas reported no {missing}")
 
     # ---- 12. rho kernels against plain at the open systems' stacks ----
     c64 = torch.complex64
@@ -1269,10 +1276,13 @@ def main():
     rates_open["cnot4"] = 1 / median_seconds(lambda: open_vg(p4, P1), reps=3)
     C4 = streamk.extend_coeffs(p4._plan, p4.coeff_rows_mid(P1)[..., 0, :])
     ms_4 = kernel_ms(p4._plan, p4._x0r, p4._x0i, C4, 5, 1)
-    phase(16, "rho_bwd per configuration: " + "; ".join(
-        f"{k} G={t['bwd_cluster']['G']}, {t['bwd_cluster']['ctas']} CTAs, "
-        f"{t['bwd_us_per_step']:.3f} us per reversed step"
-        for k, t in ms_r.items()))
+    phase(16, "rho clusters per configuration: " + "; ".join(
+        f"{k} {name} G={t[f'{key}_cluster']['G']}, "
+        f"{t[f'{key}_cluster']['ctas']} CTAs, tile "
+        f"{t[f'{key}_cluster']['tile']}, {t[f'{key}_cluster']['threads']} "
+        f"threads, {t[f'{key}_us_per_step']:.3f} us per step"
+        for k, t in ms_r.items()
+        for name, key in (("rho_fwd", "fwd"), ("rho_bwd", "bwd"))))
     phase(16, f"rho kernel ms {json.dumps(ms_r)}; configuration 1 on the "
               f"streamK kernels {json.dumps(ms_4)}; sweeps/s (delivered, "
               f"candidates per second) "
@@ -1487,11 +1497,10 @@ def main():
                     tpu="quandary_tpu/ops/pallas_rho.py",
                     launches_superop_route=open_launches["cnot4"][B1[i]],
                     launches_device_optimizer=launches_dev16[B4[i]])
-        if key == "bwd":
-            # rho_bwd's cluster per density matrix and its time per
-            # reversed step, at configuration 2 and the others
-            more["cluster"] = ms_r["cnot16"]["bwd_cluster"]
-            more["us_per_step"] = ms_r["cnot16"]["bwd_us_per_step"]
+        # the kernel's cluster per density matrix and its time per step
+        # (reversed for rho_bwd), at configuration 2 and the others
+        more["cluster"] = ms_r["cnot16"][f"{key}_cluster"]
+        more["us_per_step"] = ms_r["cnot16"][f"{key}_us_per_step"]
         for name, t in ms_r.items():
             if "full_depth" in t:
                 more[f"full_depth_{name}"] = t["full_depth"]
@@ -1501,9 +1510,8 @@ def main():
                 more[f"bound_ms_{name}"] = t[f"{key}_bound"][0]
                 if f"plain_{key}" in t:
                     more[f"plain_ms_{name}"] = t[f"plain_{key}"]
-                if key == "bwd":
-                    more[f"cluster_{name}"] = t["bwd_cluster"]
-                    more[f"us_per_step_{name}"] = t["bwd_us_per_step"]
+                more[f"cluster_{name}"] = t[f"{key}_cluster"]
+                more[f"us_per_step_{name}"] = t[f"{key}_us_per_step"]
         return more
 
     def streamk_more(i):

@@ -23,52 +23,63 @@
 // Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> (pallas_rho.py:464-486). Stack and
 // jump-operator cotangents are not computed (zero by the same contract).
 //
-// Forward layout: one thread block per (control candidate, initial
-// condition); the sequential time loop runs inside the block (the TPU's
-// sequential grid axis). A thread owns a TS x TS set of matrix entries,
-// strided by the tile count so that neighbouring lanes read neighbouring
-// columns; entries past N compute on clamped indices and are never written.
-// M, the operand of the current product, the jump intermediate L v and one
-// more (N, N) pair live in shared memory (8 planes, row stride N | 1 so that
-// transposed reads of M for the M^dag factors are free of bank conflicts);
+// Layout, both directions: one thread-block cluster of G CTAs per (control
+// candidate, initial condition), G in {1, 2, 4, 8, 16} a launch-time value;
+// the sequential time loop runs inside the cluster (the TPU's sequential
+// grid axis). CTA q of the cluster owns rows [q N / G, (q + 1) N / G) of
+// every (N, N) quantity the kernel produces; its threads own TS x TS entries
+// of that band, strided so that neighbouring lanes read neighbouring
+// columns; entries past the band compute on clamped indices and are never
+// written. Every product of T (or Tt) needs the whole of only one factor
+// that the chain produces, the operand v: M v and L_l v need all of v, the
+// band of v M^dag only v's band, and the band of (L_l v) L_l^dag only that
+// band of L_l v. So for every T each thread stores its entries of v in its
+// CTA's copy and pushes them by st.async into the other CTAs' copies
+// through distributed shared memory; one mbarrier per copy counts the
+// bytes, and the CTA waits on it alone. The copy is double-buffered, so no
+// other barrier guards it. A cluster barrier would do the same, but its
+// acquire drops the SM's L1, from which every T reads the jump and solver
+// planes (the exchange section below). Each jump operator has its own
+// scratch band for L_l v, so a T passes one CTA barrier between the J first
+// factors and the J second factors (where J bands do not fit, as at G = 1
+// and N = 64, the jumps go in groups, one barrier pair per group). Each CTA
+// contracts M(t) whole. Shared memory rows have stride N | 1, so that the
+// transposed reads of M for the M^dag factors are free of bank conflicts;
 // the stacks, the jump planes and the entrywise solver planes are read from
-// global memory (a few hundred KB, resident in L2). Nothing is padded: the
-// 128-lane tiles, Hs rows and lane-group packing of the TPU kernel have no
-// counterpart here. Arithmetic is exact f32 FMA on the CUDA cores (the TPU
-// kernel's default is a 3-pass bf16 emulation of f32 matmuls).
+// global memory (a few hundred KB, resident in L1 and L2). Nothing is
+// padded: the 128-lane tiles, Hs rows and lane-group packing of the TPU
+// kernel have no counterpart here. Arithmetic is exact f32 FMA on the CUDA
+// cores (the TPU kernel's default is a 3-pass bf16 emulation of f32
+// matmuls); every entry is one thread's chain of fmaf in a fixed order and
+// every entrywise product is rounded as written, never contracted, so the
+// results have the same bits at any G and tile.
 //
-// Backward layout: one thread-block cluster of G CTAs per (candidate,
-// initial condition), G in {1, 2, 4, 8, 16} a launch-time value. CTA q of the
-// cluster owns rows [q N / G, (q + 1) N / G) of every (N, N) quantity the
-// backward produces (g, the cotangents k-bar and b-bar, the replayed stage
-// iterates); its threads own TS x TS entries of that band. Every product of
-// Tt needs the whole of only one factor that the chain produces, the operand
-// c: M^dag c and L_l^dag c need all of c, the band of c M only c's band, and
-// the band of (L_l^dag c) L_l only that band of L_l^dag c. So in each pair
-// every thread stores its entries of c in its CTA's copy and pushes them by
-// st.async into the other CTAs' copies through distributed shared memory;
-// one mbarrier per copy counts the bytes, and the CTA waits on it alone.
-// The copy is double-buffered, so no other barrier guards it. A cluster
-// barrier would do the same, but its acquire drops the SM's L1, from which
-// every pair reads the jump and solver planes (the exchange section below).
-// The pair's input u (a stored or replayed iterate, or the pre-step state)
-// is whole in device memory: each CTA copies all of it by cp.async a pair
-// ahead, into a second buffer. Each jump operator has its own scratch band
-// for L_l^dag c, so a Tt passes one CTA barrier between the J first factors
-// and the J second factors (where J bands do not fit, as at G = 1 and
-// N = 64, the jumps go in groups, one barrier pair per group). Each CTA
-// contracts M(t) whole. Cb[t, k] is reduced over each CTA's warps, pushed
-// into rank 0, and summed there in rank order: no atomics, and g0 has the
-// same bits at any G (every entry is the same chain of fmaf, and the
-// backward's entrywise products are rounded as written, never contracted).
+// Forward: x lives in registers, band by band; x0 is read once. Per step,
+// after a CTA barrier (the previous step's reads of M are done) and the
+// contraction of M(t): x (rotated by E where split) is exchanged, and
+// stage_chain runs b = T(x), k_0 = b (jacobi: Minv b) and iters times an
+// exchange of k, m = T(k) and the stage update; then x += dt k (rotated
+// where split) and the history's band is written. The stage iterates are
+// stored band by band. The backward's replay runs the same stage_chain, so
+// stored and replayed iterates have the same bits. Shared memory: two
+// mbarriers, M, the operand (two buffers) and the jump bands: six (N, N)
+// planes and the bands, so N <= 64 fits one CTA.
+//
+// Backward: the steps in reverse on the same layout. Per pair the operand
+// is the cotangent c; its input u (a stored or replayed iterate, or the
+// pre-step state) is whole in device memory, and each CTA copies all of it
+// by cp.async a pair ahead, into a second buffer (U). Cb[t, k] is reduced
+// over each CTA's warps, pushed into rank 0, and summed there in rank
+// order: no atomics, and g0 has the same bits at any G.
 //
 // What bounds it on the H100: operations. One T is (8 + 8 J) real N^3
 // products, 21 MFLOP at N = 64 with 4 jump operators, and a step runs
-// iters + 1 of them in a dependent chain. The forward has E * B blocks, so at
-// E = 1 most of the 132 SMs idle; the backward spreads each matrix over G
-// SMs and pays, per pair, an exchange of 8 N^2 (G - 1) / G bytes of
-// distributed shared memory into each CTA and one mbarrier wait for it.
-// Tensor-core products are later work.
+// iters + 1 of them in a dependent chain, each spread over the G SMs of a
+// matrix: E * B * G of the 132 SMs work. Each T (Tt) pays an exchange of
+// 8 N^2 (G - 1) / G bytes of distributed shared memory into each CTA, one
+// mbarrier wait for it and one CTA barrier per group of jump operators;
+// the shape rule (ops/rho.py) stops G where that costs more than the
+// products it spreads. Tensor-core products are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -146,254 +157,9 @@ __device__ __forceinline__ void contract(const float* __restrict__ Sr,
   }
 }
 
-// acc = T(v) on the thread's entries (the forward's layout):
-//   T(v) = M v + v M^dag + sum_l (L_l v) L_l^dag - d * v.
-// v and M are shared-memory plane pairs (row stride ld); L is the global
-// (4, J, N, N) array [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag; (dr, di) are the
-// global planes of the split stepper's diagonal, or null. (tr, ti) is the
-// shared scratch pair for L v. Every thread of the block must call it (it
-// synchronizes when J > 0); the caller synchronizes before v is rewritten.
-template <int TS>
-__device__ __forceinline__ void apply_gen(
-    float (&accr)[TS][TS], float (&acci)[TS][TS], const float* Mr,
-    const float* Mi, const float* vr, const float* vi, float* tr, float* ti,
-    const float* __restrict__ L, const float* __restrict__ dr,
-    const float* __restrict__ di, const int (&r)[TS], const int (&c)[TS],
-    const bool (&ok)[TS][TS], int N, int ld, int J) {
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b) accr[a][b] = acci[a][b] = 0.f;
-  cmm<TS, false, false>(accr, acci, Mr, Mi, ld, 1, vr, vi, ld, 1, r, c, N);
-  cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, Mr, Mi, 1, ld, r, c, N);
-  const int NN = N * N;
-  for (int l = 0; l < J; ++l) {
-    // first factor L_l, second factor L_l^dag
-    const float* Ar = L + (size_t)l * NN;
-    const float* Ai = L + (size_t)(J + l) * NN;
-    const float* Br = L + (size_t)(2 * J + l) * NN;
-    const float* Bi = L + (size_t)(3 * J + l) * NN;
-    float zr[TS][TS], zi[TS][TS];
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) zr[a][b] = zi[a][b] = 0.f;
-    cmm<TS, false, false>(zr, zi, Ar, Ai, N, 1, vr, vi, ld, 1, r, c, N);
-    if (l > 0) __syncthreads();     // the previous jump's reads of t are done
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b)
-        if (ok[a][b]) {
-          tr[r[a] * ld + c[b]] = zr[a][b];
-          ti[r[a] * ld + c[b]] = zi[a][b];
-        }
-    __syncthreads();
-    cmm<TS, false, false>(accr, acci, tr, ti, ld, 1, Br, Bi, N, 1, r, c, N);
-  }
-  if (dr != nullptr) {
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        const float d_r = dr[o], d_i = di[o];
-        const float v_r = vr[so], v_i = vi[so];
-        accr[a][b] -= d_r * v_r - d_i * v_i;
-        acci[a][b] -= d_r * v_i + d_i * v_r;
-      }
-  }
-}
-
-// v <- p v for an entrywise solver plane pair at offset o
-__device__ __forceinline__ void cmul(const float* __restrict__ pr,
-                                     const float* __restrict__ pi, int o,
-                                     float& vr, float& vi) {
-  const float ar = pr[o], ai = pi[o];
-  const float t = ar * vr - ai * vi;
-  vi = ai * vr + ar * vi;
-  vr = t;
-}
-
-
-// The thread's rows and columns (clamped into range) and which of its
-// entries exist.
-template <int TS>
-__device__ __forceinline__ void ownership(int N, int (&r)[TS], int (&c)[TS],
-                                          bool (&ok)[TS][TS]) {
-  const int ntile = (N + TS - 1) / TS;
-  const bool active = (int)threadIdx.x < ntile * ntile;
-  const int t0 = active ? (int)threadIdx.x : 0;
-  const int tr = t0 / ntile, tc = t0 - tr * ntile;
-#pragma unroll
-  for (int a = 0; a < TS; ++a) {
-    r[a] = min(tr + a * ntile, N - 1);
-    c[a] = min(tc + a * ntile, N - 1);
-  }
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b)
-      ok[a][b] = active && tr + a * ntile < N && tc + b * ntile < N;
-}
-
-// One stage update k <- solve step from m = T(k) and the stage's b:
-// neumann k = b + a m; jacobi k = Minv (b + a (m - d k)).
-__device__ __forceinline__ void stage_update(bool jac, float a, float br,
-                                             float bi, float mr, float mi,
-                                             const float* e0, const float* e1,
-                                             const float* e2, const float* e3,
-                                             int o, float& kr, float& ki) {
-  if (jac) {
-    const float d_r = e0[o], d_i = e1[o];
-    const float ur = mr - (d_r * kr - d_i * ki);
-    const float ui = mi - (d_r * ki + d_i * kr);
-    kr = br + a * ur;
-    ki = bi + a * ui;
-    cmul(e2, e3, o, kr, ki);
-  } else {
-    kr = br + a * mr;
-    ki = bi + a * mi;
-  }
-}
-
-}  // namespace
-
-// Forward. Block (e, ib) propagates initial condition ib under candidate e:
-// x0 (B, N, N) shared by all candidates; C (E, nt, K); el the entrywise
-// solver planes, each (N, N): jacobi (d_r, d_i, minv_r, minv_i), split
-// (e_r, e_i, d_r, d_i). Writes xT (E, B, N, N), hist (E, nt, B, N, N) and,
-// with store, the stage iterates k_0..k_{iters-1} (E, B, nt, iters, N, N).
-template <int TS>
-__global__ void __launch_bounds__(TS == 4 ? 256 : 1024)
-rho_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
-        const float* __restrict__ L, const float* __restrict__ C,
-        const float* __restrict__ x0r, const float* __restrict__ x0i,
-        const float* __restrict__ el, float* __restrict__ xTr,
-        float* __restrict__ xTi, float* __restrict__ hr,
-        float* __restrict__ hi, float* __restrict__ ksr,
-        float* __restrict__ ksi, Dims d) {
-  extern __shared__ float sm[];
-  const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
-  float* Mr = sm;
-  float* Mi = Mr + plane;
-  float* vr = Mi + plane;
-  float* vi = vr + plane;
-  float* tr = vi + plane;
-  float* ti = tr + plane;
-  float* br = ti + plane;       // b = T(x) of the step, owner-only access
-  float* bi = br + plane;
-
-  const int blk = blockIdx.x, e = blk / d.B, ib = blk - e * d.B;
-  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  const float *e0 = el, *e1 = el + NN, *e2 = el + 2 * NN, *e3 = el + 3 * NN;
-  const float* dsr = split ? e2 : nullptr;
-  const float* dsi = split ? e3 : nullptr;
-  int r[TS], c[TS];
-  bool ok[TS][TS];
-  ownership<TS>(N, r, c, ok);
-
-  float xr[TS][TS], xi[TS][TS];
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b) {
-      const int o = r[a] * N + c[b];
-      xr[a][b] = x0r[(size_t)ib * NN + o];
-      xi[a][b] = x0i[(size_t)ib * NN + o];
-    }
-
-  for (int t = 0; t < d.nt; ++t) {
-    const size_t st = (size_t)e * d.nt + t;
-    const size_t ks0 = ((size_t)blk * d.nt + t) * d.iters * NN;
-    __syncthreads();            // the previous step's reads of M, v, t are done
-    contract(Sr, Si, C + st * d.K, Mr, Mi, d.K, N, ld);
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        if (split) cmul(e0, e1, o, xr[a][b], xi[a][b]);
-        vr[so] = xr[a][b];
-        vi[so] = xi[a][b];
-      }
-    __syncthreads();
-    float kr[TS][TS], ki[TS][TS];
-    apply_gen<TS>(kr, ki, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c, ok,
-                         N, ld, d.J);
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        br[so] = kr[a][b];
-        bi[so] = ki[a][b];
-        if (jac) cmul(e2, e3, o, kr[a][b], ki[a][b]);
-        if (d.store && d.iters > 0) {
-          ksr[ks0 + o] = kr[a][b];
-          ksi[ks0 + o] = ki[a][b];
-        }
-      }
-    for (int j = 0; j < d.iters; ++j) {
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b)
-          if (ok[a][b]) {
-            vr[r[a] * ld + c[b]] = kr[a][b];
-            vi[r[a] * ld + c[b]] = ki[a][b];
-          }
-      __syncthreads();
-      float mr[TS][TS], mi[TS][TS];
-      apply_gen<TS>(mr, mi, Mr, Mi, vr, vi, tr, ti, L, dsr, dsi, r, c,
-                           ok, N, ld, d.J);
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b) {
-          if (!ok[a][b]) continue;
-          const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-          stage_update(jac, d.a, br[so], bi[so], mr[a][b], mi[a][b], e0, e1,
-                       e2, e3, o, kr[a][b], ki[a][b]);
-          if (d.store && j + 1 < d.iters) {
-            ksr[ks0 + (size_t)(j + 1) * NN + o] = kr[a][b];
-            ksi[ks0 + (size_t)(j + 1) * NN + o] = ki[a][b];
-          }
-        }
-    }
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b];
-        xr[a][b] += d.dt * kr[a][b];
-        xi[a][b] += d.dt * ki[a][b];
-        if (split) cmul(e0, e1, o, xr[a][b], xi[a][b]);
-        const size_t h = (st * d.B + ib) * NN + o;
-        hr[h] = xr[a][b];
-        hi[h] = xi[a][b];
-      }
-  }
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b)
-      if (ok[a][b]) {
-        const size_t o = (size_t)blk * NN + r[a] * N + c[b];
-        xTr[o] = xr[a][b];
-        xTi[o] = xi[a][b];
-      }
-}
-
-namespace {
-
 // v <- p v and v <- conj(p) v, rounded as written: no product is contracted
 // into an FMA, so an entry's bits do not depend on the instance of the
-// backward that computes it.
+// kernel that computes it.
 __device__ __forceinline__ void cmul_rn(const float* __restrict__ pr,
                                         const float* __restrict__ pi, int o,
                                         float& vr, float& vi) {
@@ -412,7 +178,8 @@ __device__ __forceinline__ void cmul_conj_rn(const float* __restrict__ pr,
   vr = t;
 }
 
-// stage_update rounded as written (the replay's stage solve)
+// One stage update k <- solve step from m = T(k) and the stage's b, rounded
+// as written: neumann k = b + a m; jacobi k = Minv (b + a (m - d k)).
 __device__ __forceinline__ void stage_update_rn(
     bool jac, float a, float br, float bi, float mr, float mi, const float* e0,
     const float* e1, const float* e2, const float* e3, int o, float& kr,
@@ -456,52 +223,71 @@ __device__ __forceinline__ void band_ownership(int N, int r0, int R, int Rmax,
       ok[a][b] = active && tr + a * nrt < R && tc + b * nct < N;
 }
 
+// What band_gen reads besides its operand: the step's M (shared memory, row
+// stride ld), jb jump scratch bands of Rmax x ld (re, then im) at tb, the
+// global (4, J, N, N) jump array [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag, the
+// global planes of the split stepper's diagonal (dr, di) or null, and the
+// CTA's band from row r0.
+struct Gen {
+  const float* Mr;
+  const float* Mi;
+  float* tb;
+  const float* L;
+  const float* dr;
+  const float* di;
+  int r0, N, ld, Rmax, J, jb;
+};
+
 // acc = T(v) (ADJ = false) or Tt(v) (ADJ = true) on the thread's entries of
 // its band, v whole in shared memory (row stride ld):
 //   T(v)  = M v + v M^dag + sum_l (L_l v) L_l^dag - d * v
 //   Tt(u) = M^dag u + u M + sum_l (L_l^dag u) L_l - conj(d) * u.
-// The jump operators go in groups of jb: each has its own scratch band of
-// Rmax x ld (re, then im) at tb, so a group passes one barrier between its
-// first and its second factors; the accumulation keeps l's order. Every
-// thread of the block must call it (it synchronizes when J > 0); the
-// caller synchronizes before v or the bands are rewritten.
+// The jump operators go in groups of jb, each with its own scratch band, so
+// a group passes one barrier between its first and its second factors; the
+// accumulation keeps l's order. Every thread of the block must call it (it
+// synchronizes when J > 0); the caller synchronizes before v or the bands
+// are rewritten.
 template <int TS, bool ADJ>
-__device__ __forceinline__ void band_gen(
-    float (&accr)[TS][TS], float (&acci)[TS][TS], const float* Mr,
-    const float* Mi, const float* vr, const float* vi, float* tb,
-    const float* __restrict__ L, const float* __restrict__ dr,
-    const float* __restrict__ di, const int (&r)[TS], const int (&c)[TS],
-    const bool (&ok)[TS][TS], int r0, int N, int ld, int Rmax, int J,
-    int jb) {
+__device__ __forceinline__ void band_gen(float (&accr)[TS][TS],
+                                         float (&acci)[TS][TS], const Gen& g,
+                                         const float* vr, const float* vi,
+                                         const int (&r)[TS],
+                                         const int (&c)[TS],
+                                         const bool (&ok)[TS][TS]) {
+  const int N = g.N, ld = g.ld;
 #pragma unroll
   for (int a = 0; a < TS; ++a)
 #pragma unroll
     for (int b = 0; b < TS; ++b) accr[a][b] = acci[a][b] = 0.f;
   if (!ADJ) {
-    cmm<TS, false, false>(accr, acci, Mr, Mi, ld, 1, vr, vi, ld, 1, r, c, N);
-    cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, Mr, Mi, 1, ld, r, c, N);
+    cmm<TS, false, false>(accr, acci, g.Mr, g.Mi, ld, 1, vr, vi, ld, 1, r, c,
+                          N);
+    cmm<TS, false, true>(accr, acci, vr, vi, ld, 1, g.Mr, g.Mi, 1, ld, r, c,
+                         N);
   } else {
-    cmm<TS, true, false>(accr, acci, Mr, Mi, 1, ld, vr, vi, ld, 1, r, c, N);
-    cmm<TS, false, false>(accr, acci, vr, vi, ld, 1, Mr, Mi, ld, 1, r, c, N);
+    cmm<TS, true, false>(accr, acci, g.Mr, g.Mi, 1, ld, vr, vi, ld, 1, r, c,
+                         N);
+    cmm<TS, false, false>(accr, acci, vr, vi, ld, 1, g.Mr, g.Mi, ld, 1, r, c,
+                          N);
   }
-  const int NN = N * N, bplane = Rmax * ld;
+  const int NN = N * N, bplane = g.Rmax * ld, J = g.J;
   int rl[TS];
 #pragma unroll
-  for (int a = 0; a < TS; ++a) rl[a] = r[a] - r0;
-  for (int l0 = 0; l0 < J; l0 += jb) {
-    const int l1 = min(J, l0 + jb);
+  for (int a = 0; a < TS; ++a) rl[a] = r[a] - g.r0;
+  for (int l0 = 0; l0 < J; l0 += g.jb) {
+    const int l1 = min(J, l0 + g.jb);
     if (l0 > 0) __syncthreads();    // the previous group's reads are done
     for (int l = l0; l < l1; ++l) {
       // first factor L_l (T) or L_l^dag (Tt), on the band's rows
-      const float* Ar = L + (size_t)((ADJ ? 2 : 0) * J + l) * NN;
-      const float* Ai = L + (size_t)((ADJ ? 3 : 1) * J + l) * NN;
+      const float* Ar = g.L + (size_t)((ADJ ? 2 : 0) * J + l) * NN;
+      const float* Ai = g.L + (size_t)((ADJ ? 3 : 1) * J + l) * NN;
       float zr[TS][TS], zi[TS][TS];
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
         for (int b = 0; b < TS; ++b) zr[a][b] = zi[a][b] = 0.f;
       cmm<TS, false, false>(zr, zi, Ar, Ai, N, 1, vr, vi, ld, 1, r, c, N);
-      float* tr = tb + (size_t)2 * (l - l0) * bplane;
+      float* tr = g.tb + (size_t)2 * (l - l0) * bplane;
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -514,20 +300,20 @@ __device__ __forceinline__ void band_gen(
     __syncthreads();
     for (int l = l0; l < l1; ++l) {
       // second factor, the other one of L_l and L_l^dag
-      const float* Br = L + (size_t)((ADJ ? 0 : 2) * J + l) * NN;
-      const float* Bi = L + (size_t)((ADJ ? 1 : 3) * J + l) * NN;
-      const float* tr = tb + (size_t)2 * (l - l0) * bplane;
+      const float* Br = g.L + (size_t)((ADJ ? 0 : 2) * J + l) * NN;
+      const float* Bi = g.L + (size_t)((ADJ ? 1 : 3) * J + l) * NN;
+      const float* tr = g.tb + (size_t)2 * (l - l0) * bplane;
       cmm<TS, false, false>(accr, acci, tr, tr + bplane, ld, 1, Br, Bi, N, 1,
                             rl, c, N);
     }
   }
-  if (dr != nullptr) {
+  if (g.dr != nullptr) {
 #pragma unroll
     for (int a = 0; a < TS; ++a)
 #pragma unroll
       for (int b = 0; b < TS; ++b) {
         const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
-        const float d_r = dr[o], d_i = ADJ ? -di[o] : di[o];
+        const float d_r = g.dr[o], d_i = ADJ ? -g.di[o] : g.di[o];
         const float v_r = vr[so], v_i = vi[so];
         accr[a][b] = __fsub_rn(
             accr[a][b], __fsub_rn(__fmul_rn(d_r, v_r), __fmul_rn(d_i, v_i)));
@@ -544,10 +330,12 @@ __device__ __forceinline__ void band_gen(
 // arrives on its own CTA's mbarrier (one with the bytes the others push) and
 // waits for the phase: the whole operand is in shared memory. The wait
 // acquires at CTA scope only: a cluster barrier's acquire would drop the
-// L1 lines of the jump and solver planes, which every pair reads (measured
+// L1 lines of the jump and solver planes, which every T reads (measured
 // on an H100, scripts/cluster_barrier_l1.py: 64 KB of L1-resident loads
 // took 2.1 us around a block barrier or an mbarrier, 11 us around
-// barrier.cluster).
+// barrier.cluster). The arrival releases and the wait acquires at CTA
+// scope, so an exchange also shows the CTA's earlier shared-memory writes
+// (M) to all its threads.
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -601,6 +389,103 @@ __device__ __forceinline__ void bar_sync(unsigned bar, unsigned tx,
       : "memory");
 }
 
+// The operand's two buffers F of (re, im) planes and their mbarriers (8
+// bytes apart from bars). Exchange p uses buffer p & 1 and waits for parity
+// (p >> 1) & 1: a buffer is rewritten two exchanges later, after every
+// thread of the cluster has pushed its part of the exchange between, so
+// after it has finished reading the buffer.
+struct Exchange {
+  float* F;
+  int plane, G, rank;
+  unsigned bars;
+  unsigned tx;    // bytes the other CTAs push per exchange (thread 0), else 0
+  int p;          // exchanges so far
+
+  __device__ float* buf() const { return F + (p & 1) * 2 * plane; }
+
+  // this thread's entry `so` of the operand in buffer fr, here and in the
+  // other CTAs (one call per entry)
+  __device__ void put(float* fr, int so, float vr, float vi) const {
+    const unsigned bar = bars + 8 * (p & 1);
+    fr[so] = vr;
+    fr[plane + so] = vi;
+    push(fr + so, vr, bar, G, rank);
+    push(fr + plane + so, vi, bar, G, rank);
+  }
+
+  __device__ void wait() {
+    bar_sync(bars + 8 * (p & 1), tx, (p >> 1) & 1);
+    ++p;
+  }
+
+  // the thread's existing entries of v into the next buffer, and the wait:
+  // returns the buffer, whole
+  template <int TS>
+  __device__ const float* share(const float (&vr)[TS][TS],
+                                const float (&vi)[TS][TS], const int (&r)[TS],
+                                const int (&c)[TS], const bool (&ok)[TS][TS],
+                                int ld) {
+    float* fr = buf();
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b)
+        if (ok[a][b]) put(fr, r[a] * ld + c[b], vr[a][b], vi[a][b]);
+    wait();
+    return fr;
+  }
+};
+
+// The stage chain of one step on the thread's entries of its band, for the
+// forward and for the backward's replay: b = T(v) from the pre-step state v
+// (rotated by E where split) whole in shared memory; k_0 = b (jacobi:
+// Minv b); then for j = 1..n: k exchanged, m = T(k), k <- the stage update.
+// k_j is stored at ks + j N^2 for j < iters where ksr is given. Ends with
+// k_n in (kr, ki).
+template <int TS>
+__device__ __forceinline__ void stage_chain(
+    float (&kr)[TS][TS], float (&ki)[TS][TS], const float* vr,
+    const float* vi, int n, Exchange& ex, const Gen& g, const int (&r)[TS],
+    const int (&c)[TS], const bool (&ok)[TS][TS], bool jac, float ha,
+    const float* __restrict__ el, int iters, float* ksr, float* ksi) {
+  const int N = g.N, NN = N * N;
+  const float *e0 = el, *e1 = el + NN, *e2 = el + 2 * NN, *e3 = el + 3 * NN;
+  float br[TS][TS], bi[TS][TS];
+  band_gen<TS, false>(br, bi, g, vr, vi, r, c, ok);
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b) {
+      kr[a][b] = br[a][b];
+      ki[a][b] = bi[a][b];
+      if (!ok[a][b]) continue;
+      const int o = r[a] * N + c[b];
+      if (jac) cmul_rn(e2, e3, o, kr[a][b], ki[a][b]);
+      if (ksr != nullptr && iters > 0) {
+        ksr[o] = kr[a][b];
+        ksi[o] = ki[a][b];
+      }
+    }
+  for (int j = 1; j <= n; ++j) {
+    const float* fr = ex.share<TS>(kr, ki, r, c, ok, g.ld);
+    float mr[TS][TS], mi[TS][TS];
+    band_gen<TS, false>(mr, mi, g, fr, fr + ex.plane, r, c, ok);
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) {
+        if (!ok[a][b]) continue;
+        const int o = r[a] * N + c[b];
+        stage_update_rn(jac, ha, br[a][b], bi[a][b], mr[a][b], mi[a][b], e0,
+                        e1, e2, e3, o, kr[a][b], ki[a][b]);
+        if (ksr != nullptr && j < iters) {
+          ksr[(size_t)j * NN + o] = kr[a][b];
+          ksi[(size_t)j * NN + o] = ki[a][b];
+        }
+      }
+  }
+}
+
 // Start the copy of a whole (N, N) pair (sr, si) from device memory into the
 // shared planes (Ur, Ui) of row stride ld by cp.async: the thread does not
 // wait. finish_u waits for the thread's own copies and, with rot, rotates
@@ -635,6 +520,104 @@ __device__ __forceinline__ void finish_u(float* Ur, float* Ui, int N, int ld,
 }
 
 }  // namespace
+
+// Forward: a cluster of G CTAs per (candidate e, initial condition ib), each
+// CTA on its band of rows (see the header). x0 (B, N, N) shared by all
+// candidates; C (E, nt, K); el the entrywise solver planes, each (N, N):
+// jacobi (d_r, d_i, minv_r, minv_i), split (e_r, e_i, d_r, d_i). Writes xT
+// (E, B, N, N), hist (E, nt, B, N, N) and, with store, the stage iterates
+// k_0..k_{iters-1} (E, B, nt, iters, N, N). Shared memory: two mbarriers
+// (the operand buffers), M, the operand F (two buffers), jb jump bands.
+template <int TS>
+__global__ void __launch_bounds__(TS == 4 ? 256 : 512)
+rho_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
+        const float* __restrict__ L, const float* __restrict__ C,
+        const float* __restrict__ x0r, const float* __restrict__ x0i,
+        const float* __restrict__ el, float* __restrict__ xTr,
+        float* __restrict__ xTi, float* __restrict__ hr,
+        float* __restrict__ hi, float* __restrict__ ksr,
+        float* __restrict__ ksi, Dims d, int G, int jb) {
+  extern __shared__ __align__(16) float smf[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
+  const int rank = (int)cl.block_rank();
+  const int r0 = rank * N / G, R = (rank + 1) * N / G - r0;
+  const int Rmax = (N + G - 1) / G;
+  const unsigned bars = smem_u32(smf);    // 2 mbarriers of 8 bytes
+  float* Mr = smf + 8;
+  float* Mi = Mr + plane;
+  float* F = Mi + plane;        // the operand, 2 buffers of (re, im)
+  float* tb = F + 4 * plane;    // jb jump bands of (re, im) Rmax x ld
+
+  const int blk = blockIdx.x / G, e = blk / d.B, ib = blk - e * d.B;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  const float *e0 = el, *e1 = el + NN;
+  int r[TS], c[TS];
+  bool ok[TS][TS];
+  band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
+  const Gen g{Mr, Mi, tb, L, split ? el + 2 * NN : nullptr,
+              split ? el + 3 * NN : nullptr, r0, N, ld, Rmax, d.J, jb};
+  Exchange ex{F, plane, G, rank, bars,
+              threadIdx.x == 0 ? 8u * N * (N - R) : 0u, 0};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) bar_init(bars + 8 * k, blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cl.sync();            // every CTA's mbarriers exist before any push
+
+  float xr[TS][TS], xi[TS][TS];
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b) {
+      const int o = r[a] * N + c[b];
+      xr[a][b] = x0r[(size_t)ib * NN + o];
+      xi[a][b] = x0i[(size_t)ib * NN + o];
+    }
+
+  for (int t = 0; t < d.nt; ++t) {
+    const size_t st = (size_t)e * d.nt + t;
+    const size_t ks0 = ((size_t)blk * d.nt + t) * d.iters * NN;
+    __syncthreads();            // the previous step's reads of M are done
+    contract(Sr, Si, C + st * d.K, Mr, Mi, d.K, N, ld);
+    if (split) {
+#pragma unroll
+      for (int a = 0; a < TS; ++a)
+#pragma unroll
+        for (int b = 0; b < TS; ++b)
+          if (ok[a][b]) cmul_rn(e0, e1, r[a] * N + c[b], xr[a][b], xi[a][b]);
+    }
+    // x whole in every CTA; the exchange also shows M to the block
+    const float* xs = ex.share<TS>(xr, xi, r, c, ok, ld);
+    float kr[TS][TS], ki[TS][TS];
+    stage_chain<TS>(kr, ki, xs, xs + plane, d.iters, ex, g, r, c, ok, jac,
+                    d.a, el, d.iters, d.store ? ksr + ks0 : nullptr,
+                    d.store ? ksi + ks0 : nullptr);
+#pragma unroll
+    for (int a = 0; a < TS; ++a)
+#pragma unroll
+      for (int b = 0; b < TS; ++b) {
+        if (!ok[a][b]) continue;
+        const int o = r[a] * N + c[b];
+        xr[a][b] = fmaf(d.dt, kr[a][b], xr[a][b]);
+        xi[a][b] = fmaf(d.dt, ki[a][b], xi[a][b]);
+        if (split) cmul_rn(e0, e1, o, xr[a][b], xi[a][b]);
+        const size_t h = (st * d.B + ib) * NN + o;
+        hr[h] = xr[a][b];
+        hi[h] = xi[a][b];
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b)
+      if (ok[a][b]) {
+        const size_t o = (size_t)blk * NN + r[a] * N + c[b];
+        xTr[o] = xr[a][b];
+        xTi[o] = xi[a][b];
+      }
+  cl.sync();            // no CTA leaves while another may still push to it
+}
 
 // Backward: runs the steps in reverse, on a cluster of G CTAs per (candidate
 // e, initial condition ib), each CTA on its band of rows (see the header).
@@ -679,38 +662,23 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   const int nwarps = blockDim.x >> 5;
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
   const float *e0 = el, *e1 = el + NN, *e2 = el + 2 * NN, *e3 = el + 3 * NN;
-  const float* dsr = split ? e2 : nullptr;
-  const float* dsi = split ? e3 : nullptr;
   int r[TS], c[TS];
   bool ok[TS][TS];
   band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
+  const Gen g{Mr, Mi, tb, L, split ? e2 : nullptr, split ? e3 : nullptr,
+              r0, N, ld, Rmax, d.J, jb};
   const size_t gb = (size_t)blk * NN;
   // bytes the other CTAs push per exchange (thread 0 expects them), and
   // per C-bar reduction into rank 0
-  const unsigned tx_f = tid == 0 ? 8u * N * (N - R) : 0u;
+  Exchange ex{F, plane, G, rank, bars, tid == 0 ? 8u * N * (N - R) : 0u, 0};
   const unsigned tx_c = tid == 0 ? 4u * (G - 1) * K : 0u;
   if (tid == 0) {
     for (int k = 0; k < 3; ++k) bar_init(bars + 8 * k, blockDim.x);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   cl.sync();            // every CTA's mbarriers exist before any push
-  int p = 0;            // exchanges so far: buffer p & 1, parity (p >> 1) & 1
   int pu = 0;           // pair inputs so far: U buffer pu & 1
-  auto Fbuf = [&](int k) { return F + (k & 1) * 2 * plane; };
   auto Ubuf = [&](int k) { return U + (k & 1) * 2 * plane; };
-  // this thread's entry `so` of the operand in buffer fr, here and in the
-  // other CTAs (one call per entry)
-  auto put = [&](float* fr, int so, float vr, float vi) {
-    const unsigned bar = bars + 8 * (p & 1);
-    fr[so] = vr;
-    fr[plane + so] = vi;
-    push(fr + so, vr, bar, G, rank);
-    push(fr + plane + so, vi, bar, G, rank);
-  };
-  auto exchanged = [&]() {
-    bar_sync(bars + 8 * (p & 1), tx_f, (p >> 1) & 1);
-    ++p;
-  };
 
   float gr[TS][TS], gi[TS][TS];
 #pragma unroll
@@ -752,44 +720,9 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       issue_u(ur, ur + plane, xpr, xpi, N, ld);
       finish_u(ur, ur + plane, N, ld, e0, e1, split);
       __syncthreads();
-      float b_r[TS][TS], b_i[TS][TS], kr[TS][TS], ki[TS][TS];
-      band_gen<TS, false>(b_r, b_i, Mr, Mi, ur, ur + plane, tb, L, dsr, dsi,
-                          r, c, ok, r0, N, ld, Rmax, d.J, jb);
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b) {
-          kr[a][b] = b_r[a][b];
-          ki[a][b] = b_i[a][b];
-          if (!ok[a][b]) continue;
-          const int o = r[a] * N + c[b];
-          if (jac) cmul_rn(e2, e3, o, kr[a][b], ki[a][b]);
-          ksr[ks0 + o] = kr[a][b];
-          ksi[ks0 + o] = ki[a][b];
-        }
-      for (int j = 1; j < iters; ++j) {
-        float* fr = Fbuf(p);
-#pragma unroll
-        for (int a = 0; a < TS; ++a)
-#pragma unroll
-          for (int b = 0; b < TS; ++b)
-            if (ok[a][b]) put(fr, r[a] * ld + c[b], kr[a][b], ki[a][b]);
-        exchanged();
-        float mr[TS][TS], mi[TS][TS];
-        band_gen<TS, false>(mr, mi, Mr, Mi, fr, fr + plane, tb, L, dsr, dsi,
-                            r, c, ok, r0, N, ld, Rmax, d.J, jb);
-#pragma unroll
-        for (int a = 0; a < TS; ++a)
-#pragma unroll
-          for (int b = 0; b < TS; ++b) {
-            if (!ok[a][b]) continue;
-            const int o = r[a] * N + c[b];
-            stage_update_rn(jac, d.a, b_r[a][b], b_i[a][b], mr[a][b],
-                            mi[a][b], e0, e1, e2, e3, o, kr[a][b], ki[a][b]);
-            ksr[ks0 + (size_t)j * NN + o] = kr[a][b];
-            ksi[ks0 + (size_t)j * NN + o] = ki[a][b];
-          }
-      }
+      float kr[TS][TS], ki[TS][TS];
+      stage_chain<TS>(kr, ki, ur, ur + plane, iters - 1, ex, g, r, c, ok, jac,
+                      d.a, el, iters, ksr + ks0, ksi + ks0);
       // the other CTAs' replayed bands of ks are read whole below: a
       // cluster barrier (its acquire covers device memory) once per step
       if (G > 1)
@@ -822,7 +755,7 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       }
     for (int i = 0; i <= iters; ++i) {
       const bool last = i == iters;
-      float* fr = Fbuf(p);
+      float* fr = ex.buf();
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -831,16 +764,16 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
           const int o = r[a] * N + c[b], so = r[a] * ld + c[b];
           if (jac) cmul_conj_rn(e2, e3, o, kbr[a][b], kbi[a][b]);    // Wt
           if (last) {
-            put(fr, so, bbr[a][b] + kbr[a][b], bbi[a][b] + kbi[a][b]);
+            ex.put(fr, so, bbr[a][b] + kbr[a][b], bbi[a][b] + kbi[a][b]);
           } else {
             bbr[a][b] += kbr[a][b];
             bbi[a][b] += kbi[a][b];
-            put(fr, so, d.a * kbr[a][b], d.a * kbi[a][b]);
+            ex.put(fr, so, d.a * kbr[a][b], d.a * kbi[a][b]);
           }
         }
       float* ur = Ubuf(pu++);
       finish_u(ur, ur + plane, N, ld, e0, e1, split && last);
-      exchanged();
+      ex.wait();
       if (!last) {
         float* un = Ubuf(pu);
         const bool nl = i + 1 == iters;
@@ -848,8 +781,7 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         issue_u(un, un + plane, nl ? xpr : ksr + o, nl ? xpi : ksi + o, N,
                 ld);
       }
-      band_gen<TS, true>(kbr, kbi, Mr, Mi, fr, fr + plane, tb, L, dsr, dsi, r,
-                         c, ok, r0, N, ld, Rmax, d.J, jb);
+      band_gen<TS, true>(kbr, kbi, g, fr, fr + plane, r, c, ok);
       if (jac && !last) {       // minus the transpose of v -> d v
 #pragma unroll
         for (int a = 0; a < TS; ++a)
@@ -933,36 +865,100 @@ rho_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 }
 
 // Plain C entry points, bound from Python with ctypes. Each launches on the
-// given stream and returns the launch's error (0 on success). The forward
-// launches E * B blocks of `threads` threads; its tile is TS: 1 (one entry
-// per thread, up to 1024 threads of 64 registers, N <= 32) or 4 (16 entries
-// per thread, up to 256 threads of 255 registers, N <= 64). The backward
-// launches E * B clusters of `cluster` CTAs; its tile is 1, 2 (up to 512
+// given stream and returns the launch's error (0 on success). Both kernels
+// launch E * B clusters of `cluster` CTAs; their tile is 1, 2 (up to 512
 // threads) or 4 (up to 256), on the CTA's band.
 namespace {
 
+// The jump bands a launch shape leaves room for, or -1 where the shape does
+// not fit what the kernel carves: G in {1, 2, 4, 8, 16} and at most N (a
+// row per CTA), whole warps covering the band's tiles (and at least
+// `least` threads) within the instance's bound, and shared memory for
+// `fixed` floats and at least one jump band; jb is what the rest of
+// smem_bytes holds, at most J.
+template <int TS>
+long jump_bands(const Dims& d, int G, int threads, int smem_bytes, long fixed,
+                int least) {
+  const int N = d.N, ld = N | 1, Rmax = (N + G - 1) / G;
+  const long tiles = (long)((Rmax + TS - 1) / TS) * ((N + TS - 1) / TS);
+  const long jb = d.J == 0 ? 0
+                           : std::min<long>(d.J, (smem_bytes / 4 - fixed) /
+                                                     (2L * Rmax * ld));
+  if ((G != 1 && G != 2 && G != 4 && G != 8 && G != 16) || G > N ||
+      threads % 32 != 0 || threads < tiles || threads < least ||
+      threads > (TS == 4 ? 256 : 512) || smem_bytes > 227 * 1024 ||
+      smem_bytes / 4 < fixed || (d.J > 0 && jb < 1))
+    return -1;
+  return jb;
+}
+
+// The launch configuration of `clusters` clusters of G CTAs of `kernel`,
+// with the kernel's attributes for its shared memory and, for G > 8, for a
+// cluster beyond the portable size.
+template <typename Kernel>
+cudaLaunchConfig_t cluster_config(Kernel kernel, cudaLaunchAttribute* attr,
+                                  int clusters, int G, int threads,
+                                  int smem_bytes, cudaStream_t stream) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  if (G > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of G CTAs of `kernel` the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0 where it holds none, or on an error).
+template <typename Kernel>
+int max_clusters(Kernel kernel, int G, int threads, int smem_bytes) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(kernel, attr, 1, G, threads, smem_bytes, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// The forward's launch: its shape is checked against the layout (two
+// mbarriers in 8 floats, M, the operand's two buffers, the jump bands)
+// before anything is launched.
 template <int TS>
 int launch_fwd(const float* Sr, const float* Si, const float* L,
                const float* C, const float* x0r, const float* x0i,
                const float* el, float* xTr, float* xTi, float* hr, float* hi,
-               float* ksr, float* ksi, const Dims& d, int threads,
+               float* ksr, float* ksi, const Dims& d, int G, int threads,
                int smem_bytes, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024)
-    cudaFuncSetAttribute(rho_fwd<TS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes);
-  rho_fwd<TS><<<d.E * d.B, threads, smem_bytes, stream>>>(
-      Sr, Si, L, C, x0r, x0i, el, xTr, xTi, hr, hi, ksr, ksi, d);
+  const long jb = jump_bands<TS>(d, G, threads, smem_bytes,
+                                 8 + 6L * d.N * (d.N | 1), 1);
+  if (jb < 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      rho_fwd<TS>, attr, d.E * d.B, G, threads, smem_bytes, stream);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, rho_fwd<TS>, Sr, Si, L, C, x0r, x0i, el, xTr,
+                         xTi, hr, hi, ksr, ksi, d, G, (int)jb);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The backward's launch: E * B clusters of G CTAs. Its shape is checked
-// against what the kernel carves before anything is launched: G in
-// {1, 2, 4, 8, 16} and at most N (a row per CTA), whole warps covering the
-// band's tiles and the K stack slots within the instance's bound, and
-// shared memory for the mbarriers, M, F, U, the partials and at least one
-// jump band; jb, the jump bands, is what the rest of smem_bytes holds, at
-// most J.
+// The backward's launch: the same check against its layout (three
+// mbarriers in 8 floats, M, F and U two buffers each, the warps' and the
+// cluster's C-bar partials, the jump bands), and threads for the K stack
+// slots.
 template <int TS>
 int launch_bwd(const float* Sr, const float* Si, const float* L,
                const float* C, const float* x0r, const float* x0i,
@@ -971,39 +967,16 @@ int launch_bwd(const float* Sr, const float* Si, const float* L,
                const float* el, float* ksr, float* ksi, float* g0r, float* g0i,
                float* Cb, const Dims& d, int G, int threads, int smem_bytes,
                cudaStream_t stream) {
-  const int N = d.N, ld = N | 1, Rmax = (N + G - 1) / G;
-  const long tiles = (long)((Rmax + TS - 1) / TS) * ((N + TS - 1) / TS);
-  const long fixed =
-      8 + 10L * N * ld + (long)(threads / 32) * d.K + (long)G * d.K;
-  const long jb = d.J == 0 ? 0
-                           : std::min<long>(d.J, (smem_bytes / 4 - fixed) /
-                                                     (2L * Rmax * ld));
-  if ((G != 1 && G != 2 && G != 4 && G != 8 && G != 16) || G > N ||
-      threads % 32 != 0 || threads < tiles || threads < d.K ||
-      threads > (TS == 4 ? 256 : 512) || smem_bytes > 227 * 1024 ||
-      smem_bytes / 4 < fixed || (d.J > 0 && jb < 1))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = rho_bwd<TS>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_bytes);
-  if (G > 8)
-    cudaFuncSetAttribute(kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const long fixed = 8 + 10L * d.N * (d.N | 1) +
+                     (long)(threads / 32) * d.K + (long)G * d.K;
+  const long jb = jump_bands<TS>(d, G, threads, smem_bytes, fixed, d.K);
+  if (jb < 0) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(d.E * d.B * G);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      rho_bwd<TS>, attr, d.E * d.B, G, threads, smem_bytes, stream);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, Sr, Si, L, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, el, ksr,
-      ksi, g0r, g0i, Cb, d, G, (int)jb);
+      &cfg, rho_bwd<TS>, Sr, Si, L, C, x0r, x0i, hr, hi, jr, ji, gTr, gTi, el,
+      ksr, ksi, g0r, g0i, Cb, d, G, (int)jb);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1015,15 +988,16 @@ extern "C" int rho_fwd_launch(
     const void* x0r, const void* x0i, const void* el, void* xTr, void* xTi,
     void* hr, void* hi, void* ksr, void* ksi, int E, int nt, int B, int N,
     int K, int J, int iters, int mode, int store, float dt, float a, int tile,
-    int threads, int smem_bytes, void* stream) {
+    int cluster, int threads, int smem_bytes, void* stream) {
   Dims d{E, nt, B, N, K, J, iters, mode, store, dt, a};
 #define RHO_FWD_ARGS                                                          \
   (const float*)Sr, (const float*)Si, (const float*)L, (const float*)C,       \
       (const float*)x0r, (const float*)x0i, (const float*)el, (float*)xTr,    \
       (float*)xTi, (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, d,       \
-      threads, smem_bytes, (cudaStream_t)stream
+      cluster, threads, smem_bytes, (cudaStream_t)stream
   switch (tile) {
     case 1: return launch_fwd<1>(RHO_FWD_ARGS);
+    case 2: return launch_fwd<2>(RHO_FWD_ARGS);
     case 4: return launch_fwd<4>(RHO_FWD_ARGS);
   }
 #undef RHO_FWD_ARGS
@@ -1055,39 +1029,25 @@ extern "C" int rho_bwd_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of G CTAs of the backward's instance `tile`, with
+// How many clusters of G CTAs of either kernel's instance `tile`, with
 // `threads` threads and smem_bytes of shared memory each, the card can hold
-// at once (cudaOccupancyMaxActiveClusters; 0 where it holds none, or on an
-// error): clusters of 16 are beyond the portable size.
+// at once: clusters of 16 are beyond the portable size.
+extern "C" int rho_fwd_max_clusters(int tile, int cluster, int threads,
+                                    int smem_bytes) {
+  switch (tile) {
+    case 1: return max_clusters(rho_fwd<1>, cluster, threads, smem_bytes);
+    case 2: return max_clusters(rho_fwd<2>, cluster, threads, smem_bytes);
+    case 4: return max_clusters(rho_fwd<4>, cluster, threads, smem_bytes);
+  }
+  return 0;
+}
+
 extern "C" int rho_bwd_max_clusters(int tile, int cluster, int threads,
                                     int smem_bytes) {
-  void (*kernel)(const float*, const float*, const float*, const float*,
-                 const float*, const float*, const float*, const float*,
-                 const float*, const float*, const float*, const float*,
-                 const float*, float*, float*, float*, float*, float*, Dims,
-                 int, int) = tile == 1   ? rho_bwd<1>
-                             : tile == 2 ? rho_bwd<2>
-                                         : rho_bwd<4>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_bytes);
-  if (cluster > 8)
-    cudaFuncSetAttribute(kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
+  switch (tile) {
+    case 1: return max_clusters(rho_bwd<1>, cluster, threads, smem_bytes);
+    case 2: return max_clusters(rho_bwd<2>, cluster, threads, smem_bytes);
+    case 4: return max_clusters(rho_bwd<4>, cluster, threads, smem_bytes);
   }
-  return n;
+  return 0;
 }

@@ -24,10 +24,9 @@ cotangent of every (cotangent, input) pair against the stacks into
 coefficient cotangent rows.
 
 What differs from the TPU kernel: the time loop inside the kernel, with one
-thread block per (candidate, initial condition) forward and one
-thread-block cluster of G CTAs, each on a band of rows, backward; exact
-f32 FMA (the TPU default is a 3-pass bf16 emulation of f32 products),
-arrays of exactly (N, N) and
+thread-block cluster of G CTAs per (candidate, initial condition), each CTA
+on a band of rows, in both directions; exact f32 FMA (the TPU default is a
+3-pass bf16 emulation of f32 products), arrays of exactly (N, N) and
 (ntime, K) (no 128-lane padding, no lane-group packing of initial
 conditions), and E candidates in one launch.
 
@@ -57,8 +56,9 @@ rho_bwd_launches = 0
 _COUNTERS = ("rho_fwd_launches", "rho_bwd_launches")
 
 _SRC = os.path.join(cuda_build.CSRC_DIR, "rho.cu")
-_PLANES = 8             # (N, N) shared-memory planes of either kernel
-_RED_WARPS = 32         # rows of the backward's cross-warp reduction
+# the widest density matrix the kernels take: every CTA of a cluster holds M
+# and the operand whole
+MAX_N = 64
 # the forward stores its stage iterates for the backward while they take no
 # more than this (iters x the history); past it the backward replays them
 KS_BUDGET_BYTES = int(1.5 * (1 << 30))
@@ -109,8 +109,7 @@ class RhoPlan:
     """Everything a launch needs besides x0 and the coefficients: the
     (K, N, N) stack planes, the jump planes L (4, J, N, N) =
     [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag (None without jump operators),
-    the entrywise solver planes (nplanes, N, N), the step constants and the
-    kernels' tile (entries per thread and axis)."""
+    the entrywise solver planes (nplanes, N, N) and the step constants."""
     Sr: torch.Tensor
     Si: torch.Tensor
     L: Optional[torch.Tensor]
@@ -118,7 +117,6 @@ class RhoPlan:
     dt: float
     iters: int
     linsolver: str
-    tile: int
 
     @property
     def N(self) -> int:
@@ -133,30 +131,13 @@ class RhoPlan:
         return 0 if self.L is None else self.L.shape[1]
 
 
-def pick_tile(N: int) -> Optional[int]:
-    """Matrix entries per thread and axis, by what one block holds: 1 up to
-    N = 32 (one entry per thread, at most 1024 threads), else 4 up to N = 64
-    (256 threads of up to 255 registers hold 16 entries each). None past
-    64."""
-    if N <= 32:
-        return 1
-    return 4 if N <= 64 else None
-
-
-def _threads(N, tile):
-    return max(32, -(-(-(-N // tile)) ** 2 // 32) * 32)
-
-
-def _smem_bytes(N, K):
-    return 4 * (_PLANES * N * (N | 1) + _RED_WARPS * K)
-
-
-# the backward: one thread-block cluster of G CTAs per density matrix, each
+# both kernels: one thread-block cluster of G CTAs per density matrix, each
 # CTA on a band of about N / G rows (csrc/rho.cu)
 _CLUSTERS = (1, 2, 4, 8, 16)
 _SMS = 132              # streaming multiprocessors of an H100
+_FWD_PLANES = 6         # (N, N) planes: M, and the operand F double-buffered
 _BWD_PLANES = 10        # (N, N) planes: M, and F and U double-buffered
-_PAIR_WORK = 24576      # least complex multiply-adds per CTA and pair
+_PAIR_WORK = 24576      # least complex multiply-adds per CTA and T (or Tt)
 
 
 def _cdiv(a, b):
@@ -164,16 +145,24 @@ def _cdiv(a, b):
 
 
 def _band_tile(N, G):
-    """Entries per thread and axis of the backward's band of ceil(N / G)
-    rows: the smallest of 1, 2, 4 whose tiles take at most 512 threads (more
-    warps hide more of each product's latency: at N = 64 and G = 8 one
-    entry per thread ran 1.56x faster than 2 x 2 tiles on an H100,
-    scripts/rho_bwd_clusters.py)."""
+    """Entries per thread and axis of a band of ceil(N / G) rows (either
+    kernel): the smallest of 1, 2, 4 whose tiles take at most 512 threads
+    (more warps hide more of each product's latency: at N = 64 and G = 8 one
+    entry per thread ran the backward 1.56x faster than 2 x 2 tiles on an
+    H100, scripts/rho_bwd_clusters.py)."""
     R = _cdiv(N, G)
     for ts in (1, 2):
         if _cdiv(R, ts) * _cdiv(N, ts) <= 512:
             return ts
     return 4
+
+
+def _fwd_layout_bytes(N, G, K, jb, threads):
+    """Shared memory the forward carves: two mbarriers (in 8 floats), M, the
+    operand F (two buffers) and jb jump scratch bands of ceil(N / G)
+    rows."""
+    ld, R = N | 1, _cdiv(N, G)
+    return 4 * (8 + _FWD_PLANES * N * ld + 2 * jb * R * ld)
 
 
 def _bwd_layout_bytes(N, G, K, jb, threads):
@@ -186,21 +175,24 @@ def _bwd_layout_bytes(N, G, K, jb, threads):
                 + (threads // 32 + G) * K)
 
 
-def _bwd_shape(E, B, N, K, J, G=None, max_g=16):
-    """(G, tile, threads, shared-memory bytes) of a backward launch of E x B
-    density matrices of size N with K stack slots and J jump operators.
+def _cluster_shape(name, layout_bytes, min_threads, E, B, N, K, J, G=None,
+                   max_g=16):
+    """(G, tile, threads, shared-memory bytes) of a launch of kernel `name`
+    on E x B density matrices of size N with K stack slots and J jump
+    operators, for the kernel's layout (`layout_bytes(N, G, K, jb,
+    threads)`) and its least thread count.
 
     G, the CTAs per matrix, doubles from 1 (up to max_g) while E B G stays
     within the card's SMs, each CTA keeps two rows or more, and each CTA's
-    share of a pair's products, (4 + 2 J) N^3 / G complex multiply-adds,
-    stays at _PAIR_WORK or more: below it the exchange of the operand costs
-    more than the products it spreads (on an H100 at 700 W, open 2, N = 16
-    with J = 4, ran fastest at G = 2 and N = 27 with J = 6 at G = 8;
-    scripts/rho_bwd_clusters.py). It grows past that only where a CTA cannot
-    hold the layout. The shared memory holds all J jump bands where it can
-    (one barrier per T for all of them), else as many as fit. An explicit G
-    is taken as it is (G in 1, 2, 4, 8, 16 and at most N). Raises
-    NotImplementedError where nothing fits."""
+    share of a T (or Tt), (4 + 2 J) N^3 / G complex multiply-adds, stays at
+    _PAIR_WORK or more: below it the exchange of the operand costs more than
+    the products it spreads (on an H100 at 700 W both kernels ran fastest at
+    the G this picks: open 2, N = 16 with J = 4, at G = 2, N = 27 with J = 6
+    at G = 8; scripts/rho_bwd_clusters.py). It grows past that only where a
+    CTA cannot hold the layout. The shared memory holds all J jump bands where
+    it can (one barrier per T for all of them), else as many as fit. An
+    explicit G is taken as it is (G in 1, 2, 4, 8, 16 and at most N).
+    Raises NotImplementedError where nothing fits."""
     if G is None:
         G = 1
         while (2 * G <= max_g and 2 * G <= N // 2 and 2 * G * E * B <= _SMS
@@ -209,38 +201,54 @@ def _bwd_shape(E, B, N, K, J, G=None, max_g=16):
         grow = True
     else:
         if G not in _CLUSTERS or G > N:
-            raise ValueError(f"rho_bwd cluster of {G} CTAs for N = {N}: G "
+            raise ValueError(f"{name} cluster of {G} CTAs for N = {N}: G "
                              f"must be one of {_CLUSTERS} and at most N")
         grow = False
     while True:
         tile = _band_tile(N, G)
         tiles = _cdiv(_cdiv(N, G), tile) * _cdiv(N, tile)
-        threads = 32 * _cdiv(max(tiles, K), 32)
-        base = _bwd_layout_bytes(N, G, K, 0, threads)
-        band = _bwd_layout_bytes(N, G, 0, 1, 0) - _bwd_layout_bytes(
-            N, G, 0, 0, 0)
+        threads = 32 * _cdiv(max(tiles, min_threads), 32)
+        base = layout_bytes(N, G, K, 0, threads)
+        band = layout_bytes(N, G, 0, 1, 0) - layout_bytes(N, G, 0, 0, 0)
         jb = min(J, (cuda_build.MAX_SMEM - base) // band)
-        if base <= cuda_build.MAX_SMEM and (jb >= 1 or J == 0):
+        if (base <= cuda_build.MAX_SMEM and (jb >= 1 or J == 0)
+                and threads <= (256 if tile == 4 else 512)):
             return G, tile, threads, base + jb * band
         if not grow or 2 * G > min(N, max_g):
             raise NotImplementedError(
-                f"rho_bwd: a cluster of {G} CTAs cannot hold N = {N}, "
-                f"K = {K}, J = {J} in {cuda_build.MAX_SMEM} bytes each")
+                f"{name}: a cluster of {G} CTAs cannot hold N = {N}, "
+                f"K = {K}, J = {J} in {cuda_build.MAX_SMEM} bytes of shared "
+                "memory each")
         G *= 2
 
 
+def _fwd_shape(E, B, N, K, J, G=None, max_g=16):
+    """_cluster_shape of a forward launch."""
+    return _cluster_shape("rho_fwd", _fwd_layout_bytes, 1, E, B, N, K, J, G,
+                          max_g)
+
+
+def _bwd_shape(E, B, N, K, J, G=None, max_g=16):
+    """_cluster_shape of a backward launch: its threads also cover the K
+    stack slots of the C-bar reduction."""
+    return _cluster_shape("rho_bwd", _bwd_layout_bytes, K, E, B, N, K, J, G,
+                          max_g)
+
+
 def launch_refusal(N: int, K: int):
-    """Why one thread block cannot hold an (N, N) density matrix with K
-    stack slots (a sentence naming the limit), or None when both kernels
-    take it."""
-    if pick_tile(N) is None:
-        return (f"rho kernel: N = {N} exceeds one block (N <= 64: a 4 x 4 "
-                "tile of entries per thread, 256 threads); multi-block "
+    """Why the kernels cannot hold an (N, N) density matrix with K stack
+    slots (a sentence naming the limit), or None when both take it at any
+    number of matrices: the two shape functions at E B = 132 and one jump
+    operator (J > 0 needs one jump band)."""
+    if N > MAX_N:
+        return (f"rho kernel: N = {N} exceeds one block (N <= {MAX_N}: every "
+                "CTA of a cluster holds M and the operand whole); wider "
                 "density matrices are not implemented")
-    smem = _smem_bytes(N, K)
-    if smem > cuda_build.MAX_SMEM:
-        return (f"rho kernel: {smem} bytes of shared memory exceed the "
-                f"{cuda_build.MAX_SMEM} a block can use (N={N}, K={K})")
+    for shape in (_fwd_shape, _bwd_shape):
+        try:
+            shape(1, _SMS, N, K, 1)
+        except NotImplementedError as err:
+            return f"rho kernel: {err}"
     return None
 
 
@@ -263,7 +271,7 @@ def make_plan(Sr, Si, Ls, dt: float, iters: int, gen_diag=None,
         raise ValueError(f"gen_diag must be ({N}, {N})")
     return RhoPlan(Sr=Sr.contiguous(), Si=Si.contiguous(), L=L,
                    planes=planes.contiguous(), dt=dt, iters=iters,
-                   linsolver=linsolver, tile=pick_tile(N) or 4)
+                   linsolver=linsolver)
 
 
 # ----------------------------------------------------------------------
@@ -406,13 +414,13 @@ def rho_propagate_plain(plan, x0r, x0i, C):
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     head = [i] * 9 + [f, f]
-    # forward: tile, threads, smem; backward: tile, cluster, threads, smem
-    for name, n_ptr, n_int in (("rho_fwd_launch", 13, 3),
-                               ("rho_bwd_launch", 18, 4)):
+    # then tile, cluster, threads, shared-memory bytes and the stream
+    for name, n_ptr in (("rho_fwd_launch", 13), ("rho_bwd_launch", 18)):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [p] * n_ptr + head + [i] * n_int + [p], i
-    lib.rho_bwd_max_clusters.argtypes = [i] * 4
-    lib.rho_bwd_max_clusters.restype = i
+        fn.argtypes, fn.restype = [p] * n_ptr + head + [i] * 4 + [p], i
+    for name in ("rho_fwd_max_clusters", "rho_bwd_max_clusters"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = [i] * 4, i
 
 
 def build_kernels(verbose: bool = False):
@@ -445,24 +453,28 @@ def _dims(plan, E, nt, B, store):
             _MODES[plan.linsolver], int(store), plan.dt, plan.dt / 2.0)
 
 
-def _fwd_args(plan, E, nt, B, store):
-    """The forward launcher's trailing arguments: dims, tile, threads,
-    shared-memory bytes."""
-    return _dims(plan, E, nt, B, store) + (
-        plan.tile, _threads(plan.N, plan.tile), _smem_bytes(plan.N, plan.K))
+def _cluster_args(max_clusters, shape_fn, plan, E, nt, B, store, G):
+    """A launcher's trailing arguments: dims, tile, cluster, threads,
+    shared-memory bytes (shape_fn). Clusters of 16 CTAs are beyond the
+    portable size: the rule takes them only where the card's occupancy
+    query `max_clusters(tile, 16, threads, bytes)` schedules one, else it
+    stops at 8. A G asked for is taken as it is."""
+    shape = shape_fn(E, B, plan.N, plan.K, plan.njump, G)
+    if G is None and shape[0] == 16 and max_clusters(
+            shape[1], 16, shape[2], shape[3]) < 1:
+        shape = shape_fn(E, B, plan.N, plan.K, plan.njump, max_g=8)
+    G, tile, threads, smem = shape
+    return _dims(plan, E, nt, B, store) + (tile, G, threads, smem)
+
+
+def _fwd_args(lib, plan, E, nt, B, store, G=None):
+    return _cluster_args(lib.rho_fwd_max_clusters, _fwd_shape, plan, E, nt,
+                         B, store, G)
 
 
 def _bwd_args(lib, plan, E, nt, B, store, G=None):
-    """The backward launcher's trailing arguments: dims, tile, cluster,
-    threads, shared-memory bytes (_bwd_shape). Clusters of 16 CTAs are
-    beyond the portable size: the rule takes them only where the card's
-    occupancy query schedules one, else it stops at 8."""
-    shape = _bwd_shape(E, B, plan.N, plan.K, plan.njump, G)
-    if G is None and shape[0] == 16 and lib.rho_bwd_max_clusters(
-            shape[1], 16, shape[2], shape[3]) < 1:
-        shape = _bwd_shape(E, B, plan.N, plan.K, plan.njump, max_g=8)
-    G, tile, threads, smem = shape
-    return _dims(plan, E, nt, B, store) + (tile, G, threads, smem)
+    return _cluster_args(lib.rho_bwd_max_clusters, _bwd_shape, plan, E, nt,
+                         B, store, G)
 
 
 def stores_iterates(plan, E, nt, B) -> bool:
@@ -472,7 +484,10 @@ def stores_iterates(plan, E, nt, B) -> bool:
     return plan.iters > 0 and ks_bytes <= KS_BUDGET_BYTES
 
 
-def _kernel_fwd(plan, x0r, x0i, C):
+def _kernel_fwd(plan, x0r, x0i, C, _cluster=None):
+    """One rho_fwd launch; `_cluster` forces the CTAs per matrix (the card
+    tests and the timing script compare them), else _fwd_shape picks G. A
+    refused launch raises: no other G and no plain version stands in."""
     global rho_fwd_launches
     _check_cuda(plan, x0r, x0i, C)
     lib = cuda_build.library(_SRC, _bind)
@@ -489,7 +504,7 @@ def _kernel_fwd(plan, x0r, x0i, C):
     err = lib.rho_fwd_launch(
         *map(_ptr, (plan.Sr, plan.Si, plan.L, C, x0r, x0i, plan.planes, xTr,
                     xTi, hr, hi, ksr, ksi)),
-        *_fwd_args(plan, E, nt, B, store),
+        *_fwd_args(lib, plan, E, nt, B, store, _cluster),
         torch.cuda.current_stream(C.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rho_fwd launch failed: CUDA error {err}")

@@ -437,8 +437,8 @@ def _random_open_system(rng, n, k, njump):
     return stack, Ls or None, gd
 
 
-# N = 32 fills the 1024 threads of the one-entry tile; 33 is the first N of
-# the 4 x 4 tile
+# at G = 1 N = 16 runs one entry per thread, N = 32 and 33 2 x 2 tiles and
+# N = 64 4 x 4 tiles; the shape rule picks G > 1 for some of them
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,njump,E", [(16, 4, 1), (16, 0, 3), (27, 6, 2),
                                        (32, 2, 1), (33, 2, 1), (64, 4, 2)])
@@ -486,10 +486,10 @@ def test_rho_kernel_matches_plain_on_card(cuda, solver, iters, n, njump, E):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-def _rho_bwd_case(cuda, n, njump, solver, iters, store, E=1, seed=5):
-    """One rho_fwd launch (stage iterates stored or replayed) and what
-    rho_bwd needs beside it: (plan, arguments of _kernel_bwd, the plain
-    backward's (g0r, g0i, Cb) on the same inputs)."""
+def _rho_inputs(cuda, n, njump, solver, iters, E, seed):
+    """A random open system's plan (K = 3, dt 0.05), its coefficients
+    (E, NT, 3), initial matrices (B, n, n) and the generator that made them,
+    for the next draws."""
     from quandary_tpu_torch.ops import rho
     rng = np.random.default_rng(seed + n)
     stack, Ls, gd = _random_open_system(rng, n, 3, njump)
@@ -498,7 +498,17 @@ def _rho_bwd_case(cuda, n, njump, solver, iters, store, E=1, seed=5):
                          gd, solver)
     C = f32(rng.normal(size=(E, NT, 3)) * 0.5)
     x0 = rng.normal(size=(2, B, n, n)) / np.sqrt(n)
-    x0r, x0i = f32(x0[0]), f32(x0[1])
+    return plan, f32(x0[0]), f32(x0[1]), C, rng
+
+
+def _rho_bwd_case(cuda, n, njump, solver, iters, store, E=1, seed=5):
+    """One rho_fwd launch (stage iterates stored or replayed) and what
+    rho_bwd needs beside it: (plan, arguments of _kernel_bwd, the plain
+    backward's (g0r, g0i, Cb) on the same inputs)."""
+    from quandary_tpu_torch.ops import rho
+    plan, x0r, x0i, C, rng = _rho_inputs(cuda, n, njump, solver, iters, E,
+                                         seed)
+    f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
     saved, rho.KS_BUDGET_BYTES = rho.KS_BUDGET_BYTES, (1 << 62) if store \
         else 0
     try:
@@ -556,6 +566,72 @@ def test_rho_bwd_is_deterministic_on_card(cuda, n, njump, E):
     a = rho._kernel_bwd(*args)
     b = rho._kernel_bwd(*args)
     for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# N = 27 has bands of 3 and 4 rows at G = 8; N = 33 and 64 run two and
+# four tiles of the band per thread at G = 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump", [(16, 4), (27, 6), (33, 2), (64, 4)])
+@pytest.mark.parametrize("solver,iters", [("jacobi", 6), ("split", 3)])
+def test_rho_fwd_cluster_sizes_on_card(cuda, n, njump, solver, iters):
+    """rho_fwd on clusters of 1, 2, 4 and 8 CTAs per density matrix, stage
+    iterates stored: xT, hist and the stored iterates equal to the bit
+    across G (every entry is the same chain of fmaf, every entrywise
+    product rounded as written), and the history within chip_smoke.py
+    phase 12's bound of plain_forward (TOL_RHO_STATE_ABS, 1e-6 abs for
+    entries of at most 1, relative above); one rho_fwd launch each."""
+    from quandary_tpu_torch.ops import rho
+    plan, x0r, x0i, C, _ = _rho_inputs(cuda, n, njump, solver, iters, 1, 9)
+    plain = rho.plain_forward(plan, x0r, x0i, C)
+    got = {}
+    for G in (1, 2, 4, 8):
+        before = rho.rho_fwd_launches
+        got[G] = rho._kernel_fwd(plan, x0r, x0i, C, _cluster=G)
+        torch.cuda.synchronize()
+        assert rho.rho_fwd_launches - before == 1
+    for G, out in got.items():
+        assert out[4] is not None and out[4].shape == (1, B, NT, iters, n, n)
+        for a, b in zip(out, got[1]):
+            assert torch.equal(a, b)
+        assert torch.equal(out[0], out[2][:, -1])
+        for a, b in zip(out[2:4], plain):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) \
+                <= 1e-6 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump,E", [(16, 4, 2), (27, 6, 1), (64, 4, 1)])
+def test_rho_fwd_is_deterministic_on_card(cuda, n, njump, E):
+    """Two rho_fwd launches at the cluster size the shape rule picks give
+    the same bits of xT, hist and the stored iterates."""
+    from quandary_tpu_torch.ops import rho
+    plan, x0r, x0i, C, _ = _rho_inputs(cuda, n, njump, "jacobi", 6, E, 9)
+    assert rho._fwd_shape(E, B, n, 3, njump)[0] > 1
+    a = rho._kernel_fwd(plan, x0r, x0i, C)
+    b = rho._kernel_fwd(plan, x0r, x0i, C)
+    assert a[4] is not None
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump,solver,iters", [
+    (16, 4, "jacobi", 6), (27, 6, "split", 3), (33, 2, "neumann", 3),
+    (64, 4, "jacobi", 6)])
+def test_rho_store_and_replay_agree_in_bits_on_card(cuda, n, njump, solver,
+                                                    iters):
+    """At the cluster size the shape rule picks, rho_bwd from the forward's
+    stored stage iterates and from its own replay of them gives the same
+    bits of g0 and Cb: the forward and the replay run one stage chain
+    (csrc/rho.cu stage_chain)."""
+    from quandary_tpu_torch.ops import rho
+    args, _ = _rho_bwd_case(cuda, n, njump, solver, iters, True)
+    assert args[6] is not None
+    stored = rho._kernel_bwd(*args)
+    replayed = rho._kernel_bwd(*args[:6], None, None, *args[8:])
+    for x, y in zip(stored, replayed):
         assert torch.equal(x, y)
 
 

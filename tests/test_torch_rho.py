@@ -12,7 +12,8 @@ B = 2, nt = 7, J = 2 jump operators, 3 iterations).
    states to 1e-10, and the hand-written backward against torch.autograd
    through the port's complex time loop to 1e-9 of max.
 3. The contract: no stack cotangent, E candidates equal E single runs, no
-   jump operators, the refusal past one thread block, the solver planes.
+   jump operators, the refusal past N = 64, the solver planes, and the
+   launch shapes of both kernels (a cluster of CTAs per density matrix).
 """
 
 import numpy as np
@@ -229,9 +230,10 @@ def test_solver_planes_and_launch_refusal():
         rho.solver_planes(None, DT, "split")
     with pytest.raises(NotImplementedError):
         rho.solver_planes(gd, DT, "gmres")
-    # one block holds N <= 64; the tile is the entries per thread and axis
-    assert [rho.pick_tile(n) for n in (16, 27, 32, 33, 64, 65)] \
-        == [1, 1, 1, 4, 4, None]
+    # one CTA holds N <= 64; the tile is the entries per thread and axis
+    # (of the forward's band at G = 1, where 132 matrices fill the card)
+    assert [rho._fwd_shape(1, 132, n, 7, 4)[1] for n in (16, 27, 32, 33, 64)] \
+        == [1, 2, 2, 2, 4]
     assert rho.launch_refusal(64, 7) is None
     assert "N = 65" in rho.launch_refusal(65, 7)
     # the gate on bytes of the stored stage iterates
@@ -306,6 +308,74 @@ def test_rho_bwd_takes_sixteen_only_where_the_card_holds_them():
     s16 = torch.zeros(7, 16, 16)
     rho._bwd_args(small, rho.make_plan(s16, s16, None, DT, 8), 1, 10, 16,
                   True)
+    assert small.asked == []
+
+
+@pytest.mark.parametrize("EB,J", [(1, 4), (3, 6), (16, 0), (128, 4),
+                                  (264, 6)])
+@pytest.mark.parametrize("n", [4, 16, 27, 32, 33, 64])
+def test_rho_fwd_launch_shape(n, EB, J):
+    """The forward's launch shape (a cluster of G CTAs per density matrix,
+    each on a band of rows) against the layout csrc/rho.cu carves: every
+    CTA owns a row, whole warps cover the band's tiles, the shared memory
+    holds the mbarriers, M, the operand's two buffers and at least one jump
+    band (all J where G >= 4), one matrix per SM keeps G = 1, and the rule
+    picks the backward's G."""
+    k = 7
+    G, tile, threads, smem = rho._fwd_shape(1, EB, n, k, J)
+    assert G in (1, 2, 4, 8, 16)
+    assert G == rho._bwd_shape(1, EB, n, k, J)[0]
+    assert min((q + 1) * n // G - q * n // G for q in range(G)) >= 1
+    R, ld = -(-n // G), n | 1
+    tiles = -(-R // tile) * -(-n // tile)
+    assert threads % 32 == 0 and tiles <= threads < tiles + 32
+    assert threads <= (256 if tile == 4 else 512) <= 1024
+    layout = lambda jb: 4 * (8 + 6 * n * ld + 2 * jb * R * ld)
+    assert layout(min(J, 1)) <= smem <= rho.cuda_build.MAX_SMEM
+    assert (smem - layout(0)) % (8 * R * ld) == 0
+    if G >= 4:
+        assert smem >= layout(J)
+    if EB >= 132:
+        assert G == 1
+    if n in (27, 64) and EB <= 3:
+        assert G > 1
+    # a forced G is taken as it is, within 1..16 and at most N
+    assert rho._fwd_shape(1, EB, n, k, J, G=2)[0] == 2
+    with pytest.raises(ValueError):
+        rho._fwd_shape(1, EB, n, k, J, G=3)
+    # the range of the kernels is unchanged
+    assert rho.launch_refusal(n, k) is None
+    assert "N = 65" in rho.launch_refusal(65, k)
+
+
+def test_rho_fwd_takes_sixteen_only_where_the_card_holds_them():
+    """The forward's clusters of 16 CTAs go through the same occupancy
+    query as the backward's (rho_fwd_max_clusters), and 8 is taken where
+    the card holds none of 16; a G asked for is never changed."""
+    class Lib:
+        def __init__(self, n):
+            self.n, self.asked = n, []
+
+        def rho_fwd_max_clusters(self, *shape):
+            self.asked.append(shape)
+            return self.n
+
+    t = torch.zeros(7, 64, 64)
+    plan = rho.make_plan(t, t, [np.eye(64)] * 4, DT, 6)
+    # trailing arguments: tile, G, threads, shared-memory bytes
+    yes, no = Lib(1), Lib(0)
+    assert rho._fwd_args(yes, plan, 1, 10, 3, True)[-3] == 16
+    assert yes.asked == [rho._fwd_shape(1, 3, 64, 7, 4)[1:2] + (16,)
+                         + rho._fwd_shape(1, 3, 64, 7, 4)[2:]]
+    assert rho._fwd_args(no, plan, 1, 10, 3, True)[-4:] \
+        == rho._fwd_shape(1, 3, 64, 7, 4, max_g=8)[1:2] + (8,) \
+        + rho._fwd_shape(1, 3, 64, 7, 4, max_g=8)[2:]
+    assert rho._fwd_args(Lib(0), plan, 1, 10, 3, True, 16)[-3] == 16
+    # N = 16 with 16 matrices stays far below 16 CTAs: no query
+    small = Lib(0)
+    s16 = torch.zeros(7, 16, 16)
+    assert rho._fwd_args(small, rho.make_plan(s16, s16, None, DT, 8), 1, 10,
+                         16, True)[-3] == 1
     assert small.asked == []
 
 
