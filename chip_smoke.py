@@ -99,7 +99,12 @@ kernel, plane cotangents out, so the operator stacks are differentiable):
    err < 1e-4, and make_stream_propagate's stack cotangents at the
    flagship's width against plain;
 21. times: the five kernels by CUDA events, their plain versions and
-   bounds; sweeps/s of the stream and chunk routes.
+   bounds; sweeps/s of the stream and chunk routes; for stream_bwd (the
+   flagship) and chunk_bwd (ntime 4884) the helper threads, stage syncs
+   and their kind, block-wide barriers and us per reversed step, and the
+   registers and spills of stream_bwd<16> and stream_bwd<0> as ptxas
+   reports them; fails if the flagship's stream_bwd chain passes a
+   block-wide barrier (no helper warps).
 
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20) is driven with the
 launch counters set to 0 just before and read just after. Before the device
@@ -114,6 +119,7 @@ Run from the repository root:  python3 chip_smoke.py
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -761,6 +767,33 @@ def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "Compiling entry" in ln
             or ("spill" in ln and "0 bytes spill stores" not in ln)]
+
+
+def ptxas_kernels(log, name):
+    """Registers and spill bytes of each instance of the kernel template
+    `name` (integer arguments) as ptxas reports them: {"name<16, 512>":
+    {"registers": r, "spill_stores": bytes, "spill_loads": bytes}}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(rf"{len(name)}{name}I((?:Li\d+E)+)E", m.group(1))
+            args = re.findall(r"Li(\d+)E", t.group(1)) if t else ()
+            cur = f"{name}<{', '.join(args)}>" if t else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def reset_counts():
@@ -1475,11 +1508,36 @@ def main():
                f"stream_E{E_BIG}": E_BIG / median_seconds(lambda: evgs(Ps,
                                                                        x)),
                "chunk_E1": 1 / median_seconds(lambda: vgc(x, x), reps=3)}
+    # the backward's chain per reversed step: iters + 1 transposed stages
+    # (a replay adds iters), each ending on a stage sync over the state
+    # threads alone (a __syncwarp where a state's N entries lie in one
+    # warp), one named-barrier wait for the step's H and pairs slot, and no
+    # block-wide barrier where helper warps copy H a step ahead and reduce
+    # Hb a step behind; the inline branch passes 2 per step
+    bwd_chain = {}
+    for name, pr, t_ms in (("stream_bwd", ps, ms_s), ("chunk_bwd", pc, ms_c)):
+        Bb, Nb = pr._x0r.shape
+        it = pr._plan.iters
+        helpers = stream._bwd_shape(it, Bb, Nb)[2]
+        bwd_chain[name] = dict(
+            helper_threads=helpers,
+            stage_syncs_per_step=it + 1 + (0 if pr._plan.store_iters else it),
+            stage_sync="warp" if 32 % Nb == 0 else "state warps",
+            block_barriers_per_step=0 if helpers else 2,
+            us_per_step=1e3 * t_ms["bwd"] / pr.setup.ntime)
+    bwd_chain["stream_bwd"]["us_per_step_E128"] = \
+        1e3 * ms_sE["bwd"] / ps.setup.ntime
+    # empty where the library was built before this run
+    regs = ptxas_kernels(slog, "stream_bwd")
     phase(21, f"ms stream split-3 E=1 {json.dumps(ms_s)}; E={E_BIG} "
               f"{json.dumps(ms_sE)}; chunk neumann-8 ntime {NT_FINE} "
               f"{json.dumps(ms_c)}; dense {json.dumps(ms_d)}; sweeps/s "
               f"{json.dumps({k: round(v, 3) for k, v in rates_s.items()})}; "
-              f"card: {smi}")
+              f"backward chain {json.dumps(bwd_chain)}; ptxas "
+              f"{json.dumps(regs)}; card: {smi}")
+    if bwd_chain["stream_bwd"]["block_barriers_per_step"]:
+        raise RuntimeError("the flagship's stream_bwd chain passes "
+                           "block-wide barriers (no helper warps)")
 
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
@@ -1564,14 +1622,19 @@ def main():
                bound_ms_E128=ms_sE["bwd_bound"][0],
                launches_E128=launches_sE[B3[1]],
                launches_open_superop=launches_4s[B3[1]],
-               launches_calibration=launches_cal[B3[1]]),
+               launches_calibration=launches_cal[B3[1]],
+               us_per_step=bwd_chain["stream_bwd"]["us_per_step"],
+               us_per_step_E128=bwd_chain["stream_bwd"]["us_per_step_E128"],
+               helpers=bwd_chain["stream_bwd"]["helper_threads"]),
         record("chunk_fwd", 202, launches_c[B5[0]], worst_s["chunk"]["state"],
                ms_c, "fwd", src=STREAM_SRC,
                tpu="quandary_tpu/ops/pallas_adjoint.py"),
         record("chunk_bwd", 211, launches_c[B5[1]], max(
             worst_s["chunk"][k] for k in ("cbar", "x0bar", "sbar")), ms_c,
                "bwd", src=STREAM_SRC,
-               tpu="quandary_tpu/ops/pallas_adjoint.py"),
+               tpu="quandary_tpu/ops/pallas_adjoint.py",
+               us_per_step=bwd_chain["chunk_bwd"]["us_per_step"],
+               helpers=bwd_chain["chunk_bwd"]["helper_threads"]),
         record("dense_fwd", 111, launches_d[B6[0]], worst_d, ms_d, "fwd",
                src=STREAM_SRC, tpu="quandary_tpu/ops/pallas_kernels.py")]}))
     print(smi)

@@ -5,10 +5,12 @@
 // chain, and the step's H cotangent. H lives in shared memory as two
 // row-major (N, N) planes with row stride N + 1 (the pad keeps both the row
 // reads of T and the column reads of Tt conflict-free); the kernels differ
-// only in how H gets there and where its cotangent goes. The second part of
-// the file is the same step, both directions, for a block split into roles
-// (the state threads' chain, H's contraction and its cotangent), which
-// streamk_fwd and streamk_bwd run.
+// only in how H gets there and where its cotangent goes. The first part of
+// the file is the forward step on a whole block (stage_fwd), which
+// stream_fwd runs; the second part is the step, both directions, for a
+// block split into roles (the state threads' chain, H's contraction or
+// copy, and its cotangent), which streamk_fwd, streamk_bwd and stream_bwd
+// run.
 //   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
 //   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
 //   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
@@ -187,146 +189,15 @@ __device__ __forceinline__ void stage_fwd(const StepThread& s,
   }
 }
 
-// The stage iterates k_0..k_{iters-1} of the step again, from the rotated
-// pre-state in xp, into ks (the backward did not store them).
-__device__ __forceinline__ void stage_replay(const StepThread& s,
-                                             const float* Hr, const float* Hi,
-                                             const float* xp_r,
-                                             const float* xp_i, float* ks_r,
-                                             float* ks_i) {
-  const int BN = s.BN, tid = s.tid;
-  float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
-  if (s.act) {
-    apply_T(Hr, Hi, xp_r, xp_i, s.b, s.i, s.N, br, bi);
-    stage_first(s, br, bi, kr, ki);
-    ks_r[tid] = kr;
-    ks_i[tid] = ki;
-  }
-  __syncthreads();
-  for (int j = 1; j < s.iters; ++j) {
-    if (s.act) {
-      float mr, mi;
-      apply_T(Hr, Hi, ks_r + (j - 1) * BN, ks_i + (j - 1) * BN, s.b, s.i,
-              s.N, mr, mi);
-      stage_next(s, br, bi, mr, mi, kr, ki);
-      ks_r[j * BN + tid] = kr;
-      ks_i[j * BN + tid] = ki;
-    }
-    __syncthreads();
-  }
-}
-
-// Backward step, the exact real transpose of stage_fwd: g, the cotangent of
-// the post-step state (its injection added), becomes that of the pre-step
-// state x. ksr/ksi: the step's stored iterates in global memory, or null to
-// replay them. xp (B, N), ks (iters slots) and cb (iters + 1 slots) are
-// shared scratch; on return they hold the step's (cotangent, input) pairs,
-// pair p < iters (cb_p, k_{iters-1-p}) and pair iters (cb_iters, xp), the
-// input of hb_entry. No barrier at the end.
-__device__ __forceinline__ void stage_bwd(const StepThread& s,
-                                          const float* Hr, const float* Hi,
-                                          float xr, float xi,
-                                          const float* ksr, const float* ksi,
-                                          float* xp_r, float* xp_i,
-                                          float* ks_r, float* ks_i,
-                                          float* cb_r, float* cb_i, float& gr,
-                                          float& gi) {
-  const int BN = s.BN, tid = s.tid, iters = s.iters;
-  if (s.act) {
-    if (s.split) {            // cotangent and pre-state into the rotated frame
-      cmul_conj(s.r0, s.r1, gr, gi);
-      cmul(s.r0, s.r1, xr, xi);
-    }
-    xp_r[tid] = xr;
-    xp_i[tid] = xi;
-    if (ksr) {
-      for (int j = 0; j < iters; ++j) {
-        ks_r[j * BN + tid] = ksr[j * BN + tid];
-        ks_i[j * BN + tid] = ksi[j * BN + tid];
-      }
-    }
-  }
-  __syncthreads();
-  if (!ksr && iters > 0) stage_replay(s, Hr, Hi, xp_r, xp_i, ks_r, ks_i);
-
-  // transpose of the stage chain, j = iters..1; pair p = iters - j has
-  // input u = k_{j-1}; the last pair (b-bar, x_pre)
-  float bbr = 0.f, bbi = 0.f, kbr = s.dt * gr, kbi = s.dt * gi;
-  for (int p = 0; p < iters; ++p) {
-    float cr = 0.f, ci = 0.f;
-    if (s.act) {
-      if (s.jac) cmul_conj(s.r2, s.r3, kbr, kbi);   // Wt
-      bbr += kbr;
-      bbi += kbi;
-      cr = s.a * kbr;
-      ci = s.a * kbi;
-      cb_r[p * BN + tid] = cr;
-      cb_i[p * BN + tid] = ci;
-    }
-    __syncthreads();
-    if (s.act) {
-      apply_Tt(Hr, Hi, cb_r + p * BN, cb_i + p * BN, s.b, s.i, s.N, kbr, kbi);
-      if (s.jac) {              // minus the transpose of v -> d v
-        kbr -= s.r0 * cr + s.r1 * ci;
-        kbi -= s.r0 * ci - s.r1 * cr;
-      }
-    }
-  }
-  if (s.act) {
-    if (s.jac) cmul_conj(s.r2, s.r3, kbr, kbi);
-    bbr += kbr;
-    bbi += kbi;
-    cb_r[iters * BN + tid] = bbr;
-    cb_i[iters * BN + tid] = bbi;
-  }
-  __syncthreads();
-  if (s.act) {
-    float tr, ti;
-    apply_Tt(Hr, Hi, cb_r + iters * BN, cb_i + iters * BN, s.b, s.i, s.N, tr,
-             ti);
-    gr += tr;
-    gi += ti;
-    if (s.split) cmul_conj(s.r0, s.r1, gr, gi);
-  }
-}
-
-// Entry ent = (p, q) of the step's H cotangent, Hb[p][q] = sum over the
-// pairs stage_bwd left and the rows b of c[b][p] (x) u[b][q] (the
-// orientation of pallas_stream.py:481-486).
-__device__ __forceinline__ void hb_entry(const StepThread& s, int ent,
-                                         const float* xp_r, const float* xp_i,
-                                         const float* ks_r, const float* ks_i,
-                                         const float* cb_r, const float* cb_i,
-                                         float& sr, float& si) {
-  const int N = s.N, BN = s.BN, iters = s.iters;
-  const int p = ent / N, q = ent - (ent / N) * N;
-  sr = 0.f;
-  si = 0.f;
-  for (int pr = 0; pr <= iters; ++pr) {
-    const float* ur = pr < iters ? ks_r + (iters - 1 - pr) * BN : xp_r;
-    const float* ui = pr < iters ? ks_i + (iters - 1 - pr) * BN : xp_i;
-    const float* cr = cb_r + pr * BN;
-    const float* ci = cb_i + pr * BN;
-    for (int bb = 0; bb < s.B; ++bb) {
-      const float c_r = cr[bb * N + p], c_i = ci[bb * N + p];
-      const float u_r = ur[bb * N + q], u_i = ui[bb * N + q];
-      sr = fmaf(c_r, u_i, sr);
-      sr = fmaf(-c_i, u_r, sr);
-      si = fmaf(c_r, u_r, si);
-      si = fmaf(c_i, u_i, si);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The step on a block split into roles (streamk_fwd, streamk_bwd): the S
-// state threads run the chain and nothing else, other warps contract H and
-// reduce its cotangent beside them. The same algebra as stage_fwd,
-// stage_bwd, stage_replay, apply_T, apply_Tt and hb_entry above, with the
-// step's operands in registers (H's row or column, and in the backward the
-// history loaded a step ahead), the backward's (cotangent, input) pairs left
-// in a ring slot for the other roles, stage syncs over the state threads
-// only, and a compile-time N (NC > 0) that unrolls the matvecs over
+// The step on a block split into roles (streamk_fwd, streamk_bwd,
+// stream_bwd): the S state threads run the chain and nothing else, other
+// warps contract or copy H and reduce its cotangent beside them. The
+// algebra of stage_fwd and apply_T above and of its exact transpose, with
+// the step's operands in registers (H's row or column, and in the backward
+// the history loaded a step ahead), the backward's (cotangent, input) pairs
+// left in a ring slot for the other roles, stage syncs over the state
+// threads only, and a compile-time N (NC > 0) that unrolls the matvecs over
 // registers.
 
 // named barrier 1 (0 is __syncthreads): the state warps, where a stage's
@@ -343,26 +214,43 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// Entries first, first + step, ... of a coefficient row into shared memory
-// by cp.async, which does not stall the thread; cp_async_wait() waits for
-// all of the thread's copies (a barrier after it shows them to the block).
-__device__ __forceinline__ void stage_row(float* dst, const float* src,
-                                          int Ke, int first, int step) {
-  for (int k = first; k < Ke; k += step) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + k);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
-                 "l"(src + k)
-                 : "memory");
-  }
+// One float from global into shared memory by cp.async, which does not
+// stall the thread; cp_async_wait() waits for all of the thread's copies (a
+// barrier after it shows them to the block).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// Entries first, first + step, ... of a coefficient row into shared memory.
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int Ke, int first, int step) {
+  for (int k = first; k < Ke; k += step) cp_async4(dst + k, src + k);
+}
+
+// Entries e0, e0 + ne, ... of one step's (N, N) plane pair, row-major in
+// global memory (coalesced over consecutive e0), into shared memory with
+// row stride N + 1.
+template <int NC>
+__device__ __forceinline__ void copy_planes(const float* gr, const float* gi,
+                                            float* Hr, float* Hi, int N,
+                                            int e0, int ne) {
+  const int n = NC ? NC : N, NN = n * n;
+  for (int e = e0; e < NN; e += ne) {
+    const int p = e / n, q = e - p * n;
+    cp_async4(Hr + p * (n + 1) + q, gr + e);
+    cp_async4(Hi + p * (n + 1) + q, gi + e);
+  }
+}
+
 // One slot of the pairs ring, each (B, N) re/im: the rotated pre-state xp,
 // the stage iterates k_0..k_{it-1} and the cotangents cb_0..cb_it. Pair
-// p < it is (cb_p, k_{it-1-p}), pair it is (cb_it, xp) (stage_bwd's).
+// p < it is (cb_p, k_{it-1-p}), pair it is (cb_it, xp) (chain_step's).
 struct Pairs {
   float *xr, *xi, *kr, *ki, *cr, *ci;
 };
@@ -470,10 +358,10 @@ __device__ __forceinline__ void load_row(const float* v, float (&out)[NC]) {
   }
 }
 
-// apply_T / apply_Tt of imr_step.cuh (NC: the compile-time N, or 0) with
-// the two products of each output on their own accumulators, and at a
-// compile-time N also the even and odd terms: dependent chains of N / 2
-// FMAs, not 2 N.
+// T (and below, its real transpose Tt applied to a cotangent; NC: the
+// compile-time N, or 0) with the two products of each output on their own
+// accumulators, and at a compile-time N also the even and odd terms:
+// dependent chains of N / 2 FMAs, not 2 N.
 template <int NC>
 __device__ __forceinline__ void apply_T_n(const float* Hr, const float* Hi,
                                           const float* vr, const float* vi,
@@ -632,11 +520,47 @@ __device__ __forceinline__ void apply_Tt_n(const HCol<NC>& hc,
   outi = (a[2] + a[6]) + (a[3] + a[7]);
 }
 
-// One reversed step of the chain, run by all S state threads: the exact
-// real transpose of stage_fwd (stage_bwd's algebra). g, the cotangent of the
-// post-step state, becomes that of the pre-step state; the step's pairs are
-// left in q for Hb.
+// apply_Tt with column q of H from registers at a compile-time N, the
+// cotangent row read 16 bytes a load: the same terms in the same order (one
+// chain of 2 N FMAs per output), so the same bits as apply_Tt; apply_Tt
+// itself at NC = 0.
 template <int NC>
+__device__ __forceinline__ void apply_Tt_col(const HCol<NC>& hc,
+                                             const float* Hr, const float* Hi,
+                                             const float* ur, const float* ui,
+                                             int b, int q, int N, float& outr,
+                                             float& outi) {
+  if constexpr (NC > 0) {
+    float cr[NC], ci[NC];
+    load_row<NC>(ur + b * NC, cr);
+    load_row<NC>(ui + b * NC, ci);
+    float sr = 0.f, si = 0.f;
+#pragma unroll
+    for (int p = 0; p < NC; ++p) {
+      sr = fmaf(cr[p], hc.i[p], sr);
+      sr = fmaf(-ci[p], hc.r[p], sr);
+      si = fmaf(cr[p], hc.r[p], si);
+      si = fmaf(ci[p], hc.i[p], si);
+    }
+    outr = sr;
+    outi = si;
+  } else {
+    apply_Tt(Hr, Hi, ur, ui, b, q, N, outr, outi);
+  }
+}
+
+// One reversed step of the chain, run by all S state threads: the exact
+// real transpose of stage_fwd. g, the cotangent of the post-step state (the
+// history cotangent o.j added), becomes that of the pre-step state; the
+// step's pairs are left in q for Hb: pair p < it is (cb_p, k_{it-1-p}),
+// pair it is (cb_it, xp). Without stored iterates the chain first replays
+// k_0..k_{it-1} from xp. ONE_CHAIN: every output of T and Tt summed on one
+// chain of 2 N FMAs in apply_T's and apply_Tt's order (H's row, then its
+// column, in registers at NC > 0), so the replayed iterates have the bits
+// of the ones stage_fwd stored, at any NC (stream_bwd); otherwise on
+// apply_T_n's and apply_Tt_n's eight accumulators, N / 2 FMAs deep
+// (streamk_bwd).
+template <int NC, bool ONE_CHAIN = false>
 __device__ __forceinline__ void chain_step(const StepThread& s,
                                            const float* Hr, const float* Hi,
                                            const Pairs& q, const StepOps& o,
@@ -644,7 +568,7 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
                                            float& gr, float& gi) {
   const int BN = s.BN, tid = s.tid, it = s.iters;
   HCol<NC> hc;
-  load_col<NC>(Hr, Hi, s.i, hc);
+  if constexpr (!ONE_CHAIN) load_col<NC>(Hr, Hi, s.i, hc);
   if (s.act) {
     float xr = o.xr, xi = o.xi;
     gr += o.jr;
@@ -664,11 +588,19 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
         }
     }
   }
-  if (!stored && it > 0) {    // replay k_0..k_{it-1} from xp (stage_replay)
+  if (!stored && it > 0) {    // replay k_0..k_{it-1} from xp
     float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
+    HRow<NC> h;
+    if constexpr (ONE_CHAIN) load_hrow<NC>(Hr, Hi, s.i, h);
+    auto T = [&](const float* vr, const float* vi, float& outr, float& outi) {
+      if constexpr (ONE_CHAIN)
+        apply_T_row<NC>(h, Hr, Hi, vr, vi, s.b, s.i, s.N, outr, outi);
+      else
+        apply_T_n<NC>(Hr, Hi, vr, vi, s.b, s.i, s.N, outr, outi);
+    };
     stage_sync(warp_rows, S);
     if (s.act) {
-      apply_T_n<NC>(Hr, Hi, q.xr, q.xi, s.b, s.i, s.N, br, bi);
+      T(q.xr, q.xi, br, bi);
       stage_first(s, br, bi, kr, ki);
       q.kr[tid] = kr;
       q.ki[tid] = ki;
@@ -677,14 +609,20 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
       stage_sync(warp_rows, S);
       if (s.act) {
         float mr, mi;
-        apply_T_n<NC>(Hr, Hi, q.kr + (j - 1) * BN, q.ki + (j - 1) * BN, s.b,
-                      s.i, s.N, mr, mi);
+        T(q.kr + (j - 1) * BN, q.ki + (j - 1) * BN, mr, mi);
         stage_next(s, br, bi, mr, mi, kr, ki);
         q.kr[j * BN + tid] = kr;
         q.ki[j * BN + tid] = ki;
       }
     }
   }
+  if constexpr (ONE_CHAIN) load_col<NC>(Hr, Hi, s.i, hc);
+  auto Tt = [&](const float* ur, const float* ui, float& outr, float& outi) {
+    if constexpr (ONE_CHAIN)
+      apply_Tt_col<NC>(hc, Hr, Hi, ur, ui, s.b, s.i, s.N, outr, outi);
+    else
+      apply_Tt_n<NC>(hc, Hr, Hi, ur, ui, s.b, s.i, s.N, outr, outi);
+  };
   // transpose of the stage chain, j = it..1; pair p = it - j has input
   // u = k_{j-1}; the last pair (b-bar, x_pre)
   float bbr = 0.f, bbi = 0.f, kbr = s.dt * gr, kbi = s.dt * gi;
@@ -701,8 +639,7 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
     }
     stage_sync(warp_rows, S);
     if (s.act) {
-      apply_Tt_n<NC>(hc, Hr, Hi, q.cr + p * BN, q.ci + p * BN, s.b, s.i, s.N,
-                     kbr, kbi);
+      Tt(q.cr + p * BN, q.ci + p * BN, kbr, kbi);
       if (s.jac) {              // minus the transpose of v -> d v
         kbr -= s.r0 * cr + s.r1 * ci;
         kbi -= s.r0 * ci - s.r1 * cr;
@@ -719,8 +656,7 @@ __device__ __forceinline__ void chain_step(const StepThread& s,
   stage_sync(warp_rows, S);
   if (s.act) {
     float tr, ti;
-    apply_Tt_n<NC>(hc, Hr, Hi, q.cr + it * BN, q.ci + it * BN, s.b, s.i, s.N,
-                   tr, ti);
+    Tt(q.cr + it * BN, q.ci + it * BN, tr, ti);
     gr += tr;
     gi += ti;
     if (s.split) cmul_conj(s.r0, s.r1, gr, gi);
@@ -775,14 +711,17 @@ __device__ __forceinline__ void contract_part(const float* Sr, const float* Si,
 }
 
 // Entries e0, e0 + ne, ... of the step's H cotangent, Hb[p][q] = sum over
-// the pairs and the rows b of c[b][p] (x) u[b][q] (hb_entry's sum, the two
-// products of each output on their own accumulators). At a compile-time N
-// a thread takes the entries in pairs, as contract_part.
-template <int NC>
+// the pairs and the rows b of c[b][p] (x) u[b][q] (the orientation of
+// pallas_stream.py:481-486). ONE_CHAIN: both products of each output on
+// one chain in pair and row order (stream_bwd); otherwise each product on
+// its own accumulator (streamk_bwd). At a compile-time N a thread takes the
+// entries in pairs, as contract_part.
+template <int NC, bool ONE_CHAIN = false>
 __device__ __forceinline__ void hb_part(const Pairs& q, float* Hbr,
                                         float* Hbi, int B, int N, int it,
                                         int e0, int ne) {
   const int n = NC ? NC : N, NN = n * n, BN = B * n, w = NC ? 2 : 1;
+  constexpr int o = ONE_CHAIN ? 0 : 1;    // the second product's accumulator
   for (int ent = w * e0; ent < NN; ent += w * ne) {
     const int p = ent / n, qq = ent - p * n;
     float a[8] = {};        // sr0, sr1, si0, si1 of entries qq and qq + 1
@@ -800,27 +739,27 @@ __device__ __forceinline__ void hb_part(const Pairs& q, float* Hbr,
           const float2 u_i =
               *reinterpret_cast<const float2*>(ui + bb * NC + qq);
           a[0] = fmaf(c_r, u_i.x, a[0]);
-          a[1] = fmaf(-c_i, u_r.x, a[1]);
+          a[o] = fmaf(-c_i, u_r.x, a[o]);
           a[2] = fmaf(c_r, u_r.x, a[2]);
-          a[3] = fmaf(c_i, u_i.x, a[3]);
+          a[2 + o] = fmaf(c_i, u_i.x, a[2 + o]);
           a[4] = fmaf(c_r, u_i.y, a[4]);
-          a[5] = fmaf(-c_i, u_r.y, a[5]);
+          a[4 + o] = fmaf(-c_i, u_r.y, a[4 + o]);
           a[6] = fmaf(c_r, u_r.y, a[6]);
-          a[7] = fmaf(c_i, u_i.y, a[7]);
+          a[6 + o] = fmaf(c_i, u_i.y, a[6 + o]);
         } else {
           const float u_r = ur[bb * n + qq], u_i = ui[bb * n + qq];
           a[0] = fmaf(c_r, u_i, a[0]);
-          a[1] = fmaf(-c_i, u_r, a[1]);
+          a[o] = fmaf(-c_i, u_r, a[o]);
           a[2] = fmaf(c_r, u_r, a[2]);
-          a[3] = fmaf(c_i, u_i, a[3]);
+          a[2 + o] = fmaf(c_i, u_i, a[2 + o]);
         }
       }
     }
-    Hbr[ent] = a[0] + a[1];
-    Hbi[ent] = a[2] + a[3];
+    Hbr[ent] = ONE_CHAIN ? a[0] : a[0] + a[1];
+    Hbi[ent] = ONE_CHAIN ? a[2] : a[2] + a[3];
     if constexpr (NC > 0) {
-      Hbr[ent + 1] = a[4] + a[5];
-      Hbi[ent + 1] = a[6] + a[7];
+      Hbr[ent + 1] = ONE_CHAIN ? a[4] : a[4] + a[5];
+      Hbi[ent + 1] = ONE_CHAIN ? a[6] : a[6] + a[7];
     }
   }
 }

@@ -32,23 +32,34 @@
 // Layout and step as streamk.cu's (the step functions of imr_step.cuh): one
 // thread block per control candidate with the sequential time loop inside;
 // the step's plane pair, the state and the stage iterates in shared memory
-// (row stride N + 1); one thread owns one (b, i) state entry. Exact f32 FMA on the CUDA cores (the TPU stream
-// kernel defaults to a 3-pass bf16 emulation, pallas_stream.py:52-119; the
-// chunk and dense kernels run f32 HIGHEST). The backward keeps a thread's
-// entries of Hb(t) in registers over the step's (cotangent, input) pairs and
-// writes them once, coalesced, to the (E, nt, N, N) outputs.
+// (row stride N + 1); one thread owns one (b, i) state entry. Exact f32
+// FMA on the CUDA cores (the TPU stream kernel defaults to a 3-pass bf16
+// emulation, pallas_stream.py:52-119; the chunk and dense kernels run f32
+// HIGHEST). The backward keeps a thread's entries of Hb(t) in registers
+// over the step's (cotangent, input) pairs and writes them once, coalesced,
+// to the (E, nt, N, N) outputs.
 //
 // What bounds it on the H100: the dependent chain of ntime * (iters + 1)
-// barrier-separated matvecs, as for streamK, plus one global-memory round
-// trip per step for the plane pair (2 N^2 floats, 2 KB at the flagship's
-// N = 16), which this first version does not prefetch. Bytes: the planes
-// are read once forward and once backward and Hb written once, E * nt *
-// 2 N^2 floats each; at E = 128 that is 320 MB per direction, about 0.1 ms
-// of the card's memory rate, far below the chain.
+// matvecs, as for streamK, plus one global-memory round trip per step for
+// the plane pair (2 N^2 floats, 2 KB at the flagship's N = 16). Bytes: the
+// planes are read once forward and once backward and Hb written once,
+// E * nt * 2 N^2 floats each; at E = 128 that is 320 MB per direction,
+// about 0.1 ms of the card's memory rate, far below the chain. The forward
+// reads each step's planes just before its chain needs them; the backward
+// splits its block into roles (imr_step.cuh's second part), as streamk_bwd
+// does, so that its chain waits on no global load and passes no block-wide
+// barrier (below, at stream_bwd).
 
 #include <cuda_runtime.h>
 
 #include "imr_step.cuh"
+
+// STREAMK_NC: the N of stream_bwd's compile-time instance, 16, as in
+// streamk.cu (0 builds none and runs every N on the generic stream_bwd<0, .>:
+// a build with -DSTREAMK_NC=0 times the two against each other).
+#ifndef STREAMK_NC
+#define STREAMK_NC 16
+#endif
 
 namespace {
 
@@ -58,7 +69,7 @@ struct Dims {
 };
 
 // One step's (N, N) plane pair, row-major in global memory, into shared
-// memory with row stride N + 1.
+// memory with row stride N + 1 (the forward's load, just before its use).
 __device__ __forceinline__ void load_planes(const float* __restrict__ gr,
                                             const float* __restrict__ gi,
                                             float* Hr, float* Hi, int N) {
@@ -116,12 +127,74 @@ stream_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Roles, as in streamk_bwd: the state threads (the first
+// S = roundup32(B N), one per (b, i) entry) run the dependent chain of each
+// reversed step and nothing else (imr_step.cuh chain_step: the transposed
+// stages and, without stored iterates, their replay in the forward's order
+// of terms, so that stored and replayed iterates give the same bits). The
+// helper threads after them (`helpers` of them, whole warps) run beside
+// the chain what its recursion never reads:
+//   * while the chain runs step t they copy H(t - 1)'s plane pair from
+//     global memory into the free slot of a two-slot ring (cp.async, 4
+//     bytes an entry into rows of stride N + 1, coalesced over the
+//     helpers), a step ahead of its use;
+//   * at the same time they reduce the (cotangent, input) pairs that step
+//     t + 1 left in one slot of a two-slot ring into Hb(t + 1), a step
+//     behind, from registers straight to the (E, nt, N, N) outputs (each
+//     entry written once, no atomics: two launches give the same bits).
+// The chain reads its step operands (the injection, the pre-state, the
+// stored iterates) from registers it loaded a step ahead (load_ops); a
+// stage synchronizes only the threads of one basis state (__syncwarp where
+// N divides 32, else a named barrier over the state warps). The hand-offs
+// are named barriers per ring slot (bar.arrive by the producer, bar.sync by
+// the consumer): STEP_READY (H(t) copied and the pairs slot of step t + 2
+// reduced) and PAIRS_FULL (step t's pairs written and H(t) read). No stage
+// waits on a block-wide barrier or a global load. Every output of T and Tt
+// is summed on one chain of FMAs in apply_T's and apply_Tt's order, and Hb
+// in pair and row order (chain_step's and hb_part's ONE_CHAIN): replayed
+// iterates have the bits of stored ones, and g0 and Hb do not depend on the
+// launch shape (either layout, either instance). streamk_bwd's eight
+// accumulators would move the 'stream' route's L-BFGS history off the
+// streamK route's (tests/test_torch_cuda.py, 1e-5 of J). NC: N,
+// where the kernel is compiled for it (16, the flagship's; helpers only,
+// and a chain thread holds H's row for the replay and its column for the
+// transposed stages in registers), or 0 for any N. C-bar and the stack
+// cotangents come from Hb outside the kernel, by the planes einsum's
+// backward (ops/stream.py).
+// Inline branch: where the helpers or the second slots do not fit (1024
+// threads, 227 KB) the launcher gives no helpers, and the whole block
+// copies H(t - 1) and reduces Hb(t) after the chain of step t, on one slot
+// of each: the same device functions and arithmetic, two block-wide
+// barriers per step.
+
+// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
+// id + slot
+enum {
+  BAR_STEP_READY = 2,   // helpers arrive, the chain waits
+  BAR_PAIRS_FULL = 4,   // the chain arrives, helpers wait
+};
+
+// Floats of the backward's shared memory: per slot (two with helpers, one
+// inline) the H planes and the step's pairs. Every buffer starts on a
+// 16-byte boundary where N is a multiple of 4.
+__host__ __device__ inline size_t bwd_floats(int B, int N, int it,
+                                             bool split) {
+  const size_t BN = (size_t)B * N, slots = split ? 2 : 1;
+  return slots * (2 * N * (N + 1) + (4 * it + 4) * BN);
+}
+
 // Backward: the steps in reverse. Inputs as the forward's plus the history
 // (E, nt, B, N), its cotangent j (E, nt, B, N), the final-state cotangent
 // gT (E, B, N) and, with store, the forward's stage iterates. Writes the x0
 // cotangent per candidate g0 (E, B, N) and the plane cotangents Hb
-// (E, nt, N, N) x2 (hb_entry).
-__global__ void __launch_bounds__(1024)
+// (E, nt, N, N) x2. helpers: the helper threads after the S state threads,
+// 0 for the inline branch. MAXT: the most threads a launch may have (512 or
+// 1024), which caps a thread's registers at 65536 / MAXT: at 1024 the
+// generic instance spills (ptxas), so launches of at most 512 threads run
+// one built for them.
+template <int NC, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 stream_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
            const float* __restrict__ x0r, const float* __restrict__ x0i,
            const float* __restrict__ hr, const float* __restrict__ hi,
@@ -130,50 +203,92 @@ stream_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
            const float* __restrict__ rows, const float* __restrict__ ksr,
            const float* __restrict__ ksi, float* __restrict__ g0r,
            float* __restrict__ g0i, float* __restrict__ Hbr,
-           float* __restrict__ Hbi, Dims d) {
+           float* __restrict__ Hbi, Dims d, int helpers) {
   extern __shared__ float sm[];
-  const int N = d.N, NN = N * N, BN = d.B * N, iters = d.iters;
-  float* Hr = sm;
-  float* Hi = Hr + N * (N + 1);
-  float* xp_r = Hi + N * (N + 1);
-  float* xp_i = xp_r + BN;
-  float* ks_r = xp_i + BN;                // k_0..k_{iters-1}
-  float* ks_i = ks_r + iters * BN;
-  float* cb_r = ks_i + iters * BN;        // cotangents of the iters+1 pairs
-  float* cb_i = cb_r + (iters + 1) * BN;
+  const int N = NC ? NC : d.N, NN = N * N, BN = d.B * N, it = d.iters;
+  const int nt = d.nt, S = (BN + 31) & ~31, Hh = helpers;
+  const int slots = Hh > 0 ? 2 : 1, ldH = N * (N + 1);
+  const int Hsz = 2 * ldH, Psz = (4 * it + 4) * BN;
+  float* Hbuf = sm;                     // slots x (Hr, Hi)
+  float* Pbuf = Hbuf + slots * Hsz;     // slots x pairs
 
   const int e = blockIdx.x, tid = threadIdx.x;
-  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  const StepThread s = step_thread(d.B, N, it, d.mode, d.dt, d.a, rows);
+  const size_t base = (size_t)e * nt;
+  const bool stored = d.store != 0, warp_rows = 32 % N == 0;
+  const float* kr_ = stored ? ksr : nullptr;
+  // H(u) into ring slot u & 1, entries e0, e0 + ne, ... of the pair
+  auto copy = [&](int u, int e0, int ne) {
+    float* H = Hbuf + (slots > 1 ? (u & 1) : 0) * Hsz;
+    copy_planes<NC>(gHr + (base + u) * NN, gHi + (base + u) * NN, H,
+                    H + ldH, N, e0, ne);
+  };
+  // Hb(u) from the pairs in slot sl, entries e0, e0 + ne, ...
+  auto reduce = [&](int u, int sl, int e0, int ne) {
+    hb_part<NC, true>(pairs_slot(Pbuf + sl * Psz, BN, it),
+                      Hbr + (base + u) * NN, Hbi + (base + u) * NN, d.B, N,
+                      it, e0, ne);
+  };
   float gr = 0.f, gi = 0.f;
+  StepOps cur = {}, nxt = {};
   if (s.act) {
     gr = gTr[(size_t)e * BN + tid];
     gi = gTi[(size_t)e * BN + tid];
   }
+  if (tid < S && nt > 0)
+    load_ops(s, nt - 1, base + nt - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+             cur);
 
-  for (int t = d.nt - 1; t >= 0; --t) {
-    const size_t st = (size_t)e * d.nt + t;
-    load_planes(gHr + st * NN, gHi + st * NN, Hr, Hi, N);
-    float xr = 0.f, xi = 0.f;
-    if (s.act) {
-      gr += jr[st * BN + tid];
-      gi += ji[st * BN + tid];
-      // pre-step state: x0 at t = 0, else the previous history entry
-      xr = t == 0 ? x0r[tid] : hr[(st - 1) * BN + tid];
-      xi = t == 0 ? x0i[tid] : hi[(st - 1) * BN + tid];
+  if (Hh > 0) {
+    const int nall = S + Hh;
+    if (tid < S) {            // the chain
+      for (int t = nt - 1; t >= 0; --t) {
+        const int sl = t & 1;
+        bar_sync(BAR_STEP_READY + sl, nall);
+        if (t > 0)
+          load_ops(s, t - 1, base + t - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+                   nxt);
+        chain_step<NC, true>(s, Hbuf + sl * Hsz, Hbuf + sl * Hsz + ldH,
+                             pairs_slot(Pbuf + sl * Psz, BN, it), cur, stored,
+                             warp_rows, S, gr, gi);
+        bar_arrive(BAR_PAIRS_FULL + sl, nall);
+        cur = nxt;
+      }
+    } else {                  // the helpers: H a step ahead, Hb a step behind
+      const int h = tid - S;
+      for (int u = nt - 1; u >= 0 && u >= nt - 2; --u) {
+        copy(u, h, Hh);
+        cp_async_wait();
+        bar_arrive(BAR_STEP_READY + (u & 1), nall);
+      }
+      for (int t = nt - 1; t >= 0; --t) {
+        const int sl = t & 1;
+        bar_sync(BAR_PAIRS_FULL + sl, nall);
+        if (t >= 2) copy(t - 2, h, Hh);   // into the slot step t released
+        reduce(t, sl, h, Hh);
+        cp_async_wait();
+        if (t >= 2) bar_arrive(BAR_STEP_READY + sl, nall);
+      }
     }
-    const size_t ko = st * iters * BN;
-    stage_bwd(s, Hr, Hi, xr, xi, d.store ? ksr + ko : nullptr,
-              d.store ? ksi + ko : nullptr, xp_r, xp_i, ks_r, ks_i, cb_r,
-              cb_i, gr, gi);
-    // the step's plane cotangent, summed over the pairs in registers and
-    // written once
-    for (int ent = tid; ent < NN; ent += blockDim.x) {
-      float sr, si;
-      hb_entry(s, ent, xp_r, xp_i, ks_r, ks_i, cb_r, cb_i, sr, si);
-      Hbr[st * NN + ent] = sr;
-      Hbi[st * NN + ent] = si;
+  } else if constexpr (NC == 0) {   // inline: every role in turn
+    const int nb = blockDim.x;
+    if (nt > 0) copy(nt - 1, tid, nb);
+    cp_async_wait();
+    for (int t = nt - 1; t >= 0; --t) {
+      __syncthreads();              // H(t) copied; Hb(t + 1) reduced
+      if (tid < S) {
+        if (t > 0)
+          load_ops(s, t - 1, base + t - 1, x0r, x0i, hr, hi, jr, ji, kr_, ksi,
+                   nxt);
+        chain_step<0, true>(s, Hbuf, Hbuf + ldH, pairs_slot(Pbuf, BN, it),
+                            cur, stored, warp_rows, S, gr, gi);
+        cur = nxt;
+      }
+      __syncthreads();              // step t's pairs written, H(t) read
+      if (t > 0) copy(t - 1, tid, nb);
+      reduce(t, 0, tid, nb);
+      cp_async_wait();
     }
-    __syncthreads();    // the next step overwrites H, xp, ks and cb
   }
   if (s.act) {
     g0r[(size_t)e * BN + tid] = gr;
@@ -199,24 +314,48 @@ int launch_fwd(const void* Hr, const void* Hi, const void* x0r,
   return (int)cudaGetLastError();
 }
 
+// The backward's roles go to helper warps when the caller's launch shape
+// holds them: threads past the state warps and the two-slot layout's
+// shared memory; else the inline branch on bwd_floats(..., false). Returns
+// the helper threads, or -1 for a shape that cannot take either.
+int helper_threads(const Dims& d, int threads, int smem_bytes) {
+  const int S = (d.B * d.N + 31) & ~31;
+  auto bytes = [&](bool split) {
+    return 4 * bwd_floats(d.B, d.N, d.iters, split);
+  };
+  const int helpers =
+      threads > S && (size_t)smem_bytes >= bytes(true) ? threads - S : 0;
+  if (threads < S || threads % 32 != 0 || threads > 1024 ||
+      (size_t)smem_bytes < bytes(helpers > 0))
+    return -1;
+  return helpers;
+}
+
 int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
                const void* x0i, const void* hr, const void* hi,
                const void* jr, const void* ji, const void* gTr,
                const void* gTi, const void* rows, const void* ksr,
                const void* ksi, void* g0r, void* g0i, void* Hbr, void* Hbi,
                const Dims& d, int threads, int smem_bytes, void* stream) {
+  const int helpers = helper_threads(d, threads, smem_bytes);
+  if (helpers < 0 || (d.store && d.iters > MAX_STORED))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = threads > 512 ? stream_bwd<0, 1024>
+                : STREAMK_NC > 0 && d.N == STREAMK_NC && helpers > 0
+                    ? stream_bwd<STREAMK_NC, 512>
+                    : stream_bwd<0, 512>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stream_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  stream_bwd<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+  kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Hr, (const float*)Hi, (const float*)x0r,
       (const float*)x0i, (const float*)hr, (const float*)hi,
       (const float*)jr, (const float*)ji, (const float*)gTr,
       (const float*)gTi, (const float*)rows, (const float*)ksr,
       (const float*)ksi, (float*)g0r, (float*)g0i, (float*)Hbr, (float*)Hbi,
-      d);
+      d, helpers);
   return (int)cudaGetLastError();
 }
 
@@ -225,7 +364,8 @@ int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
 // Plain C entry points, bound from Python with ctypes; one signature per
 // direction for the three members. Each launches on the given stream and
 // returns cudaGetLastError() (0 on success); a call outside the member's
-// contract returns cudaErrorInvalidValue and launches nothing.
+// contract, or a backward launch shape that holds neither layout
+// (helper_threads), returns cudaErrorInvalidValue and launches nothing.
 #define FWD_ARGS                                                            \
   const void *Hr, const void *Hi, const void *x0r, const void *x0i,         \
       const void *rows, void *xTr, void *xTi, void *hr, void *hi,           \

@@ -223,12 +223,27 @@ def build_kernels(verbose: bool = False):
     return cuda_build.build_library(_SRC, _bind, verbose)
 
 
-def _smem_bytes(it, B, N, backward: bool):
+def _fwd_smem_bytes(it, B, N):
+    """The forward's shared memory: the H planes (row stride N + 1), the
+    pre-state and iters + 1 slots of stage iterates."""
     BN = B * N
-    floats = 2 * N * (N + 1) + 2 * BN + 2 * (it + 1) * BN
-    if backward:
-        floats += 2 * it * BN
-    return 4 * floats
+    return 4 * (2 * N * (N + 1) + 2 * BN + 2 * (it + 1) * BN)
+
+
+def _bwd_smem_bytes(it, B, N, split: bool):
+    """csrc/stream.cu bwd_floats, in bytes: per slot (two with helper warps,
+    one inline) the H planes and the step's (cotangent, input) pairs."""
+    BN, slots = B * N, 2 if split else 1
+    return 4 * slots * (2 * N * (N + 1) + (4 * it + 4) * BN)
+
+
+def _bwd_shape(it, B, N):
+    """(threads, shared-memory bytes, helpers) of a backward launch:
+    streamk._role_shape, state warps plus helper warps that copy H a step
+    ahead and reduce Hb a step behind where that fits one block, else the
+    inline layout (helpers 0)."""
+    return streamk._role_shape(B, N,
+                               lambda split: _bwd_smem_bytes(it, B, N, split))
 
 
 def size_refusal(B, N, iters, nt=0, E=1):
@@ -241,7 +256,7 @@ def size_refusal(B, N, iters, nt=0, E=1):
     if BN > 1024:
         return (f"stream kernel: B*N = {BN} state entries exceed one block "
                 "(1024 threads); multi-block candidates are not implemented")
-    smem = _smem_bytes(iters, B, N, backward=True)
+    smem = _bwd_smem_bytes(iters, B, N, split=False)    # the inline layout
     if smem > _MAX_SMEM:
         return (f"stream kernel: {smem} bytes of shared memory exceed the "
                 f"{_MAX_SMEM} a block can use (N={N}, B={B}, iters={iters})")
@@ -259,10 +274,15 @@ def launch_refusal(plan, B, N, nt=0, E=1):
 
 
 def _launch_shape(plan, E, nt, B, N, backward: bool):
+    """(threads per block, dynamic shared-memory bytes) of one launch;
+    raises NotImplementedError past what one block can hold (the backward's
+    inline layout needs more than the forward's, so both refuse together)."""
     why = launch_refusal(plan, B, N, nt, E)
     if why is not None:
         raise NotImplementedError(why)
-    return streamk._threads(B, N), _smem_bytes(plan.iters, B, N, backward)
+    if backward:
+        return _bwd_shape(plan.iters, B, N)[:2]
+    return streamk._threads(B, N), _fwd_smem_bytes(plan.iters, B, N)
 
 
 def _check_cuda(*ts):

@@ -7,8 +7,10 @@ problem's value_and_grad and the packed robust objective on the card
 against the CPU, and the device optimizer's CUDA-graph chunk against its
 eager chunk;
 the density-matrix kernels; the streamed-plane kernels (stream, chunk,
-dense) against their plain version, on the problem's routes, in the device
-optimizer and in the Kerr calibration.
+dense) against their plain version, stream_bwd over its branches (helper
+warps at N = 16 and where states span warps, the inline layout at
+B*N = 1024), its determinism and its stored against replayed iterates, on
+the problem's routes, in the device optimizer and in the Kerr calibration.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -737,6 +739,90 @@ def test_stream_kernel_matches_plain_on_card(cuda, solver, iters):
     for a, b, tol in zip(kern, plain, (1e-5,) + (1e-4,) * 5):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _stream_bwd_case(cuda, solver, iters, B, n, k, E, kind="stream",
+                     store=None, seed=11):
+    """One stream_bwd (chunk_bwd for kind 'chunk') launch on the history of
+    the kernel forward, non-Hermitian stacks, and plain_backward on the same
+    inputs: (kernel (g0r, g0i, Hbr, Hbi), plain, the launch's helper
+    threads). store overrides the plan's choice of stored iterates."""
+    from quandary_tpu_torch.ops import stream
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(size=(k, n, n))
+             + 1j * rng.normal(size=(k, n, n))).astype(np.complex64)
+    gen_diag = -1j * np.diag(stack[0]).astype(np.complex128)
+    plan = stream.make_plan(cuda(stack.real), DT, iters, gen_diag, solver,
+                            kind=kind)
+    if store is not None:
+        plan = dataclasses.replace(plan, store_iters=store)
+    C = cuda((rng.normal(size=(E, NT, k)) * 0.3).astype(np.float32))
+    Hr, Hi = (h.contiguous() for h in stream.planes(
+        plan, cuda(stack.real), cuda(stack.imag), C))
+    x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, n)).astype(
+        np.float32))
+    _, _, hr, hi, ksr, ksi = stream._kernel_fwd(plan, Hr, Hi, x0r, x0i)
+    w = lambda *s: cuda(rng.normal(size=s).astype(np.float32))
+    gT, jh = (w(E, B, n), w(E, B, n)), (w(E, NT, B, n), w(E, NT, B, n))
+    before = stream.launch_counts()[f"{kind}_bwd_launches"]
+    kern = stream._kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, *gT,
+                              *jh)
+    assert stream.launch_counts()[f"{kind}_bwd_launches"] == before + 1
+    plain = stream.plain_backward(plan, Hr, Hi, x0r, x0i, hr, hi, *gT, *jh)
+    torch.cuda.synchronize()
+    return kern, plain, stream._bwd_shape(iters, B, n)[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # stream_bwd<16>: the flagship's widths, stored and replayed iterates
+    dict(solver="split", iters=3, B=4, n=16, k=7, E=3),
+    dict(solver="jacobi", iters=6, B=4, n=16, k=7, E=3),
+    # states spanning warps (named-barrier stages), and N = 8 at B = 8
+    dict(solver="jacobi", iters=4, B=3, n=27, k=4, E=2),
+    dict(solver="split", iters=3, B=8, n=8, k=5, E=2),
+    # chunk_bwd_launch: plain Neumann, replayed
+    dict(solver="neumann", iters=8, B=4, n=16, k=7, E=2, kind="chunk"),
+    # B N = 1024: the inline branch
+    dict(solver="split", iters=3, B=64, n=16, k=5, E=2),
+], ids=["nc16-split3-stored", "nc16-jacobi6-replayed", "N27-rows-span-warps",
+        "N8-B8", "chunk-neumann8", "inline-BN1024"])
+def test_stream_bwd_shapes_on_card(cuda, case):
+    """stream_bwd against plain_backward over its branches, to the bounds
+    of test_stream_kernel_matches_plain_on_card (1e-4 of max): helper warps
+    where they fit, the inline layout where they do not."""
+    kern, plain, helpers = _stream_bwd_case(cuda, **case)
+    assert (helpers == 0) == (case["B"] == 64)
+    for a, b in zip(kern, plain):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16, 4), (27, 3), (16, 64)])
+def test_stream_bwd_is_deterministic_on_card(cuda, n, B):
+    """Two launches on the same inputs give the same bits of g0 and Hb
+    (each entry of Hb is written once, no atomics), in both layouts."""
+    a, _, _ = _stream_bwd_case(cuda, "split", 3, B, n, 5, 4, seed=3)
+    b, _, _ = _stream_bwd_case(cuda, "split", 3, B, n, 5, 4, seed=3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16, 4), (27, 3)])
+@pytest.mark.parametrize("solver,iters", [("split", 3), ("jacobi", 4)])
+def test_stream_store_and_replay_agree_in_bits_on_card(cuda, solver, iters,
+                                                       n, B):
+    """stream_bwd from the forward's stored stage iterates and from its own
+    replay of them gives the same bits of g0 and Hb: the replay runs
+    stage_fwd's order of terms (chain_step's ONE_CHAIN)."""
+    stored, _, _ = _stream_bwd_case(cuda, solver, iters, B, n, 5, 2,
+                                    store=True)
+    replayed, _, _ = _stream_bwd_case(cuda, solver, iters, B, n, 5, 2,
+                                      store=False)
+    for x, y in zip(stored, replayed):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,8 @@ import jax.numpy as jnp  # noqa: E402
 from quandary_tpu.ops import pallas_adjoint, pallas_kernels  # noqa: E402
 from quandary_tpu.ops import pallas_stream  # noqa: E402
 from quandary_tpu.problem import Problem as JProblem  # noqa: E402
-from quandary_tpu_torch.ops import adjoint, dense, stream  # noqa: E402
+from quandary_tpu_torch.ops import (adjoint, dense, stream,  # noqa: E402
+                                    streamk)
 from quandary_tpu_torch.problem import Problem as TProblem  # noqa: E402
 from test_torch_lindblad import unguarded_setup  # noqa: E402
 from test_torch_model import (flagship_setup, port_setup,  # noqa: E402
@@ -341,3 +342,71 @@ def test_route_gate_refusals():
     with pytest.raises(NotImplementedError):
         stream.make_plan(torch.zeros(1, 2, 2), 0.1, 3, np.ones(2),
                          "jacobi", kind="chunk")
+
+
+# (B, N, iters): the flagship (split-3), neumann-8 and jacobi-8 at its
+# width, open configuration 1 on 'stream', the qutrits' N = 27, states
+# spanning warps, N = 8 at B = 8, the largest N at B = 4 and B = 1 and one
+# past each, B N = 1024 and one state past it
+LAUNCH_SHAPES = [(4, 16, 3), (4, 16, 8), (16, 16, 8), (3, 27, 4),
+                 (4, 27, 3), (3, 12, 6), (8, 8, 3), (4, 16, 0),
+                 (4, 154, 3), (4, 155, 3), (1, 166, 3), (1, 167, 3),
+                 (64, 16, 3), (65, 16, 3), (32, 32, 4)]
+
+
+def _admitted_before(B, N, iters):
+    """What size_refusal admitted before the backward had helper warps: one
+    block of at most 1024 threads for the B N state entries, and the
+    one-slot layout of the H planes, the pre-state, iters stored and
+    iters + 1 cotangent slots and iters + 1 matvec slots within 227 KB."""
+    BN = B * N
+    floats = 2 * N * (N + 1) + 2 * BN + 2 * (iters + 1) * BN + 2 * iters * BN
+    return BN <= 1024 and 4 * floats <= 227 * 1024
+
+
+@pytest.mark.parametrize("B,N,iters", LAUNCH_SHAPES)
+def test_size_refusal_admits_what_it_admitted(B, N, iters):
+    """The split-role backward keeps the size range: size_refusal admits
+    exactly the shapes of _admitted_before (whose bytes are the inline
+    branch's layout), and a refusal names its limit."""
+    why = stream.size_refusal(B, N, iters)
+    if _admitted_before(B, N, iters):
+        assert why is None, why
+    else:
+        assert why is not None and ("shared memory" in why or "1024" in why)
+
+
+@pytest.mark.parametrize("B,N,iters", LAUNCH_SHAPES)
+def test_backward_launch_shape(B, N, iters):
+    """The backward's launch (csrc/stream.cu): whole warps, a thread for
+    every state entry, at most 1024 threads and 227 KB of shared memory.
+    Helper warps (at least one) after the state warps with two ring slots
+    where they fit, the inline layout (one slot, _admitted_before's
+    bytes) where they do not; the C launcher's rule (helper_threads) reads
+    the same layout from the shape; a refused shape raises."""
+    z = torch.zeros(2, N, N)
+    plan = stream.make_plan(z, DT, iters)
+    if stream.size_refusal(B, N, iters) is not None:
+        with pytest.raises(NotImplementedError):
+            stream._launch_shape(plan, 1, 1, B, N, backward=True)
+        return
+    threads, smem, helpers = stream._bwd_shape(iters, B, N)
+    S = -(-B * N // 32) * 32
+    two_slots = stream._bwd_smem_bytes(iters, B, N, split=True)
+    assert threads % 32 == 0 and B * N <= threads <= 1024
+    assert 0 < smem <= 227 * 1024
+    if helpers:
+        assert threads == S + helpers and helpers % 32 == 0 and helpers >= 32
+        assert smem == two_slots
+    else:
+        assert threads == streamk._threads(B, N)
+        assert smem == stream._bwd_smem_bytes(iters, B, N, split=False)
+        assert S > 1024 - 32 or two_slots > 227 * 1024
+    c_helpers = threads - S if threads > S and smem >= two_slots else 0
+    assert c_helpers == helpers
+    if (B, N) in ((4, 16), (16, 16), (3, 27), (8, 8)):
+        assert helpers >= 32
+    if (B, N) in ((4, 154), (64, 16), (1, 166)):
+        assert helpers == 0
+    assert stream._launch_shape(plan, 1, 1, B, N, backward=True) == (
+        threads, smem)
