@@ -99,12 +99,13 @@ kernel, plane cotangents out, so the operator stacks are differentiable):
    err < 1e-4, and make_stream_propagate's stack cotangents at the
    flagship's width against plain;
 21. times: the five kernels by CUDA events, their plain versions and
-   bounds; sweeps/s of the stream and chunk routes; for stream_bwd (the
-   flagship) and chunk_bwd (ntime 4884) the helper threads, stage syncs
-   and their kind, block-wide barriers and us per reversed step, and the
-   registers and spills of stream_bwd<16> and stream_bwd<0> as ptxas
-   reports them; fails if the flagship's stream_bwd chain passes a
-   block-wide barrier (no helper warps).
+   bounds; sweeps/s of the stream and chunk routes; for each of the five
+   (stream at the flagship, E = 1 and 128; chunk and dense at ntime 4884)
+   the helper threads, stage syncs per step and their kind, block-wide
+   barriers and us per (reversed) step, and the registers and spills of
+   every instance of stream_fwd and stream_bwd as ptxas reports them;
+   fails if any of their chains passes a block-wide barrier (no helper
+   warps).
 
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20) is driven with the
 launch counters set to 0 just before and read just after. Before the device
@@ -771,14 +772,18 @@ def ptxas_lines(log):
 
 def ptxas_kernels(log, name):
     """Registers and spill bytes of each instance of the kernel template
-    `name` (integer arguments) as ptxas reports them: {"name<16, 512>":
+    `name` (integer and bool arguments) as ptxas reports them:
+    {"name<16, 512>":
     {"registers": r, "spill_stores": bytes, "spill_loads": bytes}}."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(rf"{len(name)}{name}I((?:Li\d+E)+)E", m.group(1))
-            args = re.findall(r"Li(\d+)E", t.group(1)) if t else ()
+            t = re.search(rf"{len(name)}{name}I((?:L[bi]\d+E)+)E",
+                          m.group(1))
+            args = [("false", "true")[int(v)] if k == "b" else v
+                    for k, v in re.findall(r"L([bi])(\d+)E", t.group(1))
+                    ] if t else ()
             cur = f"{name}<{', '.join(args)}>" if t else None
             if cur:
                 out[cur] = {}
@@ -1508,36 +1513,49 @@ def main():
                f"stream_E{E_BIG}": E_BIG / median_seconds(lambda: evgs(Ps,
                                                                        x)),
                "chunk_E1": 1 / median_seconds(lambda: vgc(x, x), reps=3)}
-    # the backward's chain per reversed step: iters + 1 transposed stages
-    # (a replay adds iters), each ending on a stage sync over the state
-    # threads alone (a __syncwarp where a state's N entries lie in one
-    # warp), one named-barrier wait for the step's H and pairs slot, and no
-    # block-wide barrier where helper warps copy H a step ahead and reduce
-    # Hb a step behind; the inline branch passes 2 per step
-    bwd_chain = {}
-    for name, pr, t_ms in (("stream_bwd", ps, ms_s), ("chunk_bwd", pc, ms_c)):
-        Bb, Nb = pr._x0r.shape
-        it = pr._plan.iters
-        helpers = stream._bwd_shape(it, Bb, Nb)[2]
-        bwd_chain[name] = dict(
-            helper_threads=helpers,
-            stage_syncs_per_step=it + 1 + (0 if pr._plan.store_iters else it),
-            stage_sync="warp" if 32 % Nb == 0 else "state warps",
-            block_barriers_per_step=0 if helpers else 2,
-            us_per_step=1e3 * t_ms["bwd"] / pr.setup.ntime)
-    bwd_chain["stream_bwd"]["us_per_step_E128"] = \
-        1e3 * ms_sE["bwd"] / ps.setup.ntime
+    # the forward's chain per step: iters + 1 stages, the backward's per
+    # reversed step iters + 1 transposed stages (a replay adds iters), each
+    # ending on a stage sync over the state threads alone (a __syncwarp
+    # where a state's N entries lie in one warp), one named-barrier wait
+    # for the step's H (and in the backward pairs) slot, and no block-wide
+    # barrier where helper warps copy H ahead (and reduce Hb a step
+    # behind); the inline branches pass 2 per step
+    def chain_shape(plan, B, N, backward):
+        it = plan.iters
+        helpers = (stream._bwd_shape(it, B, N) if backward
+                   else stream._fwd_shape(B, N))[2]
+        replay = backward and not plan.store_iters
+        return dict(helper_threads=helpers,
+                    stage_syncs_per_step=it + 1 + (it if replay else 0),
+                    stage_sync="warp" if 32 % N == 0 else "state warps",
+                    block_barriers_per_step=0 if helpers else 2)
+
+    chain_s = {}
+    for name, pr, plan, t_ms in (("stream_fwd", ps, ps._plan, ms_s),
+                                 ("chunk_fwd", pc, pc._plan, ms_c),
+                                 ("dense_fwd", pc, dplan, ms_d),
+                                 ("stream_bwd", ps, ps._plan, ms_s),
+                                 ("chunk_bwd", pc, pc._plan, ms_c)):
+        key = name[-3:]
+        chain_s[name] = dict(
+            chain_shape(plan, *pr._x0r.shape, key == "bwd"),
+            us_per_step=1e3 * t_ms[key] / pr.setup.ntime)
+    for key in ("fwd", "bwd"):
+        chain_s[f"stream_{key}"]["us_per_step_E128"] = \
+            1e3 * ms_sE[key] / ps.setup.ntime
     # empty where the library was built before this run
-    regs = ptxas_kernels(slog, "stream_bwd")
+    regs = {**ptxas_kernels(slog, "stream_fwd"),
+            **ptxas_kernels(slog, "stream_bwd")}
     phase(21, f"ms stream split-3 E=1 {json.dumps(ms_s)}; E={E_BIG} "
               f"{json.dumps(ms_sE)}; chunk neumann-8 ntime {NT_FINE} "
               f"{json.dumps(ms_c)}; dense {json.dumps(ms_d)}; sweeps/s "
               f"{json.dumps({k: round(v, 3) for k, v in rates_s.items()})}; "
-              f"backward chain {json.dumps(bwd_chain)}; ptxas "
-              f"{json.dumps(regs)}; card: {smi}")
-    if bwd_chain["stream_bwd"]["block_barriers_per_step"]:
-        raise RuntimeError("the flagship's stream_bwd chain passes "
-                           "block-wide barriers (no helper warps)")
+              f"chains {json.dumps(chain_s)}; ptxas {json.dumps(regs)}; "
+              f"card: {smi}")
+    inline = [k for k, v in chain_s.items() if v["block_barriers_per_step"]]
+    if inline:
+        raise RuntimeError(f"the chains of {inline} pass block-wide barriers "
+                           "(no helper warps)")
 
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
@@ -1585,6 +1603,12 @@ def main():
                     bound_ms_open1=ms_4[f"{key}_bound"][0],
                     plain_ms_open1=ms_4[f"plain_{key}"])
 
+    def chain_more(name):
+        """A stream.cu kernel's time per (reversed) step and helpers."""
+        c = chain_s[name]
+        return dict(helpers=c["helper_threads"], **{
+            k: c[k] for k in ("us_per_step", "us_per_step_E128") if k in c})
+
     # library_ms is null: no single PyTorch call computes a whole
     # propagation (a time loop of stage solves) or its transpose
     print(json.dumps({"kernels": [
@@ -1615,7 +1639,8 @@ def main():
                ms_E128=ms_sE["fwd"], bound_ms_E128=ms_sE["fwd_bound"][0],
                launches_E128=launches_sE[B3[0]],
                launches_open_superop=launches_4s[B3[0]],
-               launches_calibration=launches_cal[B3[0]]),
+               launches_calibration=launches_cal[B3[0]], **chain_more(
+                   "stream_fwd")),
         record("stream_bwd", 657, launches_s[B3[1]], max(
             worst_s["stream"][k] for k in ("cbar", "x0bar", "sbar")), ms_s,
                "bwd", src=STREAM_SRC, ms_E128=ms_sE["bwd"],
@@ -1623,20 +1648,19 @@ def main():
                launches_E128=launches_sE[B3[1]],
                launches_open_superop=launches_4s[B3[1]],
                launches_calibration=launches_cal[B3[1]],
-               us_per_step=bwd_chain["stream_bwd"]["us_per_step"],
-               us_per_step_E128=bwd_chain["stream_bwd"]["us_per_step_E128"],
-               helpers=bwd_chain["stream_bwd"]["helper_threads"]),
+               **chain_more("stream_bwd")),
         record("chunk_fwd", 202, launches_c[B5[0]], worst_s["chunk"]["state"],
                ms_c, "fwd", src=STREAM_SRC,
-               tpu="quandary_tpu/ops/pallas_adjoint.py"),
+               tpu="quandary_tpu/ops/pallas_adjoint.py",
+               **chain_more("chunk_fwd")),
         record("chunk_bwd", 211, launches_c[B5[1]], max(
             worst_s["chunk"][k] for k in ("cbar", "x0bar", "sbar")), ms_c,
                "bwd", src=STREAM_SRC,
                tpu="quandary_tpu/ops/pallas_adjoint.py",
-               us_per_step=bwd_chain["chunk_bwd"]["us_per_step"],
-               helpers=bwd_chain["chunk_bwd"]["helper_threads"]),
+               **chain_more("chunk_bwd")),
         record("dense_fwd", 111, launches_d[B6[0]], worst_d, ms_d, "fwd",
-               src=STREAM_SRC, tpu="quandary_tpu/ops/pallas_kernels.py")]}))
+               src=STREAM_SRC, tpu="quandary_tpu/ops/pallas_kernels.py",
+               **chain_more("dense_fwd"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

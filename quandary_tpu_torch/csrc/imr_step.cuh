@@ -6,11 +6,10 @@
 // row-major (N, N) planes with row stride N + 1 (the pad keeps both the row
 // reads of T and the column reads of Tt conflict-free); the kernels differ
 // only in how H gets there and where its cotangent goes. The first part of
-// the file is the forward step on a whole block (stage_fwd), which
-// stream_fwd runs; the second part is the step, both directions, for a
-// block split into roles (the state threads' chain, H's contraction or
-// copy, and its cotangent), which streamk_fwd, streamk_bwd and stream_bwd
-// run.
+// the file is the algebra of one stage (T, its transpose, the solver rows);
+// the second part is the step, both directions, for a block split into
+// roles (the state threads' chain, H's contraction or copy, and its
+// cotangent), which every kernel of streamk.cu and stream.cu runs.
 //   * neumann  k <- b + a T(k)                    (a = dt/2, b = T(x))
 //   * jacobi   k <- Minv (b + a (T(k) - d k)),     Minv = 1/(1 - a d)
 //   * split    x <- E (x + dt k(V)) with x first rotated by E = exp(a d) and
@@ -66,6 +65,19 @@ __device__ __forceinline__ void cmul(float ar, float ai, float& vr,
                                      float& vi) {  // v <- a v
   const float r = ar * vr - ai * vi;
   vi = ai * vr + ar * vi;
+  vr = r;
+}
+
+// v <- a v with the products rounded as the one-block forward rounded its
+// pre-state rotation, and as stream_bwd's replay (chain_step) still does:
+// the FMA takes ar vr in the real part and ai vr in the imaginary part.
+// cmul leaves that choice to nvcc, which takes ar vi in the imaginary part
+// in some inlined contexts (fwd_chain_step's, read from the SASS), so
+// stored and replayed iterates would no longer agree in bits.
+__device__ __forceinline__ void cmul_pre(float ar, float ai, float& vr,
+                                         float& vi) {
+  const float r = fmaf(ar, vr, -__fmul_rn(ai, vi));
+  vi = fmaf(ai, vr, __fmul_rn(ar, vi));
   vr = r;
 }
 
@@ -138,62 +150,11 @@ __device__ __forceinline__ void stage_next(const StepThread& s, float br,
   }
 }
 
-// Forward step x <- x + dt k on H (split: x rotated by E before and after).
-// xs: a (B, N) scratch for the pre-state; kb: iters + 1 (B, N) slots for
-// the stage iterates. ksr/ksi: the step's (iters, B, N) slice of the stored
-// iterates k_0..k_{iters-1} in global memory, or null. Ends on a barrier
-// after the last read of H, so the caller may overwrite it.
-__device__ __forceinline__ void stage_fwd(const StepThread& s,
-                                          const float* Hr, const float* Hi,
-                                          float* xs_r, float* xs_i,
-                                          float* kb_r, float* kb_i,
-                                          float* ksr, float* ksi, float& xr,
-                                          float& xi) {
-  const int BN = s.BN, tid = s.tid;
-  if (s.act) {
-    if (s.split) cmul(s.r0, s.r1, xr, xi);
-    xs_r[tid] = xr;
-    xs_i[tid] = xi;
-  }
-  __syncthreads();
-  float br = 0.f, bi = 0.f, kr = 0.f, ki = 0.f;
-  if (s.act) {
-    apply_T(Hr, Hi, xs_r, xs_i, s.b, s.i, s.N, br, bi);
-    stage_first(s, br, bi, kr, ki);
-    kb_r[tid] = kr;
-    kb_i[tid] = ki;
-    if (ksr && s.iters > 0) {
-      ksr[tid] = kr;
-      ksi[tid] = ki;
-    }
-  }
-  __syncthreads();
-  for (int j = 0; j < s.iters; ++j) {
-    if (s.act) {
-      float mr, mi;
-      apply_T(Hr, Hi, kb_r + j * BN, kb_i + j * BN, s.b, s.i, s.N, mr, mi);
-      stage_next(s, br, bi, mr, mi, kr, ki);
-      kb_r[(j + 1) * BN + tid] = kr;
-      kb_i[(j + 1) * BN + tid] = ki;
-      if (ksr && j + 1 < s.iters) {
-        ksr[(j + 1) * BN + tid] = kr;
-        ksi[(j + 1) * BN + tid] = ki;
-      }
-    }
-    __syncthreads();
-  }
-  if (s.act) {
-    xr = xr + s.dt * kr;
-    xi = xi + s.dt * ki;
-    if (s.split) cmul(s.r0, s.r1, xr, xi);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The step on a block split into roles (streamk_fwd, streamk_bwd,
-// stream_bwd): the S state threads run the chain and nothing else, other
-// warps contract or copy H and reduce its cotangent beside them. The
-// algebra of stage_fwd and apply_T above and of its exact transpose, with
+// stream_fwd, stream_bwd): the S state threads run the chain and nothing
+// else, other warps contract or copy H and reduce its cotangent beside
+// them. The algebra of apply_T above and of its exact transpose, with
 // the step's operands in registers (H's row or column, and in the backward
 // the history loaded a step ahead), the backward's (cotangent, input) pairs
 // left in a ring slot for the other roles, stage syncs over the state
@@ -399,8 +360,7 @@ __device__ __forceinline__ void apply_T_n(const float* Hr, const float* Hi,
 
 // apply_T with row i of H from registers at a compile-time N, the state
 // row read 16 bytes a load: the same terms in the same order, so the same
-// bits as apply_T (and so as stage_fwd, which stream.cu runs); apply_T
-// itself at NC = 0.
+// bits as apply_T; apply_T itself at NC = 0.
 template <int NC>
 __device__ __forceinline__ void apply_T_row(const HRow<NC>& h,
                                             const float* Hr, const float* Hi,
@@ -426,15 +386,17 @@ __device__ __forceinline__ void apply_T_row(const HRow<NC>& h,
   }
 }
 
-// One forward step of the chain, run by all S state threads: stage_fwd's
-// algebra on H's row h (registers at NC > 0, else the planes Hr, Hi). The
+// One forward step x <- x + dt k of the chain (split: x rotated by E before
+// and after), run by all S state threads, on H's row h (registers at
+// NC > 0, else the planes Hr, Hi): apply_T's order of terms. The
 // matvec inputs x, k_0, ..., k_{iters-1} go in turn to the two (B, N) slots
 // of V (slot q: re at V + 2 q BN, im after it), p the slot the next one
 // takes: stage j reads only k_{j-1}, and a stage sync lies between a
 // slot's last read and its next write, also across steps. ksr/ksi: the
 // step's (iters, B, N) slice of the stored iterates, or null. iters + 1
-// stage syncs.
-template <int NC>
+// stage syncs. PRE_RN: the split pre-state rotation by cmul_pre (stream_fwd,
+// whose stored iterates stream_bwd's replay must reproduce), else by cmul.
+template <int NC, bool PRE_RN = false>
 __device__ __forceinline__ void fwd_chain_step(const StepThread& s,
                                                const HRow<NC>& h,
                                                const float* Hr,
@@ -444,7 +406,12 @@ __device__ __forceinline__ void fwd_chain_step(const StepThread& s,
                                                float& xr, float& xi) {
   const int BN = s.BN, tid = s.tid;
   if (s.act) {
-    if (s.split) cmul(s.r0, s.r1, xr, xi);
+    if (s.split) {
+      if constexpr (PRE_RN)
+        cmul_pre(s.r0, s.r1, xr, xi);
+      else
+        cmul(s.r0, s.r1, xr, xi);
+    }
     V[2 * p * BN + tid] = xr;
     V[(2 * p + 1) * BN + tid] = xi;
   }
@@ -550,14 +517,14 @@ __device__ __forceinline__ void apply_Tt_col(const HCol<NC>& hc,
 }
 
 // One reversed step of the chain, run by all S state threads: the exact
-// real transpose of stage_fwd. g, the cotangent of the post-step state (the
-// history cotangent o.j added), becomes that of the pre-step state; the
+// real transpose of fwd_chain_step. g, the cotangent of the post-step state
+// (the history cotangent o.j added), becomes that of the pre-step state; the
 // step's pairs are left in q for Hb: pair p < it is (cb_p, k_{it-1-p}),
 // pair it is (cb_it, xp). Without stored iterates the chain first replays
 // k_0..k_{it-1} from xp. ONE_CHAIN: every output of T and Tt summed on one
 // chain of 2 N FMAs in apply_T's and apply_Tt's order (H's row, then its
 // column, in registers at NC > 0), so the replayed iterates have the bits
-// of the ones stage_fwd stored, at any NC (stream_bwd); otherwise on
+// of the ones fwd_chain_step stored, at any NC (stream_bwd); otherwise on
 // apply_T_n's and apply_Tt_n's eight accumulators, N / 2 FMAs deep
 // (streamk_bwd).
 template <int NC, bool ONE_CHAIN = false>

@@ -31,8 +31,8 @@
 //
 // Layout and step as streamk.cu's (the step functions of imr_step.cuh): one
 // thread block per control candidate with the sequential time loop inside;
-// the step's plane pair, the state and the stage iterates in shared memory
-// (row stride N + 1); one thread owns one (b, i) state entry. Exact f32
+// the step's plane pair (row stride N + 1) and the matvec inputs in shared
+// memory; one thread owns one (b, i) state entry. Exact f32
 // FMA on the CUDA cores (the TPU stream kernel defaults to a 3-pass bf16
 // emulation, pallas_stream.py:52-119; the chunk and dense kernels run f32
 // HIGHEST). The backward keeps a thread's entries of Hb(t) in registers
@@ -40,23 +40,24 @@
 // to the (E, nt, N, N) outputs.
 //
 // What bounds it on the H100: the dependent chain of ntime * (iters + 1)
-// matvecs, as for streamK, plus one global-memory round trip per step for
-// the plane pair (2 N^2 floats, 2 KB at the flagship's N = 16). Bytes: the
-// planes are read once forward and once backward and Hb written once,
-// E * nt * 2 N^2 floats each; at E = 128 that is 320 MB per direction,
-// about 0.1 ms of the card's memory rate, far below the chain. The forward
-// reads each step's planes just before its chain needs them; the backward
-// splits its block into roles (imr_step.cuh's second part), as streamk_bwd
-// does, so that its chain waits on no global load and passes no block-wide
-// barrier (below, at stream_bwd).
+// matvecs, as for streamK. Bytes: the planes are read once forward and
+// once backward and Hb written once, E * nt * 2 N^2 floats each; at E = 128
+// that is 320 MB per direction, about 0.1 ms of the card's memory rate,
+// far below the chain. Both directions split the block into roles
+// (imr_step.cuh's second part), as streamk_fwd and streamk_bwd do: helper
+// warps copy each step's plane pair (2 N^2 floats, 2 KB at the flagship's
+// N = 16) from global memory a step or two ahead of its use, so that the
+// chain waits on no global load and passes no block-wide barrier (below, at
+// stream_fwd and stream_bwd).
 
 #include <cuda_runtime.h>
 
 #include "imr_step.cuh"
 
-// STREAMK_NC: the N of stream_bwd's compile-time instance, 16, as in
-// streamk.cu (0 builds none and runs every N on the generic stream_bwd<0, .>:
-// a build with -DSTREAMK_NC=0 times the two against each other).
+// STREAMK_NC: the N of the compile-time instances stream_fwd<., 16> and
+// stream_bwd<16, 512>, 16, as in streamk.cu (0 builds none and runs every N
+// on the generic stream_fwd<., 0> and stream_bwd<0, .>: a build with
+// -DSTREAMK_NC=0 times the two against each other).
 #ifndef STREAMK_NC
 #define STREAMK_NC 16
 #endif
@@ -68,57 +69,118 @@ struct Dims {
   float dt, a;
 };
 
-// One step's (N, N) plane pair, row-major in global memory, into shared
-// memory with row stride N + 1 (the forward's load, just before its use).
-__device__ __forceinline__ void load_planes(const float* __restrict__ gr,
-                                            const float* __restrict__ gi,
-                                            float* Hr, float* Hi, int N) {
-  const int NN = N * N, ld = N + 1;
-  for (int e = threadIdx.x; e < NN; e += blockDim.x) {
-    const int p = e / N, q = e - p * N;
-    Hr[p * ld + q] = __ldg(gr + e);
-    Hi[p * ld + q] = __ldg(gi + e);
-  }
+// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
+// id + slot
+enum {
+  BAR_H_FULL = 2,       // forward: helpers arrive, the chain waits
+  BAR_H_FREE = 4,       // forward: the chain arrives, helpers wait
+  BAR_STEP_READY = 2,   // backward: helpers arrive, the chain waits
+  BAR_PAIRS_FULL = 4,   // backward: the chain arrives, helpers wait
+};
+
+// Floats of the forward's shared memory: per slot (two with helpers, one
+// inline) the H planes, and the two (B, N) slots of the matvec inputs,
+// which start on a 16-byte boundary where N is a multiple of 4.
+__host__ __device__ inline size_t fwd_floats(int B, int N, bool split) {
+  const size_t BN = (size_t)B * N, slots = split ? 2 : 1;
+  return slots * 2 * N * (N + 1) + 4 * BN;
 }
 
 // Forward: planes H (E, nt, N, N) x2; x0 (B, N) shared by all candidates;
 // rows: jacobi (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,).
 // Writes xT (E, B, N), with HIST the history (E, nt, B, N) and, with store,
-// the stage iterates k_0..k_{iters-1} (E, nt, iters, B, N).
-template <bool HIST>
-__global__ void __launch_bounds__(1024)
+// the stage iterates k_0..k_{iters-1} (E, nt, iters, B, N). Roles, as in
+// streamk_fwd: the S = roundup32(B N) state threads run fwd_chain_step for
+// t = 0, 1, ... and nothing else (x0 loaded before the loop; history and
+// stored iterates are plain stores); the `helpers` threads after them copy
+// H(u)'s plane pair into ring slot u & 1 (cp.async, strided over the
+// helpers) one or two steps ahead. A chain step waits for H_FULL of its
+// slot and gives the slot back on H_FREE as soon as it no longer reads it:
+// at the compile-time N = 16 (NC; helpers only, at most 512 threads) right
+// after it has read its row of H into registers, at NC = 0 (any N) at the
+// end of the step. fwd_chain_step keeps apply_T's order of terms and, with
+// PRE_RN, the one-block forward's rounding of the split rotation, so xT,
+// the history and the stored iterates do not depend on the launch shape
+// (either layout, either instance), and stream_bwd's replay reproduces the
+// stored iterates. Inline branch (helpers 0): where the helpers or the
+// second slot do not fit (1024 threads, 227 KB) the whole block copies
+// H(t) into one slot around the chain of step t, two block-wide barriers
+// per step. The launch bounds ask for one block per SM, as streamk_fwd's.
+template <bool HIST, int NC>
+__global__ void __launch_bounds__(NC > 0 ? 512 : 1024, 1)
 stream_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
            const float* __restrict__ x0r, const float* __restrict__ x0i,
            const float* __restrict__ rows, float* __restrict__ xTr,
            float* __restrict__ xTi, float* __restrict__ hr,
            float* __restrict__ hi, float* __restrict__ ksr,
-           float* __restrict__ ksi, Dims d) {
+           float* __restrict__ ksi, Dims d, int helpers) {
   extern __shared__ float sm[];
-  const int N = d.N, NN = N * N, BN = d.B * N, iters = d.iters;
-  float* Hr = sm;
-  float* Hi = Hr + N * (N + 1);
-  float* xs_r = Hi + N * (N + 1);
-  float* xs_i = xs_r + BN;
-  float* kb_r = xs_i + BN;
-  float* kb_i = kb_r + (iters + 1) * BN;
+  const int N = NC ? NC : d.N, NN = N * N, BN = d.B * N;
+  const int nt = d.nt, S = (BN + 31) & ~31, Hh = helpers;
+  const int slots = Hh > 0 ? 2 : 1, ldH = N * (N + 1), Hsz = 2 * ldH;
+  float* Hbuf = sm;                     // slots x (Hr, Hi)
+  float* V = Hbuf + slots * Hsz;        // two (B, N) slots, re and im
 
   const int e = blockIdx.x, tid = threadIdx.x;
-  const StepThread s = step_thread(d.B, N, iters, d.mode, d.dt, d.a, rows);
+  const StepThread s = step_thread(d.B, N, d.iters, d.mode, d.dt, d.a, rows);
+  const size_t base = (size_t)e * nt;
+  const bool warp_rows = 32 % N == 0;
   float xr = 0.f, xi = 0.f;
   if (s.act) {
     xr = x0r[tid];
     xi = x0i[tid];
   }
-
-  for (int t = 0; t < d.nt; ++t) {
-    const size_t st = (size_t)e * d.nt + t;
-    load_planes(gHr + st * NN, gHi + st * NN, Hr, Hi, N);
-    const size_t ko = st * iters * BN;
-    stage_fwd(s, Hr, Hi, xs_r, xs_i, kb_r, kb_i, d.store ? ksr + ko : nullptr,
-              d.store ? ksi + ko : nullptr, xr, xi);
+  // H(u) into ring slot u & 1, entries e0, e0 + ne, ... of the pair
+  auto copy = [&](int u, int e0, int ne) {
+    float* H = Hbuf + (slots > 1 ? (u & 1) : 0) * Hsz;
+    copy_planes<NC>(gHr + (base + u) * NN, gHi + (base + u) * NN, H,
+                    H + ldH, N, e0, ne);
+  };
+  // the chain's step t on H(t) in Hr, Hi; its outputs are plain stores
+  int p = 0;
+  auto step = [&](int t, const HRow<NC>& h, const float* Hr, const float* Hi) {
+    const size_t st = base + t, ko = st * d.iters * BN;
+    fwd_chain_step<NC, true>(s, h, Hr, Hi, V, p,
+                             d.store ? ksr + ko : nullptr,
+                             d.store ? ksi + ko : nullptr, warp_rows, S, xr,
+                             xi);
     if (HIST && s.act) {
       hr[st * BN + tid] = xr;
       hi[st * BN + tid] = xi;
+    }
+  };
+
+  if (Hh > 0) {
+    const int nall = S + Hh;
+    if (tid < S) {            // the chain
+      for (int t = 0; t < nt; ++t) {
+        const int sl = t & 1;
+        const float* Hr = Hbuf + sl * Hsz;
+        const bool reused = t + 2 < nt;   // the helpers copy H(t + 2) here
+        bar_sync(BAR_H_FULL + sl, nall);
+        HRow<NC> h;
+        load_hrow<NC>(Hr, Hr + ldH, s.i, h);
+        if (NC > 0 && reused) bar_arrive(BAR_H_FREE + sl, nall);
+        step(t, h, Hr, Hr + ldH);
+        if (NC == 0 && reused) bar_arrive(BAR_H_FREE + sl, nall);
+      }
+    } else {                  // the helpers, one or two steps ahead
+      const int hh = tid - S;
+      for (int u = 0; u < nt; ++u) {
+        if (u >= 2) bar_sync(BAR_H_FREE + (u & 1), nall);
+        copy(u, hh, Hh);
+        cp_async_wait();
+        bar_arrive(BAR_H_FULL + (u & 1), nall);
+      }
+    }
+  } else if constexpr (NC == 0) {   // inline: every role in turn
+    const HRow<0> h{};
+    for (int t = 0; t < nt; ++t) {
+      copy(t, tid, blockDim.x);
+      cp_async_wait();
+      __syncthreads();              // H(t) copied
+      if (tid < S) step(t, h, Hbuf, Hbuf + ldH);
+      __syncthreads();              // the chain is done with H(t)
     }
   }
   if (s.act) {
@@ -167,13 +229,6 @@ stream_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
 // copies H(t - 1) and reduces Hb(t) after the chain of step t, on one slot
 // of each: the same device functions and arithmetic, two block-wide
 // barriers per step.
-
-// named barriers after imr_step.cuh's BAR_STATE; the per-slot ones take
-// id + slot
-enum {
-  BAR_STEP_READY = 2,   // helpers arrive, the chain waits
-  BAR_PAIRS_FULL = 4,   // the chain arrives, helpers wait
-};
 
 // Floats of the backward's shared memory: per slot (two with helpers, one
 // inline) the H planes and the step's pairs. Every buffer starts on a
@@ -296,39 +351,48 @@ stream_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
   }
 }
 
+// The roles go to helper warps when the caller's launch shape holds them:
+// threads past the state warps and the two-slot layout's shared memory
+// (floats(true) floats); else the inline branch, on floats(false). Returns
+// the helper threads, or -1 for a shape that cannot take either.
+template <typename Floats>
+int helper_threads(const Dims& d, int threads, int smem_bytes,
+                   Floats floats) {
+  const int S = (d.B * d.N + 31) & ~31;
+  const int helpers =
+      threads > S && (size_t)smem_bytes >= 4 * floats(true) ? threads - S : 0;
+  if (threads < S || threads % 32 != 0 || threads > 1024 ||
+      (size_t)smem_bytes < 4 * floats(helpers > 0))
+    return -1;
+  return helpers;
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+}
+
 template <bool HIST>
 int launch_fwd(const void* Hr, const void* Hi, const void* x0r,
                const void* x0i, const void* rows, void* xTr, void* xTi,
                void* hr, void* hi, void* ksr, void* ksi, const Dims& d,
                int threads, int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_fwd<HIST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  stream_fwd<HIST><<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
+  const int helpers = helper_threads(
+      d, threads, smem_bytes,
+      [&](bool split) { return fwd_floats(d.B, d.N, split); });
+  if (helpers < 0) return (int)cudaErrorInvalidValue;
+  auto kernel = STREAMK_NC > 0 && d.N == STREAMK_NC && helpers > 0 &&
+                        threads <= 512
+                    ? stream_fwd<HIST, STREAMK_NC>
+                    : stream_fwd<HIST, 0>;
+  if (const int err = allow_smem(kernel, smem_bytes)) return err;
+  kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Hr, (const float*)Hi, (const float*)x0r,
       (const float*)x0i, (const float*)rows, (float*)xTr, (float*)xTi,
-      (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, d);
+      (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, d, helpers);
   return (int)cudaGetLastError();
-}
-
-// The backward's roles go to helper warps when the caller's launch shape
-// holds them: threads past the state warps and the two-slot layout's
-// shared memory; else the inline branch on bwd_floats(..., false). Returns
-// the helper threads, or -1 for a shape that cannot take either.
-int helper_threads(const Dims& d, int threads, int smem_bytes) {
-  const int S = (d.B * d.N + 31) & ~31;
-  auto bytes = [&](bool split) {
-    return 4 * bwd_floats(d.B, d.N, d.iters, split);
-  };
-  const int helpers =
-      threads > S && (size_t)smem_bytes >= bytes(true) ? threads - S : 0;
-  if (threads < S || threads % 32 != 0 || threads > 1024 ||
-      (size_t)smem_bytes < bytes(helpers > 0))
-    return -1;
-  return helpers;
 }
 
 int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
@@ -337,18 +401,16 @@ int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
                const void* gTi, const void* rows, const void* ksr,
                const void* ksi, void* g0r, void* g0i, void* Hbr, void* Hbi,
                const Dims& d, int threads, int smem_bytes, void* stream) {
-  const int helpers = helper_threads(d, threads, smem_bytes);
+  const int helpers = helper_threads(
+      d, threads, smem_bytes,
+      [&](bool split) { return bwd_floats(d.B, d.N, d.iters, split); });
   if (helpers < 0 || (d.store && d.iters > MAX_STORED))
     return (int)cudaErrorInvalidValue;
   auto kernel = threads > 512 ? stream_bwd<0, 1024>
                 : STREAMK_NC > 0 && d.N == STREAMK_NC && helpers > 0
                     ? stream_bwd<STREAMK_NC, 512>
                     : stream_bwd<0, 512>;
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (const int err = allow_smem(kernel, smem_bytes)) return err;
   kernel<<<d.E, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)Hr, (const float*)Hi, (const float*)x0r,
       (const float*)x0i, (const float*)hr, (const float*)hi,

@@ -223,11 +223,12 @@ def build_kernels(verbose: bool = False):
     return cuda_build.build_library(_SRC, _bind, verbose)
 
 
-def _fwd_smem_bytes(it, B, N):
-    """The forward's shared memory: the H planes (row stride N + 1), the
-    pre-state and iters + 1 slots of stage iterates."""
-    BN = B * N
-    return 4 * (2 * N * (N + 1) + 2 * BN + 2 * (it + 1) * BN)
+def _fwd_smem_bytes(B, N, split: bool):
+    """csrc/stream.cu fwd_floats, in bytes: per slot (two with helper warps,
+    one inline) the H planes, and the two (B, N) slots of the matvec
+    inputs (the stage iterates take turns in them, so no iters)."""
+    BN, slots = B * N, 2 if split else 1
+    return 4 * (slots * 2 * N * (N + 1) + 4 * BN)
 
 
 def _bwd_smem_bytes(it, B, N, split: bool):
@@ -235,6 +236,15 @@ def _bwd_smem_bytes(it, B, N, split: bool):
     one inline) the H planes and the step's (cotangent, input) pairs."""
     BN, slots = B * N, 2 if split else 1
     return 4 * slots * (2 * N * (N + 1) + (4 * it + 4) * BN)
+
+
+def _fwd_shape(B, N):
+    """(threads, shared-memory bytes, helpers) of a forward launch:
+    streamk._role_shape, state warps plus helper warps that copy H one or
+    two steps ahead where that fits one block, else the inline layout
+    (helpers 0)."""
+    return streamk._role_shape(B, N,
+                               lambda split: _fwd_smem_bytes(B, N, split))
 
 
 def _bwd_shape(it, B, N):
@@ -282,7 +292,7 @@ def _launch_shape(plan, E, nt, B, N, backward: bool):
         raise NotImplementedError(why)
     if backward:
         return _bwd_shape(plan.iters, B, N)[:2]
-    return streamk._threads(B, N), _fwd_smem_bytes(plan.iters, B, N)
+    return _fwd_shape(B, N)[:2]
 
 
 def _check_cuda(*ts):

@@ -1,42 +1,44 @@
-"""Time stream_bwd (csrc/stream.cu) against another commit's build of the
-same source, and its two compile-time instances against each other, on one
-CUDA card; and hold the kernels that share its header (stream_fwd,
-streamk_fwd / streamk_bwd, rho_fwd / rho_bwd) to their bits and times in
-that build.
+"""Time the streamed-plane kernels of csrc/stream.cu (stream_fwd, chunk_fwd,
+dense_fwd, stream_bwd, chunk_bwd) against another commit's build of the
+same source, and their two compile-time instances against each other, on
+one CUDA card; and hold the kernels that share its header (streamk_fwd /
+streamk_bwd, rho_fwd / rho_bwd) to their bits and times in that build.
 
 Builds, one nvcc each and all at once, into build/quandary_tpu_torch/:
   * change: csrc/stream.cu, streamk.cu and rho.cu as checked out
-    (stream_bwd<16> at N = 16 with helper warps);
-  * generic: csrc/stream.cu with -DSTREAMK_NC=0 (stream_bwd<0> at every N);
+    (stream_fwd<., 16> and stream_bwd<16, 512> at N = 16 with helper
+    warps);
+  * generic: csrc/stream.cu with -DSTREAMK_NC=0 (stream_fwd<., 0> and
+    stream_bwd<0, .> at every N);
   * parent: stream.cu, streamk.cu and rho.cu of the directory given with
     --parent (its quandary_tpu_torch/csrc/), for example the parent commit:
 
         git archive HEAD~1 quandary_tpu_torch/csrc | tar -x -C build/parent
 
-    Its stream_bwd is launched on the shape the parent's ops/stream.py gave
-    it (streamk._threads and the one-slot layout), which the launcher of any
-    commit takes.
+    Its kernels are launched on the shapes parent_shape gives them: the
+    one-block forward that preceded the split-role one (streamk._threads,
+    its layout's floats copied below) and the backward's role layout.
 
 Shapes, as chip_smoke.py phases 17-21 build them: the 'stream' route at the
 CNOT flagship (split-3, stored iterates) at E = 1 and E = 128 and with
-jacobi-8 (replayed) at E = 1; the 'chunk' route at ntime 4884 (neumann-8,
-replayed); streamK at the flagship, E = 1 and 128; rho at open
-configuration 2 (N = 16, E = 1). Then random non-Hermitian stacks (seed
-21) at the sizes the generic instances take: N = 27 at B = 3 (split-3
-stored, jacobi-6 replayed), N = 8 at B = 8, N = 52 at B = 4 (helper warps,
-1024 threads) and N = 154 at B = 4 (the inline branch, 200 steps). Each
-N = 16 shape times its kernels with CUDA events in the order parent,
-change, generic, generic, change, parent (the generic build only where it
-differs: stream_bwd at N = 16), the others parent, change, change,
-parent; the outputs of one more
-launch per build are compared: every kernel must have the parent's bits
-(stream_bwd too: its chain keeps apply_T's and apply_Tt's order of terms,
-ONE_CHAIN in csrc/imr_step.cuh), and stream_bwd<16> those of
-stream_bwd<0>. Prints one JSON line per shape as it goes and a last one
-with all of them and the card's name and power limit; exits non-zero if
-any bits differ.
+jacobi-8 (replayed) at E = 1; the 'chunk' route and the dense forward at
+ntime 4884 (neumann-8, replayed); streamK at the flagship, E = 1 and 128;
+rho at open configuration 2 (N = 16, E = 1). Then random non-Hermitian
+stacks (seed 21) at the sizes the generic instances take: N = 27 at B = 3
+(split-3 stored, jacobi-6 replayed), N = 8 at B = 8, N = 52 at B = 4
+(helper warps, 1024 threads) and N = 154 at B = 4 (the inline branches,
+200 steps). Each N = 16 shape times its kernels with CUDA events in the
+order parent, change, generic, generic, change, parent (the generic build
+only where it differs: the stream.cu kernels at N = 16), the others parent,
+change, change, parent; the outputs of one more launch per build are
+compared: every kernel must have the parent's bits (the forwards' xT,
+history and stored iterates, the backwards' g0 and Hb: both chains keep
+apply_T's and apply_Tt's order of terms), and the <16> instances those of
+the <0> ones. Prints one JSON line per shape as it goes (with each kernel's
+change / parent time ratio) and a last one with all of them and the card's
+name and power limit; exits non-zero if any bits differ.
 
-    python3 scripts/stream_bwd_parent.py --parent build/parent
+    python3 scripts/stream_parent.py --parent build/parent
 """
 
 import argparse
@@ -76,7 +78,7 @@ def build_all(parent):
     """{build: {module name: (lib, path)}} for change, generic and parent;
     every source of every build compiled at once."""
     jobs = {("change", m): mod.build_kernels for m, mod in MODULES.items()}
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "stream_bwd_parent")
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "stream_parent")
     jobs[("generic", "stream")] = lambda: nvcc(
         stream._SRC, os.path.join(out_dir, "libstream_generic.so"),
         "-DSTREAMK_NC=0")
@@ -98,13 +100,19 @@ def build_all(parent):
 
 
 def parent_shape(plan, E, nt, B, N, backward):
-    """The launch shape the parent's ops/stream.py gave both directions."""
+    """The launch shape the parent's ops/stream.py gave each direction: the
+    backward's _bwd_shape (the role layout, unchanged since), and for the
+    one-block forward that preceded the split-role one one block of
+    streamk._threads(B, N) with the H planes, the pre-state and iters + 1
+    slots of stage iterates."""
     why = stream.launch_refusal(plan, B, N, nt, E)
     if why is not None:
         raise NotImplementedError(why)
-    smem = (stream._bwd_smem_bytes(plan.iters, B, N, split=False) if backward
-            else stream._fwd_smem_bytes(plan.iters, B, N))
-    return streamk._threads(B, N), smem
+    if backward:
+        return stream._bwd_shape(plan.iters, B, N)[:2]
+    BN = B * N
+    return streamk._threads(B, N), 4 * (2 * N * (N + 1) + 2 * BN
+                                        + 2 * (plan.iters + 1) * BN)
 
 
 @contextlib.contextmanager
@@ -143,15 +151,18 @@ def same_bits(a, b):
                for x, y in zip(a, b))
 
 
-def rel_diff(a, b):
-    return max(float((x - y).abs().max() / y.abs().max())
-               for x, y in zip(a, b))
+def ratios(times):
+    """Each build's mean time over the parent's."""
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    return {k: v / mean["parent"] for k, v in mean.items() if k != "parent"}
 
 
 def stream_shape(libs, plan, Hr, Hi, x0r, x0i, reps, rng):
-    """stream_fwd / stream_bwd (or the chunk member) on one shape."""
+    """The plan member's forward and (but for 'dense') backward on one
+    shape."""
     E, nt = Hr.shape[:2]
     B, N = x0r.shape
+    dense = plan.kind == "dense"
     order = ("parent", "change", "generic", "generic", "change", "parent") \
         if N == 16 else ("parent", "change", "change", "parent")
     w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
@@ -160,26 +171,46 @@ def stream_shape(libs, plan, Hr, Hi, x0r, x0i, reps, rng):
 
     def run():
         fwd = stream._kernel_fwd(plan, Hr, Hi, x0r, x0i)
-        return fwd, stream._kernel_bwd(plan, Hr, Hi, x0r, x0i, *fwd[2:], *gT,
-                                       *jh)
+        return fwd, () if dense else stream._kernel_bwd(
+            plan, Hr, Hi, x0r, x0i, *fwd[2:], *gT, *jh)
 
     times, outs = interleaved(
         libs, order,
         lambda: cs.stream_kernel_ms(plan, Hr, Hi, x0r, x0i, reps, False),
         run)
     fwd_ms = {k: [t["fwd"] for t in v] for k, v in times.items()}
-    bwd_ms = {k: [t["bwd"] for t in v] for k, v in times.items()}
-    threads, smem, helpers = stream._bwd_shape(plan.iters, B, N)
-    return dict(
+    gen = outs.get("generic", outs["change"])
+    threads, smem, helpers = stream._fwd_shape(B, N)
+    out = dict(
         E=E, nt=nt, B=B, N=N, iters=plan.iters, stored=plan.store_iters,
-        bwd_threads=threads, bwd_smem=smem, bwd_helpers=helpers,
-        fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-        bwd_us_per_step={k: 1e3 * min(v) / nt for k, v in bwd_ms.items()},
+        fwd_threads=threads, fwd_smem=smem, fwd_helpers=helpers,
+        fwd_ms=fwd_ms, fwd_ratio=ratios(fwd_ms),
+        fwd_us_per_step={k: 1e3 * min(v) / nt for k, v in fwd_ms.items()},
+        fwd_bits_equal_generic=same_bits(outs["change"][0], gen[0]),
         bits_equal_parent=same_bits(outs["change"][0], outs["parent"][0])
         and same_bits(outs["change"][1], outs["parent"][1]),
-        bwd_bits_equal_generic=same_bits(
-            outs["change"][1], outs.get("generic", outs["change"])[1]),
-        finite=all(bool(torch.isfinite(t).all()) for t in outs["change"][1]))
+        finite=all(bool(torch.isfinite(t).all()) for t in outs["change"][0]
+                   + outs["change"][1] if t is not None))
+    if not dense:
+        bwd_ms = {k: [t["bwd"] for t in v] for k, v in times.items()}
+        threads, smem, helpers = stream._bwd_shape(plan.iters, B, N)
+        out.update(
+            bwd_threads=threads, bwd_smem=smem, bwd_helpers=helpers,
+            bwd_ms=bwd_ms, bwd_ratio=ratios(bwd_ms),
+            bwd_us_per_step={k: 1e3 * min(v) / nt for k, v in bwd_ms.items()},
+            bwd_bits_equal_generic=same_bits(outs["change"][1], gen[1]))
+    return out
+
+
+def timed(times, outs):
+    """A control kernel pair's times, ratios and bits against the parent."""
+    fwd_ms = {k: [t["fwd"] for t in v] for k, v in times.items()}
+    bwd_ms = {k: [t["bwd"] for t in v] for k, v in times.items()}
+    return dict(fwd_ms=fwd_ms, fwd_ratio=ratios(fwd_ms), bwd_ms=bwd_ms,
+                bwd_ratio=ratios(bwd_ms),
+                bits_equal_parent=same_bits(outs["change"][0],
+                                            outs["parent"][0])
+                and same_bits(outs["change"][1], outs["parent"][1]))
 
 
 def synthetic(solver, iters, B, N, nt, rng, K=5):
@@ -228,15 +259,18 @@ def main():
     pj = Problem(cs.flagship_setup("neumann", 8, fused_mode="stream"))
     pc = Problem(cs.flagship_setup("neumann", 8, ntime=cs.NT_FINE,
                                    fused_mode="chunk"))
-    for name, pr, P, reps in (("stream_split3_E1", ps, x1, 50),
-                              (f"stream_split3_E{cs.E_BIG}", ps, xE, 20),
-                              ("stream_jacobi8_E1", pj, x1, 20),
-                              ("chunk_neumann8_E1", pc, x1, 10)):
+    dplan = stream.make_plan(pc._Sr, pc.setup.dt, 8, kind="dense")
+    for name, pr, plan, P, reps in (
+            ("stream_split3_E1", ps, ps._plan, x1, 50),
+            (f"stream_split3_E{cs.E_BIG}", ps, ps._plan, xE, 20),
+            ("stream_jacobi8_E1", pj, pj._plan, x1, 20),
+            ("chunk_neumann8_E1", pc, pc._plan, x1, 10),
+            ("dense_neumann8_E1", pc, dplan, x1, 10)):
         with torch.no_grad():
             H = [h.contiguous() for h in stream.planes(
-                pr._plan, pr._Sr, pr._Si, pr.coeff_rows_mid(P)[..., 0, :])]
-        report[name] = stream_shape(libs, pr._plan, *H, pr._x0r, pr._x0i,
-                                    reps, rng)
+                plan, pr._Sr, pr._Si, pr.coeff_rows_mid(P)[..., 0, :])]
+        report[name] = stream_shape(libs, plan, *H, pr._x0r, pr._x0i, reps,
+                                    rng)
         del H
         print(json.dumps({name: report[name]}), flush=True)
 
@@ -269,11 +303,7 @@ def main():
         times, outs = interleaved(
             libs, ("parent", "change", "change", "parent"),
             lambda: cs.kernel_ms(plan, x0r, x0i, C, reps, 0), run)
-        report[name] = dict(
-            fwd_ms={k: [t["fwd"] for t in v] for k, v in times.items()},
-            bwd_ms={k: [t["bwd"] for t in v] for k, v in times.items()},
-            bits_equal_parent=same_bits(outs["change"][0], outs["parent"][0])
-            and same_bits(outs["change"][1], outs["parent"][1]))
+        report[name] = timed(times, outs)
         print(json.dumps({name: report[name]}), flush=True)
     p16 = Problem(cs.OPEN_CONFIGS["cnot16"]())
     C = p16.coeff_rows_mid(to_card(cs.bench_params(p16.setup.nparams, 1,
@@ -289,17 +319,13 @@ def main():
     times, outs = interleaved(
         libs, ("parent", "change", "change", "parent"),
         lambda: cs.rho_kernel_ms(plan, x0r, x0i, C, 3, False), run_rho)
-    report["rho_cnot16_E1"] = dict(
-        fwd_ms={k: [t["fwd"] for t in v] for k, v in times.items()},
-        bwd_ms={k: [t["bwd"] for t in v] for k, v in times.items()},
-        bits_equal_parent=same_bits(outs["change"][0], outs["parent"][0])
-        and same_bits(outs["change"][1], outs["parent"][1]))
+    report["rho_cnot16_E1"] = timed(times, outs)
     print(json.dumps({"rho_cnot16_E1": report["rho_cnot16_E1"]}), flush=True)
 
     print(json.dumps(report))
     kept = [k for k, v in report.items() if isinstance(v, dict) and not (
-        v["bits_equal_parent"] and v.get("bwd_bits_equal_generic", True)
-        and v.get("finite", True))]
+        v["bits_equal_parent"] and v.get("fwd_bits_equal_generic", True)
+        and v.get("bwd_bits_equal_generic", True) and v.get("finite", True))]
     if kept:
         sys.exit(f"outputs that must keep the parent's bits differ: {kept}")
 

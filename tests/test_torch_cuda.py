@@ -7,9 +7,10 @@ problem's value_and_grad and the packed robust objective on the card
 against the CPU, and the device optimizer's CUDA-graph chunk against its
 eager chunk;
 the density-matrix kernels; the streamed-plane kernels (stream, chunk,
-dense) against their plain version, stream_bwd over its branches (helper
-warps at N = 16 and where states span warps, the inline layout at
-B*N = 1024), its determinism and its stored against replayed iterates, on
+dense) against their plain version, stream_fwd and stream_bwd over their
+branches (helper warps at N = 16 and where states span warps, the inline
+layout at B*N = 1024, and for the forward at N = 154), their determinism
+and stored against replayed iterates, on
 the problem's routes, in the device optimizer and in the Kerr calibration.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
@@ -809,6 +810,99 @@ def test_stream_bwd_is_deterministic_on_card(cuda, n, B):
         assert torch.equal(x, y)
 
 
+def _stream_fwd_case(cuda, solver, iters, B, n, E, kind="stream", nt=NT,
+                     k=5, seed=11):
+    """One forward launch of the plan's member (stream_fwd_launch,
+    chunk_fwd_launch or dense_fwd_launch) on non-Hermitian stacks of norm
+    about 1, and the plain forward on the same planes: (kernel (xTr, xTi,
+    hr, hi, ksr, ksi), plain ones (the stage iterates of _stage_fwd from
+    the plain history where the kernel stores them), the launch's helper
+    threads)."""
+    from quandary_tpu_torch.ops import stream
+    rng = np.random.default_rng(seed)
+    stack = ((rng.normal(size=(k, n, n)) + 1j * rng.normal(size=(k, n, n)))
+             / np.sqrt(n)).astype(np.complex64)
+    gen_diag = -1j * np.diag(stack[0]).astype(np.complex128)
+    plan = stream.make_plan(cuda(stack.real), DT, iters, gen_diag, solver,
+                            kind=kind)
+    C = cuda((rng.normal(size=(E, nt, k)) * 0.3).astype(np.float32))
+    Hr, Hi = (h.contiguous() for h in stream.planes(
+        plan, cuda(stack.real), cuda(stack.imag), C))
+    x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, n)).astype(
+        np.float32))
+    before = stream.launch_counts()[f"{kind}_fwd_launches"]
+    kern = stream._kernel_fwd(plan, Hr, Hi, x0r, x0i)
+    assert stream.launch_counts()[f"{kind}_fwd_launches"] == before + 1
+    hr, hi = stream.plain_forward(plan, Hr, Hi, x0r, x0i)
+    ksr = ksi = None
+    if kern[4] is not None:
+        jac, split = stream._solver_parts(plan)
+        ks = []
+        for t in range(nt):
+            xr, xi = (x0r.expand(E, B, n), x0i.expand(E, B, n)) if t == 0 \
+                else (hr[:, t - 1], hi[:, t - 1])
+            T, _ = streamk._ops(Hr[:, t], Hi[:, t])
+            ks.append(streamk._stage_fwd(T, xr, xi, dt=plan.dt, iters=iters,
+                                         jac=jac, split=split)[2])
+        ksr = torch.stack([torch.stack([k[0] for k in s], 1) for s in ks], 1)
+        ksi = torch.stack([torch.stack([k[1] for k in s], 1) for s in ks], 1)
+    torch.cuda.synchronize()
+    plain = (hr[:, -1], hi[:, -1]) + ((None, None) if kind == "dense"
+                                      else (hr, hi)) + (ksr, ksi)
+    return kern, plain, stream._fwd_shape(B, n)[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # stream_fwd<., 16>: the flagship's widths, stored and replayed
+    dict(solver="split", iters=3, B=4, n=16, E=1),
+    dict(solver="split", iters=3, B=4, n=16, E=3),
+    dict(solver="jacobi", iters=8, B=4, n=16, E=1),
+    dict(solver="jacobi", iters=8, B=4, n=16, E=3),
+    # states spanning warps (named-barrier stages), N = 8 at B = 8, and
+    # the largest N whose two H slots fit at B = 4, on 1024 threads
+    dict(solver="split", iters=3, B=3, n=27, E=2),
+    dict(solver="split", iters=3, B=8, n=8, E=2),
+    dict(solver="split", iters=3, B=4, n=52, E=1),
+    # the inline branch: B N = 1024, and N = 154 (two slots past 227 KB)
+    dict(solver="split", iters=3, B=64, n=16, E=2),
+    dict(solver="split", iters=3, B=4, n=154, E=1, nt=200),
+    # chunk_fwd_launch and dense_fwd_launch: plain Neumann, nothing stored
+    dict(solver="neumann", iters=8, B=4, n=16, E=1, kind="chunk"),
+    dict(solver="neumann", iters=8, B=4, n=16, E=1, kind="dense"),
+], ids=["nc16-split3-E1", "nc16-split3-E3", "nc16-jacobi8-E1",
+        "nc16-jacobi8-E3", "N27-rows-span-warps", "N8-B8", "N52",
+        "inline-BN1024", "inline-N154", "chunk-neumann8", "dense-neumann8"])
+def test_stream_fwd_shapes_on_card(cuda, case):
+    """stream_fwd against the plain forward over its branches: xT, the
+    history and the stored iterates to 1e-5 of max (the state bound of
+    test_stream_kernel_matches_plain_on_card); helper warps where the two
+    H slots fit, the inline layout where they do not."""
+    kern, plain, helpers = _stream_fwd_case(cuda, **case)
+    assert (helpers == 0) == (case["B"] == 64 or case["n"] == 154)
+    stored = case.get("kind", "stream") == "stream" and case["iters"] <= 4
+    assert (kern[4] is None) == (plain[4] is None) == (not stored)
+    assert (kern[2] is None) == (case.get("kind") == "dense")
+    for a, b in zip(kern, plain):
+        if b is None:
+            continue
+        assert a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(16, 4), (52, 4), (16, 64)])
+def test_stream_fwd_is_deterministic_on_card(cuda, n, B):
+    """Two launches on the same inputs give the same bits of xT, the
+    history and the stored iterates (helpers at N = 16 and 52, the inline
+    branch at B N = 1024)."""
+    a, _, _ = _stream_fwd_case(cuda, "split", 3, B, n, 4, seed=3)
+    b, _, _ = _stream_fwd_case(cuda, "split", 3, B, n, 4, seed=3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,B", [(16, 4), (27, 3)])
 @pytest.mark.parametrize("solver,iters", [("split", 3), ("jacobi", 4)])
@@ -816,7 +910,7 @@ def test_stream_store_and_replay_agree_in_bits_on_card(cuda, solver, iters,
                                                        n, B):
     """stream_bwd from the forward's stored stage iterates and from its own
     replay of them gives the same bits of g0 and Hb: the replay runs
-    stage_fwd's order of terms (chain_step's ONE_CHAIN)."""
+    fwd_chain_step's order of terms (chain_step's ONE_CHAIN)."""
     stored, _, _ = _stream_bwd_case(cuda, solver, iters, B, n, 5, 2,
                                     store=True)
     replayed, _, _ = _stream_bwd_case(cuda, solver, iters, B, n, 5, 2,

@@ -410,3 +410,46 @@ def test_backward_launch_shape(B, N, iters):
         assert helpers == 0
     assert stream._launch_shape(plan, 1, 1, B, N, backward=True) == (
         threads, smem)
+
+
+@pytest.mark.parametrize("B,N,iters", LAUNCH_SHAPES)
+def test_forward_launch_shape(B, N, iters):
+    """The forward's launch (csrc/stream.cu): whole warps, a thread for
+    every state entry, at most 1024 threads and 227 KB of shared memory.
+    Helper warps (at least one) after the state warps with two H slots
+    where they fit, the inline layout (one slot) on streamk._threads where
+    they do not; the layout does not depend on iters; the C launcher's rule
+    (helper_threads over fwd_floats) reads the same layout from the shape;
+    a refused shape raises."""
+    z = torch.zeros(2, N, N)
+    plan = stream.make_plan(z, DT, iters)
+    if stream.size_refusal(B, N, iters) is not None:
+        with pytest.raises(NotImplementedError):
+            stream._launch_shape(plan, 1, 1, B, N, backward=False)
+        return
+    threads, smem, helpers = stream._fwd_shape(B, N)
+    S = -(-B * N // 32) * 32
+    two_slots = 4 * (2 * 2 * N * (N + 1) + 4 * B * N)
+    one_slot = 4 * (2 * N * (N + 1) + 4 * B * N)
+    assert stream._fwd_smem_bytes(B, N, split=True) == two_slots
+    assert stream._fwd_smem_bytes(B, N, split=False) == one_slot
+    assert threads % 32 == 0 and B * N <= threads <= 1024
+    assert 0 < smem <= 227 * 1024
+    if helpers:
+        assert threads == S + helpers and helpers % 32 == 0 and helpers >= 32
+        assert smem == two_slots
+    else:
+        assert threads == streamk._threads(B, N)
+        assert smem == one_slot
+        assert S > 1024 - 32 or two_slots > 227 * 1024
+    c_helpers = threads - S if threads > S and smem >= two_slots else 0
+    assert c_helpers == helpers
+    if (B, N) in ((4, 16), (16, 16), (3, 27), (8, 8)):
+        assert helpers >= 32
+    if (B, N) in ((4, 154), (64, 16), (1, 166)):
+        assert helpers == 0
+    # size_refusal bounds the backward's inline layout, which holds the
+    # forward's
+    assert one_slot <= stream._bwd_smem_bytes(iters, B, N, split=False)
+    assert stream._launch_shape(plan, 1, 1, B, N, backward=False) == (
+        threads, smem)
