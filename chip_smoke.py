@@ -4,7 +4,8 @@ Drives the port's main paths at the full width of the CNOT flagship
 (bench.py:59-93: 2 transmons with 2 essential + 2 guard levels, N = 16,
 4 basis states, ntime = 1221, split stepper with 3 iterations, Jtrace with
 leakage, energy, dpdm and Tikhonov terms, complex64), through the entry
-points a user calls: Problem(...).build_value_and_grad(),
+points a user calls: Quandary(...), python -m quandary_tpu_torch,
+Problem(...).build_value_and_grad(),
 optim.driver.run_optimization, optim.robust.build_packed_robust_objective,
 optim.device_driver.run_optimization_device,
 optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
@@ -107,8 +108,27 @@ kernel, plane cotangents out, so the operator stacks are differentiable):
    fails if any of their chains passes a block-wide barrier (no helper
    warps).
 
-Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20) is driven with the
-launch counters set to 0 just before and read just after. Before the device
+The front end, the entry points users call (quandary_tpu_torch.Quandary
+and the config-file CLI), on the card:
+22. Quandary(precision="single") on the CNOT anchor of
+   scripts/perf/device_opt_bench.py:41-47 (derived nsteps 1221, rand_seed
+   1234 through the native library, which must have built): simulate (one
+   streamk_fwd launch; infidelity, expected energy and population against
+   precision="double" on the CPU), then the device driver to infidelity
+   1e-4 (one streamk_fwd and one streamk_bwd launch per sweep, J falls, the
+   output files read back by get_results); iterations, infidelity, wall;
+23. the guarded CNOT of tests/test_api.py:195-214 with T1 = 56, T2 = 28 ns
+   at precision="single": the rho route (its clusters printed), simulate
+   (one rho_fwd launch, every population summing to 1) and a few device
+   iterations (one launch per direction per sweep);
+24. `python -m quandary_tpu_torch` (run in-process as `-m` runs it) on
+   config_template.cfg for simulation, gradient and optimization
+   (optim_maxiter lowered): complex128, so the plain loop on the card, no
+   kernel launched; grad.dat, optim_history.dat and the population files
+   against cli.run(device="cpu"); each runtype's wall.
+
+Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24) is driven
+with the launch counters set to 0 just before and read just after. Before the device
 record one line lists the eleven kernels with their launches, error, time,
 plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
@@ -120,14 +140,22 @@ Run from the repository root:  python3 chip_smoke.py
 import contextlib
 import dataclasses
 import json
+import math
+import os
 import re
+import runpy
 import statistics
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from quandary_tpu_torch import Quandary, cli
+from quandary_tpu_torch.io import native
+from quandary_tpu_torch.io.configfile import Config, setup_from_config
 from quandary_tpu_torch.models import gates
 from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
@@ -225,6 +253,18 @@ TOL_ROUTES_J, TOL_ROUTES_G = 1e-6, 1e-6
 # against the streamK route J 0, gradient 1.5e-7 x max; 'chunk' against f64
 # J 3.7e-7, gradient 5.4e-6 x max; dense_fwd equal to the chunk forward to
 # the bit.
+# The front end (phases 22-24), bounds about 5x the errors measured on an
+# H100 80GB HBM3 (700 W). Phase 22: Quandary(precision="single") on the card
+# (objective on the streamK kernels, trajectory by the plain f32 loop)
+# against precision="double" on the CPU: infidelity abs (measured 3.1e-8),
+# expected energy and population abs over the trajectory (2.2e-6). Phase
+# 23: each population of the open guarded CNOT (f32 plain loop, 9418 steps)
+# sums to 1 (4.9e-6). Phase 24: the CLI in f64 on the card against the CLI
+# on the CPU, relative to each file's largest entry (4.0e-15).
+TOL_FE_INFID = 2e-7
+TOL_FE_TRAJ = 1e-5
+TOL_FE_TRACE = 2.5e-5
+TOL_CLI_REL = 2e-14
 NT_SHORT = 40           # steps of the comparisons with the plain version
 NT_F64 = 400            # steps of configurations 2 and 3 against f64
 E_OPEN = 8
@@ -852,6 +892,244 @@ def check_vg_errors(errs, what, tol_g_f64=TOL_G_F64):
     if errs["J_plain"] > TOL_J_PLAIN or errs["g_plain"] > TOL_G_PLAIN \
             or errs["J_f64"] > TOL_J_F64 or errs["g_f64"] > tol_g_f64:
         raise RuntimeError(f"{what} out of bounds: {errs}")
+
+
+CNOT4 = np.eye(4)
+CNOT4[2:, 2:] = [[0, 1], [1, 0]]
+OPEN_FE_ITERS = 4       # device iterations of phase 23
+CLI_MAXITER = 2         # optim_maxiter of phase 24's optimization run
+
+
+def front_end_errors(got, ref):
+    """Phase 22: the 6-tuple of simulate against another one: infidelity,
+    expected energy and population, absolute."""
+    energy = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                 for ea, eb in zip(got[4], ref[4]) for a, b in zip(ea, eb))
+    pop = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for pa, pb in zip(got[5], ref[5]) for a, b in zip(pa, pb))
+    return dict(infidelity=abs(got[3] - ref[3]), energy=energy,
+                population=pop)
+
+
+def file_errors(dir_a, dir_b, names):
+    """Largest |a - b| over max |b| of each numeric output file."""
+    out = {}
+    for name in names:
+        a = np.loadtxt(os.path.join(dir_a, name))
+        b = np.loadtxt(os.path.join(dir_b, name))
+        if a.shape != b.shape:
+            raise RuntimeError(f"{name}: shape {a.shape} against {b.shape}")
+        out[name] = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-300)
+    return out
+
+
+def device_sweeps(niter, chunk=10):
+    """Gradient sweeps of run_optimization_device on a fused route: the
+    initial one, an eager warm-up chunk before the capture, and every
+    replayed chunk (all of a chunk's iterations run, done or not)."""
+    return 1 + chunk * (1 + math.ceil(niter / chunk))
+
+
+def front_end(smi):
+    """Phases 22-24: Quandary and the config-file CLI on the card."""
+    out = {}
+    if native.get_lib() is None:
+        raise RuntimeError("the native IO/RNG library "
+                           "(csrc/quandary_native.cpp) did not build: "
+                           "rand_seed would not give the reference's "
+                           "initial controls")
+    favg = sum(FREQ01) / 2
+    kw = dict(freq01=FREQ01, Jkl=[0.005], rotfreq=[favg, favg], T=200.0,
+              targetgate=CNOT4, rand_seed=1234)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # ---- 22. single precision, closed: the streamK kernels ----
+        q32 = Quandary(precision="single", optimizer="device", maxiter=200,
+                       tol_infidelity=1e-4, **kw)
+        q64 = Quandary(precision="double", device="cpu", **kw)
+        s32 = q32._build_setup()
+        p0 = q32._initial_params(s32.oscillators)
+        if q32.nsteps != 1221 or not np.array_equal(
+                p0, q64._initial_params(s32.oscillators)):
+            raise RuntimeError(f"derived nsteps {q32.nsteps} (want 1221) "
+                               "or seeded controls differ")
+        form = q32._problem(s32).fused_form
+        if form != "streamk":
+            raise RuntimeError(f"single-precision CNOT took route {form}")
+        reset_counts()
+        t0 = time.perf_counter()
+        r32 = q32.simulate(pcof0=p0, datadir=os.path.join(tmp, "sim32"))
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        sim_launches = main_path_launches(B1[:1])
+        if sim_launches[B1[0]] != 1 or sim_launches[B1[1]] != 0:
+            raise RuntimeError(f"simulate: one streamk_fwd launch expected: "
+                               f"{sim_launches}")
+        r64 = q64.simulate(pcof0=p0, datadir=os.path.join(tmp, "sim64"))
+        errs = front_end_errors(r32, r64)
+        if errs["infidelity"] > TOL_FE_INFID or errs["energy"] > TOL_FE_TRAJ \
+                or errs["population"] > TOL_FE_TRAJ:
+            raise RuntimeError(f"single-precision simulate against f64 CPU "
+                               f"out of bounds: {errs}")
+        dopt = os.path.join(tmp, "opt32")
+        reset_counts()
+        t0 = time.perf_counter()
+        ro = q32.optimize(pcof0=p0, datadir=dopt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = main_path_launches(B1)
+        niter = len(q32.optim_hist["Iters"]) - 1
+        want = device_sweeps(niter)
+        if launches[B1[0]] != want or launches[B1[1]] != want:
+            raise RuntimeError(f"optimize: {want} sweeps of one streamk_fwd "
+                               f"and one streamk_bwd launch each expected "
+                               f"after {niter} iterations: {launches}")
+        J = np.loadtxt(os.path.join(dopt, "optim_history.dat"))[:, 1]
+        names = (["params.dat", "optim_history.dat", "control0.dat",
+                  "control1.dat"]
+                 + [f"{k}{i}.iinit{b:04d}.dat" for k in ("expected",
+                                                         "population")
+                    for i in range(2) for b in range(4)])
+        missing = [n for n in names
+                   if not os.path.exists(os.path.join(dopt, n))]
+        res = q32.get_results(datadir=dopt)
+        if missing or not J[-1] < J[0] or not np.allclose(
+                res[6], q32.popt, rtol=1e-13, atol=0) \
+                or abs(res[7] - ro[3]) > 1e-12 \
+                or len(res[0]) != q32.nsteps + 1 \
+                or [len(e) for e in res[4]] != [4, 4] \
+                or [len(pp) for pp in res[5]] != [4, 4]:
+            raise RuntimeError(f"optimize: files missing {missing}, J "
+                               f"{J[0]} -> {J[-1]}, or get_results differs")
+        out["cnot"] = dict(simulate=sim_launches, optimize=launches)
+        phase(22, f"Quandary(precision='single') CNOT, nsteps {q32.nsteps}, "
+                  f"native library loaded, route {form}: simulate "
+                  f"{t_sim:.2f} s, against precision='double' on the CPU "
+                  f"{json.dumps(errs)}; optimize (device driver, CUDA "
+                  f"graph): {niter} iterations, infidelity {ro[3]:.6e}, J "
+                  f"{J[0]:.8f} -> {J[-1]:.8f}, wall {wall:.2f} s, launches "
+                  f"{json.dumps(launches)} ({want} sweeps); files read back "
+                  f"by get_results; card: {smi}")
+
+        # ---- 23. single precision, open: the rho kernels ----
+        qo = Quandary(Ne=[2, 2], Ng=[1, 1], freq01=FREQ01,
+                      rotfreq=[favg, favg], selfkerr=SELFKERR, Jkl=[0.005],
+                      T=140.0, targetgate=CNOT4, rand_seed=1234,
+                      gamma_leakage=0.1, T1=[56.0, 56.0], T2=[28.0, 28.0],
+                      precision="single", optimizer="device",
+                      maxiter=OPEN_FE_ITERS)
+        so = qo._build_setup()
+        po = qo._problem(so)
+        if po.fused_form != "rho":
+            raise RuntimeError(f"open guarded CNOT took route {po.fused_form}")
+        nj = len(po.engine.Ls_np)
+        clusters = {k: dict(zip(("G", "tile", "threads"), fn(
+            1, po.ninit, po.N, po.model.K, nj)[:3]))
+            for k, fn in (("rho_fwd", rho._fwd_shape),
+                          ("rho_bwd", rho._bwd_shape))}
+        p0o = qo._initial_params(so.oscillators)
+        reset_counts()
+        t0 = time.perf_counter()
+        rs = qo.simulate(pcof0=p0o, datadir=os.path.join(tmp, "open_sim"))
+        torch.cuda.synchronize()
+        t_osim = time.perf_counter() - t0
+        osim = main_path_launches(B4[:1])
+        trace = max(float(np.abs(np.asarray(pp).sum(axis=0) - 1.0).max())
+                    for per in rs[5] for pp in per)
+        if osim[B4[0]] != 1 or osim[B4[1]] != 0 or trace > TOL_FE_TRACE:
+            raise RuntimeError(f"open simulate: launches {osim}, trace "
+                               f"error {trace}")
+        reset_counts()
+        t0 = time.perf_counter()
+        roo = qo.optimize(pcof0=p0o, datadir=os.path.join(tmp, "open_opt"))
+        torch.cuda.synchronize()
+        owall = time.perf_counter() - t0
+        olaunch = main_path_launches(B4)
+        oniter = len(qo.optim_hist["Iters"]) - 1
+        owant = device_sweeps(oniter)
+        ocost = qo.optim_hist["Cost"]
+        trace_opt = max(float(np.abs(np.asarray(pp).sum(axis=0) - 1.0).max())
+                        for per in roo[5] for pp in per)
+        if olaunch[B4[0]] != owant or olaunch[B4[1]] != owant \
+                or not ocost[-1] < ocost[0] or trace_opt > TOL_FE_TRACE:
+            raise RuntimeError(f"open optimize: {owant} sweeps expected, "
+                               f"launches {olaunch}; cost {ocost}; trace "
+                               f"error {trace_opt}")
+        out["open"] = dict(simulate=osim, optimize=olaunch)
+        phase(23, f"Quandary(precision='single') open guarded CNOT (N = "
+                  f"{po.N}, {po.ninit} density matrices, nsteps {qo.nsteps}, "
+                  f"{nj} jump operators): fused_form {po.fused_form}, "
+                  f"clusters {json.dumps(clusters)}; simulate {t_osim:.2f} "
+                  f"s, launches {json.dumps(osim)}, trace error {trace:.3e}; "
+                  f"optimize {oniter} device iterations in {owall:.2f} s, "
+                  f"cost {ocost[0]:.6f} -> {ocost[-1]:.6f}, launches "
+                  f"{json.dumps(olaunch)} ({owant} sweeps), trace error "
+                  f"{trace_opt:.3e}; card: {smi}")
+
+        # ---- 24. the CLI on the card: config_template.cfg, complex128 ----
+        with open("config_template.cfg") as f:
+            template = f.read()
+        walls, errs, forms = {}, {}, {}
+        for rt in ("simulation", "gradient", "optimization"):
+            body = re.sub(r"^runtype\s*=\s*\w+", f"runtype = {rt}",
+                          template, flags=re.M)
+            if rt == "optimization":
+                body = re.sub(r"^optim_maxiter\s*=\s*\d+",
+                              f"optim_maxiter = {CLI_MAXITER}", body,
+                              flags=re.M)
+            cfgs = {}
+            for where in ("card", "cpu"):
+                d = os.path.join(tmp, f"cli_{rt}_{where}")
+                os.makedirs(d)
+                cfgs[where] = os.path.join(d, "config.cfg")
+                with open(cfgs[where], "w") as f:
+                    f.write(body)
+            setup_c, spec = setup_from_config(Config.read(cfgs["card"]),
+                                              os.path.dirname(cfgs["card"]))
+            forms[rt] = Problem(setup_c).fused_form
+            reset_counts()
+            argv = sys.argv
+            sys.argv = ["quandary_tpu_torch", cfgs["card"], "--quiet"]
+            t0 = time.perf_counter()
+            try:    # what `python -m quandary_tpu_torch config.cfg` runs
+                runpy.run_module("quandary_tpu_torch", run_name="__main__",
+                                 alter_sys=True)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            finally:
+                sys.argv = argv
+            torch.cuda.synchronize()
+            walls[rt] = time.perf_counter() - t0
+            counts = {**streamk.launch_counts(), **rho.launch_counts(),
+                      **stream.launch_counts()}
+            if code != 0 or forms[rt] is not None or any(counts.values()):
+                raise RuntimeError(f"CLI {rt}: exit {code}, fused_form "
+                                   f"{forms[rt]}, launches {counts}")
+            t0 = time.perf_counter()
+            cli.run(cfgs["cpu"], device="cpu")
+            walls[f"{rt}_cpu"] = time.perf_counter() - t0
+            dc, dh = (os.path.join(os.path.dirname(cfgs[w]), spec.datadir)
+                      for w in ("card", "cpu"))
+            names = ["optim_history.dat"] + sorted(
+                n for n in os.listdir(dh) if n.startswith("population"))
+            if rt == "gradient":
+                names.append("grad.dat")
+            errs[rt] = file_errors(dc, dh, names)
+            worst = max(errs[rt].values())
+            if worst > TOL_CLI_REL:
+                raise RuntimeError(f"CLI {rt} on the card against the CPU: "
+                                   f"{json.dumps(errs[rt])}")
+        phase(24, f"python -m quandary_tpu_torch config_template.cfg "
+                  f"(complex128, fused_form {forms}, no kernel launched; "
+                  f"optimization at optim_maxiter {CLI_MAXITER}, "
+                  f"optim_driver = {spec.optim_driver}: the host driver, so "
+                  f"no device driver and no CUDA graph of it); wall s "
+                  f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}"
+                  f"; largest error against the CPU per runtype "
+                  f"{json.dumps({k: max(v.values()) for k, v in errs.items()})}"
+                  f"; card: {smi}")
+    return out
 
 
 def main():
@@ -1557,6 +1835,9 @@ def main():
         raise RuntimeError(f"the chains of {inline} pass block-wide barriers "
                            "(no helper warps)")
 
+    # ---- 22-24. the front end ----
+    fe = front_end(smi)
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -1572,7 +1853,9 @@ def main():
         more = dict(src="quandary_tpu_torch/csrc/rho.cu",
                     tpu="quandary_tpu/ops/pallas_rho.py",
                     launches_superop_route=open_launches["cnot4"][B1[i]],
-                    launches_device_optimizer=launches_dev16[B4[i]])
+                    launches_device_optimizer=launches_dev16[B4[i]],
+                    launches_front_end=fe["open"]["optimize"][B4[i]],
+                    launches_front_end_simulate=fe["open"]["simulate"][B4[i]])
         # the kernel's cluster per density matrix and its time per step
         # (reversed for rho_bwd), at configuration 2 and the others
         more["cluster"] = ms_r["cnot16"][f"{key}_cluster"]
@@ -1613,10 +1896,13 @@ def main():
     # propagation (a time loop of stage solves) or its transpose
     print(json.dumps({"kernels": [
         record("streamk_fwd", 907, launches[B1[0]], worst["state"], ms, "fwd",
+               launches_front_end=fe["cnot"]["optimize"][B1[0]],
+               launches_front_end_simulate=fe["cnot"]["simulate"][B1[0]],
                launches_device_optimizer=launches_dev[B1[0]],
                launches_population=launches_pop[B1[0]], **streamk_more(0)),
         record("streamk_bwd", 967, launches[B1[1]],
                max(worst["cbar"], worst["x0bar"]), ms, "bwd",
+               launches_front_end=fe["cnot"]["optimize"][B1[1]],
                launches_device_optimizer=launches_dev[B1[1]],
                launches_population=launches_pop[B1[1]], **streamk_more(1)),
         record("streamk_packed_fwd", 1324, launches_robust[B2[0]],

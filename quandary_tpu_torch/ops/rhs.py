@@ -79,7 +79,10 @@ class DenseEngine:
     def rhs(self, c, x):
         """Apply the generator to the state batch x: (..., B, N)
         [Schroedinger] or (..., B, N, N) [Lindblad]."""
-        A = self.assemble(c)
+        return self.apply(self.assemble(c), x)
+
+    def apply(self, A, x):
+        """The generator of the assembled H_eff A (assemble(c)) on x."""
         if not self.lindblad:
             # dpsi/dt = -i H psi
             return -1j * (x @ A.transpose(-1, -2))
@@ -91,6 +94,34 @@ class DenseEngine:
             out = out + torch.sum(
                 self.Ls @ x.unsqueeze(-3) @ Lh, dim=-3)
         return out
+
+
+    def apply_adjoint(self, A, y):
+        """The adjoint generator M^H on y (what autograd's vector-Jacobian
+        product of apply(A, .) gives): 1j (y @ conj(A)) closed;
+        1j (A^H y - y A) + sum_c L_c^H y L_c open."""
+        if not self.lindblad:
+            return 1j * (y @ A.conj())
+        A = A.unsqueeze(-3)
+        out = 1j * (A.conj().transpose(-1, -2) @ y - y @ A)
+        if self.Ls is not None:
+            Lh = self.Ls.conj().transpose(-1, -2)
+            out = out + torch.sum(Lh @ y.unsqueeze(-3) @ self.Ls, dim=-3)
+        return out
+
+
+    def apply_vjp_A(self, A, y, g):
+        """The cotangent of A in apply(A, y) for the output cotangent g
+        (autograd's convention), summed to A's shape over y's extra leading
+        axes: 1j g^T conj(y) closed; 1j (g y^H + g^H y) over the batch B
+        open."""
+        if not self.lindblad:
+            G = 1j * (g.transpose(-1, -2) @ y.conj())
+        else:
+            G = 1j * (g @ y.conj().transpose(-1, -2)
+                      + g.conj().transpose(-1, -2) @ y)
+            G = G.sum(dim=-3)
+        return G.sum_to_size(A.shape)
 
 
 def state_population(x, lindblad: bool):

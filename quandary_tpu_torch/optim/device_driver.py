@@ -235,6 +235,20 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
     return init, chunk_graph
 
 
+def front_end_graph(problem, verbose: bool = False) -> Optional[bool]:
+    """The `graph` argument the front ends (api.Quandary, cli.run) pass:
+    None, a CUDA graph of the chunk on a CUDA problem, on a fused route;
+    False on the plain route, whose captured chunk of 10 iterations
+    faulted at its second replay on an H100 (PERF.md, section 6), so its
+    chunks run eagerly."""
+    if problem.use_fused or problem.device.type != "cuda":
+        return None
+    if verbose:
+        print("device driver: plain route (fused_form None), chunks run "
+              "eagerly (graph=False)")
+    return False
+
+
 def run_optimization_device(
     problem,
     params0: np.ndarray,

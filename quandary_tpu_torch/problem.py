@@ -2,11 +2,11 @@
 functions, in PyTorch.
 
 Counterpart of quandary_tpu/problem.py for closed and open (Lindblad)
-systems with the dense operator-stack engine and the single-stage IMR
-stepper. The multi-initial-condition objective (forward propagation of the
-whole batch, final-time cost, fidelity, the penalty integrals and the
-regularizers) is one torch function of the control parameters, evaluated
-for a (E, nparams) batch of control candidates at once.
+systems with the dense operator-stack engine. The multi-initial-condition
+objective (forward propagation of the whole batch, final-time cost,
+fidelity, the penalty integrals and the regularizers) is one torch function
+of the control parameters, evaluated for a (E, nparams) batch of control
+candidates at once.
 
 Two propagation paths, as in the JAX package:
 
@@ -25,9 +25,19 @@ Two propagation paths, as in the JAX package:
   of ops/rho.py (streamK mode only), whose state stays an (N, N) matrix.
   'auto' takes superop where one thread block of the streamK kernels holds
   dimension N^2, else rho;
-* plain (``fused=False``, CPU only): the complex-arithmetic step function
-  in a Python time loop, differentiated by autograd (density matrices in
-  matrix form).
+* plain (``fused=False``): the complex-arithmetic step function in a
+  Python time loop, differentiated by autograd (density matrices in matrix
+  form), on the CPU or on the card: the counterpart of the JAX package's
+  XLA scan, and the only route of IMR4, IMR8, explicit Euler, GMRES and
+  complex128 on the card.
+
+``fused='auto'`` is the JAX package's ``pallas='auto'`` gate: the fused
+route where that gate admits the problem (IMR, a stage solve the kernel
+family takes, complex64, the dense engine, the family's size budget) and
+the problem is on a CUDA device, the plain route everywhere else.
+``fused=True`` (the default) forces the fused route and refuses by name
+what it does not take; ``Problem.fused_form`` records the route taken
+(None on the plain route).
 
 A Problem's operator stacks are constants, as in the JAX Problem: only the
 controls are differentiated here. Stack cotangents, for calibrating the
@@ -38,15 +48,18 @@ The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
 that argument the constructor raises.
 
-Not ported yet, and refused with NotImplementedError: structured engines,
-IMR4/IMR8/EE, GMRES, the time-parallel scan; on CUDA also complex128, the
-plain path, and systems past what one thread block of the route's kernels
-holds (``Problem.fused_ok``).
+Not ported yet, and refused with NotImplementedError (ROADMAP A8): the
+structured engines, the time-parallel scan and the reversible adjoint
+(``Setup.engine``, ``time_parallel``, ``adjoint`` other than 'auto'). On
+CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
+systems past what one thread block of the route's kernels holds
+(``Problem.fused_refusal``); nothing is sent quietly to the plain loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -103,9 +116,11 @@ class Setup:
     gamma_penalty_variation: float = 0.0
 
     dtype: torch.dtype = torch.complex128
-    # True: fused propagation (kernel on CUDA, plain torch on CPU);
-    # False: the plain complex time loop (CPU only)
-    fused: bool = True
+    # True: fused propagation (kernel on CUDA, its plain torch version on
+    # the CPU), refused by name where the route does not take the problem;
+    # 'auto': fused where quandary_tpu's pallas='auto' gate admits it and
+    # the problem is on CUDA, else plain; False: the plain complex time loop
+    fused: object = True
     # Fused state form for OPEN systems (quandary_tpu's pallas_rho): 'auto'
     # runs the vectorized superoperator on the streamK kernels where one
     # thread block holds dimension N^2 and the density-matrix kernels
@@ -118,6 +133,11 @@ class Setup:
     # only); 'chunk' is the cross-check path (ops/adjoint.py; closed
     # systems with plain Neumann only).
     fused_mode: str = "streamk"
+    # quandary_tpu's adjoint mode, time-parallel scan and engine choice:
+    # only 'auto' (one sequential loop, dense engine) is ported (ROADMAP A8)
+    adjoint: str = "auto"
+    time_parallel: object = "auto"
+    engine: str = "auto"
 
     @property
     def total_time(self) -> float:
@@ -154,17 +174,21 @@ class Problem:
                              f"'chunk', got {s.fused_mode!r}")
         if s.dtype not in (torch.complex64, torch.complex128):
             raise ValueError(f"dtype must be complex64/complex128, got {s.dtype}")
-        if cuda and s.dtype != torch.complex64:
+        if s.fused not in (True, False, "auto"):
+            raise ValueError(f"fused must be True, False or 'auto', got "
+                             f"{s.fused!r}")
+        for name in ("adjoint", "time_parallel", "engine"):
+            if getattr(s, name) != "auto":
+                raise NotImplementedError(
+                    f"Setup.{name}={getattr(s, name)!r} is not ported to "
+                    "quandary_tpu_torch (ROADMAP A8: the reversible adjoint, "
+                    "the time-parallel scan and the structured engines); "
+                    f"only {name}='auto' runs")
+        if cuda and s.fused is True and s.dtype != torch.complex64:
             raise NotImplementedError(
-                "complex128 is not ported to CUDA: the kernels run float32 "
-                "planes (dtype=torch.complex64)")
-        # the fused-path gate, reduced to the dense single-stage branch
-        # (make_step_fn below refuses every other stepper/solver)
-        self.use_fused = bool(s.fused)
-        if cuda and not self.use_fused:
-            raise NotImplementedError(
-                "on CUDA only the fused streamK and rho paths are ported; "
-                "the plain complex time loop (fused=False) runs on the CPU")
+                "fused=True: complex128 is not ported to the CUDA kernels, "
+                "which run float32 planes (dtype=torch.complex64); "
+                "fused='auto' or False runs the plain time loop on the card")
         if cuda and self.device.index is None:
             # with its index ("cuda" -> "cuda:0"), as tensors report it
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -188,9 +212,10 @@ class Problem:
         # --- initial conditions ---
         osc_ids = s.initcond_ids if len(s.initcond_ids) > 0 \
             else tuple(range(model.n_osc))
-        x0_np, _ = ic.build_initial_states(
+        x0_np, initids = ic.build_initial_states(
             s.initcond_type, model.dims, s.nessential, osc_ids, self.lindblad,
             pure_levels=s.pure_levels, from_file_state=s.initial_state_ess)
+        self.initids = initids
         self.ninit = x0_np.shape[0]
         self.x0 = x0_np.astype(npdt)
 
@@ -251,17 +276,48 @@ class Problem:
         # --- stiffness guard (problem.py:386-438 of the JAX package): past
         # u = dt/2 * max|H_diag| the truncated Neumann series is inaccurate
         # long before it diverges; switch to the Jacobi-preconditioned
-        # solve, which the dense engine's diagonal always allows ---
+        # solve where the generator's diagonal is known (always, for the
+        # dense engine), else to GMRES once the series stops converging ---
         self.linsolver = s.linsolver
         self.gen_diag = self.engine.gen_diag()
         lam = float(np.abs(np.diagonal(self.engine.stack_np[0])).max())
         u_stiff = 0.5 * dt * lam
         u_ok = float(np.exp(np.log(1e-6) / (s.linsolve_iters + 1)))
         if self.linsolver == "neumann" and u_stiff > u_ok:
-            self.linsolver = "jacobi"
+            if self.gen_diag is not None:
+                self.linsolver = "jacobi"
+            elif u_stiff > 0.9:
+                warnings.warn(
+                    f"Stiff step: dt/2*|H_diag|max = {u_stiff:.2f} > 0.9; "
+                    "switching the IMR stage solve to GMRES.")
+                self.linsolver = "gmres"
+            else:
+                warnings.warn(
+                    f"Stiff step: dt/2*|H_diag|max = {u_stiff:.2f} leaves "
+                    f"~{u_stiff ** (s.linsolve_iters + 1):.1e} relative "
+                    "truncation error per Neumann stage solve; consider more "
+                    "linsolve_iters.")
         self.step_fn = make_step_fn(self.engine.rhs, dt, s.timestepper,
                                     s.linsolve_iters, self.linsolver,
-                                    gen_diag=self.gen_diag)
+                                    gen_diag=self.gen_diag,
+                                    vec_ndim=3 if self.lindblad else 2,
+                                    engine=self.engine)
+
+        # --- fused or plain: the JAX package's pallas gate
+        # (problem.py:440-500); 'auto' admits where that gate does, on CUDA
+        # where it asks for a TPU ---
+        why_not = self._fused_gate_refusal(cuda)
+        if s.fused == "auto":
+            self.use_fused = cuda and why_not is None
+        elif s.fused:
+            if why_not is not None:
+                raise NotImplementedError(
+                    f"fused=True: the fused route does not take this "
+                    f"problem: {why_not} (fused='auto' or False runs the "
+                    "plain time loop)")
+            self.use_fused = True
+        else:
+            self.use_fused = False
 
         # --- the fused route (the JAX package's pallas_form gate,
         # problem.py:440-499) ---
@@ -354,6 +410,29 @@ class Problem:
                 self._plan, self.ninit, self._Sr.shape[-1], ntime)
         if cuda and self._refusal is not None:
             raise NotImplementedError(self._refusal)
+
+    def _fused_gate_refusal(self, cuda: bool) -> Optional[str]:
+        """Why the fused route does not take this problem, or None. Forced
+        (fused=True): the stepper, the stage solve and, on CUDA, the dtype.
+        'auto': quandary_tpu's pallas gate (problem.py:440-500) in full:
+        also complex64 anywhere and the kernel family's size budget (the
+        JAX package's VMEM / HBM admission), so that 'auto' sends the same
+        problems to the fused route as that gate."""
+        s = self.setup
+        auto = s.fused == "auto"
+        if s.timestepper.upper() != "IMR":
+            return f"timestepper {s.timestepper!r} (the kernels run IMR)"
+        family = ("neumann",) if auto and s.fused_mode == "chunk" \
+            else ("neumann", "jacobi", "split")
+        if self.linsolver not in family:
+            return (f"linsolver {self.linsolver!r} (fused_mode="
+                    f"{s.fused_mode!r} takes {', '.join(family)})")
+        if s.dtype != torch.complex64 and (cuda or auto):
+            return ("complex128 (the kernels run float32 planes, "
+                    "dtype=torch.complex64)")
+        if auto and not _jax_size_gate(self, s):
+            return "past the JAX package's size budget of the kernel family"
+        return None
 
     @property
     def fused_ok(self) -> bool:
@@ -648,6 +727,47 @@ class Problem:
             return acc
         return reps
 
+    # ------------------------------------------------------------------
+    # forward propagation and per-state functionals of complex states
+    # ------------------------------------------------------------------
+
+    def eval_J_per_state(self, x):
+        """Per-state finalized J of complex states x (..., B, N) or
+        (..., B, N, N): the weighted-J penalty integrand
+        (timestepper.cpp:256-270, finalizeJ per state)."""
+        if self._flat:      # the route's planes hold column-major vec(rho)
+            x = x.transpose(-1, -2).reshape(x.shape[:-2] + (-1,))
+        re, im = self._eval_J_parts_real(x.real.to(self.rdtype),
+                                         x.imag.to(self.rdtype))
+        return self._finalize_J(re, im)
+
+    def propagate_final(self, params):
+        """Forward-only propagation by the plain step loop: final states
+        (B, ...)."""
+        C = self.coeff_rows_mid(params)
+        return solvers.propagate(self.step_fn, self._x0c, C)
+
+    def propagate_trajectory(self, params):
+        """All states (ntime+1, B, ...) by the plain step loop, for the
+        trajectory output (as the JAX package, also where the objective
+        runs fused)."""
+        C = self.coeff_rows_mid(params)
+        return solvers.propagate_trajectory(self.step_fn, self._x0c, C)
+
+    def build_propagate_trajectory(self):
+        """fn(params) -> (ntime+1, B, ...) states, no autograd."""
+        def traj(params):
+            with torch.no_grad():
+                return self.propagate_trajectory(self._param_tensor(params))
+        return traj
+
+    def build_propagate_final(self):
+        """fn(params) -> (B, ...) final states, no autograd."""
+        def final(params):
+            with torch.no_grad():
+                return self.propagate_final(self._param_tensor(params))
+        return final
+
     def controls_on_output_grid(self, params):
         """(ts, p, q, f_lab) on the output time grid t_n = n*dt."""
         params = self._param_tensor(params)
@@ -656,3 +776,38 @@ class Problem:
                                    self.setup.ground_freqs_radns,
                                    self.setup.pipulses)
         return self.ts_out, p, q, f
+
+
+def _jax_size_gate(problem, s) -> bool:
+    """The size half of quandary_tpu's pallas gate (problem.py:456-499):
+    the streamK family's two (Ke, P, P) f32 stacks within 80 MiB, stream's
+    six (ntime, P, P) plane arrays within 8 GiB, chunk's dimension at most
+    1024, with P = roundup(dim, 128) and dim = N (closed) or N^2 (open); an
+    open system past the superop budget takes the density-matrix form if
+    its (P_rho = roundup(N, 128)) stacks and history fit."""
+    budget, hbm = 80 << 20, 8 << 30
+    N, lind = problem.N, problem.lindblad
+    dim = N * N if lind else N
+    P = -(-dim // 128) * 128
+    Ke = problem.model.K + (problem.linsolver == "split")
+    mode = s.fused_mode
+    if mode == "streamk":
+        size_ok = 2 * Ke * P * P * 4 <= budget
+    elif mode == "stream":
+        size_ok = 6 * s.ntime * P * P * 4 <= hbm
+    else:
+        size_ok = dim <= 1024
+    if not lind:
+        return size_ok
+    if mode not in ("stream", "streamk"):
+        return False
+    rho_ok = False
+    if mode == "streamk" and (s.fused_rho == "rho" or (
+            s.fused_rho == "auto" and not size_ok)):
+        Pr = -(-N // 128) * 128
+        Hr = max(8, -(-N // 8) * 8)
+        njump = 0 if problem.engine.Ls_np is None else len(problem.engine.Ls_np)
+        rho_vmem = 4 * (4 * problem.model.K + 4 * njump + 8) * Pr * Pr * 4
+        rho_hist = 2 * problem.ninit * s.ntime * Hr * Pr * 4
+        rho_ok = rho_vmem <= budget and 3 * rho_hist <= hbm
+    return size_ok or rho_ok

@@ -1,0 +1,95 @@
+"""The device optimizer's chunk on the plain route on one CUDA card: eager
+chunks against the same chunk captured as a CUDA graph.
+
+The problem is config_template.cfg's as setup_from_config builds it
+(complex128, so the plain time loop: 2 transmons, N = 4, 4 basis states,
+ntime 1000, 20 stage iterations). For each chunk length (iterations per
+chunk) the script times, after synchronizing the card:
+
+* eager_s: one chunk of build_device_optimizer(graph=False);
+* first_s: the first chunk of build_device_optimizer(graph=True), which
+  runs one eager warm-up chunk, captures the chunk and replays it once;
+* replay_s: a second call of that chunk, a replay alone;
+
+tells whether the graph's rows equal the eager chunk's in bits, and prints
+one JSON line with these seconds, their ratios per iteration and the chunks
+after which the graph has paid for its capture,
+(first_s - replay_s) / (eager_s - replay_s).
+
+Run from the repository root, on a machine with a CUDA card:
+
+    python3 scripts/plain_route_graph.py [--chunks 1,2]
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from quandary_tpu_torch.io.configfile import Config, setup_from_config  # noqa: E402
+from quandary_tpu_torch.optim.device_driver import build_device_optimizer  # noqa: E402
+from quandary_tpu_torch.optim.driver import build_bounds  # noqa: E402
+from quandary_tpu_torch.problem import Problem  # noqa: E402
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--chunks", default="1,2")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    setup, spec = setup_from_config(
+        Config.read(os.path.join(root, "config_template.cfg")), root)
+    problem = Problem(setup)
+    if problem.fused_form is not None:
+        raise SystemExit(f"expected the plain route, got {problem.fused_form}")
+    lb, ub = build_bounds(setup.oscillators, spec.control_bounds)
+    x0 = spec.params0
+    out = dict(card=smi, ntime=setup.ntime, N=problem.N, B=problem.ninit,
+               iters=setup.linsolve_iters, linsolver=problem.linsolver)
+    for chunk in (int(c) for c in args.chunks.split(",")):
+        kw = dict(chunk=chunk, maxiter=10 ** 6, gatol=0.0, grtol=0.0,
+                  fatol=0.0, inftol=0.0)
+        init_e, step_e = build_device_optimizer(problem, lb, ub, graph=False,
+                                                **kw)
+        init_g, step_g = build_device_optimizer(problem, lb, ub, graph=True,
+                                                **kw)
+        (_, rows_e, _), eager_s = timed(lambda: step_e(init_e(x0, x0)))
+        st = init_g(x0, x0)
+        (st2, rows_g, _), first_s = timed(lambda: step_g(st))
+        same = bool(torch.equal(rows_e, rows_g))
+        _, replay_s = timed(lambda: step_g(st2))
+        paid = ((first_s - replay_s) / (eager_s - replay_s)
+                if eager_s > replay_s else None)
+        out[f"chunk{chunk}"] = dict(
+            eager_s=eager_s, first_s=first_s, replay_s=replay_s,
+            eager_s_per_iter=eager_s / chunk,
+            replay_s_per_iter=replay_s / chunk,
+            chunks_to_pay=paid, rows_equal=same)
+        print(json.dumps({f"chunk{chunk}": out[f"chunk{chunk}"]}),
+              flush=True)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1017,3 +1017,108 @@ def test_kerr_calibration_on_card(cuda):
         == iterations + 1
     assert after["stream_fwd_launches"] - before["stream_fwd_launches"] \
         == iterations + 2
+
+
+# ---- the front end on the card (chip_smoke.py phases 22-24) ----
+
+FE_FREQ01 = [4.80595, 4.8601]
+FE_CNOT = np.eye(4)
+FE_CNOT[2:, 2:] = [[0, 1], [1, 0]]
+
+
+def _fe_launches(mods):
+    out = {}
+    for m in mods:
+        out.update(m.launch_counts())
+    return out
+
+
+def _pair(module, name):
+    """(fwd, bwd) launch counts of one kernel pair."""
+    c = module.launch_counts()
+    return c[f"{name}_fwd_launches"], c[f"{name}_bwd_launches"]
+
+
+@pytest.mark.cuda
+def test_front_end_single_precision_closed_on_card(cuda, tmp_path):
+    """Quandary(precision='single') on the CNOT (a short horizon): simulate
+    is one streamk_fwd launch; the device driver's optimization one launch
+    of each direction per sweep (the initial sweep, the warm-up chunk and
+    every replayed chunk of 10 iterations); the f32 run within 1e-4 of the
+    f64 one on the CPU."""
+    import math
+    from quandary_tpu_torch import Quandary
+    favg = sum(FE_FREQ01) / 2
+    kw = dict(freq01=FE_FREQ01, Jkl=[0.005], rotfreq=[favg, favg], T=20.0,
+              targetgate=FE_CNOT, rand_seed=1234)
+    q = Quandary(precision="single", optimizer="device", maxiter=5, **kw)
+    assert q._problem(q._build_setup()).fused_form == "streamk"
+    streamk.reset_launch_counts()
+    r32 = q.simulate(datadir=str(tmp_path / "sim"))
+    assert _pair(streamk, "streamk") == (1, 0)
+    r64 = Quandary(device="cpu", **kw).simulate(datadir=str(tmp_path / "s64"))
+    assert abs(r32[3] - r64[3]) <= 1e-4
+    streamk.reset_launch_counts()
+    q.optimize(datadir=str(tmp_path / "opt"))
+    niter = len(q.optim_hist["Iters"]) - 1
+    sweeps = 1 + 10 * (1 + math.ceil(niter / 10))
+    assert _pair(streamk, "streamk") == (sweeps, sweeps)
+
+
+@pytest.mark.cuda
+def test_front_end_single_precision_open_on_card(cuda, tmp_path):
+    """The guarded open CNOT (N = 9, 16 density matrices) takes the rho
+    route: simulate is one rho_fwd launch, each device-driver sweep one
+    launch per direction, and the populations keep unit trace."""
+    import math
+    from quandary_tpu_torch import Quandary
+    from quandary_tpu_torch.ops import rho
+    favg = sum(FE_FREQ01) / 2
+    q = Quandary(Ne=[2, 2], Ng=[1, 1], freq01=FE_FREQ01,
+                 rotfreq=[favg, favg], selfkerr=[0.2198, 0.2252],
+                 Jkl=[0.005], T=5.0, targetgate=FE_CNOT, rand_seed=1234,
+                 T1=[56.0, 56.0], T2=[28.0, 28.0], precision="single",
+                 optimizer="device", maxiter=2)
+    assert q._problem(q._build_setup()).fused_form == "rho"
+    rho.reset_launch_counts()
+    r = q.simulate(datadir=str(tmp_path / "sim"))
+    assert _pair(rho, "rho") == (1, 0)
+    for per in r[5]:
+        for pop in per:
+            assert np.abs(np.asarray(pop).sum(axis=0) - 1.0).max() <= 1e-4
+    rho.reset_launch_counts()
+    q.optimize(datadir=str(tmp_path / "opt"))
+    niter = len(q.optim_hist["Iters"]) - 1
+    sweeps = 1 + 10 * (1 + math.ceil(niter / 10))
+    assert _pair(rho, "rho") == (sweeps, sweeps)
+
+
+@pytest.mark.cuda
+def test_front_end_double_precision_plain_on_card(cuda, tmp_path):
+    """precision='double' (and every config file) runs the plain loop on
+    the card: no route, no kernel launch, the CPU's numbers to 1e-10;
+    forcing the fused route in complex128 still raises."""
+    from quandary_tpu_torch import Quandary
+    from quandary_tpu_torch.ops import rho, stream
+    from quandary_tpu_torch.problem import Problem
+    favg = sum(FE_FREQ01) / 2
+    kw = dict(freq01=FE_FREQ01, Jkl=[0.005], rotfreq=[favg, favg], T=10.0,
+              targetgate=FE_CNOT, rand_seed=1234)
+    q = Quandary(**kw)
+    setup = q._build_setup()
+    assert q._problem(setup).fused_form is None
+    mods = (streamk, rho, stream)
+    before = _fe_launches(mods)
+    rc = q.simulate(datadir=str(tmp_path / "card"))
+    assert _fe_launches(mods) == before
+    rh = Quandary(device="cpu", **kw).simulate(datadir=str(tmp_path / "cpu"))
+    assert abs(rc[3] - rh[3]) <= 1e-10
+    for a, b in zip(rc[5][0], rh[5][0]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+    with pytest.raises(NotImplementedError, match="complex128"):
+        Problem(dataclasses.replace(setup, fused=True))
+    # the device driver on the plain route: eager chunks, no kernel
+    q.optimizer, q.maxiter = "device", 2
+    q.optimize(datadir=str(tmp_path / "opt"))
+    assert _fe_launches(mods) == before
+    assert len(q.optim_hist["Iters"]) == 3

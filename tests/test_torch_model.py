@@ -118,6 +118,8 @@ def arrays_from_jax_setup(setup):
             d["fused_rho"] = v
         elif f.name == "pallas_mode":   # the fused kernel family
             d["fused_mode"] = v
+        elif f.name in ("adjoint", "time_parallel", "engine"):
+            continue    # the JAX package's own schedule; the port: 'auto'
         elif f.name in port_fields:
             d[f.name] = v
     return d

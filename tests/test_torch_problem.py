@@ -111,13 +111,14 @@ def test_plain_time_loop_matches_jax_solvers():
 
 @pytest.mark.parametrize("change,device", [
     (dict(dtype=torch.complex128), "cuda"),
-    (dict(fused=False), "cuda"),
+    (dict(engine="tensor"), "cuda"),
     (dict(timestepper="IMR4"), "cpu"),
     (dict(linsolver="gmres"), "cpu"),
 ])
 def test_out_of_slice_raises(change, device):
-    """Configurations the port does not have yet are refused by name, never
-    run on another path."""
+    """Configurations the forced fused route (fused=True, the Setup
+    default) or the port does not take are refused by name, never run on
+    another path."""
     st = dataclasses.replace(flagship_setup("torch"), **change)
     with pytest.raises(NotImplementedError):
         TProblem(st, device=device)
