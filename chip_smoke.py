@@ -9,13 +9,14 @@ Problem(...).build_value_and_grad(),
 optim.driver.run_optimization, optim.robust.build_packed_robust_objective,
 optim.device_driver.run_optimization_device,
 optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
-ops.dense.pallas_propagate_dense and calibration.KerrCalibration. Phases:
+ops.dense.pallas_propagate_dense and calibration.KerrCalibration, and
+closed systems past one thread block up to N = 1024. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
-2. builds the kernels from the checkout, one nvcc per source and all three
-   at once: csrc/streamk.cu here, csrc/rho.cu reported in phase 11,
-   csrc/stream.cu in phase 17;
+2. builds the kernels from the checkout, one nvcc per source and all four
+   at once: csrc/streamk.cu and csrc/streamk_mid.cu here, csrc/rho.cu
+   reported in phase 11, csrc/stream.cu in phase 17;
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -127,10 +128,29 @@ and the config-file CLI), on the card:
    kernel launched; grad.dat, optim_history.dat and the population files
    against cli.run(device="cpu"); each runtype's wall.
 
-Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24) is driven
-with the launch counters set to 0 just before and read just after. Before the device
-record one line lists the eleven kernels with their launches, error, time,
-plain time and bound.
+Closed systems past one thread block, on the mid-size streamK pair
+(csrc/streamk_mid.cu: a thread-block cluster per candidate and chunk of
+basis states):
+25. the flagship stays on the one-block pair; both mid kernels against the
+   plain version on the card at MID_NT_CUT = 64 steps (the plain version
+   materializes (ntime, N, N) planes), with stored and replayed stage
+   iterates: three qubits with two guard levels (N = 64, 8 basis states,
+   split-3) at E = 1 and 4, and scripts/perf/midsize_bench.py's closed
+   systems (N = 256 pure and basis, 512 and 1024 pure; split-4), over
+   every layout the planner picks (the bands of H in shared memory or in
+   device-memory scratch); two launches give the same bits; then Problem
+   (fused=True and 'auto') on the four midsize systems at their full 1000
+   steps, one launch of each mid kernel per sweep: sweeps/s, kernel ms,
+   bounds, the clusters (G CTAs, Bc states); then
+   Quandary(precision="single") on the SWAP02 of tests/test_api.py:95-125
+   with Ng = [2, 2, 2] (N = 64, T = 8 ns): simulate against
+   precision="double" on the CPU (TOL_MID_FE_*), optimize 10 device
+   iterations (the cost falls; 1 + 1 mid launches per sweep).
+
+Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25) is
+driven with the launch counters set to 0 just before and read just after.
+Before the device record one line lists the thirteen kernels with their
+launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -139,6 +159,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -159,7 +180,8 @@ from quandary_tpu_torch.io.configfile import Config, setup_from_config
 from quandary_tpu_torch.models import gates
 from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
-from quandary_tpu_torch.ops import cuda_build, dense, rho, stream, streamk
+from quandary_tpu_torch.ops import (cuda_build, dense, rho, stream, streamk,
+                                    streamk_mid)
 from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
@@ -265,6 +287,16 @@ TOL_FE_INFID = 2e-7
 TOL_FE_TRAJ = 1e-5
 TOL_FE_TRACE = 2.5e-5
 TOL_CLI_REL = 2e-14
+# Phase 25 holds the mid-size streamK pair to TOL_STATE_ABS and
+# TOL_GRAD_REL (measured on an H100 80GB HBM3, 700 W, at 64 steps: states
+# 1.1e-6 abs, cotangents 6.1e-6 x max, both at N = 256 with 256 basis
+# states). Its front end, SWAP02 with two guard levels per qubit (N = 64,
+# 2489 steps of 20 Neumann iterations; phase 22's CNOT: N = 4, 1221 steps)
+# against precision="double" on the CPU, has its own bounds, about 5x the
+# errors measured: infidelity 5.9e-8, expected energy and population
+# 5.2e-6 abs.
+TOL_MID_FE_INFID = 3e-7
+TOL_MID_FE_TRAJ = 2.5e-5
 NT_SHORT = 40           # steps of the comparisons with the plain version
 NT_F64 = 400            # steps of configurations 2 and 3 against f64
 E_OPEN = 8
@@ -546,14 +578,16 @@ def work_bound(plan, E, nt, B, N, backward):
 
 
 def kernel_ms(plan, x0r, x0i, C, reps, plain_reps):
-    """CUDA-event times of both kernels and of their plain versions for
-    one plan, and the launch's bounds."""
-    fwd = streamk._kernel_fwd(plan, x0r, x0i, C)
+    """CUDA-event times of both kernels (the pair the dispatch picks: one
+    block, or the mid pair past it) and of their plain versions for one
+    plan, and the launch's bounds."""
+    kfwd, kbwd = streamk._pair(streamk.uses_mid(plan, *x0r.shape))
+    fwd = kfwd(plan, x0r, x0i, C)
     hr, hi, ksr, ksi = fwd[2:]
     ones_T, ones_h = torch.ones_like(fwd[0]), torch.ones_like(hr)
     out = dict(
-        fwd=event_ms(lambda: streamk._kernel_fwd(plan, x0r, x0i, C), reps),
-        bwd=event_ms(lambda: streamk._kernel_bwd(
+        fwd=event_ms(lambda: kfwd(plan, x0r, x0i, C), reps),
+        bwd=event_ms(lambda: kbwd(
             plan, x0r, x0i, C, hr, hi, ksr, ksi, ones_T, ones_T, ones_h,
             ones_h), reps))
     if plain_reps:
@@ -843,6 +877,7 @@ def ptxas_kernels(log, name):
 
 def reset_counts():
     streamk.reset_launch_counts()
+    streamk_mid.reset_launch_counts()
     rho.reset_launch_counts()
     stream.reset_launch_counts()
 
@@ -850,8 +885,8 @@ def reset_counts():
 def main_path_launches(names):
     """Reads the counters after a main path was driven (they were set to 0
     just before it) and fails if a kernel of that path never launched."""
-    counts = {**streamk.launch_counts(), **rho.launch_counts(),
-              **stream.launch_counts()}
+    counts = {**streamk.launch_counts(), **streamk_mid.launch_counts(),
+              **rho.launch_counts(), **stream.launch_counts()}
     missing = [k for k in names if counts[k] < 1]
     if missing:
         raise RuntimeError(f"main path did not launch {missing}: {counts}")
@@ -1102,7 +1137,8 @@ def front_end(smi):
             torch.cuda.synchronize()
             walls[rt] = time.perf_counter() - t0
             counts = {**streamk.launch_counts(), **rho.launch_counts(),
-                      **stream.launch_counts()}
+                      **stream.launch_counts(),
+                      **streamk_mid.launch_counts()}
             if code != 0 or forms[rt] is not None or any(counts.values()):
                 raise RuntimeError(f"CLI {rt}: exit {code}, fused_form "
                                    f"{forms[rt]}, launches {counts}")
@@ -1132,6 +1168,267 @@ def front_end(smi):
     return out
 
 
+# Phase 25, the mid-size streamK pair (csrc/streamk_mid.cu): closed systems
+# past one thread block. Kernel against plain on the card at MID_NT_CUT
+# steps (the plain version of the N = 512 and 1024 sweeps materializes
+# (ntime, N, N) planes and their cotangents), the full-width times at the
+# configurations' 1000 steps.
+MID_NT_CUT = 64
+MID_CONFIGS = (("n256_pure", 256, "pure"), ("n256_basis", 256, "basis"),
+               ("n512_pure", 512, "pure"), ("n1024_pure", 1024, "pure"))
+MID = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches")
+MID_SRC = "quandary_tpu_torch/csrc/streamk_mid.cu"
+MID_FE_ITERS = 10       # device iterations of phase 25's front end
+MID_FE_T = 8.0          # its horizon, ns (derived nsteps about 2500)
+FREQ3 = [4.8, 5.0, 5.2]
+
+
+def swap02():
+    """tests/test_api.py:95-125: SWAP between qubits 0 and 2 of three."""
+    V = np.zeros((8, 8), dtype=complex)
+    for i in range(8):
+        b = [(i >> 2) & 1, (i >> 1) & 1, i & 1]
+        V[(b[2] << 2) | (b[1] << 1) | b[0], i] = 1.0
+    return V
+
+
+def swap02_setup(ntime=MID_NT_CUT, T=6.0, fused=True):
+    """Three qubits with two guard levels each (N = 64, 8 basis states,
+    one carrier per qubit, K = 7), the SWAP02 gate, split with 3
+    iterations: what one block of streamk.cu refuses at B = 8."""
+    nlevels, Ne = [4, 4, 4], [2, 2, 2]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=FREQ3, rotfreq_ghz=FREQ3,
+        selfkerr_ghz=[0.22, 0.23, 0.24], jkl_ghz=[0.01, 0.004, 0.01],
+        crosskerr_ghz=[])
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=8, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(3))
+    return Setup(
+        model=model, nessential=tuple(Ne), ntime=ntime, dt=T / ntime,
+        oscillators=oscs, ground_freqs_radns=tuple(2 * np.pi * f
+                                                   for f in FREQ3),
+        initcond_type="basis", target_type="gate",
+        target_gate_full=gates.assemble_gate(swap02(), nlevels, Ne,
+                                             [0.0] * 3, T),
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        dtype=torch.complex64, linsolve_iters=3, linsolver="split",
+        fused=fused)
+
+
+def midsize_closed_setup(N, initcond, ntime=1000, fused=True):
+    """scripts/perf/midsize_bench.py:27-63 with the port's builders: two
+    qudits (nlevels [16, 16], [16, 32], [32, 32]: N = 256, 512, 1024), T =
+    100 ns, 1000 steps, split with 4 iterations, complex64; 'pure' (the
+    ground state to a random state) or 'basis' (all N basis states to a
+    random unitary)."""
+    nlevels = {256: [16, 16], 512: [16, 32], 1024: [32, 32]}[N]
+    freq01 = [4.80595, 4.8601]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=freq01, rotfreq_ghz=freq01,
+        selfkerr_ghz=[0.2198, 0.2252], jkl_ghz=[0.005], crosskerr_ghz=[])
+    T = 100.0
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=30, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(2))
+    rng = np.random.default_rng(42)
+    if initcond == "basis":
+        A = rng.normal(size=(N, N)) + 1j * rng.normal(size=(N, N))
+        tgt = dict(target_type="gate", target_gate_full=np.linalg.qr(A)[0])
+    else:
+        v = rng.normal(size=N) + 1j * rng.normal(size=N)
+        tgt = dict(target_type="state",
+                   target_state_full=v / np.linalg.norm(v))
+    return Setup(model=model, nessential=tuple(nlevels), ntime=ntime,
+                 dt=T / ntime, oscillators=oscs,
+                 ground_freqs_radns=tuple(2 * np.pi * f for f in freq01),
+                 initcond_type=initcond, objective_type="Jtrace",
+                 gamma_tik=1e-4, dtype=torch.complex64, linsolve_iters=4,
+                 linsolver="split", fused=fused, **tgt)
+
+
+def mid_same_bits(plan, x0r, x0i, C, rng):
+    """Two launches of each mid kernel on the same inputs give the same
+    bits (no float atomics; C-bar partials summed in a fixed order)."""
+    a = streamk_mid._kernel_fwd(plan, x0r, x0i, C)
+    b = streamk_mid._kernel_fwd(plan, x0r, x0i, C)
+    same = all((u is None and v is None) or torch.equal(u, v)
+               for u, v in zip(a, b))
+    w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                  device="cuda", dtype=torch.float32)
+    gT, gh = w(a[0]), w(a[2])
+    bw = [streamk_mid._kernel_bwd(plan, x0r, x0i, C, *a[2:], gT, gT, gh, gh)
+          for _ in range(2)]
+    return same and all(torch.equal(u, v) for u, v in zip(*bw))
+
+
+def mid_phase(smi, flagship_plan):
+    """Phase 25: the mid pair against plain, its layouts and determinism,
+    Problem through it at full width, and Quandary on a system past one
+    block."""
+    if streamk.uses_mid(flagship_plan, 4, 16):
+        raise RuntimeError("the flagship would take the mid pair")
+    rng = np.random.default_rng(25)
+    setups = {"n64": swap02_setup}
+    for name, N, init in MID_CONFIGS:
+        setups[name] = functools.partial(midsize_closed_setup, N, init)
+    probs = {name: Problem(fn()) for name, fn in setups.items()}
+    to_card = lambda a: torch.as_tensor(a, device="cuda", dtype=torch.float32)
+    errs, seen, worst = {}, set(), dict(state=0.0, cbar=0.0, x0bar=0.0,
+                                        cbar_rel=0.0, x0bar_rel=0.0)
+    bits, plain_cut = {}, {}
+    for name, pr in probs.items():
+        if not pr.fused_ok or not streamk.uses_mid(pr._plan, pr.ninit, pr.N):
+            raise RuntimeError(f"{name}: not on the mid pair: "
+                               f"{pr.fused_refusal}")
+        for E in ((1, 4) if name == "n64" else (1,)):
+            P = to_card(bench_params(pr.setup.nparams, E,
+                                     seed=int(rng.integers(1 << 30))))
+            C = streamk.extend_coeffs(
+                pr._plan, pr.coeff_rows_mid(P)[:, :MID_NT_CUT, 0, :])
+            for store in (True, False):
+                plan = dataclasses.replace(pr._plan, store_iters=store)
+                reset_counts()
+                err = compare_plan(plan, pr, C, rng)
+                sweep_launches(MID)
+                key = f"{name}_E{E}_{'stored' if store else 'replay'}"
+                errs[key] = dict(err, fwd=streamk_mid.mid_layouts["fwd"],
+                                 bwd=streamk_mid.mid_layouts["bwd"])
+                print(f"  {key}: {json.dumps(errs[key])}", flush=True)
+                for k in worst:
+                    worst[k] = max(worst[k], err[k])
+                seen.add(("fwd", streamk_mid.mid_layouts["fwd"]["layout"]))
+                seen.add(("bwd", streamk_mid.mid_layouts["bwd"]["layout"],
+                          store))
+                seen.add(("Bc", streamk_mid.mid_layouts["fwd"]["Bc"]))
+                bits[key] = mid_same_bits(plan, pr._x0r, pr._x0i, C, rng)
+                if E == 1 and store == pr._plan.store_iters:
+                    plain_cut[name] = kernel_ms(plan, pr._x0r, pr._x0i, C,
+                                                1, 1)
+    want = {("fwd", "smem"), ("fwd", "global"), ("bwd", "smem", True),
+            ("bwd", "smem", False), ("bwd", "global", True),
+            ("bwd", "global", False), ("Bc", 1), ("Bc", 8)}
+    bad = [k for k, e in errs.items()
+           if e["state"] > TOL_STATE_ABS or e["cbar_rel"] > TOL_GRAD_REL
+           or e["x0bar_rel"] > TOL_GRAD_REL]
+    phase(25, f"mid pair == plain at {MID_NT_CUT} steps within abs "
+              f"{TOL_STATE_ABS} (states), {TOL_GRAD_REL} x max (cotangents):"
+              f" worst {json.dumps(worst)}; out of bounds {bad}; layouts "
+              f"{sorted(map(str, seen))}; missing "
+              f"{sorted(map(str, want - seen))}"
+              f"; same bits on repeat {json.dumps(bits)}")
+    if bad or want - seen or not all(bits.values()):
+        raise RuntimeError(f"mid pair: out of bounds {bad}, layouts not "
+                           f"driven {want - seen}, bits {bits}")
+
+    # Problem through the mid pair, fused=True and 'auto', at full width
+    # (N = 64: its MID_NT_CUT steps)
+    full, launches = {}, {k: 0 for k in MID}
+    for name, setup_fn in setups.items():
+        pr = probs[name]
+        auto = Problem(setup_fn(fused="auto"))
+        if not (auto.use_fused and auto.fused_form == "streamk"
+                and pr.fused_form == "streamk" and auto.fused_ok):
+            raise RuntimeError(f"{name}: fused=True / 'auto' did not take "
+                               "the streamK route")
+        x = bench_params(pr.setup.nparams)
+        vg = pr.build_value_and_grad()
+        reset_counts()
+        (J, aux), g = vg(x, x)
+        torch.cuda.synchronize()
+        got = sweep_launches(MID)
+        for k in MID:
+            launches[k] += got[k]
+        if not (torch.isfinite(J) and bool(torch.isfinite(g).all())):
+            raise RuntimeError(f"{name}: non-finite value_and_grad")
+        (Ja, _), ga = auto.build_value_and_grad()(x, x)
+        if float(Ja) != float(J) or not torch.equal(ga, g):
+            raise RuntimeError(f"{name}: fused='auto' and True differ")
+        del auto
+        rate = 1.0 / median_seconds(lambda: vg(x, x), reps=3)
+        C = streamk.extend_coeffs(pr._plan, pr.coeff_rows_mid(
+            to_card(x))[None, :, 0])
+        t = kernel_ms(pr._plan, pr._x0r, pr._x0i, C, 3,
+                      1 if name == "n256_pure" else 0)
+        t.update({f"{k}_shape": dict(streamk_mid.mid_layouts[k])
+                  for k in ("fwd", "bwd")})
+        full[name] = dict(t, sweeps_per_s=rate, J=float(J),
+                          fidelity=float(aux["fidelity"]),
+                          stored=pr._plan.store_iters, B=pr.ninit, N=pr.N)
+        print(f"  {name} ntime {pr.setup.ntime}: {json.dumps(full[name])}",
+              flush=True)
+    phase(25, f"Problem (fused=True and 'auto') on the mid pair at full "
+              f"width, 1 + 1 launches per sweep: "
+              + "; ".join(f"{k}: {v['sweeps_per_s']:.3f} sweeps/s, fwd / "
+                          f"bwd {v['fwd']:.3f} / {v['bwd']:.3f} ms (bound "
+                          f"{v['fwd_bound'][0]:.4f} / {v['bwd_bound'][0]:.4f}"
+                          f"), G / Bc fwd {v['fwd_shape']['G']} / "
+                          f"{v['fwd_shape']['Bc']} bwd {v['bwd_shape']['G']} "
+                          f"/ {v['bwd_shape']['Bc']}"
+                          for k, v in full.items()) + f"; card: {smi}")
+
+    # the front end on a system past one block
+    kw = dict(Ne=[2, 2, 2], Ng=[2, 2, 2], freq01=FREQ3, rotfreq=FREQ3,
+              selfkerr=[0.22, 0.23, 0.24], Jkl=[0.01, 0.004, 0.01],
+              T=MID_FE_T, targetgate=swap02(), rand_seed=1234,
+              initctrl_MHz=5.0,
+              carrier_frequency=[[0.0, FREQ3[1] - FREQ3[0]],
+                                 [0.0, FREQ3[0] - FREQ3[1]],
+                                 [0.0, FREQ3[1] - FREQ3[2]]])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        q32 = Quandary(precision="single", optimizer="device",
+                       maxiter=MID_FE_ITERS, **kw)
+        q64 = Quandary(precision="double", device="cpu", **kw)
+        s32 = q32._build_setup()
+        p32 = q32._problem(s32)
+        if p32.fused_form != "streamk" or not streamk.uses_mid(
+                p32._plan, p32.ninit, p32.N):
+            raise RuntimeError(f"SWAP02 (N = {p32.N}) took route "
+                               f"{p32.fused_form}, not the mid pair")
+        p0 = q32._initial_params(s32.oscillators)
+        reset_counts()
+        t0 = time.perf_counter()
+        r32 = q32.simulate(pcof0=p0, datadir=os.path.join(tmp, "sim32"))
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        sim = main_path_launches(MID[:1])
+        t0 = time.perf_counter()
+        r64 = q64.simulate(pcof0=p0, datadir=os.path.join(tmp, "sim64"))
+        t_sim64 = time.perf_counter() - t0
+        fe_err = front_end_errors(r32, r64)
+        reset_counts()
+        t0 = time.perf_counter()
+        q32.optimize(pcof0=p0, datadir=os.path.join(tmp, "opt32"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        opt = main_path_launches(MID)
+        cost = q32.optim_hist["Cost"]
+        niter = len(q32.optim_hist["Iters"]) - 1
+        sweeps = device_sweeps(niter)
+    fe = dict(N=p32.N, B=p32.ninit, K=p32.model.K, nsteps=q32.nsteps,
+              linsolver=p32.linsolver, iters=p32._plan.iters,
+              stored=p32._plan.store_iters, simulate_s=t_sim,
+              simulate_f64_cpu_s=t_sim64, errors=fe_err, iterations=niter,
+              cost_first=cost[0], cost_last=cost[-1], optimize_s=wall,
+              launches_simulate=sim, launches_optimize=opt,
+              shapes=dict(streamk_mid.mid_layouts))
+    phase(25, f"Quandary(precision='single') SWAP02 with Ng = [2, 2, 2]: "
+              f"{json.dumps(fe)}; card: {smi}")
+    if fe_err["infidelity"] > TOL_MID_FE_INFID \
+            or fe_err["energy"] > TOL_MID_FE_TRAJ \
+            or fe_err["population"] > TOL_MID_FE_TRAJ \
+            or sim[MID[0]] != 1 or sim[MID[1]] != 0 \
+            or opt[MID[0]] != sweeps or opt[MID[1]] != sweeps \
+            or not cost[-1] < cost[0]:
+        raise RuntimeError(f"SWAP02 front end: errors {fe_err}, launches "
+                           f"{sim} / {opt} ({sweeps} sweeps), cost "
+                           f"{cost[0]} -> {cost[-1]}")
+    return dict(worst=worst, full=full, plain_cut=plain_cut,
+                launches=launches, fe=fe)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1148,11 +1445,14 @@ def main():
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    (path, secs, log), rho_build, stream_build = cuda_build.build_parallel(
-        [streamk.build_kernels, rho.build_kernels, stream.build_kernels],
-        verbose=True)
-    phase(2, f"built {path} in {secs:.2f} s (all three sources in "
-             f"{time.perf_counter() - t0:.2f} s); " + " | ".join(ptxas_lines(log)))
+    (path, secs, log), rho_build, stream_build, mid_build = \
+        cuda_build.build_parallel(
+            [streamk.build_kernels, rho.build_kernels, stream.build_kernels,
+             streamk_mid.build_kernels], verbose=True)
+    phase(2, f"built {path} in {secs:.2f} s (all four sources in "
+             f"{time.perf_counter() - t0:.2f} s); "
+          + " | ".join(ptxas_lines(log)) + f"; {mid_build[0]}: "
+          + " | ".join(ptxas_lines(mid_build[2])))
 
     # ---- 3. kernel against plain at the flagship shapes ----
     setup = flagship_setup()
@@ -1838,6 +2138,9 @@ def main():
     # ---- 22-24. the front end ----
     fe = front_end(smi)
 
+    # ---- 25. closed systems past one block: the mid pair ----
+    mid = mid_phase(smi, prob._plan)
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -1885,6 +2188,23 @@ def main():
                     ms_open1=ms_4[key],
                     bound_ms_open1=ms_4[f"{key}_bound"][0],
                     plain_ms_open1=ms_4[f"plain_{key}"])
+
+    def mid_more(i):
+        """The mid pair at every size of phase 25: times, bounds, shapes,
+        sweeps/s at 1000 steps, plain times at MID_NT_CUT steps."""
+        key = ("fwd", "bwd")[i]
+        more = dict(launches_front_end=mid["fe"]["launches_optimize"][MID[i]],
+                    launches_front_end_simulate=mid["fe"][
+                        "launches_simulate"][MID[i]])
+        for name, t in mid["full"].items():
+            more[f"ms_{name}"] = t[key]
+            more[f"bound_ms_{name}"] = t[f"{key}_bound"][0]
+            more[f"shape_{name}"] = t[f"{key}_shape"]
+            more[f"sweeps_per_s_{name}"] = t["sweeps_per_s"]
+        for name, t in mid["plain_cut"].items():
+            more[f"ms_{name}_nt{MID_NT_CUT}"] = t[key]
+            more[f"plain_ms_{name}_nt{MID_NT_CUT}"] = t[f"plain_{key}"]
+        return more
 
     def chain_more(name):
         """A stream.cu kernel's time per (reversed) step and helpers."""
@@ -1946,7 +2266,17 @@ def main():
                **chain_more("chunk_bwd")),
         record("dense_fwd", 111, launches_d[B6[0]], worst_d, ms_d, "fwd",
                src=STREAM_SRC, tpu="quandary_tpu/ops/pallas_kernels.py",
-               **chain_more("dense_fwd"))]}))
+               **chain_more("dense_fwd")),
+        # the mid pair at midsize_bench's N = 256 (B = 1, 1000 steps, the
+        # plain version at the same depth); the other sizes ride along,
+        # their plain times at MID_NT_CUT steps
+        record("streamk_mid_fwd", 907, mid["launches"][MID[0]],
+               mid["worst"]["state"], mid["full"]["n256_pure"], "fwd",
+               src=MID_SRC, **mid_more(0)),
+        record("streamk_mid_bwd", 967, mid["launches"][MID[1]],
+               max(mid["worst"]["cbar"], mid["worst"]["x0bar"]),
+               mid["full"]["n256_pure"], "bwd", src=MID_SRC,
+               **mid_more(1))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

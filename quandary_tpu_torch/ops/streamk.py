@@ -24,10 +24,22 @@ gen_diag (G, N): one launch propagates G realizations of the system. The
 same CUDA kernels run it, reading each block's stack and rows at a
 per-candidate stride; the plan then holds (G, Ke, N, N) stacks.
 
-Device dispatch: a CUDA tensor goes to the kernel pair (built with nvcc at
-first use, bound with ctypes); a CPU tensor goes to ``streamk_propagate_plain``,
-the same function in plain torch with the hand-written transpose as its
-backward, in any float dtype. There is no fallback from one to the other.
+Two CUDA kernel pairs compute the contract. csrc/streamk.cu holds a
+candidate in one thread block (``size_refusal``: B*N <= 1024 state entries
+and the stacks in shared memory, N <= 52 at the flagship's Ke); it also
+runs the packed plans. csrc/streamk_mid.cu runs a shared-stack plan past
+that (launched by ops/streamk_mid.py): a thread-block cluster of G CTAs
+per (candidate, chunk of basis states), each CTA on a band of the state
+entries (``_mid_shape`` plans the launch, ``mid_refusal`` says what it does
+not take). ``route_refusal`` admits what either pair takes and refuses
+only on device memory.
+
+Device dispatch: a CUDA tensor goes to a kernel pair (built with nvcc at
+first use, bound with ctypes): the one-block pair wherever size_refusal
+admits the plan, else the mid pair. A CPU tensor goes to
+``streamk_propagate_plain``, the same function in plain torch with the
+hand-written transpose as its backward, in any float dtype. There is no
+fallback from one to another.
 """
 
 from __future__ import annotations
@@ -56,7 +68,8 @@ _LIBS = cuda_build.LIBS     # the loaded libraries, one table for all sources
 
 
 def launch_counts() -> dict:
-    """The four launch counters by name."""
+    """The four launch counters by name (the mid pair's are in
+    ops/streamk_mid.py)."""
     return {k: globals()[k] for k in _COUNTERS}
 
 
@@ -365,7 +378,8 @@ def size_refusal(B, N, Ke, iters):
     BN = B * N
     if BN > 1024:
         return (f"streamK kernel: B*N = {BN} state entries exceed one block "
-                "(1024 threads); multi-block candidates are not implemented")
+                "(1024 threads); the mid pair (ops/streamk_mid.py) takes "
+                "shared-stack plans past it")
     smem = _bwd_smem_bytes(Ke, iters, B, N, split=False)
     if smem > _MAX_SMEM:
         return (f"streamK kernel: {smem} bytes of shared memory exceed the "
@@ -523,12 +537,162 @@ def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
     return g0r.sum(0), g0i.sum(0), Cb
 
 
+# ----------------------------------------------------------------------
+# mid-size kernel pair (csrc/streamk_mid.cu, launched by ops/streamk_mid.py):
+# a cluster per (candidate, chunk of basis states), a band of state entries
+# per CTA. Its planner and gates; the one-block pair's above.
+# ----------------------------------------------------------------------
+
+MID_CLUSTERS = (1, 2, 4, 8, 16)     # CTAs per cluster the kernels take
+MID_CHUNKS = (8, 4, 2, 1)           # basis states per cluster (instances)
+MID_MIN_ROWS = 16                   # the planner's least band when it widens
+MID_SMS = 132                       # SMs of an H100 SXM
+MID_KG = 8                          # csrc/streamk_mid.cu's C-bar group
+# what a sweep's own device tensors may take (the card has 80 GB)
+DEVICE_BUDGET_BYTES = 60 << 30
+
+
+def _mid_band_floats(N, R, backward, replay):
+    """csrc/streamk_mid.cu mid_band_floats: a CTA's bands of H."""
+    row, col = 2 * R * N, 2 * R * (N + 1)
+    return col + (row if replay else 0) if backward else row
+
+
+def _mid_floats(bc, N, R, it, backward, replay, hsmem):
+    """csrc/streamk_mid.cu mid_fwd_floats / mid_bwd_floats: a CTA's shared
+    memory in floats, with the bands of H (hsmem) or without."""
+    bands = _mid_band_floats(N, R, backward, replay) if hsmem else 0
+    if not backward:
+        return 4 * bc * N + 6 * bc * R + 4 * R + bands
+    return (2 * (it + 1) * bc * N + (4 * bc * N if replay else 0)
+            + 2 * (it + 1) * bc * R + (10 if replay else 6) * bc * R + 4 * R
+            + 16 * MID_KG + bands)
+
+
+def _mid_shape(E, B, N, Ke, iters, store, backward=False):
+    """(G, Bc, threads, shared-memory bytes, layout) of one mid launch, or
+    None where no layout fits a CTA. Bands of R = ceil(N / G) entries cover
+    N (the last ragged, none empty) and chunks of Bc states cover B (the
+    last ragged). Layout 'smem': the bands of H in shared memory, at the
+    least G, and for it the most Bc, that fit; the cluster then widens
+    (more SMs on each stage) while the launch's CTAs fill at most the
+    card's SMs and a band keeps MID_MIN_ROWS rows. Layout 'global': no G
+    fits the bands, so they go to device-memory scratch at the widest G.
+    Threads: a warp per band row, 4 to 16 warps."""
+    replay = backward and not store and iters > 0
+    bc_max = min(MID_CHUNKS[0], 1 << max(B - 1, 0).bit_length())
+    chunks = [c for c in MID_CHUNKS if c <= bc_max]
+    gs = [G for G in MID_CLUSTERS if (G - 1) * -(-N // G) < N]
+
+    def fits(G, bc, hsmem):
+        R = -(-N // G)
+        return 4 * _mid_floats(bc, N, R, iters, backward, replay,
+                               hsmem) <= _MAX_SMEM
+
+    pick = next(((G, bc) for G in gs for bc in chunks if fits(G, bc, True)),
+                None)
+    layout = "smem"
+    if pick is None:
+        layout, G = "global", gs[-1]
+        bc = next((c for c in chunks if fits(G, c, False)), None)
+        if bc is None:
+            return None
+        pick = G, bc
+    G, bc = pick
+    ctas = E * -(-B // bc)
+    while (layout == "smem" and 2 * G in gs and ctas * 2 * G <= MID_SMS
+           and -(-N // (2 * G)) >= MID_MIN_ROWS and fits(2 * G, bc, True)):
+        G *= 2
+    R = -(-N // G)
+    threads = 32 * max(4, min(16, R))     # csrc/streamk_mid.cu: at most 512
+    smem = 4 * _mid_floats(bc, N, R, iters, backward, replay,
+                           layout == "smem")
+    return G, bc, threads, smem, layout
+
+
+def sweep_bytes(E, B, N, Ke, iters, nt, store, mid):
+    """Device bytes of one sweep's own tensors: the history and its
+    cotangent, the stored stage iterates and, on the mid pair, the bands'
+    scratch and the C-bar partial rows of the larger direction."""
+    hist = 2 * E * nt * B * N * 4
+    total = 2 * hist + (iters * hist if store and iters > 0 else 0)
+    if mid:
+        extra = 0
+        for backward in (False, True):
+            shape = _mid_shape(E, B, N, Ke, iters, store, backward)
+            if shape is None:
+                continue
+            G, bc, _, _, layout = shape
+            ctas = E * -(-B // bc) * G
+            replay = backward and not store and iters > 0
+            more = (ctas * nt * Ke * 4) if backward else 0
+            if layout == "global":
+                more += 4 * ctas * _mid_band_floats(N, -(-N // G), backward,
+                                                    replay)
+            extra = max(extra, more)
+        total += extra
+    return total
+
+
+def mid_refusal(E, B, N, Ke, iters, nt, store):
+    """Why the mid pair does not take E candidates of B states of dimension
+    N (a sentence naming the limit), or None: no layout of a direction fits
+    a CTA's shared memory, or the sweep's tensors pass
+    DEVICE_BUDGET_BYTES."""
+    for backward in (False, True):
+        if _mid_shape(E, B, N, Ke, iters, store, backward) is None:
+            which = "backward" if backward else "forward"
+            return (f"streamK mid kernels: the {which}'s operand and stage "
+                    f"buffers at N = {N} and "
+                    f"iters = {iters} exceed the {_MAX_SMEM} bytes of "
+                    "shared memory a CTA can use")
+    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=True)
+    if need > DEVICE_BUDGET_BYTES:
+        return (f"streamK mid kernels: a sweep's history, cotangents, stored "
+                f"iterates and scratch take {need} bytes of device memory, "
+                f"past DEVICE_BUDGET_BYTES = {DEVICE_BUDGET_BYTES} (E = {E}, "
+                f"ntime = {nt}, B = {B}, N = {N})")
+    return None
+
+
+def route_refusal(B, N, Ke, iters, nt, E=1, store=None):
+    """Why neither kernel pair takes a shared-stack plan (a sentence naming
+    the bytes), or None: the one-block pair where size_refusal admits it,
+    else the mid pair; both refuse only on device memory (the history,
+    its cotangent and the stored iterates, against DEVICE_BUDGET_BYTES).
+    store: whether the forward stores its stage iterates (the plan's
+    store_iters; default iters <= 4)."""
+    store = iters <= 4 if store is None else bool(store)
+    if size_refusal(B, N, Ke, iters) is not None:
+        return mid_refusal(E, B, N, Ke, iters, nt, store)
+    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=False)
+    if need > DEVICE_BUDGET_BYTES:
+        return (f"streamK kernel: a sweep's history, cotangents and stored "
+                f"iterates take {need} bytes of device memory, past "
+                f"DEVICE_BUDGET_BYTES = {DEVICE_BUDGET_BYTES}")
+    return None
+
+
+def _pair(mid):
+    """(forward, backward) launch wrappers of one kernel pair: the one-block
+    pair's, or the mid pair's (ops/streamk_mid.py, which imports this
+    module)."""
+    if not mid:
+        return _kernel_fwd, _kernel_bwd
+    from . import streamk_mid
+    return streamk_mid._kernel_fwd, streamk_mid._kernel_bwd
+
+
 class _KernelFn(torch.autograd.Function):
+    """One kernel pair's launches as a differentiable function: the
+    one-block pair, or with `mid` the mid pair."""
+
     @staticmethod
-    def forward(ctx, plan, x0r, x0i, Ce):
+    def forward(ctx, plan, mid, x0r, x0i, Ce):
         x0r, x0i, Ce = x0r.contiguous(), x0i.contiguous(), Ce.contiguous()
-        xTr, xTi, hr, hi, ksr, ksi = _kernel_fwd(plan, x0r, x0i, Ce)
-        ctx.plan = plan
+        fwd = _pair(mid)[0]
+        xTr, xTi, hr, hi, ksr, ksi = fwd(plan, x0r, x0i, Ce)
+        ctx.plan, ctx.mid = plan, mid
         ctx.has_ks = ksr is not None
         saved = (x0r, x0i, Ce, hr, hi) + ((ksr, ksi) if ctx.has_ks else ())
         ctx.save_for_backward(*saved)
@@ -538,17 +702,25 @@ class _KernelFn(torch.autograd.Function):
     def backward(ctx, gxTr, gxTi, ghr, ghi):
         x0r, x0i, Ce, hr, hi = ctx.saved_tensors[:5]
         ksr, ksi = ctx.saved_tensors[5:] if ctx.has_ks else (None, None)
-        gr, gi, Cb = _kernel_bwd(
+        bwd = _pair(ctx.mid)[1]
+        gr, gi, Cb = bwd(
             ctx.plan, x0r, x0i, Ce, hr, hi, ksr, ksi,
             _zeros_if_none(gxTr, hr[:, -1]), _zeros_if_none(gxTi, hi[:, -1]),
             _zeros_if_none(ghr, hr), _zeros_if_none(ghi, hi))
-        return None, gr, gi, Cb
+        return None, None, gr, gi, Cb
+
+
+def uses_mid(plan, B, N) -> bool:
+    """Whether a launch of the plan at B states of dimension N goes to the
+    mid pair: a shared-stack plan that one block does not hold."""
+    return not plan.per_block and launch_refusal(plan, B, N) is not None
 
 
 def streamk_propagate_kernel(plan, x0r, x0i, Ce):
-    """The CUDA kernel pair behind the same interface as
-    streamk_propagate_plain (float32 CUDA tensors only)."""
-    return _KernelFn.apply(plan, x0r, x0i, Ce)
+    """The CUDA kernel pairs behind the same interface as
+    streamk_propagate_plain (float32 CUDA tensors only): the one-block pair
+    wherever size_refusal admits the plan, else the mid pair."""
+    return _KernelFn.apply(plan, uses_mid(plan, *x0r.shape), x0r, x0i, Ce)
 
 
 def streamk_propagate(plan, x0r, x0i, Ce):
@@ -562,14 +734,16 @@ def streamk_propagate(plan, x0r, x0i, Ce):
 
 
 def make_plan(Sr, Si, dt: float, iters: int, gen_diag=None,
-              linsolver: str = "neumann") -> StreamKPlan:
+              linsolver: str = "neumann", store_iters=None) -> StreamKPlan:
     """The launch plan for the (K, N, N) stack planes Sr, Si, on their
     device and in their dtype; (G, K, N, N) planes with a (G, N) gen_diag
     plan one system per candidate. Split appends the off-diagonal
     remainder's slot -diag(h), h = i * gen_diag the H diagonal (each
     candidate's own), whose coefficient is 1 (extend_coeffs). With
     iters <= 4 the forward stores its stage iterates for the backward; past
-    that the backward replays them (the JAX kernel's rule)."""
+    that the backward replays them (the JAX kernel's rule); store_iters
+    False asks for the replay at any iters (the JAX Problem's gate on
+    bytes, problem.py::store_iters_ok)."""
     dt, iters = float(dt), int(iters)
     kw = dict(dtype=Sr.dtype, device=Sr.device)
     if gen_diag is not None:
@@ -589,7 +763,8 @@ def make_plan(Sr, Si, dt: float, iters: int, gen_diag=None,
         Si = torch.cat([Si, slot(h.imag).unsqueeze(-3)], dim=-3)
     return StreamKPlan(Sr=Sr.contiguous(), Si=Si.contiguous(),
                        rows=rows.contiguous(), dt=dt, iters=iters,
-                       linsolver=linsolver, store_iters=iters <= 4)
+                       linsolver=linsolver,
+                       store_iters=iters <= 4 and store_iters is not False)
 
 
 def lindblad_prime_stack(stack, Ls):

@@ -1,0 +1,186 @@
+"""Launches of the mid-size streamK kernel pair, csrc/streamk_mid.cu: the
+streamK contract of ops/streamk.py (port of quandary_tpu/ops/pallas_stream.py
+::make_streamk_propagate, its forward and backward Pallas calls) for closed
+systems that one thread block of csrc/streamk.cu cannot hold. A launch runs
+a thread-block cluster of G CTAs per (candidate, chunk of Bc basis states),
+each CTA on a band of the state entries.
+
+This module holds the pair's ctypes binding, its launch counters and its
+two launch wrappers. The planner (``streamk._mid_shape``), the gates
+(``streamk.mid_refusal``, ``streamk.route_refusal``) and the dispatch
+(``streamk.streamk_propagate_kernel`` sends a shared-stack plan here
+wherever ``streamk.size_refusal`` refuses it) are in ops/streamk.py, with
+the plain torch version the pair is held against. A wrapper launches the
+kernel or raises: nothing falls back to the one-block pair or to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from . import cuda_build, streamk
+
+# launches of each kernel since the counters were last set to 0
+streamk_mid_fwd_launches = 0
+streamk_mid_bwd_launches = 0
+_COUNTERS = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches")
+
+_SRC = os.path.join(cuda_build.CSRC_DIR, "streamk_mid.cu")
+# the shape of the last launch of each direction, as the wrapper ran it
+# (cluster size G, states per cluster Bc, threads, shared-memory bytes,
+# layout 'smem' or 'global', band rows R, clusters, CTAs)
+mid_layouts = {}
+_SCHEDULED = set()      # launch shapes whose clusters the card holds
+
+
+def launch_counts() -> dict:
+    """The two launch counters by name."""
+    return {k: globals()[k] for k in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for k in _COUNTERS:
+        globals()[k] = 0
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` x `counts` to the counters (a CUDA graph's replay)."""
+    for k, v in counts.items():
+        globals()[k] += times * v
+
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 8 + [f, f] + [i] * 5 + [p]
+    lib.streamk_mid_fwd_launch.argtypes = [p] * 13 + tail
+    lib.streamk_mid_bwd_launch.argtypes = [p] * 18 + tail
+    lib.streamk_mid_max_clusters.argtypes = [i] * 5
+    for name in ("streamk_mid_fwd_launch", "streamk_mid_bwd_launch",
+                 "streamk_mid_max_clusters"):
+        getattr(lib, name).restype = i
+
+
+def build_kernels(verbose: bool = False):
+    """Compile csrc/streamk_mid.cu (cuda_build.build_library) and load it,
+    once per process. Returns (library path, build seconds, compiler
+    output)."""
+    return cuda_build.build_library(_SRC, _bind, verbose)
+
+
+def _lib():
+    return cuda_build.library(_SRC, _bind)
+
+
+def _launch_shape(lib, plan, E, B, N, nt, backward):
+    """streamk._mid_shape of a launch; raises NotImplementedError where the
+    mid pair refuses the plan, and RuntimeError where the card cannot hold
+    one cluster of the shape (cudaOccupancyMaxActiveClusters, asked once
+    per shape)."""
+    store = plan.store_iters and plan.iters > 0
+    if plan.per_block:
+        raise NotImplementedError(
+            "the mid kernels run one shared stack; "
+            + (streamk.launch_refusal(plan, B, N) or ""))
+    why = streamk.mid_refusal(E, B, N, plan.Ke, plan.iters, nt, store)
+    if why is not None:
+        raise NotImplementedError(why)
+    shape = streamk._mid_shape(E, B, N, plan.Ke, plan.iters, store, backward)
+    G, bc, threads, smem, _ = shape
+    key = (backward, bc, G, threads, smem)
+    if key not in _SCHEDULED:
+        if lib.streamk_mid_max_clusters(int(backward), bc, G, threads,
+                                        smem) < 1:
+            raise RuntimeError(
+                f"streamk_mid_{'bwd' if backward else 'fwd'}: the card holds "
+                f"no cluster of {G} CTAs of {threads} threads and {smem} "
+                "bytes of shared memory")
+        _SCHEDULED.add(key)
+    return shape
+
+
+def _log(key, E, B, N, shape):
+    G, bc, threads, smem, layout = shape
+    clusters = E * -(-B // bc)
+    mid_layouts[key] = dict(G=G, Bc=bc, threads=threads, smem=smem,
+                            layout=layout, R=-(-N // G), clusters=clusters,
+                            ctas=clusters * G)
+
+
+def _scratch(shape, E, B, N, backward, replay, device):
+    """The global layout's bands of H, one slice per CTA; None in the smem
+    layout."""
+    G, bc, _, _, layout = shape
+    if layout != "global":
+        return None
+    ctas = E * -(-B // bc) * G
+    return torch.empty(
+        ctas * streamk._mid_band_floats(N, -(-N // G), backward, replay),
+        dtype=torch.float32, device=device)
+
+
+def _kernel_fwd(plan, x0r, x0i, Ce):
+    """One streamk_mid_fwd launch: (xTr, xTi, hr, hi, ksr, ksi)."""
+    global streamk_mid_fwd_launches
+    streamk._check_cuda(plan, Ce, x0r, x0i)
+    lib = _lib()
+    E, nt, _ = Ce.shape
+    B, N = x0r.shape
+    shape = _launch_shape(lib, plan, E, B, N, nt, backward=False)
+    G, bc, threads, smem, layout = shape
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=Ce.device)
+    xTr, xTi = new(E, B, N), new(E, B, N)
+    hr, hi = new(E, nt, B, N), new(E, nt, B, N)
+    ksr = ksi = None
+    if plan.store_iters and plan.iters > 0:
+        ksr, ksi = new(E, nt, plan.iters, B, N), new(E, nt, plan.iters, B, N)
+    scratch = _scratch(shape, E, B, N, False, False, Ce.device)
+    err = lib.streamk_mid_fwd_launch(
+        *map(streamk._ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, plan.rows, xTr,
+                            xTi, hr, hi, ksr, ksi, scratch)),
+        *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
+        int(layout == "global"),
+        torch.cuda.current_stream(Ce.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"streamk_mid_fwd launch failed: CUDA error {err}")
+    streamk_mid_fwd_launches += 1
+    _log("fwd", E, B, N, shape)
+    return xTr, xTi, hr, hi, ksr, ksi
+
+
+def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+    """One streamk_mid_bwd launch: (x0 cotangent pair summed over the
+    candidates, Cb (E, nt, Ke)). The CTAs' C-bar partial rows are summed
+    over the chunks and bands in a fixed order."""
+    global streamk_mid_bwd_launches
+    streamk._check_cuda(plan, Ce, x0r, x0i, hr, hi, gTr, gTi, jr, ji)
+    lib = _lib()
+    E, nt, Ke = Ce.shape
+    B, N = x0r.shape
+    store = ksr is not None
+    if store != (plan.store_iters and plan.iters > 0):
+        raise ValueError("stored stage iterates do not match the plan")
+    shape = _launch_shape(lib, plan, E, B, N, nt, backward=True)
+    G, bc, threads, smem, layout = shape
+    dev = Ce.device
+    g0r = torch.empty((E, B, N), dtype=torch.float32, device=dev)
+    g0i = torch.empty_like(g0r)
+    Cbp = torch.empty((E, -(-B // bc) * G, nt, Ke), dtype=torch.float32,
+                      device=dev)
+    scratch = _scratch(shape, E, B, N, True, not store and plan.iters > 0,
+                       dev)
+    err = lib.streamk_mid_bwd_launch(
+        *map(streamk._ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, hr, hi, jr, ji,
+                            gTr, gTi, plan.rows, ksr, ksi, g0r, g0i, Cbp,
+                            scratch)),
+        *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
+        int(layout == "global"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"streamk_mid_bwd launch failed: CUDA error {err}")
+    streamk_mid_bwd_launches += 1
+    _log("bwd", E, B, N, shape)
+    return g0r.sum(0), g0i.sum(0), Cbp.sum(1)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..io import output as out_io
-from ..ops import rho, stream, streamk
+from ..ops import rho, stream, streamk, streamk_mid
 from .batched_lbfgs import _direction, _remember
 from .driver import OptimHistoryRow, OptimResult
 from .lbfgsb import bounded_residual
@@ -43,7 +43,7 @@ AUX_KEYS = ("fidelity", "obj_cost", "obj_regul", "obj_penal",
 
 
 # the modules whose wrappers count kernel launches
-_KERNEL_MODULES = (streamk, rho, stream)
+_KERNEL_MODULES = (streamk, streamk_mid, rho, stream)
 
 
 def _add_launches(per_module, times=1):

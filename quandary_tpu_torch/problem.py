@@ -52,8 +52,12 @@ Not ported yet, and refused with NotImplementedError (ROADMAP A8): the
 structured engines, the time-parallel scan and the reversible adjoint
 (``Setup.engine``, ``time_parallel``, ``adjoint`` other than 'auto'). On
 CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
-systems past what one thread block of the route's kernels holds
-(``Problem.fused_refusal``); nothing is sent quietly to the plain loop.
+what the route's kernels do not hold (``Problem.fused_refusal``): closed
+'streamk' only a sweep past the device-memory budget
+(ops/streamk.py::route_refusal; one thread block or a thread-block cluster
+per candidate and chunk of basis states); the open superop route, 'stream'
+and 'chunk' past one thread block; 'rho' past N = 64. Nothing is sent
+quietly to the plain loop.
 """
 
 from __future__ import annotations
@@ -398,10 +402,16 @@ class Problem:
                 self.gen_diag, self.linsolver)
             self._refusal = rho.launch_refusal(self.N, K)
         elif self.use_fused and s.fused_mode == "streamk":
-            self._plan = streamk.make_plan(self._Sr, self._Si, s.dt, iters,
-                                           gd, self.linsolver)
+            dim = self._Sr.shape[-1]
+            self._plan = streamk.make_plan(
+                self._Sr, self._Si, s.dt, iters, gd, self.linsolver,
+                store_iters=store_iters_ok(s.ntime, iters, self.ninit, dim))
+            # closed: either kernel pair; superop: one thread block
             self._refusal = streamk.launch_refusal(
-                self._plan, self.ninit, self._Sr.shape[-1])
+                self._plan, self.ninit, dim) if self._flat \
+                else streamk.route_refusal(
+                    self.ninit, dim, self._plan.Ke, iters, s.ntime,
+                    store=self._plan.store_iters)
         elif self.use_fused:
             self._plan = stream.make_plan(self._Sr, s.dt, iters,
                                           gd, self.linsolver,
@@ -437,11 +447,15 @@ class Problem:
     @property
     def fused_ok(self) -> bool:
         """Whether the kernels of the problem's fused route (`fused_form`)
-        admit it: the fused path is on and one thread block holds a
-        candidate (streamK: B*dim state entries, the stacks and the stage
-        iterates; stream and chunk: B*dim state entries, the step's planes
-        and the stage iterates, and the sweep's plane arrays at E = 1 under
-        stream.PLANE_BUDGET_BYTES; rho: one (N, N) density matrix).
+        admit it: the fused path is on and the route's kernels hold a
+        candidate (closed streamK: one thread block or a cluster per chunk
+        of basis states, a sweep's history and stored iterates at E = 1
+        under streamk.DEVICE_BUDGET_BYTES; superop: one thread block holds
+        B*dim state entries, the stacks and the stage iterates; stream and
+        chunk: one thread block holds B*dim state entries, the step's
+        planes and the stage iterates, and the sweep's plane arrays at
+        E = 1 under stream.PLANE_BUDGET_BYTES; rho: one (N, N) density
+        matrix).
         `fused_refusal` names the limit otherwise. On the CPU it tells what
         the card would do; the plain version there runs any size."""
         return self.use_fused and self._refusal is None
@@ -776,6 +790,17 @@ class Problem:
                                    self.setup.ground_freqs_radns,
                                    self.setup.pipulses)
         return self.ts_out, p, q, f
+
+
+def store_iters_ok(ntime, iters, ninit, dim) -> bool:
+    """Whether the streamK forward stores its stage iterates for the
+    backward, which otherwise replays them: iters <= 4 (the kernel's rule)
+    and the JAX Problem's gate on bytes (quandary_tpu/problem.py:1333-1343,
+    _store_iters_ok): 2 x ntime x iters x Bp x P f32 at most 1.5 GiB, with
+    Bp = roundup(ninit, 8) (at least 8) and P = roundup(dim, 128)."""
+    Bp = max(8, -(-ninit // 8) * 8)
+    P = -(-dim // 128) * 128
+    return iters <= 4 and 2 * ntime * iters * Bp * P * 4 <= 1.5 * (1 << 30)
 
 
 def _jax_size_gate(problem, s) -> bool:

@@ -11,7 +11,10 @@ dense) against their plain version, stream_fwd and stream_bwd over their
 branches (helper warps at N = 16 and where states span warps, the inline
 layout at B*N = 1024, and for the forward at N = 154), their determinism
 and stored against replayed iterates, on
-the problem's routes, in the device optimizer and in the Kerr calibration.
+the problem's routes, in the device optimizer and in the Kerr calibration;
+the mid-size streamK pair (csrc/streamk_mid.cu, closed systems past one
+thread block) against the plain version, its determinism and its launch
+counters, alone and under Problem.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -1122,3 +1125,105 @@ def test_front_end_double_precision_plain_on_card(cuda, tmp_path):
     q.optimize(datadir=str(tmp_path / "opt"))
     assert _fe_launches(mods) == before
     assert len(q.optim_hist["Iters"]) == 3
+
+
+def _mid_case(cuda, N, B, E, k, iters, solver, store, seed):
+    """A random closed streamK launch past one thread block: (plan, C, x0r,
+    x0i, w) with a stack of O(1) spectral scale and a stiff diagonal."""
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(size=(k, N, N)) + 1j * rng.normal(size=(k, N, N))) \
+        / np.sqrt(N)
+    stack[0] += np.diag(rng.normal(size=N) * 5.0)
+    stack = stack.astype(np.complex64)
+    gen_diag = -1j * np.diag(stack[0]).astype(np.complex128)
+    plan = streamk.make_plan(cuda(stack.real), cuda(stack.imag), 0.02, iters,
+                             gen_diag, solver, store_iters=store)
+    C = streamk.extend_coeffs(plan, cuda(
+        (rng.normal(size=(E, NT, k)) * 0.5).astype(np.float32)))
+    x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, N)).astype(
+        np.float32))
+    w = cuda(rng.normal(size=(E, NT, B, N)).astype(np.float32))
+    return plan, C, x0r, x0i, w
+
+
+def _mid_run(fn, plan, C, x0r, x0i, w):
+    Cg = C.clone().requires_grad_()
+    xr, xi = x0r.clone().requires_grad_(), x0i.clone().requires_grad_()
+    xTr, _, hr, hi = fn(plan, xr, xi, Cg)
+    (torch.sum(w * hr * hi) + torch.sum(xTr * xTr)).backward()
+    torch.cuda.synchronize()
+    return hr.detach(), Cg.grad, xr.grad, xi.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B,E,solver,iters,store", [
+    (64, 8, 1, "split", 3, True), (64, 8, 4, "split", 3, False),
+    (64, 3, 2, "jacobi", 4, True), (64, 5, 1, "neumann", 6, False),
+    (256, 1, 1, "split", 4, True), (256, 1, 1, "split", 4, False),
+    (256, 16, 2, "jacobi", 3, False)])
+def test_mid_kernel_matches_plain_on_card(cuda, N, B, E, solver, iters,
+                                          store):
+    """The mid pair against the plain version on the card, bounds as
+    test_kernel_matches_plain_on_card; one launch of each mid kernel and
+    none of the one-block pair; a second run gives the same bits."""
+    plan, C, x0r, x0i, w = _mid_case(cuda, N, B, E, 5, iters, solver, store,
+                                     seed=N + B)
+    from quandary_tpu_torch.ops import streamk_mid
+    assert plan.store_iters == store and streamk.uses_mid(plan, B, N)
+    before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    kern = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i, w)
+    after = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"streamk_mid_fwd_launches": 1,
+                     "streamk_mid_bwd_launches": 1}
+    again = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i, w)
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    plain = _mid_run(streamk.streamk_propagate_plain, plan, C, x0r, x0i, w)
+    for a, b, tol in zip(kern, plain, (1e-5, 1e-4, 1e-4, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_mid_problem_on_card_matches_cpu(cuda):
+    """Three qubits with two guard levels (N = 64, 8 basis states, split-3):
+    value_and_grad on the card through the mid pair (1 + 1 launches)
+    against the same problem on the CPU (plain), both f32: J to 1e-5,
+    gradient to 1e-4 of max."""
+    from quandary_tpu_torch.models import gates
+    from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.ops import streamk_mid
+    from quandary_tpu_torch.problem import Problem, Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    freq, T, nt = [4.8, 5.0, 5.2], 6.0, 40
+    nlevels, Ne = [4, 4, 4], [2, 2, 2]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=freq, rotfreq_ghz=freq,
+        selfkerr_ghz=[0.22, 0.23, 0.24], jkl_ghz=[0.01, 0.004, 0.01],
+        crosskerr_ghz=[])
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=8, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(3))
+    setup = Setup(
+        model=model, nessential=tuple(Ne), ntime=nt, dt=T / nt,
+        oscillators=oscs, ground_freqs_radns=tuple(2 * np.pi * f
+                                                   for f in freq),
+        initcond_type="basis", target_type="gate",
+        target_gate_full=gates.assemble_gate(
+            gates.swap_0q(3), nlevels, Ne, [0.0] * 3, T),
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        dtype=torch.complex64, linsolve_iters=3, linsolver="split")
+    pc, ph = Problem(setup), Problem(setup, device="cpu")
+    assert pc.fused_form == "streamk" and pc.fused_ok
+    x = np.random.default_rng(2).uniform(-1, 1, setup.nparams) * 0.02
+    before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    (Jc, _), gc = pc.build_value_and_grad()(x, x)
+    after = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"streamk_mid_fwd_launches": 1,
+                     "streamk_mid_bwd_launches": 1}
+    (Jh, _), gh = ph.build_value_and_grad()(x, x)
+    assert abs(float(Jc) - float(Jh)) <= 1e-5 * abs(float(Jh))
+    assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
