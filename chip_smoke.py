@@ -14,9 +14,10 @@ closed systems past one thread block up to N = 1024. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
-2. builds the kernels from the checkout, one nvcc per source and all four
+2. builds the kernels from the checkout, one nvcc per source and all five
    at once: csrc/streamk.cu and csrc/streamk_mid.cu here, csrc/rho.cu
-   reported in phase 11, csrc/stream.cu in phase 17;
+   reported in phase 11, csrc/stream.cu in phase 17, csrc/rho_mid.cu in
+   phase 26; starts phase 26's worker of CPU references;
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -147,14 +148,37 @@ basis states):
    precision="double" on the CPU (TOL_MID_FE_*), optimize 10 device
    iterations (the cost falls; 1 + 1 mid launches per sweep).
 
-Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25) is
-driven with the launch counters set to 0 just before and read just after.
-Before the device record one line lists the thirteen kernels with their
-launches, error, time, plain time and bound.
+Open systems past N = 64, on the mid-size density-matrix pair
+(csrc/rho_mid.cu: a thread-block cluster per density matrix, the operand
+whole in every CTA, M(t) in device-memory scratch):
+26. rho_mid_fwd / rho_mid_bwd against the plain version on the card at
+   NT_SHORT steps, at N = 65, 96, 125 and 128 (rho_bench-style open
+   systems: two qudits [5, 13], [8, 12], [8, 16] and three 5-level
+   qudits), neumann, jacobi and split, with and without jump operators,
+   stored and replayed iterates, two cluster sizes; the same bits across
+   G (8 against 16), between stored and replayed iterates and on a
+   repeat; qudits125 (rho_bench's 3 qutrits with two guard levels each,
+   N = 125, 1000 steps, jacobi-6) through Problem (fused=True and 'auto')
+   at full depth: 1 + 1 mid launches per sweep, J and gradient against
+   plain on the card at NT_SHORT steps and the f64 port on the CPU at
+   NT_F64 steps (computed by a worker process on the host while the
+   card runs phases 2-25), sweeps/s, kernel ms, bounds, clusters, the
+   plain version's times at full depth; qudits128 (two qudits [8, 16],
+   the edge of the range) kernel ms and bound; Quandary(precision=
+   "single") on qudits125's physics (Ne = [3, 3, 3], Ng = [2, 2, 2], T1,
+   T2, '3states', T = RHO_MID_FE_T): the rho route, simulate against
+   precision="double" on the CPU (the worker's), 2 device iterations.
+
+Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26)
+is driven with the launch counters set to 0 just before and read just
+after. Before the device record one line lists the fifteen kernels with
+their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run from the repository root:  python3 chip_smoke.py
+(`python3 chip_smoke.py --cpu-references FILE` is the worker phase 26
+starts; it computes on the CPU only.)
 """
 
 import contextlib
@@ -165,6 +189,7 @@ import math
 import os
 import re
 import runpy
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,8 +205,8 @@ from quandary_tpu_torch.io.configfile import Config, setup_from_config
 from quandary_tpu_torch.models import gates
 from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
-from quandary_tpu_torch.ops import (cuda_build, dense, rho, stream, streamk,
-                                    streamk_mid)
+from quandary_tpu_torch.ops import (cuda_build, dense, rho, rho_mid, stream,
+                                    streamk, streamk_mid)
 from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
@@ -370,19 +395,30 @@ def open_cnot_setup(guards, dtype=torch.complex64, ntime=1221,
         fused_rho=fused_rho)
 
 
-def midsize_setup(N, dtype=torch.complex64, ntime=1000):
-    """scripts/perf/rho_bench.py:25-65: 3 qutrits (N = 27) or two 8-level
-    qudits (N = 64) with T1/T2 collapse, '3states' initial conditions, a
-    random pure target state. `ntime` below 1000 cuts the horizon at the
-    same step."""
-    cfg = {
-        27: dict(nlevels=[3, 3, 3], freq01=[4.80595, 4.8601, 4.9],
-                 selfkerr=[0.2198, 0.2252, 0.22], jkl=[0.005, 0.0, 0.004],
-                 decay=[80.0, 90.0, 85.0], dephase=[40.0, 45.0, 42.0]),
-        64: dict(nlevels=[8, 8], freq01=[4.80595, 4.8601],
-                 selfkerr=[0.2198, 0.2252], jkl=[0.005],
-                 decay=[80.0, 90.0], dephase=[40.0, 45.0]),
-    }[N]
+# scripts/perf/rho_bench.py:25-65's open systems by N: 3 qutrits (N = 27)
+# and two 8-level qudits (N = 64); past one CTA of csrc/rho.cu, qudits125
+# (the 3 qutrits with two guard levels each, N = 125) and qudits128 (the two
+# qudits with 16 levels on the second, N = 128, the edge of the TPU kernel's
+# range); N = 65 and 96 only hold the mid kernels against plain (phase 26)
+QUTRITS = dict(freq01=[4.80595, 4.8601, 4.9], selfkerr=[0.2198, 0.2252, 0.22],
+               jkl=[0.005, 0.0, 0.004], decay=[80.0, 90.0, 85.0],
+               dephase=[40.0, 45.0, 42.0])
+QUDITS = dict(freq01=[4.80595, 4.8601], selfkerr=[0.2198, 0.2252],
+              jkl=[0.005], decay=[80.0, 90.0], dephase=[40.0, 45.0])
+MIDSIZE_OPEN = {27: dict(QUTRITS, nlevels=[3, 3, 3]),
+                64: dict(QUDITS, nlevels=[8, 8]),
+                65: dict(QUDITS, nlevels=[5, 13]),
+                96: dict(QUDITS, nlevels=[8, 12]),
+                125: dict(QUTRITS, nlevels=[5, 5, 5]),
+                128: dict(QUDITS, nlevels=[8, 16])}
+
+
+def midsize_setup(N, dtype=torch.complex64, ntime=1000, fused=True):
+    """scripts/perf/rho_bench.py:25-65 (MIDSIZE_OPEN[N]) with T1/T2 collapse
+    on every oscillator, '3states' initial conditions, a random pure target
+    state (seed 42), 6 stage iterations, 20 splines per oscillator.
+    `ntime` below 1000 cuts the horizon at the same step."""
+    cfg = MIDSIZE_OPEN[N]
     model = build_standard_model(
         nlevels=cfg["nlevels"], freq01_ghz=cfg["freq01"],
         rotfreq_ghz=cfg["freq01"], selfkerr_ghz=cfg["selfkerr"],
@@ -405,7 +441,7 @@ def midsize_setup(N, dtype=torch.complex64, ntime=1000):
         initcond_type="3states", target_type="state",
         target_state_full=np.outer(tgt, tgt.conj()),
         objective_type="Jtrace", gamma_tik=1e-4, dtype=dtype,
-        linsolve_iters=6)
+        linsolve_iters=6, fused=fused)
 
 
 T_START = time.perf_counter()
@@ -772,9 +808,15 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
         fwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], False),
         bwd_bound=rho_work_bound(plan, E, nt, x0r.shape[0], True))
     # each kernel's cluster: CTAs per matrix, CTAs launched, tile, threads
-    lib = cuda_build.library(rho._SRC, rho._bind)
+    # (the mid pair's, past csrc/rho.cu, as its wrapper logged it)
+    mid = rho.uses_mid(plan.N, plan.K, plan.njump, E, B)
+    lib = None if mid else cuda_build.library(rho._SRC, rho._bind)
     for key, args in (("fwd", rho._fwd_args), ("bwd", rho._bwd_args)):
-        tile, G, threads, _ = args(lib, plan, E, nt, B, store)[-4:]
+        if mid:
+            m = rho_mid.mid_layouts[key]
+            tile, G, threads = m["tile"], m["G"], m["threads"]
+        else:
+            tile, G, threads, _ = args(lib, plan, E, nt, B, store)[-4:]
         out[f"{key}_cluster"] = dict(G=G, ctas=E * B * G, tile=tile,
                                      threads=threads)
         out[f"{key}_us_per_step"] = 1e3 * out[key] / nt
@@ -821,6 +863,8 @@ OPEN_CONFIGS = {
     "cnot16": lambda **kw: open_cnot_setup(True, **kw),
     "qutrits27": lambda **kw: midsize_setup(27, **kw),
     "qudits64": lambda **kw: midsize_setup(64, **kw),
+    "qudits125": lambda **kw: midsize_setup(125, **kw),
+    "qudits128": lambda **kw: midsize_setup(128, **kw),
 }
 
 
@@ -879,6 +923,7 @@ def reset_counts():
     streamk.reset_launch_counts()
     streamk_mid.reset_launch_counts()
     rho.reset_launch_counts()
+    rho_mid.reset_launch_counts()
     stream.reset_launch_counts()
 
 
@@ -886,7 +931,8 @@ def main_path_launches(names):
     """Reads the counters after a main path was driven (they were set to 0
     just before it) and fails if a kernel of that path never launched."""
     counts = {**streamk.launch_counts(), **streamk_mid.launch_counts(),
-              **rho.launch_counts(), **stream.launch_counts()}
+              **rho.launch_counts(), **rho_mid.launch_counts(),
+              **stream.launch_counts()}
     missing = [k for k in names if counts[k] < 1]
     if missing:
         raise RuntimeError(f"main path did not launch {missing}: {counts}")
@@ -1429,6 +1475,338 @@ def mid_phase(smi, flagship_plan):
                 launches=launches, fe=fe)
 
 
+# Phase 26, the mid-size density-matrix pair (csrc/rho_mid.cu): open systems
+# of 64 < N <= 128. Kernel against plain on the card at NT_SHORT steps over
+# the solvers, with and without jump operators, stored and replayed
+# iterates, at two cluster sizes each (RHO_MID_CASES: solver, least dt
+# divisor, jump operators, stored, G); plain Neumann at dt/8 or finer, where
+# its series converges, dt/2 |d| <= 1/2 on the stiffest entry of the
+# generator's diagonal (qudits128's 16-level qudit needs dt/32: at dt/8
+# both f32 versions and the f64 one grow past 1e8); qudits125 and qudits128
+# at full depth; the front end on qudits125's physics.
+RHO_MID = ("rho_mid_fwd_launches", "rho_mid_bwd_launches")
+RHO_MID_SRC = "quandary_tpu_torch/csrc/rho_mid.cu"
+RHO_MID_CHECK_N = (65, 96, 125, 128)
+RHO_MID_CASES = (("jacobi", 1, True, True, None), ("jacobi", 1, True, False, 8),
+                 ("jacobi", 1, False, True, 8), ("split", 1, True, True, 8),
+                 ("split", 1, False, False, None),
+                 ("neumann", 8, True, False, 8),
+                 ("neumann", 8, False, True, None))
+RHO_MID_FE_T = 0.1      # the front end's horizon, ns (derived nsteps 60)
+RHO_MID_FE_ITERS = 2    # its device iterations
+# Its bounds against precision="double" on the CPU, about 5x the errors
+# measured on an H100 80GB HBM3 (700 W) at T = 0.2 ns (120 steps):
+# infidelity 1.4e-9, expected energy and population 3.2e-7 abs; at this
+# T = 0.1 ns the same card read 2.9e-9 and 3.2e-7
+TOL_RHO_MID_FE_INFID = 1e-8
+TOL_RHO_MID_FE_TRAJ = 2e-6
+# qudits125's value_and_grad, bounds about 5x the errors measured on an H100
+# 80GB HBM3 (700 W): against plain at NT_SHORT steps J 0, gradient 7.1e-7 x
+# max; against the f64 port at NT_F64 steps J 3.7e-7, gradient 2.1e-6 x max
+TOL_OPEN["qudits125"] = dict(J_plain=1e-6, g_plain=5e-6, J_f64=2e-6,
+                             g_f64=1e-5)
+
+
+def rho_mid_fe_kwargs():
+    """Quandary's arguments for phase 26's front end: qudits125's physics
+    (Ne = [3, 3, 3] with Ng = [2, 2, 2]), '3states', a random pure target
+    state on the essential levels, carriers at 0."""
+    rng = np.random.default_rng(42)
+    tgt = rng.normal(size=27) + 1j * rng.normal(size=27)
+    return dict(Ne=[3, 3, 3], Ng=[2, 2, 2], freq01=QUTRITS["freq01"],
+                rotfreq=QUTRITS["freq01"], selfkerr=QUTRITS["selfkerr"],
+                Jkl=QUTRITS["jkl"], T1=QUTRITS["decay"],
+                T2=QUTRITS["dephase"], initialcondition="3states",
+                targetstate=tgt / np.linalg.norm(tgt),
+                carrier_frequency=[[0.0]] * 3, T=RHO_MID_FE_T,
+                rand_seed=1234)
+
+
+def cpu_references(path):
+    """The worker phase 26 starts (python3 chip_smoke.py --cpu-references
+    FILE): on the CPU only, qudits125's f64 value_and_grad at NT_F64 steps
+    and the front end's precision="double" simulate; pickled to FILE."""
+    import pickle
+    torch.set_num_threads(4)
+    out = {}
+    out["qudits125"] = f64_reference("qudits125", ntime=NT_F64)
+    q64 = Quandary(precision="double", device="cpu", **rho_mid_fe_kwargs())
+    p0 = q64._initial_params(q64._build_setup().oscillators)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        r64 = q64.simulate(pcof0=p0, datadir=tmp)
+    out["front_end"] = dict(p0=p0, result=r64,
+                            seconds=time.perf_counter() - t0)
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def rho_mid_compare(plan, x0r, x0i, C, rng, store, G):
+    """One launch of each mid kernel on cluster size G (None: the rule's)
+    against rho.plain_forward / plain_backward on the same inputs (the
+    backward's: the kernel's history and random cotangents): max abs errors
+    of the states, C-bar and x0-bar, the relative ones, the states of both
+    against the plain version in f64 on the card; exactly 1 + 1 mid
+    launches."""
+    E, nt = C.shape[:2]
+    w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
+                                   dtype=torch.float32)
+    gT, jr, ji = w(E, *x0r.shape), w(E, nt, *x0r.shape), w(E, nt, *x0r.shape)
+    reset_counts()
+    with iterates_budget((1 << 62) if store else 0):
+        fwd = rho._kernel_fwd(plan, x0r, x0i, C, _cluster=G)
+        g0r, g0i, Cb = rho._kernel_bwd(plan, x0r, x0i, C, *fwd[2:], gT, gT,
+                                       jr, ji, _cluster=G)
+    torch.cuda.synchronize()
+    sweep_launches(RHO_MID)
+    if (fwd[4] is not None) != store:
+        raise RuntimeError(f"rho_mid_fwd stored iterates: {fwd[4] is not None}")
+    shapes = {k: dict(rho_mid.mid_layouts[k]) for k in ("fwd", "bwd")}
+    flat = lambda ts: torch.cat([t.flatten() for t in ts])
+    with torch.no_grad():
+        ph = rho.plain_forward(plan, x0r, x0i, C)
+        pb = rho.plain_backward(plan, x0r, x0i, C, fwd[2], fwd[3], gT, gT,
+                                jr, ji)
+        d = lambda t: None if t is None else t.double()
+        plan64 = dataclasses.replace(plan, Sr=d(plan.Sr), Si=d(plan.Si),
+                                     L=d(plan.L), planes=d(plan.planes))
+        s64 = flat(rho.plain_forward(plan64, x0r.double(), x0i.double(),
+                                     C.double()))
+    sk, sp = flat(fwd[2:4]), flat(ph)
+    xk, xp = flat((g0r, g0i)), flat(pb[:2])
+    if not all(bool(torch.isfinite(t).all()) for t in (sk, xk, Cb)):
+        raise RuntimeError("rho_mid kernel produced non-finite values")
+    return dict(state=float((sk - sp).abs().max()),
+                cbar=float((Cb - pb[2]).abs().max()),
+                x0bar=float((xk - xp).abs().max()),
+                cbar_rel=max_rel(Cb, pb[2]), x0bar_rel=max_rel(xk, xp),
+                kernel_f64=float((sk - s64).abs().max()),
+                plain_f64=float((sp - s64).abs().max()),
+                G=shapes["fwd"]["G"], shapes=shapes)
+
+
+def rho_mid_bits(plan, x0r, x0i, C, rng):
+    """The mid pair's bits: xT, hist, the stored iterates and g0 equal at
+    G = 8 and 16 (Cb's difference relative to its max), g0 and Cb equal
+    from stored and from replayed iterates, and on a repeat."""
+    E, nt = C.shape[:2]
+    w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
+                                   dtype=torch.float32)
+    gT, jh = w(E, *x0r.shape), w(E, nt, *x0r.shape)
+    out = {}
+    with iterates_budget(1 << 62):
+        for G in (8, 16):
+            fwd = rho._kernel_fwd(plan, x0r, x0i, C, _cluster=G)
+            out[G] = (fwd, rho._kernel_bwd(plan, x0r, x0i, C, *fwd[2:], gT,
+                                           gT, jh, jh, _cluster=G))
+        fwd = out[16][0]
+        replay = [rho._kernel_bwd(plan, x0r, x0i, C, fwd[2], fwd[3], None,
+                                  None, gT, gT, jh, jh) for _ in range(2)]
+        again = rho._kernel_fwd(plan, x0r, x0i, C)
+    eq = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
+    return dict(
+        fwd_G8_G16=eq(out[8][0], out[16][0]),
+        g0_G8_G16=eq(out[8][1][:2], out[16][1][:2]),
+        cbar_G8_G16_rel=max_rel(out[8][1][2], out[16][1][2]),
+        stored_replayed=eq(out[16][1], replay[0]),
+        repeat=eq(replay[0], replay[1]) and eq(again, fwd))
+
+
+def rho_mid_phase(smi, worker, ref_path):
+    """Phase 26: the mid density-matrix pair against plain, its bits,
+    qudits125 through Problem at full depth, qudits128's times and the
+    front end on qudits125's physics."""
+    import pickle
+    rng = np.random.default_rng(26)
+    to_card = lambda a: torch.as_tensor(a, device="cuda", dtype=torch.float32)
+    short = {N: Problem(midsize_setup(N, ntime=NT_SHORT))
+             for N in RHO_MID_CHECK_N}
+    worst = dict(state=0.0, cbar=0.0, x0bar=0.0, cbar_rel=0.0,
+                 x0bar_rel=0.0, kernel_f64=0.0)
+    bad, clusters = [], set()
+    for N, pr in short.items():
+        if pr.fused_form != "rho" or pr.linsolver != "jacobi" \
+                or not rho.uses_mid(N, pr.model.K, len(pr.engine.Ls_np), 1,
+                                    pr.ninit):
+            raise RuntimeError(f"N = {N}: route {pr.fused_form}, solver "
+                               f"{pr.linsolver}; expected the mid rho pair")
+        st, it = pr.setup, pr.setup.linsolve_iters
+        stiff = 0.5 * st.dt * float(np.abs(pr.gen_diag).max())
+        for solver, div, jumps, store, G in RHO_MID_CASES:
+            while solver == "neumann" and stiff / div > 0.5:
+                div *= 2
+            plan = rho.make_plan(pr._Sr, pr._Si,
+                                 pr.engine.Ls_np if jumps else None,
+                                 st.dt / div, it, pr.gen_diag, solver)
+            P = to_card(bench_params(st.nparams, 1,
+                                     seed=int(rng.integers(1 << 30))))
+            C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+            err = rho_mid_compare(plan, pr._x0r, pr._x0i, C, rng, store, G)
+            shapes = err.pop("shapes")
+            clusters.add((N, err["G"]))
+            print(f"  rho_mid N={N} {solver}-{it} dt/{div} jumps="
+                  f"{plan.njump} stored={store}: {json.dumps(err)} "
+                  f"{json.dumps(shapes)}", flush=True)
+            for k in worst:
+                worst[k] = max(worst[k], err[k])
+            if err["state"] > TOL_RHO_STATE_ABS \
+                    or err["cbar_rel"] > TOL_RHO_GRAD_REL \
+                    or err["x0bar_rel"] > TOL_RHO_GRAD_REL \
+                    or err["kernel_f64"] > max(TOL_RHO_F64_ABS,
+                                               err["plain_f64"]):
+                bad.append((N, solver, div, jumps, store, G, err))
+    pr = short[128]
+    plan = rho.make_plan(pr._Sr, pr._Si, pr.engine.Ls_np, pr.setup.dt, 6,
+                         pr.gen_diag, "jacobi")
+    C = pr.coeff_rows_mid(to_card(bench_params(pr.setup.nparams, 1,
+                                               seed=5)))[..., 0, :]
+    bits = rho_mid_bits(plan, pr._x0r, pr._x0i, C.contiguous(), rng)
+    phase(26, f"rho_mid pair == plain at {NT_SHORT} steps within abs "
+              f"{TOL_RHO_STATE_ABS} (states), {TOL_RHO_GRAD_REL} x max "
+              f"(cotangents), and within {TOL_RHO_F64_ABS} of plain f64 or "
+              f"closer than plain f32; worst {json.dumps(worst)}; clusters "
+              f"(N, G) {sorted(clusters)}; out of bounds {bad}; bits "
+              f"{json.dumps(bits)}")
+    if bad or not all(v for k, v in bits.items() if k != "cbar_G8_G16_rel") \
+            or bits["cbar_G8_G16_rel"] > 1e-6 \
+            or len({G for _, G in clusters}) < 2:
+        raise RuntimeError(f"rho_mid pair: out of bounds {bad}, bits {bits}, "
+                           f"clusters {clusters}")
+
+    # qudits125 through Problem at full depth (fused=True and 'auto'),
+    # qudits128's kernel times
+    full, report, launches = {}, {}, None
+    for name in ("qudits125", "qudits128"):
+        fn = OPEN_CONFIGS[name]
+        p = Problem(fn())
+        auto = Problem(fn(fused="auto"))
+        if not (p.fused_form == auto.fused_form == "rho" and p.fused_ok
+                and auto.use_fused and auto.fused_ok):
+            raise RuntimeError(f"{name}: fused=True / 'auto' took "
+                               f"{p.fused_form} / {auto.fused_form}")
+        P = to_card(bench_params(p.setup.nparams))[None]
+        reset_counts()
+        got = open_vg(p, P)
+        torch.cuda.synchronize()
+        counts = sweep_launches(RHO_MID)
+        gota = open_vg(auto, P)
+        if not all(torch.equal(a, b) for a, b in zip(got, gota)):
+            raise RuntimeError(f"{name}: fused='auto' and True differ")
+        del auto
+        if not (bool(torch.isfinite(got[0]).all())
+                and bool(torch.isfinite(got[2]).all())):
+            raise RuntimeError(f"{name}: non-finite value_and_grad")
+        C = p.coeff_rows_mid(P)[..., 0, :].contiguous()
+        report[name] = dict(N=p.N, K=p.model.K, J=len(p.engine.Ls_np),
+                            ninit=p.ninit, ntime=p.setup.ntime,
+                            J_value=float(got[0][0]),
+                            fidelity=float(got[1][0]), launches=counts)
+        if name == "qudits125":
+            launches = counts
+            ps = short[125]
+            got_s = open_vg(ps, P)
+            with plain_on_card():
+                plain_s = open_vg(ps, P)
+            report[name]["plain_short"] = open_errors(got_s, plain_s)
+            report[name]["sweeps_per_s"] = 1.0 / median_seconds(
+                lambda: open_vg(p, P), reps=3)
+            full[name] = rho_kernel_ms(p._plan, p._x0r, p._x0i, C, 2,
+                                       plain=True)
+            got_m = open_vg(Problem(fn(ntime=NT_F64)), P)
+        else:
+            full[name] = rho_kernel_ms(p._plan, p._x0r, p._x0i, C, 2,
+                                       plain=False)
+        del p
+    # the f64 references the worker computed on the host meanwhile
+    try:
+        worker.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError("the CPU reference worker did not finish")
+    if worker.returncode != 0:
+        raise RuntimeError(f"the CPU reference worker failed "
+                           f"({worker.returncode})")
+    with open(ref_path, "rb") as f:
+        refs = pickle.load(f)
+    ref, secs = refs["qudits125"]
+    report["qudits125"]["f64"] = open_errors(got_m, ref)
+    report["qudits125"]["f64_cpu_seconds"] = secs
+    tol = TOL_OPEN["qudits125"]
+    (eJ, ef, eg), (fJ, ff, fg) = (report["qudits125"]["plain_short"],
+                                  report["qudits125"]["f64"])
+    deep = full["qudits125"]["full_depth"]
+    phase(26, f"Problem (fused=True and 'auto') on the rho_mid pair at full "
+              f"depth, 1 + 1 launches per sweep: {json.dumps(report)}; "
+              + "; ".join(f"{k}: fwd / bwd {v['fwd']:.3f} / {v['bwd']:.3f} ms"
+                          f" (bound {v['fwd_bound'][0]:.4f} / "
+                          f"{v['bwd_bound'][0]:.4f}), clusters "
+                          f"{json.dumps(v['fwd_cluster'])} / "
+                          f"{json.dumps(v['bwd_cluster'])}, stored "
+                          f"{v['stored']}" for k, v in full.items())
+              + f"; qudits125 plain fwd / bwd {full['qudits125']['plain_fwd']}"
+                f" / {full['qudits125']['plain_bwd']} ms, full depth "
+                f"{json.dumps(deep)}; bounds {json.dumps(tol)}; card: {smi}")
+    if max(eJ, ef) > tol["J_plain"] or eg > tol["g_plain"] \
+            or max(fJ, ff) > tol["J_f64"] or fg > tol["g_f64"] \
+            or deep["state"] > TOL_RHO_FULL_STATE_ABS \
+            or deep["cbar_rel"] > TOL_RHO_FULL_GRAD_REL \
+            or deep["x0bar_rel"] > TOL_RHO_FULL_GRAD_REL:
+        raise RuntimeError(f"qudits125 out of bounds: {report['qudits125']}"
+                           f", full depth {deep}")
+
+    # the front end on qudits125's physics
+    fe_ref = refs["front_end"]
+    q32 = Quandary(precision="single", optimizer="device",
+                   maxiter=RHO_MID_FE_ITERS, **rho_mid_fe_kwargs())
+    s32 = q32._build_setup()
+    p32 = q32._problem(s32)
+    if p32.fused_form != "rho" or not rho.uses_mid(
+            p32.N, p32.model.K, len(p32.engine.Ls_np), 1, p32.ninit):
+        raise RuntimeError(f"qudits125's front end (N = {p32.N}) took route "
+                           f"{p32.fused_form}, not the mid rho pair")
+    p0 = q32._initial_params(s32.oscillators)
+    if not np.array_equal(np.asarray(p0), np.asarray(fe_ref["p0"])):
+        raise RuntimeError("the front end's initial controls differ from "
+                           "the worker's")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        r32 = q32.simulate(pcof0=p0, datadir=os.path.join(tmp, "sim32"))
+        torch.cuda.synchronize()
+        t_sim = time.perf_counter() - t0
+        sim = main_path_launches(RHO_MID[:1])
+        fe_err = front_end_errors(r32, fe_ref["result"])
+        reset_counts()
+        t0 = time.perf_counter()
+        q32.optimize(pcof0=p0, datadir=os.path.join(tmp, "opt32"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        opt = main_path_launches(RHO_MID)
+    cost = q32.optim_hist["Cost"]
+    niter = len(q32.optim_hist["Iters"]) - 1
+    sweeps = device_sweeps(niter)
+    fe = dict(N=p32.N, B=p32.ninit, K=p32.model.K, J=len(p32.engine.Ls_np),
+              nsteps=q32.nsteps, linsolver=p32.linsolver,
+              iters=p32._plan.iters, simulate_s=t_sim,
+              simulate_f64_cpu_s=fe_ref["seconds"], errors=fe_err,
+              iterations=niter, cost_first=cost[0], cost_last=cost[-1],
+              optimize_s=wall, launches_simulate=sim, launches_optimize=opt,
+              shapes=dict(rho_mid.mid_layouts))
+    phase(26, f"Quandary(precision='single') on qudits125's physics, T = "
+              f"{RHO_MID_FE_T} ns: {json.dumps(fe)}; bounds infidelity "
+              f"{TOL_RHO_MID_FE_INFID}, trajectories {TOL_RHO_MID_FE_TRAJ}; "
+              f"card: {smi}")
+    if fe_err["infidelity"] > TOL_RHO_MID_FE_INFID \
+            or fe_err["energy"] > TOL_RHO_MID_FE_TRAJ \
+            or fe_err["population"] > TOL_RHO_MID_FE_TRAJ \
+            or sim[RHO_MID[0]] != 1 or sim[RHO_MID[1]] != 0 \
+            or opt[RHO_MID[0]] != sweeps or opt[RHO_MID[1]] != sweeps:
+        raise RuntimeError(f"qudits125 front end: errors {fe_err}, launches "
+                           f"{sim} / {opt} ({sweeps} sweeps)")
+    return dict(worst=worst, full=full, report=report, launches=launches,
+                fe=fe, bits=bits)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1443,13 +1821,64 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False   # plain path in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    # phase 26's CPU references, computed by a worker on the host while the
+    # card runs phases 2-25
+    with cpu_reference_worker() as (worker, ref_path):
+        run_phases(smi, worker, ref_path)
+
+
+@contextlib.contextmanager
+def cpu_reference_worker():
+    """Starts phase 26's worker (cpu_references, in a process of its own
+    that sees no card) and yields (the process, its output file); stops it
+    on the way out, printing its log if it failed."""
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=cuda_build.BUILD_DIR)
+    ref_path = os.path.join(ref_dir, "cpu_references.pkl")
+    with open(os.path.join(ref_dir, "worker.log"), "w") as log_f:
+        worker = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-references",
+             ref_path], stdout=log_f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        yield worker, ref_path
+    except BaseException:
+        if worker.poll() is not None and worker.returncode != 0:
+            with open(os.path.join(ref_dir, "worker.log")) as f:
+                print(f"CPU reference worker (rc {worker.returncode}):\n"
+                      + f.read()[-4000:], flush=True)
+        raise
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+
+
+def rho_mid_phase_alone():
+    """Phase 26 by itself (after a change to csrc/rho_mid.cu): the build,
+    then rho_mid_phase with its worker."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with cpu_reference_worker() as (worker, ref_path):
+        path, secs, log = rho_mid.build_kernels(verbose=True)
+        phase(26, f"built {path} in {secs:.2f} s; "
+                  + " | ".join(ptxas_lines(log)))
+        return rho_mid_phase(smi, worker, ref_path)
+
+
+def run_phases(smi, worker, ref_path):
+    """Phases 2-26 and the last lines."""
     # ---- 2. build ----
     t0 = time.perf_counter()
-    (path, secs, log), rho_build, stream_build, mid_build = \
+    (path, secs, log), rho_build, stream_build, mid_build, rmid_build = \
         cuda_build.build_parallel(
             [streamk.build_kernels, rho.build_kernels, stream.build_kernels,
-             streamk_mid.build_kernels], verbose=True)
-    phase(2, f"built {path} in {secs:.2f} s (all four sources in "
+             streamk_mid.build_kernels, rho_mid.build_kernels], verbose=True)
+    phase(2, f"built {path} in {secs:.2f} s (all five sources in "
              f"{time.perf_counter() - t0:.2f} s); "
           + " | ".join(ptxas_lines(log)) + f"; {mid_build[0]}: "
           + " | ".join(ptxas_lines(mid_build[2])))
@@ -2141,6 +2570,16 @@ def main():
     # ---- 25. closed systems past one block: the mid pair ----
     mid = mid_phase(smi, prob._plan)
 
+    # ---- 26. open systems past N = 64: the mid density-matrix pair ----
+    rpath_m, rsecs_m, rlog_m = rmid_build
+    phase(26, f"built {rpath_m} in {rsecs_m:.2f} s; "
+              + " | ".join(ptxas_lines(rlog_m)))
+    missing = [f"{k}<{ts}>" for k in ("rho_mid_fwd", "rho_mid_bwd")
+               for ts in (1, 2, 4) if f"{k}ILi{ts}E" not in rlog_m]
+    if rsecs_m > 0 and missing:
+        raise RuntimeError(f"ptxas reported no {missing}")
+    rm = rho_mid_phase(smi, worker, ref_path)
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -2205,6 +2644,24 @@ def main():
             more[f"ms_{name}_nt{MID_NT_CUT}"] = t[key]
             more[f"plain_ms_{name}_nt{MID_NT_CUT}"] = t[f"plain_{key}"]
         return more
+
+    def rho_mid_more(i):
+        """The mid density-matrix pair: its cluster and time per step at
+        qudits125, qudits128's time and bound, sweeps/s, the front end's
+        launches."""
+        key = ("fwd", "bwd")[i]
+        t125, t128 = rm["full"]["qudits125"], rm["full"]["qudits128"]
+        return dict(cluster=t125[f"{key}_cluster"],
+                    us_per_step=t125[f"{key}_us_per_step"],
+                    stored=t125["stored"],
+                    sweeps_per_s=rm["report"]["qudits125"]["sweeps_per_s"],
+                    ms_qudits128=t128[key],
+                    bound_ms_qudits128=t128[f"{key}_bound"][0],
+                    cluster_qudits128=t128[f"{key}_cluster"],
+                    launches_front_end=rm["fe"]["launches_optimize"][
+                        RHO_MID[i]],
+                    launches_front_end_simulate=rm["fe"][
+                        "launches_simulate"][RHO_MID[i]])
 
     def chain_more(name):
         """A stream.cu kernel's time per (reversed) step and helpers."""
@@ -2276,7 +2733,18 @@ def main():
         record("streamk_mid_bwd", 967, mid["launches"][MID[1]],
                max(mid["worst"]["cbar"], mid["worst"]["x0bar"]),
                mid["full"]["n256_pure"], "bwd", src=MID_SRC,
-               **mid_more(1))]}))
+               **mid_more(1)),
+        # the mid density-matrix pair at qudits125 (N = 125, B = 3, 1000
+        # steps, E = 1, the plain version at the same depth); qudits128
+        # rides along
+        record("rho_mid_fwd", 374, rm["launches"][RHO_MID[0]],
+               rm["worst"]["state"], rm["full"]["qudits125"], "fwd",
+               src=RHO_MID_SRC, tpu="quandary_tpu/ops/pallas_rho.py",
+               **rho_mid_more(0)),
+        record("rho_mid_bwd", 494, rm["launches"][RHO_MID[1]],
+               max(rm["worst"]["cbar"], rm["worst"]["x0bar"]),
+               rm["full"]["qudits125"], "bwd", src=RHO_MID_SRC,
+               tpu="quandary_tpu/ops/pallas_rho.py", **rho_mid_more(1))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2284,4 +2752,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-references"]:
+        cpu_references(sys.argv[2])
+    else:
+        main()

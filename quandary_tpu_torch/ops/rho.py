@@ -25,7 +25,9 @@ coefficient cotangent rows.
 
 What differs from the TPU kernel: the time loop inside the kernel, with one
 thread-block cluster of G CTAs per (candidate, initial condition), each CTA
-on a band of rows, in both directions; exact f32 FMA (the TPU default is a
+on a band of rows, in both directions (past N = 64, where one CTA no longer
+holds M and the operand whole, the pair of csrc/rho_mid.cu, launched by
+ops/rho_mid.py); exact f32 FMA (the TPU default is a
 3-pass bf16 emulation of f32 products), arrays of exactly (N, N) and
 (ntime, K) (no 128-lane padding, no lane-group packing of initial
 conditions), and E candidates in one launch.
@@ -47,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, rho_mid
 from .streamk import _MODES, _stage_bwd, _stage_fwd, _zeros_if_none
 
 # launches of each kernel since the counters were last set to 0
@@ -56,8 +58,8 @@ rho_bwd_launches = 0
 _COUNTERS = ("rho_fwd_launches", "rho_bwd_launches")
 
 _SRC = os.path.join(cuda_build.CSRC_DIR, "rho.cu")
-# the widest density matrix the kernels take: every CTA of a cluster holds M
-# and the operand whole
+# the widest density matrix csrc/rho.cu takes: every CTA of a cluster holds M
+# and the operand whole (past it, up to rho_mid.MAX_N, csrc/rho_mid.cu)
 MAX_N = 64
 # the forward stores its stage iterates for the backward while they take no
 # more than this (iters x the history); past it the backward replays them
@@ -109,7 +111,9 @@ class RhoPlan:
     """Everything a launch needs besides x0 and the coefficients: the
     (K, N, N) stack planes, the jump planes L (4, J, N, N) =
     [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag (None without jump operators),
-    the entrywise solver planes (nplanes, N, N) and the step constants."""
+    the entrywise solver planes (nplanes, N, N), the step constants and,
+    past MAX_N, the transposed stacks (2, K, N, N) the mid pair's backward
+    reads."""
     Sr: torch.Tensor
     Si: torch.Tensor
     L: Optional[torch.Tensor]
@@ -117,6 +121,7 @@ class RhoPlan:
     dt: float
     iters: int
     linsolver: str
+    St: Optional[torch.Tensor] = None
 
     @property
     def N(self) -> int:
@@ -237,19 +242,35 @@ def _bwd_shape(E, B, N, K, J, G=None, max_g=16):
 
 def launch_refusal(N: int, K: int):
     """Why the kernels cannot hold an (N, N) density matrix with K stack
-    slots (a sentence naming the limit), or None when both take it at any
+    slots (a sentence naming the limit), or None when a pair takes it at any
     number of matrices: the two shape functions at E B = 132 and one jump
-    operator (J > 0 needs one jump band)."""
+    operator (J > 0 needs one jump band), of csrc/rho.cu up to MAX_N, else
+    of csrc/rho_mid.cu. Past rho_mid.MAX_N no pair takes it: the TPU kernel
+    packs a density matrix into one 128-lane tile, and the JAX Problem
+    raises there (a reference behaviour, not a fault of the port)."""
+    if N > rho_mid.MAX_N:
+        return (f"rho kernel: N = {N} is past the TPU kernel's range, "
+                f"N <= {rho_mid.MAX_N} (one 128-lane tile): the JAX Problem's "
+                "lane-group choice, quandary_tpu/problem.py:517, raises "
+                "StopIteration there, so the port adds no wider density "
+                "matrix")
+    if uses_mid(N, K, 1, 1, _SMS):
+        return rho_mid.shape_refusal(N, K)
+    return None
+
+
+def uses_mid(N: int, K: int, J: int, E: int, B: int) -> bool:
+    """Whether a launch on E x B density matrices of size N goes to the mid
+    pair (csrc/rho_mid.cu): N > MAX_N, or a shape csrc/rho.cu's planner
+    refuses in either direction."""
     if N > MAX_N:
-        return (f"rho kernel: N = {N} exceeds one block (N <= {MAX_N}: every "
-                "CTA of a cluster holds M and the operand whole); wider "
-                "density matrices are not implemented")
+        return True
     for shape in (_fwd_shape, _bwd_shape):
         try:
-            shape(1, _SMS, N, K, 1)
-        except NotImplementedError as err:
-            return f"rho kernel: {err}"
-    return None
+            shape(E, B, N, K, J)
+        except NotImplementedError:
+            return True
+    return False
 
 
 def make_plan(Sr, Si, Ls, dt: float, iters: int, gen_diag=None,
@@ -269,9 +290,10 @@ def make_plan(Sr, Si, Ls, dt: float, iters: int, gen_diag=None,
     planes = torch.as_tensor(solver_planes(gen_diag, dt, linsolver), **kw)
     if planes.numel() and planes.shape[-1] != N:
         raise ValueError(f"gen_diag must be ({N}, {N})")
+    St = rho_mid.transposed_stacks(Sr, Si) if N > MAX_N else None
     return RhoPlan(Sr=Sr.contiguous(), Si=Si.contiguous(), L=L,
                    planes=planes.contiguous(), dt=dt, iters=iters,
-                   linsolver=linsolver)
+                   linsolver=linsolver, St=St)
 
 
 # ----------------------------------------------------------------------
@@ -485,14 +507,17 @@ def stores_iterates(plan, E, nt, B) -> bool:
 
 
 def _kernel_fwd(plan, x0r, x0i, C, _cluster=None):
-    """One rho_fwd launch; `_cluster` forces the CTAs per matrix (the card
-    tests and the timing script compare them), else _fwd_shape picks G. A
-    refused launch raises: no other G and no plain version stands in."""
+    """One rho_fwd launch (rho_mid_fwd where uses_mid); `_cluster` forces
+    the CTAs per matrix (the card tests and the timing script compare
+    them), else _fwd_shape picks G. A refused launch raises: no other G and
+    no plain version stands in."""
     global rho_fwd_launches
-    _check_cuda(plan, x0r, x0i, C)
-    lib = cuda_build.library(_SRC, _bind)
     E, nt, _ = C.shape
     B, N, _ = x0r.shape
+    if uses_mid(N, plan.K, plan.njump, E, B):
+        return rho_mid._kernel_fwd(plan, x0r, x0i, C, _cluster)
+    _check_cuda(plan, x0r, x0i, C)
+    lib = cuda_build.library(_SRC, _bind)
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=C.device)
     xTr, xTi = new(E, B, N, N), new(E, B, N, N)
     hr, hi = new(E, nt, B, N, N), new(E, nt, B, N, N)
@@ -514,14 +539,18 @@ def _kernel_fwd(plan, x0r, x0i, C, _cluster=None):
 
 def _kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
                 _cluster=None):
-    """One rho_bwd launch; `_cluster` forces the CTAs per matrix (the card
-    tests and the timing script compare them), else _bwd_shape picks G. A
-    refused launch raises: no other G and no plain version stands in."""
+    """One rho_bwd launch (rho_mid_bwd where uses_mid); `_cluster` forces
+    the CTAs per matrix (the card tests and the timing script compare
+    them), else _bwd_shape picks G. A refused launch raises: no other G and
+    no plain version stands in."""
     global rho_bwd_launches
-    _check_cuda(plan, x0r, x0i, C, hr, hi, gTr, gTi, jr, ji)
-    lib = cuda_build.library(_SRC, _bind)
     E, nt, K = C.shape
     B, N, _ = x0r.shape
+    if uses_mid(N, K, plan.njump, E, B):
+        return rho_mid._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr,
+                                   gTi, jr, ji, _cluster)
+    _check_cuda(plan, x0r, x0i, C, hr, hi, gTr, gTi, jr, ji)
+    lib = cuda_build.library(_SRC, _bind)
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=C.device)
     store = ksr is not None
     if not store:       # the replay's scratch: one step's iterates per block

@@ -10,6 +10,8 @@ and reduced populations, expected energies).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable
 
 import torch
@@ -31,6 +33,25 @@ def propagate(step_fn: Callable, x0, C):
 
 
 GRAPH_STEPS = 64     # steps per CUDA graph of a trajectory without autograd
+
+
+@contextlib.contextmanager
+def graph_capture(graph):
+    """torch.cuda.graph(graph) with Python's cyclic garbage collector paused
+    for the capture. A collection inside a capture can destroy a CUDA graph
+    that only a reference cycle kept alive (a Problem and the device
+    optimizer it caches, optim/device_driver.py, form one), and that
+    graph's teardown invalidates the capture under way
+    (cudaErrorStreamCaptureInvalidated); paused, the collector frees it
+    after the capture. Every capture of the port goes through here."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def propagate_trajectory(step_fn: Callable, x0, C):
@@ -72,7 +93,7 @@ def _trajectory_graph(step_fn, x0, C, S=GRAPH_STEPS):
         steps()
     torch.cuda.current_stream(x0.device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with graph_capture(graph):
         steps()
     n0 = 0
     while n0 + S <= nt:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..io import output as out_io
-from ..ops import rho, stream, streamk, streamk_mid
+from ..ops import rho, rho_mid, solvers, stream, streamk, streamk_mid
 from .batched_lbfgs import _direction, _remember
 from .driver import OptimHistoryRow, OptimResult
 from .lbfgsb import bounded_residual
@@ -43,7 +43,7 @@ AUX_KEYS = ("fidelity", "obj_cost", "obj_regul", "obj_penal",
 
 
 # the modules whose wrappers count kernel launches
-_KERNEL_MODULES = (streamk, streamk_mid, rho, stream)
+_KERNEL_MODULES = (streamk, streamk_mid, rho, rho_mid, stream)
 
 
 def _add_launches(per_module, times=1):
@@ -210,7 +210,7 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [m.launch_counts() for m in _KERNEL_MODULES]
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with solvers.graph_capture(g):
             new, rows, _ = chunk_eager(static)
             for k in static:
                 static[k].copy_(new[k])

@@ -56,8 +56,9 @@ what the route's kernels do not hold (``Problem.fused_refusal``): closed
 'streamk' only a sweep past the device-memory budget
 (ops/streamk.py::route_refusal; one thread block or a thread-block cluster
 per candidate and chunk of basis states); the open superop route, 'stream'
-and 'chunk' past one thread block; 'rho' past N = 64. Nothing is sent
-quietly to the plain loop.
+and 'chunk' past one thread block; 'rho' past N = 128 (the TPU kernel's
+one 128-lane tile: csrc/rho.cu holds N <= 64, csrc/rho_mid.cu the rest).
+Nothing is sent quietly to the plain loop.
 """
 
 from __future__ import annotations
@@ -454,8 +455,8 @@ class Problem:
         B*dim state entries, the stacks and the stage iterates; stream and
         chunk: one thread block holds B*dim state entries, the step's
         planes and the stage iterates, and the sweep's plane arrays at
-        E = 1 under stream.PLANE_BUDGET_BYTES; rho: one (N, N) density
-        matrix).
+        E = 1 under stream.PLANE_BUDGET_BYTES; rho: N <= 128, an (N, N)
+        density matrix on a thread-block cluster).
         `fused_refusal` names the limit otherwise. On the CPU it tells what
         the card would do; the plain version there runs any size."""
         return self.use_fused and self._refusal is None

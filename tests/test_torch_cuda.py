@@ -14,7 +14,10 @@ and stored against replayed iterates, on
 the problem's routes, in the device optimizer and in the Kerr calibration;
 the mid-size streamK pair (csrc/streamk_mid.cu, closed systems past one
 thread block) against the plain version, its determinism and its launch
-counters, alone and under Problem.
+counters, alone and under Problem; the mid-size density-matrix pair
+(csrc/rho_mid.cu, open systems of 64 < N <= 128) the same, with its bits
+across cluster sizes and between stored and replayed iterates; a
+trajectory's CUDA-graph capture while an orphaned graph is collected.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -1097,6 +1100,52 @@ def test_front_end_single_precision_open_on_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_trajectory_graph_capture_outlives_a_collected_graph(cuda):
+    """A CUDA graph that only a reference cycle keeps alive (as a Problem
+    keeps the device optimizer it caches, with its graph) becomes garbage
+    while propagate_trajectory captures its CUDA graph, and the collector
+    runs at nearly every allocation: the capture must not tear that graph
+    down (cudaErrorStreamCaptureInvalidated; in a whole-file run of this
+    file it broke test_front_end_single_precision_open_on_card). The
+    trajectory equals the eager loop's to the bit."""
+    import gc
+    from quandary_tpu_torch.ops import solvers
+    g = torch.cuda.CUDAGraph()
+    y = torch.zeros(8, device="cuda")
+    with torch.cuda.graph(g):
+        y.add_(1.0)
+    g.replay()
+    graphs = [g]
+    del g
+    rng = np.random.default_rng(3)
+    A = cuda(rng.normal(size=(N, N)).astype(np.float32) / N)
+
+    def step(x, c):
+        if torch.cuda.is_current_stream_capturing() and graphs:
+            # the graph's last reference, in a cycle that is garbage at once
+            holder = {"graph": graphs.pop()}
+            holder["self"] = holder
+        return (x @ A) * c[0] + c[1]
+
+    nt = solvers.GRAPH_STEPS + 6
+    x0 = cuda(rng.normal(size=(B, N)).astype(np.float32))
+    C = cuda(rng.uniform(0.5, 1.0, size=(nt, 2)).astype(np.float32))
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with torch.no_grad():
+            traj = solvers.propagate_trajectory(step, x0, C)
+    finally:
+        gc.set_threshold(*threshold)
+    assert not graphs
+    xs = [x0]
+    with torch.no_grad():
+        for n in range(nt):
+            xs.append(step(xs[-1], C[n]))
+    assert torch.equal(traj, torch.stack(xs))
+
+
+@pytest.mark.cuda
 def test_front_end_double_precision_plain_on_card(cuda, tmp_path):
     """precision='double' (and every config file) runs the plain loop on
     the card: no route, no kernel launch, the CPU's numbers to 1e-10;
@@ -1224,6 +1273,174 @@ def test_mid_problem_on_card_matches_cpu(cuda):
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert moved == {"streamk_mid_fwd_launches": 1,
                      "streamk_mid_bwd_launches": 1}
+    (Jh, _), gh = ph.build_value_and_grad()(x, x)
+    assert abs(float(Jc) - float(Jh)) <= 1e-5 * abs(float(Jh))
+    assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
+
+
+# ---- the mid-size density-matrix pair (csrc/rho_mid.cu, 64 < N <= 128) ----
+
+def _rho_mid_counts():
+    from quandary_tpu_torch.ops import rho, rho_mid
+    return {**rho.launch_counts(), **rho_mid.launch_counts()}
+
+
+def _moved(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+# N = 96 runs bands of 6 rows on 16 CTAs, N = 128 of 8; both 2 x 2 tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump", [(96, 4), (128, 2)])
+@pytest.mark.parametrize("solver,iters", [("neumann", 3), ("jacobi", 4),
+                                          ("split", 3)])
+def test_rho_mid_kernel_matches_plain_on_card(cuda, solver, iters, n, njump):
+    """The mid pair against the plain version on the card, stored and
+    replayed stage iterates, bounds as test_rho_kernel_matches_plain_on_card;
+    one launch of each mid kernel and none of csrc/rho.cu's."""
+    from quandary_tpu_torch.ops import rho, rho_mid
+    rng = np.random.default_rng(n + njump)
+    stack, Ls, gd = _random_open_system(rng, n, 3, njump)
+    f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
+    plan = rho.make_plan(f32(stack.real), f32(stack.imag), Ls, 0.05, iters,
+                         gd, solver)
+    assert rho.uses_mid(n, 3, njump, 1, B) and plan.St is not None
+    C = f32(rng.normal(size=(1, NT, 3)) * 0.5)
+    x0 = rng.normal(size=(2, B, n, n)) / np.sqrt(n)
+    wh = f32(rng.normal(size=(1, NT, B, n, n)))
+    wT = f32(rng.normal(size=(1, B, n, n)))
+
+    def run(fn):
+        Cg = C.clone().requires_grad_()
+        x0r, x0i = f32(x0[0]).requires_grad_(), f32(x0[1]).requires_grad_()
+        xTr, xTi, hr, hi = fn(plan, x0r, x0i, Cg)
+        (torch.sum(wT * xTr) + torch.sum(wT * xTi * xTi)
+         + torch.sum(wh * hr * hi)).backward()
+        torch.cuda.synchronize()
+        return xTr.detach(), hr.detach(), hi.detach(), Cg.grad, x0r.grad, \
+            x0i.grad
+
+    plain = run(rho.rho_propagate_plain)
+    for budget in (rho.KS_BUDGET_BYTES, 0):     # stored, then replayed
+        saved, rho.KS_BUDGET_BYTES = rho.KS_BUDGET_BYTES, budget
+        before = _rho_mid_counts()
+        try:
+            assert rho_mid.stores_iterates(plan, 1, NT, B) == (budget > 0)
+            kern = run(rho.rho_propagate_kernel)
+        finally:
+            rho.KS_BUDGET_BYTES = saved
+        assert _moved(before, _rho_mid_counts()) == {
+            "rho_mid_fwd_launches": 1, "rho_mid_bwd_launches": 1}
+        for a, b, tol in zip(kern, plain, (1e-5, 1e-5, 1e-5, 1e-4, 1e-4,
+                                           1e-4)):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,njump,solver,iters", [
+    (72, 6, "jacobi", 6), (125, 6, "split", 3), (128, 4, "jacobi", 6)])
+def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
+                                                   iters):
+    """The mid pair on clusters of 4, 8 and 16 CTAs per density matrix:
+    xT, hist, the stored iterates and g0 equal to the bit across G and on
+    a repeat, Cb within 1e-6 of max across G (its cross-CTA sum changes
+    order with G) and equal on a repeat; stored and replayed iterates give
+    the same bits of g0 and Cb; both directions within
+    test_rho_fwd_cluster_sizes_on_card's bounds of the plain version."""
+    from quandary_tpu_torch.ops import rho, rho_mid
+    plan, x0r, x0i, C, rng = _rho_inputs(cuda, n, njump, solver, iters, 1, 9)
+    f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
+    gT = f32(rng.normal(size=(1, B, n, n)))
+    jh = f32(rng.normal(size=(1, NT, B, n, n)))
+    plain_f = rho.plain_forward(plan, x0r, x0i, C)
+    fwd, bwd = {}, {}
+    for G in (4, 8, 16):
+        before = rho_mid.rho_mid_fwd_launches
+        fwd[G] = rho._kernel_fwd(plan, x0r, x0i, C, _cluster=G)
+        assert rho_mid.rho_mid_fwd_launches - before == 1
+        assert rho_mid.mid_layouts["fwd"]["G"] == G
+        out = fwd[G]
+        bwd[G] = rho._kernel_bwd(plan, x0r, x0i, C, *out[2:], gT, gT, jh, jh,
+                                 _cluster=G)
+        torch.cuda.synchronize()
+        assert out[4] is not None and out[4].shape == (1, B, NT, iters, n, n)
+        for a, b in zip(out, fwd[4]):
+            assert torch.equal(a, b)
+        assert torch.equal(bwd[G][0], bwd[4][0])
+        assert torch.equal(bwd[G][1], bwd[4][1])
+        assert float((bwd[G][2] - bwd[4][2]).abs().max()) \
+            <= 1e-6 * float(bwd[4][2].abs().max())
+    again = rho._kernel_fwd(plan, x0r, x0i, C)
+    for a, b in zip(again, fwd[rho_mid.mid_layouts["fwd"]["G"]]):
+        assert torch.equal(a, b)
+    hr, hi, ksr, ksi = again[2:]
+    stored = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gT, gT, jh,
+                             jh)
+    replayed = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, None, None, gT, gT,
+                               jh, jh)
+    repeat = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, None, None, gT, gT,
+                             jh, jh)
+    for x, y, z in zip(stored, replayed, repeat):
+        assert torch.equal(x, y) and torch.equal(y, z)
+    for a, b in zip(fwd[16][2:4], plain_f):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(
+            b.abs().max()))
+    plain_b = rho.plain_backward(plan, x0r, x0i, C, hr, hi, gT, gT, jh, jh)
+    for a, b in zip(stored, plain_b):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _open_mid_setup(nlevels=(9, 8), ntime=20, fused=True):
+    """Two qudits with T1/T2 collapse (N = 72), '3states' initial
+    conditions, a random pure target state and jacobi with 6 iterations:
+    rho_bench's N = 64 system with one more level, cut to `ntime` steps."""
+    from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.problem import Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    freq = [4.80595, 4.8601]
+    model = build_standard_model(
+        nlevels=list(nlevels), freq01_ghz=freq, rotfreq_ghz=freq,
+        selfkerr_ghz=[0.2198, 0.2252], jkl_ghz=[0.005], crosskerr_ghz=[],
+        decay_time=[80.0, 90.0], dephase_time=[40.0, 45.0], lindblad=True)
+    dt = 0.1
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=6, tstart=0.0,
+                                 tstop=ntime * dt),), carrier_freqs=(0.0,))
+        for _ in nlevels)
+    N = int(np.prod(nlevels))
+    rng = np.random.default_rng(42)
+    tgt = rng.normal(size=N) + 1j * rng.normal(size=N)
+    tgt = tgt / np.linalg.norm(tgt)
+    return Setup(
+        model=model, nessential=tuple(nlevels), ntime=ntime, dt=dt,
+        oscillators=oscs, ground_freqs_radns=tuple(2 * np.pi * f
+                                                   for f in freq),
+        initcond_type="3states", target_type="state",
+        target_state_full=np.outer(tgt, tgt.conj()), objective_type="Jtrace",
+        gamma_tik=1e-4, dtype=torch.complex64, linsolve_iters=6,
+        fused=fused)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, "auto"])
+def test_rho_mid_problem_on_card_matches_cpu(cuda, fused):
+    """An open N = 72 problem on the rho route: one launch of each mid
+    kernel per value_and_grad sweep and none of csrc/rho.cu's, J to 1e-5
+    and the gradient to 1e-4 of max of the same problem on the CPU
+    (plain, f32)."""
+    from quandary_tpu_torch.problem import Problem
+    setup = _open_mid_setup(fused=fused)
+    pc, ph = Problem(setup), Problem(setup, device="cpu")
+    assert pc.fused_form == "rho" and pc.fused_ok and pc.N == 72
+    x = np.random.default_rng(2).uniform(-1, 1, setup.nparams) * 0.02
+    before = _rho_mid_counts()
+    (Jc, _), gc = pc.build_value_and_grad()(x, x)
+    assert _moved(before, _rho_mid_counts()) == {
+        "rho_mid_fwd_launches": 1, "rho_mid_bwd_launches": 1}
     (Jh, _), gh = ph.build_value_and_grad()(x, x)
     assert abs(float(Jc) - float(Jh)) <= 1e-5 * abs(float(Jh))
     assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())

@@ -377,16 +377,23 @@ def test_route_gate_and_refusals():
     assert off.fused_form is None and not off.fused_ok
     with pytest.raises(ValueError, match="fused_rho"):
         TProblem(dataclasses.replace(s16, fused_rho="matrix"), device="cpu")
-    # past one thread block of the rho kernels: N = 81
-    big = build_standard_model(
-        nlevels=[9, 9], freq01_ghz=[4.8, 4.9], rotfreq_ghz=[4.8, 4.9],
-        selfkerr_ghz=[0.2, 0.2], jkl_ghz=[0.005], decay_time=[80.0, 90.0],
-        lindblad=True)
-    p81 = TProblem(dataclasses.replace(
-        s16, model=big, nessential=(9, 9), initcond_type="3states",
-        target_type="none", target_gate_full=None), device="cpu")
-    assert p81.fused_form == "rho" and not p81.fused_ok
-    assert "N = 81" in p81.fused_refusal
+    # past one CTA of csrc/rho.cu, N = 81 runs on the mid pair
+    # (csrc/rho_mid.cu); past the TPU kernel's one 128-lane tile, N = 144,
+    # the rho kernels refuse, naming the JAX Problem's limit
+    def qudits(n):
+        big = build_standard_model(
+            nlevels=[n, n], freq01_ghz=[4.8, 4.9], rotfreq_ghz=[4.8, 4.9],
+            selfkerr_ghz=[0.2, 0.2], jkl_ghz=[0.005],
+            decay_time=[80.0, 90.0], lindblad=True)
+        return TProblem(dataclasses.replace(
+            s16, model=big, nessential=(n, n), initcond_type="3states",
+            target_type="none", target_gate_full=None), device="cpu")
+
+    p81, p144 = qudits(9), qudits(12)
+    assert p81.fused_form == "rho" and p81.fused_ok
+    assert p144.fused_form == "rho" and not p144.fused_ok
+    assert "N = 144" in p144.fused_refusal
+    assert "quandary_tpu/problem.py:517" in p144.fused_refusal
     with pytest.raises(NotImplementedError, match="open"):
         robust.build_packed_robust_objective([p16, p16])
     if not torch.cuda.is_available():

@@ -12,7 +12,7 @@ B = 2, nt = 7, J = 2 jump operators, 3 iterations).
    states to 1e-10, and the hand-written backward against torch.autograd
    through the port's complex time loop to 1e-9 of max.
 3. The contract: no stack cotangent, E candidates equal E single runs, no
-   jump operators, the refusal past N = 64, the solver planes, and the
+   jump operators, the refusal past N = 128, the solver planes, and the
    launch shapes of both kernels (a cluster of CTAs per density matrix).
 """
 
@@ -235,7 +235,7 @@ def test_solver_planes_and_launch_refusal():
     assert [rho._fwd_shape(1, 132, n, 7, 4)[1] for n in (16, 27, 32, 33, 64)] \
         == [1, 2, 2, 2, 4]
     assert rho.launch_refusal(64, 7) is None
-    assert "N = 65" in rho.launch_refusal(65, 7)
+    assert "N = 129" in rho.launch_refusal(129, 7)
     # the gate on bytes of the stored stage iterates
     t = torch.zeros(3, 64, 64)
     plan = rho.make_plan(t, t, None, DT, 6)
@@ -275,9 +275,10 @@ def test_rho_bwd_launch_shape(n, EB, J):
     assert rho._bwd_shape(1, EB, n, k, J, G=2)[0] == 2
     with pytest.raises(ValueError):
         rho._bwd_shape(1, EB, n, k, J, G=3)
-    # the range of the kernels is unchanged
+    # the range of the kernel pairs: csrc/rho.cu to N = 64, csrc/rho_mid.cu
+    # past it to N = 128
     assert rho.launch_refusal(64, k) is None
-    assert "N = 65" in rho.launch_refusal(65, k)
+    assert "N = 129" in rho.launch_refusal(129, k)
 
 
 def test_rho_bwd_takes_sixteen_only_where_the_card_holds_them():
@@ -343,9 +344,10 @@ def test_rho_fwd_launch_shape(n, EB, J):
     assert rho._fwd_shape(1, EB, n, k, J, G=2)[0] == 2
     with pytest.raises(ValueError):
         rho._fwd_shape(1, EB, n, k, J, G=3)
-    # the range of the kernels is unchanged
+    # the range of the kernel pairs: csrc/rho.cu to N = 64, csrc/rho_mid.cu
+    # past it to N = 128
     assert rho.launch_refusal(n, k) is None
-    assert "N = 65" in rho.launch_refusal(65, k)
+    assert "N = 129" in rho.launch_refusal(129, k)
 
 
 def test_rho_fwd_takes_sixteen_only_where_the_card_holds_them():

@@ -1,0 +1,358 @@
+"""Open systems of 64 < N <= 128 on the density-matrix route of
+quandary_tpu_torch (csrc/rho_mid.cu, the rest of the range of
+quandary_tpu/ops/pallas_rho.py::make_rho_propagate) on the CPU.
+
+The kernels run only on the card (tests/test_torch_cuda.py -k rho_mid and
+chip_smoke.py phase 26 hold them against the plain version there). Here:
+
+1. the planner (`rho_mid._fwd_shape`, `_bwd_shape`): every shape of the
+   range fits 227 KB of shared memory at G in 1..16 and at most 1024
+   threads, and holds the layout csrc/rho_mid.cu carves;
+2. the gate: `rho.launch_refusal` admits N <= 128 and refuses past it with
+   a sentence naming quandary_tpu/problem.py:517, where the JAX Problem
+   raises; the qudits125-shaped Problem takes the rho route wherever the
+   JAX gate does;
+3. dispatch: past N = 64 a launch goes to the mid pair, and a CUDA tensor
+   never takes the plain version; the store-iterates rule;
+4. the slice: a qudits125-shaped system (three 5-level qudits, N = 125,
+   six collapse operators, '3states', jacobi with 6 iterations, 3 steps)
+   through rho_propagate_plain against make_rho_propagate(interpret=True)
+   at 'highest' (exact f32 products), within tests/test_torch_rho.py's
+   bounds (2e-4 states, 5e-4 cotangents, of max); and through the port's
+   Problem against the JAX Problem with pallas=True (its rho kernel in
+   interpret mode) in f32, and in f64 against the JAX scan (1e-10 /
+   1e-9 of max).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one thread per test process, so that test processes running side by side
+# do not fight over the cores
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from quandary_tpu.ops import pallas_rho  # noqa: E402
+from quandary_tpu.problem import Problem as JProblem  # noqa: E402
+from quandary_tpu_torch.ops import cuda_build, rho, rho_mid  # noqa: E402
+from quandary_tpu_torch.problem import Problem as TProblem  # noqa: E402
+from quandary_tpu_torch.problem import _jax_size_gate  # noqa: E402
+from test_torch_model import port_setup  # noqa: E402
+
+QUDITS125 = dict(nlevels=[5, 5, 5], freq01=[4.80595, 4.8601, 4.9],
+                 selfkerr=[0.2198, 0.2252, 0.22], jkl=[0.005, 0.0, 0.004],
+                 decay=[80.0, 90.0, 85.0], dephase=[40.0, 45.0, 42.0])
+
+
+def qudits_setup(cfg=QUDITS125, ntime=3, dtype=jnp.complex64, pallas=True,
+                 nsplines=4):
+    """scripts/perf/rho_bench.py:25-65's open system with the levels of
+    `cfg` (qudits125: rho_bench's 3 qutrits with two more levels each),
+    built with the JAX package's builders and cut to `ntime` steps of
+    0.1 ns: T1/T2 collapse on every oscillator, '3states', a random pure
+    target state (seed 42), Jtrace, gamma_tik 1e-4, 6 stage iterations."""
+    from quandary_tpu.models.hamiltonian import build_standard_model
+    from quandary_tpu.problem import Setup
+    from quandary_tpu.utils.splines import ControlSegment, OscillatorControl
+    nlevels = cfg["nlevels"]
+    N = int(np.prod(nlevels))
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=cfg["freq01"],
+        rotfreq_ghz=cfg["freq01"], selfkerr_ghz=cfg["selfkerr"],
+        jkl_ghz=cfg["jkl"], crosskerr_ghz=[], decay_time=cfg["decay"],
+        dephase_time=cfg["dephase"], lindblad=True)
+    dt = 0.1
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=nsplines, tstart=0.0,
+                                 tstop=ntime * dt),), carrier_freqs=(0.0,))
+        for _ in nlevels)
+    rng = np.random.default_rng(42)
+    tgt = rng.normal(size=N) + 1j * rng.normal(size=N)
+    tgt = tgt / np.linalg.norm(tgt)
+    return Setup(
+        model=model, nessential=tuple(nlevels), ntime=ntime, dt=dt,
+        oscillators=oscs,
+        ground_freqs_radns=tuple(2 * np.pi * f for f in cfg["freq01"]),
+        initcond_type="3states", target_type="state",
+        target_state_full=np.outer(tgt, tgt.conj()), objective_type="Jtrace",
+        gamma_tik=1e-4, dtype=dtype, linsolve_iters=6, pallas=pallas,
+        time_parallel=False)
+
+
+# ---- 1. the planner ----
+
+@pytest.mark.parametrize("EB", [1, 3, 16, 132])
+@pytest.mark.parametrize("K", [7, 11])
+@pytest.mark.parametrize("J", [0, 4, 6])
+@pytest.mark.parametrize("N", [65, 72, 96, 125, 128])
+def test_mid_shapes_fit(N, J, K, EB):
+    """Both directions' shapes: G in 1..16 (at most N), whole warps over the
+    band's tiles (the backward's over the K slots too) within the tile's
+    bound and 1024 threads, at most 227 KB of shared memory and at least
+    the layout csrc/rho_mid.cu carves with one jump band (all J where they
+    fit), and one less jump band would not fill what was asked."""
+    for backward, shape_fn in ((False, rho_mid._fwd_shape),
+                               (True, rho_mid._bwd_shape)):
+        G, tile, threads, smem = shape_fn(1, EB, N, K, J)
+        assert G in (1, 2, 4, 8, 16) and G <= N
+        R, ld = -(-N // G), N | 1
+        tiles = -(-R // tile) * -(-N // tile)
+        assert threads % 32 == 0 and threads >= tiles
+        assert threads <= (256 if tile == 4 else 512) <= 1024
+        if backward:
+            assert threads >= K
+        fixed = 8 + 2 * N * ld + ((threads // 32 + G) * K if backward else 0)
+        band = 2 * R * ld
+        assert smem <= cuda_build.MAX_SMEM == 227 * 1024
+        assert (smem // 4 - fixed) % band == 0
+        jb = (smem // 4 - fixed) // band
+        assert jb == min(J, (cuda_build.MAX_SMEM // 4 - fixed) // band)
+        assert (jb >= 1) == (J > 0)
+    # the directions share G; few matrices spread over 16 CTAs each
+    assert rho_mid._fwd_shape(1, EB, N, K, J)[0] \
+        == rho_mid._bwd_shape(1, EB, N, K, J)[0]
+    if EB <= 3:
+        assert rho_mid._fwd_shape(1, EB, N, K, J)[0] == 16
+
+
+def test_mid_shapes_of_the_configurations():
+    """qudits125 (K = 11, J = 6) and qudits128 (K = 7, J = 4), 3 density
+    matrices: clusters of 16 CTAs of 256 threads (2 x 2 tiles of bands of
+    8 rows), every jump band in shared memory; a G asked for is taken."""
+    assert rho_mid._fwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 173032)
+    assert rho_mid._bwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 174088)
+    assert rho_mid._fwd_shape(1, 3, 128, 7, 4)[:3] == (16, 2, 256)
+    for G in (4, 8, 16):
+        assert rho_mid._fwd_shape(1, 3, 128, 7, 4, G=G)[0] == G
+        assert rho_mid._bwd_shape(1, 3, 128, 11, 6, G=G)[0] == G
+    with pytest.raises(NotImplementedError):
+        rho_mid._fwd_shape(1, 3, 128, 7, 4, G=1)
+
+
+def test_sixteen_only_where_the_card_holds_them():
+    """Clusters of 16 CTAs are beyond the portable size: the card's
+    occupancy query is asked once per shape, 8 is taken where it holds
+    none of 16, and a shape it cannot hold raises."""
+    class Lib:
+        def __init__(self, holds):
+            self.holds, self.asked = holds, []
+
+        def rho_mid_fwd_max_clusters(self, tile, G, threads, smem):
+            self.asked.append((tile, G, threads, smem))
+            return int(G in self.holds)
+
+    t = torch.zeros(7, 128, 128)
+    plan = rho.make_plan(t, t, [np.eye(128)] * 4, 0.1, 6)
+    rho_mid._SCHEDULED.clear()
+    yes = Lib((8, 16))
+    assert rho_mid.launch_shape(yes, False, plan, 1, 3)[0] == 16
+    assert rho_mid.launch_shape(yes, False, plan, 1, 3)[0] == 16
+    assert len(yes.asked) == 1
+    rho_mid._SCHEDULED.clear()
+    no16 = Lib((8,))
+    assert rho_mid.launch_shape(no16, False, plan, 1, 3) \
+        == rho_mid._fwd_shape(1, 3, 128, 7, 4, max_g=8)
+    with pytest.raises(RuntimeError, match="holds no cluster of 16"):
+        rho_mid.launch_shape(no16, False, plan, 1, 3, G=16)
+    rho_mid._SCHEDULED.clear()
+
+
+# ---- 2. the gate and the route ----
+
+def test_launch_refusal_range():
+    for N in (1, 16, 64, 65, 96, 125, 128):
+        for K in (7, 11):
+            assert rho.launch_refusal(N, K) is None
+    for N in (129, 256):
+        why = rho.launch_refusal(N, 7)
+        assert f"N = {N}" in why and "quandary_tpu/problem.py:517" in why
+
+
+def test_jax_problem_refuses_past_one_tile():
+    """The reference behaviour the refusal names: the JAX Problem's
+    lane-group choice has no candidate past N = 128."""
+    cfg = dict(QUDITS125, nlevels=[16, 9], freq01=[4.80595, 4.8601],
+               selfkerr=[0.2198, 0.2252], jkl=[0.005], decay=[80.0, 90.0],
+               dephase=[40.0, 45.0])
+    with pytest.raises(StopIteration):
+        JProblem(qudits_setup(cfg, ntime=2))
+
+
+@pytest.mark.parametrize("nlevels", [[5, 5, 5], [8, 16], [9, 8], [4, 4, 4]])
+def test_route_is_jax(nlevels):
+    """The port's rho route where the JAX Problem (pallas=True) takes its
+    rho form: fused=True on the CPU (the plain version) takes 'rho', and
+    the gate fused='auto' applies on CUDA admits it; N <= 128 is
+    launchable."""
+    cfg = dict(QUDITS125, nlevels=nlevels, freq01=[4.8, 4.9, 5.0][
+        :len(nlevels)], selfkerr=[0.22] * len(nlevels),
+        jkl=[0.005, 0.0, 0.004][:len(nlevels) * (len(nlevels) - 1) // 2],
+        decay=[80.0] * len(nlevels), dephase=[40.0] * len(nlevels))
+    sj = qudits_setup(cfg, ntime=2)
+    pj = JProblem(sj)
+    pt = TProblem(port_setup(sj), device="cpu")
+    auto = TProblem(port_setup(sj, fused="auto"), device="cpu")
+    assert pj.use_pallas and pj.pallas_form == "rho"
+    assert pt.fused_form == "rho" and pt.fused_ok
+    assert auto._fused_gate_refusal(True) is None
+    assert _jax_size_gate(auto, auto.setup)
+    assert rho.launch_refusal(pt.N, pt.model.K) is None
+    assert rho.uses_mid(pt.N, pt.model.K, 1, 1, pt.ninit) == (pt.N > 64)
+
+
+# ---- 3. dispatch and the store-iterates rule ----
+
+class _Fake:
+    """A tensor's shape and device, as the dispatch reads them."""
+
+    def __init__(self, *shape, kind="cuda"):
+        self.shape, self.device = shape, torch.device(kind)
+
+
+def test_dispatch_goes_to_the_mid_pair(monkeypatch):
+    """Past N = 64 both directions launch the mid pair; up to it csrc/rho.cu
+    (whose wrappers would then check the tensors); a CUDA tensor never
+    takes the plain version, and the mid wrappers refuse CPU tensors."""
+    calls = []
+    monkeypatch.setattr(rho_mid, "_kernel_fwd",
+                        lambda *a, **k: calls.append("mid_fwd"))
+    monkeypatch.setattr(rho_mid, "_kernel_bwd",
+                        lambda *a, **k: calls.append("mid_bwd"))
+    for name in ("plain_forward", "plain_backward", "rho_propagate_plain"):
+        monkeypatch.setattr(rho, name, lambda *a: calls.append("plain"))
+    t = torch.zeros(11, 125, 125)
+    plan = rho.make_plan(t, t, [np.eye(125)] * 6, 0.1, 6,
+                         np.zeros((125, 125)), "jacobi")
+    x0, C = _Fake(3, 125, 125), _Fake(1, 5, 11)
+    rho._kernel_fwd(plan, x0, x0, C)
+    rho._kernel_bwd(plan, x0, x0, C, *[None] * 8)
+    assert calls == ["mid_fwd", "mid_bwd"]
+    monkeypatch.undo()
+    zero = torch.zeros(3, 125, 125)
+    with pytest.raises(NotImplementedError, match="CUDA"):
+        rho_mid._kernel_fwd(plan, zero, zero, torch.zeros(1, 5, 11))
+    with pytest.raises(NotImplementedError, match="CUDA"):
+        rho_mid._kernel_bwd(plan, zero, zero, torch.zeros(1, 5, 11),
+                            *[torch.zeros(1)] * 8)
+    assert not rho.uses_mid(64, 7, 4, 1, 3)
+    assert rho.uses_mid(65, 7, 4, 1, 3)
+
+
+def test_store_iterates_rule():
+    """The mid pair stores the stage iterates by the TPU kernel's rule
+    (iters <= 8, pallas_rho.py:130-133) within the byte gate: qudits125 at
+    full depth (2.25 GB of iterates) replays them, its cut to 40 steps
+    stores them."""
+    t = torch.zeros(11, 125, 125)
+    for iters, store in ((6, True), (8, True), (9, False)):
+        plan = rho.make_plan(t, t, None, 0.1, iters)
+        assert rho_mid.stores_iterates(plan, 1, 40, 3) == store
+    plan = rho.make_plan(t, t, None, 0.1, 6)
+    assert not rho_mid.stores_iterates(plan, 1, 1000, 3)
+    assert plan.St is not None and plan.St.shape == (2, 11, 125, 125)
+    assert torch.equal(plan.St[1], t.transpose(-1, -2))
+    assert rho.make_plan(t[:, :64, :64], t[:, :64, :64], None, 0.1, 6).St \
+        is None
+
+
+def test_counters_stay_out_of_rho():
+    assert set(rho.launch_counts()) == {"rho_fwd_launches",
+                                        "rho_bwd_launches"}
+    rho_mid.reset_launch_counts()
+    rho_mid.add_launches({"rho_mid_fwd_launches": 2}, 3)
+    assert rho_mid.launch_counts() == dict(rho_mid_fwd_launches=6,
+                                           rho_mid_bwd_launches=0)
+    rho_mid.reset_launch_counts()
+
+
+# ---- 4. the slice against the JAX package ----
+
+@pytest.fixture
+def highest(monkeypatch):
+    """The JAX rho kernel's products in exact f32 (its shipping default is
+    a 3-pass bf16 emulation)."""
+    monkeypatch.setattr(pallas_rho, "_PRECISION_MODE", "highest")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def test_plain_matches_pallas_interpret_at_n125(highest):
+    """qudits125's stacks, jump operators and generator diagonal, jacobi-6,
+    3 steps, its 3 initial matrices: rho_propagate_plain (f32) against the
+    TPU kernel in interpret mode, xT and hist to 2e-4 of max, C-bar and
+    x0-bar to 5e-4 of max (tests/test_torch_rho.py's bounds)."""
+    pt = TProblem(port_setup(qudits_setup()), device="cpu")
+    assert pt.N == 125 and pt.model.K == 11 and pt.linsolver == "jacobi"
+    stack = pt.engine.stack_np.astype(np.complex64)
+    Ls = [L.astype(np.complex64) for L in pt.engine.Ls_np]
+    assert len(Ls) == 6
+    dt, nt = pt.setup.dt, pt.setup.ntime
+    rng = np.random.default_rng(3)
+    C = (rng.normal(size=(nt, 11)) * 0.05).astype(np.float32)
+    x0r, x0i = pt._x0r.numpy(), pt._x0i.numpy()
+    wT = rng.normal(size=(3, 125, 125)).astype(np.float32)
+    wh = rng.normal(size=(nt, 3, 125, 125)).astype(np.float32)
+
+    prop = pallas_rho.make_rho_propagate(
+        stack, Ls, dt, 6, gen_diag=pt.gen_diag, linsolver="jacobi",
+        interpret=True, real_io=True)
+    Sr, Si = (jnp.asarray(p) for p in pallas_rho._planes(stack, 128))
+
+    def jloss(Cj, xr, xi):
+        (tr, ti), (hr, hi) = prop(Sr, Si, (xr, xi), Cj)
+        return jnp.sum(wT * tr) + jnp.sum(wT * ti * ti) \
+            + jnp.sum(wh * hr * hi), (tr, hr)
+
+    (_, (tj, hj)), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(C), jnp.asarray(x0r), jnp.asarray(x0i))
+
+    plan = rho.make_plan(pt._Sr, pt._Si, pt.engine.Ls_np, dt, 6, pt.gen_diag,
+                         "jacobi")
+    Cg = torch.tensor(C)[None].requires_grad_()
+    xr = torch.tensor(x0r).requires_grad_()
+    xi = torch.tensor(x0i).requires_grad_()
+    tr, ti, hr, hi = rho.rho_propagate_plain(plan, xr, xi, Cg)
+    (torch.sum(torch.tensor(wT) * tr) + torch.sum(torch.tensor(wT) * ti * ti)
+     + torch.sum(torch.tensor(wh) * hr * hi)).backward()
+    assert _rel(tr[0].detach(), tj) < 2e-4
+    assert _rel(hr[0].detach(), hj) < 2e-4
+    for a, b in zip((Cg.grad[0], xr.grad, xi.grad), gj):
+        assert _rel(a, b) < 5e-4
+
+
+def test_problem_matches_jax_pallas_at_n125(highest):
+    """The slice as a whole in f32: J and the gradient of the port's
+    Problem (rho route, the plain version on the CPU) against the JAX
+    Problem with pallas=True (its rho kernel in interpret mode, exact f32
+    products), both at qudits125 cut to 3 steps."""
+    sj = qudits_setup()
+    pj = JProblem(sj)
+    pt = TProblem(port_setup(sj), device="cpu")
+    assert pj.pallas_form == "rho" and pt.fused_form == "rho"
+    x = np.random.default_rng(1234).uniform(-1, 1, sj.nparams) * 0.005
+    (Jj, _), gj = pj.build_value_and_grad()(jnp.asarray(x), jnp.asarray(x))
+    (Jt, _), gt = pt.build_value_and_grad()(x, x)
+    assert abs(float(Jt) - float(Jj)) <= 2e-6 * abs(float(Jj))
+    assert _rel(gt.double().numpy(), gj) <= 5e-5
+
+
+def test_problem_f64_matches_jax_scan_at_n125():
+    """The same in f64: the port's rho route (the plain version in f64 on
+    the CPU) against the JAX Problem's scan (pallas=False), J to 1e-10 and
+    the gradient to 1e-9 of max."""
+    sj = qudits_setup(dtype=jnp.complex128, pallas=False)
+    pj = JProblem(sj)
+    pt = TProblem(port_setup(sj, fused=True), device="cpu")
+    assert not pj.use_pallas and pt.fused_form == "rho"
+    x = np.random.default_rng(1234).uniform(-1, 1, sj.nparams) * 0.005
+    (Jj, _), gj = pj.build_value_and_grad()(jnp.asarray(x), jnp.asarray(x))
+    (Jt, _), gt = pt.build_value_and_grad()(x, x)
+    assert abs(float(Jt) - float(Jj)) <= 1e-10 * abs(float(Jj))
+    assert _rel(gt.numpy(), gj) <= 1e-9
