@@ -10,14 +10,16 @@ optim.driver.run_optimization, optim.robust.build_packed_robust_objective,
 optim.device_driver.run_optimization_device,
 optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
 ops.dense.pallas_propagate_dense and calibration.KerrCalibration, and
-closed systems past one thread block up to N = 1024. Phases:
+systems past one thread block: closed up to N = 1024 on 'streamk', open
+up to N = 128, and on the streamed-plane routes. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
-2. builds the kernels from the checkout, one nvcc per source and all five
+2. builds the kernels from the checkout, one nvcc per source and all six
    at once: csrc/streamk.cu and csrc/streamk_mid.cu here, csrc/rho.cu
    reported in phase 11, csrc/stream.cu in phase 17, csrc/rho_mid.cu in
-   phase 26; starts phase 26's worker of CPU references;
+   phase 26, csrc/stream_mid.cu in phase 27; starts phase 26's worker of
+   CPU references;
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -169,9 +171,30 @@ whole in every CTA, M(t) in device-memory scratch):
    T2, '3states', T = RHO_MID_FE_T): the rho route, simulate against
    precision="double" on the CPU (the worker's), 2 device iterations.
 
-Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26)
-is driven with the launch counters set to 0 just before and read just
-after. Before the device record one line lists the fifteen kernels with
+The streamed-plane kernels past one thread block (csrc/stream_mid.cu: a
+thread-block cluster per candidate and chunk of basis states, each CTA on
+a band of the state entries reading its bands of the planes):
+27. stream_mid_fwd / stream_mid_bwd, chunk_mid_fwd / chunk_mid_bwd and
+   dense_mid_fwd against the plain version on the card at SMID_NT = 64
+   steps on random non-Hermitian stacks of norm about 1 (N = 200 with
+   B = 4, 256 with B = 1, 16 and 256, 512 with B = 1; 'chunk' and dense
+   also N = 1024), neumann, jacobi and split, stored and replayed
+   iterates, E = 1 and 2, every layout of the bands (two slots, one slot,
+   global), the backward's chunks of states on fewer tracks than chunks
+   (N = 256 basis; 4 chunks on 1, 2 and 4 tracks); the same bits on a
+   repeat and between stored and replayed iterates;
+   Problem(fused_mode='stream') (fused=True and 'auto') on midsize_bench's
+   N = 256 and 512 pure at 1000 steps: 1 + 1 mid launches per sweep, J and
+   gradient against the mid streamK route at full depth and plain at 64
+   steps, sweeps/s, kernel ms, bounds, the shapes; the guarded open CNOT
+   on 'stream' (superop, dim 256, 16 basis matrices, 1221 steps) against
+   phase 14's rho route and f64 reference; fused_mode='chunk' on N = 256 at
+   CHUNK_MID_T (1000 steps where plain Neumann converges) against plain on
+   the card; pallas_propagate_dense past one block.
+
+Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26,
+27) is driven with the launch counters set to 0 just before and read just
+after. Before the device record one line lists the twenty kernels with
 their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -206,7 +229,7 @@ from quandary_tpu_torch.models import gates
 from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
 from quandary_tpu_torch.ops import (cuda_build, dense, rho, rho_mid, stream,
-                                    streamk, streamk_mid)
+                                    stream_mid, streamk, streamk_mid)
 from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
@@ -233,6 +256,11 @@ FMA_CYCLES, SMEM_CYCLES, BARRIER_CYCLES = 4, 30, 20
 # 5-10x above them (PERF.md): both sides are exact f32 and differ only in
 # summation order. Kernel against plain on the card, phase 3:
 TOL_STATE_ABS = 1e-5       # xT, hist: abs (states are O(1)); measured 1.5e-6
+# phase 27's random states are not normalised (entries up to about 4.5):
+# xT and hist x max|plain|, the mid streamK pair's 1e-5 taken relative;
+# measured 2.8e-6 at B <= 16 and 5.1e-6 at N = 256 with 256 states, whose
+# max runs over 16x more entries (PERF.md, slice 16)
+TOL_STATE_REL = 1e-5
 TOL_GRAD_REL = 2e-5        # C-bar, x0-bar: x max|plain|; measured 2.4e-6
 # flagship value_and_grad, phase 4: kernel path against plain on the card
 # (measured J 0, gradient 7.2e-7) and against the f64 port on the CPU
@@ -328,7 +356,8 @@ E_OPEN = 8
 
 
 def flagship_setup(linsolver="split", linsolve_iters=3, dtype=torch.complex64,
-                   freq01=FREQ01, ntime=1221, fused_mode="streamk"):
+                   freq01=FREQ01, ntime=1221, fused_mode="streamk",
+                   fused=True):
     """bench.py:59-93, built with the port's own functions. `freq01` detunes
     the qubits against the rotating frame and the carriers, which stay at
     the nominal frequencies (a system realization of the robust ensemble).
@@ -355,7 +384,7 @@ def flagship_setup(linsolver="split", linsolve_iters=3, dtype=torch.complex64,
         objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
         gamma_penalty_energy=0.1, gamma_penalty_dpdm=0.01,
         dtype=dtype, linsolve_iters=linsolve_iters, linsolver=linsolver,
-        fused_mode=fused_mode)
+        fused_mode=fused_mode, fused=fused)
 
 
 def bench_params(n, E=None, seed=1234):
@@ -365,7 +394,7 @@ def bench_params(n, E=None, seed=1234):
 
 
 def open_cnot_setup(guards, dtype=torch.complex64, ntime=1221,
-                    fused_rho="auto"):
+                    fused_rho="auto", fused=True):
     """scripts/perf/lindblad_pallas_bench.py:29-63, built with the port's
     own functions: the CNOT with T1/T2 collapse, without guard levels
     (N = 4) or with two per qubit (N = 16), 16 basis density matrices.
@@ -392,7 +421,7 @@ def open_cnot_setup(guards, dtype=torch.complex64, ntime=1221,
         initcond_type="basis", target_type="gate", target_gate_full=V,
         objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
         gamma_penalty_energy=0.1, dtype=dtype, linsolve_iters=8,
-        fused_rho=fused_rho)
+        fused_rho=fused_rho, fused=fused)
 
 
 # scripts/perf/rho_bench.py:25-65's open systems by N: 3 qutrits (N = 27)
@@ -669,6 +698,7 @@ def stream_compare(plan, Sr, Si, x0r, x0i, C, rng):
     if not all(bool(torch.isfinite(t).all()) for t in (sk, ck, xk, gk)):
         raise RuntimeError("stream kernel produced non-finite values")
     return dict(state=float((sk - sp).abs().max()),
+                state_rel=max_rel(sk, sp),
                 cbar=float((ck - cp).abs().max()),
                 x0bar=float((xk - xp).abs().max()),
                 sbar=float((gk - gp).abs().max()),
@@ -925,6 +955,7 @@ def reset_counts():
     rho.reset_launch_counts()
     rho_mid.reset_launch_counts()
     stream.reset_launch_counts()
+    stream_mid.reset_launch_counts()
 
 
 def main_path_launches(names):
@@ -932,7 +963,7 @@ def main_path_launches(names):
     just before it) and fails if a kernel of that path never launched."""
     counts = {**streamk.launch_counts(), **streamk_mid.launch_counts(),
               **rho.launch_counts(), **rho_mid.launch_counts(),
-              **stream.launch_counts()}
+              **stream.launch_counts(), **stream_mid.launch_counts()}
     missing = [k for k in names if counts[k] < 1]
     if missing:
         raise RuntimeError(f"main path did not launch {missing}: {counts}")
@@ -1263,18 +1294,19 @@ def swap02_setup(ntime=MID_NT_CUT, T=6.0, fused=True):
         fused=fused)
 
 
-def midsize_closed_setup(N, initcond, ntime=1000, fused=True):
+def midsize_closed_setup(N, initcond, ntime=1000, fused=True, T=100.0,
+                         linsolver="split", iters=4):
     """scripts/perf/midsize_bench.py:27-63 with the port's builders: two
     qudits (nlevels [16, 16], [16, 32], [32, 32]: N = 256, 512, 1024), T =
     100 ns, 1000 steps, split with 4 iterations, complex64; 'pure' (the
     ground state to a random state) or 'basis' (all N basis states to a
-    random unitary)."""
+    random unitary). Phase 27's 'chunk' run shortens T and takes plain
+    Neumann (`linsolver`, `iters`)."""
     nlevels = {256: [16, 16], 512: [16, 32], 1024: [32, 32]}[N]
     freq01 = [4.80595, 4.8601]
     model = build_standard_model(
         nlevels=nlevels, freq01_ghz=freq01, rotfreq_ghz=freq01,
         selfkerr_ghz=[0.2198, 0.2252], jkl_ghz=[0.005], crosskerr_ghz=[])
-    T = 100.0
     oscs = tuple(OscillatorControl(
         segments=(ControlSegment("spline", nsplines=30, tstart=0.0,
                                  tstop=T),), carrier_freqs=(0.0,))
@@ -1291,8 +1323,8 @@ def midsize_closed_setup(N, initcond, ntime=1000, fused=True):
                  dt=T / ntime, oscillators=oscs,
                  ground_freqs_radns=tuple(2 * np.pi * f for f in freq01),
                  initcond_type=initcond, objective_type="Jtrace",
-                 gamma_tik=1e-4, dtype=torch.complex64, linsolve_iters=4,
-                 linsolver="split", fused=fused, **tgt)
+                 gamma_tik=1e-4, dtype=torch.complex64, linsolve_iters=iters,
+                 linsolver=linsolver, fused=fused, **tgt)
 
 
 def mid_same_bits(plan, x0r, x0i, C, rng):
@@ -1807,6 +1839,383 @@ def rho_mid_phase(smi, worker, ref_path):
                 fe=fe, bits=bits)
 
 
+# Phase 27, the mid-size streamed-plane pair (csrc/stream_mid.cu): the
+# 'stream', 'chunk' and dense members past one thread block. Kernel checks
+# against the plain version on the card at SMID_NT steps on random
+# non-Hermitian stacks of norm about 1 (dt 0.01; scripts/stream_parent.py's
+# synthetic cases) at SMID_CHECK's (N, B), 'chunk' and dense also at
+# N = 1024 (the reference's 'chunk' range); midsize_bench's N = 256 and 512
+# pure through Problem(fused_mode='stream') at full depth; the guarded open
+# CNOT on 'stream' (superop, dim 256, 16 basis matrices); 'chunk' through
+# Problem on N = 256 at a step where plain Neumann converges; the dense
+# forward past one block.
+SMID = ("stream_mid_fwd_launches", "stream_mid_bwd_launches")
+CMID = ("chunk_mid_fwd_launches", "chunk_mid_bwd_launches")
+DMID = ("dense_mid_fwd_launches",)
+SMID_SRC = "quandary_tpu_torch/csrc/stream_mid.cu"
+SMID_NT = 64            # steps of the checks (the plain version's planes)
+SMID_CHECK = ((200, 4), (256, 1), (256, 16), (512, 1))
+SMID_SOLVERS = (("neumann", 4), ("jacobi", 4), ("split", 4))
+SMID_WIDE = (1024, 1)   # 'chunk' and dense only
+# the 'chunk' run: 1000 steps over CHUNK_MID_T ns, dt/2 |d|max = 0.147 on
+# midsize_bench's N = 256 (|d|max = 293.6 rad/ns), where 8 Neumann
+# iterations leave 0.147^9 = 3e-8 per stage solve
+CHUNK_MID_T = 1.0
+
+
+def smid_synthetic(kind, solver, iters, N, B, E, rng, K=5):
+    """scripts/stream_parent.py's synthetic case of the member `kind`: the
+    plan, the stack planes, coefficient rows (E, SMID_NT, K) and x0 (B, N)
+    on random non-Hermitian stacks of norm about 1, dt 0.01."""
+    card = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda",
+                                     dtype=torch.float32)
+    stack = ((rng.normal(size=(K, N, N)) + 1j * rng.normal(size=(K, N, N)))
+             / np.sqrt(N)).astype(np.complex64)
+    Sr, Si = card(stack.real), card(stack.imag)
+    plan = stream.make_plan(Sr, 0.01, iters,
+                            -1j * np.diag(stack[0]).astype(np.complex128),
+                            solver, kind=kind)
+    C = card(rng.normal(size=(E, SMID_NT, K)) * 0.3)
+    x0 = rng.normal(size=(2, B, N))
+    return plan, Sr, Si, C, card(x0[0]), card(x0[1])
+
+
+def smid_same_bits(plan, H, x0r, x0i, rng):
+    """Two launches of each mid kernel on the same inputs give the same bits
+    (one writer per entry of Hb; the tracks' partials summed in a fixed
+    order), and where the plan stores its stage iterates, the backward from
+    them gives the bits of the backward that replays them (and both
+    forwards the same states)."""
+    a = stream_mid._kernel_fwd(plan, *H, x0r, x0i)
+    b = stream_mid._kernel_fwd(plan, *H, x0r, x0i)
+    same = all((u is None and v is None) or torch.equal(u, v)
+               for u, v in zip(a, b))
+    w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                  device="cuda", dtype=torch.float32)
+    gT, gh = w(a[0]), w(a[2])
+    bw = [stream_mid._kernel_bwd(plan, *H, x0r, x0i, *a[2:], gT, gT, gh, gh)
+          for _ in range(2)]
+    same = same and all(torch.equal(u, v) for u, v in zip(*bw))
+    if plan.store_iters:
+        rp = dataclasses.replace(plan, store_iters=False)
+        r = stream_mid._kernel_fwd(rp, *H, x0r, x0i)
+        rb = stream_mid._kernel_bwd(rp, *H, x0r, x0i, *r[2:], gT, gT, gh, gh)
+        same = same and all(torch.equal(u, v) for u, v in zip(a[:4], r[:4]))
+        same = same and all(torch.equal(u, v) for u, v in zip(bw[0], rb))
+    return same
+
+
+def smid_checks(rng):
+    """The mid entry points against the plain version on the card: worst
+    errors per member, the layouts driven and the bits' checks."""
+    zero = dict(state=0.0, state_rel=0.0, cbar=0.0, x0bar=0.0, sbar=0.0,
+                cbar_rel=0.0, x0bar_rel=0.0, sbar_rel=0.0)
+    worst = {"stream": dict(zero), "chunk": dict(zero), "dense": 0.0}
+    seen, bits, bad = set(), {}, []
+    cases = []
+    for N, B in SMID_CHECK:
+        for solver, iters in SMID_SOLVERS:
+            for store in (True, False):
+                cases.append(("stream", solver, iters, N, B, 1, store))
+        cases.append(("stream", "split", 4, N, B, 2, True))
+        cases.append(("chunk", "neumann", 8, N, B, 1, False))
+    cases.append(("chunk", "neumann", 8, 256, 1, 2, False))
+    cases.append(("chunk", "neumann", 8, *SMID_WIDE, 1, False))
+    # N = 256 basis: 64 chunks of 4 states on 16 tracks of 4 chunks each
+    cases.append(("stream", "split", 4, 256, 256, 1, False))
+    for kind, solver, iters, N, B, E, store in cases:
+        plan, Sr, Si, C, x0r, x0i = smid_synthetic(kind, solver, iters, N, B,
+                                                   E, rng)
+        plan = dataclasses.replace(plan, store_iters=store)
+        if not stream.uses_mid(plan, B, N):
+            raise RuntimeError(f"{kind} N = {N}, B = {B} is not past one "
+                               "block")
+        reset_counts()
+        err = stream_compare(plan, Sr, Si, x0r, x0i, C, rng)
+        sweep_launches((f"{kind}_mid_fwd_launches",
+                        f"{kind}_mid_bwd_launches"))
+        lay = stream_mid.mid_layouts
+        seen.add(("fwd", lay["fwd"]["layout"]))
+        seen.add(("bwd", lay["bwd"]["layout"], store))
+        seen.add(("chunks", -(-B // lay["bwd"]["Bc"]) > 1))
+        seen.add(("tracks", lay["bwd"]["tracks"] < -(-B // lay["bwd"]["Bc"])))
+        key = (f"{kind}_{solver}{iters}_N{N}_B{B}_E{E}_"
+               f"{'stored' if store else 'replayed'}")
+        shapes = dict(fwd=lay["fwd"], bwd=lay["bwd"])
+        print(f"  {key}: {json.dumps(dict(err, **shapes))}", flush=True)
+        for k in worst[kind]:
+            worst[kind][k] = max(worst[kind][k], err[k])
+        if err["state_rel"] > TOL_STATE_REL or max(
+                err["cbar_rel"], err["x0bar_rel"],
+                err["sbar_rel"]) > TOL_GRAD_REL:
+            bad.append(key)
+        if kind == "stream" and E == 1 and store and solver != "neumann" \
+                and B < 256:
+            with torch.no_grad():
+                H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
+            bits[key] = smid_same_bits(plan, H, x0r, x0i, rng)
+            del H
+    for N, B in SMID_CHECK + (SMID_WIDE,):
+        plan, Sr, Si, C, x0r, x0i = smid_synthetic("dense", "neumann", 8, N,
+                                                   B, 1, rng)
+        with torch.no_grad():
+            H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
+            reset_counts()
+            xd = torch.cat(dense.dense_propagate(plan, *H, x0r, x0i))
+            sweep_launches(DMID)
+            hp = stream.plain_forward(plan, *H, x0r, x0i)
+            err = float((xd - torch.cat([hp[0][:, -1], hp[1][:, -1]])
+                         ).abs().max())
+        seen.add(("dense", stream_mid.mid_layouts["fwd"]["layout"]))
+        worst["dense"] = max(worst["dense"], err)
+        if err > TOL_STATE_ABS:
+            bad.append(f"dense_N{N}")
+        del H, hp
+    return worst, seen, bits, bad
+
+
+def smid_tracks_check(rng):
+    """The mid backward with its chunks of states run in turn on fewer
+    tracks than chunks: N = 256, 16 states (4 chunks of 4), E = 2, split-4
+    stored, at 1, 2 and the planner's tracks. Each against the plain
+    backward (x0 and plane cotangents, x max) and against itself on a
+    repeat (the same bits). Returns (worst error, bits equal, tracks)."""
+    plan, Sr, Si, C, x0r, x0i = smid_synthetic("stream", "split", 4, 256,
+                                               16, 2, rng)
+    with torch.no_grad():
+        H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
+        fwd = stream_mid._kernel_fwd(plan, *H, x0r, x0i)
+        w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                      device="cuda", dtype=torch.float32)
+        gT, gh = w(fwd[0]), w(fwd[2])
+        ref = stream.plain_backward(plan, *H, x0r, x0i, fwd[2], fwd[3], gT,
+                                    gT, gh, gh)
+        worst, same, tracks = 0.0, True, []
+        for t in (1, 2, None):
+            runs = [stream_mid._kernel_bwd(plan, *H, x0r, x0i, *fwd[2:], gT,
+                                           gT, gh, gh, _tracks=t)
+                    for _ in range(2)]
+            tracks.append(stream_mid.mid_layouts["bwd"]["tracks"])
+            same = same and all(torch.equal(u, v) for u, v in zip(*runs))
+            worst = max([worst] + [max_rel(u, v)
+                                   for u, v in zip(runs[0], ref)])
+    del H, fwd, ref, runs
+    return worst, same, tracks
+
+
+def stream_mid_phase(smi, build, open16):
+    """Phase 27: the mid stream pair against plain, its layouts and bits,
+    Problem through it at full width on 'stream' (closed and open) and
+    'chunk', and the dense forward past one block. open16: phase 14's rho
+    route (J, fidelity, grad) of open configuration 2 at full depth and its
+    f64 reference at NT_F64 steps."""
+    path, secs, log = build
+    phase(27, f"built {path} in {secs:.2f} s; "
+              + " | ".join(ptxas_lines(log)))
+    missing = [f"{k}<{bc}{h}>" for bc in (1, 2, 4, 8)
+               for k, h in (("stream_mid_fwd", ", true"),
+                            ("stream_mid_fwd", ", false"),
+                            ("stream_mid_bwd", ""))
+               if (f"{k}ILi{bc}ELb{int(h == ', true')}E" if h else
+                   f"{k}ILi{bc}E") not in log]
+    if secs > 0 and missing:
+        raise RuntimeError(f"ptxas reported no {missing}")
+    rng = np.random.default_rng(27)
+    to_card = lambda a: torch.as_tensor(a, device="cuda", dtype=torch.float32)
+    worst, seen, bits, bad = smid_checks(rng)
+    tr_err, tr_bits, tracks = smid_tracks_check(rng)
+    if tr_err > TOL_GRAD_REL:
+        bad.append(f"tracks {tracks}")
+    bits[f"tracks {tracks}"] = tr_bits
+    want = {("fwd", "smem2"), ("fwd", "smem1"), ("fwd", "global"),
+            ("bwd", "smem2", True), ("bwd", "smem2", False),
+            ("bwd", "smem1", True), ("bwd", "global", False),
+            ("chunks", True), ("tracks", True), ("dense", "global")}
+    phase(27, f"mid stream pair == plain at {SMID_NT} steps within "
+              f"{TOL_STATE_REL} x max (states; dense abs {TOL_STATE_ABS}), "
+              f"{TOL_GRAD_REL} x max (x0, coefficient and stack "
+              f"cotangents): worst {json.dumps(worst)}; chunks on tracks "
+              f"{tracks}: {tr_err:.3g} x max; out of bounds {bad}; layouts "
+              f"{sorted(map(str, seen))}; missing "
+              f"{sorted(map(str, want - seen))}; same bits on repeat and "
+              f"stored against replayed {json.dumps(bits)}")
+    if bad or want - seen or not all(bits.values()):
+        raise RuntimeError(f"mid stream pair: out of bounds {bad}, layouts "
+                           f"not driven {want - seen}, bits {bits}")
+
+    # Problem(fused_mode='stream'), fused=True and 'auto', at full width
+    launches = {k: 0 for k in SMID + CMID + DMID}
+    full = {}
+    for name, N in (("n256_pure", 256), ("n512_pure", 512)):
+        mk = lambda fused=True, N=N: dataclasses.replace(
+            midsize_closed_setup(N, "pure", fused=fused), fused_mode="stream")
+        ps, pa = Problem(mk()), Problem(mk("auto"))
+        if not (ps.fused_form == pa.fused_form == "stream" and ps.fused_ok
+                and pa.use_fused
+                and stream.uses_mid(ps._plan, ps.ninit, ps.N)):
+            raise RuntimeError(f"{name}: fused=True / 'auto' did not take "
+                               f"the mid stream pair: {ps.fused_refusal}")
+        x = bench_params(ps.setup.nparams)
+        vg = ps.build_value_and_grad()
+        reset_counts()
+        (J, aux), g = vg(x, x)
+        torch.cuda.synchronize()
+        for k, v in sweep_launches(SMID).items():
+            launches[k] = launches.get(k, 0) + v
+        if not (torch.isfinite(J) and bool(torch.isfinite(g).all())):
+            raise RuntimeError(f"{name}: non-finite value_and_grad")
+        (Ja, _), ga = pa.build_value_and_grad()(x, x)
+        if float(Ja) != float(J) or not torch.equal(ga, g):
+            raise RuntimeError(f"{name}: fused='auto' and True differ")
+        del pa
+        (Jk, _), gk = Problem(midsize_closed_setup(N, "pure")) \
+            .build_value_and_grad()(x, x)
+        routes = dict(J=abs(float(J) - float(Jk)) / abs(float(Jk)),
+                      g=max_rel(g.double(), gk.double()))
+        pcut = Problem(dataclasses.replace(mk(), ntime=SMID_NT))
+        (Jc, _), gc = pcut.build_value_and_grad()(x, x)
+        with plain_on_card():
+            (Jp, _), gp = pcut.build_value_and_grad()(x, x)
+        plain = dict(J=abs(float(Jc) - float(Jp)) / abs(float(Jp)),
+                     g=max_rel(gc.double(), gp.double()))
+        del pcut
+        rate = 1.0 / median_seconds(lambda: vg(x, x), reps=3)
+        with torch.no_grad():
+            H = [h.contiguous() for h in stream.planes(
+                ps._plan, ps._Sr, ps._Si,
+                ps.coeff_rows_mid(to_card(x))[None, :, 0, :])]
+        t = stream_kernel_ms(ps._plan, *H, ps._x0r, ps._x0i, 3, True)
+        t.update({f"{k}_shape": dict(stream_mid.mid_layouts[k])
+                  for k in ("fwd", "bwd")})
+        del H
+        full[name] = dict(t, sweeps_per_s=rate, J=float(J),
+                          fidelity=float(aux["fidelity"]), routes=routes,
+                          plain=plain, stored=ps._plan.store_iters, N=ps.N,
+                          B=ps.ninit, ntime=ps.setup.ntime)
+        print(f"  {name}: {json.dumps(full[name])}", flush=True)
+        if routes["J"] > TOL_J_PLAIN or routes["g"] > TOL_G_PLAIN \
+                or plain["J"] > TOL_J_PLAIN or plain["g"] > TOL_G_PLAIN:
+            raise RuntimeError(f"{name} 'stream' against the mid streamK "
+                               f"route {routes}, against plain {plain}")
+    phase(27, f"Problem(fused_mode='stream') (fused=True and 'auto') on "
+              f"the mid stream pair at full width, 1 + 1 launches per sweep, "
+              f"J / gradient against the mid streamK route (full depth) and "
+              f"plain ({SMID_NT} steps) within {TOL_J_PLAIN} / "
+              f"{TOL_G_PLAIN}: "
+              + "; ".join(f"{k}: {v['sweeps_per_s']:.3f} sweeps/s, fwd / "
+                          f"bwd {v['fwd']:.3f} / {v['bwd']:.3f} ms (bound "
+                          f"{v['fwd_bound'][0]:.4f} / {v['bwd_bound'][0]:.4f}"
+                          f"; plain {v['plain_fwd']:.1f} / "
+                          f"{v['plain_bwd']:.1f}), G / Bc / layout fwd "
+                          f"{v['fwd_shape']['G']} / {v['fwd_shape']['Bc']} / "
+                          f"{v['fwd_shape']['layout']} bwd "
+                          f"{v['bwd_shape']['G']} / {v['bwd_shape']['Bc']} / "
+                          f"{v['bwd_shape']['layout']}, routes "
+                          f"{json.dumps(v['routes'])}, plain "
+                          f"{json.dumps(v['plain'])}"
+                          for k, v in full.items()) + f"; card: {smi}")
+
+    # the guarded open CNOT on 'stream': superop at dim 256
+    p16 = Problem(dataclasses.replace(open_cnot_setup(True),
+                                      fused_mode="stream"))
+    dim = p16._Sr.shape[-1]
+    if not (p16.fused_form == "superop" and p16.fused_ok
+            and stream.uses_mid(p16._plan, p16.ninit, dim)):
+        raise RuntimeError(f"open configuration 2 on 'stream': route "
+                           f"{p16.fused_form}, {p16.fused_refusal}")
+    P = to_card(bench_params(p16.setup.nparams))[None]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = open_vg(p16, P)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launches_open = sweep_launches(SMID)
+    for k, v in launches_open.items():
+        launches[k] = launches.get(k, 0) + v
+    got_m = open_vg(Problem(dataclasses.replace(
+        open_cnot_setup(True, ntime=NT_F64), fused_mode="stream")), P)
+    rho16, ref16 = open16
+    eJ, ef, eg = open_errors(got, rho16)
+    fJ, ff, fg = open_errors(got_m, ref16)
+    tol = TOL_OPEN["cnot16"]
+    open_rep = dict(N=p16.N, dim=dim, B=p16.ninit,
+                    ntime=p16.setup.ntime, J=float(got[0][0]),
+                    rho_route=dict(J=eJ, fidelity=ef, grad=eg),
+                    f64=dict(J=fJ, fidelity=ff, grad=fg), sweep_s=wall16,
+                    launches=launches_open,
+                    shapes=dict(stream_mid.mid_layouts))
+    phase(27, f"open configuration 2 (N = 16, 16 basis matrices, ntime "
+              f"{p16.setup.ntime}) on 'stream', superop at dim {dim} past one "
+              f"block: {json.dumps(open_rep)}; bounds rho route "
+              f"{TOL_ROUTES_J} / {TOL_ROUTES_G}, f64 at {NT_F64} steps "
+              f"{tol['J_f64']} / {tol['g_f64']}")
+    if eJ > TOL_ROUTES_J or eg > TOL_ROUTES_G or fJ > tol["J_f64"] \
+            or ff > tol["J_f64"] or fg > tol["g_f64"]:
+        raise RuntimeError(f"open 'stream' past one block: {open_rep}")
+
+    # fused_mode='chunk' through Problem, where plain Neumann converges
+    pc = Problem(dataclasses.replace(
+        midsize_closed_setup(256, "pure", T=CHUNK_MID_T, linsolver="neumann",
+                             iters=8), fused_mode="chunk"))
+    u = 0.5 * pc.setup.dt * float(np.abs(np.diagonal(
+        pc.engine.stack_np[0])).max())
+    if not (pc.fused_form == "chunk" and pc.linsolver == "neumann"
+            and pc.fused_ok and stream.uses_mid(pc._plan, pc.ninit, pc.N)):
+        raise RuntimeError(f"chunk route {pc.fused_form}, {pc.linsolver}, "
+                           f"{pc.fused_refusal}")
+    x = bench_params(pc.setup.nparams)
+    reset_counts()
+    (Jc, _), gc = pc.build_value_and_grad()(x, x)
+    torch.cuda.synchronize()
+    launches_c = sweep_launches(CMID)
+    for k, v in launches_c.items():
+        launches[k] = launches.get(k, 0) + v
+    with plain_on_card():
+        (Jcp, _), gcp = pc.build_value_and_grad()(x, x)
+    err_c = dict(J=abs(float(Jc) - float(Jcp)) / abs(float(Jcp)),
+                 g=max_rel(gc.double(), gcp.double()))
+    Cc = pc.coeff_rows_mid(to_card(x))[:, 0, :]
+    with torch.no_grad():
+        Hc = [h.contiguous() for h in stream.planes(pc._plan, pc._Sr, pc._Si,
+                                                    Cc[None])]
+    t_c = stream_kernel_ms(pc._plan, *Hc, pc._x0r, pc._x0i, 3, True)
+    t_c.update({f"{k}_shape": dict(stream_mid.mid_layouts[k])
+                for k in ("fwd", "bwd")})
+    rate_c = 1.0 / median_seconds(lambda: pc.build_value_and_grad()(x, x),
+                                  reps=3)
+    # the dense forward past one block, through pallas_propagate_dense
+    reset_counts()
+    xd = dense.pallas_propagate_dense(pc.engine.stack_np, Cc,
+                                      torch.complex(pc._x0r, pc._x0i),
+                                      pc.setup.dt, 8)
+    torch.cuda.synchronize()
+    launches_d = sweep_launches(DMID)
+    for k, v in launches_d.items():
+        launches[k] = launches.get(k, 0) + v
+    with torch.no_grad():
+        xc = stream._kernel_fwd(pc._plan, *Hc, pc._x0r, pc._x0i)[:2]
+    err_d = float((xd - torch.complex(*xc)[0]).abs().max())
+    dplan = stream.make_plan(pc._Sr, pc.setup.dt, 8, kind="dense")
+    t_d = stream_kernel_ms(dplan, *Hc, pc._x0r, pc._x0i, 3, False)
+    t_d["plain_fwd"] = t_c["plain_fwd"]     # plain_forward on these planes
+    t_d["fwd_shape"] = dict(stream_mid.mid_layouts["fwd"])
+    del Hc
+    chunk_rep = dict(N=pc.N, ntime=pc.setup.ntime, dt=pc.setup.dt,
+                     dt2_dmax=u, J=float(Jc), plain=err_c,
+                     sweeps_per_s=rate_c, launches=launches_c, ms=t_c,
+                     dense=dict(ms=t_d, launches=launches_d,
+                                xT_against_chunk=err_d))
+    phase(27, f"fused_mode='chunk' on N = 256 pure, {pc.setup.ntime} steps "
+              f"of dt {pc.setup.dt} (dt/2 |d|max = {u:.4f}), plain Neumann-8:"
+              f" {json.dumps(chunk_rep)}; card: {smi}")
+    if err_c["J"] > TOL_J_PLAIN or err_c["g"] > TOL_G_PLAIN \
+            or err_d > TOL_STATE_ABS:
+        raise RuntimeError(f"chunk route past one block: {err_c}, dense xT "
+                           f"{err_d}")
+    return dict(worst=worst, full=full, launches=launches, open=open_rep,
+                chunk=t_c, dense=t_d, chunk_rep=chunk_rep)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1870,15 +2279,33 @@ def rho_mid_phase_alone():
         return rho_mid_phase(smi, worker, ref_path)
 
 
+def stream_mid_phase_alone():
+    """Phase 27 by itself (after a change to csrc/stream_mid.cu): the
+    build, phase 14's references of open configuration 2 (the rho route at
+    full depth, the f64 port at NT_F64 steps), then stream_mid_phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build = stream_mid.build_kernels(verbose=True)
+    p16 = Problem(open_cnot_setup(True))
+    P = torch.as_tensor(bench_params(p16.setup.nparams), device="cuda",
+                        dtype=torch.float32)[None]
+    ref, _ = f64_reference("cnot16", ntime=NT_F64)
+    return stream_mid_phase(smi, build, (open_vg(p16, P), ref))
+
+
 def run_phases(smi, worker, ref_path):
-    """Phases 2-26 and the last lines."""
+    """Phases 2-27 and the last lines."""
     # ---- 2. build ----
     t0 = time.perf_counter()
-    (path, secs, log), rho_build, stream_build, mid_build, rmid_build = \
-        cuda_build.build_parallel(
-            [streamk.build_kernels, rho.build_kernels, stream.build_kernels,
-             streamk_mid.build_kernels, rho_mid.build_kernels], verbose=True)
-    phase(2, f"built {path} in {secs:.2f} s (all five sources in "
+    ((path, secs, log), rho_build, stream_build, mid_build, rmid_build,
+     smid_build) = cuda_build.build_parallel(
+        [streamk.build_kernels, rho.build_kernels, stream.build_kernels,
+         streamk_mid.build_kernels, rho_mid.build_kernels,
+         stream_mid.build_kernels], verbose=True)
+    phase(2, f"built {path} in {secs:.2f} s (all six sources in "
              f"{time.perf_counter() - t0:.2f} s); "
           + " | ".join(ptxas_lines(log)) + f"; {mid_build[0]}: "
           + " | ".join(ptxas_lines(mid_build[2])))
@@ -2261,6 +2688,8 @@ def run_phases(smi, worker, ref_path):
         # 277 s of host time for the three configurations
         got_m = open_vg(Problem(fn(ntime=NT_F64)), P)
         ref, secs = f64_reference(name, ntime=NT_F64)
+        if name == "cnot16":
+            open16 = got, ref      # phase 27's references
         open_report[name] = dict(
             N=pr.N, ninit=pr.ninit, ntime=pr.setup.ntime,
             J=float(got[0][0]), fidelity=float(got[1][0]),
@@ -2580,6 +3009,9 @@ def run_phases(smi, worker, ref_path):
         raise RuntimeError(f"ptxas reported no {missing}")
     rm = rho_mid_phase(smi, worker, ref_path)
 
+    # ---- 27. the streamed-plane kernels past one block ----
+    sm = stream_mid_phase(smi, smid_build, open16)
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -2663,6 +3095,21 @@ def run_phases(smi, worker, ref_path):
                     launches_front_end_simulate=rm["fe"][
                         "launches_simulate"][RHO_MID[i]])
 
+    def smid_more(i):
+        """The mid stream pair: its shape and sweeps/s at N = 256, N = 512's
+        time, bound, plain time and shape, the open superop run's launches
+        and the routes' agreement."""
+        key = ("fwd", "bwd")[i]
+        t256, t512 = sm["full"]["n256_pure"], sm["full"]["n512_pure"]
+        return dict(shape=t256[f"{key}_shape"],
+                    sweeps_per_s=t256["sweeps_per_s"],
+                    ms_n512=t512[key], bound_ms_n512=t512[f"{key}_bound"][0],
+                    plain_ms_n512=t512[f"plain_{key}"],
+                    shape_n512=t512[f"{key}_shape"],
+                    sweeps_per_s_n512=t512["sweeps_per_s"],
+                    launches_open_superop=sm["open"]["launches"][SMID[i]],
+                    routes_n256=t256["routes"], routes_n512=t512["routes"])
+
     def chain_more(name):
         """A stream.cu kernel's time per (reversed) step and helpers."""
         c = chain_s[name]
@@ -2744,7 +3191,31 @@ def run_phases(smi, worker, ref_path):
         record("rho_mid_bwd", 494, rm["launches"][RHO_MID[1]],
                max(rm["worst"]["cbar"], rm["worst"]["x0bar"]),
                rm["full"]["qudits125"], "bwd", src=RHO_MID_SRC,
-               tpu="quandary_tpu/ops/pallas_rho.py", **rho_mid_more(1))]}))
+               tpu="quandary_tpu/ops/pallas_rho.py", **rho_mid_more(1)),
+        # the mid streamed-plane pair: 'stream' at midsize_bench's N = 256
+        # (B = 1, 1000 steps, split-4, the plain version at the same
+        # depth), N = 512 riding along; 'chunk' and dense on N = 256 at
+        # CHUNK_MID_T (1000 steps, neumann-8)
+        record("stream_mid_fwd", 613, sm["launches"][SMID[0]],
+               sm["worst"]["stream"]["state"], sm["full"]["n256_pure"],
+               "fwd", src=SMID_SRC, **smid_more(0)),
+        record("stream_mid_bwd", 657, sm["launches"][SMID[1]], max(
+            sm["worst"]["stream"][k] for k in ("cbar", "x0bar", "sbar")),
+               sm["full"]["n256_pure"], "bwd", src=SMID_SRC,
+               **smid_more(1)),
+        record("chunk_mid_fwd", 202, sm["launches"][CMID[0]],
+               sm["worst"]["chunk"]["state"], sm["chunk"], "fwd",
+               src=SMID_SRC, tpu="quandary_tpu/ops/pallas_adjoint.py",
+               shape=sm["chunk"]["fwd_shape"]),
+        record("chunk_mid_bwd", 211, sm["launches"][CMID[1]], max(
+            sm["worst"]["chunk"][k] for k in ("cbar", "x0bar", "sbar")),
+               sm["chunk"], "bwd", src=SMID_SRC,
+               tpu="quandary_tpu/ops/pallas_adjoint.py",
+               shape=sm["chunk"]["bwd_shape"]),
+        record("dense_mid_fwd", 111, sm["launches"][DMID[0]],
+               sm["worst"]["dense"], sm["dense"], "fwd", src=SMID_SRC,
+               tpu="quandary_tpu/ops/pallas_kernels.py",
+               shape=sm["dense"]["fwd_shape"])]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

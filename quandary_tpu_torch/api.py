@@ -18,7 +18,7 @@ CUDA kernels where the JAX package's pallas='auto' gate admits it
 (Setup.fused='auto'). The default optimizer on CUDA is the device driver
 (optim/device_driver.py): its chunk of iterations replayed as a CUDA graph
 on a kernel route, run eagerly on the plain route
-(device_driver.front_end_graph).
+(device_driver.default_graph).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from .models import gates as gates_mod
 from .models.controls import eval_controls
 from .models.hamiltonian import build_file_model, build_standard_model
 from .ops import solvers as slv
-from .optim.device_driver import front_end_graph, run_optimization_device
+from .optim.device_driver import run_optimization_device
 from .optim.driver import OptimHistoryRow, build_bounds, run_optimization
 from .problem import Problem, Setup
 from .utils.indexing import lift_vector_ess_to_full, ess_to_full_map
@@ -592,8 +592,7 @@ class Quandary:
                     gatol=self.tol_gnorm_abs, grtol=self.tol_gnorm_rel,
                     fatol=self.tol_costfunc, inftol=self.tol_infidelity,
                     monitor_freq=self.print_frequency_iter,
-                    verbose=self.verbose, datadir=datadir,
-                    graph=front_end_graph(problem, self.verbose))
+                    verbose=self.verbose, datadir=datadir)
             else:
                 res = run_optimization(
                     problem, params0, lb, ub, maxiter=self.maxiter,

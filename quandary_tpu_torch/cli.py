@@ -23,7 +23,7 @@ import torch
 from .io import output as out_io
 from .io.configfile import Config, RunSpec, setup_from_config
 from .ops import solvers as slv
-from .optim.device_driver import front_end_graph, run_optimization_device
+from .optim.device_driver import run_optimization_device
 from .optim.driver import OptimHistoryRow, build_bounds, run_optimization
 from .problem import Problem, Setup
 
@@ -152,9 +152,8 @@ def run(config_path: str, quiet: bool = True, datadir_override: str = None,
             datadir=datadir, output_frequency=spec.output_frequency)
         bounds = build_bounds(setup.oscillators, spec.control_bounds)
         if use_device:
-            res = run_optimization_device(
-                problem, params0, *bounds,
-                graph=front_end_graph(problem, not quiet), **driver_kw)
+            res = run_optimization_device(problem, params0, *bounds,
+                                          **driver_kw)
         else:
             res = run_optimization(problem, params0, *bounds,
                                    resume=spec.warmstart, **driver_kw)

@@ -1,0 +1,134 @@
+// The band arithmetic of a thread-block cluster that shares the state
+// vectors of one (candidate, chunk of basis states) among its CTAs, each
+// CTA on a band of the entries: shared by the mid-size kernel pairs
+// csrc/streamk_mid.cu and csrc/stream_mid.cu. A warp forms a band row's
+// products with the BC whole operand vectors (rows_dot), the row's owner
+// lane runs the stage update of its entry (mid_first, mid_next) and pushes
+// the result into every CTA's copy of the next operand (push); the host
+// side sets a launch up as clusters of G CTAs (cluster_config) and asks the
+// card how many it holds (max_clusters).
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "imr_step.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+// For the rows il = warp, warp + nwarps, ... < nr of a band matrix M (re at
+// Mr, im at Mi, row stride ld) and the BC whole vectors v (re at Vr + b N,
+// im at Vi + b N): s_b = sum_j m_j v_j (CONJ: conj(m_j) v_j). The lanes
+// stride j, each product on its own accumulator; a butterfly of shuffles
+// gives every lane the same sums, and lane b < BC calls f(il, b, s_r, s_i).
+template <int BC, bool CONJ, typename F>
+__device__ __forceinline__ void rows_dot(const float* Mr, const float* Mi,
+                                         int ld, int nr, const float* Vr,
+                                         const float* Vi, int N, int warp,
+                                         int nwarps, int lane, F f) {
+  for (int il = warp; il < nr; il += nwarps) {
+    const float* mr = Mr + (size_t)il * ld;
+    const float* mi = Mi + (size_t)il * ld;
+    float a[BC][4];
+#pragma unroll
+    for (int b = 0; b < BC; ++b) a[b][0] = a[b][1] = a[b][2] = a[b][3] = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float hr = mr[j], hi = mi[j];
+#pragma unroll
+      for (int b = 0; b < BC; ++b) {
+        const float vr = Vr[b * N + j], vi = Vi[b * N + j];
+        a[b][0] = fmaf(hr, vr, a[b][0]);
+        a[b][1] = fmaf(CONJ ? hi : -hi, vi, a[b][1]);
+        a[b][2] = fmaf(hr, vi, a[b][2]);
+        a[b][3] = fmaf(CONJ ? -hi : hi, vr, a[b][3]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BC; ++b) {
+      float sr = a[b][0] + a[b][1], si = a[b][2] + a[b][3];
+      for (int o = 16; o > 0; o >>= 1) {
+        sr += __shfl_xor_sync(0xffffffffu, sr, o);
+        si += __shfl_xor_sync(0xffffffffu, si, o);
+      }
+      if (lane == b) f(il, b, sr, si);
+    }
+  }
+}
+
+// The stage updates of one entry (imr_step.cuh's stage_first, stage_next)
+// with its solver rows in the band array rw (4 x R): jacobi (d, minv),
+// split (e).
+__device__ __forceinline__ void mid_first(bool jac, const float* rw, int R,
+                                          int il, float br, float bi,
+                                          float& kr, float& ki) {
+  kr = br;
+  ki = bi;
+  if (jac) cmul(rw[2 * R + il], rw[3 * R + il], kr, ki);
+}
+
+__device__ __forceinline__ void mid_next(bool jac, float a, const float* rw,
+                                         int R, int il, float br, float bi,
+                                         float mr, float mi, float& kr,
+                                         float& ki) {
+  if (jac) {
+    const float r0 = rw[il], r1 = rw[R + il];
+    const float ur = mr - (r0 * kr - r1 * ki);
+    const float ui = mi - (r0 * ki + r1 * kr);
+    kr = br + a * ur;
+    ki = bi + a * ui;
+    cmul(rw[2 * R + il], rw[3 * R + il], kr, ki);
+  } else {
+    kr = br + a * mr;
+    ki = bi + a * mi;
+  }
+}
+
+// An entry into the same place of every CTA's copy of an operand buffer
+// (its own included), through distributed shared memory.
+__device__ __forceinline__ void push(const cg::cluster_group& cl, float* dst,
+                                     float v, int G) {
+  for (int q = 0; q < G; ++q) *cl.map_shared_rank(dst, q) = v;
+}
+
+// The launch configuration of `clusters` clusters of G CTAs of `kernel`,
+// with the kernel's attributes for its shared memory and, for G > 8, for a
+// cluster beyond the portable size (as csrc/rho.cu's).
+template <typename Kernel>
+cudaLaunchConfig_t cluster_config(Kernel kernel, cudaLaunchAttribute* attr,
+                                  int clusters, int G, int threads,
+                                  int smem_bytes, cudaStream_t stream) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem_bytes);
+  if (G > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Kernel>
+int max_clusters(Kernel kernel, int G, int threads, int smem_bytes) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(kernel, attr, 1, G, threads, smem_bytes, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+}  // namespace

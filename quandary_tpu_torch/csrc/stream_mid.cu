@@ -1,0 +1,821 @@
+// Streamed-plane propagation past one thread block, for Hopper (sm_90a): the
+// whole IMR time loop of dv/dt = -i H(t) v in ONE launch per direction, with
+// the per-step planes H(t) built outside the kernel and read from device
+// memory, for candidates that one block of stream.cu cannot hold (B*N past
+// 1024 threads, or the inline layout past 227 KB of shared memory).
+//
+// Replaces the rest of the range of three TPU kernels of one family, as
+// stream.cu does below one block:
+//   * stream_mid_fwd / stream_mid_bwd: quandary_tpu/ops/pallas_stream.py::
+//     make_stream_propagate (:490; forward pallas_call :613, backward :657),
+//     neumann, jacobi and split, stage iterates stored or replayed, the step
+//     core _stage_fwd :217 / _stage_bwd :331 inlined;
+//   * chunk_mid_fwd / chunk_mid_bwd: ops/pallas_adjoint.py::
+//     make_pallas_propagate (:167; pallas_calls :202 / :211), plain Neumann,
+//     the backward always replays;
+//   * dense_mid_fwd: ops/pallas_kernels.py::pallas_propagate_dense (:76;
+//     pallas_call :111), the Neumann forward without history, xT only.
+// The entry points hold each member to its contract and run the same two
+// __global__ functions; HIST drops the history writes. For split the planes
+// carry the off-diagonal remainder (the caller subtracts diag(h)); the
+// kernel applies the rotations E = exp((dt/2) d). H is never assumed
+// Hermitian (the open superop route streams H' = iL).
+//
+// Layout, as streamk_mid.cu's: a thread-block cluster of G CTAs (1, 2, 4, 8
+// or 16) per (control candidate, chunk of BC basis states); clusters never
+// wait on each other and run in waves. CTA q owns the entries [q R, q R + R)
+// of every state vector (R = ceil(N / G), the last band ragged). Every stage
+// product needs the whole operand: each CTA computes its band of the result
+// and pushes it into every CTA's copy through distributed shared memory, and
+// one cluster barrier per exchange makes the copies whole.
+//   forward: the CTA reads its ROW band of H(t) (R x N of each plane) and
+//     computes its band of T(v) = -i H v for each stage;
+//   backward: it reads its COLUMN band of H(t), transposed (R x (N + 1)),
+//     and computes its band of the real transpose Tt(c) for each transposed
+//     stage; a backward that replays the stage iterates (store 0, and always
+//     for chunk) reads the row band too. The step's (cotangent, input) pairs
+//     stay in shared memory, the cotangents whole (they were exchanged), the
+//     inputs by band, and one pass over the column band's entries writes
+//     Hb(t)[:, band] = sum over pairs c u^T straight to device memory. The
+//     backward's grid holds `tracks` clusters per candidate (1 to the
+//     number of chunks of states): the cluster of track l runs the chunks
+//     l, l + tracks, ... in turn into one partial Hb, the first writing it
+//     and the others adding to it; with more than one track the wrapper
+//     sums the partials in a fixed order. Each entry of a partial has one
+//     writer, so no float atomics: two launches give the same bits.
+// Where the bands fit shared memory they are copied there by cp.async:
+// "smem2" two slots, the next step's band streamed in while the step runs;
+// "smem1" one slot, copied at the step's start. Otherwise ("global") the
+// row band is read straight from the plane array (contiguous rows, served
+// by L2) and the column band is transposed into a per-CTA scratch in device
+// memory at the step's start. The wrapper picks the layout, G and BC
+// (ops/stream.py::_mid_shape).
+// Mapping (mid_cluster.cuh's rows_dot, as streamk_mid.cu's): the warps of a
+// CTA take the band's rows in turn, the lanes stride the contraction index,
+// each lane holds the partial sums of all BC states, a butterfly of
+// shuffles gives every lane the row's sums, and lane b owns entry (b, row):
+// its stage values
+// live in band arrays in shared memory, and it runs the elementwise stage
+// update, writes history and stored iterates, and pushes the entry. The
+// forward and the backward's replay run one chain (rows_dot on the same row
+// band), so stored and replayed iterates are equal in bits. Exact f32 FMA
+// on the CUDA cores; no tensor cores.
+//
+// What bounds it on the H100: bytes, as a bound. The forward reads the
+// plane pair once, 2 x nt x N^2 x 4 bytes per candidate (1 GB at N = 512,
+// 1000 steps: 0.63 ms at 3.35 TB/s); the backward reads it again (and the
+// row band once more on a replay) and writes as many bytes of Hb. In
+// practice the dependent chain sets the time: iters + 1 stage products a
+// step (backward: up to 2 iters + 1), each ended by a cluster barrier. The
+// design keeps the band reads off that chain where it can: in smem2 the
+// next step's band arrives during the current step.
+
+#include <stdint.h>
+
+#include "mid_cluster.cuh"
+
+namespace {
+
+constexpr int SM_MAX_THREADS = 512;
+
+// slots: bands of H in shared memory (2 or 1 slots), or 0 (global layout).
+struct SMDims {
+  int E, nt, B, N, iters, mode, store;
+  float dt, a;
+  int G, R, nchunks, slots, tracks;
+};
+
+__host__ __device__ inline size_t pad4(size_t n) {
+  return (n + 3) & ~(size_t)3;
+}
+
+// Floats of one slot of a CTA's bands of H, each plane padded to 16 bytes:
+// the forward's row band (R x N, re and im); the backward's column band
+// transposed (R x (N + 1)) and, with replay, its row band.
+__host__ __device__ inline size_t sm_band_floats(int N, int R, bool backward,
+                                                 bool replay) {
+  const size_t row = pad4((size_t)R * N), col = pad4((size_t)R * (N + 1));
+  return backward ? 2 * col + (replay ? 2 * row : 0) : 2 * row;
+}
+
+// Floats of the forward's shared memory: `slots` band slots, two operand
+// buffers (re, im) x BC x N, the bands of x, b and k (re, im) x BC x R and
+// the solver rows 4 x R.
+__host__ __device__ inline size_t sm_fwd_floats(int BC, int N, int R,
+                                                int slots) {
+  return slots * sm_band_floats(N, R, false, false) + 4 * (size_t)BC * N +
+         6 * (size_t)BC * R + 4 * (size_t)R;
+}
+
+// Floats of the backward's shared memory: `slots` band slots, the it + 1
+// whole cotangents of the step's pairs, with replay two operand buffers,
+// the it + 1 band inputs, the bands of g, kb, bb (with replay also b, k)
+// and the solver rows.
+__host__ __device__ inline size_t sm_bwd_floats(int BC, int N, int R, int it,
+                                                bool replay, int slots) {
+  const size_t BNv = (size_t)BC * N, BR = (size_t)BC * R;
+  return slots * sm_band_floats(N, R, true, replay) +
+         2 * (size_t)(it + 1) * BNv + (replay ? 4 * BNv : 0) +
+         2 * (size_t)(it + 1) * BR + (replay ? 10 : 6) * BR + 4 * (size_t)R;
+}
+
+// This CTA's part of the grid: candidate e, chunk c of basis states
+// [b0, b0 + nb), band of entries [r0, r0 + nr). The grid holds d.tracks
+// clusters per candidate; the cluster of track l takes the chunks l,
+// l + tracks, ... in turn (the forward: one chunk each, tracks = nchunks).
+struct SMBand {
+  int e, c, r0, nr, b0, nb;
+};
+
+__device__ __forceinline__ SMBand sm_chunk(SMBand g, const SMDims& d, int BC,
+                                           int c) {
+  g.c = c;
+  g.b0 = c * BC;
+  g.nb = min(BC, d.B - g.b0);
+  return g;
+}
+
+// the band of this CTA at its track's first chunk
+__device__ __forceinline__ SMBand sm_band(const SMDims& d, int BC, int rank) {
+  SMBand g;
+  const int cid = blockIdx.x / d.G;
+  g.e = cid / d.tracks;
+  g.r0 = rank * d.R;
+  g.nr = min(d.R, d.N - g.r0);
+  return sm_chunk(g, d, BC, cid - g.e * d.tracks);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `n` of the thread's newest copy groups are pending
+template <int n>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// n contiguous floats from device memory into shared memory by the CTA's
+// threads, 16 bytes a copy where both ends are aligned to 16 bytes.
+__device__ __forceinline__ void copy_run(float* dst, const float* src, int n) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  int i0 = 0;
+  if ((((uintptr_t)src | (uintptr_t)dst) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = tid; i < n4; i += nth) cp_async16(dst + 4 * i, src + 4 * i);
+    i0 = 4 * n4;
+  }
+  for (int i = i0 + tid; i < n; i += nth) cp_async4(dst + i, src + i);
+}
+
+// The first plane of step t of candidate e, at row r0.
+__device__ __forceinline__ const float* plane_rows(const float* gH,
+                                                   const SMDims& d, int e,
+                                                   int t, int r0) {
+  return gH + ((size_t)e * d.nt + t) * d.N * d.N + (size_t)r0 * d.N;
+}
+
+}  // namespace
+
+// Forward: planes H (E, nt, N, N) x2; x0 (B, N) shared by all candidates;
+// rows: jacobi (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,).
+// Writes xT (E, B, N), with HIST the history (E, nt, B, N) and, with store,
+// the stage iterates k_0..k_{iters-1} (E, nt, iters, B, N), each CTA its
+// band of its chunk's states. Per step: the row band of H(t) in place, x
+// (rotated where split) exchanged, then stage j = 0..iters: the band of T
+// of the operand, the stage update, and k_j exchanged for stage j + 1:
+// iters + 1 cluster barriers.
+template <int BC, bool HIST>
+__global__ void __launch_bounds__(SM_MAX_THREADS)
+stream_mid_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
+               const float* __restrict__ x0r, const float* __restrict__ x0i,
+               const float* __restrict__ rows, float* __restrict__ xTr,
+               float* __restrict__ xTi, float* __restrict__ hr,
+               float* __restrict__ hi, float* __restrict__ ksr,
+               float* __restrict__ ksi, SMDims d) {
+  extern __shared__ __align__(16) float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int N = d.N, R = d.R, nt = d.nt, it = d.iters, G = d.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  const SMBand g = sm_band(d, BC, (int)cl.block_rank());
+  const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
+  const int BI = BC * R;
+  const size_t bandf = sm_band_floats(N, R, false, false);
+  const size_t rowp = pad4((size_t)R * N);
+  float* Hs = sm;                          // slots x (row band re, im)
+  float* V = Hs + d.slots * bandf;         // two buffers x (re, im) x BC x N
+  float* X = V + 4 * BNv;                  // the bands of x, b, k: re, im
+  float* Bb = X + 2 * BI;
+  float* Kb = Bb + 2 * BI;
+  float* rw = Kb + 2 * BI;                 // solver rows, 4 x R
+
+  const size_t nsm = sm_fwd_floats(BC, N, R, d.slots);
+  for (size_t i = tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < BI; i += blockDim.x) {
+    const int b = i / R, il = i - b * R;
+    if (b < g.nb && il < g.nr) {
+      const size_t o = (size_t)(g.b0 + b) * N + g.r0 + il;
+      X[i] = x0r[o];
+      X[BI + i] = x0i[o];
+    }
+  }
+  const int nrows = jac ? 4 : split ? 2 : 0;
+  for (int i = tid; i < nrows * R; i += blockDim.x) {
+    const int m = i / R, il = i - m * R;
+    if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
+  }
+  // the row band of H(t) into its slot, one copy group
+  auto fetch = [&](int t) {
+    float* dst = Hs + (d.slots > 1 ? (t & 1) : 0) * bandf;
+    copy_run(dst, plane_rows(gHr, d, g.e, t, g.r0), g.nr * N);
+    copy_run(dst + rowp, plane_rows(gHi, d, g.e, t, g.r0), g.nr * N);
+    cp_commit();
+  };
+  if (d.slots == 2 && nt > 0) fetch(0);
+  cl.sync();    // every CTA's buffers are zeroed before the first push
+
+  auto owned = [&](auto fn) {
+    for (int il = warp; il < g.nr; il += nwarps)
+      if (lane < BC) fn(il, lane, lane * R + il);
+  };
+  auto put = [&](float* buf, int b, int il, float vr, float vi) {
+    push(cl, buf + b * N + g.r0 + il, vr, G);
+    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);
+  };
+  int p = 0;                      // the operand buffer the next stage reads
+  for (int t = 0; t < nt; ++t) {
+    const float *Hr, *Hi;
+    if (d.slots == 0) {
+      Hr = plane_rows(gHr, d, g.e, t, g.r0);
+      Hi = plane_rows(gHi, d, g.e, t, g.r0);
+    } else {
+      __syncthreads();            // step t - 1's stages are done with H
+      if (d.slots == 1) {
+        fetch(t);
+        cp_wait_group<0>();
+      } else if (t + 1 < nt) {    // H(t + 1) into the slot step t - 1 read
+        fetch(t + 1);
+        cp_wait_group<1>();
+      } else {
+        cp_wait_group<0>();
+      }
+      __syncthreads();            // H(t) is in its slot
+      Hr = Hs + (d.slots > 1 ? (t & 1) : 0) * bandf;
+      Hi = Hr + rowp;
+    }
+    owned([&](int il, int b, int ib) {
+      float xr = X[ib], xi = X[BI + ib];
+      if (split) cmul(rw[il], rw[R + il], xr, xi);
+      X[ib] = xr;
+      X[BI + ib] = xi;
+      put(V + 2 * p * BNv, b, il, xr, xi);
+    });
+    cl.sync();
+    const size_t st = (size_t)g.e * nt + t;
+    for (int j = 0; j <= it; ++j) {
+      const float* Vr = V + 2 * p * BNv;
+      float* Vn = V + 2 * (p ^ 1) * BNv;
+      rows_dot<BC, false>(
+          Hr, Hi, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,
+          [&](int il, int b, float sr, float si) {
+            const int ib = b * R + il;
+            const float tr = si, ti = -sr;     // T(v) = -i H v
+            float kr = Kb[ib], ki = Kb[BI + ib];
+            if (j == 0) {
+              Bb[ib] = tr;
+              Bb[BI + ib] = ti;
+              mid_first(jac, rw, R, il, tr, ti, kr, ki);
+            } else {
+              mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
+                        ki);
+            }
+            Kb[ib] = kr;
+            Kb[BI + ib] = ki;
+            if (j < it) {
+              if (d.store && b < g.nb) {
+                const size_t o = (st * it + j) * BN +
+                                 (size_t)(g.b0 + b) * N + g.r0 + il;
+                ksr[o] = kr;
+                ksi[o] = ki;
+              }
+              put(Vn, b, il, kr, ki);
+            }
+          });
+      if (j < it) {
+        p ^= 1;
+        cl.sync();
+      }
+    }
+    p ^= 1;
+    owned([&](int il, int b, int ib) {
+      float xr = X[ib] + d.dt * Kb[ib], xi = X[BI + ib] + d.dt * Kb[BI + ib];
+      if (split) cmul(rw[il], rw[R + il], xr, xi);
+      X[ib] = xr;
+      X[BI + ib] = xi;
+      if (HIST && b < g.nb) {
+        const size_t o = st * BN + (size_t)(g.b0 + b) * N + g.r0 + il;
+        hr[o] = xr;
+        hi[o] = xi;
+      }
+    });
+  }
+  owned([&](int il, int b, int ib) {
+    if (b < g.nb) {
+      const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
+      xTr[o] = X[ib];
+      xTi[o] = X[BI + ib];
+    }
+  });
+  cl.sync();    // no CTA leaves while another may still address it
+}
+
+// Backward: the steps in reverse. Inputs as the forward's plus the history
+// (E, nt, B, N), its cotangent j (E, nt, B, N), the final-state cotangent
+// gT (E, B, N) and, with store, the forward's stage iterates. Writes the x0
+// cotangent per candidate g0 (E, B, N), each CTA its band, and the plane
+// cotangents Hb (E, tracks, nt, N, N) x2, each CTA the column band of its
+// track's, the sum over the track's chunks. scratch: the global layout's
+// column bands, per CTA. Per chunk, per step:
+// the bands of H(t) in place; the operands (g += j, the pre-state xp;
+// split: both rotated), with replay the stage iterates again from the
+// exchanged xp on the row band (iters barriers), then the transposed chain
+// on the column band, each of its iters + 1 cotangents exchanged whole
+// (iters + 1 barriers), then the pass that writes Hb(t)'s column band, and
+// one barrier before the next step's pushes into the cotangent slots the
+// other CTAs' passes read.
+template <int BC>
+__global__ void __launch_bounds__(SM_MAX_THREADS)
+stream_mid_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
+               const float* __restrict__ x0r, const float* __restrict__ x0i,
+               const float* __restrict__ hr, const float* __restrict__ hi,
+               const float* __restrict__ jr, const float* __restrict__ ji,
+               const float* __restrict__ gTr, const float* __restrict__ gTi,
+               const float* __restrict__ rows, const float* __restrict__ ksr,
+               const float* __restrict__ ksi, float* __restrict__ g0r,
+               float* __restrict__ g0i, float* __restrict__ Hbr,
+               float* __restrict__ Hbi, float* __restrict__ scratch,
+               SMDims d) {
+  extern __shared__ __align__(16) float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int N = d.N, R = d.R, nt = d.nt, it = d.iters, G = d.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  const bool replay = d.store == 0 && it > 0;
+  // the track's chunks in turn, each through the whole time loop; the
+  // first writes its Hb band, the others add to it (the same thread
+  // each time, so in a fixed order)
+  const SMBand gl = sm_band(d, BC, (int)cl.block_rank());
+  for (int ch = gl.c; ch < d.nchunks; ch += d.tracks) {
+    const SMBand g = sm_chunk(gl, d, BC, ch);
+    const bool first = ch == gl.c;
+    const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N, NN = (size_t)N * N;
+    const int BI = BC * R, ld = N + 1;
+    const size_t bandf = sm_band_floats(N, R, true, replay);
+    const size_t colp = pad4((size_t)R * ld), rowp = pad4((size_t)R * N);
+    float* Hs = sm;                           // slots x (HT re, im[, row band])
+    float* Cs = Hs + d.slots * bandf;         // it + 1 whole cotangents
+    float* V = Cs + 2 * (size_t)(it + 1) * BNv;   // replay: two buffers
+    float* U = V + (replay ? 4 * BNv : 0);    // it + 1 band inputs
+    float* Gb = U + 2 * (it + 1) * BI;        // the bands of g, kb, bb
+    float* KB = Gb + 2 * BI;
+    float* BB = KB + 2 * BI;
+    float* Bb = BB + 2 * BI;                  // replay: the bands of b, k
+    float* Kb = Bb + 2 * BI;
+    float* rw = BB + 2 * BI + (replay ? 4 * BI : 0);    // solver rows, 4 x R
+
+    const size_t nsm = sm_bwd_floats(BC, N, R, it, replay, d.slots);
+    for (size_t i = tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
+    __syncthreads();
+    for (int i = tid; i < BI; i += blockDim.x) {
+      const int b = i / R, il = i - b * R;
+      if (b < g.nb && il < g.nr) {
+        const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
+        Gb[i] = gTr[o];
+        Gb[BI + i] = gTi[o];
+      }
+    }
+    const int nrows = jac ? 4 : split ? 2 : 0;
+    for (int i = tid; i < nrows * R; i += blockDim.x) {
+      const int m = i / R, il = i - m * R;
+      if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
+    }
+    // the column band of H(t) transposed (HT[ql][pp] = H[pp][r0 + ql]) and,
+    // with replay, its row band: in the slot of step t, or in the global
+    // layout the column band into this CTA's scratch (the row band is read
+    // in place)
+    float* const scr = scratch + (size_t)blockIdx.x * 2 * colp;
+    auto slot = [&](int t) {
+      return d.slots == 0 ? scr : Hs + (d.slots > 1 ? (t & 1) : 0) * bandf;
+    };
+    auto fetch = [&](int t) {
+      float* HT = slot(t);
+      const float* sr = plane_rows(gHr, d, g.e, t, 0) + g.r0;
+      const float* si = plane_rows(gHi, d, g.e, t, 0) + g.r0;
+      const int n = N * g.nr;
+      if (d.slots == 0) {
+        for (int idx = tid; idx < n; idx += blockDim.x) {
+          const int pp = idx / g.nr, ql = idx - pp * g.nr;
+          HT[ql * ld + pp] = sr[(size_t)pp * N + ql];
+          HT[colp + ql * ld + pp] = si[(size_t)pp * N + ql];
+        }
+        return;
+      }
+      for (int idx = tid; idx < n; idx += blockDim.x) {
+        const int pp = idx / g.nr, ql = idx - pp * g.nr;
+        cp_async4(HT + ql * ld + pp, sr + (size_t)pp * N + ql);
+        cp_async4(HT + colp + ql * ld + pp, si + (size_t)pp * N + ql);
+      }
+      if (replay) {
+        copy_run(HT + 2 * colp, plane_rows(gHr, d, g.e, t, g.r0), g.nr * N);
+        copy_run(HT + 2 * colp + rowp, plane_rows(gHi, d, g.e, t, g.r0),
+                 g.nr * N);
+      }
+      cp_commit();
+    };
+    if (d.slots == 2 && nt > 0) fetch(nt - 1);
+    cl.sync();    // every CTA's buffers are zeroed before the first push
+
+    auto owned = [&](auto fn) {
+      for (int il = warp; il < g.nr; il += nwarps)
+        if (lane < BC) fn(il, lane, lane * R + il);
+    };
+    auto put = [&](float* buf, int b, int il, float vr, float vi) {
+      push(cl, buf + b * N + g.r0 + il, vr, G);
+      push(cl, buf + BNv + b * N + g.r0 + il, vi, G);
+    };
+    int p = 0;                      // replay: the operand buffer next read
+    for (int t = nt - 1; t >= 0; --t) {
+      const size_t st = (size_t)g.e * nt + t;
+      // the bands of H(t); the previous step's chain is done with the slot
+      // (the cluster barrier that ended it)
+      if (d.slots == 2) {
+        if (t > 0) {                // H(t - 1) into the slot step t + 1 read
+          fetch(t - 1);
+          cp_wait_group<1>();
+        } else {
+          cp_wait_group<0>();
+        }
+      } else {
+        fetch(t);
+        cp_wait_group<0>();
+      }
+      __syncthreads();              // H(t)'s bands are in place
+      float* HTr = slot(t);
+      float* HTi = HTr + colp;
+      const float* Rr = d.slots == 0 ? plane_rows(gHr, d, g.e, t, g.r0)
+                                     : HTr + 2 * colp;
+      const float* Ri = d.slots == 0 ? plane_rows(gHi, d, g.e, t, g.r0)
+                                     : HTr + 2 * colp + rowp;
+      owned([&](int il, int b, int ib) {
+        float gr = Gb[ib], gi = Gb[BI + ib], xr = 0.f, xi = 0.f;
+        if (b < g.nb) {
+          const size_t col = (size_t)(g.b0 + b) * N + g.r0 + il;
+          gr += jr[st * BN + col];
+          gi += ji[st * BN + col];
+          xr = t == 0 ? x0r[col] : hr[(st - 1) * BN + col];
+          xi = t == 0 ? x0i[col] : hi[(st - 1) * BN + col];
+          if (d.store)
+            for (int q = 0; q < it; ++q) {  // pair q's input is k_{it-1-q}
+              const size_t o = (st * it + it - 1 - q) * BN + col;
+              U[2 * q * BI + ib] = ksr[o];
+              U[2 * q * BI + BI + ib] = ksi[o];
+            }
+        }
+        if (split) {        // cotangent and pre-state into the rotated frame
+          cmul_conj(rw[il], rw[R + il], gr, gi);
+          cmul(rw[il], rw[R + il], xr, xi);
+        }
+        Gb[ib] = gr;
+        Gb[BI + ib] = gi;
+        U[2 * it * BI + ib] = xr;
+        U[2 * it * BI + BI + ib] = xi;
+        if (replay) put(V + 2 * p * BNv, b, il, xr, xi);
+      });
+      if (replay) {         // k_0..k_{it-1} again from xp, on the row band
+        cl.sync();
+        for (int j = 0; j < it; ++j) {
+          const float* Vr = V + 2 * p * BNv;
+          float* Vn = V + 2 * (p ^ 1) * BNv;
+          rows_dot<BC, false>(
+              Rr, Ri, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,
+              [&](int il, int b, float sr, float si) {
+                const int ib = b * R + il;
+                const float tr = si, ti = -sr;
+                float kr = Kb[ib], ki = Kb[BI + ib];
+                if (j == 0) {
+                  Bb[ib] = tr;
+                  Bb[BI + ib] = ti;
+                  mid_first(jac, rw, R, il, tr, ti, kr, ki);
+                } else {
+                  mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti,
+                            kr, ki);
+                }
+                Kb[ib] = kr;
+                Kb[BI + ib] = ki;
+                const int q = it - 1 - j;
+                U[2 * q * BI + ib] = kr;
+                U[2 * q * BI + BI + ib] = ki;
+                if (j + 1 < it) put(Vn, b, il, kr, ki);
+              });
+          if (j + 1 < it) {
+            p ^= 1;
+            cl.sync();
+          }
+        }
+        p ^= 1;
+      }
+      // the transposed chain: pair q < it has cotangent a kb (its input
+      // k_{it-1-q}), pair it the cotangent bb (its input xp)
+      owned([&](int il, int b, int ib) {
+        KB[ib] = d.dt * Gb[ib];
+        KB[BI + ib] = d.dt * Gb[BI + ib];
+        BB[ib] = BB[BI + ib] = 0.f;
+      });
+      for (int q = 0; q <= it; ++q) {
+        float* cq = Cs + 2 * q * BNv;
+        owned([&](int il, int b, int ib) {
+          float kr = KB[ib], ki = KB[BI + ib];
+          if (jac) cmul_conj(rw[2 * R + il], rw[3 * R + il], kr, ki);   // Wt
+          const float br = BB[ib] + kr, bi = BB[BI + ib] + ki;
+          BB[ib] = br;
+          BB[BI + ib] = bi;
+          if (q < it)
+            put(cq, b, il, d.a * kr, d.a * ki);
+          else
+            put(cq, b, il, br, bi);
+        });
+        cl.sync();
+        rows_dot<BC, true>(
+            HTr, HTi, ld, g.nr, cq, cq + BNv, N, warp, nwarps, lane,
+            [&](int il, int b, float sr, float si) {
+              const int ib = b * R + il;
+              float tr = -si, ti = sr;           // Tt(c) from conj(H)^T c
+              if (q < it) {
+                if (jac) {      // minus the transpose of v -> d v
+                  const float cr = cq[b * N + g.r0 + il];
+                  const float ci = cq[BNv + b * N + g.r0 + il];
+                  tr -= rw[il] * cr + rw[R + il] * ci;
+                  ti -= rw[il] * ci - rw[R + il] * cr;
+                }
+                KB[ib] = tr;
+                KB[BI + ib] = ti;
+              } else {
+                float gr = Gb[ib] + tr, gi = Gb[BI + ib] + ti;
+                if (split) cmul_conj(rw[il], rw[R + il], gr, gi);
+                Gb[ib] = gr;
+                Gb[BI + ib] = gi;
+              }
+            });
+      }
+      __syncthreads();    // every pair's band input is written
+      // Hb(t)[pp, r0 + ql] = sum over the pairs and the chunk's states of
+      // c[b][pp] (x) u[b][ql], one chain per output in pair and state order
+      {
+        const size_t ho = (((size_t)g.e * d.tracks + gl.c) * nt + t) * NN;
+        const int n = N * g.nr;
+        for (int idx = tid; idx < n; idx += blockDim.x) {
+          const int pp = idx / g.nr, ql = idx - pp * g.nr;
+          float hbr = 0.f, hbi = 0.f;
+          for (int pr = 0; pr <= it; ++pr) {
+            const float* c = Cs + 2 * pr * BNv;
+            const float* u = U + 2 * pr * BI;
+#pragma unroll
+            for (int b = 0; b < BC; ++b) {
+              const float cr = c[b * N + pp], ci = c[BNv + b * N + pp];
+              const float ur = u[b * R + ql], ui = u[BI + b * R + ql];
+              hbr = fmaf(cr, ui, hbr);
+              hbr = fmaf(-ci, ur, hbr);
+              hbi = fmaf(cr, ur, hbi);
+              hbi = fmaf(ci, ui, hbi);
+            }
+          }
+          const size_t o = ho + (size_t)pp * N + g.r0 + ql;
+          Hbr[o] = first ? hbr : Hbr[o] + hbr;
+          Hbi[o] = first ? hbi : Hbi[o] + hbi;
+        }
+      }
+      cl.sync();    // every CTA's pass has read the cotangent slots
+    }
+    owned([&](int il, int b, int ib) {
+      if (b < g.nb) {
+        const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
+        g0r[o] = Gb[ib];
+        g0i[o] = Gb[BI + ib];
+      }
+    });
+  }
+}
+
+// Plain C entry points, bound from Python with ctypes. Each launches on the
+// given stream a grid of clusters of G CTAs, E * ceil(B / BC) for the
+// forward and E * tracks for the backward, and returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue, launching nothing, for a call
+// outside the member's contract or a shape the kernels do not take: G not
+// in {1, 2, 4, 8, 16} or past N bands, BC not in {1, 2, 4, 8}, threads not
+// whole warps up to SM_MAX_THREADS, slots not in {0, 1, 2}, tracks not in
+// [1, ceil(B / BC)], shared memory below the layout or above 227 KB, or the
+// backward's global layout without scratch. The launch configuration and
+// the clusters the card holds: mid_cluster.cuh's cluster_config and
+// max_clusters.
+namespace {
+
+// The dims of a launch, or false for a shape the kernels do not take.
+bool sm_dims(SMDims& d, int E, int nt, int B, int N, int iters, int mode,
+             int store, float dt, float a, int G, int BC, int threads,
+             int smem_bytes, int slots, int tracks, bool backward,
+             const void* scratch) {
+  if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return false;
+  if (BC != 1 && BC != 2 && BC != 4 && BC != 8) return false;
+  const int R = (N + G - 1) / G;
+  const int nchunks = B < 1 ? 0 : (B + BC - 1) / BC;
+  if (!backward) tracks = nchunks;
+  if (N < 1 || B < 1 || E < 1 || nt < 0 || (G - 1) * R >= N ||
+      threads % 32 != 0 || threads < 32 || threads > SM_MAX_THREADS ||
+      iters < 0 || slots < 0 || slots > 2 || tracks < 1 || tracks > nchunks)
+    return false;
+  const bool replay = backward && store == 0 && iters > 0;
+  const size_t floats = backward
+                            ? sm_bwd_floats(BC, N, R, iters, replay, slots)
+                            : sm_fwd_floats(BC, N, R, slots);
+  if ((size_t)smem_bytes < 4 * floats || smem_bytes > 227 * 1024 ||
+      (backward && slots == 0 && scratch == nullptr))
+    return false;
+  d = SMDims{E, nt, B, N, iters, mode, store, dt, a,
+             G, R, nchunks, slots, tracks};
+  return true;
+}
+
+template <int BC, bool HIST>
+int launch_fwd(const void* Hr, const void* Hi, const void* x0r,
+               const void* x0i, const void* rows, void* xTr, void* xTi,
+               void* hr, void* hi, void* ksr, void* ksi, const SMDims& d,
+               int threads, int smem_bytes, void* stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(stream_mid_fwd<BC, HIST>, attr, d.E * d.nchunks, d.G,
+                     threads, smem_bytes, (cudaStream_t)stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stream_mid_fwd<BC, HIST>, (const float*)Hr, (const float*)Hi,
+      (const float*)x0r, (const float*)x0i, (const float*)rows, (float*)xTr,
+      (float*)xTi, (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int BC>
+int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
+               const void* x0i, const void* hr, const void* hi,
+               const void* jr, const void* ji, const void* gTr,
+               const void* gTi, const void* rows, const void* ksr,
+               const void* ksi, void* g0r, void* g0i, void* Hbr, void* Hbi,
+               void* scratch, const SMDims& d, int threads, int smem_bytes,
+               void* stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(stream_mid_bwd<BC>, attr, d.E * d.tracks, d.G, threads,
+                     smem_bytes, (cudaStream_t)stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stream_mid_bwd<BC>, (const float*)Hr, (const float*)Hi,
+      (const float*)x0r, (const float*)x0i, (const float*)hr,
+      (const float*)hi, (const float*)jr, (const float*)ji,
+      (const float*)gTr, (const float*)gTi, (const float*)rows,
+      (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
+      (float*)Hbr, (float*)Hbi, (float*)scratch, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool HIST>
+int fwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
+            const void* rows, void* xTr, void* xTi, void* hr, void* hi,
+            void* ksr, void* ksi, int E, int nt, int B, int N, int iters,
+            int mode, int store, float dt, float a, int G, int BC,
+            int threads, int smem_bytes, int slots, void* stream) {
+  SMDims d;
+  if (!sm_dims(d, E, nt, B, N, iters, mode, store, dt, a, G, BC, threads,
+               smem_bytes, slots, 0, false, nullptr) ||
+      (store && iters > 0 && ksr == nullptr) || (HIST && hr == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define SM_FWD_ARGS                                                           \
+  Hr, Hi, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, d, threads, smem_bytes, \
+      stream
+  switch (BC) {
+    case 1: return launch_fwd<1, HIST>(SM_FWD_ARGS);
+    case 2: return launch_fwd<2, HIST>(SM_FWD_ARGS);
+    case 4: return launch_fwd<4, HIST>(SM_FWD_ARGS);
+    case 8: return launch_fwd<8, HIST>(SM_FWD_ARGS);
+  }
+#undef SM_FWD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+int bwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
+            const void* hr, const void* hi, const void* jr, const void* ji,
+            const void* gTr, const void* gTi, const void* rows,
+            const void* ksr, const void* ksi, void* g0r, void* g0i,
+            void* Hbr, void* Hbi, void* scratch, int E, int nt, int B, int N,
+            int iters, int mode, int store, float dt, float a, int G, int BC,
+            int threads, int smem_bytes, int slots, int tracks, void* stream) {
+  SMDims d;
+  if (!sm_dims(d, E, nt, B, N, iters, mode, store, dt, a, G, BC, threads,
+               smem_bytes, slots, tracks, true, scratch) ||
+      (store && iters > 0 && ksr == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define SM_BWD_ARGS                                                         \
+  Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr, ksi, g0r, g0i, Hbr, \
+      Hbi, scratch, d, threads, smem_bytes, stream
+  switch (BC) {
+    case 1: return launch_bwd<1>(SM_BWD_ARGS);
+    case 2: return launch_bwd<2>(SM_BWD_ARGS);
+    case 4: return launch_bwd<4>(SM_BWD_ARGS);
+    case 8: return launch_bwd<8>(SM_BWD_ARGS);
+  }
+#undef SM_BWD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+#define SM_FWD_PARAMS                                                       \
+  const void *Hr, const void *Hi, const void *x0r, const void *x0i,         \
+      const void *rows, void *xTr, void *xTi, void *hr, void *hi,           \
+      void *ksr, void *ksi, int E, int nt, int B, int N, int iters,         \
+      int mode, int store, float dt, float a, int G, int BC, int threads,   \
+      int smem_bytes, int slots, void *stream
+#define SM_BWD_PARAMS                                                       \
+  const void *Hr, const void *Hi, const void *x0r, const void *x0i,         \
+      const void *hr, const void *hi, const void *jr, const void *ji,       \
+      const void *gTr, const void *gTi, const void *rows, const void *ksr,  \
+      const void *ksi, void *g0r, void *g0i, void *Hbr, void *Hbi,          \
+      void *scratch, int E, int nt, int B, int N, int iters, int mode,      \
+      int store, float dt, float a, int G, int BC, int threads,             \
+      int smem_bytes, int slots, int tracks, void *stream
+#define SM_FWD_CALL                                                         \
+  Hr, Hi, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, E, nt, B, N, iters,   \
+      mode, store, dt, a, G, BC, threads, smem_bytes, slots, stream
+#define SM_BWD_CALL                                                         \
+  Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr, ksi, g0r, g0i,     \
+      Hbr, Hbi, scratch, E, nt, B, N, iters, mode, store, dt, a, G, BC,     \
+      threads, smem_bytes, slots, tracks, stream
+
+// B3: any solver, stored or replayed stage iterates.
+extern "C" int stream_mid_fwd_launch(SM_FWD_PARAMS) {
+  return fwd_any<true>(SM_FWD_CALL);
+}
+
+extern "C" int stream_mid_bwd_launch(SM_BWD_PARAMS) {
+  return bwd_any(SM_BWD_CALL);
+}
+
+// B5: plain Neumann, the backward replays its stage iterates.
+extern "C" int chunk_mid_fwd_launch(SM_FWD_PARAMS) {
+  if (mode != MODE_NEUMANN || store) return (int)cudaErrorInvalidValue;
+  return fwd_any<true>(SM_FWD_CALL);
+}
+
+extern "C" int chunk_mid_bwd_launch(SM_BWD_PARAMS) {
+  if (mode != MODE_NEUMANN || store) return (int)cudaErrorInvalidValue;
+  return bwd_any(SM_BWD_CALL);
+}
+
+// B6: plain Neumann forward, xT only (no history, nothing stored).
+extern "C" int dense_mid_fwd_launch(SM_FWD_PARAMS) {
+  if (mode != MODE_NEUMANN || store || hr || hi || ksr || ksi)
+    return (int)cudaErrorInvalidValue;
+  return fwd_any<false>(SM_FWD_CALL);
+}
+
+// How many clusters of G CTAs of one kernel (kind 0: the forward with
+// history, 1: without, 2: the backward) of instance BC, with `threads`
+// threads and smem_bytes of shared memory each, the card can hold at once;
+// 0 where it holds none (the launch would fail).
+extern "C" int stream_mid_max_clusters(int kind, int BC, int G, int threads,
+                                       int smem_bytes) {
+#define SM_MAX(bc)                                                          \
+  case bc:                                                                  \
+    return kind == 2 ? max_clusters(stream_mid_bwd<bc>, G, threads,         \
+                                    smem_bytes)                             \
+           : kind == 1                                                      \
+               ? max_clusters(stream_mid_fwd<bc, false>, G, threads,        \
+                              smem_bytes)                                   \
+               : max_clusters(stream_mid_fwd<bc, true>, G, threads,         \
+                              smem_bytes);
+  switch (BC) {
+    SM_MAX(1)
+    SM_MAX(2)
+    SM_MAX(4)
+    SM_MAX(8)
+  }
+#undef SM_MAX
+  return 0;
+}

@@ -43,7 +43,8 @@
 // per-CTA scratch in device memory, which the L2 serves (at N = 1024 a
 // 64-row band is 512 KB). The wrapper picks the layout, the cluster size
 // and BC (ops/streamk.py::_mid_shape) and logs them.
-// Mapping: the warps of a CTA take the band's rows in turn; the lanes of a
+// Mapping (mid_cluster.cuh's rows_dot and push, shared with stream_mid.cu):
+// the warps of a CTA take the band's rows in turn; the lanes of a
 // warp stride the contraction index j, each lane holds the partial sums of
 // all BC states, and a butterfly of shuffles gives every lane the row's
 // sums; lane b then owns entry (b, row): it keeps that entry's stage
@@ -61,12 +62,7 @@
 // the per-step contraction reads Ke bands of the stacks from L2. At
 // B = 256 the products dominate (67 MFLOP a stage at N = 256).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include "imr_step.cuh"
-
-namespace cg = cooperative_groups;
+#include "mid_cluster.cuh"
 
 namespace {
 
@@ -126,45 +122,6 @@ __device__ __forceinline__ MidBand mid_band(const MidDims& d, int BC,
   g.b0 = (cid - g.e * d.nchunks) * BC;
   g.nb = min(BC, d.B - g.b0);
   return g;
-}
-
-// For the rows il = warp, warp + nwarps, ... < nr of a band matrix M (re at
-// Mr, im at Mi, row stride ld) and the BC whole vectors v (re at Vr + b N,
-// im at Vi + b N): s_b = sum_j m_j v_j (CONJ: conj(m_j) v_j). The lanes
-// stride j, each product on its own accumulator; a butterfly of shuffles
-// gives every lane the same sums, and lane b < BC calls f(il, b, s_r, s_i).
-template <int BC, bool CONJ, typename F>
-__device__ __forceinline__ void rows_dot(const float* Mr, const float* Mi,
-                                         int ld, int nr, const float* Vr,
-                                         const float* Vi, int N, int warp,
-                                         int nwarps, int lane, F f) {
-  for (int il = warp; il < nr; il += nwarps) {
-    const float* mr = Mr + (size_t)il * ld;
-    const float* mi = Mi + (size_t)il * ld;
-    float a[BC][4];
-#pragma unroll
-    for (int b = 0; b < BC; ++b) a[b][0] = a[b][1] = a[b][2] = a[b][3] = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float hr = mr[j], hi = mi[j];
-#pragma unroll
-      for (int b = 0; b < BC; ++b) {
-        const float vr = Vr[b * N + j], vi = Vi[b * N + j];
-        a[b][0] = fmaf(hr, vr, a[b][0]);
-        a[b][1] = fmaf(CONJ ? hi : -hi, vi, a[b][1]);
-        a[b][2] = fmaf(hr, vi, a[b][2]);
-        a[b][3] = fmaf(CONJ ? -hi : hi, vr, a[b][3]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < BC; ++b) {
-      float sr = a[b][0] + a[b][1], si = a[b][2] + a[b][3];
-      for (int o = 16; o > 0; o >>= 1) {
-        sr += __shfl_xor_sync(0xffffffffu, sr, o);
-        si += __shfl_xor_sync(0xffffffffu, si, o);
-      }
-      if (lane == b) f(il, b, sr, si);
-    }
-  }
 }
 
 // The row band of H = sum_k c_k S_k: rows [r0, r0 + nr), row stride N (the
@@ -270,41 +227,6 @@ __device__ void col_pass(const float* __restrict__ Sr,
       __syncthreads();
     }
   }
-}
-
-// The stage updates of one entry (imr_step.cuh's stage_first, stage_next)
-// with its solver rows in the band array rw (4 x R): jacobi (d, minv),
-// split (e).
-__device__ __forceinline__ void mid_first(bool jac, const float* rw, int R,
-                                          int il, float br, float bi,
-                                          float& kr, float& ki) {
-  kr = br;
-  ki = bi;
-  if (jac) cmul(rw[2 * R + il], rw[3 * R + il], kr, ki);
-}
-
-__device__ __forceinline__ void mid_next(bool jac, float a, const float* rw,
-                                         int R, int il, float br, float bi,
-                                         float mr, float mi, float& kr,
-                                         float& ki) {
-  if (jac) {
-    const float r0 = rw[il], r1 = rw[R + il];
-    const float ur = mr - (r0 * kr - r1 * ki);
-    const float ui = mi - (r0 * ki + r1 * kr);
-    kr = br + a * ur;
-    ki = bi + a * ui;
-    cmul(rw[2 * R + il], rw[3 * R + il], kr, ki);
-  } else {
-    kr = br + a * mr;
-    ki = bi + a * mi;
-  }
-}
-
-// An entry into the same place of every CTA's copy of an operand buffer
-// (its own included), through distributed shared memory.
-__device__ __forceinline__ void push(const cg::cluster_group& cl, float* dst,
-                                     float v, int G) {
-  for (int q = 0; q < G; ++q) *cl.map_shared_rank(dst, q) = v;
 }
 
 }  // namespace
@@ -659,45 +581,6 @@ streamk_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 // MID_MAX_THREADS, shared memory below the layout or above 227 KB, or the
 // global layout without scratch.
 namespace {
-
-// The launch configuration of `clusters` clusters of G CTAs of `kernel`,
-// with the kernel's attributes for its shared memory and, for G > 8, for a
-// cluster beyond the portable size (as csrc/rho.cu's).
-template <typename Kernel>
-cudaLaunchConfig_t cluster_config(Kernel kernel, cudaLaunchAttribute* attr,
-                                  int clusters, int G, int threads,
-                                  int smem_bytes, cudaStream_t stream) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_bytes);
-  if (G > 8)
-    cudaFuncSetAttribute(kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = G;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * G);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <typename Kernel>
-int max_clusters(Kernel kernel, int G, int threads, int smem_bytes) {
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(kernel, attr, 1, G, threads, smem_bytes, nullptr);
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return n;
-}
 
 // The dims of a launch, or false for a shape the kernels do not take.
 bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,

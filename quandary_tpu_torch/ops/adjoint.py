@@ -5,11 +5,14 @@ The TPU kernels run Tc plain-Neumann IMR steps per launch with the chunk's
 planes resident in VMEM, under lax.scan; the backward replays the stage
 iterates from the stored pre-step states and emits per-step plane
 cotangents. Tc chunking is TPU VMEM scheduling: here the whole time loop
-runs in one launch per direction of csrc/stream.cu's kernel pair, through
-its own entry points (chunk_fwd_launch / chunk_bwd_launch, which hold it to
-plain Neumann with replayed iterates) and launch counters
-(stream.chunk_fwd_launches / chunk_bwd_launches). Exact f32, as the TPU
-kernels' HIGHEST precision.
+runs in one launch per direction of csrc/stream.cu's kernel pair (past one
+thread block, csrc/stream_mid.cu's), through its own entry points
+(chunk_fwd_launch / chunk_bwd_launch, chunk_mid_fwd_launch /
+chunk_mid_bwd_launch, which hold it to plain Neumann with replayed
+iterates) and launch counters (stream.chunk_fwd_launches /
+chunk_bwd_launches, stream_mid.chunk_mid_fwd_launches /
+chunk_mid_bwd_launches). Exact f32, as the TPU kernels' HIGHEST
+precision. The reference's 'chunk' mode takes dim <= 1024.
 
 The contract is that of ops/stream.py::make_stream_propagate:
 

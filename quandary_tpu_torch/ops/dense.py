@@ -6,7 +6,9 @@ drives a one-step Pallas kernel under lax.scan (one launch per step). Here
 the planes come from ops/stream.py::planes and the whole plain-Neumann time
 loop runs in ONE launch of csrc/stream.cu's forward kernel without its
 history writes (entry point dense_fwd_launch, counter
-stream.dense_fwd_launches): only xT leaves the kernel. Exact f32, as the TPU
+stream.dense_fwd_launches; past one thread block csrc/stream_mid.cu's,
+dense_mid_fwd_launch, stream_mid.dense_mid_fwd_launches): only xT leaves
+the kernel. Exact f32, as the TPU
 kernel's HIGHEST precision. CUDA tensors run the kernel, CPU tensors the
 plain torch forward; there is no fallback from one to the other.
 """

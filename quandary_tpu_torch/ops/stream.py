@@ -11,24 +11,30 @@ Hamiltonian itself (calibration); the streamK route (ops/streamk.py)
 contracts the planes in-kernel and has no stack cotangents.
 
 Port of quandary_tpu/ops/pallas_stream.py::make_stream_propagate (B3) to
-hand-written CUDA for Hopper, csrc/stream.cu. The contract is
+hand-written CUDA for Hopper: csrc/stream.cu (one thread block per
+candidate) and, past what one block holds, csrc/stream_mid.cu (a
+thread-block cluster per candidate and chunk of basis states, launched by
+ops/stream_mid.py; ``_mid_shape`` plans it, ``mid_refusal`` says what it
+does not take, ``route_refusal`` what neither pair takes). The contract is
 
     propagate(Sr, Si, (x0r, x0i), C) -> ((xTr, xTi), (hr, hi))
 
 differentiable in Sr, Si, x0 and C. C is (ntime, K) or (E, ntime, K) for E
-control candidates sharing x0 (one thread block each); Sr, Si are (K, N, N),
+control candidates sharing x0; Sr, Si are (K, N, N),
 or (E, K, N, N) with one system per candidate. For split the planes carry
 the off-diagonal remainder: ``planes`` subtracts diag(h), h = i * gen_diag,
 a constant of the plan without a cotangent (pallas_stream.py:515-523).
 
-The same kernel pair also serves the chunked cross-check path
+The same kernel pairs also serve the chunked cross-check path
 (ops/adjoint.py, B5: plain Neumann, replayed stage iterates) and the
 forward-only dense propagation (ops/dense.py, B6: no history); the plan's
-``kind`` names the member, and each has its own entry point and launch
-counters.
+``kind`` names the member, and each has its own entry points and launch
+counters (the mid pair's in ops/stream_mid.py).
 
 Device dispatch: CUDA tensors go to the kernels (built with nvcc at first
-use, bound with ctypes; exact f32), CPU tensors to ``stream_propagate_plain``,
+use, bound with ctypes; exact f32): the one-block pair where it holds a
+candidate, else the mid pair (``uses_mid``); CPU tensors to
+``stream_propagate_plain``,
 the same function in plain torch with the hand-written transpose as its
 backward, in any float dtype. There is no fallback from one to the other.
 """
@@ -97,13 +103,17 @@ class StreamPlan:
 
 
 def make_plan(Sr, dt: float, iters: int, gen_diag=None,
-              linsolver: str = "neumann", kind: str = "stream") -> StreamPlan:
+              linsolver: str = "neumann", kind: str = "stream",
+              store_iters=None) -> StreamPlan:
     """The plan on the device and in the dtype of the stack planes Sr
     ((K, N, N) or (E, K, N, N); only those are read). jacobi and split need
     gen_diag, the (N,) generator diagonal. The forward of 'stream' stores
     its stage iterates for iters <= 4 and the backward replays them past
-    that; 'chunk' always replays; 'chunk' and 'dense' run plain Neumann
-    only (pallas_adjoint.py:64-164, pallas_kernels.py:46-73)."""
+    that; store_iters False asks for the replay at any iters (the JAX
+    Problem's gate on bytes, problem.py::store_iters_ok, as
+    streamk.make_plan takes it); 'chunk' always replays; 'chunk' and
+    'dense' run plain Neumann only (pallas_adjoint.py:64-164,
+    pallas_kernels.py:46-73)."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if kind != "stream" and linsolver != "neumann":
@@ -122,9 +132,9 @@ def make_plan(Sr, dt: float, iters: int, gen_diag=None,
     if linsolver == "split":
         h = 1j * gen_diag
         hdiag = torch.as_tensor(np.stack([h.real, h.imag]), **kw)
+    store = kind == "stream" and iters <= 4 and store_iters is not False
     return StreamPlan(rows=rows.contiguous(), hdiag=hdiag, dt=dt, iters=iters,
-                      linsolver=linsolver,
-                      store_iters=kind == "stream" and iters <= 4, kind=kind)
+                      linsolver=linsolver, store_iters=store, kind=kind)
 
 
 def planes(plan, Sr, Si, Ce):
@@ -256,20 +266,31 @@ def _bwd_shape(it, B, N):
                                lambda split: _bwd_smem_bytes(it, B, N, split))
 
 
-def size_refusal(B, N, iters, nt=0, E=1):
-    """Why the kernels cannot take E candidates of B states of dimension N
-    over nt steps with `iters` stage iterations (a sentence naming the
-    limit), or None: one thread block holds a candidate's B*N state entries
-    and its shared memory, and the gradient sweep's plane arrays stay under
-    PLANE_BUDGET_BYTES."""
+def _block_refusal(B, N, iters):
+    """Why one thread block cannot hold a candidate of B states of
+    dimension N with `iters` stage iterations (a sentence), or None."""
     BN = B * N
     if BN > 1024:
         return (f"stream kernel: B*N = {BN} state entries exceed one block "
-                "(1024 threads); multi-block candidates are not implemented")
+                "(1024 threads); the mid pair (ops/stream_mid.py) takes "
+                "plans past it")
     smem = _bwd_smem_bytes(iters, B, N, split=False)    # the inline layout
     if smem > _MAX_SMEM:
         return (f"stream kernel: {smem} bytes of shared memory exceed the "
-                f"{_MAX_SMEM} a block can use (N={N}, B={B}, iters={iters})")
+                f"{_MAX_SMEM} a block can use (N={N}, B={B}, iters={iters}); "
+                "the mid pair (ops/stream_mid.py) takes plans past it")
+    return None
+
+
+def size_refusal(B, N, iters, nt=0, E=1):
+    """Why the one-block kernels cannot take E candidates of B states of
+    dimension N over nt steps with `iters` stage iterations (a sentence
+    naming the limit), or None: one thread block holds a candidate's B*N
+    state entries and its shared memory, and the gradient sweep's plane
+    arrays stay under PLANE_BUDGET_BYTES."""
+    why = _block_refusal(B, N, iters)
+    if why is not None:
+        return why
     nbytes = 6 * 4 * E * nt * N * N
     if nbytes > PLANE_BUDGET_BYTES:
         return (f"stream kernel: the gradient's plane arrays take {nbytes} "
@@ -279,20 +300,175 @@ def size_refusal(B, N, iters, nt=0, E=1):
 
 
 def launch_refusal(plan, B, N, nt=0, E=1):
-    """size_refusal of a plan's stage iterations."""
-    return size_refusal(B, N, plan.iters, nt, E)
+    """route_refusal of a plan's member, stage iterations and stored
+    iterates: why neither kernel pair takes it, or None."""
+    return route_refusal(B, N, plan.iters, nt, E, plan.store_iters,
+                         plan.kind)
 
 
 def _launch_shape(plan, E, nt, B, N, backward: bool):
-    """(threads per block, dynamic shared-memory bytes) of one launch;
-    raises NotImplementedError past what one block can hold (the backward's
-    inline layout needs more than the forward's, so both refuse together)."""
-    why = launch_refusal(plan, B, N, nt, E)
+    """(threads per block, dynamic shared-memory bytes) of one launch of the
+    one-block pair; raises NotImplementedError past what one block can hold
+    (the backward's inline layout needs more than the forward's, so both
+    refuse together)."""
+    why = size_refusal(B, N, plan.iters, nt, E)
     if why is not None:
         raise NotImplementedError(why)
     if backward:
         return _bwd_shape(plan.iters, B, N)[:2]
     return _fwd_shape(B, N)[:2]
+
+
+# ----------------------------------------------------------------------
+# mid-size kernel pair (csrc/stream_mid.cu, launched by ops/stream_mid.py):
+# a cluster per (candidate, chunk of basis states), a band of state entries
+# per CTA. Its planner and gates; the one-block pair's above. The cluster
+# sizes, basis states per cluster, least band and SMs are the mid streamK
+# pair's (streamk.MID_*).
+# ----------------------------------------------------------------------
+
+# band slots in shared memory of each layout ('global': the row band read
+# from the plane array, the column band transposed into device scratch)
+MID_SLOTS = {"smem2": 2, "smem1": 1, "global": 0}
+_LAYOUTS = {v: k for k, v in MID_SLOTS.items()}
+# what the mid backward's partial plane cotangents may take in device memory
+# (mid_tracks)
+MID_PARTIAL_BYTES = 4 << 30
+# the widest state the reference's 'chunk' mode takes
+# (quandary_tpu/problem.py:465-466)
+CHUNK_MAX_DIM = 1024
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def _mid_band_floats(N, R, backward, replay):
+    """csrc/stream_mid.cu sm_band_floats: one slot of a CTA's bands of H."""
+    row, col = _pad4(R * N), _pad4(R * (N + 1))
+    return 2 * col + (2 * row if replay else 0) if backward else 2 * row
+
+
+def _mid_floats(bc, N, R, it, backward, replay, slots):
+    """csrc/stream_mid.cu sm_fwd_floats / sm_bwd_floats: a CTA's shared
+    memory in floats with `slots` band slots."""
+    bands = slots * _mid_band_floats(N, R, backward, replay)
+    if not backward:
+        return bands + 4 * bc * N + 6 * bc * R + 4 * R
+    return (bands + 2 * (it + 1) * bc * N + (4 * bc * N if replay else 0)
+            + 2 * (it + 1) * bc * R + (10 if replay else 6) * bc * R + 4 * R)
+
+
+def _mid_shape(E, B, N, iters, store, backward=False, layout=None):
+    """(G, Bc, threads, shared-memory bytes, layout) of one mid launch
+    (streamk.cluster_shape, up to two band slots), or None where no layout
+    fits a CTA: 'smem2' where two slots fit (the next step's band streamed
+    in during the step), else 'smem1'; 'global' where no G fits one slot.
+    `layout` forces one ('global' at the G the planner would give the bands
+    in shared memory, where there is one), or gives None where it does not
+    fit."""
+    replay = backward and not store and iters > 0
+    shape = streamk.cluster_shape(
+        E, B, N, lambda G, bc, slots: _mid_floats(
+            bc, N, -(-N // G), iters, backward, replay, slots),
+        max_slots=2, slots=None if layout is None else MID_SLOTS[layout])
+    if shape is None:
+        return None
+    G, bc, slots, threads, smem = shape
+    return G, bc, threads, smem, _LAYOUTS[slots]
+
+
+def mid_tracks(E, B, N, nt, G, bc):
+    """Clusters per candidate of a mid backward launch. The cluster of
+    track l runs the chunks of Bc states l, l + tracks, ... in turn into one
+    partial plane cotangent (E, nt, N, N pair each); one track writes the
+    output itself. As many tracks as chunks, but no more than fill the
+    card's SMs once (the launch's CTAs at most streamk.MID_SMS; more would
+    only run in waves) nor than keep the partials within
+    MID_PARTIAL_BYTES."""
+    chunks = -(-B // bc)
+    fill = streamk.MID_SMS // (E * G)
+    room = MID_PARTIAL_BYTES // (2 * E * nt * N * N * 4) if nt else chunks
+    return max(1, min(chunks, fill, room))
+
+
+def _mid_directions(kind):
+    return (False,) if kind == "dense" else (False, True)
+
+
+def mid_sweep_bytes(E, B, N, iters, nt, store, kind="stream"):
+    """Device bytes of one sweep's own tensors on the mid pair besides the
+    planes and their cotangent: the history and its cotangent, the stored
+    stage iterates and, of the backward, the tracks' partial plane
+    cotangents (more than one track) and the column bands' scratch (global
+    layout)."""
+    if kind == "dense":
+        return 0
+    total = streamk.history_bytes(E, B, N, iters, nt, store)
+    shape = _mid_shape(E, B, N, iters, store, True)
+    if shape is None:
+        return total
+    G, bc, _, _, layout = shape
+    tracks = mid_tracks(E, B, N, nt, G, bc)
+    more = 2 * E * tracks * nt * N * N * 4 if tracks > 1 else 0
+    if layout == "global":
+        more += 4 * E * tracks * G * 2 * _pad4(-(-N // G) * (N + 1))
+    return total + more
+
+
+def mid_refusal(E, B, N, iters, nt, store, kind="stream"):
+    """Why the mid pair does not take E candidates of B states of dimension
+    N over nt steps (a sentence naming the limit), or None: 'chunk' past
+    the reference's dim <= 1024; the gradient's six plane arrays past
+    PLANE_BUDGET_BYTES ('stream': on P = roundup(N, 128), the JAX package's
+    gate, quandary_tpu/problem.py:461-464; 'chunk' and 'dense': on N, the
+    port's); no layout of a direction in a CTA's shared memory; or the
+    sweep's other tensors past streamk.DEVICE_BUDGET_BYTES."""
+    if kind == "chunk" and N > CHUNK_MAX_DIM:
+        return (f"stream mid kernels: fused_mode='chunk' takes dim <= "
+                f"{CHUNK_MAX_DIM} (quandary_tpu/problem.py:465-466), got "
+                f"{N}")
+    P = -(-N // 128) * 128 if kind == "stream" else N
+    nbytes = 6 * 4 * E * nt * P * P
+    if nbytes > PLANE_BUDGET_BYTES:
+        return (f"stream mid kernels: the gradient's plane arrays take "
+                f"{nbytes} bytes (6 x E={E} x ntime={nt} x {P}^2 f32"
+                + (", P = roundup(N, 128) as quandary_tpu/problem.py:464"
+                   if kind == "stream" else "")
+                + f"), past the {PLANE_BUDGET_BYTES} of PLANE_BUDGET_BYTES")
+    for backward in _mid_directions(kind):
+        if _mid_shape(E, B, N, iters, store, backward) is None:
+            which = "backward" if backward else "forward"
+            return (f"stream mid kernels: the {which}'s operand and stage "
+                    f"buffers at N = {N} and iters = {iters} exceed the "
+                    f"{_MAX_SMEM} bytes of shared memory a CTA can use")
+    need = mid_sweep_bytes(E, B, N, iters, nt, store, kind)
+    if need > streamk.DEVICE_BUDGET_BYTES:
+        return (f"stream mid kernels: a sweep's history, cotangents, stored "
+                f"iterates, partial plane cotangents and scratch take {need} "
+                f"bytes of device memory, past DEVICE_BUDGET_BYTES = "
+                f"{streamk.DEVICE_BUDGET_BYTES} (E = {E}, ntime = {nt}, "
+                f"B = {B}, N = {N})")
+    return None
+
+
+def route_refusal(B, N, iters, nt=0, E=1, store=None, kind="stream"):
+    """Why neither kernel pair takes a plan of the member `kind` (a sentence
+    naming the limit), or None: the one-block pair where one block holds a
+    candidate (size_refusal), else the mid pair (mid_refusal). store:
+    whether the forward stores its stage iterates (the plan's store_iters;
+    default: 'stream' at iters <= 4)."""
+    store = (kind == "stream" and iters <= 4) if store is None \
+        else bool(store)
+    if _block_refusal(B, N, iters) is None:
+        return size_refusal(B, N, iters, nt, E)
+    return mid_refusal(E, B, N, iters, nt, store, kind)
+
+
+def uses_mid(plan, B, N) -> bool:
+    """Whether a launch of the plan at B states of dimension N goes to the
+    mid pair: one that one block does not hold."""
+    return _block_refusal(B, N, plan.iters) is not None
 
 
 def _check_cuda(*ts):
@@ -318,9 +494,10 @@ def _count(name):
     globals()[name] += 1
 
 
-def _kernel_fwd(plan, Hr, Hi, x0r, x0i):
-    """One forward launch of the plan's member: (xTr, xTi, hr, hi, ksr, ksi);
-    the history is None for 'dense', the stage iterates unless stored."""
+def _block_fwd(plan, Hr, Hi, x0r, x0i):
+    """One forward launch of the one-block pair's member: (xTr, xTi, hr, hi,
+    ksr, ksi); the history is None for 'dense', the stage iterates unless
+    stored."""
     _check_cuda(plan.rows, Hr, Hi, x0r, x0i)
     E, nt, N = Hr.shape[0], Hr.shape[1], Hr.shape[-1]
     B = x0r.shape[0]
@@ -343,9 +520,9 @@ def _kernel_fwd(plan, Hr, Hi, x0r, x0i):
     return xTr, xTi, hr, hi, ksr, ksi
 
 
-def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
-    """One backward launch: (x0 cotangent (B, N) pair, plane cotangent
-    (E, nt, N, N) pair)."""
+def _block_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+    """One backward launch of the one-block pair: (x0 cotangent (B, N) pair,
+    plane cotangent (E, nt, N, N) pair)."""
     _check_cuda(plan.rows, Hr, Hi, x0r, x0i, hr, hi, gTr, gTi, jr, ji)
     E, nt, N = Hr.shape[0], Hr.shape[1], Hr.shape[-1]
     B = x0r.shape[0]
@@ -362,6 +539,26 @@ def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
         raise RuntimeError(f"{plan.kind}_bwd launch failed: CUDA error {err}")
     _count(f"{plan.kind}_bwd_launches")
     return g0r.sum(0), g0i.sum(0), Hbr, Hbi
+
+
+def _kernel_fwd(plan, Hr, Hi, x0r, x0i):
+    """One forward launch of the plan's member on the pair that takes it
+    (uses_mid): (xTr, xTi, hr, hi, ksr, ksi)."""
+    if uses_mid(plan, *x0r.shape):
+        from . import stream_mid
+        return stream_mid._kernel_fwd(plan, Hr, Hi, x0r, x0i)
+    return _block_fwd(plan, Hr, Hi, x0r, x0i)
+
+
+def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+    """One backward launch on the pair that takes the plan (uses_mid): (x0
+    cotangent (B, N) pair, plane cotangent (E, nt, N, N) pair)."""
+    if uses_mid(plan, *x0r.shape):
+        from . import stream_mid
+        return stream_mid._kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr,
+                                      ksi, gTr, gTi, jr, ji)
+    return _block_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr,
+                      ji)
 
 
 class _KernelFn(torch.autograd.Function):
@@ -389,8 +586,9 @@ class _KernelFn(torch.autograd.Function):
 
 
 def stream_propagate_kernel(plan, Hr, Hi, x0r, x0i):
-    """The CUDA kernel pair of the plan's member behind the same interface
-    as stream_propagate_plain (float32 CUDA tensors only)."""
+    """The CUDA kernel pairs of the plan's member behind the same interface
+    as stream_propagate_plain (float32 CUDA tensors only): the one-block
+    pair where one block holds a candidate, else the mid pair."""
     if plan.kind == "dense":
         raise ValueError("the dense propagation is forward only: "
                          "ops/dense.py")

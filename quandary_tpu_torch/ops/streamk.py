@@ -569,53 +569,76 @@ def _mid_floats(bc, N, R, it, backward, replay, hsmem):
             + 16 * MID_KG + bands)
 
 
-def _mid_shape(E, B, N, Ke, iters, store, backward=False):
-    """(G, Bc, threads, shared-memory bytes, layout) of one mid launch, or
-    None where no layout fits a CTA. Bands of R = ceil(N / G) entries cover
-    N (the last ragged, none empty) and chunks of Bc states cover B (the
-    last ragged). Layout 'smem': the bands of H in shared memory, at the
-    least G, and for it the most Bc, that fit; the cluster then widens
-    (more SMs on each stage) while the launch's CTAs fill at most the
-    card's SMs and a band keeps MID_MIN_ROWS rows. Layout 'global': no G
-    fits the bands, so they go to device-memory scratch at the widest G.
-    Threads: a warp per band row, 4 to 16 warps."""
-    replay = backward and not store and iters > 0
+def cluster_shape(E, B, N, floats, max_slots=1, slots=None):
+    """The cluster plan of both mid pairs (this module's and ops/stream.py's;
+    csrc/mid_cluster.cuh): (G, Bc, slots, threads, shared-memory bytes) of
+    one launch of E candidates of B states of dimension N, or None where
+    nothing fits a CTA. floats(G, bc, slots) gives a CTA's shared memory in
+    floats with `slots` band slots of H in it (0: the bands in device
+    memory, the 'global' layout). Bands of R = ceil(N / G) entries cover N
+    (the last ragged, none empty) and chunks of Bc states cover B (the last
+    ragged). The bands go to shared memory at the least G, and for it the
+    most Bc, where one slot fits; the cluster then widens (more SMs on each
+    stage) while the launch's CTAs fill at most the card's SMs and a band
+    keeps MID_MIN_ROWS rows, and takes the most slots up to max_slots that
+    fit at that G. Where no G fits one slot: no slot, at the widest G.
+    `slots` forces a count (0: at the G the planner would give the bands in
+    shared memory, where there is one), or gives None where it does not
+    fit. Threads: a warp per band row, 4 to 16 warps (at most 512)."""
     bc_max = min(MID_CHUNKS[0], 1 << max(B - 1, 0).bit_length())
     chunks = [c for c in MID_CHUNKS if c <= bc_max]
     gs = [G for G in MID_CLUSTERS if (G - 1) * -(-N // G) < N]
-
-    def fits(G, bc, hsmem):
-        R = -(-N // G)
-        return 4 * _mid_floats(bc, N, R, iters, backward, replay,
-                               hsmem) <= _MAX_SMEM
-
-    pick = next(((G, bc) for G in gs for bc in chunks if fits(G, bc, True)),
+    fits = lambda G, bc, n: 4 * floats(G, bc, n) <= _MAX_SMEM
+    pick = next(((G, bc) for G in gs for bc in chunks if fits(G, bc, 1)),
                 None)
-    layout = "smem"
     if pick is None:
-        layout, G = "global", gs[-1]
-        bc = next((c for c in chunks if fits(G, c, False)), None)
+        if slots:
+            return None
+        G, slots = gs[-1], 0
+    else:
+        G, bc = pick
+        ctas = E * -(-B // bc)
+        while (2 * G in gs and ctas * 2 * G <= MID_SMS
+               and -(-N // (2 * G)) >= MID_MIN_ROWS and fits(2 * G, bc, 1)):
+            G *= 2
+        if slots is None:
+            slots = max(n for n in range(1, max_slots + 1) if fits(G, bc, n))
+        elif slots and not fits(G, bc, slots):
+            return None
+    if slots == 0:
+        bc = next((c for c in chunks if fits(G, c, 0)), None)
         if bc is None:
             return None
-        pick = G, bc
-    G, bc = pick
-    ctas = E * -(-B // bc)
-    while (layout == "smem" and 2 * G in gs and ctas * 2 * G <= MID_SMS
-           and -(-N // (2 * G)) >= MID_MIN_ROWS and fits(2 * G, bc, True)):
-        G *= 2
-    R = -(-N // G)
-    threads = 32 * max(4, min(16, R))     # csrc/streamk_mid.cu: at most 512
-    smem = 4 * _mid_floats(bc, N, R, iters, backward, replay,
-                           layout == "smem")
-    return G, bc, threads, smem, layout
+    threads = 32 * max(4, min(16, -(-N // G)))
+    return G, bc, slots, threads, 4 * floats(G, bc, slots)
+
+
+def _mid_shape(E, B, N, Ke, iters, store, backward=False):
+    """(G, Bc, threads, shared-memory bytes, layout) of one mid launch
+    (cluster_shape), or None where no layout fits a CTA. Layout 'smem': the
+    bands of H in shared memory; 'global': no G fits them, so they go to
+    device-memory scratch at the widest G."""
+    replay = backward and not store and iters > 0
+    shape = cluster_shape(E, B, N, lambda G, bc, slots: _mid_floats(
+        bc, N, -(-N // G), iters, backward, replay, slots > 0))
+    if shape is None:
+        return None
+    G, bc, slots, threads, smem = shape
+    return G, bc, threads, smem, "smem" if slots else "global"
+
+
+def history_bytes(E, B, N, iters, nt, store):
+    """Device bytes of a sweep's history (E, nt, B, N) pair, its cotangent
+    and, where the forward stores them, the stage iterates."""
+    hist = 2 * E * nt * B * N * 4
+    return 2 * hist + (iters * hist if store and iters > 0 else 0)
 
 
 def sweep_bytes(E, B, N, Ke, iters, nt, store, mid):
     """Device bytes of one sweep's own tensors: the history and its
     cotangent, the stored stage iterates and, on the mid pair, the bands'
     scratch and the C-bar partial rows of the larger direction."""
-    hist = 2 * E * nt * B * N * 4
-    total = 2 * hist + (iters * hist if store and iters > 0 else 0)
+    total = history_bytes(E, B, N, iters, nt, store)
     if mid:
         extra = 0
         for backward in (False, True):

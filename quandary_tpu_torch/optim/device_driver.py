@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from ..io import output as out_io
-from ..ops import rho, rho_mid, solvers, stream, streamk, streamk_mid
+from ..ops import (rho, rho_mid, solvers, stream, stream_mid, streamk,
+                   streamk_mid)
 from .batched_lbfgs import _direction, _remember
 from .driver import OptimHistoryRow, OptimResult
 from .lbfgsb import bounded_residual
@@ -43,7 +44,7 @@ AUX_KEYS = ("fidelity", "obj_cost", "obj_regul", "obj_penal",
 
 
 # the modules whose wrappers count kernel launches
-_KERNEL_MODULES = (streamk, streamk_mid, rho, rho_mid, stream)
+_KERNEL_MODULES = (streamk, streamk_mid, rho, rho_mid, stream, stream_mid)
 
 
 def _add_launches(per_module, times=1):
@@ -61,15 +62,24 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
     [valid, f, gnorm, step, fidelity, cost, tik, penalty, dpdm, energy,
     variation]; done a 0-dim bool tensor.
 
-    graph: replay the chunk as a CUDA graph (None: on a CUDA problem). The
+    graph: replay the chunk as a CUDA graph (None: default_graph). The
     graph is captured at the first chunk_fn call, after one eager warm-up
     chunk; a capture that fails raises. Each replay adds the kernel
-    launches it stands for to the kernels' launch counters."""
+    launches it stands for to the kernels' launch counters. On CUDA a
+    kernel route that does not take ls_lengths candidates in one launch
+    (Problem.ensemble_refusal) raises here, before any iteration."""
     rdtype, dev = problem.rdtype, problem.device
     on_cuda = dev.type == "cuda"
-    graph = on_cuda if graph is None else bool(graph)
+    graph = default_graph(problem) if graph is None else bool(graph)
     if graph and not on_cuda:
         raise ValueError("graph=True needs a problem on a CUDA device")
+    why = problem.ensemble_refusal(ls_lengths) if on_cuda \
+        and problem.use_fused else None
+    if why is not None:
+        raise NotImplementedError(
+            f"device driver: the line search evaluates ls_lengths = "
+            f"{ls_lengths} trial steps in one launch, which the route's "
+            f"kernels do not take: {why}")
     kw = dict(dtype=rdtype, device=dev)
     lb = torch.as_tensor(np.asarray(lb, dtype=np.float64), **kw)
     ub = torch.as_tensor(np.asarray(ub, dtype=np.float64), **kw)
@@ -235,18 +245,14 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
     return init, chunk_graph
 
 
-def front_end_graph(problem, verbose: bool = False) -> Optional[bool]:
-    """The `graph` argument the front ends (api.Quandary, cli.run) pass:
-    None, a CUDA graph of the chunk on a CUDA problem, on a fused route;
-    False on the plain route, whose captured chunk of 10 iterations
-    faulted at its second replay on an H100 (PERF.md, section 6), so its
-    chunks run eagerly."""
-    if problem.use_fused or problem.device.type != "cuda":
-        return None
-    if verbose:
-        print("device driver: plain route (fused_form None), chunks run "
-              "eagerly (graph=False)")
-    return False
+def default_graph(problem) -> bool:
+    """The default of build_device_optimizer's `graph`: a CUDA graph of the
+    chunk on a CUDA problem on a kernel route (use_fused). The plain route
+    runs its chunks eagerly: a captured chunk of 10 of its iterations
+    faulted at its second replay on an H100 (ROADMAP C1, cause not found;
+    scripts/plain_route_graph.py). It launches no kernel of the port, so
+    nothing falls back from a kernel."""
+    return problem.device.type == "cuda" and problem.use_fused
 
 
 def run_optimization_device(

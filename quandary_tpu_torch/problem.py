@@ -123,9 +123,10 @@ class Setup:
     dtype: torch.dtype = torch.complex128
     # True: fused propagation (kernel on CUDA, its plain torch version on
     # the CPU), refused by name where the route does not take the problem;
-    # 'auto': fused where quandary_tpu's pallas='auto' gate admits it and
-    # the problem is on CUDA, else plain; False: the plain complex time loop
-    fused: object = True
+    # 'auto' (the default, as quandary_tpu's pallas='auto'): fused where
+    # that gate admits it and the problem is on CUDA, else plain; False:
+    # the plain complex time loop
+    fused: object = "auto"
     # Fused state form for OPEN systems (quandary_tpu's pallas_rho): 'auto'
     # runs the vectorized superoperator on the streamK kernels where one
     # thread block holds dimension N^2 and the density-matrix kernels
@@ -312,8 +313,12 @@ class Problem:
         # (problem.py:440-500); 'auto' admits where that gate does, on CUDA
         # where it asks for a TPU ---
         why_not = self._fused_gate_refusal(cuda)
+        self._off = "the fused path is off (Setup.fused=False)"
         if s.fused == "auto":
             self.use_fused = cuda and why_not is None
+            self._off = (f"fused='auto': {why_not}" if why_not else
+                         "fused='auto' takes the fused route on a CUDA "
+                         "device only; the plain loop runs here")
         elif s.fused:
             if why_not is not None:
                 raise NotImplementedError(
@@ -414,11 +419,14 @@ class Problem:
                     self.ninit, dim, self._plan.Ke, iters, s.ntime,
                     store=self._plan.store_iters)
         elif self.use_fused:
-            self._plan = stream.make_plan(self._Sr, s.dt, iters,
-                                          gd, self.linsolver,
-                                          kind=s.fused_mode)
-            self._refusal = stream.launch_refusal(
-                self._plan, self.ninit, self._Sr.shape[-1], ntime)
+            dim = self._Sr.shape[-1]
+            self._plan = stream.make_plan(
+                self._Sr, s.dt, iters, gd, self.linsolver, kind=s.fused_mode,
+                store_iters=store_iters_ok(s.ntime, iters, self.ninit, dim))
+            # either kernel pair: one block, or a cluster per chunk of
+            # states (closed, and open on the superop route at dim N^2)
+            self._refusal = stream.launch_refusal(self._plan, self.ninit,
+                                                  dim, ntime)
         if cuda and self._refusal is not None:
             raise NotImplementedError(self._refusal)
 
@@ -451,12 +459,13 @@ class Problem:
         admit it: the fused path is on and the route's kernels hold a
         candidate (closed streamK: one thread block or a cluster per chunk
         of basis states, a sweep's history and stored iterates at E = 1
-        under streamk.DEVICE_BUDGET_BYTES; superop: one thread block holds
-        B*dim state entries, the stacks and the stage iterates; stream and
-        chunk: one thread block holds B*dim state entries, the step's
-        planes and the stage iterates, and the sweep's plane arrays at
-        E = 1 under stream.PLANE_BUDGET_BYTES; rho: N <= 128, an (N, N)
-        density matrix on a thread-block cluster).
+        under streamk.DEVICE_BUDGET_BYTES; superop on 'streamk': one thread
+        block holds B*dim state entries, the stacks and the stage iterates;
+        stream and chunk, closed or superop: one thread block or a cluster
+        per chunk of states, the sweep's plane arrays at E = 1 under
+        stream.PLANE_BUDGET_BYTES (stream past one block: on the JAX gate's
+        P = roundup(dim, 128)), chunk at dim <= 1024; rho: N <= 128, an
+        (N, N) density matrix on a thread-block cluster).
         `fused_refusal` names the limit otherwise. On the CPU it tells what
         the card would do; the plain version there runs any size."""
         return self.use_fused and self._refusal is None
@@ -464,8 +473,26 @@ class Problem:
     @property
     def fused_refusal(self) -> Optional[str]:
         if not self.use_fused:
-            return "the fused path is off (Setup.fused=False)"
+            return self._off
         return self._refusal
+
+    def ensemble_refusal(self, E: int) -> Optional[str]:
+        """Why the route's kernels do not take E candidates in one launch
+        (the device driver's line search evaluates its trial steps at
+        once), or None. fused_refusal gates at E = 1; the plane arrays of
+        'stream' / 'chunk' and the history of the closed 'streamk' route
+        grow with E."""
+        if not self.fused_ok:
+            return self.fused_refusal
+        s, dim = self.setup, self._Sr.shape[-1]
+        if self.fused_form == "rho" or (self._flat
+                                         and s.fused_mode == "streamk"):
+            return None
+        if s.fused_mode == "streamk":
+            return streamk.route_refusal(
+                self.ninit, dim, self._plan.Ke, self._plan.iters, s.ntime,
+                E, store=self._plan.store_iters)
+        return stream.launch_refusal(self._plan, self.ninit, dim, s.ntime, E)
 
     # ------------------------------------------------------------------
     # objective tail on (re, im) planes; every function takes leading
@@ -794,11 +821,12 @@ class Problem:
 
 
 def store_iters_ok(ntime, iters, ninit, dim) -> bool:
-    """Whether the streamK forward stores its stage iterates for the
-    backward, which otherwise replays them: iters <= 4 (the kernel's rule)
-    and the JAX Problem's gate on bytes (quandary_tpu/problem.py:1333-1343,
-    _store_iters_ok): 2 x ntime x iters x Bp x P f32 at most 1.5 GiB, with
-    Bp = roundup(ninit, 8) (at least 8) and P = roundup(dim, 128)."""
+    """Whether the streamK and 'stream' forwards store their stage iterates
+    for the backward, which otherwise replays them: iters <= 4 (the
+    kernel's rule) and the JAX Problem's gate on bytes
+    (quandary_tpu/problem.py:1333-1343, _store_iters_ok): 2 x ntime x
+    iters x Bp x P f32 at most 1.5 GiB, with Bp = roundup(ninit, 8) (at
+    least 8) and P = roundup(dim, 128)."""
     Bp = max(8, -(-ninit // 8) * 8)
     P = -(-dim // 128) * 128
     return iters <= 4 and 2 * ntime * iters * Bp * P * 4 <= 1.5 * (1 << 30)

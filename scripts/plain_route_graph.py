@@ -9,7 +9,9 @@ chunk) the script times, after synchronizing the card:
 * eager_s: one chunk of build_device_optimizer(graph=False);
 * first_s: the first chunk of build_device_optimizer(graph=True), which
   runs one eager warm-up chunk, captures the chunk and replays it once;
-* replay_s: a second call of that chunk, a replay alone;
+* replay_s: a second call of that chunk, a replay alone, then a third
+  (replay3_s); with chunks of 10 at 1000 steps the second call faults on
+  an H100 (illegal address, ROADMAP C1) and the script ends there;
 
 tells whether the graph's rows equal the eager chunk's in bits, and prints
 one JSON line with these seconds, their ratios per iteration and the chunks
@@ -18,10 +20,20 @@ after which the graph has paid for its capture,
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 scripts/plain_route_graph.py [--chunks 1,2]
+    python3 scripts/plain_route_graph.py [--chunks 1,2] [--ntime 1000] \
+        [--probe]
+
+(--ntime other than the file's 1000 keeps the horizon and refines or
+coarsens the step. The driver's default `graph`, device_driver.default_graph,
+runs the plain route eagerly; the script captures anyway. --probe prints
+each captured graph's node count before its first replay, see
+probe_graphs.)
 """
 
 import argparse
+import ctypes
+import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -34,7 +46,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from quandary_tpu_torch.io.configfile import Config, setup_from_config  # noqa: E402
-from quandary_tpu_torch.optim.device_driver import build_device_optimizer  # noqa: E402
+from quandary_tpu_torch.optim.device_driver import (  # noqa: E402
+    build_device_optimizer, default_graph)
 from quandary_tpu_torch.optim.driver import build_bounds  # noqa: E402
 from quandary_tpu_torch.problem import Problem  # noqa: E402
 
@@ -47,12 +60,51 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def probe_graphs():
+    """Makes every CUDA graph the script captures keep its cudaGraph_t and
+    print, at capture_end and before any replay, its node count
+    (cuGraphGetNodes) as one JSON line; where this PyTorch has it,
+    capture_begin also tracks the graph's external inputs
+    (check_input_liveness: a replay after one of them was freed raises)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    base = torch.cuda.CUDAGraph
+    live = "check_input_liveness" in inspect.signature(
+        base.capture_begin).parameters
+
+    class Probe(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+        def capture_begin(self, *a, **k):
+            if live:
+                k["check_input_liveness"] = True
+            return super().capture_begin(*a, **k)
+
+        def capture_end(self):
+            super().capture_end()
+            n = ctypes.c_size_t(0)
+            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(self.raw_cuda_graph()),
+                                      None, ctypes.byref(n))
+            print(json.dumps(dict(graph_nodes=n.value, rc=rc,
+                                  input_liveness=live)), flush=True)
+            self.instantiate()
+
+    torch.cuda.CUDAGraph = Probe
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--chunks", default="1,2")
+    ap.add_argument("--ntime", type=int, default=0)
+    ap.add_argument("--probe", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    if args.probe:
+        probe_graphs()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -60,13 +112,17 @@ def main():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     setup, spec = setup_from_config(
         Config.read(os.path.join(root, "config_template.cfg")), root)
+    if args.ntime:
+        setup = dataclasses.replace(setup, ntime=args.ntime,
+                                    dt=setup.dt * setup.ntime / args.ntime)
     problem = Problem(setup)
     if problem.fused_form is not None:
         raise SystemExit(f"expected the plain route, got {problem.fused_form}")
     lb, ub = build_bounds(setup.oscillators, spec.control_bounds)
     x0 = spec.params0
     out = dict(card=smi, ntime=setup.ntime, N=problem.N, B=problem.ninit,
-               iters=setup.linsolve_iters, linsolver=problem.linsolver)
+               iters=setup.linsolve_iters, linsolver=problem.linsolver,
+               default_graph=default_graph(problem))
     for chunk in (int(c) for c in args.chunks.split(",")):
         kw = dict(chunk=chunk, maxiter=10 ** 6, gatol=0.0, grtol=0.0,
                   fatol=0.0, inftol=0.0)
@@ -78,11 +134,13 @@ def main():
         st = init_g(x0, x0)
         (st2, rows_g, _), first_s = timed(lambda: step_g(st))
         same = bool(torch.equal(rows_e, rows_g))
-        _, replay_s = timed(lambda: step_g(st2))
+        (st3, _, _), replay_s = timed(lambda: step_g(st2))
+        _, replay3_s = timed(lambda: step_g(st3))
         paid = ((first_s - replay_s) / (eager_s - replay_s)
                 if eager_s > replay_s else None)
         out[f"chunk{chunk}"] = dict(
             eager_s=eager_s, first_s=first_s, replay_s=replay_s,
+            replay3_s=replay3_s,
             eager_s_per_iter=eager_s / chunk,
             replay_s_per_iter=replay_s / chunk,
             chunks_to_pay=paid, rows_equal=same)

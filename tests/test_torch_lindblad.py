@@ -418,7 +418,8 @@ def test_open_problem_runs_with_jax_blocked():
         "for route in ('auto', 'rho'):\n"
         "    s = Setup(model=m, nessential=(2,), ntime=6, dt=0.5, "
         "oscillators=o, initcond_type='basis', target_type='pure', "
-        "pure_target_levels=(1,), gamma_penalty=0.1, fused_rho=route)\n"
+        "pure_target_levels=(1,), gamma_penalty=0.1, fused_rho=route, "
+        "fused=True)\n"
         "    p = Problem(s, device='cpu')\n"
         "    x = np.full(s.nparams, 0.01)\n"
         "    (J, aux), g = p.build_value_and_grad()(x, x)\n"

@@ -57,6 +57,8 @@ def flagship_setup(pkg, T=4.0, ntime=24, **setup_kw):
         objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
         gamma_penalty_energy=0.1, gamma_penalty_dpdm=0.01,
         dtype=dtype, linsolve_iters=3, linsolver="split")
+    if pkg != "jax":
+        kw["fused"] = True      # the fused route (its plain version on the CPU)
     kw.update(setup_kw)
     return Setup(**kw)
 
@@ -87,6 +89,8 @@ def qudit_setup(pkg, **setup_kw):
               pure_target_levels=(1,), objective_type="Jtrace",
               gamma_tik=1e-4, gamma_penalty=0.1, dtype=dtype,
               linsolve_iters=6, linsolver="neumann")
+    if pkg != "jax":
+        kw["fused"] = True      # the fused route (its plain version on the CPU)
     kw.update(setup_kw)
     return Setup(**kw)
 
@@ -126,9 +130,13 @@ def arrays_from_jax_setup(setup):
 
 
 def port_setup(jax_setup, **overrides):
+    """The port's Setup of a JAX Setup, on the fused route (fused=True: the
+    parity tests hold the fused route's plain version on the CPU against
+    the JAX package) unless `overrides` say otherwise."""
     from quandary_tpu_torch.convert import setup_from_arrays
     return dataclasses.replace(
-        setup_from_arrays(arrays_from_jax_setup(jax_setup)), **overrides)
+        setup_from_arrays(arrays_from_jax_setup(jax_setup)),
+        **{"fused": True, **overrides})
 
 
 def _bit_equal(a, b):

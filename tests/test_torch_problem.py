@@ -116,9 +116,9 @@ def test_plain_time_loop_matches_jax_solvers():
     (dict(linsolver="gmres"), "cpu"),
 ])
 def test_out_of_slice_raises(change, device):
-    """Configurations the forced fused route (fused=True, the Setup
-    default) or the port does not take are refused by name, never run on
-    another path."""
+    """Configurations the forced fused route (fused=True, which
+    flagship_setup names) or the port does not take are refused by name,
+    never run on another path."""
     st = dataclasses.replace(flagship_setup("torch"), **change)
     with pytest.raises(NotImplementedError):
         TProblem(st, device=device)

@@ -43,6 +43,8 @@ def _common(pkg, T=60.0, ntime=300, **kw):
         initcond_type="pure", pure_levels=(0,),
         target_type="pure", pure_target_levels=(1,),
         objective_type="Jtrace", gamma_tik=1e-6)
+    if pkg != "jax":
+        common["fused"] = True  # the fused route (its plain version on the CPU)
     common.update(kw)
     return common
 

@@ -1,0 +1,418 @@
+"""The streamed-plane routes past one thread block ('stream', 'chunk' and
+dense on csrc/stream_mid.cu, the rest of the range of
+quandary_tpu/ops/pallas_stream.py::make_stream_propagate,
+ops/pallas_adjoint.py::make_pallas_propagate and
+ops/pallas_kernels.py::pallas_propagate_dense) on the CPU, with the repairs
+that came with them.
+
+The kernels run only on the card (tests/test_torch_cuda.py and
+chip_smoke.py phase 27 hold them against the plain version there). Here:
+
+1. the planner `stream._mid_shape`: bands cover N and chunks cover B
+   exactly, G in {1, 2, 4, 8, 16}, at most 512 threads and 227 KB of
+   shared memory, at least the layout the CUDA source carves;
+2. the gate: `stream.route_refusal` admits on 'stream' exactly what the
+   JAX package's 'stream' gate admits (six (ntime, P, P) f32 plane arrays
+   within 8 GiB, P = roundup(N, 128); quandary_tpu/problem.py:461-464) at
+   ntime 1000, 1221 and 4884, and on 'chunk' exactly what dim <= 1024
+   (:465-466) and the port's plane budget admit;
+3. dispatch: plans one block refuses go to the mid pair, the others stay on
+   csrc/stream.cu (the wrappers replaced by recorders);
+4. the slice as a whole: Problem(fused_mode='stream') past one block, a
+   closed N = 168 system with 4 basis states and the guarded open CNOT
+   (superop, dim 256, 4 matrices), against the JAX Problem with
+   pallas=True, pallas_mode='stream' (its stream kernel in interpret mode,
+   exact f32 'highest'): J and the gradient within 2e-6 x max (measured J
+   exact, the gradients 3.3e-7 and 7.0e-8 x max); make_stream_propagate's
+   stack cotangents (the calibration's) at N = 170 against the JAX kernel;
+5. the 'stream' plan stores its stage iterates by the JAX Problem's rule
+   (quandary_tpu/problem.py:1179, the gate at :1333-1343);
+6. the default Setup (fused='auto', as the reference's pallas='auto',
+   quandary_tpu/problem.py:207) takes the plain loop on the CPU;
+7. the device driver's default `graph`: a CUDA graph of the chunk on a
+   kernel route, the plain route eager (its graph fault, ROADMAP C1, has
+   card tests in tests/test_torch_cuda.py).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from quandary_tpu.ops import pallas_stream  # noqa: E402
+from quandary_tpu.problem import Problem as JProblem  # noqa: E402
+from quandary_tpu_torch.ops import stream, stream_mid  # noqa: E402
+from quandary_tpu_torch.problem import Problem as TProblem  # noqa: E402
+from quandary_tpu_torch.problem import store_iters_ok  # noqa: E402
+from test_torch_lindblad import guarded_setup  # noqa: E402
+from test_torch_model import port_setup  # noqa: E402
+from test_torch_streamk_mid import _jax_store_iters_ok  # noqa: E402
+
+FREQ01 = [4.80595, 4.8601]
+
+
+@pytest.fixture
+def highest(monkeypatch):
+    """The JAX stream kernel's products in exact f32 (its shipping default
+    is a 3-pass bf16 emulation)."""
+    monkeypatch.setattr(pallas_stream, "_PRECISION_MODE", "highest")
+
+
+# (E, B, N, iters): shapes one block refuses (B*N past 1024, or the inline
+# layout past 227 KB), ragged bands and chunks, several candidates, the
+# reference's ranges ('stream' N <= 512 at 1000 steps, 'chunk' dim 1024),
+# superop dims (256 = the guarded open CNOT) and the front end's default
+# 20 stage iterations
+PLAN_SHAPES = [(1, 1, 166, 4), (1, 4, 155, 3), (1, 4, 138, 8),
+               (1, 16, 65, 3), (2, 4, 200, 4), (1, 1, 256, 4),
+               (1, 16, 256, 4), (1, 256, 256, 4), (1, 1, 512, 4),
+               (1, 1, 1024, 8), (3, 13, 301, 6), (1, 16, 256, 8),
+               (8, 4, 256, 8), (1, 5, 1000, 20), (128, 4, 170, 3)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("E,B,N,iters", PLAN_SHAPES)
+def test_mid_shape_covers_and_fits(E, B, N, iters, store, backward):
+    """Every member plans alike ('chunk' replays, dense runs the forward
+    alone)."""
+    shape = stream._mid_shape(E, B, N, iters, store, backward)
+    assert shape is not None
+    G, bc, threads, smem, layout = shape
+    R = -(-N // G)
+    assert G in (1, 2, 4, 8, 16) and (G - 1) * R < N <= G * R
+    nch = -(-B // bc)
+    assert bc in (1, 2, 4, 8) and (nch - 1) * bc < B <= nch * bc
+    assert bc <= max(1, 1 << (B - 1).bit_length())
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    replay = backward and not store and iters > 0
+    slots = stream.MID_SLOTS[layout]
+    floats = stream._mid_floats(bc, N, R, iters, backward, replay, slots)
+    assert 4 * floats <= smem <= 232448
+    if layout == "global":      # no cluster holds one slot of the bands
+        assert 4 * stream._mid_floats(1, N, -(-N // 16), iters, backward,
+                                      replay, 1) > 232448
+    if layout == "smem1":       # two slots would not fit
+        assert 4 * stream._mid_floats(bc, N, R, iters, backward, replay,
+                                      2) > 232448
+
+
+def test_mid_shape_layouts():
+    """The layouts phase 27 of chip_smoke.py and the card tests drive: two
+    band slots at N = 256, one at N = 512 (stored iterates), the backward's
+    replay at N = 512 and everything at N = 1024 in the global layout; a
+    forced layout at the planner's G, or None where it does not fit."""
+    s = stream._mid_shape
+    assert s(1, 1, 256, 4, True)[::4] == (16, "smem2")
+    assert s(1, 1, 256, 4, False, True)[::4] == (16, "smem2")
+    assert s(1, 1, 512, 4, True)[::4] == (16, "smem1")
+    assert s(1, 1, 512, 4, True, True)[4] == "smem1"
+    assert s(1, 1, 512, 4, False, True)[4] == "global"
+    assert s(1, 1, 1024, 8, False)[4] == "global"
+    assert s(1, 1, 1024, 8, False, True)[4] == "global"
+    assert s(1, 1, 512, 4, True, False, "global")[::4] == (16, "global")
+    assert s(1, 1, 512, 4, True, False, "smem2") is None
+    assert s(1, 16, 256, 4, True)[:2] == (16, 8)
+
+
+def _jax_stream_admits(N, nt):
+    """quandary_tpu/problem.py:461-464 as written there."""
+    P = -(-N // 128) * 128
+    return 6 * nt * P * P * 4 <= 8 * (1 << 30)
+
+
+GATE_N = (16, 64, 100, 128, 154, 155, 165, 166, 200, 256, 257, 300, 384,
+          400, 512, 513, 598, 599, 640, 1024, 1025)
+
+
+@pytest.mark.parametrize("nt", [1000, 1221, 4884])
+@pytest.mark.parametrize("B", [1, 4])
+def test_route_admits_what_jax_admits(nt, B):
+    """'stream' (iters 3 and 4, stored or replayed): the route refuses
+    exactly where the JAX gate refuses, naming the plane bytes. 'chunk'
+    (neumann-8): exactly where dim > 1024 or the port's plane budget
+    (6 x ntime x N^2 f32 within 8 GiB) refuses. Past one block the mid pair
+    takes the plan."""
+    for N in GATE_N:
+        for iters in (3, 4):
+            why = stream.route_refusal(B, N, iters, nt)
+            assert (why is None) == _jax_stream_admits(N, nt), (N, why)
+            if why is not None:
+                assert "plane arrays" in why
+            assert (stream.route_refusal(B, N, iters, nt, store=False)
+                    is None) == (why is None)
+        chunk_ok = N <= 1024 and 6 * 4 * nt * N * N <= 8 << 30
+        why = stream.route_refusal(B, N, 8, nt, kind="chunk")
+        assert (why is None) == chunk_ok, (N, why)
+        if why is not None and N > 1024:
+            assert "problem.py:465-466" in why
+        dense = stream.route_refusal(B, N, 8, nt, kind="dense")
+        assert (dense is None) == (6 * 4 * nt * N * N <= 8 << 30)
+        for kind in ("stream", "chunk"):
+            if stream._block_refusal(B, N, 8) is not None and \
+                    stream.route_refusal(B, N, 8, nt, kind=kind) is None:
+                assert stream._mid_shape(1, B, N, 8, False, True) is not None
+
+
+def test_route_keeps_one_block_and_names_limits():
+    """One block keeps what it took (the first refused N: 166 at B = 1 with
+    4 iterations, 155 at B = 4 with 3, 138 with chunk's 8, 65 at B = 16);
+    past it the mid pair; the device budget and E scale the refusals."""
+    for B, N, iters in ((1, 166, 4), (4, 155, 3), (4, 138, 8), (16, 65, 3)):
+        assert stream.size_refusal(B, N - 1, iters) is None
+        assert stream._block_refusal(B, N, iters) is not None
+        assert stream.route_refusal(B, N, iters, 1000) is None
+    # the E = 128 flagship sweep stays on one block, under the budget
+    assert stream.route_refusal(4, 16, 3, 1221, E=128) is None
+    assert "PLANE_BUDGET_BYTES" in stream.route_refusal(4, 256, 4, 1000,
+                                                        E=8)
+    # N = 256 basis at 1000 steps: the backward's tracks keep the partial
+    # plane cotangents within MID_PARTIAL_BYTES, so E = 4 fits as the JAX
+    # gate's planes do; E = 8 passes the plane budget
+    assert stream.route_refusal(256, 256, 4, 1000, store=False) is None
+    assert stream.mid_refusal(4, 256, 256, 4, 1000, False) is None
+    assert "PLANE_BUDGET_BYTES" in stream.mid_refusal(8, 256, 256, 4, 1000,
+                                                      False)
+
+
+@pytest.mark.parametrize("nt", [64, 1000, 4884])
+@pytest.mark.parametrize("E,B,N,iters", PLAN_SHAPES)
+def test_mid_tracks_bound_the_partials(E, B, N, iters, nt):
+    """The backward's tracks: 1 to the number of chunks of states, more than
+    one only while the launch's CTAs fill at most the card's SMs and the
+    partial plane cotangents stay within MID_PARTIAL_BYTES; and
+    mid_sweep_bytes counts them (besides the history, its cotangent and the
+    stored iterates)."""
+    from quandary_tpu_torch.ops import streamk
+    for store in (True, False):
+        G, bc, _, _, layout = stream._mid_shape(E, B, N, iters, store, True)
+        chunks = -(-B // bc)
+        tracks = stream.mid_tracks(E, B, N, nt, G, bc)
+        assert 1 <= tracks <= chunks
+        partial = 2 * E * tracks * nt * N * N * 4
+        if tracks > 1:
+            assert E * tracks * G <= streamk.MID_SMS
+            assert partial <= stream.MID_PARTIAL_BYTES
+        elif chunks > 1:        # one more track would break a limit
+            assert (E * 2 * G > streamk.MID_SMS
+                    or 2 * partial > stream.MID_PARTIAL_BYTES)
+        hist = streamk.history_bytes(E, B, N, iters, nt, store)
+        scratch = (4 * E * tracks * G * 2 * stream._pad4(-(-N // G) * (N + 1))
+                   if layout == "global" else 0)
+        assert stream.mid_sweep_bytes(E, B, N, iters, nt, store) == \
+            hist + (partial if tracks > 1 else 0) + scratch
+
+
+class _Fake:
+    """A CUDA tensor's shape and device without a card."""
+
+    def __init__(self, *shape, kind="cuda"):
+        self.shape, self.device = shape, torch.device(kind)
+
+
+@pytest.mark.parametrize("B,N,iters,mid", [
+    (4, 16, 3, False), (4, 154, 3, False), (1, 165, 4, False),
+    (64, 16, 3, False), (4, 155, 3, True), (1, 166, 4, True),
+    (16, 65, 3, True), (1, 512, 4, True), (4, 138, 8, True)])
+def test_dispatch_goes_to_the_mid_pair(monkeypatch, B, N, iters, mid):
+    """Both directions of every member go to the mid pair exactly where one
+    block refuses the plan, else to csrc/stream.cu; a CUDA tensor never
+    takes the plain version, and the mid wrappers refuse CPU tensors."""
+    calls = []
+    for name in ("_kernel_fwd", "_kernel_bwd"):
+        monkeypatch.setattr(stream_mid, name,
+                            lambda *a, n=name, **k: calls.append("mid" + n))
+    for name in ("_block_fwd", "_block_bwd"):
+        monkeypatch.setattr(stream, name,
+                            lambda *a, n=name, **k: calls.append(n))
+    for name in ("plain_forward", "plain_backward",
+                 "stream_propagate_plain"):
+        monkeypatch.setattr(stream, name, lambda *a: calls.append("plain"))
+    z = torch.zeros(3, N, N)
+    for kind in ("stream", "chunk", "dense"):
+        plan = stream.make_plan(z, 0.01, iters, kind=kind)
+        assert stream.uses_mid(plan, B, N) == mid
+        H, x0 = _Fake(1, 5, N, N), _Fake(B, N)
+        stream._kernel_fwd(plan, H, H, x0, x0)
+        stream._kernel_bwd(plan, H, H, x0, x0, *[None] * 8)
+    want = ["mid_kernel_fwd", "mid_kernel_bwd"] if mid \
+        else ["_block_fwd", "_block_bwd"]
+    assert calls == want * 3
+    monkeypatch.undo()
+    plan = stream.make_plan(z, 0.01, iters)
+    zero = torch.zeros(B, N)
+    with pytest.raises(NotImplementedError, match="CUDA"):
+        stream_mid._kernel_fwd(plan, z[None], z[None], zero, zero)
+    with pytest.raises(NotImplementedError, match="CUDA"):
+        stream_mid._kernel_bwd(plan, z[None], z[None], zero, zero,
+                               *[torch.zeros(1)] * 8)
+
+
+def _closed_setup(nlevels=(12, 14), ntime=10, T=2.0):
+    """Two qudits of 12 and 14 levels with 2 essential each (N = 168, the
+    4 basis states of a CNOT; one block refuses B = 4 at N >= 155), split
+    with 3 iterations, complex64, built with the JAX package's builders,
+    pallas=True on 'stream'."""
+    from quandary_tpu.models import gates
+    from quandary_tpu.models.hamiltonian import build_standard_model
+    from quandary_tpu.problem import Setup
+    from quandary_tpu.utils.splines import ControlSegment, OscillatorControl
+    nlevels, Ne = list(nlevels), [2, 2]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=FREQ01, rotfreq_ghz=FREQ01,
+        selfkerr_ghz=[0.2198, 0.2252], jkl_ghz=[0.005], crosskerr_ghz=[])
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=6, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(2))
+    V = gates.assemble_gate(gates.cnot(), nlevels, Ne, [0.0, 0.0], T)
+    return Setup(
+        model=model, nessential=tuple(Ne), ntime=ntime, dt=T / ntime,
+        oscillators=oscs,
+        ground_freqs_radns=tuple(2 * np.pi * f for f in FREQ01),
+        initcond_type="basis", target_type="gate", target_gate_full=V,
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        dtype=jnp.complex64, linsolve_iters=3, linsolver="split",
+        pallas=True, pallas_mode="stream")
+
+
+def _open_setup():
+    """The guarded open CNOT (N = 16, 4 diagonal density matrices, jacobi
+    by the stiffness guard) on 'stream', cut to 8 steps: the superop form
+    at dim 256, whose B x dim = 1024 entries one block's shared memory
+    refuses."""
+    return dataclasses.replace(guarded_setup(), ntime=8, dtype=jnp.complex64,
+                               pallas=True, pallas_mode="stream")
+
+
+@pytest.mark.parametrize("make_setup,form", [(_closed_setup, "stream"),
+                                             (_open_setup, "superop")],
+                         ids=["closed-n168", "open-superop-dim256"])
+def test_problem_past_one_block_matches_jax_pallas(highest, make_setup,
+                                                   form):
+    sj = make_setup()
+    pj = JProblem(sj)
+    pt = TProblem(port_setup(sj), device="cpu")
+    assert pj.use_pallas and pt.fused_form == form and pt.fused_ok
+    dim = pt._Sr.shape[-1]
+    assert stream.uses_mid(pt._plan, pt.ninit, dim)
+    x = np.random.default_rng(1234).uniform(-1, 1, sj.nparams) * 0.02
+    (Jj, _), gj = pj.build_value_and_grad()(jnp.asarray(x), jnp.asarray(x))
+    (Jt, _), gt = pt.build_value_and_grad()(x, x)
+    Jj, gj = float(Jj), np.asarray(gj, np.float64)
+    Jt, gt = float(Jt), gt.double().numpy()
+    assert abs(Jt - Jj) <= 2e-6 * abs(Jj)
+    assert np.abs(gt - gj).max() <= 2e-6 * np.abs(gj).max()
+
+
+def test_stack_cotangents_past_one_block_match_pallas_stream(highest):
+    """make_stream_propagate (the calibration's route) at N = 170, B = 4
+    (past one block): states and the stack, coefficient and x0 cotangents
+    against the JAX stream kernel in interpret mode, to 2e-6 x max, as
+    tests/test_torch_stream.py holds them below the limit."""
+    from test_torch_stream import _assert_close, _case, _jax_run, _torch_run
+    c = _case(5, k=3, n=170, b=4, nt=6)
+    assert stream._block_refusal(4, 170, 3) is not None
+    ref = _jax_run(c, pallas_stream.make_stream_propagate(
+        c["stack"], 0.002, 3, gen_diag=c["gen_diag"], linsolver="split",
+        interpret=True))
+    got = _torch_run(c, stream.make_stream_propagate(
+        0.002, 3, gen_diag=c["gen_diag"], linsolver="split"))
+    _assert_close(got, ref, 2e-6)
+
+
+@pytest.mark.parametrize("ntime", [12, 1000, 1221, 4884])
+@pytest.mark.parametrize("iters", [0, 3, 4, 8])
+def test_store_iters_rule_is_jax(ntime, iters):
+    """The 'stream' plan stores its stage iterates exactly where the JAX
+    Problem passes store_iters=True to make_stream_propagate
+    (quandary_tpu/problem.py:1179, _store_iters_ok :1333-1343, with the
+    kernel's iters <= 4); 'chunk' and dense never store."""
+    z = torch.zeros(1, 4, 4)
+    for ninit in (1, 4, 8, 16, 100, 256, 1024):
+        for dim in (16, 64, 200, 256, 512, 1024):
+            ok = store_iters_ok(ntime, iters, ninit, dim)
+            assert ok == _jax_store_iters_ok(ntime, iters, ninit, dim)
+            for kind in ("stream", "chunk", "dense"):
+                plan = stream.make_plan(z, 0.1, iters, kind=kind,
+                                        store_iters=ok)
+                assert plan.store_iters == (ok and kind == "stream")
+
+
+def test_problem_stream_store_iters():
+    """midsize_bench's basis run at N = 256 on 'stream' replays its stage
+    iterates (2.1 GB past 1.5 GiB), its pure run stores them; both are past
+    one block and admitted."""
+    from test_torch_streamk_mid import _midsize_setup
+    for init, stored in (("basis", False), ("pure", True)):
+        sj = dataclasses.replace(_midsize_setup(256, init),
+                                 pallas_mode="stream")
+        pt = TProblem(port_setup(sj), device="cpu")
+        assert pt.fused_form == "stream" and pt.fused_ok, pt.fused_refusal
+        assert pt._plan.store_iters == stored
+        assert stream.uses_mid(pt._plan, pt.ninit, 256)
+
+
+def test_problem_ensemble_refusal():
+    """midsize_bench's basis run at N = 256 on 'stream' (1000 steps): the
+    route takes up to 5 candidates in one launch; at the device driver's 8
+    line-search trial steps the plane arrays pass PLANE_BUDGET_BYTES, and
+    build_device_optimizer raises on CUDA before any iteration, naming it."""
+    from types import SimpleNamespace
+    from quandary_tpu_torch.optim import device_driver as dd
+    from test_torch_streamk_mid import _midsize_setup
+    sj = dataclasses.replace(_midsize_setup(256, "basis"),
+                             pallas_mode="stream")
+    pt = TProblem(port_setup(sj), device="cpu")
+    assert pt.fused_ok and pt.setup.ntime == 1000
+    for E in (1, 4, 5):
+        assert pt.ensemble_refusal(E) is None
+    for E in (6, 8):
+        assert "PLANE_BUDGET_BYTES" in pt.ensemble_refusal(E)
+    fake = SimpleNamespace(rdtype=torch.float32, device=torch.device("cuda"),
+                           use_fused=True, ensemble_refusal=pt.ensemble_refusal)
+    with pytest.raises(NotImplementedError, match="ls_lengths = 8 .*"
+                       "PLANE_BUDGET_BYTES"):
+        dd.build_device_optimizer(fake, [0.0], [1.0], graph=False)
+
+
+def test_default_setup_takes_the_plain_loop():
+    """Setup(model=..., oscillators=..., nessential, ntime, dt) with every
+    other field at its default (complex128, fused='auto') builds on the CPU
+    on the plain time loop, as the reference's default Setup
+    (pallas='auto', quandary_tpu/problem.py:207) takes its scan off a
+    TPU."""
+    from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.problem import Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    model = build_standard_model(
+        nlevels=[3], freq01_ghz=[4.1], rotfreq_ghz=[4.1],
+        selfkerr_ghz=[0.22], crosskerr_ghz=[], jkl_ghz=[])
+    osc = OscillatorControl(segments=(ControlSegment(
+        "spline", nsplines=5, tstart=0.0, tstop=1.0),), carrier_freqs=(0.0,))
+    setup = Setup(model=model, nessential=(2,), ntime=10, dt=0.1,
+                  oscillators=(osc,))
+    assert setup.fused == "auto" and setup.dtype == torch.complex128
+    p = TProblem(setup, device="cpu")
+    assert not p.use_fused and p.fused_form is None
+    assert "complex128" in p.fused_refusal
+
+
+def test_default_graph_rule():
+    """CUDA problems on a kernel route capture the chunk as a CUDA graph;
+    the plain route runs its chunks eagerly (its captured chunk faults at a
+    replay, ROADMAP C1), whatever its size; CPU problems never capture."""
+    from types import SimpleNamespace
+    from quandary_tpu_torch.optim import device_driver as dd
+
+    def fake(device, fused):
+        return SimpleNamespace(device=torch.device(device), use_fused=fused)
+    assert dd.default_graph(fake("cuda", True))
+    assert not dd.default_graph(fake("cuda", False))
+    assert not dd.default_graph(fake("cpu", True))
+    assert not dd.default_graph(fake("cpu", False))
