@@ -11,15 +11,16 @@ optim.device_driver.run_optimization_device,
 optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
 ops.dense.pallas_propagate_dense and calibration.KerrCalibration, and
 systems past one thread block: closed up to N = 1024 on 'streamk', open
-up to N = 128, and on the streamed-plane routes. Phases:
+up to N = 128, on the streamed-plane routes, per-sample stacks and the
+open superop route. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
 2. builds the kernels from the checkout, one nvcc per source and all six
    at once: csrc/streamk.cu and csrc/streamk_mid.cu here, csrc/rho.cu
    reported in phase 11, csrc/stream.cu in phase 17, csrc/rho_mid.cu in
-   phase 26, csrc/stream_mid.cu in phase 27; starts phase 26's worker of
-   CPU references;
+   phase 26, csrc/stream_mid.cu in phase 27; starts the worker of CPU
+   references (phase 14's f64 runs first, then phase 26's);
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -75,7 +76,8 @@ operators; 3 initial conditions, ntime = 1000, 6 iterations).
    depth on the rho route: one launch of each kernel per sweep for any E;
    J, fidelity and gradient against plain on the card at a short ntime and
    against the f64 port on the CPU at 400 steps (the depth is cut for the
-   host's time: phase 16 holds the kernels against plain at full depth);
+   host's time: phase 16 holds the kernels against plain at full depth;
+   the worker computes these references while the card runs phases 2-13);
 15. a few L-BFGS-B iterations on configuration 2 through
    run_optimization_device (J falls; the CUDA graph's launches counted);
 16. times: rho_fwd / rho_bwd at N = 16 (E = 1, 8), 27, 64, with each
@@ -122,7 +124,8 @@ and the config-file CLI), on the card:
    1e-4 (one streamk_fwd and one streamk_bwd launch per sweep, J falls, the
    output files read back by get_results); iterations, infidelity, wall;
 23. the guarded CNOT of tests/test_api.py:195-214 with T1 = 56, T2 = 28 ns
-   at precision="single": the rho route (its clusters printed), simulate
+   at precision="single", its horizon cut from 140 to OPEN_FE_T = 35 ns
+   (about 2350 steps): the rho route (its clusters printed), simulate
    (one rho_fwd launch, every population summing to 1) and a few device
    iterations (one launch per direction per sweep);
 24. `python -m quandary_tpu_torch` (run in-process as `-m` runs it) on
@@ -192,15 +195,34 @@ a band of the state entries reading its bands of the planes):
    CHUNK_MID_T (1000 steps where plain Neumann converges) against plain on
    the card; pallas_propagate_dense past one block.
 
+Per-sample stacks and the open superop route past one thread block (the
+mid streamK pair reading each candidate's stack and solver rows at a
+stride), and the packed robust objective of open systems:
+28. the mid pair on per-block plans against the plain version on the card
+   at PB_NT = 64 steps on random non-Hermitian stacks (N = 64 and 200, S =
+   2 and 3 samples, B = 1 to 8 states), neumann, jacobi and split, stored
+   and replayed iterates: the same bits on a repeat and between stored
+   and replayed iterates; open configuration 2 (N = 16, 16 basis
+   matrices, 1221 steps) forced to superop on 'streamk', dim 256 on the
+   mid pair, against the rho route (phase 14) and superop on 'stream',
+   and rho_bench's N = 27 (dim 729, 1000 steps) against the rho route,
+   each route's kernels timed interleaved; the packed robust gradient of
+   open configuration 1 with S_OPEN_ROBUST = 8 detuned realizations (S *
+   dim = 128, the reference's edge) on one block, of three open qubits
+   (N = 8, 64 basis matrices, 2 realizations) and of the closed SWAP02
+   (N = 64, 2 realizations) on the mid pair: exactly 1 + 1 packed
+   launches per gradient, J and gradient against build_robust_objective,
+   walls and kernel times.
+
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26,
-27) is driven with the launch counters set to 0 just before and read just
-after. Before the device record one line lists the twenty kernels with
-their launches, error, time, plain time and bound.
+27, 28) is driven with the launch counters set to 0 just before and read
+just after. Before the device record one line lists the twenty-two kernels
+with their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Run from the repository root:  python3 chip_smoke.py
-(`python3 chip_smoke.py --cpu-references FILE` is the worker phase 26
+(`python3 chip_smoke.py --cpu-references FILE` is the worker phase 2
 starts; it computes on the CPU only.)
 """
 
@@ -218,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -333,9 +356,10 @@ TOL_ROUTES_J, TOL_ROUTES_G = 1e-6, 1e-6
 # (objective on the streamK kernels, trajectory by the plain f32 loop)
 # against precision="double" on the CPU: infidelity abs (measured 3.1e-8),
 # expected energy and population abs over the trajectory (2.2e-6). Phase
-# 23: each population of the open guarded CNOT (f32 plain loop, 9418 steps)
-# sums to 1 (4.9e-6). Phase 24: the CLI in f64 on the card against the CLI
-# on the CPU, relative to each file's largest entry (4.0e-15).
+# 23: each population of the open guarded CNOT (f32 plain loop, 9418 steps
+# before the depth was cut to OPEN_FE_T) sums to 1 (4.9e-6). Phase 24: the
+# CLI in f64 on the card against the CLI on the CPU, relative to each
+# file's largest entry (4.0e-15).
 TOL_FE_INFID = 2e-7
 TOL_FE_TRAJ = 1e-5
 TOL_FE_TRACE = 2.5e-5
@@ -394,15 +418,16 @@ def bench_params(n, E=None, seed=1234):
 
 
 def open_cnot_setup(guards, dtype=torch.complex64, ntime=1221,
-                    fused_rho="auto", fused=True):
+                    fused_rho="auto", fused=True, freq01=FREQ01):
     """scripts/perf/lindblad_pallas_bench.py:29-63, built with the port's
     own functions: the CNOT with T1/T2 collapse, without guard levels
     (N = 4) or with two per qubit (N = 16), 16 basis density matrices.
-    `ntime` below 1221 cuts the horizon at the same step."""
+    `ntime` below 1221 cuts the horizon at the same step. `freq01` detunes
+    the qubits as flagship_setup's does (a robust ensemble's realization)."""
     Ne, Ng = [2, 2], ([2, 2] if guards else [0, 0])
     nlevels = [e + g for e, g in zip(Ne, Ng)]
     model = build_standard_model(
-        nlevels=nlevels, freq01_ghz=FREQ01, rotfreq_ghz=FREQ01,
+        nlevels=nlevels, freq01_ghz=freq01, rotfreq_ghz=FREQ01,
         selfkerr_ghz=SELFKERR, jkl_ghz=[0.005], crosskerr_ghz=[],
         decay_time=[80.0, 90.0], dephase_time=[40.0, 45.0], lindblad=True)
     dt = 200.0 / 1221
@@ -870,6 +895,14 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
     return out
 
 
+def robust_vg(objective, params, device):
+    """(J, gradient, aux) of a robust objective at one control vector."""
+    xt = torch.as_tensor(params, device=device).requires_grad_(True)
+    Jr, auxr = objective(xt, torch.zeros_like(xt))
+    (gr,) = torch.autograd.grad(Jr, xt)
+    return Jr.detach(), gr, auxr
+
+
 def open_vg(prob, P):
     """(J (E,), fidelity (E,), grad (E, n)) of the candidates P (E, n),
     through the single-candidate entry point when E = 1."""
@@ -888,6 +921,7 @@ def open_errors(got, ref):
             float((f - fr).abs().max()), max_rel(g, gr))
 
 
+OPEN14 = ("cnot16", "qutrits27", "qudits64")   # phase 14's configurations
 OPEN_CONFIGS = {
     "cnot4": lambda **kw: open_cnot_setup(False, **kw),
     "cnot16": lambda **kw: open_cnot_setup(True, **kw),
@@ -1009,6 +1043,9 @@ def check_vg_errors(errs, what, tol_g_f64=TOL_G_F64):
 CNOT4 = np.eye(4)
 CNOT4[2:, 2:] = [[0, 1], [1, 0]]
 OPEN_FE_ITERS = 4       # device iterations of phase 23
+# phase 23's horizon, ns: tests/test_api.py:195-214 runs 140 ns (9418 plain
+# steps of the trajectory, 91 s of the run); cut to a quarter of its depth
+OPEN_FE_T = 35.0
 CLI_MAXITER = 2         # optim_maxiter of phase 24's optimization run
 
 
@@ -1126,7 +1163,7 @@ def front_end(smi):
         # ---- 23. single precision, open: the rho kernels ----
         qo = Quandary(Ne=[2, 2], Ng=[1, 1], freq01=FREQ01,
                       rotfreq=[favg, favg], selfkerr=SELFKERR, Jkl=[0.005],
-                      T=140.0, targetgate=CNOT4, rand_seed=1234,
+                      T=OPEN_FE_T, targetgate=CNOT4, rand_seed=1234,
                       gamma_leakage=0.1, T1=[56.0, 56.0], T2=[28.0, 28.0],
                       precision="single", optimizer="device",
                       maxiter=OPEN_FE_ITERS)
@@ -1269,15 +1306,23 @@ def swap02():
     return V
 
 
-def swap02_setup(ntime=MID_NT_CUT, T=6.0, fused=True):
+def swap02_setup(ntime=MID_NT_CUT, T=6.0, fused=True, freq3=FREQ3,
+                 guards=True, lindblad=False):
     """Three qubits with two guard levels each (N = 64, 8 basis states,
     one carrier per qubit, K = 7), the SWAP02 gate, split with 3
-    iterations: what one block of streamk.cu refuses at B = 8."""
-    nlevels, Ne = [4, 4, 4], [2, 2, 2]
+    iterations: what one block of streamk.cu refuses at B = 8. `freq3`
+    detunes the qubits against the frame (a robust realization); without
+    `guards` and with `lindblad` (T1 and T2 of QUTRITS) it is an open
+    system of N = 8 with 64 basis density matrices, dimension 64 on the
+    superop form."""
+    Ne = [2, 2, 2]
+    nlevels = [4, 4, 4] if guards else Ne
     model = build_standard_model(
-        nlevels=nlevels, freq01_ghz=FREQ3, rotfreq_ghz=FREQ3,
+        nlevels=nlevels, freq01_ghz=freq3, rotfreq_ghz=FREQ3,
         selfkerr_ghz=[0.22, 0.23, 0.24], jkl_ghz=[0.01, 0.004, 0.01],
-        crosskerr_ghz=[])
+        crosskerr_ghz=[],
+        **(dict(decay_time=QUTRITS["decay"], dephase_time=QUTRITS["dephase"],
+                lindblad=True) if lindblad else {}))
     oscs = tuple(OscillatorControl(
         segments=(ControlSegment("spline", nsplines=8, tstart=0.0,
                                  tstop=T),), carrier_freqs=(0.0,))
@@ -1555,11 +1600,21 @@ def rho_mid_fe_kwargs():
 
 
 def cpu_references(path):
-    """The worker phase 26 starts (python3 chip_smoke.py --cpu-references
-    FILE): on the CPU only, qudits125's f64 value_and_grad at NT_F64 steps
-    and the front end's precision="double" simulate; pickled to FILE."""
+    """The worker phase 2 starts (python3 chip_smoke.py --cpu-references
+    FILE): on the CPU only, first phase 14's f64 value_and_grad of open
+    configurations 2 and 3 at NT_F64 steps, pickled to FILE.open14; then
+    qudits125's at NT_F64 steps and the front end's precision="double"
+    simulate for phase 26, pickled to FILE."""
     import pickle
     torch.set_num_threads(4)
+
+    def dump(obj, dest):
+        with open(dest + ".tmp", "wb") as f:
+            pickle.dump(obj, f)
+        os.replace(dest + ".tmp", dest)
+
+    dump({name: f64_reference(name, ntime=NT_F64) for name in OPEN14},
+         path + ".open14")
     out = {}
     out["qudits125"] = f64_reference("qudits125", ntime=NT_F64)
     q64 = Quandary(precision="double", device="cpu", **rho_mid_fe_kwargs())
@@ -1569,9 +1624,25 @@ def cpu_references(path):
         r64 = q64.simulate(pcof0=p0, datadir=tmp)
     out["front_end"] = dict(p0=p0, result=r64,
                             seconds=time.perf_counter() - t0)
-    with open(path + ".tmp", "wb") as f:
-        pickle.dump(out, f)
-    os.replace(path + ".tmp", path)
+    dump(out, path)
+
+
+def worker_references(worker, path, timeout=900):
+    """What the CPU reference worker pickled to `path`, once it is there;
+    raises if the worker ended without writing it or took past
+    `timeout` seconds."""
+    import pickle
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if worker.poll() is not None and not os.path.exists(path):
+            raise RuntimeError(f"the CPU reference worker ended "
+                               f"({worker.returncode}) without {path}")
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"the CPU reference worker did not write "
+                               f"{path} in {timeout} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def rho_mid_compare(plan, x0r, x0i, C, rng, store, G):
@@ -2216,6 +2287,306 @@ def stream_mid_phase(smi, build, open16):
                 chunk=t_c, dense=t_d, chunk_rep=chunk_rep)
 
 
+# Phase 28, the end of queue B: per-sample stacks on the mid streamK pair
+# (csrc/streamk_mid.cu reading each candidate's stack and solver rows at a
+# stride), the open superop route on 'streamk' past one thread block, and
+# the packed robust objective of open systems.
+MIDP = ("streamk_mid_packed_fwd_launches", "streamk_mid_packed_bwd_launches")
+PB_NT = 64              # steps of the per-block checks against plain
+PB_CHECK = ((64, 8, 2), (64, 3, 3), (200, 4, 2), (200, 1, 3))   # N, B, S
+PB_SOLVERS = (("split", 3), ("jacobi", 4), ("neumann", 4))
+S_OPEN_ROBUST = 8       # open 1's detuned realizations: S * dim = 128
+SWAP02_OPEN_NT = 400    # steps of the open three-qubit ensemble (T = 6 ns)
+SWAP02_PB_NT = 1000     # steps of the closed SWAP02 ensemble (T = 100 ns)
+# The open three-qubit ensemble packed (superop, mid pair) against its
+# samples' own route (rho kernels), both f32, on an H100 80GB HBM3 (700 W):
+# J 9.3e-8, gradient 2.8e-6 x max. Both routes drift 8.5e-6 x max off the
+# complex128 port on the CPU (plain f32 on the CPU: the same 8.5e-6 on
+# either route, 1.4e-7 apart), so their orders of summation part them
+# further than on open configuration 2 (TOL_ROUTES_G, measured 1.7e-7).
+TOL_OPEN8_ROUTES_J, TOL_OPEN8_ROUTES_G = 1e-6, 1.5e-5
+
+
+def pb_synthetic(N, B, S, solver, iters, store, seed, K=5):
+    """A packed plan past one block on the card: S random non-Hermitian
+    (K, N, N) stacks (spectral scale O(1), a stiff diagonal) and their
+    solver rows, unit-norm x0 (B, N) and coefficient rows (S, PB_NT, Ke)."""
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(size=(S, K, N, N))
+             + 1j * rng.normal(size=(S, K, N, N))) / np.sqrt(N)
+    for a in stack:
+        a[0] += np.diag(rng.normal(size=N) * 5.0)
+    card = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda",
+                                     dtype=torch.float32)
+    plan = streamk.make_plan(
+        card(stack.real), card(stack.imag), 0.02, iters,
+        -1j * np.stack([np.diag(a[0]) for a in stack]), solver,
+        store_iters=store)
+    x0 = rng.normal(size=(B, N)) + 1j * rng.normal(size=(B, N))
+    x0 /= np.linalg.norm(x0, axis=1, keepdims=True)
+    C = streamk.extend_coeffs(plan, card(rng.normal(size=(S, PB_NT, K))
+                                         * 0.5))
+    return plan, card(x0.real), card(x0.imag), C
+
+
+def pb_bits(plans, x0r, x0i, C, seed):
+    """Two launches of each mid kernel for each plan (stored and replayed
+    iterates) on the same inputs and cotangents: the same bits in all."""
+    outs = []
+    for plan in plans:
+        for _ in range(2):
+            a = streamk_mid._kernel_fwd(plan, x0r, x0i, C)
+            gh = torch.as_tensor(
+                np.random.default_rng(seed).normal(size=tuple(a[2].shape)),
+                device="cuda", dtype=torch.float32)
+            gT = gh[:, -1].contiguous()
+            outs.append(list(a[:4]) + list(streamk_mid._kernel_bwd(
+                plan, x0r, x0i, C, *a[2:], gT, gT, gh, gh)))
+    return all(torch.equal(u, v) for o in outs[1:]
+               for u, v in zip(outs[0], o))
+
+
+def pb_checks(rng):
+    """The mid pair on per-block plans against the plain version at PB_NT
+    steps (PB_CHECK x PB_SOLVERS, stored and replayed iterates): the worst
+    errors, whether every repeat and both iterate modes gave the same
+    bits, and the launch shapes seen."""
+    worst = dict(state=0.0, cbar=0.0, x0bar=0.0, cbar_rel=0.0, x0bar_rel=0.0)
+    bad, bits, shapes = [], True, set()
+    for N, B, S in PB_CHECK:
+        for solver, iters in PB_SOLVERS:
+            seed = int(rng.integers(1 << 30))
+            plans = []
+            for store in (True, False):
+                plan, x0r, x0i, C = pb_synthetic(N, B, S, solver, iters,
+                                                 store, seed)
+                if not (plan.per_block and plan.store_iters == store
+                        and streamk.uses_mid(plan, B, N)):
+                    raise RuntimeError(f"N = {N}, B = {B}, S = {S}: not a "
+                                       "per-block plan on the mid pair")
+                shell = types.SimpleNamespace(
+                    _x0r=x0r, _x0i=x0i,
+                    model=types.SimpleNamespace(K=plan.Ke))
+                err = compare_plan(plan, shell, C, np.random.default_rng(
+                    seed + 1))
+                lay = streamk_mid.mid_layouts
+                shapes.add((N, B, S, store) + tuple(
+                    (lay[k]["G"], lay[k]["Bc"], lay[k]["layout"])
+                    for k in ("fwd", "bwd")))
+                print(f"  per-block mid N={N} B={B} S={S} {solver}-{iters} "
+                      f"stored={store}: {json.dumps(err)}", flush=True)
+                for k in worst:
+                    worst[k] = max(worst[k], err[k])
+                if err["state"] > TOL_STATE_ABS \
+                        or err["cbar_rel"] > TOL_GRAD_REL \
+                        or err["x0bar_rel"] > TOL_GRAD_REL:
+                    bad.append((N, B, S, solver, store, err))
+                plans.append(plan)
+            bits = bits and pb_bits(plans, x0r, x0i, C, seed + 2)
+    return worst, bad, bits, sorted(shapes)
+
+
+def route_ms(routes, P, reps):
+    """CUDA-event ms of each route's kernel pair for the controls P (1, n),
+    interleaved: the routes in order, then in reverse. Per route the two
+    readings of each direction, their mean and the bounds, and for superop
+    on 'streamk' one run of the plain version. routes: name -> Problem on
+    'rho', superop on 'streamk' or superop on 'stream'."""
+    fns = {}
+    for name, pr in routes.items():
+        C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+        if pr.fused_form == "rho":
+            fns[name] = functools.partial(rho_kernel_ms, pr._plan, pr._x0r,
+                                          pr._x0i, C, reps, plain=False)
+        elif pr.setup.fused_mode == "stream":
+            with torch.no_grad():
+                H = stream.planes(pr._plan, pr._Sr, pr._Si, C)
+            fns[name] = functools.partial(stream_kernel_ms, pr._plan, *H,
+                                          pr._x0r, pr._x0i, reps, False)
+        else:
+            fns[name] = functools.partial(
+                kernel_ms, pr._plan, pr._x0r, pr._x0i,
+                streamk.extend_coeffs(pr._plan, C), reps, 0)
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            runs[k].append(fns[k]())
+    out = {}
+    for k, rs in runs.items():
+        out[k] = {d: [r[d] for r in rs] for d in ("fwd", "bwd")}
+        for d in ("fwd", "bwd"):
+            out[k][f"{d}_mean"] = statistics.mean(out[k][d])
+            out[k][f"{d}_bound"] = rs[0][f"{d}_bound"]
+        out[k]["sweep_ms"] = out[k]["fwd_mean"] + out[k]["bwd_mean"]
+    del fns
+    pr = routes.get("superop_streamk")
+    if pr is not None:
+        C = streamk.extend_coeffs(pr._plan, pr.coeff_rows_mid(P)[..., 0, :])
+        plain = kernel_ms(pr._plan, pr._x0r, pr._x0i, C, 1, 1)
+        out["superop_streamk"].update(plain_fwd=plain["plain_fwd"],
+                                      plain_bwd=plain["plain_bwd"])
+    return out
+
+
+def per_block_phase(smi, p16, open16):
+    """Phase 28: per-block plans on the mid pair against plain; superop on
+    'streamk' past one block through Problem (open 2 at full width, and
+    rho_bench's N = 27) against the rho route and 'stream', each route's
+    kernels timed interleaved; the open packed robust gradient on one
+    block (open 1, S = 8) and on the mid pair (three open qubits, S = 2),
+    and the closed SWAP02 ensemble on the mid pair, against per-sample."""
+    rng = np.random.default_rng(28)
+    to_card = lambda a: torch.as_tensor(a, device="cuda", dtype=torch.float32)
+    out = {}
+
+    # ---- per-block plans on the mid pair against plain ----
+    worst, bad, bits, shapes = pb_checks(rng)
+    out["worst"] = worst
+    phase(28, f"per-block mid pair == plain at {PB_NT} steps within abs "
+              f"{TOL_STATE_ABS} (states), {TOL_GRAD_REL} x max (cotangents):"
+              f" worst {json.dumps(worst)}; same bits on a repeat and "
+              f"between stored and replayed iterates: {bits}; shapes (N, "
+              f"B, S, stored, (G, Bc, layout) fwd, bwd) {json.dumps(shapes)}")
+    if bad or not bits:
+        raise RuntimeError(f"per-block mid pair: {bad}; bits {bits}")
+
+    # ---- superop on 'streamk' past one block: open configuration 2 ----
+    ps = Problem(open_cnot_setup(True, fused_rho="superop"))
+    dim = ps._Sr.shape[-1]
+    if not (ps.fused_form == "superop" and ps.fused_ok
+            and streamk.uses_mid(ps._plan, ps.ninit, dim)):
+        raise RuntimeError(f"open configuration 2 forced to superop: route "
+                           f"{ps.fused_form}, {ps.fused_refusal}")
+    P = to_card(bench_params(ps.setup.nparams))[None]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = open_vg(ps, P)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_sup = sweep_launches(MID)
+    pst = Problem(dataclasses.replace(open_cnot_setup(True),
+                                      fused_mode="stream"))
+    got_st = open_vg(pst, P)
+    rho16, ref16 = open16
+    rep = dict(N=ps.N, dim=dim, B=ps.ninit, ntime=ps.setup.ntime,
+               J=float(got[0][0]), sweep_s=wall, launches=launches_sup,
+               shapes=dict(streamk_mid.mid_layouts))
+    for name, ref in (("rho_route", rho16), ("stream_superop", got_st)):
+        eJ, ef, eg = open_errors(got, ref)
+        rep[name] = dict(J=eJ, fidelity=ef, grad=eg)
+    eJ, ef, eg = open_errors(got_st, rho16)
+    rep["stream_against_rho"] = dict(J=eJ, fidelity=ef, grad=eg)
+    ms16 = route_ms({"rho": p16, "superop_streamk": ps,
+                     "superop_stream": pst}, P, 2)
+    rep["route_ms"] = ms16
+    out["open2"] = rep
+    phase(28, f"open configuration 2 (N = 16, 16 basis matrices, ntime "
+              f"{ps.setup.ntime}) forced to superop on 'streamk': dim {dim} "
+              f"on the mid pair: {json.dumps(rep)}; bounds against the other "
+              f"routes {TOL_ROUTES_J} / {TOL_ROUTES_G}; card: {smi}")
+    if any(rep[k]["J"] > TOL_ROUTES_J or rep[k]["fidelity"] > TOL_ROUTES_J
+           or rep[k]["grad"] > TOL_ROUTES_G
+           for k in ("rho_route", "stream_superop")):
+        raise RuntimeError(f"superop on 'streamk' past one block: {rep}")
+    del pst
+
+    # rho_bench's 3 qutrits (N = 27, dim 729, 3 initial conditions, 1000
+    # steps): superop on 'streamk' against the rho route
+    q_rho = Problem(midsize_setup(27))
+    q_sup = Problem(dataclasses.replace(midsize_setup(27),
+                                        fused_rho="superop"))
+    if not (q_rho.fused_form == "rho" and q_sup.fused_form == "superop"
+            and q_sup.fused_ok and streamk.uses_mid(
+                q_sup._plan, q_sup.ninit, q_sup._Sr.shape[-1])):
+        raise RuntimeError(f"N = 27: routes {q_rho.fused_form}, "
+                           f"{q_sup.fused_form}, {q_sup.fused_refusal}")
+    P27 = to_card(bench_params(q_rho.setup.nparams))[None]
+    reset_counts()
+    t0 = time.perf_counter()
+    got27 = open_vg(q_sup, P27)
+    torch.cuda.synchronize()
+    wall27 = time.perf_counter() - t0
+    launches27 = sweep_launches(MID)
+    eJ, ef, eg = open_errors(got27, open_vg(q_rho, P27))
+    rep27 = dict(dim=q_sup._Sr.shape[-1], B=q_sup.ninit,
+                 ntime=q_sup.setup.ntime, linsolver=q_sup.linsolver,
+                 J=float(got27[0][0]), sweep_s=wall27, launches=launches27,
+                 rho_route=dict(J=eJ, fidelity=ef, grad=eg),
+                 shapes=dict(streamk_mid.mid_layouts),
+                 route_ms=route_ms({"rho": q_rho, "superop_streamk": q_sup},
+                                   P27, 1))
+    out["qutrits27"] = rep27
+    phase(28, f"rho_bench's N = 27 forced to superop on 'streamk' (dim "
+              f"{rep27['dim']}, 3 initial conditions, 1000 steps) against "
+              f"the rho route: {json.dumps(rep27)}; card: {smi}")
+    if eJ > TOL_ROUTES_J or ef > TOL_ROUTES_J or eg > TOL_ROUTES_G:
+        raise RuntimeError(f"N = 27 superop against rho: {rep27}")
+    del q_rho, q_sup
+
+    # ---- the open packed robust gradient ----
+    def ensemble(samples, want, tol_J, tol_g, name):
+        """The packed robust objective of the samples at the bench's
+        controls: one sweep with the counters at 0 before (exactly 1 + 1
+        launches of `want`), against build_robust_objective, walls of
+        both and the packed kernels' times."""
+        w = np.full(len(samples), 1.0 / len(samples))
+        obj = robust.build_packed_robust_objective(samples, w)
+        per = robust.build_robust_objective(samples, w)
+        x = bench_params(samples[0].setup.nparams).astype(np.float32)
+        reset_counts()
+        Jp, gp, auxp = robust_vg(obj, x, "cuda")
+        torch.cuda.synchronize()
+        launches = sweep_launches(want)
+        J1, g1, _ = robust_vg(per, x, "cuda")
+        errs = dict(J=abs(float(Jp) - float(J1)) / abs(float(J1)),
+                    grad=max_rel(gp.double().cpu(), g1.double().cpu()))
+        walls = dict(packed_s=median_seconds(
+            lambda: robust_vg(obj, x, "cuda"), reps=3),
+            per_sample_s=median_seconds(lambda: robust_vg(per, x, "cuda"),
+                                        reps=3))
+        ms = kernel_ms(obj.plan, *obj.x0, obj.coeff_rows(to_card(x)), 3, 1)
+        p0 = samples[0]
+        rep = dict(S=len(samples), N=p0.N, dim=obj.plan.Sr.shape[-1],
+                   B=p0.ninit, ntime=p0.setup.ntime, sample_routes=sorted(
+                       {p.fused_form for p in samples}),
+                   J=float(Jp), worst_fidelity=float(auxp["fidelity"]),
+                   launches=launches, per_sample=errs, walls=walls, ms=ms)
+        if want == MIDP:
+            rep["shapes"] = dict(streamk_mid.mid_layouts)
+        phase(28, f"{name}: {json.dumps(rep)}; bounds against per-sample "
+                  f"{tol_J} / {tol_g}; card: {smi}")
+        if errs["J"] > tol_J or errs["grad"] > tol_g:
+            raise RuntimeError(f"{name} against per-sample: {errs}")
+        return rep
+
+    det = np.random.default_rng(5).uniform(-0.002, 0.002, (S_OPEN_ROBUST, 2))
+    open1 = [Problem(open_cnot_setup(False, freq01=[FREQ01[0] + a,
+                                                   FREQ01[1] + b]))
+             for a, b in det]
+    out["open1_robust"] = ensemble(
+        open1, B2, TOL_J_PLAIN, TOL_G_PLAIN,
+        f"open configuration 1 (N = 4, 16 basis matrices) with "
+        f"{S_OPEN_ROBUST} detuned realizations, packed on one block")
+    del open1
+    det3 = np.random.default_rng(6).uniform(-0.002, 0.002, (2, 3))
+    f3 = [[f + d for f, d in zip(FREQ3, dd)] for dd in det3]
+    open3 = [Problem(swap02_setup(ntime=SWAP02_OPEN_NT, freq3=f,
+                                  guards=False, lindblad=True)) for f in f3]
+    out["open8_robust"] = ensemble(
+        open3, MIDP, TOL_OPEN8_ROUTES_J, TOL_OPEN8_ROUTES_G,
+        "three open qubits (N = 8, 64 basis matrices, SWAP02, T1 / T2) with "
+        "2 detuned realizations, packed on the mid pair (each sample's own "
+        "Problem on the rho route)")
+    del open3
+    closed = [Problem(swap02_setup(ntime=SWAP02_PB_NT, T=100.0, freq3=f))
+              for f in f3]
+    out["swap02_robust"] = ensemble(
+        closed, MIDP, TOL_J_PLAIN, TOL_G_PLAIN,
+        "closed SWAP02 (N = 64, 8 basis states) with 2 detuned "
+        "realizations, packed on the mid pair")
+    return out
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2294,6 +2665,24 @@ def stream_mid_phase_alone():
                         dtype=torch.float32)[None]
     ref, _ = f64_reference("cnot16", ntime=NT_F64)
     return stream_mid_phase(smi, build, (open_vg(p16, P), ref))
+
+
+def per_block_phase_alone():
+    """Phase 28 by itself (after a change to csrc/streamk_mid.cu or to the
+    robust objective): the builds, open configuration 2 on the rho route
+    (phase 14's sweep), then per_block_phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_build.build_parallel([streamk.build_kernels, rho.build_kernels,
+                               stream_mid.build_kernels,
+                               streamk_mid.build_kernels])
+    p16 = Problem(open_cnot_setup(True))
+    P = torch.as_tensor(bench_params(p16.setup.nparams), device="cuda",
+                        dtype=torch.float32)[None]
+    return per_block_phase(smi, p16, (open_vg(p16, P), None))
 
 
 def run_phases(smi, worker, ref_path):
@@ -2465,13 +2854,6 @@ def run_phases(smi, worker, ref_path):
 
     # ---- 8. the packed robust objective: its own main path ----
     w = np.full(S_ROBUST, 1.0 / S_ROBUST)
-
-    def robust_vg(objective, params, device):
-        xt = torch.as_tensor(params, device=device).requires_grad_(True)
-        Jr, auxr = objective(xt, torch.zeros_like(xt))
-        (gr,) = torch.autograd.grad(Jr, xt)
-        return Jr.detach(), gr, auxr
-
     packed_obj = robust.build_packed_robust_objective(samples, w)
     x32 = x.astype(np.float32)
     reset_counts()
@@ -2673,7 +3055,7 @@ def run_phases(smi, worker, ref_path):
 
     # ---- 14. the rho route at full width and depth ----
     full = {}
-    for name in ("cnot16", "qutrits27", "qudits64"):
+    for name in OPEN14:
         fn = OPEN_CONFIGS[name]
         pr = full[name] = Problem(fn())
         if pr.fused_form != "rho" or not pr.fused_ok:
@@ -2684,10 +3066,11 @@ def run_phases(smi, worker, ref_path):
         got_s = open_vg(ps, P)
         with plain_on_card():
             plain_s = open_vg(ps, P)
-        # the f64 port on the CPU at NT_F64 steps: at full depth it took
-        # 277 s of host time for the three configurations
+        # the f64 port on the CPU at NT_F64 steps (at full depth it took
+        # 277 s of host time for the three configurations), computed by the
+        # CPU reference worker while the card ran phases 2-13
         got_m = open_vg(Problem(fn(ntime=NT_F64)), P)
-        ref, secs = f64_reference(name, ntime=NT_F64)
+        ref, secs = worker_references(worker, ref_path + ".open14")[name]
         if name == "cnot16":
             open16 = got, ref      # phase 27's references
         open_report[name] = dict(
@@ -3012,6 +3395,10 @@ def run_phases(smi, worker, ref_path):
     # ---- 27. the streamed-plane kernels past one block ----
     sm = stream_mid_phase(smi, smid_build, open16)
 
+    # ---- 28. per-sample stacks and the open superop route past one block,
+    # the open packed robust objective ----
+    pb = per_block_phase(smi, p16, open16)
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -3062,11 +3449,22 @@ def run_phases(smi, worker, ref_path):
 
     def mid_more(i):
         """The mid pair at every size of phase 25: times, bounds, shapes,
-        sweeps/s at 1000 steps, plain times at MID_NT_CUT steps."""
+        sweeps/s at 1000 steps, plain times at MID_NT_CUT steps; phase 28's
+        open superop runs past one block (open 2, N = 27), their launches
+        and interleaved times."""
         key = ("fwd", "bwd")[i]
         more = dict(launches_front_end=mid["fe"]["launches_optimize"][MID[i]],
                     launches_front_end_simulate=mid["fe"][
                         "launches_simulate"][MID[i]])
+        for name in ("open2", "qutrits27"):
+            t = pb[name]
+            more[f"launches_superop_{name}"] = t["launches"][MID[i]]
+            more[f"ms_superop_{name}"] = t["route_ms"]["superop_streamk"][
+                f"{key}_mean"]
+            more[f"bound_ms_superop_{name}"] = t["route_ms"][
+                "superop_streamk"][f"{key}_bound"][0]
+            more[f"plain_ms_superop_{name}"] = t["route_ms"][
+                "superop_streamk"][f"plain_{key}"]
         for name, t in mid["full"].items():
             more[f"ms_{name}"] = t[key]
             more[f"bound_ms_{name}"] = t[f"{key}_bound"][0]
@@ -3110,6 +3508,30 @@ def run_phases(smi, worker, ref_path):
                     launches_open_superop=sm["open"]["launches"][SMID[i]],
                     routes_n256=t256["routes"], routes_n512=t512["routes"])
 
+    def open1_more(key):
+        """Phase 28's open packed robust gradient on one block (open 1,
+        S = 8)."""
+        t = pb["open1_robust"]
+        return dict(launches_open1_S8=t["launches"][B2[key == "bwd"]],
+                    ms_open1_S8=t["ms"][key],
+                    bound_ms_open1_S8=t["ms"][f"{key}_bound"][0],
+                    plain_ms_open1_S8=t["ms"][f"plain_{key}"],
+                    walls_open1_S8=t["walls"])
+
+    def pb_more(i):
+        """The mid pair on per-block plans: the closed SWAP02 ensemble's and
+        open 1's packed times ride along with the three open qubits'."""
+        key = ("fwd", "bwd")[i]
+        more = dict(shape=pb["open8_robust"]["shapes"][key],
+                    walls=pb["open8_robust"]["walls"])
+        t = pb["swap02_robust"]
+        more.update(launches_swap02=t["launches"][MIDP[i]],
+                    ms_swap02=t["ms"][key],
+                    bound_ms_swap02=t["ms"][f"{key}_bound"][0],
+                    plain_ms_swap02=t["ms"][f"plain_{key}"],
+                    shape_swap02=t["shapes"][key], walls_swap02=t["walls"])
+        return more
+
     def chain_more(name):
         """A stream.cu kernel's time per (reversed) step and helpers."""
         c = chain_s[name]
@@ -3131,10 +3553,12 @@ def run_phases(smi, worker, ref_path):
                launches_population=launches_pop[B1[1]], **streamk_more(1)),
         record("streamk_packed_fwd", 1324, launches_robust[B2[0]],
                worst_p["state"], ms_p, "fwd", ms_S128=ms_pbig["fwd"],
-               bound_ms_S128=ms_pbig["fwd_bound"][0]),
+               bound_ms_S128=ms_pbig["fwd_bound"][0],
+               **open1_more("fwd")),
         record("streamk_packed_bwd", 1415, launches_robust[B2[1]],
                max(worst_p["cbar"], worst_p["x0bar"]), ms_p, "bwd",
-               ms_S128=ms_pbig["bwd"], bound_ms_S128=ms_pbig["bwd_bound"][0]),
+               ms_S128=ms_pbig["bwd"], bound_ms_S128=ms_pbig["bwd_bound"][0],
+               **open1_more("bwd")),
         # the rho kernels at configuration 2 (N = 16, B = 16, E = 1); the
         # other sizes ride along
         record("rho_fwd", 374, open_launches["cnot16"][B4[0]],
@@ -3215,7 +3639,17 @@ def run_phases(smi, worker, ref_path):
         record("dense_mid_fwd", 111, sm["launches"][DMID[0]],
                sm["worst"]["dense"], sm["dense"], "fwd", src=SMID_SRC,
                tpu="quandary_tpu/ops/pallas_kernels.py",
-               shape=sm["dense"]["fwd_shape"])]}))
+               shape=sm["dense"]["fwd_shape"]),
+        # the mid pair on per-block plans (the packed entry of B2 past one
+        # block) at the open packed robust gradient of three qubits (S = 2,
+        # dim 64, 64 density matrices, SWAP02_OPEN_NT steps)
+        record("streamk_mid_packed_fwd", 1324,
+               pb["open8_robust"]["launches"][MIDP[0]], pb["worst"]["state"],
+               pb["open8_robust"]["ms"], "fwd", src=MID_SRC, **pb_more(0)),
+        record("streamk_mid_packed_bwd", 1415,
+               pb["open8_robust"]["launches"][MIDP[1]],
+               max(pb["worst"]["cbar"], pb["worst"]["x0bar"]),
+               pb["open8_robust"]["ms"], "bwd", src=MID_SRC, **pb_more(1))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

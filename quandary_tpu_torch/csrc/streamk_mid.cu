@@ -1,18 +1,23 @@
 // streamK propagation past one thread block, for Hopper (sm_90a): the whole
 // IMR time loop of dv/dt = -i H(t) v, H(t) = sum_k c_k(t) S_k contracted
 // in-kernel from the operator stacks, in ONE launch per direction, for
-// closed systems whose candidate one block of streamk.cu cannot hold (mid
-// size: N = 53 to 1024 at the flagship's Ke, or more basis states than
-// 1024 threads).
+// candidates one block of streamk.cu cannot hold (mid size: N = 53 to 1024
+// at the flagship's Ke, or more basis states than 1024 threads): closed
+// systems, and open ones on the superop route (the vectorized Lindblad
+// equation at dimension N^2 with the non-Hermitian stack H' = i L).
 //
 // Replaces the rest of the range of quandary_tpu/ops/pallas_stream.py::
 // make_streamk_propagate (the TPU kernel pair: forward pallas_call at :907,
 // backward at :967, with the step core _stage_fwd :217 / _stage_bwd :331 it
-// inlines). Same contract and algebra as streamk.cu: neumann, jacobi and
-// split (whose off-diagonal remainder is the extra stack slot -diag(h)
-// with coefficient 1, appended by the wrapper); the backward is the exact
-// real transpose of the step and reduces the step's H cotangent
-// Hb = sum_pairs c u^T against every stack slot into
+// inlines) and of make_streamk_packed_propagate :1059 (pallas_calls :1324 /
+// :1415) with per_block_stacks: every candidate then reads its own stack
+// and solver rows at the strides strideS, strideR (one system realization
+// per candidate, the packed robust objective). Same contract and algebra
+// as streamk.cu: neumann, jacobi and split (whose off-diagonal remainder is
+// the extra stack slot -diag(h) with coefficient 1, appended by the
+// wrapper); the backward is the exact real transpose of the step and
+// reduces the step's H cotangent Hb = sum_pairs c u^T against every stack
+// slot into
 // Cb[t, k] = <Hb_r, Sr_k> + <Hb_i, Si_k>. H is never assumed Hermitian.
 //
 // Layout: a thread-block cluster of G CTAs (1, 2, 4, 8 or 16) per (control
@@ -70,10 +75,14 @@ constexpr int MID_MAX_THREADS = 512;
 constexpr int MID_KG = 8;    // stack slots a thread reduces C-bar for at once
 
 // global: the bands of H in device-memory scratch (else shared memory).
+// strideS, strideR: floats between two candidates' stacks and solver rows
+// (per-sample stacks, the packed plan of make_streamk_packed_propagate);
+// 0 where the candidates share one stack.
 struct MidDims {
   int E, nt, B, N, Ke, iters, mode, store;
   float dt, a;
   int G, R, nchunks, global;
+  long long strideS, strideR;
 };
 
 // Floats of a CTA's bands of H: the forward's row band (R x N, re and im);
@@ -255,6 +264,9 @@ streamk_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   const int nwarps = blockDim.x >> 5;
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
   const MidBand g = mid_band(d, BC, (int)cl.block_rank());
+  Sr += g.e * d.strideS;          // this candidate's stack and solver rows
+  Si += g.e * d.strideS;
+  rows += g.e * d.strideR;
   const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
   const int BI = BC * R;
   float* V = sm;                  // two buffers x (re, im) x BC x N
@@ -398,6 +410,9 @@ streamk_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
   const bool replay = d.store == 0 && it > 0;
   const MidBand g = mid_band(d, BC, (int)cl.block_rank());
+  Sr += g.e * d.strideS;          // this candidate's stack and solver rows
+  Si += g.e * d.strideS;
+  rows += g.e * d.strideR;
   const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
   const int BI = BC * R;
   float* Cs = sm;                           // it + 1 whole cotangents
@@ -578,15 +593,17 @@ streamk_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue, launching
 // nothing, for a shape the kernels do not take: G not in {1, 2, 4, 8, 16}
 // or past N bands, BC not in {1, 2, 4, 8}, threads not whole warps up to
-// MID_MAX_THREADS, shared memory below the layout or above 227 KB, or the
-// global layout without scratch.
+// MID_MAX_THREADS, shared memory below the layout or above 227 KB, the
+// global layout without scratch, or a negative stride. strideS, strideR:
+// floats between two candidates' stacks (Ke x N x N) and solver rows; 0 for
+// the shared stack (the launch then reads what it read before the strides).
 namespace {
 
 // The dims of a launch, or false for a shape the kernels do not take.
 bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
               int mode, int store, float dt, float a, int G, int BC,
               int threads, int smem_bytes, int global, bool backward,
-              const void* scratch) {
+              const void* scratch, long long strideS, long long strideR) {
   if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return false;
   if (BC != 1 && BC != 2 && BC != 4 && BC != 8) return false;
   const int R = (N + G - 1) / G;
@@ -598,10 +615,10 @@ bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
                             ? mid_bwd_floats(BC, N, R, iters, replay, !global)
                             : mid_fwd_floats(BC, N, R, !global);
   if ((size_t)smem_bytes < 4 * floats || smem_bytes > 227 * 1024 ||
-      (global && scratch == nullptr))
+      (global && scratch == nullptr) || strideS < 0 || strideR < 0)
     return false;
   d = MidDims{E, nt, B, N, Ke, iters, mode, store, dt, a,
-              G, R, (B + BC - 1) / BC, global};
+              G, R, (B + BC - 1) / BC, global, strideS, strideR};
   return true;
 }
 
@@ -648,10 +665,12 @@ extern "C" int streamk_mid_fwd_launch(
     const void* x0i, const void* rows, void* xTr, void* xTi, void* hr,
     void* hi, void* ksr, void* ksi, void* scratch, int E, int nt, int B,
     int N, int Ke, int iters, int mode, int store, float dt, float a, int G,
-    int BC, int threads, int smem_bytes, int global, void* stream) {
+    int BC, int threads, int smem_bytes, int global, void* stream,
+    long long strideS, long long strideR) {
   MidDims d;
   if (!mid_dims(d, E, nt, B, N, Ke, iters, mode, store, dt, a, G, BC,
-                threads, smem_bytes, global, false, scratch) ||
+                threads, smem_bytes, global, false, scratch, strideS,
+                strideR) ||
       (store && iters > 0 && ksr == nullptr))
     return (int)cudaErrorInvalidValue;
 #define MID_FWD_ARGS                                                          \
@@ -676,10 +695,11 @@ extern "C" int streamk_mid_bwd_launch(
     const void* ksr, const void* ksi, void* g0r, void* g0i, void* Cbp,
     void* scratch, int E, int nt, int B, int N, int Ke, int iters, int mode,
     int store, float dt, float a, int G, int BC, int threads, int smem_bytes,
-    int global, void* stream) {
+    int global, void* stream, long long strideS, long long strideR) {
   MidDims d;
   if (!mid_dims(d, E, nt, B, N, Ke, iters, mode, store, dt, a, G, BC,
-                threads, smem_bytes, global, true, scratch) ||
+                threads, smem_bytes, global, true, scratch, strideS,
+                strideR) ||
       (store && iters > 0 && ksr == nullptr))
     return (int)cudaErrorInvalidValue;
 #define MID_BWD_ARGS                                                          \

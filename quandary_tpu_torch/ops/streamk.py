@@ -26,13 +26,14 @@ per-candidate stride; the plan then holds (G, Ke, N, N) stacks.
 
 Two CUDA kernel pairs compute the contract. csrc/streamk.cu holds a
 candidate in one thread block (``size_refusal``: B*N <= 1024 state entries
-and the stacks in shared memory, N <= 52 at the flagship's Ke); it also
-runs the packed plans. csrc/streamk_mid.cu runs a shared-stack plan past
-that (launched by ops/streamk_mid.py): a thread-block cluster of G CTAs
-per (candidate, chunk of basis states), each CTA on a band of the state
-entries (``_mid_shape`` plans the launch, ``mid_refusal`` says what it does
-not take). ``route_refusal`` admits what either pair takes and refuses
-only on device memory.
+and the stacks in shared memory, N <= 52 at the flagship's Ke).
+csrc/streamk_mid.cu runs a plan past that (launched by ops/streamk_mid.py):
+a thread-block cluster of G CTAs per (candidate, chunk of basis states),
+each CTA on a band of the state entries (``_mid_shape`` plans the launch,
+``mid_refusal`` says what it does not take). Both pairs run shared-stack
+and per-block plans, closed systems and open ones on the superop route
+(dimension N^2). ``route_refusal`` admits what either pair takes and
+refuses only on device memory.
 
 Device dispatch: a CUDA tensor goes to a kernel pair (built with nvcc at
 first use, bound with ctypes): the one-block pair wherever size_refusal
@@ -379,7 +380,7 @@ def size_refusal(B, N, Ke, iters):
     if BN > 1024:
         return (f"streamK kernel: B*N = {BN} state entries exceed one block "
                 "(1024 threads); the mid pair (ops/streamk_mid.py) takes "
-                "shared-stack plans past it")
+                "plans past it")
     smem = _bwd_smem_bytes(Ke, iters, B, N, split=False)
     if smem > _MAX_SMEM:
         return (f"streamK kernel: {smem} bytes of shared memory exceed the "
@@ -472,10 +473,17 @@ def _dims(plan, E, nt, B, N):
             int(plan.store_iters), plan.dt, plan.dt / 2.0)
 
 
+def stack_strides(plan):
+    """Floats between two candidates' stacks and solver rows: a per-block
+    plan's, or (0, 0) for a shared stack (and rows with no entries)."""
+    if not plan.per_block:
+        return 0, 0
+    return plan.Sr.stride(0), plan.rows.stride(0) if plan.rows.numel() else 0
+
+
 def _strides(plan):
-    """The packed launchers' trailing arguments: floats between two
-    candidates' stacks and solver rows."""
-    return (plan.Sr.stride(0), plan.rows.stride(0)) if plan.per_block else ()
+    """The packed launchers' trailing arguments."""
+    return stack_strides(plan) if plan.per_block else ()
 
 
 def _lib():
@@ -634,11 +642,14 @@ def history_bytes(E, B, N, iters, nt, store):
     return 2 * hist + (iters * hist if store and iters > 0 else 0)
 
 
-def sweep_bytes(E, B, N, Ke, iters, nt, store, mid):
+def sweep_bytes(E, B, N, Ke, iters, nt, store, mid, per_block=False):
     """Device bytes of one sweep's own tensors: the history and its
-    cotangent, the stored stage iterates and, on the mid pair, the bands'
-    scratch and the C-bar partial rows of the larger direction."""
+    cotangent, the stored stage iterates, with per_block the E candidates'
+    own (Ke, N, N) stack pairs and, on the mid pair, the bands' scratch and
+    the C-bar partial rows of the larger direction."""
     total = history_bytes(E, B, N, iters, nt, store)
+    if per_block:
+        total += 2 * E * Ke * N * N * 4
     if mid:
         extra = 0
         for backward in (False, True):
@@ -657,11 +668,12 @@ def sweep_bytes(E, B, N, Ke, iters, nt, store, mid):
     return total
 
 
-def mid_refusal(E, B, N, Ke, iters, nt, store):
+def mid_refusal(E, B, N, Ke, iters, nt, store, per_block=False):
     """Why the mid pair does not take E candidates of B states of dimension
     N (a sentence naming the limit), or None: no layout of a direction fits
     a CTA's shared memory, or the sweep's tensors pass
-    DEVICE_BUDGET_BYTES."""
+    DEVICE_BUDGET_BYTES. per_block: one stack per candidate (a packed plan
+    of per-sample stacks), whose stacks count against the budget."""
     for backward in (False, True):
         if _mid_shape(E, B, N, Ke, iters, store, backward) is None:
             which = "backward" if backward else "forward"
@@ -669,26 +681,32 @@ def mid_refusal(E, B, N, Ke, iters, nt, store):
                     f"buffers at N = {N} and "
                     f"iters = {iters} exceed the {_MAX_SMEM} bytes of "
                     "shared memory a CTA can use")
-    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=True)
+    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=True,
+                       per_block=per_block)
     if need > DEVICE_BUDGET_BYTES:
+        what = ", scratch and per-candidate stacks" if per_block \
+            else " and scratch"
         return (f"streamK mid kernels: a sweep's history, cotangents, stored "
-                f"iterates and scratch take {need} bytes of device memory, "
+                f"iterates{what} take {need} bytes of device memory, "
                 f"past DEVICE_BUDGET_BYTES = {DEVICE_BUDGET_BYTES} (E = {E}, "
                 f"ntime = {nt}, B = {B}, N = {N})")
     return None
 
 
-def route_refusal(B, N, Ke, iters, nt, E=1, store=None):
-    """Why neither kernel pair takes a shared-stack plan (a sentence naming
-    the bytes), or None: the one-block pair where size_refusal admits it,
-    else the mid pair; both refuse only on device memory (the history,
-    its cotangent and the stored iterates, against DEVICE_BUDGET_BYTES).
-    store: whether the forward stores its stage iterates (the plan's
-    store_iters; default iters <= 4)."""
+def route_refusal(B, N, Ke, iters, nt, E=1, store=None, per_block=False):
+    """Why neither kernel pair takes a plan (a sentence naming the bytes),
+    or None: the one-block pair where size_refusal admits it, else the mid
+    pair; both refuse only on device memory (the history, its cotangent,
+    the stored iterates and, with per_block, the E candidates' own stacks,
+    against DEVICE_BUDGET_BYTES). store: whether the forward stores its
+    stage iterates (the plan's store_iters; default iters <= 4). The same
+    gate holds closed systems, open ones on the superop route (N the
+    dimension N^2) and packed plans of per-sample stacks (E the samples)."""
     store = iters <= 4 if store is None else bool(store)
     if size_refusal(B, N, Ke, iters) is not None:
-        return mid_refusal(E, B, N, Ke, iters, nt, store)
-    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=False)
+        return mid_refusal(E, B, N, Ke, iters, nt, store, per_block)
+    need = sweep_bytes(E, B, N, Ke, iters, nt, store, mid=False,
+                       per_block=per_block)
     if need > DEVICE_BUDGET_BYTES:
         return (f"streamK kernel: a sweep's history, cotangents and stored "
                 f"iterates take {need} bytes of device memory, past "
@@ -735,8 +753,9 @@ class _KernelFn(torch.autograd.Function):
 
 def uses_mid(plan, B, N) -> bool:
     """Whether a launch of the plan at B states of dimension N goes to the
-    mid pair: a shared-stack plan that one block does not hold."""
-    return not plan.per_block and launch_refusal(plan, B, N) is not None
+    mid pair: one block does not hold it (a shared stack or one stack per
+    candidate alike)."""
+    return launch_refusal(plan, B, N) is not None
 
 
 def streamk_propagate_kernel(plan, x0r, x0i, Ce):

@@ -1,15 +1,20 @@
 """Launches of the mid-size streamK kernel pair, csrc/streamk_mid.cu: the
 streamK contract of ops/streamk.py (port of quandary_tpu/ops/pallas_stream.py
-::make_streamk_propagate, its forward and backward Pallas calls) for closed
-systems that one thread block of csrc/streamk.cu cannot hold. A launch runs
-a thread-block cluster of G CTAs per (candidate, chunk of Bc basis states),
-each CTA on a band of the state entries.
+::make_streamk_propagate, its forward and backward Pallas calls, and of
+make_streamk_packed_propagate with per_block_stacks) for candidates that one
+thread block of csrc/streamk.cu cannot hold: closed systems, open ones on
+the superop route (dimension N^2), and plans with one stack and solver rows
+per candidate (per-sample stacks, read at a stride by each cluster). A
+launch runs a thread-block cluster of G CTAs per (candidate, chunk of Bc
+basis states), each CTA on a band of the state entries.
 
-This module holds the pair's ctypes binding, its launch counters and its
-two launch wrappers. The planner (``streamk._mid_shape``), the gates
-(``streamk.mid_refusal``, ``streamk.route_refusal``) and the dispatch
-(``streamk.streamk_propagate_kernel`` sends a shared-stack plan here
-wherever ``streamk.size_refusal`` refuses it) are in ops/streamk.py, with
+This module holds the pair's ctypes binding, its launch counters (a
+shared-stack and a per-block pair of them, as ops/streamk.py counts its
+one-block and packed launches apart) and its two launch wrappers. The
+planner (``streamk._mid_shape``), the gates (``streamk.mid_refusal``,
+``streamk.route_refusal``) and the dispatch
+(``streamk.streamk_propagate_kernel`` sends a plan here wherever
+``streamk.size_refusal`` refuses it) are in ops/streamk.py, with
 the plain torch version the pair is held against. A wrapper launches the
 kernel or raises: nothing falls back to the one-block pair or to the plain
 version.
@@ -24,10 +29,15 @@ import torch
 
 from . import cuda_build, streamk
 
-# launches of each kernel since the counters were last set to 0
+# launches of each kernel since the counters were last set to 0: with one
+# shared stack, and with a stack per candidate (packed, per-sample stacks)
 streamk_mid_fwd_launches = 0
 streamk_mid_bwd_launches = 0
-_COUNTERS = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches")
+streamk_mid_packed_fwd_launches = 0
+streamk_mid_packed_bwd_launches = 0
+_COUNTERS = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches",
+             "streamk_mid_packed_fwd_launches",
+             "streamk_mid_packed_bwd_launches")
 
 _SRC = os.path.join(cuda_build.CSRC_DIR, "streamk_mid.cu")
 # the shape of the last launch of each direction, as the wrapper ran it
@@ -38,7 +48,7 @@ _SCHEDULED = set()      # launch shapes whose clusters the card holds
 
 
 def launch_counts() -> dict:
-    """The two launch counters by name."""
+    """The four launch counters by name."""
     return {k: globals()[k] for k in _COUNTERS}
 
 
@@ -55,7 +65,8 @@ def add_launches(counts: dict, times: int = 1) -> None:
 
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 8 + [f, f] + [i] * 5 + [p]
+    ll = ctypes.c_longlong
+    tail = [i] * 8 + [f, f] + [i] * 5 + [p, ll, ll]
     lib.streamk_mid_fwd_launch.argtypes = [p] * 13 + tail
     lib.streamk_mid_bwd_launch.argtypes = [p] * 18 + tail
     lib.streamk_mid_max_clusters.argtypes = [i] * 5
@@ -81,11 +92,8 @@ def _launch_shape(lib, plan, E, B, N, nt, backward):
     one cluster of the shape (cudaOccupancyMaxActiveClusters, asked once
     per shape)."""
     store = plan.store_iters and plan.iters > 0
-    if plan.per_block:
-        raise NotImplementedError(
-            "the mid kernels run one shared stack; "
-            + (streamk.launch_refusal(plan, B, N) or ""))
-    why = streamk.mid_refusal(E, B, N, plan.Ke, plan.iters, nt, store)
+    why = streamk.mid_refusal(E, B, N, plan.Ke, plan.iters, nt, store,
+                              per_block=plan.per_block)
     if why is not None:
         raise NotImplementedError(why)
     shape = streamk._mid_shape(E, B, N, plan.Ke, plan.iters, store, backward)
@@ -123,8 +131,9 @@ def _scratch(shape, E, B, N, backward, replay, device):
 
 
 def _kernel_fwd(plan, x0r, x0i, Ce):
-    """One streamk_mid_fwd launch: (xTr, xTi, hr, hi, ksr, ksi)."""
-    global streamk_mid_fwd_launches
+    """One streamk_mid_fwd launch: (xTr, xTi, hr, hi, ksr, ksi). A
+    per-block plan gives each candidate's clusters its own stack and rows."""
+    global streamk_mid_fwd_launches, streamk_mid_packed_fwd_launches
     streamk._check_cuda(plan, Ce, x0r, x0i)
     lib = _lib()
     E, nt, _ = Ce.shape
@@ -143,10 +152,14 @@ def _kernel_fwd(plan, x0r, x0i, Ce):
                             xTi, hr, hi, ksr, ksi, scratch)),
         *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
         int(layout == "global"),
-        torch.cuda.current_stream(Ce.device).cuda_stream)
+        torch.cuda.current_stream(Ce.device).cuda_stream,
+        *streamk.stack_strides(plan))
     if err != 0:
         raise RuntimeError(f"streamk_mid_fwd launch failed: CUDA error {err}")
-    streamk_mid_fwd_launches += 1
+    if plan.per_block:
+        streamk_mid_packed_fwd_launches += 1
+    else:
+        streamk_mid_fwd_launches += 1
     _log("fwd", E, B, N, shape)
     return xTr, xTi, hr, hi, ksr, ksi
 
@@ -154,8 +167,9 @@ def _kernel_fwd(plan, x0r, x0i, Ce):
 def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
     """One streamk_mid_bwd launch: (x0 cotangent pair summed over the
     candidates, Cb (E, nt, Ke)). The CTAs' C-bar partial rows are summed
-    over the chunks and bands in a fixed order."""
-    global streamk_mid_bwd_launches
+    over the chunks and bands in a fixed order, one row per candidate (a
+    per-block plan's stacks get no cotangent, as on the one-block pair)."""
+    global streamk_mid_bwd_launches, streamk_mid_packed_bwd_launches
     streamk._check_cuda(plan, Ce, x0r, x0i, hr, hi, gTr, gTi, jr, ji)
     lib = _lib()
     E, nt, Ke = Ce.shape
@@ -178,9 +192,13 @@ def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
                             scratch)),
         *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
         int(layout == "global"),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        *streamk.stack_strides(plan))
     if err != 0:
         raise RuntimeError(f"streamk_mid_bwd launch failed: CUDA error {err}")
-    streamk_mid_bwd_launches += 1
+    if plan.per_block:
+        streamk_mid_packed_bwd_launches += 1
+    else:
+        streamk_mid_bwd_launches += 1
     _log("bwd", E, B, N, shape)
     return g0r.sum(0), g0i.sum(0), Cbp.sum(1)

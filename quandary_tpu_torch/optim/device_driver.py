@@ -11,7 +11,10 @@ back to back and the host fetches only their scalar rows (chunk x 11
 floats) and a done flag, once per chunk. The parameter vector and the
 curvature memory stay on the device between chunks. On CUDA the chunk is
 captured once as a CUDA graph and replayed, which also removes the launch
-overhead of the many small operations of an iteration.
+overhead of the many small operations of an iteration. A chunk of the
+plain route (millions of graph nodes: every stage solve of every step is
+a few kernels) is captured as a sequence of graphs, each under half
+GRAPH_NODE_LIMIT nodes, replayed in order.
 
 Line search: parallel Armijo backtracking. All `ls_lengths` trial steps
 are evaluated in ONE ensemble call and the first satisfying length is
@@ -26,6 +29,7 @@ chunk is the CUDA-graph chunk here).
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import List, Optional
 
@@ -52,6 +56,36 @@ def _add_launches(per_module, times=1):
         m.add_launches(counts, times)
 
 
+# The most nodes one CUDA graph may hold: graphs of one-element kernels,
+# with nothing of this package in them, replayed right up to 2,600,000
+# nodes, and at 2,900,000 and 3,200,000 a replay skipped 18 to 22 of them
+# without an error, on an H100 80GB HBM3 (700 W, torch 2.11 with CUDA
+# 12.8; scripts/graph_node_limit.py); a plain-route chunk of 3,136,215
+# nodes faulted at its second replay (ROADMAP C1). A captured chunk keeps
+# every graph under half of this.
+GRAPH_NODE_LIMIT = 2_600_000
+
+
+def graph_nodes(graph) -> int:
+    """Nodes of a CUDA graph captured with keep_graph=True and not yet
+    instantiated (cuGraphGetNodes)."""
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
+def graph_segments(chunk: int, nodes_per_iteration: int) -> List[int]:
+    """Iterations per graph of a captured chunk: as many as keep a graph's
+    nodes under GRAPH_NODE_LIMIT / 2 (at least one), the last graph
+    taking the rest."""
+    k = max(1, (GRAPH_NODE_LIMIT // 2) // max(1, nodes_per_iteration))
+    k = min(k, chunk)
+    return [k] * (chunk // k) + ([chunk % k] if chunk % k else [])
+
+
 def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
                            ls_lengths=8, c1=1e-4, maxiter=200,
                            gatol=1e-8, grtol=1e-4, fatol=1e-8, inftol=1e-5,
@@ -64,8 +98,11 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
 
     graph: replay the chunk as a CUDA graph (None: default_graph). The
     graph is captured at the first chunk_fn call, after one eager warm-up
-    chunk; a capture that fails raises. Each replay adds the kernel
-    launches it stands for to the kernels' launch counters. On CUDA a
+    chunk; a capture that fails raises. On the plain route the chunk is
+    captured as graph_segments(chunk, n) graphs of consecutive iterations,
+    n the nodes of one iteration's graph, captured first and counted
+    (graph_nodes); a kernel route's chunk is one graph. Each replay adds
+    the kernel launches it stands for to the kernels' launch counters. On CUDA a
     kernel route that does not take ls_lengths candidates in one launch
     (Problem.ensemble_refusal) raises here, before any iteration."""
     rdtype, dev = problem.rdtype, problem.device
@@ -189,9 +226,9 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
                     rho=rho[0], count=count[0], it=st["it"] + 1, done=done,
                     step=step, tscale=tscale)
 
-    def chunk_eager(st):
+    def run_iterations(st, n):
         rows = []
-        for _ in range(chunk):
+        for _ in range(n):
             nxt = one_iteration(st)
             was_done = st["done"]
             # freeze once done: later iterations in the chunk are no-ops
@@ -202,15 +239,32 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
                              st["step"]]), st["aux"]]))
         return st, torch.stack(rows), st["done"]
 
+    def chunk_eager(st):
+        return run_iterations(st, chunk)
+
     if not graph:
         return init, chunk_eager
 
     captured = {}
 
+    def capture_segment(static, n, rows_out=None, keep_graph=False):
+        """A graph of n iterations on the static state buffers (and, with
+        rows_out, their rows written into it)."""
+        g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        with solvers.graph_capture(g):
+            new, rows, _ = run_iterations(static, n)
+            for k in static:
+                static[k].copy_(new[k])
+            if rows_out is not None:
+                rows_out.copy_(rows)
+        return g, rows
+
     def capture(st):
         """One eager warm-up chunk on a side stream (autograd and the
         allocator settle there), then the chunk captured on static state
-        buffers. chunk_eager does not modify its input, so the state
+        buffers: one graph on a kernel route; on the plain route one graph
+        of one iteration, whose nodes are counted, then graph_segments'
+        graphs. chunk_eager does not modify its input, so the state
         survives the warm-up."""
         static = {k: v.clone() for k, v in st.items()}
         side = torch.cuda.Stream(dev)
@@ -219,17 +273,27 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
             chunk_eager(static)
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [m.launch_counts() for m in _KERNEL_MODULES]
-        g = torch.cuda.CUDAGraph()
-        with solvers.graph_capture(g):
-            new, rows, _ = chunk_eager(static)
-            for k in static:
-                static[k].copy_(new[k])
+        if problem.use_fused:
+            g, rows = capture_segment(static, chunk)
+            graphs, segments = [g], [chunk]
+        else:
+            probe, _ = capture_segment(static, 1, keep_graph=True)
+            per_iteration = graph_nodes(probe)
+            del probe
+            segments = graph_segments(chunk, per_iteration)
+            rows = torch.empty((chunk, 4 + len(AUX_KEYS)), **kw)
+            graphs, i0 = [], 0
+            for n in segments:
+                graphs.append(capture_segment(static, n,
+                                              rows[i0:i0 + n])[0])
+                i0 += n
+            captured["nodes_per_iteration"] = per_iteration
         # the wrappers counted the captured launches, which did not run
         per_chunk = [{k: v - b[k] for k, v in m.launch_counts().items()}
                      for m, b in zip(_KERNEL_MODULES, before)]
         _add_launches(per_chunk, -1)
-        captured.update(graph=g, static=static, rows=rows,
-                        per_chunk=per_chunk)
+        captured.update(graphs=graphs, segments=segments, static=static,
+                        rows=rows, per_chunk=per_chunk)
 
     def chunk_graph(st):
         if not captured:
@@ -238,20 +302,24 @@ def build_device_optimizer(problem, lb, ub, *, chunk=10, history=8,
         if st is not static:
             for k in static:
                 static[k].copy_(st[k])
-        captured["graph"].replay()
+        for g in captured["graphs"]:
+            g.replay()
         _add_launches(captured["per_chunk"])
         return static, captured["rows"], static["done"]
 
+    chunk_graph.captured = captured
     return init, chunk_graph
 
 
 def default_graph(problem) -> bool:
     """The default of build_device_optimizer's `graph`: a CUDA graph of the
     chunk on a CUDA problem on a kernel route (use_fused). The plain route
-    runs its chunks eagerly: a captured chunk of 10 of its iterations
-    faulted at its second replay on an H100 (ROADMAP C1, cause not found;
-    scripts/plain_route_graph.py). It launches no kernel of the port, so
-    nothing falls back from a kernel."""
+    runs its chunks eagerly: its chunk is millions of graph nodes, whose
+    capture costs about three eager chunks (154 s against 45 s for 10
+    iterations at 1000 steps on an H100 80GB HBM3 at 700 W;
+    scripts/plain_route_graph.py; graph=True captures it in segments under
+    GRAPH_NODE_LIMIT / 2). It launches no kernel of the port, so nothing
+    falls back from a kernel."""
     return problem.device.type == "cuda" and problem.use_fused
 
 

@@ -8,11 +8,14 @@ strengths, ...):
 
 Each sample is a full Problem (its own operator stack); torch autograd
 delivers the exact ensemble gradient. build_robust_objective propagates the
-samples one after the other (one streamK launch per sample and direction);
+samples one after the other (one launch per sample and direction);
 build_packed_robust_objective propagates ALL of them in one launch per
-direction, each thread block reading its own sample's operator stack and
-solver rows (ops/streamk.make_streamk_packed_propagate with
-per_block_stacks). Counterpart of quandary_tpu/optim/robust.py.
+direction, each thread block (or, past one block, each thread-block
+cluster) reading its own sample's operator stack and solver rows
+(the per-block plan of ops/streamk.make_streamk_packed_propagate with
+per_block_stacks); open samples run there on the superop form at dimension
+N^2. Counterpart of
+quandary_tpu/optim/robust.py.
 """
 
 from __future__ import annotations
@@ -102,25 +105,87 @@ def sample_standard_models(base_kwargs: dict, param_samples: Sequence[dict],
     return problems
 
 
+def _superop_form(p):
+    """A sample's states and stacks on the superop route, whatever route its
+    own Problem took: the (K, N^2, N^2) pseudo-Hamiltonian stack pair
+    H' = i L (streamk.lindblad_prime_stack) and the column-major vec(x0)
+    pair (B, N^2), on the sample's device in its real dtype. A closed
+    sample's own stack and x0."""
+    if not p.lindblad or p._flat:
+        return p._Sr, p._Si, p._x0r, p._x0i
+    Hp = streamk.lindblad_prime_stack(p.engine.stack_np, p.engine.Ls_np)
+    rt = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                   device=p.device).to(p.rdtype)
+    vec = lambda x: x.transpose(-1, -2).reshape(p.ninit, -1).contiguous()
+    return rt(Hp.real), rt(Hp.imag), vec(p._x0r), vec(p._x0i)
+
+
+def _sample_layout(p, x):
+    """Flat kernel states (..., B, N^2) in the sample Problem's own layout:
+    (..., B, N, N) density matrices where its route is 'rho' (the inverse of
+    the column-major vec), unchanged on the superop route and closed."""
+    if not p.lindblad or p._flat:
+        return x
+    return x.reshape(x.shape[:-1] + (p.N, p.N)).transpose(-1, -2)
+
+
+def _gen_diag(p):
+    """A sample's generator diagonal in the flat layout of the kernels
+    (column-major vec for open systems, quandary_tpu/optim/robust.py
+    :122-127), or None."""
+    if p.gen_diag is None:
+        return None
+    gd = np.asarray(p.gen_diag)
+    return gd.T.reshape(-1) if p.lindblad else gd.reshape(-1)
+
+
+def packed_refusal(problems) -> Optional[str]:
+    """Why neither streamK kernel pair takes the samples in one packed
+    launch per direction (a sentence naming the limit), or None: the
+    one-block pair holds a sample's B*dim state entries and stacks, else
+    the mid pair (csrc/streamk_mid.cu) takes them, each cluster reading its
+    sample's stack; both refuse only past streamk.DEVICE_BUDGET_BYTES (the
+    S samples' history, cotangents, stored iterates, stacks and scratch).
+    dim is N for closed samples, N^2 for open ones."""
+    p0, s0 = problems[0], problems[0].setup
+    dim = p0.N * p0.N if p0.lindblad else p0.N
+    Ke = p0.model.K + (p0.linsolver == "split")
+    iters = s0.linsolve_iters
+    why = streamk.route_refusal(p0.ninit, dim, Ke, iters, s0.ntime,
+                                E=len(problems), store=iters <= 4,
+                                per_block=True)
+    if why is None:
+        return None
+    return (f"packed robust objective of {len(problems)} samples at "
+            f"dimension {dim}: {why}; build_robust_objective runs them one "
+            "by one")
+
+
 def build_packed_robust_objective(problems: Sequence,
                                   weights: Optional[Sequence[float]] = None):
     """Packed variant of build_robust_objective: ALL system realizations
-    propagate through ONE kernel launch per direction, one thread block per
-    sample with its own operator stack. Requirements (validated): every
-    Problem runs the fused streamK path (Setup.fused_mode 'streamk': the
-    packed route is streamK's only) on the same device, same discretization
-    and shape, identical initial conditions. The size limit is the kernels'
-    own, one thread block per sample, which each such Problem on the card
-    has already passed (Problem.fused_ok)."""
+    propagate through ONE kernel launch per direction, each sample with its
+    own operator stack and solver rows (one thread block per sample, or
+    past one block a thread-block cluster per sample and chunk of states).
+    Open (Lindblad) samples run on the superop form at dimension N^2, each
+    with its own H' = i L stack, whichever route (superop or rho) its own
+    Problem took; the objective tail then reads the states in that
+    Problem's layout (quandary_tpu/optim/robust.py:81-165).
+
+    Requirements (validated): every Problem runs a fused streamK route
+    (Setup.fused_mode 'streamk': the packed route is streamK's only) on the
+    same device, with the same discretization and shape, identical initial
+    conditions, all open or all closed, all with a generator diagonal or
+    none. The size limit is the kernels' (``packed_refusal``): the
+    reference packs while S * dim <= 128 (one 128-lane tile); the port
+    takes whatever the one-block or the mid pair holds within
+    streamk.DEVICE_BUDGET_BYTES, and raises ValueError naming the limit
+    past that. The returned objective carries its launch's inputs
+    (`.plan`, `.x0`, `.coeff_rows(params)`) for timing the kernels alone."""
     S = len(problems)
     p0 = problems[0]
     s0 = p0.setup
     for p in problems:
-        if p.lindblad:
-            raise NotImplementedError(
-                "the packed robust objective of open (Lindblad) systems is "
-                "not ported to quandary_tpu_torch yet; "
-                "build_robust_objective runs them sample by sample")
         if p.setup.fused_mode != "streamk":
             raise NotImplementedError(
                 f"the packed robust objective runs the streamK kernels only, "
@@ -129,7 +194,8 @@ def build_packed_robust_objective(problems: Sequence,
         if not p.use_fused:
             raise ValueError("packed robust objective needs the fused "
                              "streamK path on every sample Problem")
-        if (p.N != p0.N or p.setup.ntime != s0.ntime or p.setup.dt != s0.dt
+        if (p.N != p0.N or p.lindblad != p0.lindblad
+                or p.setup.ntime != s0.ntime or p.setup.dt != s0.dt
                 or p.linsolver != p0.linsolver
                 or p.setup.linsolve_iters != s0.linsolve_iters
                 or p.model.K != p0.model.K or p.nstages != 1
@@ -138,25 +204,44 @@ def build_packed_robust_objective(problems: Sequence,
                              "discretization, device and dtype for packing")
         if not np.array_equal(p.x0, p0.x0):
             raise ValueError("sample Problems must share initial conditions")
+        if (p.gen_diag is None) != (p0.gen_diag is None):
+            raise ValueError(
+                "sample Problems must agree on gen_diag presence: a mixed "
+                "ensemble would run one sample with a zeroed drift diagonal "
+                "under the jacobi/split solvers")
+    why = packed_refusal(problems)
+    if why is not None:
+        raise ValueError(why)
     w = _weights(S, weights)
-    Sr = torch.stack([p._Sr for p in problems])
-    Si = torch.stack([p._Si for p in problems])
-    prop = streamk.make_streamk_packed_propagate(
-        s0.dt, s0.linsolve_iters,
-        gen_diag=np.stack([np.asarray(p.gen_diag) for p in problems]),
-        linsolver=p0.linsolver, group=S, per_block_stacks=True)
+    forms = [_superop_form(p) for p in problems]
+    x0r, x0i = forms[0][2:]
+    gen_diag = None if p0.gen_diag is None else \
+        np.stack([_gen_diag(p) for p in problems])
+    # one system per candidate: (S, Ke, dim, dim) stacks, (S, nrows, dim)
+    # solver rows (the packed plan of make_streamk_packed_propagate)
+    plan = streamk.make_plan(torch.stack([f[0] for f in forms]),
+                             torch.stack([f[1] for f in forms]), s0.dt,
+                             s0.linsolve_iters, gen_diag, p0.linsolver)
+
+    def coeff_rows(params):
+        """(S, ntime, Ke) rows of the packed launch: the carrier phases
+        depend on the sample's model, so each sample has its own."""
+        return streamk.extend_coeffs(plan, torch.stack(
+            [p.coeff_rows_mid(params)[:, 0, :] for p in problems]))
 
     def objective(params, params_ref):
-        # the carrier phases depend on the sample's model: rows per sample
-        Cg = torch.stack([p.coeff_rows_mid(params)[:, 0, :]
-                          for p in problems], dim=1)        # (ntime, S, K)
-        (xTr, xTi), (hr, hi) = prop(Sr, Si, (p0._x0r, p0._x0i), Cg)
+        xTr, xTi, hr, hi = streamk.streamk_propagate(plan, x0r, x0i,
+                                                     coeff_rows(params))
         per_sample = []
         for g, p in enumerate(problems):
-            pens = p._history_penalties_real(hr[:, g], hi[:, g])
+            lay = lambda x: _sample_layout(p, x)
+            pens = p._history_penalties_real(lay(hr[g]), lay(hi[g]))
             per_sample.append(p._assemble_objective_real(
-                params, params_ref, xTr[g], xTi[g], *pens,
+                params, params_ref, lay(xTr[g]), lay(xTi[g]), *pens,
                 p._energy_integral(params)))
         return _weighted(per_sample, w, params)
 
+    # the launch's inputs, for timing its kernels alone
+    objective.plan, objective.x0 = plan, (x0r, x0i)
+    objective.coeff_rows = coeff_rows
     return objective

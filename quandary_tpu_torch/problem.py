@@ -52,11 +52,11 @@ Not ported yet, and refused with NotImplementedError (ROADMAP A8): the
 structured engines, the time-parallel scan and the reversible adjoint
 (``Setup.engine``, ``time_parallel``, ``adjoint`` other than 'auto'). On
 CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
-what the route's kernels do not hold (``Problem.fused_refusal``): closed
-'streamk' only a sweep past the device-memory budget
+what the route's kernels do not hold (``Problem.fused_refusal``): 'streamk',
+closed or superop, only a sweep past the device-memory budget
 (ops/streamk.py::route_refusal; one thread block or a thread-block cluster
-per candidate and chunk of basis states); the open superop route, 'stream'
-and 'chunk' past one thread block; 'rho' past N = 128 (the TPU kernel's
+per candidate and chunk of basis states); 'stream' and 'chunk' past their
+plane budgets; 'rho' past N = 128 (the TPU kernel's
 one 128-lane tile: csrc/rho.cu holds N <= 64, csrc/rho_mid.cu the rest).
 Nothing is sent quietly to the plain loop.
 """
@@ -131,7 +131,8 @@ class Setup:
     # runs the vectorized superoperator on the streamK kernels where one
     # thread block holds dimension N^2 and the density-matrix kernels
     # (ops/rho.py) past that; 'rho' forces the matrix form, 'superop'
-    # forbids it.
+    # forbids it (on 'streamk' past one block the mid pair,
+    # csrc/streamk_mid.cu, runs it).
     fused_rho: str = "auto"
     # Fused kernel family (quandary_tpu's pallas_mode): 'streamk' contracts
     # the H planes in-kernel (ops/streamk.py); 'stream' builds them outside
@@ -412,12 +413,11 @@ class Problem:
             self._plan = streamk.make_plan(
                 self._Sr, self._Si, s.dt, iters, gd, self.linsolver,
                 store_iters=store_iters_ok(s.ntime, iters, self.ninit, dim))
-            # closed: either kernel pair; superop: one thread block
-            self._refusal = streamk.launch_refusal(
-                self._plan, self.ninit, dim) if self._flat \
-                else streamk.route_refusal(
-                    self.ninit, dim, self._plan.Ke, iters, s.ntime,
-                    store=self._plan.store_iters)
+            # either kernel pair, closed and superop (dim N^2) alike: one
+            # block, or a cluster per chunk of states
+            self._refusal = streamk.route_refusal(
+                self.ninit, dim, self._plan.Ke, iters, s.ntime,
+                store=self._plan.store_iters)
         elif self.use_fused:
             dim = self._Sr.shape[-1]
             self._plan = stream.make_plan(
@@ -459,10 +459,9 @@ class Problem:
         admit it: the fused path is on and the route's kernels hold a
         candidate (closed streamK: one thread block or a cluster per chunk
         of basis states, a sweep's history and stored iterates at E = 1
-        under streamk.DEVICE_BUDGET_BYTES; superop on 'streamk': one thread
-        block holds B*dim state entries, the stacks and the stage iterates;
-        stream and chunk, closed or superop: one thread block or a cluster
-        per chunk of states, the sweep's plane arrays at E = 1 under
+        under streamk.DEVICE_BUDGET_BYTES, and superop on 'streamk' the same
+        at dim N^2; stream and chunk, closed or superop: one thread block or
+        a cluster per chunk of states, the sweep's plane arrays at E = 1 under
         stream.PLANE_BUDGET_BYTES (stream past one block: on the JAX gate's
         P = roundup(dim, 128)), chunk at dim <= 1024; rho: N <= 128, an
         (N, N) density matrix on a thread-block cluster).
@@ -480,13 +479,12 @@ class Problem:
         """Why the route's kernels do not take E candidates in one launch
         (the device driver's line search evaluates its trial steps at
         once), or None. fused_refusal gates at E = 1; the plane arrays of
-        'stream' / 'chunk' and the history of the closed 'streamk' route
-        grow with E."""
+        'stream' / 'chunk' and the history of the 'streamk' route (closed
+        and superop) grow with E."""
         if not self.fused_ok:
             return self.fused_refusal
         s, dim = self.setup, self._Sr.shape[-1]
-        if self.fused_form == "rho" or (self._flat
-                                         and s.fused_mode == "streamk"):
+        if self.fused_form == "rho":
             return None
         if s.fused_mode == "streamk":
             return streamk.route_refusal(

@@ -8,15 +8,20 @@ chunk) the script times, after synchronizing the card:
 
 * eager_s: one chunk of build_device_optimizer(graph=False);
 * first_s: the first chunk of build_device_optimizer(graph=True), which
-  runs one eager warm-up chunk, captures the chunk and replays it once;
+  runs one eager warm-up chunk, captures one iteration to count its graph
+  nodes, captures the chunk as graphs of consecutive iterations, each
+  under half device_driver.GRAPH_NODE_LIMIT nodes, and replays them once;
 * replay_s: a second call of that chunk, a replay alone, then a third
-  (replay3_s); with chunks of 10 at 1000 steps the second call faults on
-  an H100 (illegal address, ROADMAP C1) and the script ends there;
+  (replay3_s); one graph of a chunk of 10 at 1000 steps (3.1M nodes)
+  faulted at its second replay on an H100 (illegal address, ROADMAP C1),
+  which the segments avoid;
 
-tells whether the graph's rows equal the eager chunk's in bits, and prints
-one JSON line with these seconds, their ratios per iteration and the chunks
-after which the graph has paid for its capture,
-(first_s - replay_s) / (eager_s - replay_s).
+tells whether the graph's rows equal the eager chunk's in bits (after each
+of the three calls, against three eager chunks), and prints one JSON line
+with these seconds, their ratios per iteration, the graph nodes of one
+iteration, the iterations of each graph and the chunks after which the
+graphs have paid for their capture, (first_s - replay_s) / (eager_s -
+replay_s).
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -130,20 +135,27 @@ def main():
                                                 **kw)
         init_g, step_g = build_device_optimizer(problem, lb, ub, graph=True,
                                                 **kw)
-        (_, rows_e, _), eager_s = timed(lambda: step_e(init_e(x0, x0)))
+        (se, rows_e, _), eager_s = timed(lambda: step_e(init_e(x0, x0)))
+        (se2, rows_e2, _), _ = timed(lambda: step_e(se))
+        rows_e3 = step_e(se2)[1]
         st = init_g(x0, x0)
         (st2, rows_g, _), first_s = timed(lambda: step_g(st))
-        same = bool(torch.equal(rows_e, rows_g))
-        (st3, _, _), replay_s = timed(lambda: step_g(st2))
-        _, replay3_s = timed(lambda: step_g(st3))
+        same = [bool(torch.equal(rows_e, rows_g))]
+        (st3, rows_g, _), replay_s = timed(lambda: step_g(st2))
+        same.append(bool(torch.equal(rows_e2, rows_g)))
+        (_, rows_g, _), replay3_s = timed(lambda: step_g(st3))
+        same.append(bool(torch.equal(rows_e3, rows_g)))
         paid = ((first_s - replay_s) / (eager_s - replay_s)
                 if eager_s > replay_s else None)
+        cap = getattr(step_g, "captured", {})
         out[f"chunk{chunk}"] = dict(
             eager_s=eager_s, first_s=first_s, replay_s=replay_s,
             replay3_s=replay3_s,
             eager_s_per_iter=eager_s / chunk,
             replay_s_per_iter=replay_s / chunk,
-            chunks_to_pay=paid, rows_equal=same)
+            chunks_to_pay=paid, rows_equal=all(same), rows_equal_per_call=same,
+            nodes_per_iteration=cap.get("nodes_per_iteration"),
+            segments=cap.get("segments"))
         print(json.dumps({f"chunk{chunk}": out[f"chunk{chunk}"]}),
               flush=True)
     print(json.dumps(out))

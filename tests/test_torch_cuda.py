@@ -16,8 +16,11 @@ the mid-size streamK pair (csrc/streamk_mid.cu, closed systems past one
 thread block) against the plain version, its determinism and its launch
 counters, alone and under Problem; the mid-size density-matrix pair
 (csrc/rho_mid.cu, open systems of 64 < N <= 128) the same, with its bits
-across cluster sizes and between stored and replayed iterates; a
-trajectory's CUDA-graph capture while an orphaned graph is collected.
+across cluster sizes and between stored and replayed iterates; the mid
+streamK pair on per-candidate stacks and on open superop plans past one
+block, and the open packed robust objective on both pairs; a
+trajectory's CUDA-graph capture while an orphaned graph is collected; the
+device optimizer's plain-route chunk as segmented CUDA graphs.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -429,16 +432,15 @@ def test_device_optimizer_plain_route_default_graph_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP C1: a CUDA graph of a chunk of 10 plain-route iterations "
-    "faults at its second replay on an H100 (illegal address; an earlier "
-    "run saw a misaligned address), cause not found"))
 def test_device_optimizer_plain_route_graph_replays_on_card(cuda):
-    """graph=True on the plain route: scripts/plain_route_graph.py captures
-    a chunk of 10 iterations and calls it three times, in a process of its
-    own (the fault ends the CUDA context of the process it hits). The
-    script ends with code 0 and equal rows of graph and eager chunk once
-    the fault is repaired."""
+    """graph=True on the plain route (ROADMAP C1): scripts/plain_route_graph
+    .py captures a chunk of 10 iterations at 1000 steps, about 3.1M graph
+    nodes, as graphs of consecutive iterations under half
+    device_driver.GRAPH_NODE_LIMIT, and calls it three times, in a process
+    of its own (one graph of the whole chunk faulted at its second replay
+    and ended the CUDA context). The script ends with code 0, the rows of
+    every call equal the eager chunks' in bits, and the chunk took more
+    than one graph."""
     import json
     import os
     import subprocess
@@ -449,8 +451,12 @@ def test_device_optimizer_plain_route_graph_replays_on_card(cuda):
          "--chunks", "10"], capture_output=True, text=True, timeout=600,
         cwd=root)
     assert run.returncode == 0, run.stderr[-2000:]
-    out = json.loads(run.stdout.strip().splitlines()[-1])
-    assert out["chunk10"]["rows_equal"]
+    out = json.loads(run.stdout.strip().splitlines()[-1])["chunk10"]
+    assert out["rows_equal"] and len(out["segments"]) > 1
+    assert sum(out["segments"]) == 10
+    from quandary_tpu_torch.optim.device_driver import GRAPH_NODE_LIMIT
+    assert max(out["segments"]) * out["nodes_per_iteration"] \
+        <= GRAPH_NODE_LIMIT // 2
 
 
 @pytest.mark.cuda
@@ -746,8 +752,9 @@ def _open_cnot(guards, fused_rho="auto", ntime=48, T=8.0):
 def test_open_problem_on_card_matches_cpu(cuda, guards, fused_rho, form):
     """An open two-transmon CNOT on the card against the same problem on
     the CPU (plain), both f32: J to 1e-5, gradient to 1e-4 of max; E = 3
-    candidates through one launch per direction; a dimension past one
-    thread block of the forced route raises."""
+    candidates through one launch per direction; with guards, superop
+    forced past one thread block runs on the mid streamK pair (1 + 1
+    launches) and agrees with the rho route to the same bounds."""
     from quandary_tpu_torch.ops import rho
     from quandary_tpu_torch.problem import Problem
     setup = _open_cnot(guards, fused_rho)
@@ -766,8 +773,19 @@ def test_open_problem_on_card_matches_cpu(cuda, guards, fused_rho, form):
     torch.testing.assert_close(auxc["fidelity"].cpu(), auxh["fidelity"],
                                rtol=1e-4, atol=1e-6)
     if guards:
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            Problem(dataclasses.replace(setup, fused_rho="superop"))
+        # superop forced past one block: the mid streamK pair takes dim 256
+        from quandary_tpu_torch.ops import streamk_mid
+        psup = Problem(dataclasses.replace(setup, fused_rho="superop"))
+        assert psup.fused_form == "superop" and psup.fused_ok
+        assert streamk.uses_mid(psup._plan, psup.ninit, psup._Sr.shape[-1])
+        before = streamk_mid.launch_counts()
+        (Js, _), gs = psup.build_ensemble_value_and_grad()(Ps, Ps[0])
+        after = streamk_mid.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {
+            "streamk_mid_fwd_launches": 1, "streamk_mid_bwd_launches": 1}
+        assert float((Js - Jc).abs().max()) <= 1e-5 * float(Jc.abs().max())
+        assert float((gs - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
 
 
 def _stream_case(cuda, rng, E, n=N):
@@ -1693,3 +1711,159 @@ def test_rho_mid_problem_on_card_matches_cpu(cuda, fused):
     (Jh, _), gh = ph.build_value_and_grad()(x, x)
     assert abs(float(Jc) - float(Jh)) <= 1e-5 * abs(float(Jh))
     assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
+
+
+# ---- per-sample stacks and the open superop route past one block ----
+
+MIDP = ("streamk_mid_packed_fwd_launches", "streamk_mid_packed_bwd_launches")
+
+
+def _mid_packed_case(cuda, N, B, S, k, iters, solver, store, seed):
+    """A random packed launch past one thread block: S candidates, each
+    with its own non-Hermitian (k, N, N) stack (O(1) spectral scale, a
+    stiff diagonal) and solver rows; (plan, C, x0r, x0i, w)."""
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(size=(S, k, N, N))
+             + 1j * rng.normal(size=(S, k, N, N))) / np.sqrt(N)
+    for s in range(S):
+        stack[s, 0] += np.diag(rng.normal(size=N) * 5.0)
+    stack = stack.astype(np.complex64)
+    gen_diag = -1j * np.stack([np.diag(a[0]) for a in stack]).astype(
+        np.complex128)
+    plan = streamk.make_plan(cuda(stack.real), cuda(stack.imag), 0.02, iters,
+                             gen_diag, solver, store_iters=store)
+    C = streamk.extend_coeffs(plan, cuda(
+        (rng.normal(size=(S, NT, k)) * 0.5).astype(np.float32)))
+    x0r, x0i = (cuda(a) for a in rng.normal(size=(2, B, N)).astype(
+        np.float32))
+    w = cuda(rng.normal(size=(S, NT, B, N)).astype(np.float32))
+    return plan, C, x0r, x0i, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B,S,solver,iters", [
+    (64, 8, 2, "split", 3), (64, 3, 3, "jacobi", 4),
+    (200, 4, 2, "neumann", 4), (200, 1, 3, "split", 3)])
+def test_mid_per_block_matches_plain_on_card(cuda, N, B, S, solver, iters):
+    """The mid pair on per-candidate stacks (a packed plan past one block)
+    against the plain version, bounds as test_mid_kernel_matches_plain_on_
+    card; one launch of each packed mid kernel and none of another; the
+    same bits on a repeat and between stored and replayed iterates."""
+    from quandary_tpu_torch.ops import streamk_mid
+    runs = {}
+    for store in (True, False):
+        plan, C, x0r, x0i, w = _mid_packed_case(cuda, N, B, S, 5, iters,
+                                                solver, store, seed=N + B + S)
+        assert plan.per_block and plan.store_iters == store
+        assert streamk.uses_mid(plan, B, N)
+        before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+        kern = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i,
+                        w)
+        after = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {MIDP[0]: 1, MIDP[1]: 1}
+        again = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i,
+                         w)
+        assert all(torch.equal(a, b) for a, b in zip(kern, again))
+        runs[store] = kern
+    assert all(torch.equal(a, b) for a, b in zip(runs[True], runs[False]))
+    plain = _mid_run(streamk.streamk_propagate_plain, plan, C, x0r, x0i, w)
+    for a, b, tol in zip(runs[True], plain, (1e-5, 1e-4, 1e-4, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_superop_streamk_past_one_block_matches_stream_on_card(cuda):
+    """The guarded open CNOT (dim 256, 4 density matrices) forced onto
+    superop: on 'streamk' the mid pair runs it (1 + 1 launches), and J and
+    the gradient of E = 2 candidates agree with superop on 'stream'
+    (csrc/stream_mid.cu) to 1e-6 / 1e-5 of max."""
+    from quandary_tpu_torch.ops import streamk_mid
+    from quandary_tpu_torch.problem import Problem
+    setup = _open_cnot(True, "superop")
+    pk = Problem(setup)
+    ps = Problem(dataclasses.replace(setup, fused_mode="stream"))
+    assert pk.fused_form == ps.fused_form == "superop"
+    assert pk.fused_ok and pk.fused_refusal is None
+    Ps = np.random.default_rng(4).uniform(-1, 1, (2, setup.nparams)) * 0.05
+    before = streamk_mid.launch_counts()
+    (Jk, _), gk = pk.build_ensemble_value_and_grad()(Ps, Ps[0])
+    after = streamk_mid.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"streamk_mid_fwd_launches": 1,
+                                          "streamk_mid_bwd_launches": 1}
+    (Js, _), gs = ps.build_ensemble_value_and_grad()(Ps, Ps[0])
+    assert float((Jk - Js).abs().max()) <= 1e-6 * float(Js.abs().max())
+    assert float((gk - gs).abs().max()) <= 1e-5 * float(gs.abs().max())
+
+
+def _open_samples(device, nlevels, deltas, ntime=20, T=2.0):
+    """Open detuned realizations (T1, T2 on every qudit, all basis density
+    matrices of two essential levels per qudit), complex64, fused=True."""
+    from quandary_tpu_torch.optim.robust import sample_standard_models
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    n = len(nlevels)
+    freq = [4.1 + 0.2 * q for q in range(n)]
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=8, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(n))
+    common = dict(
+        nessential=(2,) * n, ntime=ntime, dt=T / ntime, oscillators=oscs,
+        ground_freqs_radns=tuple(2 * np.pi * f for f in freq),
+        initcond_type="basis", target_type="pure",
+        pure_target_levels=(1,) + (0,) * (n - 1), objective_type="Jtrace",
+        gamma_tik=1e-6, dtype=torch.complex64, gamma_penalty=0.05,
+        gamma_penalty_energy=0.02, fused=True)
+    base = dict(nlevels=list(nlevels), freq01_ghz=freq, rotfreq_ghz=freq,
+                selfkerr_ghz=[0.2] * n, jkl_ghz=[0.005] * (n * (n - 1) // 2),
+                decay_time=[40.0] * n, dephase_time=[20.0] * n, lindblad=True)
+    return sample_standard_models(
+        base, [{"freq01_ghz": [f + d for f in freq]} for d in deltas], common,
+        device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlevels,deltas,mid", [
+    ((3,), (0.0, 0.002, -0.003), False), ((2, 2, 2), (0.0, 0.002), True)])
+def test_open_packed_robust_on_card_matches_cpu(cuda, nlevels, deltas, mid):
+    """build_packed_robust_objective on open samples on the card: a qutrit
+    (dim 9, 4 density matrices) on one block, three qubits (dim 64, 64
+    density matrices) on the mid pair; one launch of each packed kernel
+    per gradient; J, aux and gradient against the per-sample objective on
+    the card and the packed one on the CPU (f32, 1e-5 / 1e-4 of max)."""
+    from quandary_tpu_torch.ops import streamk_mid
+    from quandary_tpu_torch.optim import robust
+    w = np.linspace(1.0, 2.0, len(deltas))
+    pc = _open_samples(None, nlevels, deltas)
+    ph = _open_samples("cpu", nlevels, deltas)
+    x = (np.random.default_rng(1).normal(size=pc[0].setup.nparams)
+         * 0.05).astype(np.float32)
+
+    def vg(objective, device):
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        J, aux = objective(xt, torch.zeros_like(xt))
+        (g,) = torch.autograd.grad(J, xt)
+        return J.detach().cpu(), g.cpu(), aux
+
+    counts = lambda: {**streamk.launch_counts(),
+                      **streamk_mid.launch_counts()}
+    before = counts()
+    Jc, gc, auxc = vg(robust.build_packed_robust_objective(pc, w), "cuda")
+    after = counts()
+    want = MIDP if mid else ("streamk_packed_fwd_launches",
+                             "streamk_packed_bwd_launches")
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {want[0]: 1, want[1]: 1}
+    for objective, device in (
+            (robust.build_robust_objective(pc, w), "cuda"),
+            (robust.build_packed_robust_objective(ph, w), "cpu")):
+        J, g, aux = vg(objective, device)
+        assert abs(float(Jc) - float(J)) <= 1e-5 * abs(float(J))
+        assert float((gc - g).abs().max()) <= 1e-4 * float(g.abs().max())
+        for k in aux:
+            torch.testing.assert_close(auxc[k].detach().cpu(),
+                                       aux[k].detach().cpu(), rtol=1e-4,
+                                       atol=1e-6)

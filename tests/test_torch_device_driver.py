@@ -218,6 +218,23 @@ def test_state_stays_on_the_device_and_graph_needs_cuda():
         build_device_optimizer(pt, lb, ub, graph=True)
 
 
+@pytest.mark.parametrize("chunk,per_iteration,want", [
+    (10, 313_600, [4, 4, 2]), (10, 63_200, [10]), (8, 325_000, [4, 4]),
+    (3, 5_000_000, [1, 1, 1]), (1, 313_600, [1])])
+def test_graph_segments_stay_under_half_the_node_limit(chunk, per_iteration,
+                                                       want):
+    """A captured plain-route chunk is split into graphs of consecutive
+    iterations under GRAPH_NODE_LIMIT / 2 nodes each (ROADMAP C1): the
+    chunk of 10 iterations at 1000 steps (313,600 nodes each) into 4, 4
+    and 2; an iteration past the limit alone still gets its own graph."""
+    from quandary_tpu_torch.optim.device_driver import (GRAPH_NODE_LIMIT,
+                                                        graph_segments)
+    got = graph_segments(chunk, per_iteration)
+    assert got == want and sum(got) == chunk
+    if per_iteration <= GRAPH_NODE_LIMIT // 2:
+        assert max(got) * per_iteration <= GRAPH_NODE_LIMIT // 2
+
+
 def test_problem_without_a_device_raises_without_cuda():
     """The port's entry points run on the card unless the caller asks for
     the CPU: no quiet CPU default."""

@@ -363,16 +363,22 @@ def test_population_optimizer_runs_open_problem():
 
 def test_route_gate_and_refusals():
     from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.ops import streamk
     from quandary_tpu_torch.optim import robust
     s4 = port_setup(unguarded_setup())
     s16 = port_setup(guarded_setup())
     p4, p16 = TProblem(s4, device="cpu"), TProblem(s16, device="cpu")
     assert p4.fused_form == "superop" and p4.fused_ok
     assert p16.fused_form == "rho" and p16.fused_ok
+    # superop forced past one thread block (dim 256): the mid streamK pair
+    # admits it, where one block's shared memory does not hold the stacks
     forced = TProblem(dataclasses.replace(s16, fused_rho="superop"),
                       device="cpu")
-    assert forced.fused_form == "superop" and not forced.fused_ok
-    assert "shared memory" in forced.fused_refusal
+    assert forced.fused_form == "superop" and forced.fused_ok
+    assert forced.fused_refusal is None
+    assert "shared memory" in streamk.launch_refusal(
+        forced._plan, forced.ninit, forced.N ** 2)
+    assert streamk.uses_mid(forced._plan, forced.ninit, forced.N ** 2)
     off = TProblem(dataclasses.replace(s16, fused=False), device="cpu")
     assert off.fused_form is None and not off.fused_ok
     with pytest.raises(ValueError, match="fused_rho"):
@@ -394,8 +400,15 @@ def test_route_gate_and_refusals():
     assert p144.fused_form == "rho" and not p144.fused_ok
     assert "N = 144" in p144.fused_refusal
     assert "quandary_tpu/problem.py:517" in p144.fused_refusal
-    with pytest.raises(NotImplementedError, match="open"):
-        robust.build_packed_robust_objective([p16, p16])
+    # the packed robust objective takes open samples on the superop form,
+    # here two copies of the rho-route problem at dim 256 (the mid pair's
+    # range): their mean is the problem's own objective
+    x = torch.as_tensor(_params(s16.nparams), dtype=torch.float32)
+    Jp, auxp = robust.build_packed_robust_objective([p16, p16])(x, x)
+    J1, aux1 = p16.objective(x, x)
+    np.testing.assert_allclose(float(Jp), float(J1), rtol=1e-5)
+    np.testing.assert_allclose(auxp["fidelity_per_sample"].numpy(),
+                               [float(aux1["fidelity"])] * 2, rtol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TProblem(s16)

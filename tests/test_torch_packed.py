@@ -201,3 +201,82 @@ def test_build_kernels_loads_once_per_process(monkeypatch, tmp_path):
     monkeypatch.setitem(streamk._LIBS, str(src), (object(), str(lib)))
     src.unlink()
     assert streamk.build_kernels() == (str(lib), 0.0, "")
+
+
+def _superop_case(seed=5, n=3, k=3):
+    """G open systems at the superop route's dimension n^2: each sample's
+    H' = i L (lindblad_prime_stack) of a random Hermitian k-slot stack and
+    two jump operators, so every per-block stack is non-Hermitian; one
+    shared x0 (B, n^2) and the loss weights of _case."""
+    rng = np.random.default_rng(seed)
+    dim = n * n
+    stacks = []
+    for _ in range(G):
+        A = rng.normal(size=(k, n, n)) + 1j * rng.normal(size=(k, n, n))
+        Ls = [0.3 * (rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+              for _ in range(2)]
+        stacks.append(streamk.lindblad_prime_stack(
+            0.5 * (A + np.conj(A.transpose(0, 2, 1))), Ls))
+    stack = np.stack(stacks).astype(np.complex64)
+    assert not np.allclose(stack[0, 0], np.conj(stack[0, 0].T))
+    f32 = lambda a: a.astype(np.float32)
+    return dict(
+        stack=stack,
+        gen_diag=np.stack([-1j * np.diag(s[0]) for s in stack]).astype(
+            np.complex128),
+        x0r=f32(rng.normal(size=(B, dim))), x0i=f32(rng.normal(size=(B, dim))),
+        Cg=f32(rng.normal(size=(NT, G, k)) * 0.3),
+        wTr=f32(rng.normal(size=(G, B, dim))),
+        wTi=f32(rng.normal(size=(G, B, dim))),
+        whr=f32(rng.uniform(0.1, 1.0, (NT, G, B, dim))),
+        whi=f32(rng.normal(size=(NT, G, B, dim))),
+    )
+
+
+@pytest.mark.parametrize("solver,iters", [("jacobi", 6), ("split", 3)])
+def test_plain_packed_superop_matches_pallas(solver, iters, monkeypatch):
+    """The plain per-block twin (the mid pair's oracle) at superop
+    dimensions, one non-Hermitian H' = i L stack per sample, against the
+    JAX packed kernel in interpret mode at 'highest': states and
+    cotangents to 2e-6 x max."""
+    monkeypatch.setattr(pallas_stream, "_PRECISION_MODE", "highest")
+    c = _superop_case()
+    ref = _jax_run(c, solver, iters)
+    got = _torch_run(c, solver, iters)
+    for name, a, b in zip(NAMES, got, ref):
+        assert a.shape == b.shape, name
+        err = np.abs(a - b).max()
+        assert err <= 2e-6 * np.abs(b).max(), (name, err, np.abs(b).max())
+
+
+def test_per_block_plans_past_one_block_take_the_mid_pair(monkeypatch):
+    """A per-block plan goes to the mid pair exactly where one block
+    refuses it; its launch strides are the floats between two candidates'
+    stacks and solver rows (0 for a shared stack and for rows without
+    entries); route_refusal with per_block counts the candidates' stacks
+    against DEVICE_BUDGET_BYTES and names them past it."""
+    z = lambda *s: torch.zeros(s)
+    gd = np.ones((3, 64), np.complex128)
+    big = streamk.make_plan(z(3, 8, 64, 64), z(3, 8, 64, 64), DT, 3, gd,
+                            "jacobi")
+    assert big.per_block and big.Ke == 8
+    assert streamk.launch_refusal(big, 8, 64) is not None
+    assert streamk.uses_mid(big, 8, 64)
+    assert streamk.stack_strides(big) == (8 * 64 * 64, 4 * 64)
+    small = streamk.make_plan(z(3, K, N, N), z(3, K, N, N), DT, 3)
+    assert not streamk.uses_mid(small, B, N)
+    assert streamk.stack_strides(small) == (K * N * N, 0)
+    shared = streamk.make_plan(z(K, N, N), z(K, N, N), DT, 3, np.ones(N),
+                               "split")
+    assert streamk.stack_strides(shared) == (0, 0)
+    args = (3, 8, 64, 8, 3, 1000, True, True)
+    extra = streamk.sweep_bytes(*args, per_block=True) \
+        - streamk.sweep_bytes(*args)
+    assert extra == 2 * 3 * 8 * 64 * 64 * 4
+    assert streamk.route_refusal(8, 64, 8, 3, 1000, E=3,
+                                 per_block=True) is None
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES",
+                        streamk.sweep_bytes(*args))
+    assert streamk.route_refusal(8, 64, 8, 3, 1000, E=3) is None
+    why = streamk.route_refusal(8, 64, 8, 3, 1000, E=3, per_block=True)
+    assert "per-candidate stacks" in why and "DEVICE_BUDGET_BYTES" in why

@@ -162,3 +162,84 @@ def test_packed_robust_refuses_streamed_plane_modes(mode):
     with pytest.raises(NotImplementedError, match=f"fused_mode='{mode}'"):
         trobust.build_packed_robust_objective(
             [pt[0], TProblem(s, device="cpu")])
+
+
+def _open_packed_problems():
+    """Open samples: a qutrit with T1 and T2 (N = 3, the 4 basis density
+    matrices of its two essential levels: the superop route at dim 9),
+    three detunings, leakage and energy penalties, complex64, 16 steps."""
+    base = dict(_base(3), decay_time=[40.0], dephase_time=[20.0],
+                lindblad=True)
+    common = _common("jax", T=4.0, ntime=16, pallas=True,
+                     pallas_mode="streamk", dtype=jnp.complex64,
+                     gamma_penalty=0.05, gamma_penalty_energy=0.02,
+                     initcond_type="basis")
+    pj = jrobust.sample_standard_models(
+        base, _detuned((0.0, 0.002, -0.003)), common)
+    assert all(p.use_pallas and p.pallas_form == "superop" for p in pj)
+    pt = [TProblem(port_setup(p.setup), device="cpu") for p in pj]
+    return pj, pt
+
+
+def test_packed_robust_open_matches_jax_packed(monkeypatch):
+    """The open packed robust objective against the JAX one with its
+    packed kernel in interpret mode at exact-f32 'highest' (J to rtol
+    5e-6, gradient to 5e-6 x max, aux 1e-5 / 1e-8), and against the port's
+    per-sample objective; samples whose Problems took the rho route pack
+    on the same superop form and give the same objective."""
+    monkeypatch.setattr(pallas_stream, "_PRECISION_MODE", "highest")
+    pj, pt = _open_packed_problems()
+    assert all(p.fused_form == "superop" for p in pt)
+    w = [0.5, 0.3, 0.2]
+    x = (np.random.default_rng(0).normal(size=pt[0].setup.nparams)
+         * 0.05).astype(np.float32)
+    ref = np.zeros_like(x)
+    (Jj, aj), gj = jax.jit(jax.value_and_grad(
+        jrobust.build_packed_robust_objective(pj, w), has_aux=True))(
+            jnp.asarray(x), jnp.asarray(ref))
+
+    def vg(objective):
+        xt = torch.tensor(x, requires_grad=True)
+        J, aux = objective(xt, torch.tensor(ref))
+        (g,) = torch.autograd.grad(J, xt)
+        return J.detach(), g, aux
+
+    Jt, gt, at = vg(trobust.build_packed_robust_objective(pt, w))
+    np.testing.assert_allclose(float(Jt), float(Jj), rtol=5e-6)
+    gj = np.asarray(gj)
+    assert np.abs(gt.numpy() - gj).max() <= 5e-6 * np.abs(gj).max()
+    _assert_aux(at, aj, 1e-5, 1e-8)
+
+    (J0, a0), g0 = trobust.build_robust_value_and_grad(pt, w)(x, ref)
+    np.testing.assert_allclose(float(Jt), float(J0), rtol=5e-6)
+    assert float((gt - g0).abs().max()) <= 5e-6 * float(g0.abs().max())
+    for k in a0:
+        torch.testing.assert_close(at[k].detach(), a0[k], rtol=1e-5,
+                                   atol=1e-8)
+
+    pr = [TProblem(port_setup(p.setup, fused_rho="rho"), device="cpu")
+          for p in pj]
+    assert all(p.fused_form == "rho" for p in pr)
+    Jr, gr, ar = vg(trobust.build_packed_robust_objective(pr, w))
+    np.testing.assert_allclose(float(Jr), float(Jt), rtol=1e-6)
+    assert float((gr - gt).abs().max()) <= 1e-6 * float(gt.abs().max())
+    torch.testing.assert_close(ar["fidelity_per_sample"],
+                               at["fidelity_per_sample"], rtol=1e-6,
+                               atol=1e-9)
+
+
+def test_packed_robust_open_validation_and_limit(monkeypatch):
+    """Open and closed samples do not pack together; past what either
+    streamK pair takes (here a device budget below the packed sweep's
+    bytes) the objective raises a ValueError naming the limit."""
+    _, po = _open_packed_problems()
+    _, pc = _packed_problems()
+    with pytest.raises(ValueError, match="share shape"):
+        trobust.build_packed_robust_objective([po[0], pc[0]])
+    assert trobust.packed_refusal(po) is None
+    from quandary_tpu_torch.ops import streamk
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", 1 << 10)
+    why = trobust.packed_refusal(po)
+    assert "3 samples at dimension 9" in why and "DEVICE_BUDGET_BYTES" in why
+    with pytest.raises(ValueError, match="DEVICE_BUDGET_BYTES"):
+        trobust.build_packed_robust_objective(po)

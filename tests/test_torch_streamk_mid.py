@@ -271,14 +271,15 @@ ONE_BLOCK = [(4, 16, 8, 3), (4, 16, 8, 8), (16, 16, 5, 8), (64, 16, 8, 3),
 
 @pytest.mark.parametrize("B,N,Ke,iters", ONE_BLOCK)
 def test_dispatch_keeps_one_block(B, N, Ke, iters):
-    """uses_mid is exactly size_refusal's refusal for a shared stack; a
-    per-candidate (packed) plan never goes to the mid pair."""
+    """uses_mid is exactly size_refusal's refusal, for a shared stack and
+    for a per-candidate (packed) plan alike: the packed plan goes to the
+    mid pair only where one block refuses it."""
     z = torch.zeros(Ke, N, N)
     plan = streamk.make_plan(z, z, 0.01, iters)
     one = streamk.size_refusal(B, N, Ke, iters) is None
     assert streamk.uses_mid(plan, B, N) == (not one)
     packed = dataclasses.replace(plan, Sr=z[None], Si=z[None])
-    assert not streamk.uses_mid(packed, B, N)
+    assert streamk.uses_mid(packed, B, N) == (not one)
 
 
 def _jax_store_iters_ok(ntime, iters, ninit, dim_flat):
