@@ -160,9 +160,13 @@ whole in every CTA, M(t) in device-memory scratch):
    NT_SHORT steps, at N = 65, 96, 125 and 128 (rho_bench-style open
    systems: two qudits [5, 13], [8, 12], [8, 16] and three 5-level
    qudits), neumann, jacobi and split, with and without jump operators,
-   stored and replayed iterates, two cluster sizes; the same bits across
-   G (8 against 16), between stored and replayed iterates and on a
-   repeat; qudits125 (rho_bench's 3 qutrits with two guard levels each,
+   stored and replayed iterates, two cluster sizes, the replaying
+   backward on both of its schedules ('split': the replay on clusters of
+   its own ahead of the adjoint, 'chain': in the adjoint's chain); the
+   same bits across G (8 against 16), between stored and replayed
+   iterates on both schedules and on a repeat; 'split' at E B = 24 on
+   clusters of 16 (more than the card holds at once) against plain and
+   'chain'; qudits125 (rho_bench's 3 qutrits with two guard levels each,
    N = 125, 1000 steps, jacobi-6) through Problem (fused=True and 'auto')
    at full depth: 1 + 1 mid launches per sweep, J and gradient against
    plain on the card at NT_SHORT steps and the f64 port on the CPU at
@@ -869,11 +873,15 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
     for key, args in (("fwd", rho._fwd_args), ("bwd", rho._bwd_args)):
         if mid:
             m = rho_mid.mid_layouts[key]
-            tile, G, threads = m["tile"], m["G"], m["threads"]
+            tile, G, threads, ctas = m["tile"], m["G"], m["threads"], \
+                m["ctas"]
         else:
             tile, G, threads, _ = args(lib, plan, E, nt, B, store)[-4:]
-        out[f"{key}_cluster"] = dict(G=G, ctas=E * B * G, tile=tile,
+            ctas = E * B * G
+        out[f"{key}_cluster"] = dict(G=G, ctas=ctas, tile=tile,
                                      threads=threads)
+        if mid and key == "bwd":
+            out["bwd_cluster"].update(schedule=m["schedule"], ring=m["ring"])
         out[f"{key}_us_per_step"] = 1e3 * out[key] / nt
     if plain:
         got = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh,
@@ -1651,7 +1659,9 @@ def rho_mid_compare(plan, x0r, x0i, C, rng, store, G):
     backward's: the kernel's history and random cotangents): max abs errors
     of the states, C-bar and x0-bar, the relative ones, the states of both
     against the plain version in f64 on the card; exactly 1 + 1 mid
-    launches."""
+    launches. With replayed iterates the backward runs on the schedule the
+    planner picks and once more on the other one ('split' / 'chain'), whose
+    outputs must have the same bits (`schedules_equal`)."""
     E, nt = C.shape[:2]
     w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
                                    dtype=torch.float32)
@@ -1666,6 +1676,12 @@ def rho_mid_compare(plan, x0r, x0i, C, rng, store, G):
     if (fwd[4] is not None) != store:
         raise RuntimeError(f"rho_mid_fwd stored iterates: {fwd[4] is not None}")
     shapes = {k: dict(rho_mid.mid_layouts[k]) for k in ("fwd", "bwd")}
+    same = True
+    if not store:
+        other = {"split": "chain", "chain": "split"}[shapes["bwd"]["schedule"]]
+        got = rho_mid._kernel_bwd(plan, x0r, x0i, C, *fwd[2:], gT, gT, jr, ji,
+                                  _cluster=G, _schedule=other)
+        same = all(torch.equal(a, b) for a, b in zip(got, (g0r, g0i, Cb)))
     flat = lambda ts: torch.cat([t.flatten() for t in ts])
     with torch.no_grad():
         ph = rho.plain_forward(plan, x0r, x0i, C)
@@ -1686,13 +1702,14 @@ def rho_mid_compare(plan, x0r, x0i, C, rng, store, G):
                 cbar_rel=max_rel(Cb, pb[2]), x0bar_rel=max_rel(xk, xp),
                 kernel_f64=float((sk - s64).abs().max()),
                 plain_f64=float((sp - s64).abs().max()),
-                G=shapes["fwd"]["G"], shapes=shapes)
+                G=shapes["fwd"]["G"], schedules_equal=same, shapes=shapes)
 
 
 def rho_mid_bits(plan, x0r, x0i, C, rng):
     """The mid pair's bits: xT, hist, the stored iterates and g0 equal at
     G = 8 and 16 (Cb's difference relative to its max), g0 and Cb equal
-    from stored and from replayed iterates, and on a repeat."""
+    from stored and from replayed iterates on both of the backward's
+    schedules ('split' and 'chain') at each G, and on a repeat."""
     E, nt = C.shape[:2]
     w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
                                    dtype=torch.float32)
@@ -1707,13 +1724,62 @@ def rho_mid_bits(plan, x0r, x0i, C, rng):
         replay = [rho._kernel_bwd(plan, x0r, x0i, C, fwd[2], fwd[3], None,
                                   None, gT, gT, jh, jh) for _ in range(2)]
         again = rho._kernel_fwd(plan, x0r, x0i, C)
+        scheds = {(G, s): rho_mid._kernel_bwd(
+            plan, x0r, x0i, C, fwd[2], fwd[3], None, None, gT, gT, jh, jh,
+            _cluster=G, _schedule=s) for G in (8, 16)
+            for s in ("split", "chain")}
     eq = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
     return dict(
         fwd_G8_G16=eq(out[8][0], out[16][0]),
         g0_G8_G16=eq(out[8][1][:2], out[16][1][:2]),
         cbar_G8_G16_rel=max_rel(out[8][1][2], out[16][1][2]),
         stored_replayed=eq(out[16][1], replay[0]),
+        stored_split_chain=all(eq(out[G][1], v)
+                               for (G, _), v in scheds.items()),
         repeat=eq(replay[0], replay[1]) and eq(again, fwd))
+
+
+def rho_mid_wide(pr, rng, E=8, G=16):
+    """The backward's 'split' schedule past what the card holds at once: E
+    candidates of `pr`'s B matrices (E B = 24 at qudits125's shape) on
+    clusters of G CTAs, at NT_SHORT steps, replayed iterates: 2 E B
+    clusters against the card's count, against plain_backward (C-bar and
+    x0-bar relative to their max), and its bits against the 'chain'
+    schedule's; the wall of its launch."""
+    to_card = lambda a: torch.as_tensor(a, device="cuda", dtype=torch.float32)
+    P = to_card(bench_params(pr.setup.nparams, E, seed=24))
+    C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+    plan, x0r, x0i = pr._plan, pr._x0r, pr._x0i
+    with iterates_budget(0):
+        fwd = rho._kernel_fwd(plan, x0r, x0i, C)
+    w = lambda *s: torch.as_tensor(rng.normal(size=s), device="cuda",
+                                   dtype=torch.float32)
+    nt = C.shape[1]
+    gT, jh = w(E, *x0r.shape), w(E, nt, *x0r.shape)
+    args = (plan, x0r, x0i, C, fwd[2], fwd[3], None, None, gT, gT, jh, jh)
+    lib = rho_mid._lib()
+    shape = rho_mid.launch_shape(lib, True, plan, E, x0r.shape[0], G)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = rho_mid._kernel_bwd(*args, _cluster=G, _schedule="split")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = dict(rho_mid.mid_layouts["bwd"])
+    chain = rho_mid._kernel_bwd(*args, _cluster=G, _schedule="chain")
+    with torch.no_grad():
+        plain = rho.plain_backward(plan, x0r, x0i, C, fwd[2], fwd[3], gT, gT,
+                                   jh, jh)
+    torch.cuda.synchronize()
+    return dict(EB=E * x0r.shape[0], G=G, nt=nt,
+                holds=rho_mid.holds(lib, True, shape), layout=layout,
+                split_s=wall, split_chain_equal=all(
+                    torch.equal(a, b) for a, b in zip(split, chain)),
+                finite=all(bool(torch.isfinite(t).all()) for t in split),
+                x0bar_rel=max_rel(torch.cat([split[0].flatten(),
+                                             split[1].flatten()]),
+                                  torch.cat([plain[0].flatten(),
+                                             plain[1].flatten()])),
+                cbar_rel=max_rel(split[2], plain[2]))
 
 
 def rho_mid_phase(smi, worker, ref_path):
@@ -1756,9 +1822,19 @@ def rho_mid_phase(smi, worker, ref_path):
             if err["state"] > TOL_RHO_STATE_ABS \
                     or err["cbar_rel"] > TOL_RHO_GRAD_REL \
                     or err["x0bar_rel"] > TOL_RHO_GRAD_REL \
+                    or not err["schedules_equal"] \
                     or err["kernel_f64"] > max(TOL_RHO_F64_ABS,
                                                err["plain_f64"]):
                 bad.append((N, solver, div, jumps, store, G, err))
+    wide = rho_mid_wide(short[125], rng)
+    phase(26, f"rho_mid_bwd 'split' at E B = {wide['EB']} on clusters of "
+              f"{wide['G']} (the card holds {wide['holds']} of the "
+              f"{wide['layout']['clusters']}): {json.dumps(wide)}; bounds "
+              f"{TOL_RHO_GRAD_REL} x max, the 'chain' schedule's bits")
+    if not (wide["split_chain_equal"] and wide["finite"]
+            and wide["holds"] < wide["layout"]["clusters"]
+            and max(wide["x0bar_rel"], wide["cbar_rel"]) <= TOL_RHO_GRAD_REL):
+        raise RuntimeError(f"rho_mid_bwd at E B = {wide['EB']}: {wide}")
     pr = short[128]
     plan = rho.make_plan(pr._Sr, pr._Si, pr.engine.Ls_np, pr.setup.dt, 6,
                          pr.gen_diag, "jacobi")
@@ -1907,7 +1983,7 @@ def rho_mid_phase(smi, worker, ref_path):
         raise RuntimeError(f"qudits125 front end: errors {fe_err}, launches "
                            f"{sim} / {opt} ({sweeps} sweeps)")
     return dict(worst=worst, full=full, report=report, launches=launches,
-                fe=fe, bits=bits)
+                fe=fe, bits=bits, wide=wide)
 
 
 # Phase 27, the mid-size streamed-plane pair (csrc/stream_mid.cu): the
@@ -3491,7 +3567,10 @@ def run_phases(smi, worker, ref_path):
                     launches_front_end=rm["fe"]["launches_optimize"][
                         RHO_MID[i]],
                     launches_front_end_simulate=rm["fe"][
-                        "launches_simulate"][RHO_MID[i]])
+                        "launches_simulate"][RHO_MID[i]],
+                    **({} if i == 0 else dict(
+                        split_EB24_G16_s=rm["wide"]["split_s"],
+                        split_EB24_clusters_held=rm["wide"]["holds"])))
 
     def smid_more(i):
         """The mid stream pair: its shape and sweeps/s at N = 256, N = 512's

@@ -42,14 +42,19 @@
 //    the backward row-major (u M), and transposed too where it replays.
 //  * The jump and solver planes are read from device memory as in rho.cu;
 //    the jump bands L_l v sit in shared memory.
-//  * The backward reads each pair's input u from device memory (the stored
-//    or replayed stage iterate, or the pre-step state in the split frame,
-//    which each CTA writes band by band into the scratch) row by row inside
-//    the two products of the H_eff cotangent; it never copies u whole. It
-//    forms c^dag u entry by entry and, for c u^dag, its adjoint's band
-//    u c^dag (its factor c^dag is the shared operand read along a row, free
-//    of bank conflicts), and reduces the latter against the transposed
-//    stacks: <c u^dag, S> = <u c^dag, S^T> entry for entry.
+//  * The backward's two products of the H_eff cotangent need only bands
+//    of each pair's input u (the stored or replayed stage iterate, or the
+//    pre-step state in the split frame, which each CTA writes band by band
+//    into the scratch): u c^dag, the adjoint of c u^dag's band (its factor
+//    c^dag is the shared operand read along a row, free of bank
+//    conflicts), needs u's row band, and c^dag u, taken by column band,
+//    u's column band. Each CTA copies both bands into shared memory by
+//    cp.async while the pair's Tt runs. Both halves meet the transposed
+//    stacks in C-bar: <c u^dag, S> = <u c^dag, S^T> entry for entry, and
+//    c^dag u's entry (c, r) meets S^T(r, c).
+//  * Where the backward replays its iterates, the replay runs on clusters
+//    of its own a few steps ahead of the adjoint (the 'split' schedule,
+//    below), or in the adjoint's chain before each step's pairs.
 //
 // Arithmetic and order: exact f32 FMA on the CUDA cores; every entry is one
 // thread's fixed chain of fmaf (j = 0 .. N-1 in every product, jump
@@ -65,7 +70,10 @@
 // iters + 1 of them in a dependent chain over a matrix's G SMs. Each T pays
 // a cluster barrier and an exchange of 8 N^2 (G - 1) / G bytes of
 // distributed shared memory per CTA, and reads M and the jump planes from
-// L2. Tensor-core products and fewer barriers are later work.
+// L2. The backward's chain is its iters + 1 Tt a step; its replay (iters
+// T a step, 40% of the single-role backward at N = 125) runs beside it on
+// SMs that would idle, where the card holds both roles. Tensor-core
+// products and fewer barriers are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -582,60 +590,212 @@ rho_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   cl.sync();            // no CTA leaves while another may still push to it
 }
 
-// Backward: the steps in reverse on the same layout. Inputs as the forward's
-// plus the transposed stacks St (2, K, N, N) = [Sr^T, Si^T], the history
-// (E, nt, B, N, N), its cotangent j (same shape) and the final-state
-// cotangent gT (E, B, N, N). ks holds the forward's stage iterates
-// (E, B, nt, iters, N, N) with store, else it is a scratch (E, B, iters, N, N)
-// that the replay of each step fills, band by band. scr: 12 N^2 floats per
-// cluster: for each step parity M row-major, M transposed (read by the
-// replay) and the pre-step state in the split frame, each a (re, im) pair.
-// Writes g0 (E, B, N, N), which also parks the running cotangent during a
-// step, and Cb (E, B, nt, K). Shared memory: two mbarriers (the operand,
-// C-bar), the operand F (one buffer), jb jump bands, the warps' C-bar
-// partials and the cluster's (rank 0's).
-template <int TS>
-__global__ void __launch_bounds__(TS == 4 ? 256 : 512)
-rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
-            const float* __restrict__ St, const float* __restrict__ L,
-            const float* __restrict__ C, const float* __restrict__ x0r,
-            const float* __restrict__ x0i, const float* __restrict__ hr,
-            const float* __restrict__ hi, const float* __restrict__ jr,
-            const float* __restrict__ ji, const float* __restrict__ gTr,
-            const float* __restrict__ gTi, const float* __restrict__ el,
-            float* ksr, float* ksi, float* g0r, float* g0i,
-            float* __restrict__ Cb, float* scr, Dims d, int G, int jb) {
-  extern __shared__ __align__(16) float smb[];
-  cg::cluster_group cl = cg::this_cluster();
-  const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
-  const int iters = d.iters, K = d.K;
-  const int rank = (int)cl.block_rank();
-  const int r0 = rank * N / G, R = (rank + 1) * N / G - r0;
-  const int Rmax = (N + G - 1) / G;
-  const unsigned bars = smem_u32(smb);    // 2 mbarriers of 8 bytes
-  float* F = smb + 8;           // the operand, one buffer of (re, im)
-  float* tb = F + 2 * plane;    // jb jump bands of (re, im) Rmax x ld
-  float* red = tb + (size_t)2 * jb * Rmax * ld;     // (nwarps, K)
-  float* slots = red + (blockDim.x >> 5) * K;       // (G, K), rank 0's
+// The backward's two roles and their hand-off. With replayed iterates (no
+// store, iters > 0) the schedule is either 'chain', one cluster per density
+// matrix that replays each step's stage chain before its pairs (the
+// single-role order), or 'split': two clusters per matrix, one replaying the
+// steps into a ring of W slots of device memory (each slot a step's iters
+// iterates, ring slot s mod W for the s-th step in reverse) a few steps
+// ahead of the other, the adjoint, which runs only the pairs. flags (ints,
+// zeroed by the wrapper): the ticket counter, a claim word per matrix, then
+// per (matrix, slot) the count of CTAs that filled it ("full") and of CTAs
+// that have copied the last iterate out of it ("empty"). A cluster takes its
+// matrix and role by ticket in the order it starts: ticket 2m replays matrix
+// m, 2m + 1 is its adjoint, so an adjoint only waits on a replay that
+// started before it. The replay writes slot s mod W of step s >= W only
+// after the adjoint has emptied step s - W; at step W, if no adjoint has
+// claimed the matrix yet (the card holds too few clusters), the replay hands
+// the rest of the steps to it and ends: the claim word says from which step
+// the adjoint replays in its own chain. So no cluster waits on one that has
+// not started.
+namespace {
 
-  const int blk = blockIdx.x / G, e = blk / d.B, ib = blk - e * d.B;
+constexpr int CLAIMED = 1 << 30;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One thread spins until *p >= target (a barrier after it shows what the
+// other role published to the CTA). The other role is running, so a wait
+// takes at most about a step; one past WAIT_LIMIT_NS traps, so that a fault
+// of the hand-off fails the launch instead of holding the card.
+constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;
+
+__device__ __forceinline__ void wait_count(const int* p, int target) {
+  if (ld_acquire(p) >= target) return;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire(p) < target) {
+    __nanosleep(64);
+    if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
+  }
+}
+
+// after a barrier of the CTA, one thread publishes the CTA's earlier writes
+// (or its finished reads) by adding one to *p
+__device__ __forceinline__ void signal_count(int* p) {
+  __threadfence();
+  atomicAdd(p, 1);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The pair input u's row band [r0, r0 + R) into (Ur, Ur + Rmax ld) (row
+// stride ld) and its column band into (Uc, Uc + N Rmax) (N rows of stride
+// Rmax), from the (N, N) planes ur, ui, by cp.async: the two cotangent
+// products read nothing else of u.
+__device__ __forceinline__ void copy_bands(float* Ur, float* Uc,
+                                           const float* ur, const float* ui,
+                                           int N, int r0, int R, int ld,
+                                           int Rmax) {
+  for (int e = threadIdx.x; e < R * N; e += blockDim.x) {
+    const int q = e / N, j = e - q * N;
+    cp_async4(Ur + q * ld + j, ur + (r0 + q) * N + j);
+    cp_async4(Ur + Rmax * ld + q * ld + j, ui + (r0 + q) * N + j);
+    const int jj = e / R, qq = e - jj * R;
+    cp_async4(Uc + jj * Rmax + qq, ur + jj * N + r0 + qq);
+    cp_async4(Uc + N * Rmax + jj * Rmax + qq, ui + jj * N + r0 + qq);
+  }
+}
+
+// Everything a backward CTA reads and writes (the kernel's arguments).
+struct Bwd {
+  const float *Sr, *Si, *St, *L, *C, *x0r, *x0i, *hr, *hi, *jr, *ji, *gTr,
+      *gTi, *el;
+  float *ksr, *ksi, *g0r, *g0i, *Cb, *scr;
+  int* flags;
+  Dims d;
+  int G, jb, split, W;
+};
+
+// device-memory scratch per density matrix, in N^2 floats: per step parity
+// the adjoint's M row-major, M transposed (for its own replay) and the
+// pre-step state in the split frame, each a (re, im) pair; then the replay
+// role's M transposed for the two parities
+constexpr int BWD_SCRATCH = 16;
+
+// The CTA's band of the pre-step state of step t (x0 at t = 0, else the
+// previous history entry), rotated into the split frame where split.
+template <int TS>
+__device__ __forceinline__ void pre_state(float (&xr)[TS][TS],
+                                          float (&xi)[TS][TS], const Bwd& p,
+                                          int e, int ib, int t,
+                                          const int (&r)[TS],
+                                          const int (&c)[TS],
+                                          const bool (&ok)[TS][TS]) {
+  const Dims& d = p.d;
+  const int N = d.N, NN = N * N;
+  const size_t h0 = (((size_t)e * d.nt + t) * d.B + ib) * NN;
+  const size_t xp = t == 0 ? (size_t)ib * NN : h0 - (size_t)d.B * NN;
+  const float* xpr = (t == 0 ? p.x0r : p.hr) + xp;
+  const float* xpi = (t == 0 ? p.x0i : p.hi) + xp;
+#pragma unroll
+  for (int a = 0; a < TS; ++a)
+#pragma unroll
+    for (int b = 0; b < TS; ++b) {
+      xr[a][b] = xi[a][b] = 0.f;
+      if (!ok[a][b]) continue;
+      const int o = r[a] * N + c[b];
+      xr[a][b] = xpr[o];
+      xi[a][b] = xpi[o];
+      if (d.mode == MODE_SPLIT) cmul_rn(p.el, p.el + NN, o, xr[a][b], xi[a][b]);
+    }
+}
+
+// The replay role of matrix blk: each step's stage iterates into ring slot
+// s mod W, the forward's stage_chain on M^T it contracts itself, so the
+// same bits as stored iterates. hdr: rank 0's header (its decision at step
+// W in hdr[3]).
+template <int TS>
+__device__ __forceinline__ void replay_role(
+    const Bwd& p, int blk, Exchange& ex, float* tb, int* hdr, int rank,
+    int r0, int R, int Rmax, const int (&r)[TS], const int (&c)[TS],
+    const bool (&ok)[TS][TS]) {
+  cg::cluster_group cl = cg::this_cluster();
+  const Dims& d = p.d;
+  const int N = d.N, NN = N * N, ld = N | 1, W = p.W, G = p.G;
+  const int e = blk / d.B, ib = blk - e * d.B;
+  const bool split = d.mode == MODE_SPLIT;
+  float* mts = p.scr + ((size_t)blk * BWD_SCRATCH + 12) * NN;
+  int* full = p.flags + 1 + d.E * d.B + (size_t)blk * W;
+  int* empty = full + (size_t)d.E * d.B * W;
+  for (int s = 0; s < d.nt; ++s) {
+    const int t = d.nt - 1 - s, sl = s % W;
+    if (s == W && rank == 0 && threadIdx.x == 0)     // unclaimed: hand over
+      hdr[3] = atomicCAS(p.flags + 1 + blk, 0, s + 1) == 0;
+    float* Mt = mts + (size_t)(t & 1) * 2 * NN;
+    contract_band(p.Sr, p.Si, p.C + ((size_t)e * d.nt + t) * d.K, d.K, N, r0,
+                  R, nullptr, nullptr, Mt, Mt + NN);
+    float xr[TS][TS], xi[TS][TS];
+    pre_state<TS>(xr, xi, p, e, ib, t, r, c, ok);
+    cluster_sync();     // M^T whole; the operand buffer is free
+    if (s == W && cl.map_shared_rank(hdr, 0)[3]) break;
+    if (s >= W) {       // the adjoint has emptied step s - W
+      if (threadIdx.x == 0) wait_count(empty + sl, G * (s / W));
+      __syncthreads();
+    }
+    const Gen g{Mt, Mt + NN, tb, p.L, split ? p.el + 2 * NN : nullptr,
+                split ? p.el + 3 * NN : nullptr, r0, N, ld, Rmax, d.J, p.jb};
+    ex.share<TS>(xr, xi, r, c, ok, ld);
+    float kr[TS][TS], ki[TS][TS];
+    const size_t ks0 = ((size_t)blk * W + sl) * d.iters * NN;
+    stage_chain<TS>(kr, ki, d.iters - 1, ex, g, r, c, ok,
+                    d.mode == MODE_JACOBI, d.a, p.el, d.iters, p.ksr + ks0,
+                    p.ksi + ks0);
+    __syncthreads();
+    if (threadIdx.x == 0) signal_count(full + sl);
+  }
+}
+
+// The adjoint role of matrix blk: the steps in reverse, each the transpose
+// of its stage chain in iters + 1 (cotangent, input) pairs. Its iterates
+// are stored (d.store), come from the replay role's ring for the steps
+// before `first`, or are replayed in its own chain from `first` on.
+template <int TS>
+__device__ __forceinline__ void adjoint_role(
+    const Bwd& p, int blk, int first, Exchange& ex, float* tb, float* U,
+    float* red, float* slots, unsigned bars, int rank, int r0, int R,
+    int Rmax, const int (&r)[TS], const int (&c)[TS],
+    const bool (&ok)[TS][TS]) {
+  const Dims& d = p.d;
+  const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
+  const int iters = d.iters, K = d.K, W = p.W, G = p.G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int e = blk / d.B, ib = blk - e * d.B;
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
   const bool replay = !d.store && iters > 0;
-  const float *e0 = el, *e1 = el + NN, *e2 = el + 2 * NN, *e3 = el + 3 * NN;
-  const float *SrT = St, *SiT = St + (size_t)K * NN;
-  int r[TS], c[TS];
-  bool ok[TS][TS];
-  band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
-  const size_t gb = (size_t)blk * NN;
-  Exchange ex{F, plane, G, rank, bars, tid == 0 ? 8u * N * (N - R) : 0u, 0};
+  const float *e0 = p.el, *e1 = p.el + NN, *e2 = p.el + 2 * NN,
+              *e3 = p.el + 3 * NN;
+  const float *SrT = p.St, *SiT = p.St + (size_t)K * NN;
+  int* full = p.flags + 1 + d.E * d.B + (size_t)blk * W;
+  int* empty = full + (size_t)d.E * d.B * W;
   const unsigned tx_c = tid == 0 ? 4u * (G - 1) * K : 0u;
-  if (tid == 0) {
-    for (int k = 0; k < 2; ++k) bar_init(bars + 8 * k, blockDim.x);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  cl.sync();            // every CTA's mbarriers exist before any push
+  float* Ur = U;                          // u's row band (re, im)
+  float* Uc = U + 2 * Rmax * ld;          // u's column band (re, im)
+  int rl[TS];
+#pragma unroll
+  for (int a = 0; a < TS; ++a) rl[a] = r[a] - r0;
+  const size_t gb = (size_t)blk * NN;
 
   float gr[TS][TS], gi[TS][TS];
 #pragma unroll
@@ -643,39 +803,35 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 #pragma unroll
     for (int b = 0; b < TS; ++b) {
       const int o = r[a] * N + c[b];
-      gr[a][b] = gTr[gb + o];
-      gi[a][b] = gTi[gb + o];
+      gr[a][b] = p.gTr[gb + o];
+      gi[a][b] = p.gTi[gb + o];
     }
 
-  for (int t = d.nt - 1; t >= 0; --t) {
+  for (int s = 0; s < d.nt; ++s) {
+    const int t = d.nt - 1 - s, sl = s % W;
+    const bool own = replay && s >= first;      // replays step t itself
+    const bool ring = replay && !own;           // the replay role's iterates
     const size_t st = (size_t)e * d.nt + t;
-    const size_t h0 = (st * d.B + ib) * NN;           // hist[e, t, ib]
+    const size_t h0 = (st * d.B + ib) * NN;     // hist[e, t, ib]
     const size_t ks0 = d.store ? ((size_t)blk * d.nt + t) * iters * NN
-                               : (size_t)blk * iters * NN;
-    // pre-step state: x0 at t = 0, else the previous history entry
-    const size_t xp = t == 0 ? (size_t)ib * NN : h0 - (size_t)d.B * NN;
-    const float* xpr = (t == 0 ? x0r : hr) + xp;
-    const float* xpi = (t == 0 ? x0i : hi) + xp;
-    float* S = scr + (size_t)blk * 12 * NN + (size_t)(t & 1) * 6 * NN;
+                               : ((size_t)blk * W + sl) * iters * NN;
+    float* S = p.scr + ((size_t)blk * BWD_SCRATCH + (t & 1) * 6) * NN;
     float *Mrow = S, *Mt = S + 2 * NN, *xs = S + 4 * NN;
-    contract_band(Sr, Si, C + st * K, K, N, r0, R, Mrow, Mrow + NN,
-                  replay ? Mt : nullptr, replay ? Mt + NN : nullptr);
+    contract_band(p.Sr, p.Si, p.C + st * K, K, N, r0, R, Mrow, Mrow + NN,
+                  own ? Mt : nullptr, own ? Mt + NN : nullptr);
     // the pre-step state's band in the split frame: into the scratch (the
-    // last pair's input) and, for the replay, into the operand below
+    // last pair's input) and, for the own replay, into the operand below
     float xr[TS][TS], xi[TS][TS];
+    pre_state<TS>(xr, xi, p, e, ib, t, r, c, ok);
 #pragma unroll
     for (int a = 0; a < TS; ++a)
 #pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        xr[a][b] = xi[a][b] = 0.f;
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b];
-        xr[a][b] = xpr[o];
-        xi[a][b] = xpi[o];
-        if (split) cmul_rn(e0, e1, o, xr[a][b], xi[a][b]);
-        xs[o] = xr[a][b];
-        xs[NN + o] = xi[a][b];
-      }
+      for (int b = 0; b < TS; ++b)
+        if (ok[a][b]) {
+          const int o = r[a] * N + c[b];
+          xs[o] = xr[a][b];
+          xs[NN + o] = xi[a][b];
+        }
     // history cotangent in, cotangent into the split frame, and parked
 #pragma unroll
     for (int a = 0; a < TS; ++a)
@@ -683,22 +839,23 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       for (int b = 0; b < TS; ++b) {
         if (!ok[a][b]) continue;
         const int o = r[a] * N + c[b];
-        gr[a][b] += jr[h0 + o];
-        gi[a][b] += ji[h0 + o];
+        gr[a][b] += p.jr[h0 + o];
+        gi[a][b] += p.ji[h0 + o];
         if (split) cmul_conj_rn(e0, e1, o, gr[a][b], gi[a][b]);
-        g0r[gb + o] = gr[a][b];
-        g0i[gb + o] = gi[a][b];
+        p.g0r[gb + o] = gr[a][b];
+        p.g0i[gb + o] = gi[a][b];
       }
+    if (ring && tid == 0) wait_count(full + sl, G * (s / W + 1));
     // the scratch whole for every CTA; the operand buffer is free
     cluster_sync();
 
-    if (replay) {       // the stage iterates into ks, band by band
-      const Gen gt{Mt, Mt + NN, tb, L, split ? e2 : nullptr,
-                   split ? e3 : nullptr, r0, N, ld, Rmax, d.J, jb};
+    if (own) {          // the stage iterates into ks, band by band
+      const Gen gt{Mt, Mt + NN, tb, p.L, split ? e2 : nullptr,
+                   split ? e3 : nullptr, r0, N, ld, Rmax, d.J, p.jb};
       ex.share<TS>(xr, xi, r, c, ok, ld);
       float kr[TS][TS], ki[TS][TS];
-      stage_chain<TS>(kr, ki, iters - 1, ex, gt, r, c, ok, jac, d.a, el,
-                      iters, ksr + ks0, ksi + ks0);
+      stage_chain<TS>(kr, ki, iters - 1, ex, gt, r, c, ok, jac, d.a, p.el,
+                      iters, p.ksr + ks0, p.ksi + ks0);
       // every CTA's bands of ks are read whole below; the buffer is free
       cluster_sync();
     }
@@ -706,8 +863,8 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
     // transpose of the stage chain, pairs i = 0..iters: for i < iters the
     // pair's cotangent is c = a * k-bar and its input u = k_{iters-1-i};
     // the last pair is (b-bar + k-bar, x_pre in the split frame)
-    const Gen g{Mrow, Mrow + NN, tb, L, split ? e2 : nullptr,
-                split ? e3 : nullptr, r0, N, ld, Rmax, d.J, jb};
+    const Gen g{Mrow, Mrow + NN, tb, p.L, split ? e2 : nullptr,
+                split ? e3 : nullptr, r0, N, ld, Rmax, d.J, p.jb};
     float bbr[TS][TS], bbi[TS][TS], kbr[TS][TS], kbi[TS][TS];
     float wr[TS][TS], wi[TS][TS], vr[TS][TS], vi[TS][TS];
 #pragma unroll
@@ -718,12 +875,16 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         vr[a][b] = vi[a][b] = kbr[a][b] = kbi[a][b] = 0.f;
         if (!ok[a][b]) continue;
         // from the parked cotangent, so that g holds no registers meanwhile
-        kbr[a][b] = d.dt * g0r[gb + r[a] * N + c[b]];
-        kbi[a][b] = d.dt * g0i[gb + r[a] * N + c[b]];
+        kbr[a][b] = d.dt * p.g0r[gb + r[a] * N + c[b]];
+        kbi[a][b] = d.dt * p.g0i[gb + r[a] * N + c[b]];
       }
     for (int i = 0; i <= iters; ++i) {
       const bool last = i == iters;
-      if (i > 0) cluster_sync();    // every CTA has finished reading c
+      // every CTA has finished reading c, and this one its bands of u
+      if (i > 0) cluster_sync();
+      const size_t uo = ks0 + (size_t)(iters - 1 - i) * NN;
+      copy_bands(Ur, Uc, last ? xs : p.ksr + uo, last ? xs + NN : p.ksi + uo,
+                 N, r0, R, ld, Rmax);
 #pragma unroll
       for (int a = 0; a < TS; ++a)
 #pragma unroll
@@ -740,10 +901,7 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
           }
         }
       ex.wait();
-      const float* fr = F;
-      const size_t uo = ks0 + (size_t)(iters - 1 - i) * NN;
-      const float* ur = last ? xs : ksr + uo;
-      const float* ui = last ? xs + NN : ksi + uo;
+      const float* fr = ex.F;
       band_gen<TS, true>(kbr, kbi, g, fr, fr + plane, r, c, ok);
       if (jac && !last) {       // minus the transpose of v -> d v
 #pragma unroll
@@ -758,12 +916,17 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
             kbi[a][b] -= qi;
           }
       }
-      // the H_eff cotangent's parts: c^dag u, and u c^dag (the band of
-      // (c u^dag)^dag), u read from device memory
-      cmm<TS, true, false, LdS, LdG>(wr, wi, fr, fr + plane, 1, ld, ur, ui,
-                                     N, 1, r, c, N);
-      cmm<TS, false, true, LdG, LdS>(vr, vi, ur, ui, N, 1, fr, fr + plane, 1,
-                                     ld, r, c, N);
+      cp_async_wait();
+      __syncthreads();          // the bands of u, whole in the CTA
+      if (ring && i == iters - 1 && tid == 0) signal_count(empty + sl);
+      // the H_eff cotangent's parts from shared memory: u c^dag on the
+      // band's rows (the adjoint of c u^dag's band; its factor c^dag read
+      // along a row of the operand, free of bank conflicts), and c^dag u
+      // on the band's columns, entry (c[a], r[b]) in (wr, wi)[a][b]
+      cmm<TS, false, true, LdS, LdS>(vr, vi, Ur, Ur + Rmax * ld, ld, 1, fr,
+                                     fr + plane, 1, ld, rl, c, N);
+      cmm<TS, true, false, LdS, LdS>(wr, wi, fr, fr + plane, 1, ld, Uc,
+                                     Uc + N * Rmax, Rmax, 1, c, rl, N);
     }
 #pragma unroll
     for (int a = 0; a < TS; ++a)
@@ -772,16 +935,17 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         gr[a][b] = gi[a][b] = 0.f;
         if (!ok[a][b]) continue;
         const int o = r[a] * N + c[b];
-        gr[a][b] = g0r[gb + o] + kbr[a][b];
-        gi[a][b] = g0i[gb + o] + kbi[a][b];
+        gr[a][b] = p.g0r[gb + o] + kbr[a][b];
+        gi[a][b] = p.g0i[gb + o] + kbi[a][b];
         if (split) cmul_conj_rn(e0, e1, o, gr[a][b], gi[a][b]);
       }
 
     // Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> with dA_i = Re W, dA_r = -Im W,
-    // W = c u^dag + c^dag u: the c^dag u part against S_k, the u c^dag part
-    // (conjugate-transposed) against S_k^T; each warp's partial over its
-    // entries, the CTA's over its warps in order, pushed into rank 0's slot
-    // of this rank; rank 0 sums the slots in rank order
+    // W = c u^dag + c^dag u, both parts against S_k^T: c^dag u at (c, r)
+    // meets S_k(c, r) = S_k^T(r, c), and u c^dag (conjugate-transposed)
+    // likewise; each warp's partial over its entries, the CTA's over its
+    // warps in order, pushed into rank 0's slot of this rank; rank 0 sums
+    // the slots in rank order
     for (int k = 0; k < K; ++k) {
       float v = 0.f;
 #pragma unroll
@@ -790,10 +954,11 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
         for (int b = 0; b < TS; ++b) {
           if (!ok[a][b]) continue;
           const size_t o = (size_t)k * NN + r[a] * N + c[b];
-          v += wr[a][b] * __ldg(Si + o) - wi[a][b] * __ldg(Sr + o);
-          v += vr[a][b] * __ldg(SiT + o) + vi[a][b] * __ldg(SrT + o);
+          const float sr = __ldg(SrT + o), si = __ldg(SiT + o);
+          v += wr[b][a] * si - wi[b][a] * sr;
+          v += vr[a][b] * si + vi[a][b] * sr;
         }
-      for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+      for (int q = 16; q > 0; q >>= 1) v += __shfl_xor_sync(0xffffffffu, v, q);
       if (lane == 0) red[warp * K + k] = v;
     }
     __syncthreads();
@@ -812,11 +977,11 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       }
     }
     if (rank == 0) {
-      bar_sync(bars + 8, tx_c, (d.nt - 1 - t) & 1);
+      bar_sync(bars + 8, tx_c, s & 1);
       if (tid < K) {
         float v = 0.f;
         for (int q = 0; q < G; ++q) v += slots[q * K + tid];
-        Cb[((size_t)blk * d.nt + t) * K + tid] = v;
+        p.Cb[((size_t)blk * d.nt + t) * K + tid] = v;
       }
     }
   }
@@ -825,16 +990,87 @@ rho_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 #pragma unroll
     for (int b = 0; b < TS; ++b)
       if (ok[a][b]) {
-        g0r[gb + r[a] * N + c[b]] = gr[a][b];
-        g0i[gb + r[a] * N + c[b]] = gi[a][b];
+        p.g0r[gb + r[a] * N + c[b]] = gr[a][b];
+        p.g0i[gb + r[a] * N + c[b]] = gi[a][b];
       }
+}
+
+}  // namespace
+
+// Backward: the steps in reverse on the same layout. Inputs as the forward's
+// plus the transposed stacks St (2, K, N, N) = [Sr^T, Si^T], the history
+// (E, nt, B, N, N), its cotangent j (same shape) and the final-state
+// cotangent gT (E, B, N, N). ks holds the forward's stage iterates
+// (E, B, nt, iters, N, N) with store, else it is the ring (E B, W, iters,
+// N, N) the replay fills (W = 1 where each adjoint replays in its chain).
+// scr: BWD_SCRATCH N^2 floats per matrix. split: 2 E B clusters, replay and
+// adjoint roles by ticket (see above), else E B adjoint clusters. Writes g0
+// (E, B, N, N), which also parks the running cotangent during a step, and
+// Cb (E, B, nt, K). Shared memory: two mbarriers (the operand, C-bar) and
+// the header of 4 ints (matrix, role, first own-replay step, hand-over) in
+// 8 floats, the operand F (one buffer), jb jump bands, the pair input's
+// row and column bands, the warps' C-bar partials and the cluster's (rank
+// 0's).
+template <int TS, int MAXT>
+__global__ void __launch_bounds__(MAXT) rho_mid_bwd(const Bwd p) {
+  extern __shared__ __align__(16) float smb[];
+  cg::cluster_group cl = cg::this_cluster();
+  const Dims& d = p.d;
+  const int N = d.N, ld = N | 1, plane = N * ld, G = p.G;
+  const int rank = (int)cl.block_rank();
+  const int r0 = rank * N / G, R = (rank + 1) * N / G - r0;
+  const int Rmax = (N + G - 1) / G;
+  const unsigned bars = smem_u32(smb);    // 2 mbarriers of 8 bytes
+  int* hdr = reinterpret_cast<int*>(smb + 4);
+  float* F = smb + 8;           // the operand, one buffer of (re, im)
+  float* tb = F + 2 * plane;    // jb jump bands of (re, im) Rmax x ld
+  float* U = tb + (size_t)2 * p.jb * Rmax * ld;     // u's bands
+  float* red = U + (size_t)2 * Rmax * (ld + N);     // (nwarps, K)
+  float* slots = red + (blockDim.x >> 5) * d.K;     // (G, K), rank 0's
+  int r[TS], c[TS];
+  bool ok[TS][TS];
+  band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
+  Exchange ex{F, plane, G, rank, bars,
+              threadIdx.x == 0 ? 8u * N * (N - R) : 0u, 0};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) bar_init(bars + 8 * k, blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (rank == 0) {    // the cluster's matrix and role
+      int blk = blockIdx.x / G, role = 1, first = 0;
+      if (p.split) {
+        const int ticket = atomicAdd(p.flags, 1);
+        blk = ticket >> 1;
+        role = ticket & 1;
+        first = d.nt;
+        if (role == 1) {
+          const int was = atomicOr(p.flags + 1 + blk, CLAIMED);
+          if (was != 0) first = was - 1;    // the replay handed over
+        }
+      }
+      hdr[0] = blk;
+      hdr[1] = role;
+      hdr[2] = first;
+    }
+  }
+  cl.sync();            // every CTA's mbarriers and rank 0's header exist
+  const int* h = cl.map_shared_rank(hdr, 0);
+  const int blk = h[0], role = h[1], first = h[2];
+  if (role == 0)
+    replay_role<TS>(p, blk, ex, tb, hdr, rank, r0, R, Rmax, r, c, ok);
+  else
+    adjoint_role<TS>(p, blk, first, ex, tb, U, red, slots, bars, rank, r0, R,
+                     Rmax, r, c, ok);
   cl.sync();            // no CTA leaves while another may still push to it
 }
 
 // Plain C entry points, bound from Python with ctypes. Each launches on the
 // given stream and returns the launch's error (0 on success). Both kernels
-// launch E * B clusters of `cluster` CTAs; their tile is 1, 2 (up to 512
-// threads) or 4 (up to 256), on the CTA's band.
+// launch E * B clusters of `cluster` CTAs (the backward 2 E B with split);
+// their tile is 1, 2 (up to 512 threads) or 4 (up to 256), on the CTA's
+// band. A backward of 2 x 2 tiles on at most 256 threads takes the instance
+// bounded at 256 threads, which may hold 255 registers a thread: bounded at
+// 512 (128 registers) its adjoint spilled and ran 16-21% slower on an H100
+// at N = 125 and 128.
 namespace {
 
 // The jump bands a launch shape leaves room for, or -1 where the shape does
@@ -913,24 +1149,23 @@ int launch_fwd(const float* Sr, const float* Si, const float* L,
   return (int)cudaGetLastError();
 }
 
-template <int TS>
-int launch_bwd(const float* Sr, const float* Si, const float* St,
-               const float* L, const float* C, const float* x0r,
-               const float* x0i, const float* hr, const float* hi,
-               const float* jr, const float* ji, const float* gTr,
-               const float* gTi, const float* el, float* ksr, float* ksi,
-               float* g0r, float* g0i, float* Cb, float* scr, const Dims& d,
-               int G, int threads, int smem_bytes, cudaStream_t stream) {
-  const long fixed = 8 + 2L * d.N * (d.N | 1) +
-                     (long)(threads / 32) * d.K + (long)G * d.K;
-  const long jb = jump_bands<TS>(d, G, threads, smem_bytes, fixed, d.K);
-  if (jb < 0) return (int)cudaErrorInvalidValue;
+template <int TS, int MAXT>
+int launch_bwd(Bwd p, int threads, int smem_bytes, cudaStream_t stream) {
+  const Dims& d = p.d;
+  const int N = d.N, ld = N | 1, Rmax = (N + p.G - 1) / p.G;
+  const long fixed = 8 + 2L * N * ld + 2L * Rmax * (ld + N) +
+                     (long)(threads / 32) * d.K + (long)p.G * d.K;
+  const long jb = jump_bands<TS>(d, p.G, threads, smem_bytes, fixed, d.K);
+  const bool replay = !d.store && d.iters > 0;
+  if (jb < 0 || threads > MAXT || p.W < 1 || (p.split && !replay) ||
+      (replay && !p.split && p.W != 1))
+    return (int)cudaErrorInvalidValue;
+  p.jb = (int)jb;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
-      rho_mid_bwd<TS>, attr, d.E * d.B, G, threads, smem_bytes, stream);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, rho_mid_bwd<TS>, Sr, Si, St, L, C, x0r, x0i, hr, hi, jr, ji, gTr,
-      gTi, el, ksr, ksi, g0r, g0i, Cb, scr, d, G, (int)jb);
+      rho_mid_bwd<TS, MAXT>, attr, (p.split ? 2 : 1) * d.E * d.B, p.G,
+      threads, smem_bytes, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, rho_mid_bwd<TS, MAXT>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -963,24 +1198,28 @@ extern "C" int rho_mid_bwd_launch(
     const void* C, const void* x0r, const void* x0i, const void* hr,
     const void* hi, const void* jr, const void* ji, const void* gTr,
     const void* gTi, const void* el, void* ksr, void* ksi, void* g0r,
-    void* g0i, void* Cb, void* scr, int E, int nt, int B, int N, int K, int J,
-    int iters, int mode, int store, float dt, float a, int tile, int cluster,
-    int threads, int smem_bytes, void* stream) {
-  Dims d{E, nt, B, N, K, J, iters, mode, store, dt, a};
-#define RHO_MID_BWD_ARGS                                                      \
-  (const float*)Sr, (const float*)Si, (const float*)St, (const float*)L,      \
-      (const float*)C, (const float*)x0r, (const float*)x0i,                  \
-      (const float*)hr, (const float*)hi, (const float*)jr,                   \
-      (const float*)ji, (const float*)gTr, (const float*)gTi,                 \
-      (const float*)el, (float*)ksr, (float*)ksi, (float*)g0r, (float*)g0i,   \
-      (float*)Cb, (float*)scr, d, cluster, threads, smem_bytes,               \
-      (cudaStream_t)stream
+    void* g0i, void* Cb, void* scr, void* flags, int E, int nt, int B, int N,
+    int K, int J, int iters, int mode, int store, float dt, float a, int tile,
+    int cluster, int threads, int smem_bytes, int split, int ring,
+    void* stream) {
+  const Bwd p{(const float*)Sr,  (const float*)Si,  (const float*)St,
+              (const float*)L,   (const float*)C,   (const float*)x0r,
+              (const float*)x0i, (const float*)hr,  (const float*)hi,
+              (const float*)jr,  (const float*)ji,  (const float*)gTr,
+              (const float*)gTi, (const float*)el,  (float*)ksr,
+              (float*)ksi,       (float*)g0r,       (float*)g0i,
+              (float*)Cb,        (float*)scr,       (int*)flags,
+              Dims{E, nt, B, N, K, J, iters, mode, store, dt, a},
+              cluster,           0,                 split,
+              ring};
+  const cudaStream_t st = (cudaStream_t)stream;
   switch (tile) {
-    case 1: return launch_bwd<1>(RHO_MID_BWD_ARGS);
-    case 2: return launch_bwd<2>(RHO_MID_BWD_ARGS);
-    case 4: return launch_bwd<4>(RHO_MID_BWD_ARGS);
+    case 1: return launch_bwd<1, 512>(p, threads, smem_bytes, st);
+    case 2:
+      return threads <= 256 ? launch_bwd<2, 256>(p, threads, smem_bytes, st)
+                            : launch_bwd<2, 512>(p, threads, smem_bytes, st);
+    case 4: return launch_bwd<4, 256>(p, threads, smem_bytes, st);
   }
-#undef RHO_MID_BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1000,9 +1239,15 @@ extern "C" int rho_mid_fwd_max_clusters(int tile, int cluster, int threads,
 extern "C" int rho_mid_bwd_max_clusters(int tile, int cluster, int threads,
                                         int smem_bytes) {
   switch (tile) {
-    case 1: return max_clusters(rho_mid_bwd<1>, cluster, threads, smem_bytes);
-    case 2: return max_clusters(rho_mid_bwd<2>, cluster, threads, smem_bytes);
-    case 4: return max_clusters(rho_mid_bwd<4>, cluster, threads, smem_bytes);
+    case 1:
+      return max_clusters(rho_mid_bwd<1, 512>, cluster, threads, smem_bytes);
+    case 2:
+      return threads <= 256 ? max_clusters(rho_mid_bwd<2, 256>, cluster,
+                                           threads, smem_bytes)
+                            : max_clusters(rho_mid_bwd<2, 512>, cluster,
+                                           threads, smem_bytes);
+    case 4:
+      return max_clusters(rho_mid_bwd<4, 256>, cluster, threads, smem_bytes);
   }
   return 0;
 }

@@ -1,0 +1,226 @@
+"""Hold the mid density-matrix backward (rho_mid_bwd, csrc/rho_mid.cu) to
+another commit's build of the same source, on one CUDA card: its bits and
+its time, interleaved.
+
+Builds, one nvcc each and both at once: csrc/rho_mid.cu as checked out
+(into build/quandary_tpu_torch/) and the rho_mid.cu of the directory given
+with --parent (its quandary_tpu_torch/csrc/), for example the parent
+commit:
+
+    mkdir -p build/parent && git archive HEAD~1 quandary_tpu_torch/csrc \\
+        | tar -x -C build/parent
+
+The parent's backward is launched through its own C signature and layout
+(`parent_bwd`: the single-role launcher, one cluster per density matrix
+with the replay in its chain); the change's through ops/rho_mid.py, on each of
+its schedules: 'split' (the replay on clusters of its own, a ring of
+iterates between the roles), 'chain' (the replay in the adjoint's chain)
+and, with stored iterates, 'store'.
+
+Shapes: chip_smoke.py's qudits125 (N = 125, K = 11, J = 6, B = 3, jacobi-6)
+and qudits128 (N = 128, K = 7, J = 4) at E = 1 (E B = 3), 1000 steps, and
+qudits125 at E = 8 (E B = 24, the device driver's trial steps) cut to 250
+steps, with the iterates replayed as the byte rule replays them there, and
+qudits125 with stored ones. Each shape times the backwards with CUDA events
+in the order parent, change, change, parent (each of the change's schedules
+at its turn), and compares one more launch of each: g0 must equal the
+parent's in bits on every schedule, Cb is reported as its largest difference
+from the parent's relative to the parent's largest entry (the change takes
+the c^dag u half of the H_eff cotangent by column band, so its sum runs in
+another order). Prints one JSON line per shape and a last one with all of
+them and the card's name and power limit; exits non-zero where g0 differs.
+
+    python3 scripts/rho_mid_parent.py --parent build/parent
+"""
+
+import argparse
+import concurrent.futures
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from quandary_tpu_torch.ops import cuda_build, rho, rho_mid  # noqa: E402
+
+
+def parent_bind(lib):
+    """The parent's backward entry points: 20 pointers, then E, nt, B, N,
+    K, J, iters, mode, store, dt, a, tile, cluster, threads, shared-memory
+    bytes and the stream."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rho_mid_bwd_launch.argtypes = [p] * 20 + [i] * 9 + [f, f] \
+        + [i] * 4 + [p]
+    lib.rho_mid_bwd_launch.restype = i
+    lib.rho_mid_bwd_max_clusters.argtypes = [i] * 4
+    lib.rho_mid_bwd_max_clusters.restype = i
+
+
+def build_parent(src, name):
+    """Compile the parent's rho_mid.cu at `src` into its own library in
+    build/quandary_tpu_torch/<name>/ and load it."""
+    out = os.path.join(cuda_build.BUILD_DIR, name, f"lib{name}.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    res = subprocess.run(cuda_build.nvcc_command(src, out),
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc {src} failed:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(out)
+    parent_bind(lib)
+    return lib
+
+
+def parent_layout_bytes(N, G, K, jb, threads):
+    """The parent's backward layout: two mbarriers (8 floats), the operand
+    (one buffer), jb jump bands, the warps' C-bar partials and the
+    cluster's."""
+    ld, R = N | 1, -(-N // G)
+    return 4 * (8 + 2 * N * ld + 2 * jb * R * ld
+                + (threads // 32 + G) * K)
+
+
+def parent_bwd(lib, plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
+               G=None):
+    """One launch of the parent's rho_mid_bwd on its own launch shape:
+    (g0 summed over the candidates, Cb summed over the matrices), as the
+    parent's ops/rho_mid.py::_kernel_bwd returned them."""
+    E, nt, K = C.shape
+    B, N, _ = x0r.shape
+    shape = rho._cluster_shape("rho_mid_bwd", parent_layout_bytes, K, E, B,
+                               N, K, plan.njump, G)
+    if G is None and shape[0] == 16 and lib.rho_mid_bwd_max_clusters(
+            shape[1], 16, shape[2], shape[3]) < 1:
+        shape = rho._cluster_shape("rho_mid_bwd", parent_layout_bytes, K, E,
+                                   B, N, K, plan.njump, None, 8)
+    G, tile, threads, smem = shape
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=C.device)
+    store = ksr is not None
+    if not store:
+        ksr = new(E, B, max(plan.iters, 1), N, N)
+        ksi = torch.empty_like(ksr)
+    St = plan.St if plan.St is not None else rho_mid.transposed_stacks(
+        plan.Sr, plan.Si)
+    g0r, g0i, Cb = new(E, B, N, N), new(E, B, N, N), new(E, B, nt, K)
+    scr = new(E * B * 12 * N * N)
+    err = lib.rho_mid_bwd_launch(
+        *map(rho._ptr, (plan.Sr, plan.Si, St, plan.L, C, x0r, x0i, hr, hi,
+                        jr, ji, gTr, gTi, plan.planes, ksr, ksi, g0r, g0i, Cb,
+                        scr)),
+        *rho._dims(plan, E, nt, B, store), tile, G, threads, smem,
+        torch.cuda.current_stream(C.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"parent rho_mid_bwd launch failed: CUDA error "
+                           f"{err}")
+    return g0r.sum(0), g0i.sum(0), Cb.sum(1)
+
+
+def smi_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def inputs(name, E, steps=1000, seed=7):
+    """(plan, x0r, x0i, C) of chip_smoke.py's configuration `name` at E
+    candidates and `steps` steps (the bench's parameter draw)."""
+    import chip_smoke as cs
+    from quandary_tpu_torch.problem import Problem
+    pr = Problem(cs.OPEN_CONFIGS[name](ntime=steps))
+    P = torch.as_tensor(cs.bench_params(pr.setup.nparams, E, seed=seed),
+                        device="cuda", dtype=torch.float32)
+    C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
+    return pr._plan, pr._x0r, pr._x0i, C
+
+
+def shape_report(lib, name, E, steps, store, reps):
+    """Parent and change on one shape: times interleaved, g0's bits and
+    Cb's difference on each of the change's schedules."""
+    import chip_smoke as cs
+    plan, x0r, x0i, C = inputs(name, E, steps)
+    nt = C.shape[1]
+    with cs.iterates_budget((1 << 62) if store else 0):
+        fwd = rho._kernel_fwd(plan, x0r, x0i, C)
+    hr, hi, ksr, ksi = fwd[2:]
+    del fwd
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    w = lambda t: torch.randn(t.shape, device="cuda", generator=gen)
+    gT = w(x0r.new_empty(C.shape[0], *x0r.shape))
+    jr, ji = w(hr), w(hi)
+    args = (plan, x0r, x0i, C, hr, hi, ksr, ksi, gT, gT, jr, ji)
+    schedules = ("store",) if store else ("split", "chain")
+    runs = {"parent": lambda: parent_bwd(lib, *args)}
+    for s in schedules:
+        runs[s] = (lambda s=s: rho_mid._kernel_bwd(*args, _schedule=s))
+    order = ["parent"] + list(schedules) + list(schedules)[::-1] \
+        + ["parent"]
+    ms = {k: [] for k in runs}
+    ref = runs["parent"]()
+    out = {}
+    for k in order:
+        ms[k].append(cs.event_ms(runs[k], reps))
+        if k not in out and k != "parent":
+            out[k] = runs[k]()
+            out[k + "_layout"] = dict(rho_mid.mid_layouts["bwd"])
+    torch.cuda.synchronize()
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    rep = dict(E=C.shape[0], B=x0r.shape[0], N=plan.N, K=plan.K,
+               J=plan.njump, iters=plan.iters, nt=nt, stored=store, ms=ms,
+               ratio={k: mean[k] / mean["parent"] for k in schedules})
+    for s in schedules:
+        g0r, g0i, Cb = out[s]
+        rep[s] = dict(
+            layout=out[s + "_layout"],
+            g0_bits_equal_parent=torch.equal(g0r, ref[0])
+            and torch.equal(g0i, ref[1]),
+            cbar_rel_parent=float((Cb - ref[2]).abs().max()
+                                  / ref[2].abs().max()),
+            finite=all(bool(torch.isfinite(t).all()) for t in out[s]))
+    return rep
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=os.path.join(ROOT, "build", "parent"),
+                    help="a directory holding the other commit's "
+                         "quandary_tpu_torch/csrc/")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    src = os.path.join(args.parent, "quandary_tpu_torch", "csrc",
+                       "rho_mid.cu")
+    if not os.path.isfile(src):
+        sys.exit(f"{args.parent} holds no quandary_tpu_torch/csrc/rho_mid.cu")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fp = pool.submit(build_parent, src, "rho_mid_parent")
+        fc = pool.submit(rho_mid.build_kernels)
+        lib = fp.result()
+        fc.result()
+    report = {"card": smi_line()}
+    bad = []
+    for name, E, steps, store, reps in (("qudits125", 1, 1000, False, 2),
+                                        ("qudits128", 1, 1000, False, 2),
+                                        ("qudits125", 8, 250, False, 1),
+                                        ("qudits125", 1, 1000, True, 2)):
+        key = f"{name}_E{E}" + ("_stored" if store else "")
+        report[key] = shape_report(lib, name, E, steps, store, reps)
+        print(json.dumps({key: report[key]}), flush=True)
+        bad += [f"{key}/{s}" for s, v in report[key].items()
+                if isinstance(v, dict) and "finite" in v
+                and not (v["g0_bits_equal_parent"] and v["finite"])]
+    line = json.dumps(report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "rho_mid_parent.json"),
+              "w") as f:
+        f.write(line + "\n")
+    print(line)
+    if bad:
+        sys.exit(f"g0 differs from the parent's or is not finite: {bad}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1556,15 +1556,20 @@ def _moved(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-# N = 96 runs bands of 6 rows on 16 CTAs, N = 128 of 8; both 2 x 2 tiles
+# N = 65 runs bands of 4 and 5 rows on 16 CTAs, N = 96 of 6, N = 125 of 7
+# and 8, N = 128 of 8; all 2 x 2 tiles
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,njump", [(96, 4), (128, 2)])
+@pytest.mark.parametrize("n,njump", [(65, 4), (96, 4), (125, 6), (128, 2)])
 @pytest.mark.parametrize("solver,iters", [("neumann", 3), ("jacobi", 4),
                                           ("split", 3)])
 def test_rho_mid_kernel_matches_plain_on_card(cuda, solver, iters, n, njump):
     """The mid pair against the plain version on the card, stored and
     replayed stage iterates, bounds as test_rho_kernel_matches_plain_on_card;
-    one launch of each mid kernel and none of csrc/rho.cu's."""
+    one launch of each mid kernel and none of csrc/rho.cu's. The replayed
+    backward on both of its schedules ('split': the replay on clusters of
+    its own, 'chain': in the adjoint's chain) against the plain backward on
+    random cotangents, the two equal to the bit (the stored iterates' bits
+    too)."""
     from quandary_tpu_torch.ops import rho, rho_mid
     rng = np.random.default_rng(n + njump)
     stack, Ls, gd = _random_open_system(rng, n, 3, njump)
@@ -1602,6 +1607,24 @@ def test_rho_mid_kernel_matches_plain_on_card(cuda, solver, iters, n, njump):
                                            1e-4)):
             assert bool(torch.isfinite(a).all())
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    got = {}
+    for store in (True, False):
+        args, plain_b = _rho_bwd_case(cuda, n, njump, solver, iters, store,
+                                      seed=n)
+        for sched in (("store",) if store else ("split", "chain")):
+            before = _rho_mid_counts()
+            got[sched] = rho_mid._kernel_bwd(*args, _schedule=sched)
+            torch.cuda.synchronize()
+            assert _moved(before, _rho_mid_counts()) == {
+                "rho_mid_bwd_launches": 1}
+            assert rho_mid.mid_layouts["bwd"]["schedule"] == sched
+            for a, b in zip(got[sched], plain_b):
+                assert bool(torch.isfinite(a).all())
+                assert float((a - b).abs().max()) \
+                    <= 1e-4 * float(b.abs().max())
+    for sched in ("split", "chain"):
+        for a, b in zip(got[sched], got["store"]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1650,6 +1673,17 @@ def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
                              jh, jh)
     for x, y, z in zip(stored, replayed, repeat):
         assert torch.equal(x, y) and torch.equal(y, z)
+    # both schedules of the replay at G = 8 and 16: the stored iterates' bits
+    for G in (8, 16):
+        st = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gT, gT, jh,
+                             jh, _cluster=G)
+        for sched in ("split", "chain"):
+            rp = rho_mid._kernel_bwd(plan, x0r, x0i, C, hr, hi, None, None,
+                                     gT, gT, jh, jh, _cluster=G,
+                                     _schedule=sched)
+            assert rho_mid.mid_layouts["bwd"]["G"] == G
+            for x, y in zip(st, rp):
+                assert torch.equal(x, y)
     for a, b in zip(fwd[16][2:4], plain_f):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-6 * max(1.0, float(
@@ -1658,6 +1692,36 @@ def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
     for a, b in zip(stored, plain_b):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_rho_mid_split_past_what_the_card_holds_on_card(cuda):
+    """The 'split' schedule at E B = 24 (8 candidates, 3 matrices) on
+    clusters of 16 CTAs: its 48 clusters do not all fit the card at once,
+    so clusters start as others end and a replay whose adjoint has not
+    started hands its steps over. It finishes (a hand-off wait that outlasts
+    20 s traps: the launch fails instead of holding the card), within a
+    minute here, and matches the plain backward to 1e-4 of max and the
+    'chain' schedule to the bit."""
+    import time
+    from quandary_tpu_torch.ops import rho_mid
+    args, plain = _rho_bwd_case(cuda, 125, 6, "jacobi", 6, False, E=8)
+    plan, E, B = args[0], args[3].shape[0], args[1].shape[0]
+    assert E * B == 24
+    lib = rho_mid._lib()
+    shape = rho_mid.launch_shape(lib, True, plan, E, B, 16)
+    assert rho_mid.holds(lib, True, shape) < 2 * E * B
+    t0 = time.perf_counter()
+    split = rho_mid._kernel_bwd(*args, _cluster=16, _schedule="split")
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 60.0
+    assert rho_mid.mid_layouts["bwd"]["clusters"] == 48
+    assert rho_mid.mid_layouts["bwd"]["ring"] == 2
+    chain = rho_mid._kernel_bwd(*args, _cluster=16, _schedule="chain")
+    for a, b, c in zip(split, chain, plain):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max())
 
 
 def _open_mid_setup(nlevels=(9, 8), ntime=20, fused=True):

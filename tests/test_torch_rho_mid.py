@@ -7,7 +7,11 @@ chip_smoke.py phase 26 hold them against the plain version there). Here:
 
 1. the planner (`rho_mid._fwd_shape`, `_bwd_shape`): every shape of the
    range fits 227 KB of shared memory at G in 1..16 and at most 1024
-   threads, and holds the layout csrc/rho_mid.cu carves;
+   threads, and holds the layout csrc/rho_mid.cu carves; the backward's
+   schedules ('store', 'split', 'chain'), its ring of replayed iterates,
+   its flags and scratch, and a step-level model of the 'split'
+   schedule's tickets and hand-off: no cluster waits on one that has not
+   started, on a card that holds 1 to 8 clusters at once;
 2. the gate: `rho.launch_refusal` admits N <= 128 and refuses past it with
    a sentence naming quandary_tpu/problem.py:517, where the JAX Problem
    raises; the qudits125-shaped Problem takes the rho route wherever the
@@ -84,16 +88,19 @@ def qudits_setup(cfg=QUDITS125, ntime=3, dtype=jnp.complex64, pallas=True,
 
 # ---- 1. the planner ----
 
-@pytest.mark.parametrize("EB", [1, 3, 16, 132])
+@pytest.mark.parametrize("EB", [1, 3, 16, 24, 132])
 @pytest.mark.parametrize("K", [7, 11])
-@pytest.mark.parametrize("J", [0, 4, 6])
+@pytest.mark.parametrize("J", [0, 1, 4, 6])
 @pytest.mark.parametrize("N", [65, 72, 96, 125, 128])
 def test_mid_shapes_fit(N, J, K, EB):
     """Both directions' shapes: G in 1..16 (at most N), whole warps over the
     band's tiles (the backward's over the K slots too) within the tile's
     bound and 1024 threads, at most 227 KB of shared memory and at least
     the layout csrc/rho_mid.cu carves with one jump band (all J where they
-    fit), and one less jump band would not fill what was asked."""
+    fit; the backward's with the pair input's row and column bands), and
+    one less jump band would not fill what was asked. The backward's ring
+    of replayed iterates ('split': 3 steps a matrix, 2 where E B rings of 3
+    pass half of L2), its flags and its scratch."""
     for backward, shape_fn in ((False, rho_mid._fwd_shape),
                                (True, rho_mid._bwd_shape)):
         G, tile, threads, smem = shape_fn(1, EB, N, K, J)
@@ -104,7 +111,8 @@ def test_mid_shapes_fit(N, J, K, EB):
         assert threads <= (256 if tile == 4 else 512) <= 1024
         if backward:
             assert threads >= K
-        fixed = 8 + 2 * N * ld + ((threads // 32 + G) * K if backward else 0)
+        fixed = 8 + 2 * N * ld + ((threads // 32 + G) * K + 2 * R * (ld + N)
+                                  if backward else 0)
         band = 2 * R * ld
         assert smem <= cuda_build.MAX_SMEM == 227 * 1024
         assert (smem // 4 - fixed) % band == 0
@@ -116,6 +124,136 @@ def test_mid_shapes_fit(N, J, K, EB):
         == rho_mid._bwd_shape(1, EB, N, K, J)[0]
     if EB <= 3:
         assert rho_mid._fwd_shape(1, EB, N, K, J)[0] == 16
+    iters = 6
+    W = rho_mid.ring_slots(EB, N, iters)
+    slot = 2 * iters * N * N * 4
+    assert W == (3 if EB * 3 * slot <= rho_mid.RING_L2_BYTES else 2)
+    assert rho_mid.ring_slots(EB, N, iters) * EB * slot \
+        <= max(rho_mid.RING_L2_BYTES, 2 * EB * slot)
+    assert rho_mid.flag_words(EB, W) == 1 + EB + 2 * EB * W
+    scr, ring = rho_mid.bwd_scratch_floats(EB, N, iters, False, W)
+    assert scr == EB * 16 * N * N and ring == EB * W * iters * N * N
+    assert rho_mid.bwd_scratch_floats(EB, N, iters, True, W)[1] == 0
+    # the 'chain' schedule's ring is one step, as the single-role scratch
+    assert rho_mid.bwd_scratch_floats(EB, N, iters, False, 1)[1] \
+        == EB * iters * N * N
+
+
+def test_bwd_schedule_rule():
+    """Replayed iterates take 'split' where the card holds both roles'
+    2 E B clusters at once, else 'chain'; stored ones (or none, iters = 0)
+    'store'; a schedule asked for is taken where it fits the iterates and
+    raises where it does not."""
+    sched = rho_mid.bwd_schedule
+    assert sched(False, 6, 3, 8) == "split"
+    assert sched(False, 6, 4, 8) == "split"
+    assert sched(False, 6, 5, 8) == "chain"
+    assert sched(False, 6, 24, 8) == "chain"
+    assert sched(False, 6, 24, 33, "split") == "split"
+    assert sched(False, 6, 1, 8, "chain") == "chain"
+    assert sched(True, 6, 3, 8) == sched(False, 0, 3, 8) == "store"
+    assert sched(True, 6, 3, 8, "store") == "store"
+    for store, iters, forced in ((True, 6, "split"), (False, 0, "chain"),
+                                 (False, 6, "store"), (False, 6, "ring")):
+        with pytest.raises(ValueError, match="schedule"):
+            sched(store, iters, 3, 8, forced)
+
+
+def _split_model(EB, holds, nt, W, costs=(2, 3, 5)):
+    """A step-level model of csrc/rho_mid.cu's 'split' schedule on a card
+    that holds `holds` clusters at once. Clusters start as slots free and
+    take tickets in the order they start: ticket 2m replays matrix m, 2m + 1
+    is its adjoint. The replay fills ring slot s % W with step s; at step
+    W, if no adjoint has claimed the matrix, it hands the rest of the steps
+    to the adjoint (the claim word) and ends, else it waits for the adjoint
+    to empty step s - W before it writes step s. The adjoint claims its
+    matrix when it starts, waits for each step the replay fills and
+    replays in its own chain from the step handed over. Each tick, every
+    running cluster that does not wait does one tick of its step (costs:
+    a replay step, an adjoint step, an adjoint step with its own replay).
+    Returns (finished, waits, handed): waits lists (waiter ticket,
+    waited-on ticket, whether that one had started), handed the matrices
+    whose replay handed over."""
+    n = 2 * EB
+    started, done = [False] * n, [False] * n
+    step, left, first = [0] * n, [0] * n, [nt] * n
+    claim, produced, emptied = [0] * EB, [0] * EB, [0] * EB
+    waits, handed, next_ticket = [], [], 0
+    for _ in range(100 * n * nt * sum(costs)):
+        while next_ticket < n and sum(started[i] and not done[i]
+                                      for i in range(n)) < holds:
+            t, m = next_ticket, next_ticket // 2
+            started[t] = True
+            if t % 2:               # the adjoint claims its matrix
+                if claim[m]:
+                    first[t] = claim[m] - 1
+                claim[m] = -1
+            next_ticket += 1
+        if all(done):
+            return True, waits, handed
+        moved = False
+        for t in range(n):
+            if not started[t] or done[t]:
+                continue
+            m, s = t // 2, step[t]
+            if t % 2 == 0:          # replay
+                if left[t] == 0:
+                    if s == nt:
+                        done[t], moved = True, True
+                        continue
+                    if s == W and claim[m] == 0:
+                        claim[m] = s + 1
+                        handed.append(m)
+                        done[t], moved = True, True
+                        continue
+                    if s >= W and emptied[m] < s - W + 1:
+                        waits.append((t, t + 1, started[t + 1]))
+                        continue
+                    left[t] = costs[0]
+                left[t] -= 1
+                moved = True
+                if left[t] == 0:
+                    produced[m], step[t] = s + 1, s + 1
+            else:                   # adjoint
+                if left[t] == 0:
+                    if s == nt:
+                        done[t], moved = True, True
+                        continue
+                    own = s >= first[t]
+                    if not own and produced[m] < s + 1:
+                        waits.append((t, t - 1, started[t - 1]))
+                        continue
+                    left[t] = costs[2] if own else costs[1]
+                left[t] -= 1
+                moved = True
+                if left[t] == 0:
+                    if s < first[t]:
+                        emptied[m] = s + 1
+                    step[t] = s + 1
+        if not moved:
+            return False, waits, handed
+    return False, waits, handed
+
+
+@pytest.mark.parametrize("holds", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("EB", [1, 2, 3, 5, 8, 13, 24])
+def test_split_tickets_wait_only_on_started_clusters(EB, holds):
+    """The 'split' schedule's ticket order and hand-off, on a card that
+    holds 1 to 8 clusters at once, E B from 1 to 24: every run finishes,
+    no cluster waits on one that has not started (an adjoint only on its
+    replay, whose ticket comes first; a replay only on an adjoint that has
+    claimed the matrix), and where the card holds all 2 E B clusters no
+    replay hands over."""
+    for nt, W in ((12, 3), (7, 2), (2, 3)):
+        finished, waits, handed = _split_model(EB, holds, nt, W)
+        assert finished
+        assert all(started for _, _, started in waits)
+        assert all(waiter // 2 == on // 2 for waiter, on, _ in waits)
+        if holds >= 2 * EB or nt <= W:
+            assert handed == []
+    # a card that holds one cluster: each replay hands over after W steps
+    finished, _, handed = _split_model(EB, 1, 12, 3)
+    assert finished and handed == list(range(EB))
 
 
 def test_mid_shapes_of_the_configurations():
@@ -123,7 +261,7 @@ def test_mid_shapes_of_the_configurations():
     matrices: clusters of 16 CTAs of 256 threads (2 x 2 tiles of bands of
     8 rows), every jump band in shared memory; a G asked for is taken."""
     assert rho_mid._fwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 173032)
-    assert rho_mid._bwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 174088)
+    assert rho_mid._bwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 190088)
     assert rho_mid._fwd_shape(1, 3, 128, 7, 4)[:3] == (16, 2, 256)
     for G in (4, 8, 16):
         assert rho_mid._fwd_shape(1, 3, 128, 7, 4, G=G)[0] == G
@@ -239,6 +377,60 @@ def test_dispatch_goes_to_the_mid_pair(monkeypatch):
                             *[torch.zeros(1)] * 8)
     assert not rho.uses_mid(64, 7, 4, 1, 3)
     assert rho.uses_mid(65, 7, 4, 1, 3)
+
+
+def test_bwd_wrapper_launch_arguments(monkeypatch):
+    """The backward wrapper's launch through a stand-in for the library:
+    the C signature's 39 arguments (21 pointers: the ring of replayed
+    iterates or the stored ones, the scratch and the flags last), the
+    schedule bwd_schedule picks from the card's count ('split' with its
+    ring of 3 steps where it holds 2 E B clusters, else 'chain' with one),
+    one launch counted, and the shape logged with its clusters."""
+    class Lib:
+        def __init__(self, holds):
+            self.holds, self.calls = holds, []
+
+        def rho_mid_bwd_max_clusters(self, tile, G, threads, smem):
+            return self.holds
+
+        def rho_mid_bwd_launch(self, *args):
+            self.calls.append(args)
+            return 0
+
+    monkeypatch.setattr(rho, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    N, K, B, nt = 72, 3, 3, 4
+    t = torch.zeros(K, N, N)
+    plan = rho.make_plan(t, t, [np.eye(N)] * 2, 0.1, 4)
+    x0, C = torch.zeros(B, N, N), torch.zeros(1, nt, K)
+    h = torch.zeros(1, nt, B, N, N)
+    gT = torch.zeros(1, B, N, N)
+    for holds, store, want, W in ((6, False, "split", 3),
+                                  (5, False, "chain", 1),
+                                  (6, True, "store", 1)):
+        lib = Lib(holds)
+        monkeypatch.setattr(rho_mid, "_lib", lambda: lib)
+        rho_mid._SCHEDULED.clear()
+        ks = torch.zeros(1, B, nt, 4, N, N) if store else None
+        before = rho_mid.rho_mid_bwd_launches
+        g0r, g0i, Cb = rho_mid._kernel_bwd(plan, x0, x0, C, h, h, ks, ks,
+                                           gT, gT, h, h)
+        assert rho_mid.rho_mid_bwd_launches == before + 1
+        (args,) = lib.calls
+        assert len(args) == 39
+        assert all(isinstance(a, int) for a in args[:21] if a is not None)
+        assert args[21:28] == (1, nt, B, N, K, 2, 4)
+        assert args[29] == int(store)
+        assert args[-3:-1] == (int(want == "split"), W)
+        G = args[33]
+        assert rho_mid.mid_layouts["bwd"] == dict(
+            G=G, tile=args[32], threads=args[34], smem=args[35],
+            clusters=(2 if want == "split" else 1) * B,
+            ctas=(2 if want == "split" else 1) * B * G, schedule=want,
+            ring=W)
+        assert g0r.shape == (B, N, N) and Cb.shape == (1, nt, K)
+    rho_mid._SCHEDULED.clear()
 
 
 def test_store_iterates_rule():
