@@ -16,11 +16,12 @@ open superop route. Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
-2. builds the kernels from the checkout, one nvcc per source and all six
-   at once: csrc/streamk.cu and csrc/streamk_mid.cu here, csrc/rho.cu
-   reported in phase 11, csrc/stream.cu in phase 17, csrc/rho_mid.cu in
-   phase 26, csrc/stream_mid.cu in phase 27; starts the worker of CPU
-   references (phase 14's f64 runs first, then phase 26's);
+2. builds the kernels from the checkout, one nvcc per source and all
+   seven at once: csrc/streamk.cu and csrc/streamk_mid.cu here,
+   csrc/rho.cu reported in phase 11, csrc/stream.cu in phase 17,
+   csrc/rho_mid_fwd.cu and csrc/rho_mid.cu in phase 26, csrc/stream_mid.cu
+   in phase 27; starts the worker of CPU references (phase 14's f64 runs
+   first, then phase 26's);
 3. each kernel against its plain torch version on the card, at the
    flagship shapes (K = 7, N = 16, B = 4, ntime = 1221), for E = 1 and
    E = 128 candidates: split with 3 iterations (stored stage iterates), the
@@ -154,8 +155,10 @@ basis states):
    iterations (the cost falls; 1 + 1 mid launches per sweep).
 
 Open systems past N = 64, on the mid-size density-matrix pair
-(csrc/rho_mid.cu: a thread-block cluster per density matrix, the operand
-whole in every CTA, M(t) in device-memory scratch):
+(csrc/rho_mid_fwd.cu, csrc/rho_mid.cu: a thread-block cluster per density
+matrix, the operand whole in every CTA, M(t) in device-memory scratch; the
+forward's band factors in shared memory, its whole factors read from L2
+16 bytes a lane, its operand exchanged by bulk copies):
 26. rho_mid_fwd / rho_mid_bwd against the plain version on the card at
    NT_SHORT steps, at N = 65, 96, 125 and 128 (rho_bench-style open
    systems: two qudits [5, 13], [8, 12], [8, 16] and three 5-level
@@ -1560,17 +1563,19 @@ def mid_phase(smi, flagship_plan):
                 launches=launches, fe=fe)
 
 
-# Phase 26, the mid-size density-matrix pair (csrc/rho_mid.cu): open systems
-# of 64 < N <= 128. Kernel against plain on the card at NT_SHORT steps over
-# the solvers, with and without jump operators, stored and replayed
-# iterates, at two cluster sizes each (RHO_MID_CASES: solver, least dt
-# divisor, jump operators, stored, G); plain Neumann at dt/8 or finer, where
-# its series converges, dt/2 |d| <= 1/2 on the stiffest entry of the
-# generator's diagonal (qudits128's 16-level qudit needs dt/32: at dt/8
-# both f32 versions and the f64 one grow past 1e8); qudits125 and qudits128
-# at full depth; the front end on qudits125's physics.
+# Phase 26, the mid-size density-matrix pair (csrc/rho_mid_fwd.cu,
+# csrc/rho_mid.cu): open systems of 64 < N <= 128. Kernel against plain on
+# the card at NT_SHORT steps over the solvers, with and without jump
+# operators, stored and replayed iterates, at two cluster sizes each
+# (RHO_MID_CASES: solver, least dt divisor, jump operators, stored, G);
+# plain Neumann at dt/8 or finer, where its series converges, dt/2 |d| <=
+# 1/2 on the stiffest entry of the generator's diagonal (qudits128's
+# 16-level qudit needs dt/32: at dt/8 both f32 versions and the f64 one
+# grow past 1e8); qudits125 and qudits128 at full depth; the front end on
+# qudits125's physics.
 RHO_MID = ("rho_mid_fwd_launches", "rho_mid_bwd_launches")
 RHO_MID_SRC = "quandary_tpu_torch/csrc/rho_mid.cu"
+RHO_MID_FWD_SRC = "quandary_tpu_torch/csrc/rho_mid_fwd.cu"
 RHO_MID_CHECK_N = (65, 96, 125, 128)
 RHO_MID_CASES = (("jacobi", 1, True, True, None), ("jacobi", 1, True, False, 8),
                  ("jacobi", 1, False, True, 8), ("split", 1, True, True, 8),
@@ -2712,8 +2717,8 @@ def cpu_reference_worker():
 
 
 def rho_mid_phase_alone():
-    """Phase 26 by itself (after a change to csrc/rho_mid.cu): the build,
-    then rho_mid_phase with its worker."""
+    """Phase 26 by itself (after a change to csrc/rho_mid_fwd.cu or
+    csrc/rho_mid.cu): the builds, then rho_mid_phase with its worker."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2770,7 +2775,7 @@ def run_phases(smi, worker, ref_path):
         [streamk.build_kernels, rho.build_kernels, stream.build_kernels,
          streamk_mid.build_kernels, rho_mid.build_kernels,
          stream_mid.build_kernels], verbose=True)
-    phase(2, f"built {path} in {secs:.2f} s (all six sources in "
+    phase(2, f"built {path} in {secs:.2f} s (all seven sources in "
              f"{time.perf_counter() - t0:.2f} s); "
           + " | ".join(ptxas_lines(log)) + f"; {mid_build[0]}: "
           + " | ".join(ptxas_lines(mid_build[2])))
@@ -3462,8 +3467,9 @@ def run_phases(smi, worker, ref_path):
     rpath_m, rsecs_m, rlog_m = rmid_build
     phase(26, f"built {rpath_m} in {rsecs_m:.2f} s; "
               + " | ".join(ptxas_lines(rlog_m)))
-    missing = [f"{k}<{ts}>" for k in ("rho_mid_fwd", "rho_mid_bwd")
-               for ts in (1, 2, 4) if f"{k}ILi{ts}E" not in rlog_m]
+    missing = [f"{k}<{ts}>" for k, tiles in (("rho_mid_fwd", (1, 2, 4)),
+                                             ("rho_mid_bwd", (1, 2, 4)))
+               for ts in tiles if f"{k}ILi{ts}E" not in rlog_m]
     if rsecs_m > 0 and missing:
         raise RuntimeError(f"ptxas reported no {missing}")
     rm = rho_mid_phase(smi, worker, ref_path)
@@ -3689,7 +3695,7 @@ def run_phases(smi, worker, ref_path):
         # rides along
         record("rho_mid_fwd", 374, rm["launches"][RHO_MID[0]],
                rm["worst"]["state"], rm["full"]["qudits125"], "fwd",
-               src=RHO_MID_SRC, tpu="quandary_tpu/ops/pallas_rho.py",
+               src=RHO_MID_FWD_SRC, tpu="quandary_tpu/ops/pallas_rho.py",
                **rho_mid_more(0)),
         record("rho_mid_bwd", 494, rm["launches"][RHO_MID[1]],
                max(rm["worst"]["cbar"], rm["worst"]["x0bar"]),

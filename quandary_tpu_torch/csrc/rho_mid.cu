@@ -1,7 +1,10 @@
 // Density-matrix (Lindblad) propagation kernels for Hopper (sm_90a) past the
-// size csrc/rho.cu holds: open systems of 64 < N <= 128. The contract is
-// rho.cu's (the whole IMR time loop of d rho/dt = T(rho) in ONE launch per
-// direction, the (N, N) state as plane pairs), and so is the algebra:
+// size csrc/rho.cu holds: open systems of 64 < N <= 128. This file holds
+// the backward, rho_mid_bwd, and the forward's stage chain it replays (in
+// the forward's order of terms); the forward itself, rho_mid_fwd, is
+// csrc/rho_mid_fwd.cu, and csrc/rho_mid.cuh what both share. The contract
+// is rho.cu's (the whole IMR time loop of d rho/dt = T(rho) in ONE launch
+// per direction, the (N, N) state as plane pairs), and so is the algebra:
 //
 //   T(rho) = M rho + rho M^dag + sum_l L_l rho L_l^dag,   M = -i H_eff(t),
 //   H_eff(t) = sum_k c_k(t) S_k  (the -i/2 sum L^dag L fold sits in S_0),
@@ -11,8 +14,9 @@
 // in the backward, and Cb[t, k] = <dA_r, Sr_k> + <dA_i, Si_k> of the H_eff
 // cotangent W = sum_pairs (c u^dag + c^dag u), dA_i = Re W, dA_r = -Im W.
 //
-// Replaces quandary_tpu/ops/pallas_rho.py::make_rho_propagate (forward
-// pallas_call at :374, backward at :494) for 64 < N <= 128, the rest of the
+// Replaces the backward pallas_call of
+// quandary_tpu/ops/pallas_rho.py::make_rho_propagate (:494; the forward's,
+// :374, is csrc/rho_mid_fwd.cu) for 64 < N <= 128, the rest of the
 // TPU kernel's range (one 128-lane tile, P_rho = 128: the JAX Problem's
 // lane-group line, quandary_tpu/problem.py:517, admits no N past 128).
 //
@@ -23,7 +27,8 @@
 // (all of v for M v and L_l v; all of M for v M^dag; Tt needs all of M for
 // both its M products), at most one can stay in shared memory.
 //
-// Layout (the choice "operand whole, M in L2"): one thread-block cluster of
+// Layout of the backward (the choice "operand whole, M in L2"; the forward's
+// is in csrc/rho_mid_fwd.cu): one thread-block cluster of
 // G CTAs per (control candidate, density matrix), G in {4, 8, 16}; CTA q
 // owns rows [q N / G, (q + 1) N / G) of every (N, N) quantity the kernel
 // produces, its threads TS x TS entries of the band as in rho.cu.
@@ -60,10 +65,20 @@
 // thread's fixed chain of fmaf (j = 0 .. N-1 in every product, jump
 // operators in l's order) and every entrywise product is rounded as
 // written, never contracted. So xT, the history, the stored iterates and
-// g0 have the same bits at every G and tile, and the backward's replay runs
-// the forward's stage_chain, so replayed and stored iterates have the same
-// bits. Cb is reduced without atomics: each CTA's warps in order, the
-// cluster's ranks in order at rank 0.
+// g0 have the same bits at every G and tile. Cb is reduced without
+// atomics: each CTA's warps in order, the cluster's ranks in order at rank
+// 0.
+//
+// A fork to retire: the forward's stage chain has two implementations.
+// The forward runs its own (csrc/rho_mid_fwd.cu, Cta::gen and band_mma,
+// on its layout); the backward's replay runs stage_chain / band_gen below,
+// the chain the forward ran before its redesign. Replayed and stored
+// iterates have the same bits only while both keep each entry's fmaf order
+// (j = 0 .. N-1, the terms M v, v M^dag, then each jump operator's in l's
+// order, the stage update as written): chip_smoke.py's stored_replayed
+// check and the card tests hold them equal, and an edit to either chain
+// has to be made in both. When rho_mid_bwd is next redesigned, Cta::gen
+// moves into csrc/rho_mid.cuh and the replay calls it (ROADMAP).
 //
 // What bounds it on the H100: operations. One T is (8 + 8 J) real N^3
 // products, 109 MFLOP at N = 125 with 6 jump operators, and a step runs
@@ -75,21 +90,11 @@
 // SMs that would idle, where the card holds both roles. Tensor-core
 // products and fewer barriers are later work.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
 #include <algorithm>
 
-namespace cg = cooperative_groups;
+#include "rho_mid.cuh"
 
 namespace {
-
-enum { MODE_NEUMANN = 0, MODE_JACOBI = 1, MODE_SPLIT = 2 };
-
-struct Dims {
-  int E, nt, B, N, K, J, iters, mode, store;
-  float dt, a;
-};
 
 // loads of a product's factor: shared memory (or read-only planes), or
 // device memory written inside this launch, through L2 only
@@ -167,16 +172,7 @@ __device__ __forceinline__ void contract_band(
   }
 }
 
-// v <- p v and v <- conj(p) v, rounded as written.
-__device__ __forceinline__ void cmul_rn(const float* __restrict__ pr,
-                                        const float* __restrict__ pi, int o,
-                                        float& vr, float& vi) {
-  const float ar = pr[o], ai = pi[o];
-  const float t = __fsub_rn(__fmul_rn(ar, vr), __fmul_rn(ai, vi));
-  vi = __fadd_rn(__fmul_rn(ai, vr), __fmul_rn(ar, vi));
-  vr = t;
-}
-
+// v <- conj(p) v, rounded as written.
 __device__ __forceinline__ void cmul_conj_rn(const float* __restrict__ pr,
                                              const float* __restrict__ pi,
                                              int o, float& vr, float& vi) {
@@ -184,27 +180,6 @@ __device__ __forceinline__ void cmul_conj_rn(const float* __restrict__ pr,
   const float t = __fadd_rn(__fmul_rn(ar, vr), __fmul_rn(ai, vi));
   vi = __fsub_rn(__fmul_rn(ar, vi), __fmul_rn(ai, vr));
   vr = t;
-}
-
-// One stage update k <- solve step from m = T(k) and the stage's b, rounded
-// as written: neumann k = b + a m; jacobi k = Minv (b + a (m - d k)).
-__device__ __forceinline__ void stage_update_rn(
-    bool jac, float a, float br, float bi, float mr, float mi, const float* e0,
-    const float* e1, const float* e2, const float* e3, int o, float& kr,
-    float& ki) {
-  if (jac) {
-    const float d_r = e0[o], d_i = e1[o];
-    const float ur =
-        __fsub_rn(mr, __fsub_rn(__fmul_rn(d_r, kr), __fmul_rn(d_i, ki)));
-    const float ui =
-        __fsub_rn(mi, __fadd_rn(__fmul_rn(d_r, ki), __fmul_rn(d_i, kr)));
-    kr = __fadd_rn(br, __fmul_rn(a, ur));
-    ki = __fadd_rn(bi, __fmul_rn(a, ui));
-    cmul_rn(e2, e3, o, kr, ki);
-  } else {
-    kr = __fadd_rn(br, __fmul_rn(a, mr));
-    ki = __fadd_rn(bi, __fmul_rn(a, mi));
-  }
 }
 
 // The thread's entries of the band of R rows from row r0 (clamped into
@@ -339,18 +314,6 @@ __device__ __forceinline__ void band_gen(float (&accr)[TS][TS],
 // acquires at CTA scope (it also shows the CTA's own stores to all its
 // threads). The caller passes a cluster barrier before each exchange, after
 // which no CTA reads the buffer's previous contents.
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned mapa(unsigned addr, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
 __device__ __forceinline__ void push(float* dst, float v, unsigned bar,
                                      int G, int rank) {
   const unsigned a = smem_u32(dst);
@@ -362,41 +325,6 @@ __device__ __forceinline__ void push(float* dst, float v, unsigned bar,
         "r"(__float_as_uint(v)), "r"(mapa(bar, q))
         : "memory");
   }
-}
-
-__device__ __forceinline__ void bar_init(unsigned bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// arrive on a local mbarrier, expecting tx more bytes of pushes (tx > 0 on
-// one thread only), and wait for the phase of the given parity to complete
-__device__ __forceinline__ void bar_sync(unsigned bar, unsigned tx,
-                                         int parity) {
-  if (tx > 0)
-    asm volatile(
-        "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, "
-        "[%0], %1;\n}" ::"r"(bar),
-        "r"(tx)
-        : "memory");
-  else
-    asm volatile(
-        "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::
-            "r"(bar)
-        : "memory");
-  asm volatile(
-      "{\n .reg .pred P;\n WAIT_%=:\n mbarrier.try_wait.parity.shared::cta.b64 "
-      "P, [%0], %1;\n @!P bra WAIT_%=;\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// the cluster barrier: every CTA's earlier stores (shared and device
-// memory) are visible to all, and every CTA has finished its earlier reads
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 struct Exchange {
@@ -436,7 +364,8 @@ struct Exchange {
 };
 
 // The stage chain of one step on the thread's entries of its band, for the
-// forward and for the backward's replay (rho.cu's): b = T(v) from the
+// backward's replay (rho.cu's, and the forward's order of terms and bits,
+// csrc/rho_mid_fwd.cu): b = T(v) from the
 // pre-step state v (rotated by E where split), already exchanged into the
 // operand buffer; k_0 = b (jacobi: Minv b); then for j = 1..n: a cluster
 // barrier, k exchanged, m = T(k), k <- the stage update. k_j is stored at
@@ -488,108 +417,6 @@ __device__ __forceinline__ void stage_chain(
 
 }  // namespace
 
-// Forward: a cluster of G CTAs per (candidate e, initial condition ib), each
-// CTA on its band of rows (see the header). x0 (B, N, N) shared by all
-// candidates; C (E, nt, K); el the entrywise solver planes, each (N, N):
-// jacobi (d_r, d_i, minv_r, minv_i), split (e_r, e_i, d_r, d_i). Writes xT
-// (E, B, N, N), hist (E, nt, B, N, N) and, with store, the stage iterates
-// k_0..k_{iters-1} (E, B, nt, iters, N, N). scr: 4 N^2 floats per cluster
-// (M transposed, two step parities). Shared memory: one mbarrier (in 8
-// floats), the operand F (one buffer), jb jump bands.
-template <int TS>
-__global__ void __launch_bounds__(TS == 4 ? 256 : 512)
-rho_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
-            const float* __restrict__ L, const float* __restrict__ C,
-            const float* __restrict__ x0r, const float* __restrict__ x0i,
-            const float* __restrict__ el, float* __restrict__ xTr,
-            float* __restrict__ xTi, float* __restrict__ hr,
-            float* __restrict__ hi, float* __restrict__ ksr,
-            float* __restrict__ ksi, float* scr, Dims d, int G, int jb) {
-  extern __shared__ __align__(16) float smf[];
-  cg::cluster_group cl = cg::this_cluster();
-  const int N = d.N, NN = N * N, ld = N | 1, plane = N * ld;
-  const int rank = (int)cl.block_rank();
-  const int r0 = rank * N / G, R = (rank + 1) * N / G - r0;
-  const int Rmax = (N + G - 1) / G;
-  const unsigned bars = smem_u32(smf);    // 1 mbarrier of 8 bytes
-  float* F = smf + 8;           // the operand, one buffer of (re, im)
-  float* tb = F + 2 * plane;    // jb jump bands of (re, im) Rmax x ld
-
-  const int blk = blockIdx.x / G, e = blk / d.B, ib = blk - e * d.B;
-  float* mts = scr + (size_t)blk * 4 * NN;    // M^T, two step parities
-  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  const float *e0 = el, *e1 = el + NN;
-  int r[TS], c[TS];
-  bool ok[TS][TS];
-  band_ownership<TS>(N, r0, R, Rmax, r, c, ok);
-  Exchange ex{F, plane, G, rank, bars,
-              threadIdx.x == 0 ? 8u * N * (N - R) : 0u, 0};
-  if (threadIdx.x == 0) {
-    bar_init(bars, blockDim.x);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  cl.sync();            // every CTA's mbarrier exists before any push
-
-  float xr[TS][TS], xi[TS][TS];
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b) {
-      const int o = r[a] * N + c[b];
-      xr[a][b] = x0r[(size_t)ib * NN + o];
-      xi[a][b] = x0i[(size_t)ib * NN + o];
-    }
-
-  for (int t = 0; t < d.nt; ++t) {
-    const size_t st = (size_t)e * d.nt + t;
-    const size_t ks0 = ((size_t)blk * d.nt + t) * d.iters * NN;
-    float* Mt = mts + (size_t)(t & 1) * 2 * NN;
-    // (the scratch of this parity was last read two steps ago, before the
-    // previous step's cluster barrier)
-    contract_band(Sr, Si, C + st * d.K, d.K, N, r0, R, nullptr, nullptr, Mt,
-                  Mt + NN);
-    if (split) {
-#pragma unroll
-      for (int a = 0; a < TS; ++a)
-#pragma unroll
-        for (int b = 0; b < TS; ++b)
-          if (ok[a][b]) cmul_rn(e0, e1, r[a] * N + c[b], xr[a][b], xi[a][b]);
-    }
-    // M whole in the scratch for every CTA; the operand buffer is free
-    cluster_sync();
-    const Gen g{Mt, Mt + NN, tb, L, split ? el + 2 * NN : nullptr,
-                split ? el + 3 * NN : nullptr, r0, N, ld, Rmax, d.J, jb};
-    ex.share<TS>(xr, xi, r, c, ok, ld);
-    float kr[TS][TS], ki[TS][TS];
-    stage_chain<TS>(kr, ki, d.iters, ex, g, r, c, ok, jac, d.a, el, d.iters,
-                    d.store ? ksr + ks0 : nullptr,
-                    d.store ? ksi + ks0 : nullptr);
-#pragma unroll
-    for (int a = 0; a < TS; ++a)
-#pragma unroll
-      for (int b = 0; b < TS; ++b) {
-        if (!ok[a][b]) continue;
-        const int o = r[a] * N + c[b];
-        xr[a][b] = fmaf(d.dt, kr[a][b], xr[a][b]);
-        xi[a][b] = fmaf(d.dt, ki[a][b], xi[a][b]);
-        if (split) cmul_rn(e0, e1, o, xr[a][b], xi[a][b]);
-        const size_t h = (st * d.B + ib) * NN + o;
-        hr[h] = xr[a][b];
-        hi[h] = xi[a][b];
-      }
-  }
-#pragma unroll
-  for (int a = 0; a < TS; ++a)
-#pragma unroll
-    for (int b = 0; b < TS; ++b)
-      if (ok[a][b]) {
-        const size_t o = (size_t)blk * NN + r[a] * N + c[b];
-        xTr[o] = xr[a][b];
-        xTi[o] = xi[a][b];
-      }
-  cl.sync();            // no CTA leaves while another may still push to it
-}
-
 // The backward's two roles and their hand-off. With replayed iterates (no
 // store, iters > 0) the schedule is either 'chain', one cluster per density
 // matrix that replays each step's stage chain before its pairs (the
@@ -621,18 +448,10 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // One thread spins until *p >= target (a barrier after it shows what the
 // other role published to the CTA). The other role is running, so a wait
 // takes at most about a step; one past WAIT_LIMIT_NS traps, so that a fault
 // of the hand-off fails the launch instead of holding the card.
-constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;
-
 __device__ __forceinline__ void wait_count(const int* p, int target) {
   if (ld_acquire(p) >= target) return;
   const unsigned long long t0 = global_ns();
@@ -1063,12 +882,12 @@ __global__ void __launch_bounds__(MAXT) rho_mid_bwd(const Bwd p) {
   cl.sync();            // no CTA leaves while another may still push to it
 }
 
-// Plain C entry points, bound from Python with ctypes. Each launches on the
-// given stream and returns the launch's error (0 on success). Both kernels
-// launch E * B clusters of `cluster` CTAs (the backward 2 E B with split);
-// their tile is 1, 2 (up to 512 threads) or 4 (up to 256), on the CTA's
-// band. A backward of 2 x 2 tiles on at most 256 threads takes the instance
-// bounded at 256 threads, which may hold 255 registers a thread: bounded at
+// Plain C entry points, bound from Python with ctypes. The launch launches
+// on the given stream and returns the launch's error (0 on success): E * B
+// clusters of `cluster` CTAs (2 E B with split); the tile is 1, 2 (up to
+// 512 threads) or 4 (up to 256), on the CTA's band. A backward of 2 x 2
+// tiles on at most 256 threads takes the instance bounded at 256
+// threads, which may hold 255 registers a thread: bounded at
 // 512 (128 registers) its adjoint spilled and ran 16-21% slower on an H100
 // at N = 125 and 128.
 namespace {
@@ -1094,61 +913,6 @@ long jump_bands(const Dims& d, int G, int threads, int smem_bytes, long fixed,
   return jb;
 }
 
-template <typename Kernel>
-cudaLaunchConfig_t cluster_config(Kernel kernel, cudaLaunchAttribute* attr,
-                                  int clusters, int G, int threads,
-                                  int smem_bytes, cudaStream_t stream) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_bytes);
-  if (G > 8)
-    cudaFuncSetAttribute(kernel,
-                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = G;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * G);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <typename Kernel>
-int max_clusters(Kernel kernel, int G, int threads, int smem_bytes) {
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(kernel, attr, 1, G, threads, smem_bytes, nullptr);
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return n;
-}
-
-template <int TS>
-int launch_fwd(const float* Sr, const float* Si, const float* L,
-               const float* C, const float* x0r, const float* x0i,
-               const float* el, float* xTr, float* xTi, float* hr, float* hi,
-               float* ksr, float* ksi, float* scr, const Dims& d, int G,
-               int threads, int smem_bytes, cudaStream_t stream) {
-  const long jb = jump_bands<TS>(d, G, threads, smem_bytes,
-                                 8 + 2L * d.N * (d.N | 1), 1);
-  if (jb < 0) return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(
-      rho_mid_fwd<TS>, attr, d.E * d.B, G, threads, smem_bytes, stream);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, rho_mid_fwd<TS>, Sr, Si, L, C, x0r, x0i, el,
-                         xTr, xTi, hr, hi, ksr, ksi, scr, d, G, (int)jb);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 template <int TS, int MAXT>
 int launch_bwd(Bwd p, int threads, int smem_bytes, cudaStream_t stream) {
   const Dims& d = p.d;
@@ -1171,27 +935,6 @@ int launch_bwd(Bwd p, int threads, int smem_bytes, cudaStream_t stream) {
 }
 
 }  // namespace
-
-extern "C" int rho_mid_fwd_launch(
-    const void* Sr, const void* Si, const void* L, const void* C,
-    const void* x0r, const void* x0i, const void* el, void* xTr, void* xTi,
-    void* hr, void* hi, void* ksr, void* ksi, void* scr, int E, int nt, int B,
-    int N, int K, int J, int iters, int mode, int store, float dt, float a,
-    int tile, int cluster, int threads, int smem_bytes, void* stream) {
-  Dims d{E, nt, B, N, K, J, iters, mode, store, dt, a};
-#define RHO_MID_FWD_ARGS                                                      \
-  (const float*)Sr, (const float*)Si, (const float*)L, (const float*)C,       \
-      (const float*)x0r, (const float*)x0i, (const float*)el, (float*)xTr,    \
-      (float*)xTi, (float*)hr, (float*)hi, (float*)ksr, (float*)ksi,          \
-      (float*)scr, d, cluster, threads, smem_bytes, (cudaStream_t)stream
-  switch (tile) {
-    case 1: return launch_fwd<1>(RHO_MID_FWD_ARGS);
-    case 2: return launch_fwd<2>(RHO_MID_FWD_ARGS);
-    case 4: return launch_fwd<4>(RHO_MID_FWD_ARGS);
-  }
-#undef RHO_MID_FWD_ARGS
-  return (int)cudaErrorInvalidValue;
-}
 
 extern "C" int rho_mid_bwd_launch(
     const void* Sr, const void* Si, const void* St, const void* L,
@@ -1223,19 +966,9 @@ extern "C" int rho_mid_bwd_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of G CTAs of either kernel's instance `tile`, with
+// How many clusters of G CTAs of the backward's instance `tile`, with
 // `threads` threads and smem_bytes of shared memory each, the card can hold
 // at once: clusters of 16 are beyond the portable size.
-extern "C" int rho_mid_fwd_max_clusters(int tile, int cluster, int threads,
-                                        int smem_bytes) {
-  switch (tile) {
-    case 1: return max_clusters(rho_mid_fwd<1>, cluster, threads, smem_bytes);
-    case 2: return max_clusters(rho_mid_fwd<2>, cluster, threads, smem_bytes);
-    case 4: return max_clusters(rho_mid_fwd<4>, cluster, threads, smem_bytes);
-  }
-  return 0;
-}
-
 extern "C" int rho_mid_bwd_max_clusters(int tile, int cluster, int threads,
                                         int smem_bytes) {
   switch (tile) {

@@ -113,7 +113,8 @@ class RhoPlan:
     [L_r, L_i, Lh_r, Lh_i] with Lh = L^dag (None without jump operators),
     the entrywise solver planes (nplanes, N, N), the step constants and,
     past MAX_N, the transposed stacks (2, K, N, N) the mid pair's backward
-    reads."""
+    reads and the packed jump planes its forward reads from device memory
+    (rho_mid.packed_jumps)."""
     Sr: torch.Tensor
     Si: torch.Tensor
     L: Optional[torch.Tensor]
@@ -122,6 +123,7 @@ class RhoPlan:
     iters: int
     linsolver: str
     St: Optional[torch.Tensor] = None
+    Lp: Optional[torch.Tensor] = None
 
     @property
     def N(self) -> int:
@@ -291,9 +293,10 @@ def make_plan(Sr, Si, Ls, dt: float, iters: int, gen_diag=None,
     if planes.numel() and planes.shape[-1] != N:
         raise ValueError(f"gen_diag must be ({N}, {N})")
     St = rho_mid.transposed_stacks(Sr, Si) if N > MAX_N else None
+    Lp = rho_mid.packed_jumps(L) if N > MAX_N and L is not None else None
     return RhoPlan(Sr=Sr.contiguous(), Si=Si.contiguous(), L=L,
                    planes=planes.contiguous(), dt=dt, iters=iters,
-                   linsolver=linsolver, St=St)
+                   linsolver=linsolver, St=St, Lp=Lp)
 
 
 # ----------------------------------------------------------------------

@@ -1635,9 +1635,12 @@ def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
     """The mid pair on clusters of 4, 8 and 16 CTAs per density matrix:
     xT, hist, the stored iterates and g0 equal to the bit across G and on
     a repeat, Cb within 1e-6 of max across G (its cross-CTA sum changes
-    order with G) and equal on a repeat; stored and replayed iterates give
-    the same bits of g0 and Cb; both directions within
-    test_rho_fwd_cluster_sizes_on_card's bounds of the plain version."""
+    order with G) and equal on a repeat; the forward's also across its
+    layouts at G = 16 (one jump first factor at a time, the jump bands
+    read from L2, 4 rows a thread); stored
+    and replayed iterates give the same bits of g0 and Cb; both directions
+    within test_rho_fwd_cluster_sizes_on_card's bounds of the plain
+    version."""
     from quandary_tpu_torch.ops import rho, rho_mid
     plan, x0r, x0i, C, rng = _rho_inputs(cuda, n, njump, solver, iters, 1, 9)
     f32 = lambda a: cuda(np.asarray(a, dtype=np.float32))
@@ -1664,6 +1667,12 @@ def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
     again = rho._kernel_fwd(plan, x0r, x0i, C)
     for a, b in zip(again, fwd[rho_mid.mid_layouts["fwd"]["G"]]):
         assert torch.equal(a, b)
+    for lay in (dict(jb=1), dict(lres=0), dict(tile=4)):
+        out = rho_mid._kernel_fwd(plan, x0r, x0i, C, _cluster=16,
+                                  _layout=lay)
+        assert all(rho_mid.mid_layouts["fwd"][k] == v for k, v in lay.items())
+        for a, b in zip(out, fwd[4]):
+            assert torch.equal(a, b)
     hr, hi, ksr, ksi = again[2:]
     stored = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, gT, gT, jh,
                              jh)
@@ -1692,6 +1701,30 @@ def test_rho_mid_same_bits_across_clusters_on_card(cuda, n, njump, solver,
     for a, b in zip(stored, plain_b):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_rho_mid_fwd_wide_on_card(cuda):
+    """The forward at E B = 24 (8 candidates, 3 matrices, N = 125, six
+    jump operators): the planner's clusters of 4 CTAs, 4 rows a thread,
+    the jump bands read from L2; xT and hist against the plain version
+    within test_rho_mid_kernel_matches_plain_on_card's bounds (1e-5 of
+    max), xT the history's last step to the bit, one launch."""
+    from quandary_tpu_torch.ops import rho, rho_mid
+    plan, x0r, x0i, C, _ = _rho_inputs(cuda, 125, 6, "jacobi", 6, 8, 11)
+    assert C.shape[0] * B == 24
+    before = rho_mid.rho_mid_fwd_launches
+    got = rho._kernel_fwd(plan, x0r, x0i, C)
+    torch.cuda.synchronize()
+    assert rho_mid.rho_mid_fwd_launches - before == 1
+    lay = rho_mid.mid_layouts["fwd"]
+    assert (lay["G"], lay["tile"], lay["lres"]) == (4, 4, 0)
+    plain = rho.plain_forward(plan, x0r, x0i, C)
+    for a, b in zip(got[2:4], plain):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert torch.equal(got[0], got[2][:, -1]) and torch.equal(got[1],
+                                                             got[3][:, -1])
 
 
 @pytest.mark.cuda

@@ -5,9 +5,12 @@ quandary_tpu/ops/pallas_rho.py::make_rho_propagate) on the CPU.
 The kernels run only on the card (tests/test_torch_cuda.py -k rho_mid and
 chip_smoke.py phase 26 hold them against the plain version there). Here:
 
-1. the planner (`rho_mid._fwd_shape`, `_bwd_shape`): every shape of the
-   range fits 227 KB of shared memory at G in 1..16 and at most 1024
-   threads, and holds the layout csrc/rho_mid.cu carves; the backward's
+1. the planner (`rho_mid._fwd_shape` and `fwd_layout`, `_bwd_shape`):
+   every shape of the range fits 227 KB of shared memory at G in 1..16 and
+   at most 1024 threads, and holds the layout csrc/rho_mid_fwd.cu and
+   csrc/rho_mid.cu carve; a model of the forward's thread-to-entry map
+   (every entry of every band owned once, every load within its buffer);
+   the packed jump planes it reads; the backward's
    schedules ('store', 'split', 'chain'), its ring of replayed iterates,
    its flags and scratch, and a step-level model of the 'split'
    schedule's tickets and hand-off: no cluster waits on one that has not
@@ -95,30 +98,29 @@ def qudits_setup(cfg=QUDITS125, ntime=3, dtype=jnp.complex64, pallas=True,
 def test_mid_shapes_fit(N, J, K, EB):
     """Both directions' shapes: G in 1..16 (at most N), whole warps over the
     band's tiles (the backward's over the K slots too) within the tile's
-    bound and 1024 threads, at most 227 KB of shared memory and at least
-    the layout csrc/rho_mid.cu carves with one jump band (all J where they
-    fit; the backward's with the pair input's row and column bands), and
-    one less jump band would not fill what was asked. The backward's ring
-    of replayed iterates ('split': 3 steps a matrix, 2 where E B rings of 3
+    bound and 1024 threads, at most 227 KB of shared memory. The backward's
+    holds at least the layout csrc/rho_mid.cu carves with one jump band
+    (all J where they fit, with the pair input's row and column bands),
+    and one less jump band would not fill what was asked; the forward's is
+    what fwd_layout plans (_fwd_layout_holds). The backward's ring of
+    replayed iterates ('split': 3 steps a matrix, 2 where E B rings of 3
     pass half of L2), its flags and its scratch."""
-    for backward, shape_fn in ((False, rho_mid._fwd_shape),
-                               (True, rho_mid._bwd_shape)):
-        G, tile, threads, smem = shape_fn(1, EB, N, K, J)
-        assert G in (1, 2, 4, 8, 16) and G <= N
-        R, ld = -(-N // G), N | 1
-        tiles = -(-R // tile) * -(-N // tile)
-        assert threads % 32 == 0 and threads >= tiles
-        assert threads <= (256 if tile == 4 else 512) <= 1024
-        if backward:
-            assert threads >= K
-        fixed = 8 + 2 * N * ld + ((threads // 32 + G) * K + 2 * R * (ld + N)
-                                  if backward else 0)
-        band = 2 * R * ld
-        assert smem <= cuda_build.MAX_SMEM == 227 * 1024
-        assert (smem // 4 - fixed) % band == 0
-        jb = (smem // 4 - fixed) // band
-        assert jb == min(J, (cuda_build.MAX_SMEM // 4 - fixed) // band)
-        assert (jb >= 1) == (J > 0)
+    G, tile, threads, smem = rho_mid._fwd_shape(1, EB, N, K, J)
+    _fwd_layout_holds(N, G, J, tile, threads, smem)
+    G, tile, threads, smem = rho_mid._bwd_shape(1, EB, N, K, J)
+    assert G in (1, 2, 4, 8, 16) and G <= N
+    R, ld = -(-N // G), N | 1
+    tiles = -(-R // tile) * -(-N // tile)
+    assert threads % 32 == 0 and threads >= tiles
+    assert threads <= (256 if tile == 4 else 512) <= 1024
+    assert threads >= K
+    fixed = 8 + 2 * N * ld + (threads // 32 + G) * K + 2 * R * (ld + N)
+    band = 2 * R * ld
+    assert smem <= cuda_build.MAX_SMEM == 227 * 1024
+    assert (smem // 4 - fixed) % band == 0
+    jb = (smem // 4 - fixed) // band
+    assert jb == min(J, (cuda_build.MAX_SMEM // 4 - fixed) // band)
+    assert (jb >= 1) == (J > 0)
     # the directions share G; few matrices spread over 16 CTAs each
     assert rho_mid._fwd_shape(1, EB, N, K, J)[0] \
         == rho_mid._bwd_shape(1, EB, N, K, J)[0]
@@ -137,6 +139,229 @@ def test_mid_shapes_fit(N, J, K, EB):
     # the 'chain' schedule's ring is one step, as the single-role scratch
     assert rho_mid.bwd_scratch_floats(EB, N, iters, False, 1)[1] \
         == EB * iters * N * N
+
+
+def _fwd_layout_holds(N, G, J, tile, threads, smem):
+    """The forward's launch shape against what csrc/rho_mid_fwd.cu carves
+    and checks: G in 1..16 (at most N); whole warps over the band's tiles of
+    `tile` rows x 2 columns within FWD_MAX_THREADS[tile], the smallest tile
+    that fits them; the carve in order (the operand's mbarrier, F, vB, MB,
+    jb jump first factors, the resident jump bands) within `smem` <= 227
+    KB, F on 16 bytes (the bulk copies and 16-byte loads), the bands on 16
+    bytes where a thread loads two rows at once; 1 <= jb <= J (0 without
+    jump operators) and one more jump band would not fit or is not needed;
+    the jump bands resident where they fit; every exchange copy a multiple
+    of 16 bytes and within an mbarrier's transaction count."""
+    lay = rho_mid.fwd_layout(N, G, J)
+    assert (lay["tile"], lay["threads"], lay["smem"]) == (tile, threads, smem)
+    assert G in (1, 2, 4, 8, 16) and G <= N
+    R, nct = rho_mid.fwd_rows(N, G), -(-N // 2)
+    nrt = -(-R // tile)
+    Rp, ldc = nrt * tile, rho_mid.fwd_ldc(N)
+    assert ldc % 2 == 0 and N <= ldc <= N + 1
+    assert threads % 32 == 0 and nrt * nct <= threads < nrt * nct + 32
+    assert tile in rho_mid.FWD_TILES
+    assert threads <= rho_mid.FWD_MAX_THREADS[tile] <= 512
+    assert tile == 1 or (-(-R // (tile // 2)) * nct
+                         > rho_mid.FWD_MAX_THREADS[tile // 2])
+    jb, lres = lay["jb"], lay["lres"]
+    assert (1 <= jb <= J) if J > 0 else jb == lres == 0
+    # the carve, in bytes
+    band = 8 * N * Rp
+    sizes = [16, 8 * N * ldc, band, band, jb * band, J * band if lres else 0]
+    offs = np.cumsum([0] + sizes)
+    assert offs[-1] == smem <= cuda_build.MAX_SMEM == 227 * 1024
+    assert offs[1] % 16 == 0 and offs[2] % 16 == 0
+    if tile > 1:
+        assert all(o % 16 == 0 for o in offs[2:6]) and Rp % 2 == 0
+    if J > 0 and jb < J:
+        assert smem + band > cuda_build.MAX_SMEM
+    if J > 0 and not lres:
+        assert smem - jb * band + (1 + J) * band > cuda_build.MAX_SMEM
+    # the exchange: a band of rows to each other CTA; the operand's
+    # mbarrier counts (N - R) rows of ldc complex at most
+    assert (8 * ldc) % 16 == 0 and 8 * N * ldc < 1 << 20
+
+
+@pytest.mark.parametrize("EB", [1, 3, 24, 132])
+@pytest.mark.parametrize("J", range(7))
+def test_fwd_layout_every_n(J, EB):
+    """The forward's planner over every N of the range, 65 to 128, for K up
+    to 11: a shape for every one (the rule's G, and each G of 4, 8, 16 asked
+    for that the layout holds), each holding what the kernel carves."""
+    for N in range(65, 129):
+        for K in (1, 7, 11):
+            G, tile, threads, smem = rho_mid._fwd_shape(1, EB, N, K, J)
+            _fwd_layout_holds(N, G, J, tile, threads, smem)
+            if EB <= 3:
+                assert G == 16 and tile in (1, 2)
+        for G in (4, 8, 16):
+            if rho_mid.fwd_layout(N, G, J) is not None:
+                _fwd_layout_holds(N, G, J, *rho_mid._fwd_shape(
+                    1, EB, N, 7, J, G=G)[1:])
+            else:
+                with pytest.raises(NotImplementedError):
+                    rho_mid._fwd_shape(1, EB, N, 7, J, G=G)
+
+
+def _fwd_rows(tile, i):
+    """The band rows of row tile i (csrc/rho_mid_fwd.cu's Cta::row less
+    r0): `tile` adjacent rows from i tile."""
+    return [i * tile + a for a in range(tile)]
+
+
+def _fwd_entries(N, G, tile, threads, rank):
+    """csrc/rho_mid_fwd.cu's thread-to-entry map on CTA `rank`: thread t <
+    nrt nct takes row tile t % nrt and column tile t / nrt, rows
+    _fwd_rows, columns 2 tc + b (b < 2), the others the last such thread's;
+    an entry exists where its row is in the CTA's band and its column below
+    N. Returns (the existing entries by thread, the band rows and columns
+    each thread loads)."""
+    r0, r1 = rho_mid.fwd_band(N, G, rank)
+    R, nct = rho_mid.fwd_rows(N, G), -(-N // 2)
+    nrt = -(-R // tile)
+    owned, loads = {}, {}
+    for t in range(threads):
+        active = t < nrt * nct
+        t0 = t if active else nrt * nct - 1
+        rows, c0 = _fwd_rows(tile, t0 % nrt), 2 * (t0 // nrt)
+        owned[t] = [(r0 + rl, c0 + b) for rl in rows for b in range(2)
+                    if active and rl < r1 - r0 and c0 + b < N]
+        loads[t] = (rows, c0, c0 + 2)
+    return owned, loads
+
+
+@pytest.mark.parametrize("EB", [1, 3, 24, 132])
+def test_fwd_thread_map_owns_every_entry_once(EB):
+    """For every (N, G, tile) the planner picks, N = 65 to 128 (and the G
+    of 4, 8, 16 a caller may ask for): every entry of every CTA's band is
+    owned by exactly one thread of that CTA and no thread owns an entry
+    outside it; each thread's loads stay in the padded band (rows < Rp) and
+    in a row of the whole factors (16-byte pairs of columns below ldc); its
+    rows come in pairs that start on an even row (16-byte loads of a band
+    factor); its jump band rows read from device memory (conj(Lp), clamped
+    to ldc - 2) are 16-byte pairs within a row of Lp, and its existing rows
+    read their own entries."""
+    for N in range(65, 129):
+        shapes = {rho_mid._fwd_shape(1, EB, N, 7, 4)}
+        shapes |= {rho_mid._fwd_shape(1, EB, N, 7, 4, G=G) for G in (4, 8, 16)
+                   if rho_mid.fwd_layout(N, G, 4) is not None}
+        for G, tile, threads, _ in shapes:
+            R = rho_mid.fwd_rows(N, G)
+            Rp = -(-R // tile) * tile
+            ldc = rho_mid.fwd_ldc(N)
+            for rank in range(G):
+                r0, r1 = rho_mid.fwd_band(N, G, rank)
+                owned, loads = _fwd_entries(N, G, tile, threads, rank)
+                got = sorted(e for es in owned.values() for e in es)
+                band = [(r, c) for r in range(r0, r1) for c in range(N)]
+                assert got == band
+                for rows, c_lo, c_hi in loads.values():
+                    assert len(rows) == tile
+                    assert all(0 <= rl < Rp for rl in rows)
+                    assert c_lo % 2 == 0 and 0 <= c_lo < c_hi
+                    assert c_hi <= ldc
+                    if tile == 1:
+                        continue
+                    for a in range(0, tile, 2):
+                        assert rows[a] % 2 == 0 and rows[a + 1] == rows[a] + 1
+                        xa = min(r0 + rows[a], ldc - 2)
+                        assert xa % 2 == 0 and 0 <= xa and xa + 2 <= ldc
+                        for row in (r0 + rows[a], r0 + rows[a] + 1):
+                            if row < r1:
+                                assert row in (xa, xa + 1)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_fwd_bands(G):
+    """The forward's bands of rows, N = 65 to 128: G bands in order that
+    cover 0 .. N - 1 once, each starting on an even row (so the jump bands'
+    16-byte pairs of rows are aligned) and none longer than fwd_rows, which
+    the longest reaches (the last, ceil(ceil(N / 2) / G) pairs, one row
+    short of it where N is odd); every band but the last is whole pairs."""
+    for N in range(65, 129):
+        bands = [rho_mid.fwd_band(N, G, q) for q in range(G)]
+        assert bands[0][0] == 0 and bands[-1][1] == N
+        assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
+        assert all(r0 % 2 == 0 and r0 < r1 for r0, r1 in bands)
+        assert all((r1 - r0) % 2 == 0 for r0, r1 in bands[:-1])
+        assert max(r1 - r0 for r0, r1 in bands) \
+            <= rho_mid.fwd_rows(N, G) <= max(r1 - r0 for r0, r1 in bands) + 1
+
+
+def test_packed_jumps():
+    """The packed jump planes: Lp[l, j, c] = L_l^dag(j, c) as (re, im),
+    rows padded with zeros to an even count of entries; conj(Lp[l, j, r])
+    is L_l(r, j), the jump band the forward reads where it is not
+    resident; make_plan packs them past N = 64 only."""
+    rng = np.random.default_rng(3)
+    for N in (65, 96, 125):
+        Ls = [rng.normal(size=(N, N)) + 1j * rng.normal(size=(N, N))
+              for _ in range(2)]
+        t = torch.zeros(3, N, N)
+        plan = rho.make_plan(t, t, Ls, 0.1, 6)
+        Lp = plan.Lp
+        assert Lp.shape == (2, N, rho_mid.fwd_ldc(N), 2)
+        assert torch.equal(Lp, rho_mid.packed_jumps(plan.L))
+        assert torch.equal(Lp[:, :, :N, 0], plan.L[2])
+        assert torch.equal(Lp[:, :, :N, 1], plan.L[3])
+        assert not Lp[:, :, N:].any()
+        assert torch.equal(Lp[:, :, :N, 0].transpose(-1, -2), plan.L[0])
+        assert torch.equal(-Lp[:, :, :N, 1].transpose(-1, -2), plan.L[1])
+    t = torch.zeros(3, 64, 64)
+    assert rho.make_plan(t, t, [np.eye(64)], 0.1, 6).Lp is None
+    assert rho.make_plan(torch.zeros(3, 96, 96), torch.zeros(3, 96, 96),
+                         None, 0.1, 6).Lp is None
+
+
+def test_fwd_wrapper_launch_arguments(monkeypatch):
+    """The forward wrapper's launch through a stand-in for its library:
+    the C signature's 33 arguments (15 pointers: the packed jump planes
+    after L, the scratch of 2 N ldc complex per matrix last), the shape
+    and fwd_layout's (jb, lres), one launch counted, the layout logged."""
+    class Lib:
+        def __init__(self):
+            self.calls = []
+
+        def rho_mid_fwd_max_clusters(self, tile, G, threads, smem):
+            return 8
+
+        def rho_mid_fwd_launch(self, *args):
+            self.calls.append(args)
+            return 0
+
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(rho, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: made.append(
+        s if len(s) != 1 or isinstance(s[0], int) else tuple(s[0]))
+        or real_empty(*s, **k))
+    N, K, B, nt = 125, 3, 3, 4
+    t = torch.zeros(K, N, N)
+    plan = rho.make_plan(t, t, [np.eye(N)] * 6, 0.1, 4)
+    lib = Lib()
+    monkeypatch.setattr(rho_mid, "_fwd_lib", lambda: lib)
+    rho_mid._SCHEDULED.clear()
+    before = rho_mid.rho_mid_fwd_launches
+    x0, C = torch.zeros(B, N, N), torch.zeros(1, nt, K)
+    xTr, xTi, hr, hi, ksr, ksi = rho_mid._kernel_fwd(plan, x0, x0, C)
+    assert rho_mid.rho_mid_fwd_launches == before + 1
+    (args,) = lib.calls
+    assert len(args) == 33
+    assert args[3] == plan.Lp.data_ptr()
+    assert args[15:22] == (1, nt, B, N, K, 6, 4)
+    G, tile, threads, smem = rho_mid._fwd_shape(1, B, N, K, 6)
+    lay = rho_mid.fwd_layout(N, G, 6)
+    assert args[26:32] == (tile, G, threads, smem, lay["jb"], lay["lres"])
+    assert (rho_mid.fwd_scratch_floats(B, N),) in made
+    assert rho_mid.fwd_scratch_floats(B, N) == B * 4 * N * 126
+    assert rho_mid.mid_layouts["fwd"] == dict(
+        G=G, tile=tile, threads=threads, smem=smem, clusters=B, ctas=B * G,
+        schedule=None, ring=None, jb=lay["jb"], lres=lay["lres"])
+    assert xTr.shape == (1, B, N, N) and hr.shape == (1, nt, B, N, N)
+    rho_mid._SCHEDULED.clear()
 
 
 def test_bwd_schedule_rule():
@@ -259,10 +484,18 @@ def test_split_tickets_wait_only_on_started_clusters(EB, holds):
 def test_mid_shapes_of_the_configurations():
     """qudits125 (K = 11, J = 6) and qudits128 (K = 7, J = 4), 3 density
     matrices: clusters of 16 CTAs of 256 threads (2 x 2 tiles of bands of
-    8 rows), every jump band in shared memory; a G asked for is taken."""
-    assert rho_mid._fwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 173032)
+    8 rows); the backward's every jump band in shared memory; the
+    forward's jump bands resident and five (qudits125) or all four jump
+    first factors at once; at E B = 24 4 rows a thread on 512 threads of
+    clusters of 4, the jump bands read from L2; a G asked for is taken."""
+    assert rho_mid._fwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 230016)
+    assert rho_mid.fwd_layout(125, 16, 6) == dict(
+        tile=2, threads=256, jb=5, lres=1, smem=230016)
     assert rho_mid._bwd_shape(1, 3, 125, 11, 6) == (16, 2, 256, 190088)
     assert rho_mid._fwd_shape(1, 3, 128, 7, 4)[:3] == (16, 2, 256)
+    assert rho_mid.fwd_layout(128, 16, 4)["jb"] == 4
+    assert rho_mid._fwd_shape(8, 3, 125, 11, 6)[:3] == (4, 4, 512)
+    assert rho_mid.fwd_layout(125, 4, 6)["lres"] == 0
     for G in (4, 8, 16):
         assert rho_mid._fwd_shape(1, 3, 128, 7, 4, G=G)[0] == G
         assert rho_mid._bwd_shape(1, 3, 128, 11, 6, G=G)[0] == G
