@@ -144,8 +144,12 @@ basis states):
    iterates: three qubits with two guard levels (N = 64, 8 basis states,
    split-3) at E = 1 and 4, and scripts/perf/midsize_bench.py's closed
    systems (N = 256 pure and basis, 512 and 1024 pure; split-4), over
-   every layout the planner picks (the bands of H in shared memory or in
-   device-memory scratch); two launches give the same bits; then Problem
+   every layout and backward schedule the planner picks (the bands of H in
+   shared memory or in device-memory scratch; the column pass on helper
+   clusters, 'helpers', or in the chain, 'chain'); two launches give the
+   same bits; at N = 256 and 1024 pure the two schedules give g0 in the
+   same bits and C-bar within TOL_GRAD_REL, and g0 and C-bar are the same
+   bits from stored and from replayed iterates (stored_replayed); then Problem
    (fused=True and 'auto') on the four midsize systems at their full 1000
    steps, one launch of each mid kernel per sweep: sweeps/s, kernel ms,
    bounds, the clusters (G CTAs, Bc states); then
@@ -1398,6 +1402,43 @@ def mid_same_bits(plan, x0r, x0i, C, rng):
     return same and all(torch.equal(u, v) for u, v in zip(*bw))
 
 
+def mid_bwd_checks(plan, x0r, x0i, C, rng):
+    """The mid backward's schedules and iterate modes on the same inputs
+    and cotangents: the planner's schedule ('helpers' at phase 25's B = 1
+    sizes) against the other ('chain', forced), g0 in the same bits and
+    C-bar's largest difference relative to its largest entry; and, on the
+    planner's schedule, g0 and C-bar in the same bits whether the forward
+    stored its stage iterates or the backward replays them. Returns the
+    report and the (schedule, layout) pairs driven."""
+    w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                  device="cuda", dtype=torch.float32)
+    runs, seen, shapes = {}, set(), {}
+    gT = gh = None
+    for store in (True, False):
+        p = dataclasses.replace(plan, store_iters=store)
+        a = streamk_mid._kernel_fwd(p, x0r, x0i, C)
+        if gT is None:
+            gT, gh = w(a[0]), w(a[2])
+        for sched in ((None, "chain") if store else (None,)):
+            key = (store, sched or "planner")
+            runs[key] = streamk_mid._kernel_bwd(p, x0r, x0i, C, *a[2:], gT,
+                                                gT, gh, gh, _schedule=sched)
+            shapes[f"{'stored' if store else 'replayed'}_{key[1]}"] = dict(
+                streamk_mid.mid_layouts["bwd"])
+            lay = streamk_mid.mid_layouts["bwd"]
+            seen.add(("schedule", lay["schedule"], lay["layout"]))
+    torch.cuda.synchronize()
+    planner, chain = runs[(True, "planner")], runs[(True, "chain")]
+    return dict(
+        schedules_g0_bits=torch.equal(planner[0], chain[0])
+        and torch.equal(planner[1], chain[1]),
+        schedules_cbar_rel=float((planner[2] - chain[2]).abs().max()
+                                 / chain[2].abs().max()),
+        stored_replayed=all(torch.equal(u, v) for u, v in
+                            zip(planner, runs[(False, "planner")])),
+        shapes=shapes), seen
+
+
 def mid_phase(smi, flagship_plan):
     """Phase 25: the mid pair against plain, its layouts and determinism,
     Problem through it at full width, and Quandary on a system past one
@@ -1437,22 +1478,45 @@ def mid_phase(smi, flagship_plan):
                 seen.add(("bwd", streamk_mid.mid_layouts["bwd"]["layout"],
                           store))
                 seen.add(("Bc", streamk_mid.mid_layouts["fwd"]["Bc"]))
+                seen.add(("schedule", streamk_mid.mid_layouts["bwd"][
+                    "schedule"], streamk_mid.mid_layouts["bwd"]["layout"]))
                 bits[key] = mid_same_bits(plan, pr._x0r, pr._x0i, C, rng)
                 if E == 1 and store == pr._plan.store_iters:
                     plain_cut[name] = kernel_ms(plan, pr._x0r, pr._x0i, C,
                                                 1, 1)
+    # the backward's schedules against each other and stored against
+    # replayed iterates, at two sizes where both modes take one shape
+    sched = {}
+    for name in ("n256_pure", "n1024_pure"):
+        pr = probs[name]
+        P = to_card(bench_params(pr.setup.nparams, 1,
+                                 seed=int(rng.integers(1 << 30))))
+        C = streamk.extend_coeffs(
+            pr._plan, pr.coeff_rows_mid(P)[:, :MID_NT_CUT, 0, :])
+        sched[name], more = mid_bwd_checks(pr._plan, pr._x0r, pr._x0i, C,
+                                           rng)
+        seen |= more
     want = {("fwd", "smem"), ("fwd", "global"), ("bwd", "smem", True),
             ("bwd", "smem", False), ("bwd", "global", True),
-            ("bwd", "global", False), ("Bc", 1), ("Bc", 8)}
+            ("bwd", "global", False), ("Bc", 1), ("Bc", 8),
+            ("schedule", "helpers", "smem"), ("schedule", "helpers", "global"),
+            ("schedule", "chain", "smem"), ("schedule", "chain", "global")}
     bad = [k for k, e in errs.items()
            if e["state"] > TOL_STATE_ABS or e["cbar_rel"] > TOL_GRAD_REL
            or e["x0bar_rel"] > TOL_GRAD_REL]
+    bad += [f"{k}: schedules" for k, v in sched.items()
+            if not v["schedules_g0_bits"]
+            or v["schedules_cbar_rel"] > TOL_GRAD_REL]
+    bits.update({f"{k}_stored_replayed": v["stored_replayed"]
+                 for k, v in sched.items()})
     phase(25, f"mid pair == plain at {MID_NT_CUT} steps within abs "
               f"{TOL_STATE_ABS} (states), {TOL_GRAD_REL} x max (cotangents):"
               f" worst {json.dumps(worst)}; out of bounds {bad}; layouts "
-              f"{sorted(map(str, seen))}; missing "
+              f"and schedules {sorted(map(str, seen))}; missing "
               f"{sorted(map(str, want - seen))}"
-              f"; same bits on repeat {json.dumps(bits)}")
+              f"; same bits on repeat and stored_replayed "
+              f"{json.dumps(bits)}; the backward's schedules (g0 bits, "
+              f"C-bar x max) and shapes {json.dumps(sched)}")
     if bad or want - seen or not all(bits.values()):
         raise RuntimeError(f"mid pair: out of bounds {bad}, layouts not "
                            f"driven {want - seen}, bits {bits}")
@@ -1560,7 +1624,7 @@ def mid_phase(smi, flagship_plan):
                            f"{sim} / {opt} ({sweeps} sweeps), cost "
                            f"{cost[0]} -> {cost[-1]}")
     return dict(worst=worst, full=full, plain_cut=plain_cut,
-                launches=launches, fe=fe)
+                launches=launches, fe=fe, schedules=sched)
 
 
 # Phase 26, the mid-size density-matrix pair (csrc/rho_mid_fwd.cu,
@@ -3555,6 +3619,10 @@ def run_phases(smi, worker, ref_path):
         for name, t in mid["plain_cut"].items():
             more[f"ms_{name}_nt{MID_NT_CUT}"] = t[key]
             more[f"plain_ms_{name}_nt{MID_NT_CUT}"] = t[f"plain_{key}"]
+        if i == 1:
+            more["schedules"] = {k: {c: v[c] for c in (
+                "schedules_g0_bits", "schedules_cbar_rel", "stored_replayed")}
+                for k, v in mid["schedules"].items()}
         return more
 
     def rho_mid_more(i):

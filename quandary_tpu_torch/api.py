@@ -306,7 +306,7 @@ class Quandary:
                     f"a standard model of N = {int(np.prod(nlv))} > 1024 runs "
                     "on the JAX package's structured engines "
                     "(ops/tensor_rhs.py), which are not ported to "
-                    "quandary_tpu_torch (ROADMAP A8)")
+                    "quandary_tpu_torch (ROADMAP A3)")
             else:
                 model = build_standard_model(
                     nlevels=nlv, freq01_ghz=self.freq01, rotfreq_ghz=self.rotfreq,

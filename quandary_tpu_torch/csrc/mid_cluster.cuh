@@ -6,12 +6,15 @@
 // lane runs the stage update of its entry (mid_first, mid_next) and pushes
 // the result into every CTA's copy of the next operand (push); the host
 // side sets a launch up as clusters of G CTAs (cluster_config) and asks the
-// card how many it holds (max_clusters).
+// card how many it holds (max_clusters). For hand-offs between CTAs through
+// device memory (streamk_mid_bwd's 'helpers' schedule): rows_dot_l2 and
+// cp_async16_l2, with the counters of handoff.cuh.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "handoff.cuh"
 #include "imr_step.cuh"
 
 namespace {
@@ -85,11 +88,57 @@ __device__ __forceinline__ void mid_next(bool jac, float a, const float* rw,
   }
 }
 
+// rows_dot on a band that other SMs wrote during the launch (a ring in
+// device memory): the same products in the same order, each entry of M read
+// from L2 (ld.global.cg), never from an SM's L1, which may hold a line of
+// the ring from before the writer's release.
+template <int BC, bool CONJ, typename F>
+__device__ __forceinline__ void rows_dot_l2(const float* Mr, const float* Mi,
+                                            int ld, int nr, const float* Vr,
+                                            const float* Vi, int N, int warp,
+                                            int nwarps, int lane, F f) {
+  for (int il = warp; il < nr; il += nwarps) {
+    const float* mr = Mr + (size_t)il * ld;
+    const float* mi = Mi + (size_t)il * ld;
+    float a[BC][4];
+#pragma unroll
+    for (int b = 0; b < BC; ++b) a[b][0] = a[b][1] = a[b][2] = a[b][3] = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float hr = __ldcg(mr + j), hi = __ldcg(mi + j);
+#pragma unroll
+      for (int b = 0; b < BC; ++b) {
+        const float vr = Vr[b * N + j], vi = Vi[b * N + j];
+        a[b][0] = fmaf(hr, vr, a[b][0]);
+        a[b][1] = fmaf(CONJ ? hi : -hi, vi, a[b][1]);
+        a[b][2] = fmaf(hr, vi, a[b][2]);
+        a[b][3] = fmaf(CONJ ? -hi : hi, vr, a[b][3]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BC; ++b) {
+      float sr = a[b][0] + a[b][1], si = a[b][2] + a[b][3];
+      for (int o = 16; o > 0; o >>= 1) {
+        sr += __shfl_xor_sync(0xffffffffu, sr, o);
+        si += __shfl_xor_sync(0xffffffffu, si, o);
+      }
+      if (lane == b) f(il, b, sr, si);
+    }
+  }
+}
+
 // An entry into the same place of every CTA's copy of an operand buffer
 // (its own included), through distributed shared memory.
 __device__ __forceinline__ void push(const cg::cluster_group& cl, float* dst,
                                      float v, int G) {
   for (int q = 0; q < G; ++q) *cl.map_shared_rank(dst, q) = v;
+}
+
+// 16 bytes from L2 (not L1) into shared memory by cp.async; cp_async_wait
+// (imr_step.cuh) waits for them with the thread's other copies.
+__device__ __forceinline__ void cp_async16_l2(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
 }
 
 // The launch configuration of `clusters` clusters of G CTAs of `kernel`,

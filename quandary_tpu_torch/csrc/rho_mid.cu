@@ -439,35 +439,6 @@ namespace {
 
 constexpr int CLAIMED = 1 << 30;
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// One thread spins until *p >= target (a barrier after it shows what the
-// other role published to the CTA). The other role is running, so a wait
-// takes at most about a step; one past WAIT_LIMIT_NS traps, so that a fault
-// of the hand-off fails the launch instead of holding the card.
-__device__ __forceinline__ void wait_count(const int* p, int target) {
-  if (ld_acquire(p) >= target) return;
-  const unsigned long long t0 = global_ns();
-  while (ld_acquire(p) < target) {
-    __nanosleep(64);
-    if (global_ns() - t0 > WAIT_LIMIT_NS) __trap();
-  }
-}
-
-// after a barrier of the CTA, one thread publishes the CTA's earlier writes
-// (or its finished reads) by adding one to *p
-__device__ __forceinline__ void signal_count(int* p) {
-  __threadfence();
-  atomicAdd(p, 1);
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
                "l"(src)

@@ -8,6 +8,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "handoff.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -94,17 +96,7 @@ __device__ __forceinline__ void bar_wait(unsigned bar, int parity) {
       : "memory");
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// a wait past this many nanoseconds traps: a fault of a hand-off between
-// CTAs fails the launch instead of holding the card
-constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;
-
-// bar_wait, trapping past WAIT_LIMIT_NS
+// bar_wait, trapping past WAIT_LIMIT_NS (handoff.cuh)
 __device__ __forceinline__ void bar_wait_bounded(unsigned bar, int parity) {
   unsigned long long t0 = 0;
   for (;;) {

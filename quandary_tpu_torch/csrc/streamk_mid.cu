@@ -43,6 +43,9 @@
 //   C-bar: each CTA writes its partial row Cbp[cta, t, :] (a shuffle tree
 //     per warp, the warps summed in order); the wrapper sums the rows in a
 //     fixed order. No float atomics: two launches give the same bits.
+//   That is the backward's 'chain' schedule. Where the launch leaves SMs
+//     idle its 'helpers' schedule (streamk_mid_bwd_helpers, below) runs the
+//     same chain and moves the pass onto helper clusters, a step ahead.
 // Where the bands of H fit shared memory beside the operand buffers
 // ("smem" layout) they live there; otherwise ("global" layout) in a
 // per-CTA scratch in device memory, which the L2 serves (at N = 1024 a
@@ -64,8 +67,10 @@
 // small at B = 1 (4 N^2 FMA, 4 M at N = 1024), so a stage costs the
 // reading of the CTA's H band (from shared memory, or 512 KB from L2 in the
 // global layout), the warps' shuffle trees, the pushes and the barrier;
-// the per-step contraction reads Ke bands of the stacks from L2. At
-// B = 256 the products dominate (67 MFLOP a stage at N = 256).
+// the per-step contraction reads Ke bands of the stacks from L2 (past N =
+// 512 from device memory: the backward's pass on the chain cost 521 of a
+// 591 us step at N = 1024, on helper clusters the chain alone bounds it).
+// At B = 256 the products dominate (67 MFLOP a stage at N = 256).
 
 #include "mid_cluster.cuh"
 
@@ -588,6 +593,587 @@ streamk_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
   });
 }
 
+// ---------------------------------------------------------------------------
+// The backward's 'helpers' schedule: the column pass off the chain. Above,
+// 'chain': each step's pass (Hb, C-bar, the next bands of H) runs in the
+// cluster's own chain after its transposed stages. Here the chain clusters
+// run only the operand loads, the replay and the transposed stages, and the
+// pass runs beside them, on helper clusters the launch adds where the card
+// would leave SMs idle (ops/streamk.py::bwd_schedule).
+//
+// A group is one chain cluster (candidate, chunk of BC states) and its
+// helpers. Its hand-off memory (ring, split_ring_floats floats):
+//   the H ring, 2 slots, each H(t)^T (N rows of ldr floats, row q the
+//     column q of H) and, with replay, H(t) row-major, re then im;
+//   the pairs ring, 2 slots, each the step's it + 1 (cotangent, input)
+//     pairs, whole vectors: pair q at 4 q BC N, cotangent (re, im), then
+//     input (re, im), each BC x N.
+// The pass is cut in tiles of TILE_P rows (pp) x TILE_Q columns (q) of the
+// whole matrix; pass i (0 <= i <= nt + 1) of the steps in reverse contracts
+// H(nt - 1 - i) (i < nt) into H slot i & 1 and reduces C-bar of step
+// s = i - 2's pairs (i >= 2; pairs slot s & 1) into each tile's row of
+// Cbt (groups, tiles, nt, Ke), which the wrapper sums in a fixed order.
+// Chain step s waits for pass s (its H) and then writes pairs slot s & 1,
+// which pass s read; pass i writes H slot i & 1 only after the pairs of
+// step i - 2, whose chain last read that slot, are published. So two slots
+// each, and the passes run one step ahead of the chain.
+// flags (ints, zeroed by the wrapper): a ticket counter, then per group the
+// tiles claimed and the tiles done of each pass (nt + 2 each) and the chain
+// CTAs that published each step's pairs (nt). A cluster takes group and
+// role by ticket in the order it starts: ticket (1 + helpers) m + 0 is
+// group m's chain, the next `helpers` its helpers, so a helper waits only
+// on a chain that started before it. Tiles are claimed by an atomic counter,
+// by the helpers and, while its pass is not done, by the chain's CTAs
+// themselves: no chain waits on a CTA that has not started, and a tile's
+// result does not depend on which CTA ran it (the same bits with any number
+// of helpers, none included).
+// Numerics: H's entries are the same fmaf chains in k order as the chain
+// schedule's, and the chain's stages the same products in the same order,
+// so g0 has its bits; C-bar is summed by tiles, in another order than the
+// chain schedule's CTA partials.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int TILE_P = 32;      // rows pp of a pass tile
+constexpr int TILE_Q = 64;      // columns q of a pass tile
+constexpr int TILE_LD = TILE_P + 1;     // row stride of a staged tile
+
+struct SplitDims {
+  int ldr;        // row stride of the rings' planes: N rounded up to 4
+  int tq;         // tiles across a row of the matrix
+  int ntiles;     // tiles of a pass
+  int helpers;    // helper clusters per chain cluster
+};
+
+__host__ __device__ inline int split_ldr(int N) { return (N + 3) & ~3; }
+
+__host__ __device__ inline size_t round4(size_t n) {
+  return (n + 3) & ~(size_t)3;
+}
+
+// floats of one group's hand-off memory: the H ring, then the pairs ring
+__host__ __device__ inline size_t split_ring_floats(int BC, int N, int it,
+                                                    bool replay) {
+  return 2 * (size_t)(replay ? 2 : 1) * 2 * N * split_ldr(N) +
+         2 * (size_t)(it + 1) * 4 * BC * N;
+}
+
+__host__ __device__ inline size_t split_flag_ints(int nt) {
+  return 3 * (size_t)nt + 4;
+}
+
+// floats of a tile's scratch: the tile of H staged transposed (re, im), the
+// warps' C-bar partials, the pairs' cotangents on its rows and inputs on its
+// columns
+__host__ __device__ inline size_t tile_floats(int BC, int it) {
+  return 2 * TILE_Q * TILE_LD + 16 * MID_KG +
+         (size_t)(it + 1) * BC * 2 * (TILE_P + TILE_Q);
+}
+
+// Floats of the helpers schedule's shared memory: a header of 8 words, the
+// it + 1 whole cotangents, with replay two operand buffers, the bands of g,
+// kb, bb (with replay also b, k), the solver rows, two slots of a step's
+// operands (j, the pre-state and the stored iterates, by band), then one
+// region, 16-byte aligned, that holds either the step's bands of H (the
+// smem layout) or a tile's scratch.
+__host__ __device__ inline size_t mid_split_floats(int BC, int N, int R,
+                                                   int it, bool replay,
+                                                   bool stored, bool hsmem) {
+  const size_t BNv = (size_t)BC * N, BR = (size_t)BC * R;
+  const size_t head = 8 + 2 * (size_t)(it + 1) * BNv +
+                      (replay ? 4 * BNv : 0) + (replay ? 10 : 6) * BR +
+                      4 * (size_t)R + 2 * (4 + 2 * (stored ? it : 0)) * BR;
+  const size_t band =
+      hsmem ? 2 * (size_t)R * split_ldr(N) * (replay ? 2 : 1) : 0;
+  const size_t tile = tile_floats(BC, it);
+  return round4(head) + (band > tile ? band : tile);
+}
+
+// Four consecutive stack entries of a row from device memory, streamed
+// (evict-first in L2, so the rings stay); 16 bytes where the row is aligned,
+// else one by one, zero past the row's end (left entries remain).
+__device__ __forceinline__ void load4(const float* p, bool vec, int left,
+                                      float (&v)[4]) {
+  if (vec) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < left ? __ldcs(p + e) : 0.f;
+  }
+}
+
+// One tile of a pass, by the whole CTA: rows [p0, p0 + TILE_P) x columns
+// [q0, q0 + TILE_Q) of the matrix. With npairs > 0: Hb(pp, q) from the
+// pairs at P (the chain schedule's formula), added against every slot into
+// the tile's C-bar row cbout (each thread's partials over its entries, a
+// shuffle tree per warp, the warps in order). With cn: H = sum_k cn_k S_k
+// (fmaf in k order, carried through the staged tile across groups of
+// MID_KG slots), written transposed into HT (row q: column q of H) and,
+// with Hrow, row-major, both of row stride ldr, 16 bytes a lane,
+// consecutive lanes on consecutive floats. The stacks are read 16 bytes a
+// lane where N % 4 == 0. Ends with a barrier.
+template <int BC>
+__device__ void tile_pass(const float* __restrict__ Sr,
+                          const float* __restrict__ Si, int Ke, int N,
+                          int ldr, int npairs, const float* P,
+                          const float* __restrict__ cn, float* HT,
+                          float* Hrow, int tile, int tq, float* ts,
+                          float* __restrict__ cbout) {
+  const int tid = threadIdx.x, nth = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5, nwarps = nth >> 5;
+  const size_t NN = (size_t)N * N, NL = (size_t)N * ldr;
+  const int p0 = (tile / tq) * TILE_P, q0 = (tile % tq) * TILE_Q;
+  float* Tr = ts;                             // the tile of H, transposed
+  float* Ti = Tr + TILE_Q * TILE_LD;
+  float* red = Ti + TILE_Q * TILE_LD;         // 16 warps x MID_KG
+  float* Pc = red + 16 * MID_KG;              // npairs x 2 x BC x TILE_P
+  float* Pu = Pc + npairs * 2 * BC * TILE_P;  // npairs x 2 x BC x TILE_Q
+  for (int i = tid; i < npairs * 2 * BC * TILE_P; i += nth) {
+    const int m = i / TILE_P, pp = p0 + i - m * TILE_P;
+    const int pr = m / (2 * BC), rest = m - pr * 2 * BC;
+    Pc[i] = pp < N ? __ldcg(P + (size_t)(pr * 4 * BC + rest) * N + pp) : 0.f;
+  }
+  for (int i = tid; i < npairs * 2 * BC * TILE_Q; i += nth) {
+    const int m = i / TILE_Q, q = q0 + i - m * TILE_Q;
+    const int pr = m / (2 * BC), rest = m - pr * 2 * BC;
+    Pu[i] = q < N ? __ldcg(P + (size_t)(pr * 4 * BC + 2 * BC + rest) * N + q)
+                  : 0.f;
+  }
+  __syncthreads();
+  const bool vec = (N & 3) == 0;
+  constexpr int QR = TILE_Q / 4;              // quads of a tile row
+  for (int k0 = 0; k0 < Ke; k0 += MID_KG) {
+    float cb[MID_KG];
+#pragma unroll
+    for (int kk = 0; kk < MID_KG; ++kk) cb[kk] = 0.f;
+    for (int idx = tid; idx < TILE_P * QR; idx += nth) {
+      const int pl = idx / QR, c4 = idx - pl * QR;
+      const int pp = p0 + pl, qa = q0 + 4 * c4;
+      if (pp >= N || qa >= N) continue;
+      float hbr[4] = {0.f, 0.f, 0.f, 0.f}, hbi[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int pr = 0; pr < npairs; ++pr) {
+#pragma unroll
+        for (int b = 0; b < BC; ++b) {
+          const int mr = (pr * 2) * BC + b, mi = mr + BC;
+          const float cr = Pc[mr * TILE_P + pl], ci = Pc[mi * TILE_P + pl];
+          const float4 u4r =
+              *reinterpret_cast<const float4*>(Pu + mr * TILE_Q + 4 * c4);
+          const float4 u4i =
+              *reinterpret_cast<const float4*>(Pu + mi * TILE_Q + 4 * c4);
+          const float ur[4] = {u4r.x, u4r.y, u4r.z, u4r.w};
+          const float ui[4] = {u4i.x, u4i.y, u4i.z, u4i.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hbr[e] = fmaf(cr, ui[e], hbr[e]);
+            hbr[e] = fmaf(-ci, ur[e], hbr[e]);
+            hbi[e] = fmaf(cr, ur[e], hbi[e]);
+            hbi[e] = fmaf(ci, ui[e], hbi[e]);
+          }
+        }
+      }
+      float hnr[4], hni[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hnr[e] = k0 > 0 ? Tr[(4 * c4 + e) * TILE_LD + pl] : 0.f;
+        hni[e] = k0 > 0 ? Ti[(4 * c4 + e) * TILE_LD + pl] : 0.f;
+      }
+      const size_t off = (size_t)pp * N + qa;
+#pragma unroll
+      for (int kk = 0; kk < MID_KG; ++kk) {
+        const int k = k0 + kk;
+        if (k < Ke) {
+          float sr[4], si[4];
+          load4(Sr + k * NN + off, vec, N - qa, sr);
+          load4(Si + k * NN + off, vec, N - qa, si);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            cb[kk] = fmaf(hbr[e], sr[e], cb[kk]);
+            cb[kk] = fmaf(hbi[e], si[e], cb[kk]);
+          }
+          if (cn != nullptr) {
+            const float c = cn[k];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              hnr[e] = fmaf(c, sr[e], hnr[e]);
+              hni[e] = fmaf(c, si[e], hni[e]);
+            }
+          }
+        }
+      }
+      if (cn != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          Tr[(4 * c4 + e) * TILE_LD + pl] = hnr[e];
+          Ti[(4 * c4 + e) * TILE_LD + pl] = hni[e];
+        }
+      }
+    }
+    if (cbout != nullptr) {
+#pragma unroll
+      for (int kk = 0; kk < MID_KG; ++kk) {
+        float v = cb[kk];
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) red[warp * MID_KG + kk] = v;
+      }
+      __syncthreads();
+      if (tid < MID_KG && k0 + tid < Ke) {
+        float v = 0.f;
+        for (int w = 0; w < nwarps; ++w) v += red[w * MID_KG + tid];
+        cbout[k0 + tid] = v;
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();      // the staged tile is whole
+  if (HT != nullptr) {  // row q of H^T: TILE_P floats from column pp = p0
+    constexpr int QP = TILE_P / 4;
+    for (int idx = tid; idx < TILE_Q * QP; idx += nth) {
+      const int ql = idx / QP, c4 = idx - ql * QP;
+      const int q = q0 + ql, pa = p0 + 4 * c4;
+      if (q >= N || pa >= N) continue;
+      const float* tr = Tr + ql * TILE_LD + 4 * c4;
+      const float* ti = Ti + ql * TILE_LD + 4 * c4;
+      *reinterpret_cast<float4*>(HT + (size_t)q * ldr + pa) =
+          make_float4(tr[0], tr[1], tr[2], tr[3]);
+      *reinterpret_cast<float4*>(HT + NL + (size_t)q * ldr + pa) =
+          make_float4(ti[0], ti[1], ti[2], ti[3]);
+    }
+  }
+  if (Hrow != nullptr) {
+    for (int idx = tid; idx < TILE_P * QR; idx += nth) {
+      const int pl = idx / QR, c4 = idx - pl * QR;
+      const int pp = p0 + pl, qa = q0 + 4 * c4;
+      if (pp >= N || qa >= N) continue;
+      const float* tr = Tr + 4 * c4 * TILE_LD + pl;
+      const float* ti = Ti + 4 * c4 * TILE_LD + pl;
+      *reinterpret_cast<float4*>(Hrow + (size_t)pp * ldr + qa) = make_float4(
+          tr[0], tr[TILE_LD], tr[2 * TILE_LD], tr[3 * TILE_LD]);
+      *reinterpret_cast<float4*>(Hrow + NL + (size_t)pp * ldr + qa) =
+          make_float4(ti[0], ti[TILE_LD], ti[2 * TILE_LD], ti[3 * TILE_LD]);
+    }
+  }
+  __syncthreads();      // the scratch is free for the next tile
+}
+
+}  // namespace
+
+// Backward, 'helpers' schedule: the chain schedule's contract (inputs, g0,
+// the steps in reverse and each step's chain in the same order), with
+// C-bar by tiles into Cbt and the pass beside the chain (see above). ring,
+// flags: the groups' hand-off memory and counters, sized by the wrapper.
+template <int BC>
+__global__ void __launch_bounds__(MID_MAX_THREADS)
+streamk_mid_bwd_helpers(
+    const float* __restrict__ Sr, const float* __restrict__ Si,
+    const float* __restrict__ C, const float* __restrict__ x0r,
+    const float* __restrict__ x0i, const float* __restrict__ hr,
+    const float* __restrict__ hi, const float* __restrict__ jr,
+    const float* __restrict__ ji, const float* __restrict__ gTr,
+    const float* __restrict__ gTi, const float* __restrict__ rows,
+    const float* __restrict__ ksr, const float* __restrict__ ksi,
+    float* __restrict__ g0r, float* __restrict__ g0i,
+    float* __restrict__ Cbt, float* ring, int* flags, MidDims d,
+    SplitDims s) {
+  extern __shared__ float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  int* hdr = reinterpret_cast<int*>(sm);
+  const int rank = (int)cl.block_rank();
+  if (rank == 0 && threadIdx.x == 0) hdr[0] = atomicAdd(flags, 1);
+  cl.sync();
+  const int ticket = *cl.map_shared_rank(hdr, 0);
+  cl.sync();    // rank 0's ticket is read before any CTA moves on
+  const int grp = ticket / (1 + s.helpers);
+  const bool chain = ticket % (1 + s.helpers) == 0;
+
+  const int N = d.N, R = d.R, Ke = d.Ke, nt = d.nt, it = d.iters, G = d.G;
+  const int ldr = s.ldr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  const bool replay = d.store == 0 && it > 0;
+  const bool stored = d.store != 0 && it > 0;
+  const size_t NL = (size_t)N * ldr;
+  const size_t hslot = (replay ? 4 : 2) * NL;
+  const size_t pslot = (size_t)(it + 1) * 4 * BC * N;
+  float* Hring = ring + grp * split_ring_floats(BC, N, it, replay);
+  float* Pring = Hring + 2 * hslot;
+  int* claim = flags + 1 + grp * split_flag_ints(nt);
+  int* done = claim + nt + 2;
+  int* ready = done + nt + 2;
+  const int e = grp / d.nchunks;
+  Sr += e * d.strideS;            // this candidate's stack and solver rows
+  Si += e * d.strideS;
+  rows += e * d.strideR;
+  const float* Ce = C + (size_t)e * nt * Ke;
+  float* cbg = Cbt + (size_t)grp * s.ntiles * nt * Ke;
+
+  // the tiles of pass i this CTA can claim, until none is left
+  auto run_pass = [&](int i, float* ts) {
+    const bool cbar = i >= 2, contract = i < nt;
+    if (!cbar && !contract) return;
+    if (cbar) {
+      if (tid == 0) wait_count(ready + i - 2, G);
+      __syncthreads();
+    }
+    float* Hs = Hring + (i & 1) * hslot;
+    for (;;) {
+      if (tid == 0) hdr[1] = atomicAdd(claim + i, 1);
+      __syncthreads();
+      const int tile = hdr[1];
+      __syncthreads();
+      if (tile >= s.ntiles) break;
+      tile_pass<BC>(Sr, Si, Ke, N, ldr, cbar ? it + 1 : 0,
+                    Pring + (i & 1) * pslot,
+                    contract ? Ce + (size_t)(nt - 1 - i) * Ke : nullptr,
+                    contract ? Hs : nullptr,
+                    contract && replay ? Hs + 2 * NL : nullptr, tile, s.tq,
+                    ts, cbar ? cbg + ((size_t)tile * nt + nt + 1 - i) * Ke
+                              : nullptr);
+      if (tid == 0) signal_count(done + i);
+    }
+  };
+
+  if (!chain) {
+    for (int i = 0; i < nt + 2; ++i) run_pass(i, sm + 8);
+    return;
+  }
+
+  MidBand g;      // the group's candidate and chunk, this CTA's band
+  g.e = e;
+  g.r0 = rank * R;
+  g.nr = min(R, N - g.r0);
+  g.b0 = (grp - e * d.nchunks) * BC;
+  g.nb = min(BC, d.B - g.b0);
+  const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
+  const int BI = BC * R;
+  float* Cs = sm + 8;                       // it + 1 whole cotangents
+  float* V = Cs + 2 * (size_t)(it + 1) * BNv;   // replay: two buffers
+  float* Gb = V + (replay ? 4 * BNv : 0);   // the bands of g, kb, bb
+  float* KB = Gb + 2 * BI;
+  float* BB = KB + 2 * BI;
+  float* Bb = BB + 2 * BI;                  // replay: the bands of b, k
+  float* Kb = Bb + 2 * BI;
+  float* rw = BB + 2 * BI + (replay ? 4 * BI : 0);    // solver rows, 4 x R
+  float* OP = rw + 4 * R;                   // two slots of step operands
+  const int opw = (4 + 2 * (stored ? it : 0)) * BI;
+  float* region = sm + round4(OP + 2 * opw - sm);
+  const float *HTr, *HTi, *Hr, *Hi;         // this step's bands of H
+
+  for (size_t i = 8 + tid; i < (size_t)(region - sm); i += blockDim.x)
+    sm[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < BI; i += blockDim.x) {
+    const int b = i / R, il = i - b * R;
+    if (b < g.nb && il < g.nr) {
+      const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
+      Gb[i] = gTr[o];
+      Gb[BI + i] = gTi[o];
+    }
+  }
+  const int nrows = jac ? 4 : split ? 2 : 0;
+  for (int i = tid; i < nrows * R; i += blockDim.x) {
+    const int m = i / R, il = i - m * R;
+    if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
+  }
+
+  auto owned = [&](auto fn) {
+    for (int il = warp; il < g.nr; il += nwarps)
+      if (lane < BC) fn(il, lane, lane * R + il);
+  };
+  auto put = [&](float* buf, int b, int il, float vr, float vi) {
+    push(cl, buf + b * N + g.r0 + il, vr, G);
+    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);
+  };
+  // pair q's cotangent (cu = 0) or input (cu = 2) entry into the pairs ring
+  auto put_pair = [&](float* P, int q, int cu, int b, int il, float vr,
+                      float vi) {
+    float* o = P + (size_t)(q * 4 + cu) * BNv + b * N + g.r0 + il;
+    o[0] = vr;
+    o[BNv] = vi;
+  };
+  // step t's operands (j, the pre-state, the stored iterates) into slot sl
+  // by their owners' cp.async, a step ahead
+  auto fetch = [&](int t, int sl) {
+    if (t < 0) return;
+    float* o = OP + sl * opw;
+    const size_t st = (size_t)g.e * nt + t;
+    owned([&](int il, int b, int ib) {
+      if (b >= g.nb) return;
+      const size_t col = (size_t)(g.b0 + b) * N + g.r0 + il;
+      cp_async4(o + ib, jr + st * BN + col);
+      cp_async4(o + BI + ib, ji + st * BN + col);
+      cp_async4(o + 2 * BI + ib,
+                t == 0 ? x0r + col : hr + (st - 1) * BN + col);
+      cp_async4(o + 3 * BI + ib,
+                t == 0 ? x0i + col : hi + (st - 1) * BN + col);
+      if (stored)
+        for (int q = 0; q < it; ++q) {    // pair q's input is k_{it-1-q}
+          const size_t k = (st * it + it - 1 - q) * BN + col;
+          cp_async4(o + (4 + 2 * q) * BI + ib, ksr + k);
+          cp_async4(o + (5 + 2 * q) * BI + ib, ksi + k);
+        }
+    });
+  };
+  fetch(nt - 1, 0);
+  cl.sync();    // every CTA's buffers are zeroed before the first push
+
+  int p = 0;                      // replay: the operand buffer next read
+  for (int sidx = 0; sidx < nt; ++sidx) {
+    const int t = nt - 1 - sidx;
+    // H(t): pass sidx, run by the helpers, or by this CTA where it can
+    run_pass(sidx, region);
+    if (tid == 0) wait_count(done + sidx, s.ntiles);
+    __syncthreads();
+    const float* Hs = Hring + (sidx & 1) * hslot + (size_t)g.r0 * ldr;
+    if (d.global) {
+      HTr = Hs;
+      HTi = Hs + NL;
+      Hr = Hs + 2 * NL;
+      Hi = Hs + 3 * NL;
+    } else {      // the bands into shared memory
+      const int nb4 = g.nr * ldr / 4, nplanes = replay ? 4 : 2;
+      for (int i = tid; i < nplanes * nb4; i += blockDim.x) {
+        const int m = i / nb4, o = 4 * (i - m * nb4);
+        cp_async16_l2(region + (size_t)m * R * ldr + o, Hs + m * NL + o);
+      }
+      HTr = region;
+      HTi = region + (size_t)R * ldr;
+      Hr = region + 2 * (size_t)R * ldr;
+      Hi = region + 3 * (size_t)R * ldr;
+    }
+    cp_async_wait();      // the bands, and the thread's operands of step t
+    float* Pw = Pring + (sidx & 1) * pslot;     // this step's pairs
+    const float* o = OP + (sidx & 1) * opw;
+    owned([&](int il, int b, int ib) {
+      float gr = Gb[ib], gi = Gb[BI + ib], xr = 0.f, xi = 0.f;
+      if (b < g.nb) {
+        gr += o[ib];
+        gi += o[BI + ib];
+        xr = o[2 * BI + ib];
+        xi = o[3 * BI + ib];
+      }
+      if (split) {        // cotangent and pre-state into the rotated frame
+        cmul_conj(rw[il], rw[R + il], gr, gi);
+        cmul(rw[il], rw[R + il], xr, xi);
+      }
+      Gb[ib] = gr;
+      Gb[BI + ib] = gi;
+      put_pair(Pw, it, 2, b, il, xr, xi);
+      if (stored)
+        for (int q = 0; q < it; ++q)
+          put_pair(Pw, q, 2, b, il, b < g.nb ? o[(4 + 2 * q) * BI + ib] : 0.f,
+                   b < g.nb ? o[(5 + 2 * q) * BI + ib] : 0.f);
+      if (replay) put(V + 2 * p * BNv, b, il, xr, xi);
+    });
+    fetch(t - 1, (sidx + 1) & 1);
+    __syncthreads();      // the bands are whole in shared memory
+    if (replay) {         // k_0..k_{it-1} again from xp, on the row band
+      cl.sync();
+      for (int j = 0; j < it; ++j) {
+        const float* Vr = V + 2 * p * BNv;
+        float* Vn = V + 2 * (p ^ 1) * BNv;
+        auto stage = [&](int il, int b, float sr, float si) {
+          const int ib = b * R + il;
+          const float tr = si, ti = -sr;
+          float kr = Kb[ib], ki = Kb[BI + ib];
+          if (j == 0) {
+            Bb[ib] = tr;
+            Bb[BI + ib] = ti;
+            mid_first(jac, rw, R, il, tr, ti, kr, ki);
+          } else {
+            mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
+                     ki);
+          }
+          Kb[ib] = kr;
+          Kb[BI + ib] = ki;
+          put_pair(Pw, it - 1 - j, 2, b, il, kr, ki);
+          if (j + 1 < it) put(Vn, b, il, kr, ki);
+        };
+        if (d.global)
+          rows_dot_l2<BC, false>(Hr, Hi, ldr, g.nr, Vr, Vr + BNv, N, warp,
+                                 nwarps, lane, stage);
+        else
+          rows_dot<BC, false>(Hr, Hi, ldr, g.nr, Vr, Vr + BNv, N, warp,
+                              nwarps, lane, stage);
+        if (j + 1 < it) {
+          p ^= 1;
+          cl.sync();
+        }
+      }
+      p ^= 1;
+    }
+    // the transposed chain: pair q < it has cotangent a kb (its input
+    // k_{it-1-q}), pair it the cotangent bb (its input xp)
+    owned([&](int il, int b, int ib) {
+      KB[ib] = d.dt * Gb[ib];
+      KB[BI + ib] = d.dt * Gb[BI + ib];
+      BB[ib] = BB[BI + ib] = 0.f;
+    });
+    for (int q = 0; q <= it; ++q) {
+      float* cq = Cs + 2 * q * BNv;
+      owned([&](int il, int b, int ib) {
+        float kr = KB[ib], ki = KB[BI + ib];
+        if (jac) cmul_conj(rw[2 * R + il], rw[3 * R + il], kr, ki);   // Wt
+        const float br = BB[ib] + kr, bi = BB[BI + ib] + ki;
+        BB[ib] = br;
+        BB[BI + ib] = bi;
+        const float cr = q < it ? d.a * kr : br;
+        const float ci = q < it ? d.a * ki : bi;
+        put(cq, b, il, cr, ci);
+        put_pair(Pw, q, 0, b, il, cr, ci);
+      });
+      cl.sync();
+      auto stage = [&](int il, int b, float sr, float si) {
+        const int ib = b * R + il;
+        float tr = -si, ti = sr;           // Tt(c) from conj(H)^T c
+        if (q < it) {
+          if (jac) {      // minus the transpose of v -> d v
+            const float cr = cq[b * N + g.r0 + il];
+            const float ci = cq[BNv + b * N + g.r0 + il];
+            tr -= rw[il] * cr + rw[R + il] * ci;
+            ti -= rw[il] * ci - rw[R + il] * cr;
+          }
+          KB[ib] = tr;
+          KB[BI + ib] = ti;
+        } else {
+          float gr = Gb[ib] + tr, gi = Gb[BI + ib] + ti;
+          if (split) cmul_conj(rw[il], rw[R + il], gr, gi);
+          Gb[ib] = gr;
+          Gb[BI + ib] = gi;
+        }
+      };
+      if (d.global)
+        rows_dot_l2<BC, true>(HTr, HTi, ldr, g.nr, cq, cq + BNv, N, warp,
+                              nwarps, lane, stage);
+      else
+        rows_dot<BC, true>(HTr, HTi, ldr, g.nr, cq, cq + BNv, N, warp,
+                           nwarps, lane, stage);
+    }
+    __syncthreads();
+    if (tid == 0) signal_count(ready + sidx);     // the step's pairs
+    // the next step's first pushes (into cotangent slot 0, or with replay
+    // into an operand buffer) wait until every CTA has read that slot:
+    // with stored iterates and it >= 1 each CTA read slot 0 before the
+    // barrier of stage 1, which this CTA has passed
+    if (replay || it == 0) cl.sync();
+  }
+  // the C-bar of the last two steps' pairs, where no helper took it
+  run_pass(nt, region);
+  run_pass(nt + 1, region);
+  owned([&](int il, int b, int ib) {
+    if (b < g.nb) {
+      const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
+      g0r[o] = Gb[ib];
+      g0i[o] = Gb[BI + ib];
+    }
+  });
+}
+
 // Plain C entry points, bound from Python with ctypes. Each launches on the
 // given stream a grid of E * ceil(B / BC) clusters of G CTAs and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue, launching
@@ -597,13 +1183,21 @@ streamk_mid_bwd(const float* __restrict__ Sr, const float* __restrict__ Si,
 // global layout without scratch, or a negative stride. strideS, strideR:
 // floats between two candidates' stacks (Ke x N x N) and solver rows; 0 for
 // the shared stack (the launch then reads what it read before the strides).
+// The backward's helpers >= 0 takes the 'helpers' schedule: E * ceil(B /
+// BC) * (1 + helpers) clusters, ring and flags as the kernel reads them
+// (flags zeroed), Cbp its tiles' C-bar rows (groups, tiles, nt, Ke); -1
+// the chain schedule (Cbp a row per CTA, scratch for the global layout).
 namespace {
 
 // The dims of a launch, or false for a shape the kernels do not take.
+// helpers >= 0: the backward's 'helpers' schedule with that many helper
+// clusters per chain cluster (ring and flags given); -1: the chain schedule.
 bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
               int mode, int store, float dt, float a, int G, int BC,
               int threads, int smem_bytes, int global, bool backward,
-              const void* scratch, long long strideS, long long strideR) {
+              const void* scratch, long long strideS, long long strideR,
+              int helpers = -1, const void* ring = nullptr,
+              const void* flags = nullptr) {
   if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return false;
   if (BC != 1 && BC != 2 && BC != 4 && BC != 8) return false;
   const int R = (N + G - 1) / G;
@@ -611,11 +1205,19 @@ bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
       threads < 32 || threads > MID_MAX_THREADS || Ke < 1 || iters < 0)
     return false;
   const bool replay = backward && store == 0 && iters > 0;
-  const size_t floats = backward
-                            ? mid_bwd_floats(BC, N, R, iters, replay, !global)
-                            : mid_fwd_floats(BC, N, R, !global);
+  size_t floats = backward
+                      ? mid_bwd_floats(BC, N, R, iters, replay, !global)
+                      : mid_fwd_floats(BC, N, R, !global);
+  if (helpers >= 0) {
+    if (!backward || ring == nullptr || flags == nullptr || helpers > 64)
+      return false;
+    floats = mid_split_floats(BC, N, R, iters, replay, store && iters > 0,
+                              !global);
+  } else if (global && scratch == nullptr) {
+    return false;
+  }
   if ((size_t)smem_bytes < 4 * floats || smem_bytes > 227 * 1024 ||
-      (global && scratch == nullptr) || strideS < 0 || strideR < 0)
+      strideS < 0 || strideR < 0)
     return false;
   d = MidDims{E, nt, B, N, Ke, iters, mode, store, dt, a,
               G, R, (B + BC - 1) / BC, global, strideS, strideR};
@@ -658,6 +1260,30 @@ int launch_bwd(const float* Sr, const float* Si, const float* C,
   return (int)cudaGetLastError();
 }
 
+template <int BC>
+int launch_bwd_helpers(const float* Sr, const float* Si, const float* C,
+                       const float* x0r, const float* x0i, const float* hr,
+                       const float* hi, const float* jr, const float* ji,
+                       const float* gTr, const float* gTi, const float* rows,
+                       const float* ksr, const float* ksi, float* g0r,
+                       float* g0i, float* Cbt, float* ring, int* flags,
+                       const MidDims& d, int helpers, int threads,
+                       int smem_bytes, cudaStream_t stream) {
+  const int N = d.N, tq = (N + TILE_Q - 1) / TILE_Q;
+  const SplitDims s{split_ldr(N), tq, ((N + TILE_P - 1) / TILE_P) * tq,
+                    helpers};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(streamk_mid_bwd_helpers<BC>, attr,
+                     d.E * d.nchunks * (1 + helpers), d.G, threads,
+                     smem_bytes, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, streamk_mid_bwd_helpers<BC>, Sr, Si, C, x0r, x0i, hr, hi, jr,
+      ji, gTr, gTi, rows, ksr, ksi, g0r, g0i, Cbt, ring, flags, d, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int streamk_mid_fwd_launch(
@@ -695,11 +1321,12 @@ extern "C" int streamk_mid_bwd_launch(
     const void* ksr, const void* ksi, void* g0r, void* g0i, void* Cbp,
     void* scratch, int E, int nt, int B, int N, int Ke, int iters, int mode,
     int store, float dt, float a, int G, int BC, int threads, int smem_bytes,
-    int global, void* stream, long long strideS, long long strideR) {
+    int global, void* stream, long long strideS, long long strideR,
+    int helpers, void* ring, void* flags) {
   MidDims d;
   if (!mid_dims(d, E, nt, B, N, Ke, iters, mode, store, dt, a, G, BC,
                 threads, smem_bytes, global, true, scratch, strideS,
-                strideR) ||
+                strideR, helpers, ring, flags) ||
       (store && iters > 0 && ksr == nullptr))
     return (int)cudaErrorInvalidValue;
 #define MID_BWD_ARGS                                                          \
@@ -707,26 +1334,44 @@ extern "C" int streamk_mid_bwd_launch(
       (const float*)x0i, (const float*)hr, (const float*)hi,                  \
       (const float*)jr, (const float*)ji, (const float*)gTr,                  \
       (const float*)gTi, (const float*)rows, (const float*)ksr,               \
-      (const float*)ksi, (float*)g0r, (float*)g0i, (float*)Cbp,               \
-      (float*)scratch, d, threads, smem_bytes, (cudaStream_t)stream
-  switch (BC) {
-    case 1: return launch_bwd<1>(MID_BWD_ARGS);
-    case 2: return launch_bwd<2>(MID_BWD_ARGS);
-    case 4: return launch_bwd<4>(MID_BWD_ARGS);
-    case 8: return launch_bwd<8>(MID_BWD_ARGS);
+      (const float*)ksi, (float*)g0r, (float*)g0i, (float*)Cbp
+#define MID_BWD_CHAIN                                                         \
+  MID_BWD_ARGS, (float*)scratch, d, threads, smem_bytes, (cudaStream_t)stream
+#define MID_BWD_HELPERS                                                       \
+  MID_BWD_ARGS, (float*)ring, (int*)flags, d, helpers, threads, smem_bytes,   \
+      (cudaStream_t)stream
+  if (helpers >= 0) {
+    switch (BC) {
+      case 1: return launch_bwd_helpers<1>(MID_BWD_HELPERS);
+      case 2: return launch_bwd_helpers<2>(MID_BWD_HELPERS);
+      case 4: return launch_bwd_helpers<4>(MID_BWD_HELPERS);
+      case 8: return launch_bwd_helpers<8>(MID_BWD_HELPERS);
+    }
+  } else {
+    switch (BC) {
+      case 1: return launch_bwd<1>(MID_BWD_CHAIN);
+      case 2: return launch_bwd<2>(MID_BWD_CHAIN);
+      case 4: return launch_bwd<4>(MID_BWD_CHAIN);
+      case 8: return launch_bwd<8>(MID_BWD_CHAIN);
+    }
   }
+#undef MID_BWD_HELPERS
+#undef MID_BWD_CHAIN
 #undef MID_BWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-// How many clusters of G CTAs of the forward (backward != 0: the backward)
-// instance BC, with `threads` threads and smem_bytes of shared memory each,
-// the card can hold at once; 0 where it holds none (the launch would fail).
-extern "C" int streamk_mid_max_clusters(int backward, int BC, int G,
+// How many clusters of G CTAs of one kernel, with `threads` threads and
+// smem_bytes of shared memory each, the card can hold at once (0 where it
+// holds none: the launch would fail). kernel 0: the forward instance BC; 1:
+// the backward's chain schedule; 2: its 'helpers' schedule.
+extern "C" int streamk_mid_max_clusters(int kernel, int BC, int G,
                                         int threads, int smem_bytes) {
 #define MID_MAX(bc)                                                           \
   case bc:                                                                    \
-    return backward                                                           \
+    return kernel == 2 ? max_clusters(streamk_mid_bwd_helpers<bc>, G,         \
+                                      threads, smem_bytes)                    \
+           : kernel == 1                                                      \
                ? max_clusters(streamk_mid_bwd<bc>, G, threads, smem_bytes)    \
                : max_clusters(streamk_mid_fwd<bc>, G, threads, smem_bytes);
   switch (BC) {

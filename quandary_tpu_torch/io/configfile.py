@@ -7,7 +7,7 @@ quandary_tpu/io/configfile.py does. The Setup is complex128 with
 ``fused='auto'``: the plain time loop, on the CPU or the card.
 
 A standard model with N > 1024 (the JAX package's structured engines,
-ops/tensor_rhs.py) is refused with NotImplementedError (ROADMAP A8).
+ops/tensor_rhs.py) is refused with NotImplementedError (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -330,7 +330,7 @@ def setup_from_config(cfg: Config, workdir: str = ".") -> Tuple[Setup, RunSpec]:
             raise NotImplementedError(
                 f"a standard model of N = {N} > 1024 runs on the JAX "
                 "package's structured engines (ops/tensor_rhs.py), which are "
-                "not ported to quandary_tpu_torch (ROADMAP A8)")
+                "not ported to quandary_tpu_torch (ROADMAP A3)")
         else:
             model = build_standard_model(
                 nlevels=nlevels, freq01_ghz=transfreq, rotfreq_ghz=rotfreq,

@@ -30,7 +30,8 @@ and the stacks in shared memory, N <= 52 at the flagship's Ke).
 csrc/streamk_mid.cu runs a plan past that (launched by ops/streamk_mid.py):
 a thread-block cluster of G CTAs per (candidate, chunk of basis states),
 each CTA on a band of the state entries (``_mid_shape`` plans the launch,
-``mid_refusal`` says what it does not take). Both pairs run shared-stack
+``bwd_schedule`` the backward's schedule, ``mid_refusal`` says what it
+does not take). Both pairs run shared-stack
 and per-block plans, closed systems and open ones on the superop route
 (dimension N^2). ``route_refusal`` admits what either pair takes and
 refuses only on device memory.
@@ -635,6 +636,76 @@ def _mid_shape(E, B, N, Ke, iters, store, backward=False):
     return G, bc, threads, smem, "smem" if slots else "global"
 
 
+# The backward's 'helpers' schedule (csrc/streamk_mid.cu
+# streamk_mid_bwd_helpers): each step's column pass (Hb, C-bar, the next
+# bands of H) off the chain, cut in tiles of the whole matrix that helper
+# clusters (and the chain's own CTAs where no helper is there) claim.
+MID_TILE = (32, 64)                 # a pass tile: rows x columns
+MID_MAX_HELPERS = 8                 # helper clusters per chain cluster
+MID_SCHEDULES = ("helpers", "chain")
+
+
+def _split_ldr(N):
+    """Row stride of the helpers schedule's rings: N rounded up to 4."""
+    return -(-N // 4) * 4
+
+
+def _tile_floats(bc, it):
+    """csrc/streamk_mid.cu tile_floats: a pass tile's scratch."""
+    P, Q = MID_TILE
+    return 2 * Q * (P + 1) + 16 * MID_KG + (it + 1) * bc * 2 * (P + Q)
+
+
+def _split_floats(bc, N, R, it, replay, stored, hsmem):
+    """csrc/streamk_mid.cu mid_split_floats: the helpers schedule's shared
+    memory in floats, with the step's bands of H in it (hsmem) or not."""
+    head = (8 + 2 * (it + 1) * bc * N + (4 * bc * N if replay else 0)
+            + (10 if replay else 6) * bc * R + 4 * R
+            + 2 * (4 + 2 * (it if stored else 0)) * bc * R)
+    band = 2 * R * _split_ldr(N) * (2 if replay else 1) if hsmem else 0
+    return -(-head // 4) * 4 + max(band, _tile_floats(bc, it))
+
+
+def split_tiles(N):
+    """(tiles of a pass, tiles across a row) of the helpers schedule."""
+    P, Q = MID_TILE
+    tq = -(-N // Q)
+    return -(-N // P) * tq, tq
+
+
+def _split_ring_floats(bc, N, it, replay):
+    """csrc/streamk_mid.cu split_ring_floats: a group's two slots of H
+    (transposed, and row-major with replay) and two of the step's pairs."""
+    ldr = _split_ldr(N)
+    return (2 * (2 if replay else 1) * 2 * N * ldr
+            + 2 * (it + 1) * 4 * bc * N)
+
+
+def _mid_bwd_shape(E, B, N, Ke, iters, store, schedule):
+    """(G, Bc, threads, shared-memory bytes, layout) of the backward on a
+    schedule, or None where no layout fits a CTA: 'chain' is _mid_shape's;
+    'helpers' plans G and Bc by cluster_shape on the larger of its stored
+    and replayed layouts, so that both iterate modes take one G and Bc (and
+    C-bar, summed per chunk of Bc states, keeps its bits between them), and
+    the layout by the mode's own: 'smem' where each step's bands of H fit
+    shared memory beside the rest (copied in), else 'global' (read from the
+    ring)."""
+    if schedule == "chain":
+        return _mid_shape(E, B, N, Ke, iters, store, True)
+    floats = lambda G, bc, replay, stored, bands: _split_floats(
+        bc, N, -(-N // G), iters, replay, stored, bands)
+    shape = cluster_shape(E, B, N, lambda G, bc, slots: max(
+        floats(G, bc, iters > 0, False, slots > 0),
+        floats(G, bc, False, iters > 0, slots > 0)))
+    if shape is None:
+        return None
+    G, bc, _, threads, _ = shape
+    replay, stored = not store and iters > 0, store and iters > 0
+    hsmem = 4 * floats(G, bc, replay, stored, True) <= _MAX_SMEM
+    return (G, bc, threads, 4 * floats(G, bc, replay, stored, hsmem),
+            "smem" if hsmem else "global")
+
+
 def history_bytes(E, B, N, iters, nt, store):
     """Device bytes of a sweep's history (E, nt, B, N) pair, its cotangent
     and, where the forward stores them, the stage iterates."""
@@ -642,30 +713,112 @@ def history_bytes(E, B, N, iters, nt, store):
     return 2 * hist + (iters * hist if store and iters > 0 else 0)
 
 
-def sweep_bytes(E, B, N, Ke, iters, nt, store, mid, per_block=False):
-    """Device bytes of one sweep's own tensors: the history and its
-    cotangent, the stored stage iterates, with per_block the E candidates'
-    own (Ke, N, N) stack pairs and, on the mid pair, the bands' scratch and
-    the C-bar partial rows of the larger direction."""
+def _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule):
+    """Device bytes of the mid pair's own scratch, the larger direction's:
+    the forward's bands in the global layout; the backward's on its
+    schedule: 'chain' the C-bar partial rows per CTA and its bands in the
+    global layout, 'helpers' the groups' rings, counters and the tiles'
+    C-bar rows."""
+    extra = 0
+    shape = _mid_shape(E, B, N, Ke, iters, store, False)
+    if shape is not None and shape[4] == "global":
+        G, bc = shape[:2]
+        extra = 4 * E * -(-B // bc) * G * _mid_band_floats(N, -(-N // G),
+                                                            False, False)
+    shape = _mid_bwd_shape(E, B, N, Ke, iters, store, schedule)
+    if shape is None:
+        return extra
+    G, bc, _, _, layout = shape
+    groups = E * -(-B // bc)
+    replay = not store and iters > 0
+    if schedule == "helpers":
+        more = 4 * (1 + groups * (_split_ring_floats(bc, N, iters, replay)
+                                  + 3 * nt + 4
+                                  + split_tiles(N)[0] * nt * Ke))
+    else:
+        more = groups * G * nt * Ke * 4
+        if layout == "global":
+            more += 4 * groups * G * _mid_band_floats(N, -(-N // G), True,
+                                                      replay)
+    return max(extra, more)
+
+
+def _sweep_total(E, B, N, Ke, iters, nt, store, mid, per_block, schedule):
     total = history_bytes(E, B, N, iters, nt, store)
     if per_block:
         total += 2 * E * Ke * N * N * 4
     if mid:
-        extra = 0
-        for backward in (False, True):
-            shape = _mid_shape(E, B, N, Ke, iters, store, backward)
-            if shape is None:
-                continue
-            G, bc, _, _, layout = shape
-            ctas = E * -(-B // bc) * G
-            replay = backward and not store and iters > 0
-            more = (ctas * nt * Ke * 4) if backward else 0
-            if layout == "global":
-                more += 4 * ctas * _mid_band_floats(N, -(-N // G), backward,
-                                                    replay)
-            extra = max(extra, more)
-        total += extra
+        total += _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule)
     return total
+
+
+def helpers_fit(E, B, N, Ke, iters, nt, store, per_block=False):
+    """Whether the 'helpers' schedule can run: its layout fits a CTA, its
+    chain clusters take at most half the card's SMs (MID_SMS), so that
+    helpers have SMs to run on, and its rings keep the sweep within
+    DEVICE_BUDGET_BYTES."""
+    shape = _mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")
+    return (shape is not None
+            and 2 * E * -(-B // shape[1]) * shape[0] <= MID_SMS
+            and _sweep_total(E, B, N, Ke, iters, nt, store, True, per_block,
+                             "helpers") <= DEVICE_BUDGET_BYTES)
+
+
+def helpers_smem(E, B, N, Ke, iters):
+    """Shared-memory bytes of the helpers schedule's launch in the larger
+    of its two iterate modes (one G and Bc for both): the card's count of
+    clusters at this size decides the schedule for both modes alike."""
+    return max(_mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")[3]
+               for store in (True, False))
+
+
+def bwd_schedule(E, B, N, Ke, iters, nt, store, per_block=False,
+                 forced=None, holds=None):
+    """The mid backward's schedule: 'helpers' where it fits (helpers_fit)
+    and the card holds at least one helper cluster per chain cluster beside
+    them (`holds`: clusters of the launch's G and Bc at helpers_smem the
+    card holds at once; None reads no card); else 'chain' (the card is
+    full: each cluster runs its pass in its chain). Stored and replayed
+    iterates of one size take one schedule. `forced` is taken as it is
+    where its layout fits (the card tests and scripts compare them); one
+    that does not raises ValueError."""
+    if forced is not None:
+        if forced not in MID_SCHEDULES or _mid_bwd_shape(
+                E, B, N, Ke, iters, store, forced) is None:
+            raise ValueError(f"streamk_mid_bwd: schedule {forced!r} does "
+                             f"not fit (N = {N}, B = {B}, E = {E})")
+        return forced
+    if not helpers_fit(E, B, N, Ke, iters, nt, store, per_block):
+        return "chain"
+    if holds is not None:
+        G, bc = _mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")[:2]
+        groups = E * -(-B // bc)
+        if helper_clusters(groups, groups * G, holds) < 1:
+            return "chain"
+    return "helpers"
+
+
+def helper_clusters(clusters, ctas, holds):
+    """Helper clusters per chain cluster of the 'helpers' schedule: as many
+    as the SMs the launch's `clusters` chain clusters (`ctas` CTAs) leave
+    idle, at most MID_MAX_HELPERS, and no more than the card holds beside
+    them (`holds` clusters of the launch shape at once); 0 where none fits
+    (the chain's CTAs then run every tile themselves)."""
+    h = min(MID_MAX_HELPERS, MID_SMS // ctas - 1)
+    return max(0, min(h, holds // clusters - 1))
+
+
+def sweep_bytes(E, B, N, Ke, iters, nt, store, mid, per_block=False):
+    """Device bytes of one sweep's own tensors: the history and its
+    cotangent, the stored stage iterates, with per_block the E candidates'
+    own (Ke, N, N) stack pairs and, on the mid pair, its scratch on the
+    backward's schedule: the larger of 'chain' (the C-bar partial rows and
+    bands) and, where helpers_fit, 'helpers' (its rings), which the card's
+    count of clusters chooses between at launch."""
+    schedules = ("chain", "helpers") if mid and helpers_fit(
+        E, B, N, Ke, iters, nt, store, per_block) else ("chain",)
+    return max(_sweep_total(E, B, N, Ke, iters, nt, store, mid, per_block,
+                            s) for s in schedules)
 
 
 def mid_refusal(E, B, N, Ke, iters, nt, store, per_block=False):

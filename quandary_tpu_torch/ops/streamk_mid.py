@@ -11,11 +11,15 @@ basis states), each CTA on a band of the state entries.
 This module holds the pair's ctypes binding, its launch counters (a
 shared-stack and a per-block pair of them, as ops/streamk.py counts its
 one-block and packed launches apart) and its two launch wrappers. The
-planner (``streamk._mid_shape``), the gates (``streamk.mid_refusal``,
+backward has two schedules (``streamk.bwd_schedule``): 'helpers', where
+each step's column pass runs beside the chain on helper clusters the launch
+adds (as many as the card holds beside the chain clusters), and 'chain',
+where it runs in each cluster's chain. The planner (``streamk._mid_shape``,
+``streamk._mid_bwd_shape``), the gates (``streamk.mid_refusal``,
 ``streamk.route_refusal``) and the dispatch
 (``streamk.streamk_propagate_kernel`` sends a plan here wherever
-``streamk.size_refusal`` refuses it) are in ops/streamk.py, with
-the plain torch version the pair is held against. A wrapper launches the
+``streamk.size_refusal`` refuses it) are in ops/streamk.py, with the plain
+torch version the pair is held against. A wrapper launches the
 kernel or raises: nothing falls back to the one-block pair or to the plain
 version.
 """
@@ -42,9 +46,10 @@ _COUNTERS = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches",
 _SRC = os.path.join(cuda_build.CSRC_DIR, "streamk_mid.cu")
 # the shape of the last launch of each direction, as the wrapper ran it
 # (cluster size G, states per cluster Bc, threads, shared-memory bytes,
-# layout 'smem' or 'global', band rows R, clusters, CTAs)
+# layout 'smem' or 'global', band rows R, clusters, CTAs; the backward's
+# schedule, 'helpers' or 'chain', and its helper clusters per chain cluster)
 mid_layouts = {}
-_SCHEDULED = set()      # launch shapes whose clusters the card holds
+_HOLDS = {}     # launch shape -> clusters of it the card holds at once
 
 
 def launch_counts() -> dict:
@@ -68,7 +73,7 @@ def _bind(lib):
     ll = ctypes.c_longlong
     tail = [i] * 8 + [f, f] + [i] * 5 + [p, ll, ll]
     lib.streamk_mid_fwd_launch.argtypes = [p] * 13 + tail
-    lib.streamk_mid_bwd_launch.argtypes = [p] * 18 + tail
+    lib.streamk_mid_bwd_launch.argtypes = [p] * 18 + tail + [i, p, p]
     lib.streamk_mid_max_clusters.argtypes = [i] * 5
     for name in ("streamk_mid_fwd_launch", "streamk_mid_bwd_launch",
                  "streamk_mid_max_clusters"):
@@ -86,36 +91,50 @@ def _lib():
     return cuda_build.library(_SRC, _bind)
 
 
-def _launch_shape(lib, plan, E, B, N, nt, backward):
-    """streamk._mid_shape of a launch; raises NotImplementedError where the
-    mid pair refuses the plan, and RuntimeError where the card cannot hold
-    one cluster of the shape (cudaOccupancyMaxActiveClusters, asked once
-    per shape)."""
+def _launch_shape(lib, plan, E, B, N, nt, backward, schedule="chain"):
+    """The launch shape (streamk._mid_shape; the backward's on its
+    schedule, streamk._mid_bwd_shape) and how many of its clusters the card
+    holds at once; raises NotImplementedError where the mid pair refuses
+    the plan, and RuntimeError where the card cannot hold one cluster of
+    the shape (cudaOccupancyMaxActiveClusters, asked once per shape)."""
     store = plan.store_iters and plan.iters > 0
     why = streamk.mid_refusal(E, B, N, plan.Ke, plan.iters, nt, store,
                               per_block=plan.per_block)
     if why is not None:
         raise NotImplementedError(why)
-    shape = streamk._mid_shape(E, B, N, plan.Ke, plan.iters, store, backward)
+    if backward:
+        shape = streamk._mid_bwd_shape(E, B, N, plan.Ke, plan.iters,
+                                       store, schedule)
+    else:
+        shape = streamk._mid_shape(E, B, N, plan.Ke, plan.iters, store)
     G, bc, threads, smem, _ = shape
-    key = (backward, bc, G, threads, smem)
-    if key not in _SCHEDULED:
-        if lib.streamk_mid_max_clusters(int(backward), bc, G, threads,
-                                        smem) < 1:
-            raise RuntimeError(
-                f"streamk_mid_{'bwd' if backward else 'fwd'}: the card holds "
-                f"no cluster of {G} CTAs of {threads} threads and {smem} "
-                "bytes of shared memory")
-        _SCHEDULED.add(key)
-    return shape
+    kernel = 0 if not backward else 2 if schedule == "helpers" else 1
+    n = _holds(lib, kernel, bc, G, threads, smem)
+    if n < 1:
+        raise RuntimeError(
+            f"streamk_mid_{'bwd' if backward else 'fwd'}: the card holds "
+            f"no cluster of {G} CTAs of {threads} threads and {smem} bytes "
+            "of shared memory")
+    return shape, n
 
 
-def _log(key, E, B, N, shape):
+def _holds(lib, kernel, bc, G, threads, smem):
+    """Clusters of a launch shape the card holds at once
+    (streamk_mid_max_clusters: kernel 0 forward, 1 the backward's chain
+    schedule, 2 its helpers schedule), asked once per shape."""
+    key = (kernel, bc, G, threads, smem)
+    if key not in _HOLDS:
+        _HOLDS[key] = lib.streamk_mid_max_clusters(kernel, bc, G, threads,
+                                                   smem)
+    return _HOLDS[key]
+
+
+def _log(key, E, B, N, shape, **more):
     G, bc, threads, smem, layout = shape
     clusters = E * -(-B // bc)
     mid_layouts[key] = dict(G=G, Bc=bc, threads=threads, smem=smem,
                             layout=layout, R=-(-N // G), clusters=clusters,
-                            ctas=clusters * G)
+                            ctas=clusters * G, **more)
 
 
 def _scratch(shape, E, B, N, backward, replay, device):
@@ -138,7 +157,7 @@ def _kernel_fwd(plan, x0r, x0i, Ce):
     lib = _lib()
     E, nt, _ = Ce.shape
     B, N = x0r.shape
-    shape = _launch_shape(lib, plan, E, B, N, nt, backward=False)
+    shape, _ = _launch_shape(lib, plan, E, B, N, nt, backward=False)
     G, bc, threads, smem, layout = shape
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=Ce.device)
     xTr, xTi = new(E, B, N), new(E, B, N)
@@ -164,11 +183,16 @@ def _kernel_fwd(plan, x0r, x0i, Ce):
     return xTr, xTi, hr, hi, ksr, ksi
 
 
-def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
+def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
+                _schedule=None, _helpers=None):
     """One streamk_mid_bwd launch: (x0 cotangent pair summed over the
-    candidates, Cb (E, nt, Ke)). The CTAs' C-bar partial rows are summed
-    over the chunks and bands in a fixed order, one row per candidate (a
-    per-block plan's stacks get no cotangent, as on the one-block pair)."""
+    candidates, Cb (E, nt, Ke)), on the schedule streamk.bwd_schedule picks
+    (`_schedule` forces one; `_helpers` the helper clusters per chain
+    cluster of 'helpers', which do not change its bits). The C-bar partial
+    rows (the chain schedule's one per CTA, the helpers schedule's one per
+    tile of the whole matrix) are summed over the chunks and rows in a
+    fixed order, one per candidate (a per-block plan's stacks get no
+    cotangent, as on the one-block pair)."""
     global streamk_mid_bwd_launches, streamk_mid_packed_bwd_launches
     streamk._check_cuda(plan, Ce, x0r, x0i, hr, hi, gTr, gTi, jr, ji)
     lib = _lib()
@@ -177,15 +201,38 @@ def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
     store = ksr is not None
     if store != (plan.store_iters and plan.iters > 0):
         raise ValueError("stored stage iterates do not match the plan")
-    shape = _launch_shape(lib, plan, E, B, N, nt, backward=True)
+    holds = None        # the card's clusters of the helpers launch
+    if _schedule is None and streamk.helpers_fit(
+            E, B, N, Ke, plan.iters, nt, store, plan.per_block):
+        G, bc, threads = streamk._mid_bwd_shape(E, B, N, Ke, plan.iters,
+                                                store, "helpers")[:3]
+        holds = _holds(lib, 2, bc, G, threads,
+                       streamk.helpers_smem(E, B, N, Ke, plan.iters))
+    schedule = streamk.bwd_schedule(E, B, N, Ke, plan.iters, nt, store,
+                                    plan.per_block, _schedule, holds)
+    shape, holds = _launch_shape(lib, plan, E, B, N, nt, True, schedule)
     G, bc, threads, smem, layout = shape
     dev = Ce.device
+    replay = not store and plan.iters > 0
+    groups = E * -(-B // bc)
     g0r = torch.empty((E, B, N), dtype=torch.float32, device=dev)
     g0i = torch.empty_like(g0r)
-    Cbp = torch.empty((E, -(-B // bc) * G, nt, Ke), dtype=torch.float32,
-                      device=dev)
-    scratch = _scratch(shape, E, B, N, True, not store and plan.iters > 0,
-                       dev)
+    scratch = ring = flags = None
+    if schedule == "helpers":
+        helpers = streamk.helper_clusters(groups, groups * G, holds) \
+            if _helpers is None else _helpers
+        ntiles = streamk.split_tiles(N)[0]
+        Cbp = torch.empty((E, -(-B // bc) * ntiles, nt, Ke),
+                          dtype=torch.float32, device=dev)
+        ring = torch.empty(groups * streamk._split_ring_floats(
+            bc, N, plan.iters, replay), dtype=torch.float32, device=dev)
+        flags = torch.zeros(1 + groups * (3 * nt + 4), dtype=torch.int32,
+                            device=dev)
+    else:
+        helpers = -1
+        Cbp = torch.empty((E, -(-B // bc) * G, nt, Ke), dtype=torch.float32,
+                          device=dev)
+        scratch = _scratch(shape, E, B, N, True, replay, dev)
     err = lib.streamk_mid_bwd_launch(
         *map(streamk._ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, hr, hi, jr, ji,
                             gTr, gTi, plan.rows, ksr, ksi, g0r, g0i, Cbp,
@@ -193,12 +240,13 @@ def _kernel_bwd(plan, x0r, x0i, Ce, hr, hi, ksr, ksi, gTr, gTi, jr, ji):
         *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
         int(layout == "global"),
         torch.cuda.current_stream(dev).cuda_stream,
-        *streamk.stack_strides(plan))
+        *streamk.stack_strides(plan), helpers, streamk._ptr(ring),
+        streamk._ptr(flags))
     if err != 0:
         raise RuntimeError(f"streamk_mid_bwd launch failed: CUDA error {err}")
     if plan.per_block:
         streamk_mid_packed_bwd_launches += 1
     else:
         streamk_mid_bwd_launches += 1
-    _log("bwd", E, B, N, shape)
+    _log("bwd", E, B, N, shape, schedule=schedule, helpers=max(helpers, 0))
     return g0r.sum(0), g0i.sum(0), Cbp.sum(1)

@@ -48,9 +48,10 @@ The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
 that argument the constructor raises.
 
-Not ported yet, and refused with NotImplementedError (ROADMAP A8): the
-structured engines, the time-parallel scan and the reversible adjoint
-(``Setup.engine``, ``time_parallel``, ``adjoint`` other than 'auto'). On
+Not ported yet, and refused with NotImplementedError: the structured
+engines (ROADMAP A3-A5), the reversible adjoint (A5) and the time-parallel
+scan (A6) (``Setup.engine``, ``adjoint``, ``time_parallel`` other than
+'auto'). On
 CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
 what the route's kernels do not hold (``Problem.fused_refusal``): 'streamk',
 closed or superop, only a sweep past the device-memory budget
@@ -141,7 +142,8 @@ class Setup:
     # systems with plain Neumann only).
     fused_mode: str = "streamk"
     # quandary_tpu's adjoint mode, time-parallel scan and engine choice:
-    # only 'auto' (one sequential loop, dense engine) is ported (ROADMAP A8)
+    # only 'auto' (one sequential loop, dense engine) is ported (ROADMAP
+    # A5, A6 and A3-A5)
     adjoint: str = "auto"
     time_parallel: object = "auto"
     engine: str = "auto"
@@ -184,13 +186,14 @@ class Problem:
         if s.fused not in (True, False, "auto"):
             raise ValueError(f"fused must be True, False or 'auto', got "
                              f"{s.fused!r}")
-        for name in ("adjoint", "time_parallel", "engine"):
+        for name, item in (("adjoint", "A5: the reversible adjoint"),
+                           ("time_parallel", "A6: the time-parallel scan"),
+                           ("engine", "A3-A5: the structured engines")):
             if getattr(s, name) != "auto":
                 raise NotImplementedError(
                     f"Setup.{name}={getattr(s, name)!r} is not ported to "
-                    "quandary_tpu_torch (ROADMAP A8: the reversible adjoint, "
-                    "the time-parallel scan and the structured engines); "
-                    f"only {name}='auto' runs")
+                    f"quandary_tpu_torch (ROADMAP {item}); only "
+                    f"{name}='auto' runs")
         if cuda and s.fused is True and s.dtype != torch.complex64:
             raise NotImplementedError(
                 "fused=True: complex128 is not ported to the CUDA kernels, "

@@ -161,9 +161,9 @@ def test_fused_auto_gate_matches_jax():
 @pytest.mark.parametrize("change,match", [
     (dict(timestepper="IMR8"), "timestepper"),
     (dict(linsolver="gmres"), "gmres"),
-    (dict(engine="grouped"), "A8"),
-    (dict(time_parallel=True), "A8"),
-    (dict(adjoint="reversible"), "A8"),
+    (dict(engine="grouped"), "A3-A5"),
+    (dict(time_parallel=True), "A6"),
+    (dict(adjoint="reversible"), "A5"),
 ])
 def test_forced_fused_and_unported_refused(change, match):
     from quandary_tpu_torch.problem import Problem

@@ -1366,6 +1366,106 @@ def test_mid_problem_on_card_matches_cpu(cuda):
     assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
 
 
+# the mid backward's schedules (streamk.bwd_schedule): cases (N, B, E,
+# solver, iters) where both fit, the 'helpers' layout in shared memory (N =
+# 64, 256, 202: N % 4 != 0, one entry at a time) and read from its ring (N
+# = 1024)
+MID_SCHEDULE_CASES = [(64, 8, 1, "split", 3), (256, 1, 1, "split", 4),
+                      (202, 3, 2, "jacobi", 4), (1024, 1, 1, "neumann", 2)]
+
+
+def _mid_sched_bwd(plan, C, x0r, x0i, w, schedule, helpers=None):
+    """One forward and one backward of the mid pair, the backward on a
+    forced schedule (and helper count): (g0r, g0i, Cb) and its shape."""
+    from quandary_tpu_torch.ops import streamk_mid
+    fwd = streamk_mid._kernel_fwd(plan, x0r, x0i, C)
+    hr = fwd[2]
+    gT = w[:, -1].contiguous()
+    out = streamk_mid._kernel_bwd(plan, x0r, x0i, C, *fwd[2:], gT, gT, w,
+                                  w * hr, _schedule=schedule,
+                                  _helpers=helpers)
+    torch.cuda.synchronize()
+    return out, dict(streamk_mid.mid_layouts["bwd"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["helpers", "chain"])
+@pytest.mark.parametrize("case", MID_SCHEDULE_CASES)
+def test_mid_bwd_schedule_matches_plain_on_card(cuda, monkeypatch, case,
+                                                schedule):
+    """Each backward schedule against the plain version on the card (bounds
+    as test_mid_kernel_matches_plain_on_card), stored and replayed
+    iterates; one launch of each mid kernel; a second run gives the same
+    bits."""
+    from quandary_tpu_torch.ops import streamk_mid
+    N, B, E, solver, iters = case
+    own = streamk_mid._kernel_bwd
+    monkeypatch.setattr(streamk_mid, "_kernel_bwd", lambda *a: own(
+        *a, _schedule=schedule))
+    for store in (True, False):
+        plan, C, x0r, x0i, w = _mid_case(cuda, N, B, E, 5, iters, solver,
+                                         store, seed=N + B + 1)
+        before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+        kern = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i,
+                        w)
+        after = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == {"streamk_mid_fwd_launches": 1,
+                         "streamk_mid_bwd_launches": 1}
+        assert streamk_mid.mid_layouts["bwd"]["schedule"] == schedule
+        again = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i,
+                         w)
+        assert all(torch.equal(a, b) for a, b in zip(kern, again))
+        plain = _mid_run(streamk.streamk_propagate_plain, plan, C, x0r, x0i,
+                         w)
+        for a, b, tol in zip(kern, plain, (1e-5, 1e-4, 1e-4, 1e-4)):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MID_SCHEDULE_CASES)
+def test_mid_bwd_schedules_same_g0_on_card(cuda, case):
+    """The two schedules give g0 in the same bits (the chain's arithmetic
+    and order are one), C-bar within 2e-5 of its largest entry (summed in
+    other orders); the helpers schedule gives the same bits with no helper
+    cluster (the chain's CTAs run every tile) and on a repeat."""
+    N, B, E, solver, iters = case
+    plan, C, x0r, x0i, w = _mid_case(cuda, N, B, E, 5, iters, solver, True,
+                                     seed=N + B + 2)
+    (g0r, g0i, Cb), shape = _mid_sched_bwd(plan, C, x0r, x0i, w, "helpers")
+    assert shape["schedule"] == "helpers" and shape["helpers"] >= 1
+    (c0r, c0i, Cc), _ = _mid_sched_bwd(plan, C, x0r, x0i, w, "chain")
+    assert torch.equal(g0r, c0r) and torch.equal(g0i, c0i)
+    assert float((Cb - Cc).abs().max()) <= 2e-5 * float(Cc.abs().max())
+    for helpers in (0, None):
+        got, shape = _mid_sched_bwd(plan, C, x0r, x0i, w, "helpers", helpers)
+        assert all(torch.equal(a, b) for a, b in zip(got, (g0r, g0i, Cb)))
+    assert shape["helpers"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["helpers", "chain"])
+@pytest.mark.parametrize("case", [(64, 8, 1, "split", 3),
+                                  (256, 1, 1, "split", 4),
+                                  (1024, 1, 1, "jacobi", 3)])
+def test_mid_bwd_stored_equals_replayed_on_card(cuda, case, schedule):
+    """g0 and C-bar in the same bits whether the forward stored its stage
+    iterates or the backward replays them, on each schedule (both take one
+    launch shape at these sizes)."""
+    N, B, E, solver, iters = case
+    outs, shapes = [], []
+    for store in (True, False):
+        plan, C, x0r, x0i, w = _mid_case(cuda, N, B, E, 5, iters, solver,
+                                         store, seed=N + 3)
+        out, shape = _mid_sched_bwd(plan, C, x0r, x0i, w, schedule)
+        outs.append(out)
+        shapes.append((shape["G"], shape["Bc"]))
+    assert shapes[0] == shapes[1]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
 # ---- the mid-size streamed-plane pair (csrc/stream_mid.cu) ----
 
 def _stream_mid_counts():

@@ -290,7 +290,7 @@ def test_large_standard_model_refused(tmp_path):
     p = tmp_path / "big.cfg"
     p.write_text(BASE.replace("nlevels = 3", "nlevels = 33, 32").replace(
         "nessential = 2", "nessential = 2, 2"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A3"):
         setup_from_config(Config.read(str(p)), str(tmp_path))
 
 

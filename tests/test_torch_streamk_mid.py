@@ -21,7 +21,11 @@ chip_smoke.py phase 25 hold them against the plain version there). Here:
    their bytes; Problem gives such systems fused_ok;
 4. dispatch: what size_refusal admits still goes to the one-block pair;
 5. when the forward stores its stage iterates: the JAX Problem's gate on
-   bytes (a literal copy of quandary_tpu/problem.py:1333-1343).
+   bytes (a literal copy of quandary_tpu/problem.py:1333-1343);
+6. the backward's schedules: the 'helpers' launch shape covers and fits
+   wherever the planner plans, its tiles cover the matrix once, the rule
+   that picks it, its helper count, its rings counted in sweep_bytes, and
+   the gate still admitting everything it admitted before them.
 """
 
 import dataclasses
@@ -310,3 +314,167 @@ def test_problem_store_iters():
     pb = TProblem(port_setup(_midsize_setup(256, "basis")), device="cpu")
     assert pb.ninit == 256 and not pb._plan.store_iters and pb.fused_ok
     assert not store_iters_ok(1000, 4, 256, 256)
+
+
+# ---- the backward's schedules (streamk.bwd_schedule): 'helpers' runs each
+# step's column pass in tiles of the whole matrix beside the chain, 'chain'
+# in it ----
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("E,B,N,Ke,iters", PLAN_SHAPES)
+def test_bwd_shape_covers_and_fits(E, B, N, Ke, iters, store):
+    """The helpers schedule has a launch shape at every planned size: bands
+    and chunks cover N and B, its shared memory holds the layout the CUDA
+    source carves (mid_split_floats) within 227 KB, 'global' only where no
+    cluster holds the bands; a pass's tiles cover the matrix once. The
+    chain schedule's shape is the parent planner's (_mid_shape)."""
+    assert streamk._mid_bwd_shape(E, B, N, Ke, iters, store, "chain") \
+        == streamk._mid_shape(E, B, N, Ke, iters, store, True)
+    shape = streamk._mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")
+    assert shape is not None
+    G, bc, threads, smem, layout = shape
+    R = -(-N // G)
+    assert G in (1, 2, 4, 8, 16) and (G - 1) * R < N <= G * R
+    nch = -(-B // bc)
+    assert bc in (1, 2, 4, 8) and (nch - 1) * bc < B <= nch * bc
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    replay, stored = not store and iters > 0, store and iters > 0
+    floats = streamk._split_floats(bc, N, R, iters, replay, stored,
+                                   layout == "smem")
+    assert 4 * floats <= smem <= 227 * 1024
+    assert floats >= 8 + streamk._tile_floats(bc, iters)
+    if layout == "global":
+        assert G == 16 and 4 * streamk._split_floats(
+            1, N, R, iters, replay, stored, True) > 227 * 1024
+    tiles, tq = streamk.split_tiles(N)
+    P, Q = streamk.MID_TILE
+    covered = np.zeros((tiles // tq * P, tq * Q), dtype=int)
+    for t in range(tiles):
+        p0, q0 = t // tq * P, t % tq * Q
+        covered[p0:p0 + P, q0:q0 + Q] += 1
+    assert (covered == 1).all() and covered.shape[0] - P < N <= \
+        covered.shape[0] and covered.shape[1] - Q < N <= covered.shape[1]
+
+
+def test_bwd_schedule_picks():
+    """'helpers' wherever its chain clusters take at most half the SMs
+    (phase 25's B = 1 sizes, SWAP02 at E = 1 and 4, superop N = 27 replayed),
+    'chain' where the card is full (N = 256 basis: 256 or 512 CTAs, 128
+    candidates); stored and replayed iterates of one size take one
+    schedule; a forced schedule is taken, an unknown one raises."""
+    pick = lambda *a: streamk.bwd_schedule(*a[:5], 1000, a[5])
+    for store in (True, False):
+        for N in (256, 512, 1024):
+            assert pick(1, 1, N, 8, 4, store) == "helpers"
+        assert pick(1, 8, 64, 14, 3, store) == "helpers"
+        assert pick(4, 8, 64, 14, 3, store) == "helpers"
+        assert pick(1, 256, 256, 8, 4, store) == "chain"
+        assert pick(128, 4, 64, 8, 3, store) == "chain"
+    assert pick(1, 3, 729, 11, 6, False) == "helpers"
+    assert streamk.bwd_schedule(1, 1, 256, 8, 4, 1000, True,
+                                forced="chain") == "chain"
+    # where the card holds no helper cluster beside the chain clusters
+    # (the device driver's 8 SWAP02 candidates at neumann-20: 16 clusters
+    # of 4 CTAs) the chain schedule; the count is taken at the larger
+    # iterate mode's shared memory, so both modes agree; 16 candidates
+    # take 128 CTAs: 'chain'
+    for store in (True, False):
+        assert streamk.bwd_schedule(1, 1, 256, 8, 4, 1000, store,
+                                    holds=8) == "helpers"
+        assert streamk.bwd_schedule(1, 1, 256, 8, 4, 1000, store,
+                                    holds=1) == "chain"
+        assert streamk.bwd_schedule(8, 8, 64, 14, 20, 2489, store,
+                                    holds=16) == "chain"
+        assert streamk.bwd_schedule(8, 8, 64, 14, 20, 2489, store,
+                                    holds=32) == "helpers"
+        assert streamk.bwd_schedule(16, 8, 64, 14, 20, 2489, store) \
+            == "chain"
+    assert streamk.helpers_smem(1, 1, 512, 8, 4) == max(
+        streamk._mid_bwd_shape(1, 1, 512, 8, 4, s, "helpers")[3]
+        for s in (True, False))
+    with pytest.raises(ValueError, match="schedule"):
+        streamk.bwd_schedule(1, 1, 256, 8, 4, 1000, True, forced="warps")
+
+
+@pytest.mark.parametrize("clusters,ctas,holds,want", [
+    (1, 16, 7, 6), (1, 16, 100, 7), (1, 4, 100, 8), (2, 32, 8, 3),
+    (4, 64, 8, 1), (4, 64, 4, 0), (1, 16, 1, 0)])
+def test_helper_clusters(clusters, ctas, holds, want):
+    """Helper clusters per chain cluster: the idle SMs' worth, at most
+    MID_MAX_HELPERS, within what the card holds beside the chain clusters
+    (0: the chain's CTAs run every tile)."""
+    assert streamk.helper_clusters(clusters, ctas, holds) == want
+
+
+def _parent_sweep_bytes(E, B, N, Ke, iters, nt, store, mid, per_block=False):
+    """ops/streamk.py::sweep_bytes before the helpers schedule (every
+    backward on the chain schedule): what the gate admitted then."""
+    total = streamk.history_bytes(E, B, N, iters, nt, store)
+    if per_block:
+        total += 2 * E * Ke * N * N * 4
+    if mid:
+        extra = 0
+        for backward in (False, True):
+            shape = streamk._mid_shape(E, B, N, Ke, iters, store, backward)
+            if shape is None:
+                continue
+            G, bc, _, _, layout = shape
+            ctas = E * -(-B // bc) * G
+            replay = backward and not store and iters > 0
+            more = (ctas * nt * Ke * 4) if backward else 0
+            if layout == "global":
+                more += 4 * ctas * streamk._mid_band_floats(
+                    N, -(-N // G), backward, replay)
+            extra = max(extra, more)
+        total += extra
+    return total
+
+
+@pytest.mark.parametrize("nt", [1000, 20000, 60000])
+def test_gate_admits_what_parent_admitted(nt):
+    """Every shape the gate admitted before the helpers schedule it admits
+    now (the planner takes 'chain' where the rings would pass the budget),
+    at E = 1 and 4, per-block stacks too."""
+    checked = 0
+    for N, B, Ke, it in GATE_GRID:
+        for E in (1, 4):
+            for per_block in (False, True):
+                store = it <= 4
+                mid = streamk.size_refusal(B, N, Ke, it) is not None
+                if not mid:
+                    continue
+                if _parent_sweep_bytes(E, B, N, Ke, it, nt, store, True,
+                                       per_block) \
+                        > streamk.DEVICE_BUDGET_BYTES:
+                    continue
+                checked += 1
+                assert streamk.mid_refusal(E, B, N, Ke, it, nt, store,
+                                           per_block) is None
+                assert streamk.route_refusal(B, N, Ke, it, nt, E, store,
+                                             per_block) is None
+    assert checked > 100
+
+
+@pytest.mark.parametrize("E,B,N,Ke,iters,store", [
+    (1, 1, 256, 8, 4, True), (1, 1, 1024, 8, 4, False),
+    (4, 8, 64, 14, 3, True), (1, 3, 729, 11, 6, False)])
+def test_sweep_bytes_counts_rings(E, B, N, Ke, iters, store):
+    """On the helpers schedule a sweep counts its groups' rings (two slots
+    of H, with replay row-major too, and of the step's pairs), counters and
+    the tiles' C-bar rows against DEVICE_BUDGET_BYTES."""
+    nt = 1000
+    assert streamk.bwd_schedule(E, B, N, Ke, iters, nt, store) == "helpers"
+    G, bc = streamk._mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")[:2]
+    groups = E * -(-B // bc)
+    replay = not store and iters > 0
+    rings = 4 * groups * (streamk._split_ring_floats(bc, N, iters, replay)
+                          + 3 * nt + 4
+                          + streamk.split_tiles(N)[0] * nt * Ke) + 4
+    ldr = -(-N // 4) * 4
+    assert streamk._split_ring_floats(bc, N, iters, replay) == \
+        2 * (2 if replay else 1) * 2 * N * ldr + 2 * (iters + 1) * 4 * bc * N
+    got = streamk.sweep_bytes(E, B, N, Ke, iters, nt, store, True)
+    base = streamk.sweep_bytes(E, B, N, Ke, iters, nt, store, False)
+    assert got - base >= rings
+    assert got - base == max(streamk._scratch_bytes(
+        E, B, N, Ke, iters, nt, store, s) for s in ("helpers", "chain"))
