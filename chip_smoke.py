@@ -678,10 +678,11 @@ def work_bound(plan, E, nt, B, N, backward):
             "bytes" if t_bytes >= t_flops else "operations")
 
 
-def kernel_ms(plan, x0r, x0i, C, reps, plain_reps):
+def kernel_ms(plan, x0r, x0i, C, reps, plain_reps, plain_warm=True):
     """CUDA-event times of both kernels (the pair the dispatch picks: one
     block, or the mid pair past it) and of their plain versions for one
-    plan, and the launch's bounds."""
+    plan (plain_warm False: without a warm-up run, as phases 25-28 time
+    their seconds-long plain sweeps), and the launch's bounds."""
     kfwd, kbwd = streamk._pair(streamk.uses_mid(plan, *x0r.shape))
     fwd = kfwd(plan, x0r, x0i, C)
     hr, hi, ksr, ksi = fwd[2:]
@@ -694,10 +695,11 @@ def kernel_ms(plan, x0r, x0i, C, reps, plain_reps):
     if plain_reps:
         out.update(
             plain_fwd=event_ms(
-                lambda: streamk.plain_forward(plan, x0r, x0i, C), plain_reps),
+                lambda: streamk.plain_forward(plan, x0r, x0i, C), plain_reps,
+                plain_warm),
             plain_bwd=event_ms(lambda: streamk.plain_backward(
                 plan, x0r, x0i, C, hr, hi, ones_T, ones_T, ones_h, ones_h),
-                plain_reps))
+                plain_reps, plain_warm))
     E, nt = C.shape[:2]
     out["fwd_bound"] = work_bound(plan, E, nt, *x0r.shape, backward=False)
     out["bwd_bound"] = work_bound(plan, E, nt, *x0r.shape, backward=True)
@@ -1308,7 +1310,7 @@ MID_CONFIGS = (("n256_pure", 256, "pure"), ("n256_basis", 256, "basis"),
 MID = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches")
 MID_SRC = "quandary_tpu_torch/csrc/streamk_mid.cu"
 MID_FE_ITERS = 10       # device iterations of phase 25's front end
-MID_FE_T = 8.0          # its horizon, ns (derived nsteps about 2500)
+MID_FE_T = 2.0          # its horizon, ns (derived nsteps about 620)
 FREQ3 = [4.8, 5.0, 5.2]
 
 
@@ -1439,6 +1441,49 @@ def mid_bwd_checks(plan, x0r, x0i, C, rng):
         shapes=shapes), seen
 
 
+def mid_fwd_checks(plan, x0r, x0i, C, rng):
+    """The mid forward's schedules on the same inputs (C at full depth):
+    the planner's schedule against the other one forced ('chain' where the
+    planner takes 'helpers', else 'helpers'): xT, the history and the
+    stored iterates in the same bits, and the backward (on its planner's
+    schedule) from either forward's outputs with the same cotangents, g0
+    and C-bar in the same bits; both forwards timed with CUDA events in
+    the order other, planner, planner, other."""
+    runs = {"planner": lambda: streamk_mid._kernel_fwd(plan, x0r, x0i, C)}
+    out = {"planner": runs["planner"]()}
+    shape = dict(streamk_mid.mid_layouts["fwd"])
+    other = "chain" if shape["schedule"] == "helpers" else "helpers"
+    runs[other] = lambda: streamk_mid._kernel_fwd(plan, x0r, x0i, C,
+                                                  _schedule=other)
+    out[other] = runs[other]()
+    other_shape = dict(streamk_mid.mid_layouts["fwd"])
+    w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                  device="cuda", dtype=torch.float32)
+    gT, gh = w(out["planner"][0]), w(out["planner"][2])
+    bwd = {k: streamk_mid._kernel_bwd(plan, x0r, x0i, C, *f[2:], gT, gT, gh,
+                                      gh) for k, f in out.items()}
+    ms = {k: [] for k in runs}
+    for k in (other, "planner", "planner", other):
+        ms[k].append(event_ms(runs[k], 1))
+    torch.cuda.synchronize()
+    mean = {k: statistics.mean(v) for k, v in ms.items()}
+    return dict(
+        schedule=shape["schedule"], helpers=shape["helpers"], shape=shape,
+        other=other, other_shape=other_shape, ms=ms,
+        ratio=mean["planner"] / mean[other],
+        bits=all((a is None and b is None) or torch.equal(a, b)
+                 for a, b in zip(out["planner"], out[other])),
+        bwd_bits=all(torch.equal(a, b) for a, b in zip(*bwd.values())))
+
+
+def fwd_schedules_ok(rep, schedule):
+    """A mid_fwd_checks report on the expected planner schedule (None: the
+    card's count of clusters decides), with the other schedule's bits
+    forward and backward."""
+    return (schedule in (None, rep["schedule"]) and rep["bits"]
+            and rep["bwd_bits"])
+
+
 def mid_phase(smi, flagship_plan):
     """Phase 25: the mid pair against plain, its layouts and determinism,
     Problem through it at full width, and Quandary on a system past one
@@ -1480,10 +1525,12 @@ def mid_phase(smi, flagship_plan):
                 seen.add(("Bc", streamk_mid.mid_layouts["fwd"]["Bc"]))
                 seen.add(("schedule", streamk_mid.mid_layouts["bwd"][
                     "schedule"], streamk_mid.mid_layouts["bwd"]["layout"]))
+                seen.add(("fwd_schedule", streamk_mid.mid_layouts["fwd"][
+                    "schedule"], streamk_mid.mid_layouts["fwd"]["layout"]))
                 bits[key] = mid_same_bits(plan, pr._x0r, pr._x0i, C, rng)
                 if E == 1 and store == pr._plan.store_iters:
                     plain_cut[name] = kernel_ms(plan, pr._x0r, pr._x0i, C,
-                                                1, 1)
+                                                1, 1, plain_warm=False)
     # the backward's schedules against each other and stored against
     # replayed iterates, at two sizes where both modes take one shape
     sched = {}
@@ -1496,11 +1543,30 @@ def mid_phase(smi, flagship_plan):
         sched[name], more = mid_bwd_checks(pr._plan, pr._x0r, pr._x0i, C,
                                            rng)
         seen |= more
+    # the forward's schedules against each other at full depth: bits, the
+    # backward from either, interleaved times ('helpers' at B = 1)
+    fsched = {}
+    for name in ("n256_pure", "n512_pure", "n1024_pure", "n256_basis"):
+        pr = probs[name]
+        P = to_card(bench_params(pr.setup.nparams, 1,
+                                 seed=int(rng.integers(1 << 30))))
+        C = streamk.extend_coeffs(pr._plan, pr.coeff_rows_mid(P)[:, :, 0, :])
+        fsched[name] = mid_fwd_checks(pr._plan, pr._x0r, pr._x0i, C, rng)
+        for k in ("shape", "other_shape"):
+            seen.add(("fwd_schedule", fsched[name][k]["schedule"],
+                      fsched[name][k]["layout"]))
+        print(f"  {name} forward schedules: {json.dumps(fsched[name])}",
+              flush=True)
+        del C
     want = {("fwd", "smem"), ("fwd", "global"), ("bwd", "smem", True),
             ("bwd", "smem", False), ("bwd", "global", True),
             ("bwd", "global", False), ("Bc", 1), ("Bc", 8),
             ("schedule", "helpers", "smem"), ("schedule", "helpers", "global"),
-            ("schedule", "chain", "smem"), ("schedule", "chain", "global")}
+            ("schedule", "chain", "smem"), ("schedule", "chain", "global"),
+            ("fwd_schedule", "helpers", "smem"),
+            ("fwd_schedule", "helpers", "global"),
+            ("fwd_schedule", "chain", "smem"),
+            ("fwd_schedule", "chain", "global")}
     bad = [k for k, e in errs.items()
            if e["state"] > TOL_STATE_ABS or e["cbar_rel"] > TOL_GRAD_REL
            or e["x0bar_rel"] > TOL_GRAD_REL]
@@ -1509,14 +1575,24 @@ def mid_phase(smi, flagship_plan):
             or v["schedules_cbar_rel"] > TOL_GRAD_REL]
     bits.update({f"{k}_stored_replayed": v["stored_replayed"]
                  for k, v in sched.items()})
+    bits.update({f"{k}_fwd_schedules": v["bits"] and v["bwd_bits"]
+                 for k, v in fsched.items()})
+    bad += [f"{k}: forward on {v['schedule']}" for k, v in fsched.items()
+            if (v["schedule"] == "helpers") != (k != "n256_basis")]
     phase(25, f"mid pair == plain at {MID_NT_CUT} steps within abs "
               f"{TOL_STATE_ABS} (states), {TOL_GRAD_REL} x max (cotangents):"
               f" worst {json.dumps(worst)}; out of bounds {bad}; layouts "
               f"and schedules {sorted(map(str, seen))}; missing "
               f"{sorted(map(str, want - seen))}"
-              f"; same bits on repeat and stored_replayed "
-              f"{json.dumps(bits)}; the backward's schedules (g0 bits, "
-              f"C-bar x max) and shapes {json.dumps(sched)}")
+              f"; same bits on repeat, stored_replayed and the forward's "
+              f"schedules {json.dumps(bits)}; the backward's schedules (g0 "
+              f"bits, C-bar x max) and shapes {json.dumps(sched)}; the "
+              f"forward's schedules, 1000 steps, ms (planner / other, "
+              f"interleaved): " + "; ".join(
+                  f"{k} {v['schedule']} + {v['helpers']} helpers "
+                  f"{statistics.mean(v['ms']['planner']):.3f} / "
+                  f"{v['other']} {statistics.mean(v['ms'][v['other']]):.3f}"
+                  f" ({v['ratio']:.3f}x)" for k, v in fsched.items()))
     if bad or want - seen or not all(bits.values()):
         raise RuntimeError(f"mid pair: out of bounds {bad}, layouts not "
                            f"driven {want - seen}, bits {bits}")
@@ -1549,9 +1625,13 @@ def mid_phase(smi, flagship_plan):
         C = streamk.extend_coeffs(pr._plan, pr.coeff_rows_mid(
             to_card(x))[None, :, 0])
         t = kernel_ms(pr._plan, pr._x0r, pr._x0i, C, 3,
-                      1 if name == "n256_pure" else 0)
+                      1 if name == "n256_pure" else 0, plain_warm=False)
         t.update({f"{k}_shape": dict(streamk_mid.mid_layouts[k])
                   for k in ("fwd", "bwd")})
+        if name.endswith("_pure") and t["fwd_shape"]["schedule"] != \
+                "helpers":
+            raise RuntimeError(f"{name}: the forward ran on "
+                               f"{t['fwd_shape']['schedule']}, not 'helpers'")
         full[name] = dict(t, sweeps_per_s=rate, J=float(J),
                           fidelity=float(aux["fidelity"]),
                           stored=pr._plan.store_iters, B=pr.ninit, N=pr.N)
@@ -1624,7 +1704,8 @@ def mid_phase(smi, flagship_plan):
                            f"{sim} / {opt} ({sweeps} sweeps), cost "
                            f"{cost[0]} -> {cost[-1]}")
     return dict(worst=worst, full=full, plain_cut=plain_cut,
-                launches=launches, fe=fe, schedules=sched)
+                launches=launches, fe=fe, schedules=sched,
+                fwd_schedules=fsched)
 
 
 # Phase 26, the mid-size density-matrix pair (csrc/rho_mid_fwd.cu,
@@ -2567,7 +2648,8 @@ def route_ms(routes, P, reps):
     pr = routes.get("superop_streamk")
     if pr is not None:
         C = streamk.extend_coeffs(pr._plan, pr.coeff_rows_mid(P)[..., 0, :])
-        plain = kernel_ms(pr._plan, pr._x0r, pr._x0i, C, 1, 1)
+        plain = kernel_ms(pr._plan, pr._x0r, pr._x0i, C, 1, 1,
+                          plain_warm=False)
         out["superop_streamk"].update(plain_fwd=plain["plain_fwd"],
                                       plain_bwd=plain["plain_bwd"])
     return out
@@ -2624,6 +2706,10 @@ def per_block_phase(smi, p16, open16):
     ms16 = route_ms({"rho": p16, "superop_streamk": ps,
                      "superop_stream": pst}, P, 2)
     rep["route_ms"] = ms16
+    rep["fwd_schedules"] = mid_fwd_checks(
+        ps._plan, ps._x0r, ps._x0i,
+        streamk.extend_coeffs(ps._plan, ps.coeff_rows_mid(P)[..., 0, :]),
+        rng)
     out["open2"] = rep
     phase(28, f"open configuration 2 (N = 16, 16 basis matrices, ntime "
               f"{ps.setup.ntime}) forced to superop on 'streamk': dim {dim} "
@@ -2631,7 +2717,8 @@ def per_block_phase(smi, p16, open16):
               f"routes {TOL_ROUTES_J} / {TOL_ROUTES_G}; card: {smi}")
     if any(rep[k]["J"] > TOL_ROUTES_J or rep[k]["fidelity"] > TOL_ROUTES_J
            or rep[k]["grad"] > TOL_ROUTES_G
-           for k in ("rho_route", "stream_superop")):
+           for k in ("rho_route", "stream_superop")) \
+            or not fwd_schedules_ok(rep["fwd_schedules"], "helpers"):
         raise RuntimeError(f"superop on 'streamk' past one block: {rep}")
     del pst
 
@@ -2659,12 +2746,17 @@ def per_block_phase(smi, p16, open16):
                  rho_route=dict(J=eJ, fidelity=ef, grad=eg),
                  shapes=dict(streamk_mid.mid_layouts),
                  route_ms=route_ms({"rho": q_rho, "superop_streamk": q_sup},
-                                   P27, 1))
+                                   P27, 1),
+                 fwd_schedules=mid_fwd_checks(
+                     q_sup._plan, q_sup._x0r, q_sup._x0i,
+                     streamk.extend_coeffs(q_sup._plan, q_sup.coeff_rows_mid(
+                         P27)[..., 0, :]), rng))
     out["qutrits27"] = rep27
     phase(28, f"rho_bench's N = 27 forced to superop on 'streamk' (dim "
               f"{rep27['dim']}, 3 initial conditions, 1000 steps) against "
               f"the rho route: {json.dumps(rep27)}; card: {smi}")
-    if eJ > TOL_ROUTES_J or ef > TOL_ROUTES_J or eg > TOL_ROUTES_G:
+    if eJ > TOL_ROUTES_J or ef > TOL_ROUTES_J or eg > TOL_ROUTES_G \
+            or not fwd_schedules_ok(rep27["fwd_schedules"], "helpers"):
         raise RuntimeError(f"N = 27 superop against rho: {rep27}")
     del q_rho, q_sup
 
@@ -2689,7 +2781,8 @@ def per_block_phase(smi, p16, open16):
             lambda: robust_vg(obj, x, "cuda"), reps=3),
             per_sample_s=median_seconds(lambda: robust_vg(per, x, "cuda"),
                                         reps=3))
-        ms = kernel_ms(obj.plan, *obj.x0, obj.coeff_rows(to_card(x)), 3, 1)
+        ms = kernel_ms(obj.plan, *obj.x0, obj.coeff_rows(to_card(x)), 3, 1,
+                       plain_warm=False)
         p0 = samples[0]
         rep = dict(S=len(samples), N=p0.N, dim=obj.plan.Sr.shape[-1],
                    B=p0.ninit, ntime=p0.setup.ntime, sample_routes=sorted(
@@ -2698,6 +2791,11 @@ def per_block_phase(smi, p16, open16):
                    launches=launches, per_sample=errs, walls=walls, ms=ms)
         if want == MIDP:
             rep["shapes"] = dict(streamk_mid.mid_layouts)
+            rep["fwd_schedules"] = mid_fwd_checks(
+                obj.plan, *obj.x0, obj.coeff_rows(to_card(x)), rng)
+            if not fwd_schedules_ok(rep["fwd_schedules"], None):
+                raise RuntimeError(f"{name}: forward schedules "
+                                   f"{rep['fwd_schedules']}")
         phase(28, f"{name}: {json.dumps(rep)}; bounds against per-sample "
                   f"{tol_J} / {tol_g}; card: {smi}")
         if errs["J"] > tol_J or errs["grad"] > tol_g:
@@ -3623,6 +3721,22 @@ def run_phases(smi, worker, ref_path):
             more["schedules"] = {k: {c: v[c] for c in (
                 "schedules_g0_bits", "schedules_cbar_rel", "stored_replayed")}
                 for k, v in mid["schedules"].items()}
+        else:
+            # the record's case (n256_pure) ran on 'helpers'; each case's
+            # planner schedule against the other one, interleaved
+            more["schedule"] = mid["full"]["n256_pure"]["fwd_shape"][
+                "schedule"]
+            fs = dict(mid["fwd_schedules"], **{
+                f"superop_{n}": pb[n]["fwd_schedules"]
+                for n in ("open2", "qutrits27")},
+                swap02_packed=pb["swap02_robust"]["fwd_schedules"],
+                open8_packed=pb["open8_robust"]["fwd_schedules"])
+            more["schedules"] = {k: dict(
+                schedule=v["schedule"], helpers=v["helpers"],
+                ms=statistics.mean(v["ms"]["planner"]), other=v["other"],
+                ms_other=statistics.mean(v["ms"][v["other"]]),
+                ratio=v["ratio"], bits=v["bits"] and v["bwd_bits"])
+                for k, v in fs.items()}
         return more
 
     def rho_mid_more(i):

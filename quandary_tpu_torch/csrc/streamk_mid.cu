@@ -43,9 +43,11 @@
 //   C-bar: each CTA writes its partial row Cbp[cta, t, :] (a shuffle tree
 //     per warp, the warps summed in order); the wrapper sums the rows in a
 //     fixed order. No float atomics: two launches give the same bits.
-//   That is the backward's 'chain' schedule. Where the launch leaves SMs
-//     idle its 'helpers' schedule (streamk_mid_bwd_helpers, below) runs the
-//     same chain and moves the pass onto helper clusters, a step ahead.
+//   That is each direction's 'chain' schedule. Where the launch leaves SMs
+//     idle its 'helpers' schedule (streamk_mid_fwd_helpers,
+//     streamk_mid_bwd_helpers, below) runs the same chain and moves the
+//     contraction of H (the backward's whole pass) onto helper clusters
+//     ahead of it.
 // Where the bands of H fit shared memory beside the operand buffers
 // ("smem" layout) they live there; otherwise ("global" layout) in a
 // per-CTA scratch in device memory, which the L2 serves (at N = 1024 a
@@ -68,8 +70,9 @@
 // reading of the CTA's H band (from shared memory, or 512 KB from L2 in the
 // global layout), the warps' shuffle trees, the pushes and the barrier;
 // the per-step contraction reads Ke bands of the stacks from L2 (past N =
-// 512 from device memory: the backward's pass on the chain cost 521 of a
-// 591 us step at N = 1024, on helper clusters the chain alone bounds it).
+// 512 from device memory: on the chain the backward's pass cost 521 of a
+// 591 us step at N = 1024, the forward's row contraction 275 of 432; on
+// helper clusters each direction's chain alone bounds it).
 // At B = 256 the products dominate (67 MFLOP a stage at N = 256).
 
 #include "mid_cluster.cuh"
@@ -245,116 +248,130 @@ __device__ void col_pass(const float* __restrict__ Sr,
 
 }  // namespace
 
-// Forward: x0 (B, N) shared by all candidates; C (E, nt, Ke); rows: jacobi
-// (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Writes xT
-// (E, B, N), hist (E, nt, B, N) and, with store, the stage iterates
-// k_0..k_{iters-1} (E, nt, iters, B, N), each CTA its band of its chunk's
-// states. scratch: the global layout's row bands, mid_band_floats per CTA.
-// Per step: the row band of H(t), x (rotated where split) exchanged, then
-// stage j = 0..iters: the band of T of the operand, the stage update, and
-// k_j exchanged for stage j + 1: iters + 1 cluster barriers.
-template <int BC>
-__global__ void __launch_bounds__(MID_MAX_THREADS)
-streamk_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
-                const float* __restrict__ C, const float* __restrict__ x0r,
-                const float* __restrict__ x0i, const float* __restrict__ rows,
-                float* __restrict__ xTr, float* __restrict__ xTi,
-                float* __restrict__ hr, float* __restrict__ hi,
-                float* __restrict__ ksr, float* __restrict__ ksi,
-                float* __restrict__ scratch, MidDims d) {
-  extern __shared__ float sm[];
-  const cg::cluster_group cl = cg::this_cluster();
-  const int N = d.N, R = d.R, Ke = d.Ke, nt = d.nt, it = d.iters, G = d.G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  const MidBand g = mid_band(d, BC, (int)cl.block_rank());
-  Sr += g.e * d.strideS;          // this candidate's stack and solver rows
-  Si += g.e * d.strideS;
-  rows += g.e * d.strideR;
-  const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
-  const int BI = BC * R;
-  float* V = sm;                  // two buffers x (re, im) x BC x N
-  float* X = V + 4 * BNv;         // the bands of x, b, k: re, then im at + BI
-  float* Bb = X + 2 * BI;
-  float* Kb = Bb + 2 * BI;
-  float* rw = Kb + 2 * BI;        // solver rows, 4 x R
-  float* Hr = d.global ? scratch + (size_t)blockIdx.x *
-                                       mid_band_floats(N, R, false, false)
-                       : rw + 4 * R;
-  float* Hi = Hr + (size_t)R * N;
+namespace {
 
-  const size_t nsm = mid_fwd_floats(BC, N, R, !d.global);
-  for (size_t i = tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
-  __syncthreads();
-  for (int i = tid; i < BI; i += blockDim.x) {
-    const int b = i / R, il = i - b * R;
-    if (b < g.nb && il < g.nr) {
-      const size_t o = (size_t)(g.b0 + b) * N + g.r0 + il;
-      X[i] = x0r[o];
-      X[BI + i] = x0i[o];
+// One CTA's part of the forward's chain, shared by both forward schedules:
+// its band of the states of one (candidate, chunk of BC states) in shared
+// memory beside the two operand buffers every CTA of the cluster pushes
+// into. A step is put_x, a cluster barrier, then stages on the CTA's row
+// band of H(t); both schedules run these same products in the same order.
+template <int BC>
+struct FwdChain {
+  MidDims d;
+  MidBand g;
+  float *V, *X, *Bb, *Kb, *rw;
+  size_t BNv;
+  int BI, tid, lane, warp, nwarps;
+  int p = 0;                      // the operand buffer the next stage reads
+
+  // sm: two buffers x (re, im) x BC x N, the bands of x, b, k (re, then im
+  // at + BI) and the solver rows 4 x R (mid_fwd_floats without the band)
+  __device__ FwdChain(const MidDims& dims, const MidBand& band, float* sm)
+      : d(dims), g(band) {
+    BNv = (size_t)BC * d.N;
+    BI = BC * d.R;
+    V = sm;
+    X = V + 4 * BNv;
+    Bb = X + 2 * BI;
+    Kb = Bb + 2 * BI;
+    rw = Kb + 2 * BI;
+    tid = threadIdx.x;
+    lane = tid & 31;
+    warp = tid >> 5;
+    nwarps = blockDim.x >> 5;
+  }
+
+  // the band of x0 and the solver rows (the buffers zeroed before)
+  __device__ void load(const float* __restrict__ x0r,
+                       const float* __restrict__ x0i,
+                       const float* __restrict__ rows) {
+    const int N = d.N, R = d.R;
+    for (int i = tid; i < BI; i += blockDim.x) {
+      const int b = i / R, il = i - b * R;
+      if (b < g.nb && il < g.nr) {
+        const size_t o = (size_t)(g.b0 + b) * N + g.r0 + il;
+        X[i] = x0r[o];
+        X[BI + i] = x0i[o];
+      }
+    }
+    const int nrows = d.mode == MODE_JACOBI ? 4 : d.mode == MODE_SPLIT ? 2 : 0;
+    for (int i = tid; i < nrows * R; i += blockDim.x) {
+      const int m = i / R, il = i - m * R;
+      if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
     }
   }
-  const int nrows = jac ? 4 : split ? 2 : 0;
-  for (int i = tid; i < nrows * R; i += blockDim.x) {
-    const int m = i / R, il = i - m * R;
-    if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
-  }
-  cl.sync();    // every CTA's buffers are zeroed before the first push
 
   // the entries this thread owns: lane b of the warp that takes row il
-  auto owned = [&](auto fn) {
+  template <typename F>
+  __device__ __forceinline__ void owned(F fn) const {
     for (int il = warp; il < g.nr; il += nwarps)
-      if (lane < BC) fn(il, lane, lane * R + il);
-  };
-  auto put = [&](float* buf, int b, int il, float vr, float vi) {
-    push(cl, buf + b * N + g.r0 + il, vr, G);
-    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);
-  };
-  const float* Ce = C + (size_t)g.e * nt * Ke;
-  int p = 0;                      // the operand buffer the next stage reads
-  for (int t = 0; t < nt; ++t) {
-    __syncthreads();              // step t - 1's stages are done with H
-    row_contract(Sr, Si, Ce + (size_t)t * Ke, Ke, N, g.r0, g.nr, Hr, Hi, tid,
-                 blockDim.x);
+      if (lane < BC) fn(il, lane, lane * d.R + il);
+  }
+
+  __device__ __forceinline__ void put(const cg::cluster_group& cl, float* buf,
+                                      int b, int il, float vr,
+                                      float vi) const {
+    push(cl, buf + b * d.N + g.r0 + il, vr, d.G);
+    push(cl, buf + BNv + b * d.N + g.r0 + il, vi, d.G);
+  }
+
+  // step t's first operand: x (rotated where split) into every CTA
+  __device__ void put_x(const cg::cluster_group& cl) {
+    const bool split = d.mode == MODE_SPLIT;
     owned([&](int il, int b, int ib) {
       float xr = X[ib], xi = X[BI + ib];
-      if (split) cmul(rw[il], rw[R + il], xr, xi);
+      if (split) cmul(rw[il], rw[d.R + il], xr, xi);
       X[ib] = xr;
       X[BI + ib] = xi;
-      put(V + 2 * p * BNv, b, il, xr, xi);
+      put(cl, V + 2 * p * BNv, b, il, xr, xi);
     });
-    cl.sync();
-    const size_t st = (size_t)g.e * nt + t;
+  }
+
+  // After the barrier that made x whole: stage j = 0..iters, each the band
+  // of T of the operand from the row band of H(t) (Hr, Hi, row stride ld;
+  // L2: a band other SMs wrote during the launch, read from L2), the stage
+  // update and k_j exchanged for stage j + 1 (iters cluster barriers); then
+  // x's update, the history and (store) the stage iterates of step t.
+  template <bool L2>
+  __device__ void stages(const cg::cluster_group& cl, const float* Hr,
+                         const float* Hi, int ld, int t, float* hr,
+                         float* hi, float* ksr, float* ksi) {
+    const int N = d.N, R = d.R, it = d.iters;
+    const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+    const size_t BN = (size_t)d.B * N;
+    const size_t st = (size_t)g.e * d.nt + t;
     for (int j = 0; j <= it; ++j) {
       const float* Vr = V + 2 * p * BNv;
       float* Vn = V + 2 * (p ^ 1) * BNv;
-      rows_dot<BC, false>(
-          Hr, Hi, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,
-          [&](int il, int b, float sr, float si) {
-            const int ib = b * R + il;
-            const float tr = si, ti = -sr;     // T(v) = -i H v
-            float kr = Kb[ib], ki = Kb[BI + ib];
-            if (j == 0) {
-              Bb[ib] = tr;
-              Bb[BI + ib] = ti;
-              mid_first(jac, rw, R, il, tr, ti, kr, ki);
-            } else {
-              mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
-                       ki);
-            }
-            Kb[ib] = kr;
-            Kb[BI + ib] = ki;
-            if (j < it) {
-              if (d.store && b < g.nb) {
-                const size_t o = (st * it + j) * BN +
-                                 (size_t)(g.b0 + b) * N + g.r0 + il;
-                ksr[o] = kr;
-                ksi[o] = ki;
-              }
-              put(Vn, b, il, kr, ki);
-            }
-          });
+      auto stage = [&](int il, int b, float sr, float si) {
+        const int ib = b * R + il;
+        const float tr = si, ti = -sr;     // T(v) = -i H v
+        float kr = Kb[ib], ki = Kb[BI + ib];
+        if (j == 0) {
+          Bb[ib] = tr;
+          Bb[BI + ib] = ti;
+          mid_first(jac, rw, R, il, tr, ti, kr, ki);
+        } else {
+          mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr, ki);
+        }
+        Kb[ib] = kr;
+        Kb[BI + ib] = ki;
+        if (j < it) {
+          if (d.store && b < g.nb) {
+            const size_t o =
+                (st * it + j) * BN + (size_t)(g.b0 + b) * N + g.r0 + il;
+            ksr[o] = kr;
+            ksi[o] = ki;
+          }
+          put(cl, Vn, b, il, kr, ki);
+        }
+      };
+      if constexpr (L2)
+        rows_dot_l2<BC, false>(Hr, Hi, ld, g.nr, Vr, Vr + BNv, N, warp,
+                               nwarps, lane, stage);
+      else
+        rows_dot<BC, false>(Hr, Hi, ld, g.nr, Vr, Vr + BNv, N, warp, nwarps,
+                            lane, stage);
       if (j < it) {
         p ^= 1;
         cl.sync();
@@ -373,13 +390,70 @@ streamk_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
       }
     });
   }
-  owned([&](int il, int b, int ib) {
-    if (b < g.nb) {
-      const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
-      xTr[o] = X[ib];
-      xTi[o] = X[BI + ib];
-    }
-  });
+
+  __device__ void write_xT(float* xTr, float* xTi) const {
+    owned([&](int il, int b, int ib) {
+      if (b < g.nb) {
+        const size_t o = ((size_t)g.e * d.B + g.b0 + b) * d.N + g.r0 + il;
+        xTr[o] = X[ib];
+        xTi[o] = X[BI + ib];
+      }
+    });
+  }
+};
+
+}  // namespace
+
+// Forward: x0 (B, N) shared by all candidates; C (E, nt, Ke); rows: jacobi
+// (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,). Writes xT
+// (E, B, N), hist (E, nt, B, N) and, with store, the stage iterates
+// k_0..k_{iters-1} (E, nt, iters, B, N), each CTA its band of its chunk's
+// states. scratch: the global layout's row bands, mid_band_floats per CTA.
+// Per step: the row band of H(t), x (rotated where split) exchanged, then
+// stage j = 0..iters: the band of T of the operand, the stage update, and
+// k_j exchanged for stage j + 1: iters + 1 cluster barriers. This is the
+// forward's 'chain' schedule (the row contraction in each step's chain);
+// its 'helpers' schedule (streamk_mid_fwd_helpers, below) moves the
+// contraction onto helper clusters a step ahead.
+template <int BC>
+__global__ void __launch_bounds__(MID_MAX_THREADS)
+streamk_mid_fwd(const float* __restrict__ Sr, const float* __restrict__ Si,
+                const float* __restrict__ C, const float* __restrict__ x0r,
+                const float* __restrict__ x0i, const float* __restrict__ rows,
+                float* __restrict__ xTr, float* __restrict__ xTi,
+                float* __restrict__ hr, float* __restrict__ hi,
+                float* __restrict__ ksr, float* __restrict__ ksi,
+                float* __restrict__ scratch, MidDims d) {
+  extern __shared__ float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int N = d.N, R = d.R, Ke = d.Ke, nt = d.nt;
+  const int tid = threadIdx.x;
+  const MidBand g = mid_band(d, BC, (int)cl.block_rank());
+  Sr += g.e * d.strideS;          // this candidate's stack and solver rows
+  Si += g.e * d.strideS;
+  rows += g.e * d.strideR;
+  FwdChain<BC> c(d, g, sm);
+  float* Hr = d.global ? scratch + (size_t)blockIdx.x *
+                                       mid_band_floats(N, R, false, false)
+                       : c.rw + 4 * R;
+  float* Hi = Hr + (size_t)R * N;
+
+  const size_t nsm = mid_fwd_floats(BC, N, R, !d.global);
+  for (size_t i = tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
+  __syncthreads();
+  c.load(x0r, x0i, rows);
+  cl.sync();    // every CTA's buffers are zeroed before the first push
+
+  const float* Ce = C + (size_t)g.e * nt * Ke;
+  for (int t = 0; t < nt; ++t) {
+    __syncthreads();              // step t - 1's stages are done with H
+    row_contract(Sr, Si, Ce + (size_t)t * Ke, Ke, N, g.r0, g.nr, Hr, Hi, tid,
+                 blockDim.x);
+    c.put_x(cl);
+    cl.sync();
+    c.template stages<false>(cl, Hr, Hi, N, t, hr, hi, ksr, ksi);
+  }
+  c.write_xT(xTr, xTi);
   cl.sync();    // no CTA leaves while another may still address it
 }
 
@@ -663,11 +737,11 @@ __host__ __device__ inline size_t split_flag_ints(int nt) {
 }
 
 // floats of a tile's scratch: the tile of H staged transposed (re, im), the
-// warps' C-bar partials, the pairs' cotangents on its rows and inputs on its
-// columns
-__host__ __device__ inline size_t tile_floats(int BC, int it) {
+// warps' C-bar partials, the npairs pairs' cotangents on its rows and inputs
+// on its columns (the backward's it + 1; none for the forward)
+__host__ __device__ inline size_t tile_floats(int BC, int npairs) {
   return 2 * TILE_Q * TILE_LD + 16 * MID_KG +
-         (size_t)(it + 1) * BC * 2 * (TILE_P + TILE_Q);
+         (size_t)npairs * BC * 2 * (TILE_P + TILE_Q);
 }
 
 // Floats of the helpers schedule's shared memory: a header of 8 words, the
@@ -685,7 +759,32 @@ __host__ __device__ inline size_t mid_split_floats(int BC, int N, int R,
                       4 * (size_t)R + 2 * (4 + 2 * (stored ? it : 0)) * BR;
   const size_t band =
       hsmem ? 2 * (size_t)R * split_ldr(N) * (replay ? 2 : 1) : 0;
-  const size_t tile = tile_floats(BC, it);
+  const size_t tile = tile_floats(BC, it + 1);
+  return round4(head) + (band > tile ? band : tile);
+}
+
+// The forward's 'helpers' schedule (streamk_mid_fwd_helpers): a group's
+// ring of H, FWD_SLOTS slots, each H(t) row-major (N rows of ldr floats, re
+// then im); its counters (per step: tiles claimed, tiles done, chain CTAs
+// that released the slot); its shared memory: a header of 8 words, the
+// chain's (mid_fwd_floats without the band), then one region, 16-byte
+// aligned, that holds either the step's row band of H (the smem layout) or
+// a tile's scratch.
+constexpr int FWD_SLOTS = 3;
+
+__host__ __device__ inline size_t fwd_ring_floats(int N) {
+  return (size_t)FWD_SLOTS * 2 * N * split_ldr(N);
+}
+
+__host__ __device__ inline size_t fwd_flag_ints(int nt) {
+  return 3 * (size_t)nt;
+}
+
+__host__ __device__ inline size_t mid_fwd_split_floats(int BC, int N, int R,
+                                                       bool hsmem) {
+  const size_t head = 8 + mid_fwd_floats(BC, N, R, false);
+  const size_t band = hsmem ? 2 * (size_t)R * split_ldr(N) : 0;
+  const size_t tile = tile_floats(BC, 0);
   return round4(head) + (band > tile ? band : tile);
 }
 
@@ -707,7 +806,7 @@ __device__ __forceinline__ void load4(const float* p, bool vec, int left,
 }
 
 // One tile of a pass, by the whole CTA: rows [p0, p0 + TILE_P) x columns
-// [q0, q0 + TILE_Q) of the matrix. With npairs > 0: Hb(pp, q) from the
+// [q0, q0 + TILE_Q) of the matrix. With cbout: Hb(pp, q) from the npairs
 // pairs at P (the chain schedule's formula), added against every slot into
 // the tile's C-bar row cbout (each thread's partials over its entries, a
 // shuffle tree per warp, the warps in order). With cn: H = sum_k cn_k S_k
@@ -789,10 +888,12 @@ __device__ void tile_pass(const float* __restrict__ Sr,
           float sr[4], si[4];
           load4(Sr + k * NN + off, vec, N - qa, sr);
           load4(Si + k * NN + off, vec, N - qa, si);
+          if (cbout != nullptr) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            cb[kk] = fmaf(hbr[e], sr[e], cb[kk]);
-            cb[kk] = fmaf(hbi[e], si[e], cb[kk]);
+            for (int e = 0; e < 4; ++e) {
+              cb[kk] = fmaf(hbr[e], sr[e], cb[kk]);
+              cb[kk] = fmaf(hbi[e], si[e], cb[kk]);
+            }
           }
           if (cn != nullptr) {
             const float c = cn[k];
@@ -861,6 +962,140 @@ __device__ void tile_pass(const float* __restrict__ Sr,
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// The forward's 'helpers' schedule: the row contraction off the chain. In
+// the chain schedule (streamk_mid_fwd) each CTA contracts its row band of
+// H(t) at the top of step t, on the dependent chain, from stacks that pass
+// L2 past N = 512 (64 MB at N = 1024), with 4-byte loads on the cluster's
+// SMs. Here the chain clusters run only the stages, and H(t) is contracted
+// by the backward's pass tiles of the whole matrix (tile_pass, no pairs,
+// the row-major write only) on helper clusters the launch adds where the
+// card would leave SMs idle (ops/streamk.py::fwd_schedule), into a ring of
+// FWD_SLOTS steps of H in device memory, so that they run up to
+// FWD_SLOTS - 1 steps ahead of the chain.
+// A group is one chain cluster (candidate, chunk of BC states) and its
+// helpers, with its ring (fwd_ring_floats) and counters. Pass t contracts
+// H(t) into slot t % FWD_SLOTS once the chain's G CTAs released the slot's
+// step t - FWD_SLOTS (released[t - FWD_SLOTS] == G); chain step t waits
+// until the pass's tiles are done (done[t] == tiles) and then reads its row
+// band: in the smem layout copied into shared memory before the step's
+// first stage (the slot released right after), in the global layout from
+// L2 (released at the step's end). flags (ints, zeroed by the wrapper): a
+// ticket counter, then per group claimed, done and released (nt each).
+// Tickets, as in the backward's: ticket (1 + helpers) m + 0 is group m's
+// chain and the next `helpers` its helpers, so a helper waits only on a
+// chain that started before it; tiles are claimed by an atomic counter, by
+// the helpers and by the chain's own CTAs, which claim whatever is left of
+// step t's pass at its top: no chain waits on a cluster that has not
+// started, and any helper count (none too) gives the same bits.
+// Numerics: each entry of H is one fmaf chain from 0 in k order, as
+// row_contract computes it, and the chain's stages are FwdChain's, the
+// chain schedule's products in the same order: xT, the history and the
+// stored iterates have the chain schedule's bits.
+// ---------------------------------------------------------------------------
+template <int BC>
+__global__ void __launch_bounds__(MID_MAX_THREADS)
+streamk_mid_fwd_helpers(
+    const float* __restrict__ Sr, const float* __restrict__ Si,
+    const float* __restrict__ C, const float* __restrict__ x0r,
+    const float* __restrict__ x0i, const float* __restrict__ rows,
+    float* __restrict__ xTr, float* __restrict__ xTi, float* __restrict__ hr,
+    float* __restrict__ hi, float* __restrict__ ksr, float* __restrict__ ksi,
+    float* ring, int* flags, MidDims d, SplitDims s) {
+  extern __shared__ float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  int* hdr = reinterpret_cast<int*>(sm);
+  const int rank = (int)cl.block_rank();
+  if (rank == 0 && threadIdx.x == 0) hdr[0] = atomicAdd(flags, 1);
+  cl.sync();
+  const int ticket = *cl.map_shared_rank(hdr, 0);
+  cl.sync();    // rank 0's ticket is read before any CTA moves on
+  const int grp = ticket / (1 + s.helpers);
+  const bool chain = ticket % (1 + s.helpers) == 0;
+
+  const int N = d.N, R = d.R, Ke = d.Ke, nt = d.nt, G = d.G, ldr = s.ldr;
+  const int tid = threadIdx.x;
+  const size_t NL = (size_t)N * ldr;
+  float* Hring = ring + grp * fwd_ring_floats(N);
+  int* claim = flags + 1 + grp * fwd_flag_ints(nt);
+  int* done = claim + nt;
+  int* released = done + nt;
+  const int e = grp / d.nchunks;
+  Sr += e * d.strideS;            // this candidate's stack and solver rows
+  Si += e * d.strideS;
+  rows += e * d.strideR;
+  const float* Ce = C + (size_t)e * nt * Ke;
+
+  // the tiles of pass t (H(t) into its slot) this CTA can claim, until none
+  // is left, once the slot's last reader released it
+  auto run_pass = [&](int t, float* ts) {
+    if (t >= FWD_SLOTS) {
+      if (tid == 0) wait_count(released + t - FWD_SLOTS, G);
+      __syncthreads();
+    }
+    float* Hs = Hring + (size_t)(t % FWD_SLOTS) * 2 * NL;
+    for (;;) {
+      if (tid == 0) hdr[1] = atomicAdd(claim + t, 1);
+      __syncthreads();
+      const int tile = hdr[1];
+      __syncthreads();
+      if (tile >= s.ntiles) break;
+      tile_pass<BC>(Sr, Si, Ke, N, ldr, 0, nullptr, Ce + (size_t)t * Ke,
+                    nullptr, Hs, tile, s.tq, ts, nullptr);
+      if (tid == 0) signal_count(done + t);
+    }
+  };
+
+  if (!chain) {
+    for (int t = 0; t < nt; ++t) run_pass(t, sm + 8);
+    return;
+  }
+
+  MidBand g;      // the group's candidate and chunk, this CTA's band
+  g.e = e;
+  g.r0 = rank * R;
+  g.nr = min(R, N - g.r0);
+  g.b0 = (grp - e * d.nchunks) * BC;
+  g.nb = min(BC, d.B - g.b0);
+  FwdChain<BC> c(d, g, sm + 8);
+  float* region = sm + round4(8 + mid_fwd_floats(BC, N, R, false));
+  for (size_t i = 8 + tid; i < (size_t)(region - sm); i += blockDim.x)
+    sm[i] = 0.f;
+  __syncthreads();
+  c.load(x0r, x0i, rows);
+  cl.sync();    // every CTA's buffers are zeroed before the first push
+
+  for (int t = 0; t < nt; ++t) {
+    // H(t): pass t, run by the helpers, or by this CTA where it can
+    run_pass(t, region);
+    if (tid == 0) wait_count(done + t, s.ntiles);
+    __syncthreads();
+    const float* Hs =
+        Hring + (size_t)(t % FWD_SLOTS) * 2 * NL + (size_t)g.r0 * ldr;
+    if (!d.global) {      // the band into shared memory
+      const int nb4 = g.nr * ldr / 4;
+      for (int i = tid; i < 2 * nb4; i += blockDim.x) {
+        const int m = i / nb4, o = 4 * (i - m * nb4);
+        cp_async16_l2(region + (size_t)m * R * ldr + o, Hs + m * NL + o);
+      }
+    }
+    c.put_x(cl);
+    cp_async_wait();
+    cl.sync();    // x whole in every CTA; this CTA's band in shared memory
+    if (d.global) {
+      c.template stages<true>(cl, Hs, Hs + NL, ldr, t, hr, hi, ksr, ksi);
+      __syncthreads();    // the CTA's reads of the slot are done
+      if (tid == 0) signal_count(released + t);
+    } else {
+      if (tid == 0) signal_count(released + t);   // the band is copied
+      c.template stages<false>(cl, region, region + (size_t)R * ldr, ldr, t,
+                               hr, hi, ksr, ksi);
+    }
+  }
+  c.write_xT(xTr, xTi);
+  cl.sync();    // no CTA leaves while another may still address it
+}
 
 // Backward, 'helpers' schedule: the chain schedule's contract (inputs, g0,
 // the steps in reverse and each step's chain in the same order), with
@@ -1183,14 +1418,15 @@ streamk_mid_bwd_helpers(
 // global layout without scratch, or a negative stride. strideS, strideR:
 // floats between two candidates' stacks (Ke x N x N) and solver rows; 0 for
 // the shared stack (the launch then reads what it read before the strides).
-// The backward's helpers >= 0 takes the 'helpers' schedule: E * ceil(B /
-// BC) * (1 + helpers) clusters, ring and flags as the kernel reads them
-// (flags zeroed), Cbp its tiles' C-bar rows (groups, tiles, nt, Ke); -1
-// the chain schedule (Cbp a row per CTA, scratch for the global layout).
+// helpers >= 0 takes a direction's 'helpers' schedule: E * ceil(B / BC) *
+// (1 + helpers) clusters, ring and flags as the kernel reads them (flags
+// zeroed; the backward's Cbp its tiles' C-bar rows (groups, tiles, nt,
+// Ke)); -1 the chain schedule (scratch for the global layout; the
+// backward's Cbp a row per CTA).
 namespace {
 
 // The dims of a launch, or false for a shape the kernels do not take.
-// helpers >= 0: the backward's 'helpers' schedule with that many helper
+// helpers >= 0: the direction's 'helpers' schedule with that many helper
 // clusters per chain cluster (ring and flags given); -1: the chain schedule.
 bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
               int mode, int store, float dt, float a, int G, int BC,
@@ -1209,10 +1445,10 @@ bool mid_dims(MidDims& d, int E, int nt, int B, int N, int Ke, int iters,
                       ? mid_bwd_floats(BC, N, R, iters, replay, !global)
                       : mid_fwd_floats(BC, N, R, !global);
   if (helpers >= 0) {
-    if (!backward || ring == nullptr || flags == nullptr || helpers > 64)
-      return false;
-    floats = mid_split_floats(BC, N, R, iters, replay, store && iters > 0,
-                              !global);
+    if (ring == nullptr || flags == nullptr || helpers > 64) return false;
+    floats = backward ? mid_split_floats(BC, N, R, iters, replay,
+                                         store && iters > 0, !global)
+                      : mid_fwd_split_floats(BC, N, R, !global);
   } else if (global && scratch == nullptr) {
     return false;
   }
@@ -1237,6 +1473,32 @@ int launch_fwd(const float* Sr, const float* Si, const float* C,
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, streamk_mid_fwd<BC>, Sr, Si, C, x0r, x0i, rows,
                          xTr, xTi, hr, hi, ksr, ksi, scratch, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The 'helpers' schedules' tiles of a pass at N
+SplitDims split_dims(int N, int helpers) {
+  const int tq = (N + TILE_Q - 1) / TILE_Q;
+  return SplitDims{split_ldr(N), tq, ((N + TILE_P - 1) / TILE_P) * tq,
+                   helpers};
+}
+
+template <int BC>
+int launch_fwd_helpers(const float* Sr, const float* Si, const float* C,
+                       const float* x0r, const float* x0i, const float* rows,
+                       float* xTr, float* xTi, float* hr, float* hi,
+                       float* ksr, float* ksi, float* ring, int* flags,
+                       const MidDims& d, int helpers, int threads,
+                       int smem_bytes, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(streamk_mid_fwd_helpers<BC>, attr,
+                     d.E * d.nchunks * (1 + helpers), d.G, threads,
+                     smem_bytes, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, streamk_mid_fwd_helpers<BC>, Sr, Si, C, x0r, x0i, rows, xTr, xTi,
+      hr, hi, ksr, ksi, ring, flags, d, split_dims(d.N, helpers));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1269,9 +1531,6 @@ int launch_bwd_helpers(const float* Sr, const float* Si, const float* C,
                        float* g0i, float* Cbt, float* ring, int* flags,
                        const MidDims& d, int helpers, int threads,
                        int smem_bytes, cudaStream_t stream) {
-  const int N = d.N, tq = (N + TILE_Q - 1) / TILE_Q;
-  const SplitDims s{split_ldr(N), tq, ((N + TILE_P - 1) / TILE_P) * tq,
-                    helpers};
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(streamk_mid_bwd_helpers<BC>, attr,
@@ -1279,7 +1538,8 @@ int launch_bwd_helpers(const float* Sr, const float* Si, const float* C,
                      smem_bytes, stream);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, streamk_mid_bwd_helpers<BC>, Sr, Si, C, x0r, x0i, hr, hi, jr,
-      ji, gTr, gTi, rows, ksr, ksi, g0r, g0i, Cbt, ring, flags, d, s);
+      ji, gTr, gTi, rows, ksr, ksi, g0r, g0i, Cbt, ring, flags, d,
+      split_dims(d.N, helpers));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1292,24 +1552,40 @@ extern "C" int streamk_mid_fwd_launch(
     void* hi, void* ksr, void* ksi, void* scratch, int E, int nt, int B,
     int N, int Ke, int iters, int mode, int store, float dt, float a, int G,
     int BC, int threads, int smem_bytes, int global, void* stream,
-    long long strideS, long long strideR) {
+    long long strideS, long long strideR, int helpers, void* ring,
+    void* flags) {
   MidDims d;
   if (!mid_dims(d, E, nt, B, N, Ke, iters, mode, store, dt, a, G, BC,
                 threads, smem_bytes, global, false, scratch, strideS,
-                strideR) ||
+                strideR, helpers, ring, flags) ||
       (store && iters > 0 && ksr == nullptr))
     return (int)cudaErrorInvalidValue;
 #define MID_FWD_ARGS                                                          \
   (const float*)Sr, (const float*)Si, (const float*)C, (const float*)x0r,     \
       (const float*)x0i, (const float*)rows, (float*)xTr, (float*)xTi,        \
-      (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, (float*)scratch, d,   \
-      threads, smem_bytes, (cudaStream_t)stream
-  switch (BC) {
-    case 1: return launch_fwd<1>(MID_FWD_ARGS);
-    case 2: return launch_fwd<2>(MID_FWD_ARGS);
-    case 4: return launch_fwd<4>(MID_FWD_ARGS);
-    case 8: return launch_fwd<8>(MID_FWD_ARGS);
+      (float*)hr, (float*)hi, (float*)ksr, (float*)ksi
+#define MID_FWD_CHAIN                                                         \
+  MID_FWD_ARGS, (float*)scratch, d, threads, smem_bytes, (cudaStream_t)stream
+#define MID_FWD_HELPERS                                                       \
+  MID_FWD_ARGS, (float*)ring, (int*)flags, d, helpers, threads, smem_bytes,   \
+      (cudaStream_t)stream
+  if (helpers >= 0) {
+    switch (BC) {
+      case 1: return launch_fwd_helpers<1>(MID_FWD_HELPERS);
+      case 2: return launch_fwd_helpers<2>(MID_FWD_HELPERS);
+      case 4: return launch_fwd_helpers<4>(MID_FWD_HELPERS);
+      case 8: return launch_fwd_helpers<8>(MID_FWD_HELPERS);
+    }
+  } else {
+    switch (BC) {
+      case 1: return launch_fwd<1>(MID_FWD_CHAIN);
+      case 2: return launch_fwd<2>(MID_FWD_CHAIN);
+      case 4: return launch_fwd<4>(MID_FWD_CHAIN);
+      case 8: return launch_fwd<8>(MID_FWD_CHAIN);
+    }
   }
+#undef MID_FWD_HELPERS
+#undef MID_FWD_CHAIN
 #undef MID_FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -1363,17 +1639,24 @@ extern "C" int streamk_mid_bwd_launch(
 
 // How many clusters of G CTAs of one kernel, with `threads` threads and
 // smem_bytes of shared memory each, the card can hold at once (0 where it
-// holds none: the launch would fail). kernel 0: the forward instance BC; 1:
-// the backward's chain schedule; 2: its 'helpers' schedule.
+// holds none: the launch would fail). kernel 0: the forward's chain
+// schedule, instance BC; 1: the backward's chain schedule; 2: its 'helpers'
+// schedule; 3: the forward's 'helpers' schedule.
 extern "C" int streamk_mid_max_clusters(int kernel, int BC, int G,
                                         int threads, int smem_bytes) {
 #define MID_MAX(bc)                                                           \
   case bc:                                                                    \
-    return kernel == 2 ? max_clusters(streamk_mid_bwd_helpers<bc>, G,         \
-                                      threads, smem_bytes)                    \
-           : kernel == 1                                                      \
-               ? max_clusters(streamk_mid_bwd<bc>, G, threads, smem_bytes)    \
-               : max_clusters(streamk_mid_fwd<bc>, G, threads, smem_bytes);
+    switch (kernel) {                                                         \
+      case 0: return max_clusters(streamk_mid_fwd<bc>, G, threads,            \
+                                  smem_bytes);                                \
+      case 1: return max_clusters(streamk_mid_bwd<bc>, G, threads,            \
+                                  smem_bytes);                                \
+      case 2: return max_clusters(streamk_mid_bwd_helpers<bc>, G, threads,    \
+                                  smem_bytes);                                \
+      case 3: return max_clusters(streamk_mid_fwd_helpers<bc>, G, threads,    \
+                                  smem_bytes);                                \
+    }                                                                         \
+    return 0;
   switch (BC) {
     MID_MAX(1)
     MID_MAX(2)

@@ -30,8 +30,8 @@ and the stacks in shared memory, N <= 52 at the flagship's Ke).
 csrc/streamk_mid.cu runs a plan past that (launched by ops/streamk_mid.py):
 a thread-block cluster of G CTAs per (candidate, chunk of basis states),
 each CTA on a band of the state entries (``_mid_shape`` plans the launch,
-``bwd_schedule`` the backward's schedule, ``mid_refusal`` says what it
-does not take). Both pairs run shared-stack
+``fwd_schedule`` and ``bwd_schedule`` each direction's schedule,
+``mid_refusal`` says what it does not take). Both pairs run shared-stack
 and per-block plans, closed systems and open ones on the superop route
 (dimension N^2). ``route_refusal`` admits what either pair takes and
 refuses only on device memory.
@@ -650,10 +650,12 @@ def _split_ldr(N):
     return -(-N // 4) * 4
 
 
-def _tile_floats(bc, it):
-    """csrc/streamk_mid.cu tile_floats: a pass tile's scratch."""
+def _tile_floats(bc, it, pairs=True):
+    """csrc/streamk_mid.cu tile_floats: a pass tile's scratch, with room for
+    the step's it + 1 pairs (the backward's) or for none (the forward's)."""
     P, Q = MID_TILE
-    return 2 * Q * (P + 1) + 16 * MID_KG + (it + 1) * bc * 2 * (P + Q)
+    return (2 * Q * (P + 1) + 16 * MID_KG
+            + ((it + 1) * bc * 2 * (P + Q) if pairs else 0))
 
 
 def _split_floats(bc, N, R, it, replay, stored, hsmem):
@@ -713,18 +715,29 @@ def history_bytes(E, B, N, iters, nt, store):
     return 2 * hist + (iters * hist if store and iters > 0 else 0)
 
 
-def _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule):
+def _fwd_scratch_bytes(E, B, N, Ke, iters, nt, store, schedule):
+    """Device bytes of the mid forward's own scratch on a schedule: 'chain'
+    its bands in the global layout; 'helpers' the groups' rings of H and
+    counters."""
+    shape = _mid_fwd_shape(E, B, N, Ke, iters, store, schedule)
+    if shape is None:
+        return 0
+    G, bc, _, _, layout = shape
+    groups = E * -(-B // bc)
+    if schedule == "helpers":
+        return 4 * (1 + groups * (_fwd_ring_floats(N) + 3 * nt))
+    if layout == "global":
+        return 4 * groups * G * _mid_band_floats(N, -(-N // G), False, False)
+    return 0
+
+
+def _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule, fwd="chain"):
     """Device bytes of the mid pair's own scratch, the larger direction's:
-    the forward's bands in the global layout; the backward's on its
-    schedule: 'chain' the C-bar partial rows per CTA and its bands in the
-    global layout, 'helpers' the groups' rings, counters and the tiles'
-    C-bar rows."""
-    extra = 0
-    shape = _mid_shape(E, B, N, Ke, iters, store, False)
-    if shape is not None and shape[4] == "global":
-        G, bc = shape[:2]
-        extra = 4 * E * -(-B // bc) * G * _mid_band_floats(N, -(-N // G),
-                                                            False, False)
+    the forward's on its schedule `fwd` (_fwd_scratch_bytes); the
+    backward's on its `schedule`: 'chain' the C-bar partial rows per CTA
+    and its bands in the global layout, 'helpers' the groups' rings,
+    counters and the tiles' C-bar rows."""
+    extra = _fwd_scratch_bytes(E, B, N, Ke, iters, nt, store, fwd)
     shape = _mid_bwd_shape(E, B, N, Ke, iters, store, schedule)
     if shape is None:
         return extra
@@ -743,12 +756,13 @@ def _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule):
     return max(extra, more)
 
 
-def _sweep_total(E, B, N, Ke, iters, nt, store, mid, per_block, schedule):
+def _sweep_total(E, B, N, Ke, iters, nt, store, mid, per_block, schedule,
+                 fwd="chain"):
     total = history_bytes(E, B, N, iters, nt, store)
     if per_block:
         total += 2 * E * Ke * N * N * 4
     if mid:
-        total += _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule)
+        total += _scratch_bytes(E, B, N, Ke, iters, nt, store, schedule, fwd)
     return total
 
 
@@ -774,24 +788,34 @@ def helpers_smem(E, B, N, Ke, iters):
 
 def bwd_schedule(E, B, N, Ke, iters, nt, store, per_block=False,
                  forced=None, holds=None):
-    """The mid backward's schedule: 'helpers' where it fits (helpers_fit)
-    and the card holds at least one helper cluster per chain cluster beside
-    them (`holds`: clusters of the launch's G and Bc at helpers_smem the
-    card holds at once; None reads no card); else 'chain' (the card is
-    full: each cluster runs its pass in its chain). Stored and replayed
-    iterates of one size take one schedule. `forced` is taken as it is
-    where its layout fits (the card tests and scripts compare them); one
-    that does not raises ValueError."""
+    """The mid backward's schedule (_pick_schedule on helpers_fit and
+    _mid_bwd_shape; `holds` counted at helpers_smem): 'helpers' where it
+    fits and the card holds a helper cluster per chain cluster beside
+    them, else 'chain' (the card is full: each cluster runs its pass in
+    its chain). Stored and replayed iterates of one size take one
+    schedule."""
+    return _pick_schedule(
+        "bwd", lambda s: _mid_bwd_shape(E, B, N, Ke, iters, store, s),
+        lambda: helpers_fit(E, B, N, Ke, iters, nt, store, per_block),
+        E, B, N, forced, holds)
+
+
+def _pick_schedule(direction, shape, fits, E, B, N, forced, holds):
+    """A mid direction's schedule: `forced` as it is where its layout
+    (`shape(schedule)`) fits (the card tests and scripts compare them), one
+    that does not raising ValueError; else 'helpers' where `fits()` and the
+    card holds at least one helper cluster per chain cluster beside them
+    (`holds`: clusters of the helpers launch's shape the card holds at
+    once; None reads no card), else 'chain'."""
     if forced is not None:
-        if forced not in MID_SCHEDULES or _mid_bwd_shape(
-                E, B, N, Ke, iters, store, forced) is None:
-            raise ValueError(f"streamk_mid_bwd: schedule {forced!r} does "
-                             f"not fit (N = {N}, B = {B}, E = {E})")
+        if forced not in MID_SCHEDULES or shape(forced) is None:
+            raise ValueError(f"streamk_mid_{direction}: schedule {forced!r} "
+                             f"does not fit (N = {N}, B = {B}, E = {E})")
         return forced
-    if not helpers_fit(E, B, N, Ke, iters, nt, store, per_block):
+    if not fits():
         return "chain"
     if holds is not None:
-        G, bc = _mid_bwd_shape(E, B, N, Ke, iters, store, "helpers")[:2]
+        G, bc = shape("helpers")[:2]
         groups = E * -(-B // bc)
         if helper_clusters(groups, groups * G, holds) < 1:
             return "chain"
@@ -808,17 +832,88 @@ def helper_clusters(clusters, ctas, holds):
     return max(0, min(h, holds // clusters - 1))
 
 
+# The forward's 'helpers' schedule (csrc/streamk_mid.cu
+# streamk_mid_fwd_helpers): each step's contraction of H(t) off the chain,
+# cut in the backward's pass tiles of the whole matrix, which helper
+# clusters (and the chain's own CTAs, for any tile no helper took) contract
+# into a ring of MID_FWD_SLOTS steps of H in device memory, ahead of the
+# chain. It wins wherever a helper cluster per chain cluster fits, down to
+# N = 64, and loses where none does (PERF.md section 6), which is the rule
+# fwd_schedule applies.
+MID_FWD_SLOTS = 3
+
+
+def _fwd_ring_floats(N):
+    """csrc/streamk_mid.cu fwd_ring_floats: a group's ring of H, its slots
+    row-major (re, then im) at row stride _split_ldr(N)."""
+    return MID_FWD_SLOTS * 2 * N * _split_ldr(N)
+
+
+def _fwd_split_floats(bc, N, R, hsmem):
+    """csrc/streamk_mid.cu mid_fwd_split_floats: the forward helpers
+    schedule's shared memory in floats, with the step's row band of H in it
+    (hsmem) or not."""
+    head = 8 + 4 * bc * N + 6 * bc * R + 4 * R
+    band = 2 * R * _split_ldr(N) if hsmem else 0
+    return -(-head // 4) * 4 + max(band, _tile_floats(bc, 0, pairs=False))
+
+
+def _mid_fwd_shape(E, B, N, Ke, iters, store, schedule):
+    """(G, Bc, threads, shared-memory bytes, layout) of the forward on a
+    schedule, or None where no layout fits a CTA: 'chain' is _mid_shape's;
+    'helpers' plans by cluster_shape on its own layout: 'smem' where the
+    step's row band fits shared memory beside the rest (copied in from the
+    ring), else 'global' (read from the ring). The forward's bits do not
+    depend on G or Bc (every product runs over the whole operand)."""
+    if schedule == "chain":
+        return _mid_shape(E, B, N, Ke, iters, store)
+    shape = cluster_shape(E, B, N, lambda G, bc, slots: _fwd_split_floats(
+        bc, N, -(-N // G), slots > 0))
+    if shape is None:
+        return None
+    G, bc, slots, threads, smem = shape
+    return G, bc, threads, smem, "smem" if slots else "global"
+
+
+def fwd_helpers_fit(E, B, N, Ke, iters, nt, store, per_block=False):
+    """Whether the forward's 'helpers' schedule can run: its layout fits a
+    CTA, its chain clusters take at most half the card's SMs (MID_SMS), so
+    that helpers have SMs to run on, and its rings keep the sweep within
+    DEVICE_BUDGET_BYTES."""
+    shape = _mid_fwd_shape(E, B, N, Ke, iters, store, "helpers")
+    return (shape is not None
+            and 2 * E * -(-B // shape[1]) * shape[0] <= MID_SMS
+            and _sweep_total(E, B, N, Ke, iters, nt, store, True, per_block,
+                             "chain", "helpers") <= DEVICE_BUDGET_BYTES)
+
+
+def fwd_schedule(E, B, N, Ke, iters, nt, store, per_block=False,
+                 forced=None, holds=None):
+    """The mid forward's schedule (_pick_schedule on fwd_helpers_fit and
+    _mid_fwd_shape): 'helpers' where it fits and the card holds a helper
+    cluster per chain cluster beside them, else 'chain' (each cluster
+    contracts its row band in its chain)."""
+    return _pick_schedule(
+        "fwd", lambda s: _mid_fwd_shape(E, B, N, Ke, iters, store, s),
+        lambda: fwd_helpers_fit(E, B, N, Ke, iters, nt, store, per_block),
+        E, B, N, forced, holds)
+
+
 def sweep_bytes(E, B, N, Ke, iters, nt, store, mid, per_block=False):
     """Device bytes of one sweep's own tensors: the history and its
     cotangent, the stored stage iterates, with per_block the E candidates'
-    own (Ke, N, N) stack pairs and, on the mid pair, its scratch on the
-    backward's schedule: the larger of 'chain' (the C-bar partial rows and
-    bands) and, where helpers_fit, 'helpers' (its rings), which the card's
-    count of clusters chooses between at launch."""
-    schedules = ("chain", "helpers") if mid and helpers_fit(
-        E, B, N, Ke, iters, nt, store, per_block) else ("chain",)
+    own (Ke, N, N) stack pairs and, on the mid pair, its scratch on each
+    direction's schedule: the most of 'chain' (the C-bar partial rows and
+    bands) and, where helpers_fit / fwd_helpers_fit, 'helpers' (their
+    rings), which the card's count of clusters chooses between at
+    launch."""
+    bwd, fwd = ("chain",), ("chain",)
+    if mid and helpers_fit(E, B, N, Ke, iters, nt, store, per_block):
+        bwd += ("helpers",)
+    if mid and fwd_helpers_fit(E, B, N, Ke, iters, nt, store, per_block):
+        fwd += ("helpers",)
     return max(_sweep_total(E, B, N, Ke, iters, nt, store, mid, per_block,
-                            s) for s in schedules)
+                            b, f) for b in bwd for f in fwd)
 
 
 def mid_refusal(E, B, N, Ke, iters, nt, store, per_block=False):

@@ -10,12 +10,14 @@ basis states), each CTA on a band of the state entries.
 
 This module holds the pair's ctypes binding, its launch counters (a
 shared-stack and a per-block pair of them, as ops/streamk.py counts its
-one-block and packed launches apart) and its two launch wrappers. The
-backward has two schedules (``streamk.bwd_schedule``): 'helpers', where
-each step's column pass runs beside the chain on helper clusters the launch
-adds (as many as the card holds beside the chain clusters), and 'chain',
-where it runs in each cluster's chain. The planner (``streamk._mid_shape``,
-``streamk._mid_bwd_shape``), the gates (``streamk.mid_refusal``,
+one-block and packed launches apart) and its two launch wrappers. Each
+direction has two schedules (``streamk.fwd_schedule``,
+``streamk.bwd_schedule``): 'helpers', where each step's contraction of H
+(the forward's row contraction; the backward's column pass) runs beside the
+chain on helper clusters the launch adds (as many as the card holds beside
+the chain clusters), and 'chain', where it runs in each cluster's chain.
+The planner (``streamk._mid_fwd_shape``, ``streamk._mid_bwd_shape``), the
+gates (``streamk.mid_refusal``,
 ``streamk.route_refusal``) and the dispatch
 (``streamk.streamk_propagate_kernel`` sends a plan here wherever
 ``streamk.size_refusal`` refuses it) are in ops/streamk.py, with the plain
@@ -46,8 +48,8 @@ _COUNTERS = ("streamk_mid_fwd_launches", "streamk_mid_bwd_launches",
 _SRC = os.path.join(cuda_build.CSRC_DIR, "streamk_mid.cu")
 # the shape of the last launch of each direction, as the wrapper ran it
 # (cluster size G, states per cluster Bc, threads, shared-memory bytes,
-# layout 'smem' or 'global', band rows R, clusters, CTAs; the backward's
-# schedule, 'helpers' or 'chain', and its helper clusters per chain cluster)
+# layout 'smem' or 'global', band rows R, clusters, CTAs; the schedule,
+# 'helpers' or 'chain', and its helper clusters per chain cluster)
 mid_layouts = {}
 _HOLDS = {}     # launch shape -> clusters of it the card holds at once
 
@@ -72,7 +74,7 @@ def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     tail = [i] * 8 + [f, f] + [i] * 5 + [p, ll, ll]
-    lib.streamk_mid_fwd_launch.argtypes = [p] * 13 + tail
+    lib.streamk_mid_fwd_launch.argtypes = [p] * 13 + tail + [i, p, p]
     lib.streamk_mid_bwd_launch.argtypes = [p] * 18 + tail + [i, p, p]
     lib.streamk_mid_max_clusters.argtypes = [i] * 5
     for name in ("streamk_mid_fwd_launch", "streamk_mid_bwd_launch",
@@ -92,23 +94,22 @@ def _lib():
 
 
 def _launch_shape(lib, plan, E, B, N, nt, backward, schedule="chain"):
-    """The launch shape (streamk._mid_shape; the backward's on its
-    schedule, streamk._mid_bwd_shape) and how many of its clusters the card
-    holds at once; raises NotImplementedError where the mid pair refuses
-    the plan, and RuntimeError where the card cannot hold one cluster of
-    the shape (cudaOccupancyMaxActiveClusters, asked once per shape)."""
+    """The launch shape of a direction on its schedule
+    (streamk._mid_fwd_shape, streamk._mid_bwd_shape) and how many of its
+    clusters the card holds at once; raises NotImplementedError where the
+    mid pair refuses the plan, and RuntimeError where the card cannot hold
+    one cluster of the shape (cudaOccupancyMaxActiveClusters, asked once
+    per shape)."""
     store = plan.store_iters and plan.iters > 0
     why = streamk.mid_refusal(E, B, N, plan.Ke, plan.iters, nt, store,
                               per_block=plan.per_block)
     if why is not None:
         raise NotImplementedError(why)
-    if backward:
-        shape = streamk._mid_bwd_shape(E, B, N, plan.Ke, plan.iters,
-                                       store, schedule)
-    else:
-        shape = streamk._mid_shape(E, B, N, plan.Ke, plan.iters, store)
+    shape = (streamk._mid_bwd_shape if backward else streamk._mid_fwd_shape)(
+        E, B, N, plan.Ke, plan.iters, store, schedule)
     G, bc, threads, smem, _ = shape
-    kernel = 0 if not backward else 2 if schedule == "helpers" else 1
+    kernel = {(False, "chain"): 0, (True, "chain"): 1, (True, "helpers"): 2,
+              (False, "helpers"): 3}[backward, schedule]
     n = _holds(lib, kernel, bc, G, threads, smem)
     if n < 1:
         raise RuntimeError(
@@ -120,8 +121,9 @@ def _launch_shape(lib, plan, E, B, N, nt, backward, schedule="chain"):
 
 def _holds(lib, kernel, bc, G, threads, smem):
     """Clusters of a launch shape the card holds at once
-    (streamk_mid_max_clusters: kernel 0 forward, 1 the backward's chain
-    schedule, 2 its helpers schedule), asked once per shape."""
+    (streamk_mid_max_clusters: kernel 0 the forward's chain schedule, 1 the
+    backward's, 2 the backward's helpers schedule, 3 the forward's), asked
+    once per shape."""
     key = (kernel, bc, G, threads, smem)
     if key not in _HOLDS:
         _HOLDS[key] = lib.streamk_mid_max_clusters(kernel, bc, G, threads,
@@ -149,37 +151,60 @@ def _scratch(shape, E, B, N, backward, replay, device):
         dtype=torch.float32, device=device)
 
 
-def _kernel_fwd(plan, x0r, x0i, Ce):
-    """One streamk_mid_fwd launch: (xTr, xTi, hr, hi, ksr, ksi). A
-    per-block plan gives each candidate's clusters its own stack and rows."""
+def _kernel_fwd(plan, x0r, x0i, Ce, _schedule=None, _helpers=None):
+    """One streamk_mid_fwd launch: (xTr, xTi, hr, hi, ksr, ksi), on the
+    schedule streamk.fwd_schedule picks (`_schedule` forces one; `_helpers`
+    the helper clusters per chain cluster of 'helpers', which do not change
+    its bits). Either schedule gives the same bits. A per-block plan gives
+    each candidate's clusters its own stack and rows."""
     global streamk_mid_fwd_launches, streamk_mid_packed_fwd_launches
     streamk._check_cuda(plan, Ce, x0r, x0i)
     lib = _lib()
-    E, nt, _ = Ce.shape
+    E, nt, Ke = Ce.shape
     B, N = x0r.shape
-    shape, _ = _launch_shape(lib, plan, E, B, N, nt, backward=False)
+    store = plan.store_iters and plan.iters > 0
+    holds = None        # the card's clusters of the helpers launch
+    if _schedule is None and streamk.fwd_helpers_fit(
+            E, B, N, Ke, plan.iters, nt, store, plan.per_block):
+        G, bc, threads, smem = streamk._mid_fwd_shape(
+            E, B, N, Ke, plan.iters, store, "helpers")[:4]
+        holds = _holds(lib, 3, bc, G, threads, smem)
+    schedule = streamk.fwd_schedule(E, B, N, Ke, plan.iters, nt, store,
+                                    plan.per_block, _schedule, holds)
+    shape, holds = _launch_shape(lib, plan, E, B, N, nt, False, schedule)
     G, bc, threads, smem, layout = shape
-    new = lambda *s: torch.empty(s, dtype=torch.float32, device=Ce.device)
+    dev = Ce.device
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     xTr, xTi = new(E, B, N), new(E, B, N)
     hr, hi = new(E, nt, B, N), new(E, nt, B, N)
     ksr = ksi = None
-    if plan.store_iters and plan.iters > 0:
+    if store:
         ksr, ksi = new(E, nt, plan.iters, B, N), new(E, nt, plan.iters, B, N)
-    scratch = _scratch(shape, E, B, N, False, False, Ce.device)
+    scratch = ring = flags = None
+    if schedule == "helpers":
+        groups = E * -(-B // bc)
+        helpers = streamk.helper_clusters(groups, groups * G, holds) \
+            if _helpers is None else _helpers
+        ring = new(groups * streamk._fwd_ring_floats(N))
+        flags = torch.zeros(1 + groups * 3 * nt, dtype=torch.int32,
+                            device=dev)
+    else:
+        helpers = -1
+        scratch = _scratch(shape, E, B, N, False, False, dev)
     err = lib.streamk_mid_fwd_launch(
         *map(streamk._ptr, (plan.Sr, plan.Si, Ce, x0r, x0i, plan.rows, xTr,
                             xTi, hr, hi, ksr, ksi, scratch)),
         *streamk._dims(plan, E, nt, B, N), G, bc, threads, smem,
-        int(layout == "global"),
-        torch.cuda.current_stream(Ce.device).cuda_stream,
-        *streamk.stack_strides(plan))
+        int(layout == "global"), torch.cuda.current_stream(dev).cuda_stream,
+        *streamk.stack_strides(plan), helpers, streamk._ptr(ring),
+        streamk._ptr(flags))
     if err != 0:
         raise RuntimeError(f"streamk_mid_fwd launch failed: CUDA error {err}")
     if plan.per_block:
         streamk_mid_packed_fwd_launches += 1
     else:
         streamk_mid_fwd_launches += 1
-    _log("fwd", E, B, N, shape)
+    _log("fwd", E, B, N, shape, schedule=schedule, helpers=max(helpers, 0))
     return xTr, xTi, hr, hi, ksr, ksi
 
 

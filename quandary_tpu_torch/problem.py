@@ -59,7 +59,9 @@ closed or superop, only a sweep past the device-memory budget
 per candidate and chunk of basis states); 'stream' and 'chunk' past their
 plane budgets; 'rho' past N = 128 (the TPU kernel's
 one 128-lane tile: csrc/rho.cu holds N <= 64, csrc/rho_mid.cu the rest).
-Nothing is sent quietly to the plain loop.
+Under 'auto' such a problem runs on the plain loop instead, with
+``fused_refusal`` naming the limit (``route_refusal``, ``fused_decision``);
+``fused=True`` raises there.
 """
 
 from __future__ import annotations
@@ -315,57 +317,26 @@ class Problem:
 
         # --- fused or plain: the JAX package's pallas gate
         # (problem.py:440-500); 'auto' admits where that gate does, on CUDA
-        # where it asks for a TPU ---
+        # where it asks for a TPU, and where the route's kernels hold the
+        # problem (route_refusal), before the state layout is fixed ---
         why_not = self._fused_gate_refusal(cuda)
-        self._off = "the fused path is off (Setup.fused=False)"
-        if s.fused == "auto":
-            self.use_fused = cuda and why_not is None
-            self._off = (f"fused='auto': {why_not}" if why_not else
-                         "fused='auto' takes the fused route on a CUDA "
-                         "device only; the plain loop runs here")
-        elif s.fused:
-            if why_not is not None:
-                raise NotImplementedError(
-                    f"fused=True: the fused route does not take this "
-                    f"problem: {why_not} (fused='auto' or False runs the "
-                    "plain time loop)")
-            self.use_fused = True
-        else:
-            self.use_fused = False
-
-        # --- the fused route (the JAX package's pallas_form gate,
-        # problem.py:440-499) ---
-        # closed: the fused_mode's kernels on (B, N) vectors. Open:
-        # 'superop', the column-major vec(rho) of dimension N^2, where one
-        # thread block of the streamK kernels holds it (or when forced, and
-        # always in 'stream' mode); else 'rho', the density-matrix kernels
-        # on (B, N, N) matrices. 'chunk' takes closed plain-Neumann
-        # problems only.
+        forced = s.fused != "auto" and bool(s.fused)
+        if forced and why_not is not None:
+            raise NotImplementedError(
+                f"fused=True: the fused route does not take this "
+                f"problem: {why_not} (fused='auto' or False runs the "
+                "plain time loop)")
         iters, K = s.linsolve_iters, model.K
-        self.fused_form = None
-        if self.use_fused:
-            self.fused_form = s.fused_mode
-            if s.fused_mode == "chunk" and (self.lindblad
-                                            or self.linsolver != "neumann"):
-                raise NotImplementedError(
-                    "fused_mode='chunk' runs closed systems with plain "
-                    "Neumann stage solves only; this problem is "
-                    + ("open" if self.lindblad else
-                       f"closed with linsolver={self.linsolver!r}")
-                    + " (use fused_mode='stream')")
-            if self.lindblad and s.fused_mode == "stream":
-                if s.fused_rho == "rho":
-                    raise NotImplementedError(
-                        "the density-matrix (rho) route runs on the streamK "
-                        "kernels only; fused_mode='stream' takes open "
-                        "systems on the superop route")
-                self.fused_form = "superop"
-            elif self.lindblad:
-                too_big = streamk.size_refusal(
-                    self.ninit, self.N * self.N,
-                    K + (self.linsolver == "split"), iters) is not None
-                self.fused_form = "rho" if s.fused_rho == "rho" or (
-                    s.fused_rho == "auto" and too_big) else "superop"
+        form = self._fused_form() if why_not is None and (
+            forced or (s.fused == "auto" and cuda)) else None
+        route_why = None if form is None else route_refusal(
+            form, s.fused_mode, self.ninit, self.N, K, iters, s.ntime,
+            self.linsolver)
+        self.use_fused, self._off = fused_decision(s.fused, cuda, why_not,
+                                                   route_why)
+        self.fused_form = form if self.use_fused else None
+        self._refusal = route_why if self.use_fused else None
+
         # superop states are FLAT: diagonals become the strided j*(N+1)
         # gather and the Hilbert-Schmidt overlap the same flat sum
         self._flat = self.fused_form == "superop"
@@ -404,34 +375,54 @@ class Problem:
                                          self.device)
         self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
         # the route's launch plan (stacks, solver rows or planes), built once
-        self._plan = self._refusal = None
+        self._plan = None
         gd = self.gen_diag.T.reshape(-1) if self._flat else self.gen_diag
         if self.fused_form == "rho":
             self._plan = rho.make_plan(
                 self._Sr, self._Si, self.engine.Ls_np, s.dt, iters,
                 self.gen_diag, self.linsolver)
-            self._refusal = rho.launch_refusal(self.N, K)
-        elif self.use_fused and s.fused_mode == "streamk":
-            dim = self._Sr.shape[-1]
-            self._plan = streamk.make_plan(
-                self._Sr, self._Si, s.dt, iters, gd, self.linsolver,
-                store_iters=store_iters_ok(s.ntime, iters, self.ninit, dim))
-            # either kernel pair, closed and superop (dim N^2) alike: one
-            # block, or a cluster per chunk of states
-            self._refusal = streamk.route_refusal(
-                self.ninit, dim, self._plan.Ke, iters, s.ntime,
-                store=self._plan.store_iters)
         elif self.use_fused:
             dim = self._Sr.shape[-1]
-            self._plan = stream.make_plan(
-                self._Sr, s.dt, iters, gd, self.linsolver, kind=s.fused_mode,
-                store_iters=store_iters_ok(s.ntime, iters, self.ninit, dim))
-            # either kernel pair: one block, or a cluster per chunk of
-            # states (closed, and open on the superop route at dim N^2)
-            self._refusal = stream.launch_refusal(self._plan, self.ninit,
-                                                  dim, ntime)
-        if cuda and self._refusal is not None:
-            raise NotImplementedError(self._refusal)
+            store = store_iters_ok(s.ntime, iters, self.ninit, dim)
+            self._plan = streamk.make_plan(
+                self._Sr, self._Si, s.dt, iters, gd, self.linsolver,
+                store_iters=store) if s.fused_mode == "streamk" \
+                else stream.make_plan(self._Sr, s.dt, iters, gd,
+                                      self.linsolver, kind=s.fused_mode,
+                                      store_iters=store)
+
+    def _fused_form(self) -> str:
+        """The fused route's form (the JAX package's pallas_form gate,
+        problem.py:440-499): closed, the fused_mode's kernels on (B, N)
+        vectors. Open: 'superop', the column-major vec(rho) of dimension
+        N^2, where one thread block of the streamK kernels holds it (or when
+        forced, and always in 'stream' mode); else 'rho', the
+        density-matrix kernels on (B, N, N) matrices. 'chunk' takes closed
+        plain-Neumann problems only."""
+        s = self.setup
+        if s.fused_mode == "chunk" and (self.lindblad
+                                        or self.linsolver != "neumann"):
+            raise NotImplementedError(
+                "fused_mode='chunk' runs closed systems with plain "
+                "Neumann stage solves only; this problem is "
+                + ("open" if self.lindblad else
+                   f"closed with linsolver={self.linsolver!r}")
+                + " (use fused_mode='stream')")
+        if not self.lindblad:
+            return s.fused_mode
+        if s.fused_mode == "stream":
+            if s.fused_rho == "rho":
+                raise NotImplementedError(
+                    "the density-matrix (rho) route runs on the streamK "
+                    "kernels only; fused_mode='stream' takes open "
+                    "systems on the superop route")
+            return "superop"
+        too_big = streamk.size_refusal(
+            self.ninit, self.N * self.N,
+            self.model.K + (self.linsolver == "split"),
+            s.linsolve_iters) is not None
+        return "rho" if s.fused_rho == "rho" or (
+            s.fused_rho == "auto" and too_big) else "superop"
 
     def _fused_gate_refusal(self, cuda: bool) -> Optional[str]:
         """Why the fused route does not take this problem, or None. Forced
@@ -831,6 +822,55 @@ def store_iters_ok(ntime, iters, ninit, dim) -> bool:
     Bp = max(8, -(-ninit // 8) * 8)
     P = -(-dim // 128) * 128
     return iters <= 4 and 2 * ntime * iters * Bp * P * 4 <= 1.5 * (1 << 30)
+
+
+def route_refusal(form, fused_mode, ninit, N, K, iters, ntime,
+                  linsolver) -> Optional[str]:
+    """Why the kernels of a fused route do not hold a problem at E = 1 (a
+    sentence naming the limit), or None; a function of the problem's sizes
+    and the port's budgets (streamk.DEVICE_BUDGET_BYTES,
+    stream.PLANE_BUDGET_BYTES), so that a route is chosen before any plan
+    or state layout is built. form: 'rho' (an (N, N) density matrix,
+    rho.launch_refusal), 'superop' (dimension N^2) or the fused_mode's
+    closed form (dimension N), on the fused_mode's kernel pairs with the
+    plan's stored-iterate rule (store_iters_ok) and, on 'streamk', its
+    Ke = K + 1 under split."""
+    if form == "rho":
+        return rho.launch_refusal(N, K)
+    dim = N * N if form == "superop" else N
+    store = store_iters_ok(ntime, iters, ninit, dim)
+    if fused_mode == "streamk":
+        return streamk.route_refusal(ninit, dim, K + (linsolver == "split"),
+                                     iters, ntime, store=store)
+    return stream.route_refusal(ninit, dim, iters, ntime, 1,
+                                fused_mode == "stream" and store, fused_mode)
+
+
+def fused_decision(fused, cuda: bool, gate_refusal: Optional[str],
+                   route_why: Optional[str]) -> Tuple[bool, str]:
+    """(whether the fused route runs, why the plain loop runs otherwise) of
+    a problem the JAX gate refuses with `gate_refusal` (None: admits) and
+    the route's kernels with `route_why` (route_refusal; None: they hold
+    it). fused='auto' takes the fused route on a CUDA device where both
+    admit it and the plain loop on the same device everywhere else, as the
+    reference falls back to its scan where its gate refuses
+    (quandary_tpu/problem.py:440-499): a routing decision made before any
+    launch, not a failure caught. fused=True raises NotImplementedError on
+    CUDA where the kernels refuse (the gate's refusal raises before);
+    on the CPU it runs the kernels' plain versions at any size."""
+    if fused == "auto":
+        why = gate_refusal or (route_why if cuda else None)
+        if why is not None:
+            return False, f"fused='auto': {why}"
+        if not cuda:
+            return False, ("fused='auto' takes the fused route on a CUDA "
+                           "device only; the plain loop runs here")
+        return True, ""
+    if fused:
+        if cuda and route_why is not None:
+            raise NotImplementedError(route_why)
+        return True, ""
+    return False, "the fused path is off (Setup.fused=False)"
 
 
 def _jax_size_gate(problem, s) -> bool:

@@ -56,6 +56,26 @@ ops/streamk_mid.py (NEW_VARIANTS):
 and the source with no helper cluster (the chain's CTAs run every tile).
 Each case reports us per step of each and the shape, at --steps steps,
 written to chiprun_out/streamk_mid_bwd_split_new.json.
+
+With --fwd, a step of the single-schedule forward (streamk_mid_fwd, the row
+contraction in each cluster's chain) of the source in DIR instead, by
+variants of its text between FWD_SCOPE's two marks, launched through that
+source's launcher (`streamk_mid_parent.parent_fwd`) (FWD_VARIANTS):
+  source            as it is
+  no_row_contract   the step's contraction of the CTA's row band of H(t)
+  no_product        the stages' band products (rows_dot over no entries:
+                    the band reads and FMAs; the shuffle trees stay)
+  no_exchange       the pushes of x and of each stage's k and the cluster
+                    barriers after them (each push a local store, each
+                    barrier the CTA's)
+  no_stores         the history's and the stored iterates' writes
+  no_strides        the three lines that offset the stack and solver rows
+                    by the candidate (per-sample stacks; every case here
+                    shares one stack, so its results are the source's)
+Parts, us per step: row_contract, product, exchange, stores, strides and
+"rest" (the step less them: shuffle trees, stage updates, loop). Cases:
+FWD_CONFIGS (phase 25's sizes, superop27 and SWAP02 at N = 64, B = 8),
+written to chiprun_out/streamk_mid_fwd_split.json.
 """
 
 import argparse
@@ -137,7 +157,7 @@ NEW_VARIANTS = {
     "source": (),
     "chain_alone": ((
         "    run_pass(sidx, region);\n"
-        "    if (tid == 0) mid_wait_count(done + sidx, s.ntiles);\n", ""),),
+        "    if (tid == 0) wait_count(done + sidx, s.ntiles);\n", ""),),
     "pass_alone": ((
         "    if (replay) {         // k_0..k_{it-1} again from xp, on the row "
         "band\n", "    if (replay && N < 0) {\n"), (
@@ -159,18 +179,53 @@ NEW_VARIANTS = {
 }
 
 
-def variant_sources(src, variants=VARIANTS, after=None):
+FWD_SCOPE = ("streamk_mid_fwd(const float* __restrict__ Sr",
+             "// Backward: the steps in reverse")
+FWD_VARIANTS = {
+    "source": (),
+    "no_row_contract": ((
+        "    row_contract(Sr, Si, Ce + (size_t)t * Ke, Ke, N, g.r0, g.nr, Hr, "
+        "Hi, tid,\n                 blockDim.x);\n", ""),),
+    "no_product": ((
+        "Hr, Hi, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,",
+        "Hr, Hi, N, g.nr, Vr, Vr + BNv, 0, warp, nwarps, lane,"),),
+    "no_exchange": ((
+        "    push(cl, buf + b * N + g.r0 + il, vr, G);\n"
+        "    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);\n",
+        "    buf[b * N + g.r0 + il] = vr;\n"
+        "    buf[BNv + b * N + g.r0 + il] = vi;\n"), (
+        "    cl.sync();\n    const size_t st",
+        "    __syncthreads();\n    const size_t st"), (
+        "        p ^= 1;\n        cl.sync();\n",
+        "        p ^= 1;\n        __syncthreads();\n")),
+    "no_stores": ((
+        "                ksr[o] = kr;\n                ksi[o] = ki;\n",
+        "                if (kr == 1.2345e-30f) ksr[o] = ki;\n"), (
+        "        hr[o] = xr;\n        hi[o] = xi;\n",
+        "        if (xr == 1.2345e-30f) hr[o] = xi;\n")),
+    "no_strides": ((
+        "  Sr += g.e * d.strideS;          // this candidate's stack and "
+        "solver rows\n  Si += g.e * d.strideS;\n  rows += g.e * "
+        "d.strideR;\n", ""),),
+}
+FWD_CONFIGS = ("n256_pure", "n512_pure", "n1024_pure", "n256_basis",
+               "superop27", "swap02")
+
+
+def variant_sources(src, variants=VARIANTS, after=None, until=None):
     """{name: path of its source}, written beside the source (its headers
-    are included by relative path); with `after`, the substitutions touch
-    only the text from its first occurrence on."""
+    are included by relative path); with `after` (and `until`), the
+    substitutions touch only the text from its first occurrence on (up to
+    the first occurrence of `until` after it)."""
     with open(src) as f:
         text0 = f.read()
     paths = {}
     for name, subs in variants.items():
-        text = text0
-        head = ""
+        head, text, tail = "", text0, ""
         if after is not None:
             head, text = text[:text.index(after)], text[text.index(after):]
+        if until is not None:
+            text, tail = text[:text.index(until)], text[text.index(until):]
         for old, new in subs:
             if text.count(old) != 1:
                 sys.exit(f"{name}: {src} does not hold {old!r} once")
@@ -178,7 +233,7 @@ def variant_sources(src, variants=VARIANTS, after=None):
         paths[name] = os.path.join(os.path.dirname(src),
                                    f"streamk_mid_split_{name}.cu")
         with open(paths[name], "w") as f:
-            f.write(head + text)
+            f.write(head + text + tail)
     return paths
 
 
@@ -241,6 +296,45 @@ def new_split(args):
     print(line)
 
 
+def fwd_split(args):
+    """The --fwd report: a step of the single-schedule forward."""
+    src = os.path.join(args.src, "quandary_tpu_torch", "csrc",
+                       "streamk_mid.cu")
+    paths = variant_sources(src, FWD_VARIANTS, *FWD_SCOPE)
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        futs = {k: pool.submit(sp.build_parent, p, f"streamk_mid_fsplit_{k}")
+                for k, p in paths.items()}
+        libs = {k: f.result() for k, f in futs.items()}
+    report = {"card": sp.smi_line(), "steps": args.steps}
+    for name in args.cases.split(","):
+        plan, x0r, x0i, C = sp.case_inputs(name, args.steps)
+        runs = {k: (lambda k=k: sp.parent_fwd(libs[k], plan, x0r, x0i, C))
+                for k in FWD_VARIANTS}
+        ms = sp.interleaved(runs, "source", 1)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        us = lambda t: 1e3 * t / args.steps
+        parts = dict(step=us(mean["source"]))
+        for k in FWD_VARIANTS:
+            if k != "source":
+                parts[k[3:]] = us(mean["source"] - mean[k])
+        parts["rest"] = parts["step"] - sum(v for k, v in parts.items()
+                                            if k != "step")
+        E, (B, N) = C.shape[0], x0r.shape
+        report[name] = dict(
+            N=N, B=B, Ke=plan.Ke, iters=plan.iters, stored=plan.store_iters,
+            shape=sp.parent_fwd_shape(E, B, N, plan.Ke, plan.iters,
+                                      plan.store_iters and plan.iters > 0),
+            ms=ms, us_per_step=parts)
+        torch.cuda.empty_cache()
+        print(json.dumps({name: report[name]}), flush=True)
+    line = json.dumps(report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "streamk_mid_fwd_split.json"),
+              "w") as f:
+        f.write(line + "\n")
+    print(line)
+
+
 def split(ms, nt, replayed):
     """us per step of each part from the variants' mean times."""
     mean = {k: sum(v) / len(v) for k, v in ms.items()}
@@ -278,14 +372,20 @@ def main():
                     help="a directory holding quandary_tpu_torch/csrc/"
                          "streamk_mid.cu with the single-schedule launcher")
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--cases", default=",".join(CONFIGS))
+    ap.add_argument("--cases", default=None)
     ap.add_argument("--new", action="store_true",
                     help="split the checkout's helpers schedule instead")
+    ap.add_argument("--fwd", action="store_true",
+                    help="split the single-schedule forward instead")
     args = ap.parse_args()
+    if args.cases is None:
+        args.cases = ",".join(FWD_CONFIGS if args.fwd else CONFIGS)
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     if args.new:
         return new_split(args)
+    if args.fwd:
+        return fwd_split(args)
     src = os.path.join(args.src, "quandary_tpu_torch", "csrc",
                        "streamk_mid.cu")
     if not os.path.isfile(src):

@@ -1320,16 +1320,12 @@ def test_mid_kernel_matches_plain_on_card(cuda, N, B, E, solver, iters,
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
-@pytest.mark.cuda
-def test_mid_problem_on_card_matches_cpu(cuda):
-    """Three qubits with two guard levels (N = 64, 8 basis states, split-3):
-    value_and_grad on the card through the mid pair (1 + 1 launches)
-    against the same problem on the CPU (plain), both f32: J to 1e-5,
-    gradient to 1e-4 of max."""
+def _swap02_mid_setup():
+    """Three qubits with two guard levels (N = 64, 8 basis states, split-3,
+    40 steps, fused=True)."""
     from quandary_tpu_torch.models import gates
     from quandary_tpu_torch.models.hamiltonian import build_standard_model
-    from quandary_tpu_torch.ops import streamk_mid
-    from quandary_tpu_torch.problem import Problem, Setup
+    from quandary_tpu_torch.problem import Setup
     from quandary_tpu_torch.utils.splines import (ControlSegment,
                                                   OscillatorControl)
     freq, T, nt = [4.8, 5.0, 5.2], 6.0, 40
@@ -1352,6 +1348,18 @@ def test_mid_problem_on_card_matches_cpu(cuda):
         objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
         dtype=torch.complex64, linsolve_iters=3, linsolver="split",
         fused=True)
+    return setup
+
+
+@pytest.mark.cuda
+def test_mid_problem_on_card_matches_cpu(cuda):
+    """Three qubits with two guard levels (N = 64, 8 basis states, split-3):
+    value_and_grad on the card through the mid pair (1 + 1 launches)
+    against the same problem on the CPU (plain), both f32: J to 1e-5,
+    gradient to 1e-4 of max."""
+    from quandary_tpu_torch.ops import streamk_mid
+    from quandary_tpu_torch.problem import Problem
+    setup = _swap02_mid_setup()
     pc, ph = Problem(setup), Problem(setup, device="cpu")
     assert pc.fused_form == "streamk" and pc.fused_ok
     x = np.random.default_rng(2).uniform(-1, 1, setup.nparams) * 0.02
@@ -1464,6 +1472,117 @@ def test_mid_bwd_stored_equals_replayed_on_card(cuda, case, schedule):
         shapes.append((shape["G"], shape["Bc"]))
     assert shapes[0] == shapes[1]
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+# the mid forward's schedules (streamk.fwd_schedule): the same cases, the
+# 'helpers' band copied into shared memory (N = 64, 256, 202: N % 4 != 0,
+# the stacks read one entry at a time) and read from its ring in L2 (N =
+# 1024); per-sample stacks (each group contracting its own stack)
+MID_FWD_CASES = MID_SCHEDULE_CASES + [(200, 4, 2, "split", 3, True)]
+
+
+def _mid_fwd_case(cuda, case, store, seed):
+    N, B, E, solver, iters = case[:5]
+    if len(case) > 5:
+        return _mid_packed_case(cuda, N, B, E, 5, iters, solver, store, seed)
+    return _mid_case(cuda, N, B, E, 5, iters, solver, store, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MID_FWD_CASES)
+def test_mid_fwd_helpers_same_bits_on_card(cuda, case):
+    """The forward's 'helpers' schedule, with 0 helper clusters (the chain's
+    CTAs contract every tile), 1 and the planner's count, gives xT, the
+    history and the stored iterates in the bits of 'chain' (one fmaf chain
+    per entry of H in k order, the same stage products), stored and
+    replayed; the backward's g0 and C-bar from either forward's outputs
+    are equal in bits; one launch of the forward each."""
+    from quandary_tpu_torch.ops import streamk_mid
+    for store in (True, False):
+        plan, C, x0r, x0i, w = _mid_fwd_case(cuda, case, store,
+                                             seed=case[0] + case[1] + 5)
+        ref = streamk_mid._kernel_fwd(plan, x0r, x0i, C, _schedule="chain")
+        assert streamk_mid.mid_layouts["fwd"]["schedule"] == "chain"
+        for helpers in (0, 1, None):
+            before = streamk_mid.launch_counts()
+            got = streamk_mid._kernel_fwd(plan, x0r, x0i, C,
+                                          _schedule="helpers",
+                                          _helpers=helpers)
+            torch.cuda.synchronize()
+            after = streamk_mid.launch_counts()
+            assert sum(after.values()) - sum(before.values()) == 1
+            shape = streamk_mid.mid_layouts["fwd"]
+            assert shape["schedule"] == "helpers"
+            assert shape["helpers"] == (helpers if helpers is not None
+                                        else shape["helpers"])
+            assert all((a is None and b is None) or torch.equal(a, b)
+                       for a, b in zip(got, ref))
+        assert shape["helpers"] >= 1
+        gT = w[:, -1].contiguous()
+        bwd = [streamk_mid._kernel_bwd(plan, x0r, x0i, C, *f[2:], gT, gT, w,
+                                       w * f[2]) for f in (ref, got)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*bwd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["helpers", "chain"])
+@pytest.mark.parametrize("case", MID_FWD_CASES)
+def test_mid_fwd_schedule_matches_plain_on_card(cuda, monkeypatch, case,
+                                                schedule):
+    """Each forward schedule under the autograd function against the plain
+    version on the card (bounds as test_mid_kernel_matches_plain_on_card);
+    one launch of each mid kernel; a second run gives the same bits."""
+    from quandary_tpu_torch.ops import streamk_mid
+    own = streamk_mid._kernel_fwd
+    monkeypatch.setattr(streamk_mid, "_kernel_fwd", lambda *a: own(
+        *a, _schedule=schedule))
+    plan, C, x0r, x0i, w = _mid_fwd_case(cuda, case, True,
+                                         seed=case[0] + case[1] + 6)
+    before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    kern = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i, w)
+    after = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert sorted(moved.values()) == [1, 1] and len(moved) == 2
+    assert streamk_mid.mid_layouts["fwd"]["schedule"] == schedule
+    again = _mid_run(streamk.streamk_propagate_kernel, plan, C, x0r, x0i, w)
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    plain = _mid_run(streamk.streamk_propagate_plain, plan, C, x0r, x0i, w)
+    for a, b, tol in zip(kern, plain, (1e-5, 1e-4, 1e-4, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_auto_runs_plain_loop_where_the_budget_refuses_on_card(
+        cuda, monkeypatch):
+    """ROADMAP C2: with streamk.DEVICE_BUDGET_BYTES patched below the N = 64
+    problem's sweep, fused='auto' on the card takes the plain loop (no
+    kernel launch; fused_refusal names the limit) and agrees with the same
+    problem's plain loop on the CPU (J to 1e-5, gradient to 1e-4 of max);
+    fused=True raises with the route's message."""
+    from quandary_tpu_torch.ops import streamk_mid
+    from quandary_tpu_torch.problem import Problem
+    setup = dataclasses.replace(_swap02_mid_setup(), fused="auto")
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", 1 << 16)
+    pa = Problem(setup)
+    assert pa.device.type == "cuda" and not pa.use_fused
+    assert pa.fused_form is None and not pa.fused_ok
+    assert "DEVICE_BUDGET_BYTES" in pa.fused_refusal
+    assert pa.fused_refusal.startswith("fused='auto': ")
+    x = np.random.default_rng(2).uniform(-1, 1, setup.nparams) * 0.02
+    before = {**streamk.launch_counts(), **streamk_mid.launch_counts()}
+    (Ja, _), ga = pa.build_value_and_grad()(x, x)
+    torch.cuda.synchronize()
+    assert {**streamk.launch_counts(), **streamk_mid.launch_counts()} \
+        == before
+    ph = Problem(setup, device="cpu")
+    assert ph.fused_form is None
+    (Jh, _), gh = ph.build_value_and_grad()(x, x)
+    assert abs(float(Ja) - float(Jh)) <= 1e-5 * abs(float(Jh))
+    assert float((ga.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max())
+    with pytest.raises(NotImplementedError, match="DEVICE_BUDGET_BYTES"):
+        Problem(dataclasses.replace(setup, fused=True))
 
 
 # ---- the mid-size streamed-plane pair (csrc/stream_mid.cu) ----

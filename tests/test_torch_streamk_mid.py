@@ -25,7 +25,11 @@ chip_smoke.py phase 25 hold them against the plain version there). Here:
 6. the backward's schedules: the 'helpers' launch shape covers and fits
    wherever the planner plans, its tiles cover the matrix once, the rule
    that picks it, its helper count, its rings counted in sweep_bytes, and
-   the gate still admitting everything it admitted before them.
+   the gate still admitting everything it admitted before them;
+7. the forward's schedules the same way: the 'helpers' launch shape, the
+   rule that picks it at phase 25 and 28 sizes (and keeps 'chain' where no
+   helper cluster fits), forced schedules, its helper count and its ring
+   counted in sweep_bytes and route_refusal.
 """
 
 import dataclasses
@@ -478,3 +482,121 @@ def test_sweep_bytes_counts_rings(E, B, N, Ke, iters, store):
     assert got - base >= rings
     assert got - base == max(streamk._scratch_bytes(
         E, B, N, Ke, iters, nt, store, s) for s in ("helpers", "chain"))
+
+
+# ---- the forward's schedules (streamk.fwd_schedule): 'helpers' contracts
+# each step's H in the backward's pass tiles on helper clusters ahead of
+# the chain, 'chain' in each cluster's chain ----
+
+@pytest.mark.parametrize("E,B,N,Ke,iters", PLAN_SHAPES)
+def test_fwd_shape_covers_and_fits(E, B, N, Ke, iters):
+    """The forward's helpers schedule has a launch shape at every planned
+    size: bands and chunks cover N and B, its shared memory holds the
+    layout the CUDA source carves (mid_fwd_split_floats: a header, the
+    chain's buffers, then the band or a tile's scratch) within 227 KB,
+    'global' only where no cluster holds the band. The chain schedule's
+    shape is the parent planner's (_mid_shape)."""
+    for store in (True, False):
+        assert streamk._mid_fwd_shape(E, B, N, Ke, iters, store, "chain") \
+            == streamk._mid_shape(E, B, N, Ke, iters, store)
+    shape = streamk._mid_fwd_shape(E, B, N, Ke, iters, True, "helpers")
+    assert shape is not None
+    G, bc, threads, smem, layout = shape
+    R = -(-N // G)
+    assert G in (1, 2, 4, 8, 16) and (G - 1) * R < N <= G * R
+    nch = -(-B // bc)
+    assert bc in (1, 2, 4, 8) and (nch - 1) * bc < B <= nch * bc
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    floats = streamk._fwd_split_floats(bc, N, R, layout == "smem")
+    head = 8 + streamk._mid_floats(bc, N, R, iters, False, False, False)
+    assert floats >= head + streamk._tile_floats(bc, 0, pairs=False)
+    if layout == "smem":
+        assert floats >= head + 2 * R * streamk._split_ldr(N)
+    assert 4 * floats <= smem <= 227 * 1024
+    if layout == "global":
+        assert G == 16 and 4 * streamk._fwd_split_floats(
+            1, N, R, True) > 227 * 1024
+
+
+def test_fwd_schedule_picks():
+    """'helpers' at phase 25's B = 1 sizes (N = 256, 512, 1024), SWAP02 (N
+    = 64, B = 8) and its packed S = 2, and phase 28's superop runs (open 2
+    at dim 256, B = 16; N = 27 at dim 729, B = 3, replayed), stored and
+    replayed alike; 'chain' where the card is full (N = 256 basis: 128
+    CTAs take more than half the SMs) and where it holds no helper cluster
+    per chain cluster beside them (the three open qubits' packed dim 64:
+    16 clusters of 4 CTAs); a forced schedule is taken where it fits, an
+    unknown one or one that does not fit raises."""
+    pick = lambda E, B, N, Ke, it, store, per_block=False, holds=None: \
+        streamk.fwd_schedule(E, B, N, Ke, it, 1000, store, per_block,
+                             holds=holds)
+    for store in (True, False):
+        for N in (256, 512, 1024):
+            assert pick(1, 1, N, 6, 4, store) == "helpers"
+            assert pick(1, 1, N, 6, 4, store, holds=8) == "helpers"
+            assert pick(1, 1, N, 6, 4, store, holds=1) == "chain"
+        assert pick(1, 256, 256, 6, 4, store) == "chain"
+        assert pick(1, 8, 64, 8, 3, store, holds=32) == "helpers"
+        assert pick(2, 8, 64, 8, 3, store, True, holds=32) == "helpers"
+        assert pick(2, 64, 64, 5, 3, store, True, holds=30) == "chain"
+        assert pick(2, 64, 64, 5, 3, store, True, holds=33) == "helpers"
+        assert pick(1, 16, 256, 9, 8, store) == "helpers"
+    assert pick(1, 3, 729, 11, 6, False) == "helpers"
+    assert streamk.fwd_schedule(1, 1, 1024, 6, 4, 1000, True,
+                                forced="chain") == "chain"
+    assert streamk.fwd_schedule(1, 8, 64, 8, 3, 1000, True,
+                                forced="helpers") == "helpers"
+    with pytest.raises(ValueError, match="schedule"):
+        streamk.fwd_schedule(1, 1, 256, 6, 4, 1000, True, forced="warps")
+
+
+def test_fwd_forced_schedule_that_does_not_fit_raises(monkeypatch):
+    """Where a CTA's shared memory holds the chain's buffers but not a pass
+    tile's scratch, the helpers schedule has no shape: forcing it raises,
+    and the planner keeps 'chain'."""
+    monkeypatch.setattr(streamk, "_MAX_SMEM", 17000)
+    assert streamk._mid_fwd_shape(1, 8, 64, 8, 3, True, "chain") is not None
+    assert streamk._mid_fwd_shape(1, 8, 64, 8, 3, True, "helpers") is None
+    with pytest.raises(ValueError, match="'helpers' does not fit"):
+        streamk.fwd_schedule(1, 8, 64, 8, 3, 40, True, forced="helpers")
+    assert streamk.fwd_schedule(1, 1, 256, 6, 4, 40, True) == "chain"
+
+
+@pytest.mark.parametrize("E,B,N,Ke,iters,holds,want", [
+    (1, 1, 1024, 6, 4, 100, 7), (1, 1, 1024, 6, 4, 4, 3),
+    (1, 1, 256, 6, 4, 8, 7), (1, 3, 729, 11, 6, 8, 7),
+    (1, 16, 256, 9, 8, 8, 3), (1, 16, 256, 9, 8, 2, 0)])
+def test_fwd_helper_counts(E, B, N, Ke, iters, holds, want):
+    """The forward's helper clusters per chain cluster at phase 25 and 28
+    sizes: the idle SMs' worth (one group of 16 CTAs: 7; open 2's two
+    groups of 16: 3) within what the card holds beside the chain
+    clusters."""
+    G, bc = streamk._mid_fwd_shape(E, B, N, Ke, iters, False, "helpers")[:2]
+    groups = E * -(-B // bc)
+    assert streamk.helper_clusters(groups, groups * G, holds) == want
+
+
+def test_sweep_bytes_counts_fwd_ring(monkeypatch):
+    """The forward's helpers schedule counts its groups' rings
+    (MID_FWD_SLOTS steps of H, re and im at row stride N rounded up to 4)
+    and counters against DEVICE_BUDGET_BYTES: at N = 1024 and 10 steps the
+    ring is the sweep's largest scratch; with the budget below the sweep
+    with the ring the planner keeps 'chain' and the gate still admits the
+    sweep, and below the chain's sweep route_refusal names the limit."""
+    E, B, N, Ke, iters, nt, store = 1, 1, 1024, 6, 4, 10, True
+    ring = 4 * (1 + streamk.MID_FWD_SLOTS * 2 * N * N + 3 * nt)
+    assert streamk._fwd_scratch_bytes(E, B, N, Ke, iters, nt, store,
+                                      "helpers") == ring
+    got = streamk.sweep_bytes(E, B, N, Ke, iters, nt, store, True)
+    base = streamk.sweep_bytes(E, B, N, Ke, iters, nt, store, False)
+    assert got - base == ring
+    assert streamk.fwd_schedule(E, B, N, Ke, iters, nt, store) == "helpers"
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", got - 1)
+    assert streamk.fwd_schedule(E, B, N, Ke, iters, nt, store) == "chain"
+    assert streamk.route_refusal(B, N, Ke, iters, nt, E, store) is None
+    assert streamk.sweep_bytes(E, B, N, Ke, iters, nt, store, True) < got
+    least = streamk._sweep_total(E, B, N, Ke, iters, nt, store, True, False,
+                                 "chain", "chain")
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", least - 1)
+    why = streamk.route_refusal(B, N, Ke, iters, nt, E, store)
+    assert why is not None and "DEVICE_BUDGET_BYTES" in why
