@@ -2202,9 +2202,42 @@ def smid_same_bits(plan, H, x0r, x0i, rng):
     return same
 
 
+def smid_sched(plan, H, x0r, x0i, rng, reps=0):
+    """The mid backward on both of its schedules (stream.mid_bwd_schedule)
+    on the same forward and seeded cotangents: the planner's and the other
+    one forced give g0 and Hb in the same bits. With reps, both timed by
+    CUDA events in the order chain, helpers, helpers, chain (ms of each
+    visit; ratio: helpers over chain)."""
+    fwd = stream_mid._kernel_fwd(plan, *H, x0r, x0i)
+    w = lambda t: torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                  device="cuda", dtype=torch.float32)
+    gT, gh = w(fwd[0]), w(fwd[2])
+    args = (plan, *H, x0r, x0i, *fwd[2:], gT, gT, gh, gh)
+    got = stream_mid._kernel_bwd(*args)
+    mine = dict(stream_mid.mid_layouts["bwd"])
+    other = {"helpers": "chain", "chain": "helpers"}[mine["schedule"]]
+    alt = stream_mid._kernel_bwd(*args, _schedule=other)
+    out = dict(schedule=mine["schedule"], other=other,
+               bits=all(torch.equal(a, b) for a, b in zip(got, alt)),
+               shapes={mine["schedule"]: mine,
+                       other: dict(stream_mid.mid_layouts["bwd"])})
+    del got, alt
+    if reps:
+        runs = {s: (lambda s=s: stream_mid._kernel_bwd(*args, _schedule=s))
+                for s in ("chain", "helpers")}
+        ms = {s: [] for s in runs}
+        for s in ("chain", "helpers", "helpers", "chain"):
+            ms[s].append(event_ms(runs[s], reps))
+        out.update(ms=ms, ratio=statistics.mean(ms["helpers"])
+                   / statistics.mean(ms["chain"]))
+    return out
+
+
 def smid_checks(rng):
     """The mid entry points against the plain version on the card: worst
-    errors per member, the layouts driven and the bits' checks."""
+    errors per member, the layouts and backward schedules driven (the
+    planner's against the other one forced, smid_sched) and the bits'
+    checks."""
     zero = dict(state=0.0, state_rel=0.0, cbar=0.0, x0bar=0.0, sbar=0.0,
                 cbar_rel=0.0, x0bar_rel=0.0, sbar_rel=0.0)
     worst = {"stream": dict(zero), "chunk": dict(zero), "dense": 0.0}
@@ -2233,12 +2266,19 @@ def smid_checks(rng):
                         f"{kind}_mid_bwd_launches"))
         lay = stream_mid.mid_layouts
         seen.add(("fwd", lay["fwd"]["layout"]))
-        seen.add(("bwd", lay["bwd"]["layout"], store))
         seen.add(("chunks", -(-B // lay["bwd"]["Bc"]) > 1))
         seen.add(("tracks", lay["bwd"]["tracks"] < -(-B // lay["bwd"]["Bc"])))
         key = (f"{kind}_{solver}{iters}_N{N}_B{B}_E{E}_"
                f"{'stored' if store else 'replayed'}")
         shapes = dict(fwd=lay["fwd"], bwd=lay["bwd"])
+        with torch.no_grad():
+            H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
+        sched = smid_sched(plan, H, x0r, x0i, rng)
+        bits[f"{key} schedules"] = sched["bits"]
+        seen.add(("bwd", sched["shapes"]["chain"]["layout"], store))
+        for s, v in sched["shapes"].items():
+            seen.add(("bwd_schedule", s, v["layout"]))
+        shapes["bwd_other"] = sched["shapes"][sched["other"]]
         print(f"  {key}: {json.dumps(dict(err, **shapes))}", flush=True)
         for k in worst[kind]:
             worst[kind][k] = max(worst[kind][k], err[k])
@@ -2248,10 +2288,8 @@ def smid_checks(rng):
             bad.append(key)
         if kind == "stream" and E == 1 and store and solver != "neumann" \
                 and B < 256:
-            with torch.no_grad():
-                H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
             bits[key] = smid_same_bits(plan, H, x0r, x0i, rng)
-            del H
+        del H
     for N, B in SMID_CHECK + (SMID_WIDE,):
         plan, Sr, Si, C, x0r, x0i = smid_synthetic("dense", "neumann", 8, N,
                                                    B, 1, rng)
@@ -2312,7 +2350,8 @@ def stream_mid_phase(smi, build, open16):
     missing = [f"{k}<{bc}{h}>" for bc in (1, 2, 4, 8)
                for k, h in (("stream_mid_fwd", ", true"),
                             ("stream_mid_fwd", ", false"),
-                            ("stream_mid_bwd", ""))
+                            ("stream_mid_bwd", ""),
+                            ("stream_mid_bwd_helpers", ""))
                if (f"{k}ILi{bc}ELb{int(h == ', true')}E" if h else
                    f"{k}ILi{bc}E") not in log]
     if secs > 0 and missing:
@@ -2327,15 +2366,21 @@ def stream_mid_phase(smi, build, open16):
     want = {("fwd", "smem2"), ("fwd", "smem1"), ("fwd", "global"),
             ("bwd", "smem2", True), ("bwd", "smem2", False),
             ("bwd", "smem1", True), ("bwd", "global", False),
+            ("bwd_schedule", "helpers", "smem"),
+            ("bwd_schedule", "helpers", "global"),
+            ("bwd_schedule", "chain", "smem2"),
+            ("bwd_schedule", "chain", "global"),
             ("chunks", True), ("tracks", True), ("dense", "global")}
     phase(27, f"mid stream pair == plain at {SMID_NT} steps within "
               f"{TOL_STATE_REL} x max (states; dense abs {TOL_STATE_ABS}), "
               f"{TOL_GRAD_REL} x max (x0, coefficient and stack "
-              f"cotangents): worst {json.dumps(worst)}; chunks on tracks "
-              f"{tracks}: {tr_err:.3g} x max; out of bounds {bad}; layouts "
-              f"{sorted(map(str, seen))}; missing "
-              f"{sorted(map(str, want - seen))}; same bits on repeat and "
-              f"stored against replayed {json.dumps(bits)}")
+              f"cotangents; the backward on the planner's schedule): worst "
+              f"{json.dumps(worst)}; chunks on tracks {tracks}: "
+              f"{tr_err:.3g} x max; out of bounds {bad}; layouts and "
+              f"backward schedules {sorted(map(str, seen))}; missing "
+              f"{sorted(map(str, want - seen))}; same bits on repeat, "
+              f"stored against replayed and the other backward schedule "
+              f"forced {json.dumps(bits)}")
     if bad or want - seen or not all(bits.values()):
         raise RuntimeError(f"mid stream pair: out of bounds {bad}, layouts "
                            f"not driven {want - seen}, bits {bits}")
@@ -2384,6 +2429,8 @@ def stream_mid_phase(smi, build, open16):
         t = stream_kernel_ms(ps._plan, *H, ps._x0r, ps._x0i, 3, True)
         t.update({f"{k}_shape": dict(stream_mid.mid_layouts[k])
                   for k in ("fwd", "bwd")})
+        t["schedules"] = smid_sched(ps._plan, H, ps._x0r, ps._x0i,
+                                    np.random.default_rng(28), 1)
         del H
         full[name] = dict(t, sweeps_per_s=rate, J=float(J),
                           fidelity=float(aux["fidelity"]), routes=routes,
@@ -2394,6 +2441,11 @@ def stream_mid_phase(smi, build, open16):
                 or plain["J"] > TOL_J_PLAIN or plain["g"] > TOL_G_PLAIN:
             raise RuntimeError(f"{name} 'stream' against the mid streamK "
                                f"route {routes}, against plain {plain}")
+        sch = t["schedules"]
+        if t["bwd_shape"]["schedule"] != "helpers" or not sch["bits"]:
+            raise RuntimeError(f"{name}: backward on "
+                               f"{t['bwd_shape']['schedule']}, not 'helpers',"
+                               f" or its schedules differ in bits: {sch}")
     phase(27, f"Problem(fused_mode='stream') (fused=True and 'auto') on "
               f"the mid stream pair at full width, 1 + 1 launches per sweep, "
               f"J / gradient against the mid streamK route (full depth) and "
@@ -2407,7 +2459,13 @@ def stream_mid_phase(smi, build, open16):
                           f"{v['fwd_shape']['G']} / {v['fwd_shape']['Bc']} / "
                           f"{v['fwd_shape']['layout']} bwd "
                           f"{v['bwd_shape']['G']} / {v['bwd_shape']['Bc']} / "
-                          f"{v['bwd_shape']['layout']}, routes "
+                          f"{v['bwd_shape']['layout']} on "
+                          f"{v['bwd_shape']['schedule']} + "
+                          f"{v['bwd_shape']['helpers']} helpers, backward "
+                          f"'helpers' / 'chain' interleaved "
+                          f"{json.dumps(v['schedules']['ms'])} (ratio "
+                          f"{v['schedules']['ratio']:.3f}, same bits "
+                          f"{v['schedules']['bits']}), routes "
                           f"{json.dumps(v['routes'])}, plain "
                           f"{json.dumps(v['plain'])}"
                           for k, v in full.items()) + f"; card: {smi}")
@@ -2435,8 +2493,16 @@ def stream_mid_phase(smi, build, open16):
     eJ, ef, eg = open_errors(got, rho16)
     fJ, ff, fg = open_errors(got_m, ref16)
     tol = TOL_OPEN["cnot16"]
+    with torch.no_grad():
+        H16 = [h.contiguous() for h in stream.planes(
+            p16._plan, p16._Sr, p16._Si,
+            p16.coeff_rows_mid(P)[..., 0, :].contiguous())]
+    sched16 = smid_sched(p16._plan, H16, p16._x0r, p16._x0i,
+                         np.random.default_rng(29), 1)
+    del H16
     open_rep = dict(N=p16.N, dim=dim, B=p16.ninit,
                     ntime=p16.setup.ntime, J=float(got[0][0]),
+                    schedules=sched16,
                     rho_route=dict(J=eJ, fidelity=ef, grad=eg),
                     f64=dict(J=fJ, fidelity=ff, grad=fg), sweep_s=wall16,
                     launches=launches_open,
@@ -2447,7 +2513,8 @@ def stream_mid_phase(smi, build, open16):
               f"{TOL_ROUTES_J} / {TOL_ROUTES_G}, f64 at {NT_F64} steps "
               f"{tol['J_f64']} / {tol['g_f64']}")
     if eJ > TOL_ROUTES_J or eg > TOL_ROUTES_G or fJ > tol["J_f64"] \
-            or ff > tol["J_f64"] or fg > tol["g_f64"]:
+            or ff > tol["J_f64"] or fg > tol["g_f64"] \
+            or sched16["schedule"] != "chain" or not sched16["bits"]:
         raise RuntimeError(f"open 'stream' past one block: {open_rep}")
 
     # fused_mode='chunk' through Problem, where plain Neumann converges
@@ -2478,6 +2545,8 @@ def stream_mid_phase(smi, build, open16):
     t_c = stream_kernel_ms(pc._plan, *Hc, pc._x0r, pc._x0i, 3, True)
     t_c.update({f"{k}_shape": dict(stream_mid.mid_layouts[k])
                 for k in ("fwd", "bwd")})
+    t_c["schedules"] = smid_sched(pc._plan, Hc, pc._x0r, pc._x0i,
+                                  np.random.default_rng(30), 1)
     rate_c = 1.0 / median_seconds(lambda: pc.build_value_and_grad()(x, x),
                                   reps=3)
     # the dense forward past one block, through pallas_propagate_dense
@@ -2506,9 +2575,11 @@ def stream_mid_phase(smi, build, open16):
               f"of dt {pc.setup.dt} (dt/2 |d|max = {u:.4f}), plain Neumann-8:"
               f" {json.dumps(chunk_rep)}; card: {smi}")
     if err_c["J"] > TOL_J_PLAIN or err_c["g"] > TOL_G_PLAIN \
-            or err_d > TOL_STATE_ABS:
+            or err_d > TOL_STATE_ABS or t_c["bwd_shape"]["schedule"] != \
+            "helpers" or not t_c["schedules"]["bits"]:
         raise RuntimeError(f"chunk route past one block: {err_c}, dense xT "
-                           f"{err_d}")
+                           f"{err_d}, backward {t_c['bwd_shape']}, "
+                           f"schedules {t_c['schedules']}")
     return dict(worst=worst, full=full, launches=launches, open=open_rep,
                 chunk=t_c, dense=t_d, chunk_rep=chunk_rep)
 
@@ -3766,7 +3837,18 @@ def run_phases(smi, worker, ref_path):
         and the routes' agreement."""
         key = ("fwd", "bwd")[i]
         t256, t512 = sm["full"]["n256_pure"], sm["full"]["n512_pure"]
-        return dict(shape=t256[f"{key}_shape"],
+        more = {}
+        if i == 1:      # the backward's schedules, interleaved
+            scheds = dict(n256_pure=t256["schedules"],
+                          n512_pure=t512["schedules"],
+                          chunk256=sm["chunk"]["schedules"],
+                          open2=sm["open"]["schedules"])
+            more = dict(schedule=t256["bwd_shape"]["schedule"], schedules={
+                k: dict(schedule=v["schedule"], bits=v["bits"],
+                        ms_helpers=statistics.mean(v["ms"]["helpers"]),
+                        ms_chain=statistics.mean(v["ms"]["chain"]),
+                        ratio=v["ratio"]) for k, v in scheds.items()})
+        return dict(more, shape=t256[f"{key}_shape"],
                     sweeps_per_s=t256["sweeps_per_s"],
                     ms_n512=t512[key], bound_ms_n512=t512[f"{key}_bound"][0],
                     plain_ms_n512=t512[f"plain_{key}"],
@@ -3902,7 +3984,8 @@ def run_phases(smi, worker, ref_path):
             sm["worst"]["chunk"][k] for k in ("cbar", "x0bar", "sbar")),
                sm["chunk"], "bwd", src=SMID_SRC,
                tpu="quandary_tpu/ops/pallas_adjoint.py",
-               shape=sm["chunk"]["bwd_shape"]),
+               shape=sm["chunk"]["bwd_shape"],
+               schedule=sm["chunk"]["bwd_shape"]["schedule"]),
         record("dense_mid_fwd", 111, sm["launches"][DMID[0]],
                sm["worst"]["dense"], sm["dense"], "fwd", src=SMID_SRC,
                tpu="quandary_tpu/ops/pallas_kernels.py",

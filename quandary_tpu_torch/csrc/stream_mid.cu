@@ -616,6 +616,706 @@ stream_mid_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward's 'helpers' schedule: the replay, the plane-cotangent pass
+// and the column band's transposition off the chain. Above, 'chain': each
+// step of a cluster replays its stage iterates (where they are not
+// stored), copies its column band of H(t) in transposed with 4-byte copies
+// (or, in the global layout, transposes it into scratch), runs the
+// transposed chain and then the pass that writes Hb(t)'s column band, all
+// on its one dependent chain. Here the chain clusters run only the step's
+// operand loads and the transposed chain with its exchanges; the rest runs
+// beside them on clusters the launch adds where the card would leave SMs
+// idle (ops/stream.py::mid_bwd_schedule).
+//
+// A group is one chain cluster (candidate, track of chunks) with its replay
+// cluster (replayed iterates) and its helper clusters. The group runs a
+// sequence of S steps: its track's chunks in turn, each the nt steps in
+// reverse (step s: chunk l + tracks (s / nt), time step nt - 1 - s % nt).
+// Its hand-off memory (ring, help_ring_floats floats):
+//   the H^T ring, 2 slots, each H(t)^T (N rows of ldr floats, row q the
+//     column q of H; re, then im);
+//   the pairs ring, 2 slots, each the step's it + 1 (cotangent, input)
+//     pairs, whole vectors: pair q at 4 q BC N, cotangent (re, im), then
+//     input (re, im), each BC x N;
+//   with replay the iterate ring, HELP_W slots, each a step's k_0..k_{it-1}
+//     (re, im), each BC x N.
+// The pass is cut in tiles of HTILE_P rows (pp) x HTILE_Q columns (q) of
+// the whole matrix. Pass i (0 <= i < S + 2) copies H of step i (i < S)
+// transposed into H^T slot i & 1 and writes Hb of step i - 2 (i >= 2) from
+// pairs slot i & 1, the first chunk of the track writing it, the others
+// adding to it (after pass i - nt, the previous chunk's). Chain step s
+// waits for pass s (its H^T, and Hb of step s - 2, which read the pairs
+// slot it writes), reads its column band of H^T (copied into shared memory
+// by 16-byte copies, or in the global layout in place from L2), and
+// publishes its pairs; pass i starts once step i - 2's pairs are
+// published, after which the chain does not read H^T slot i & 1. The
+// replay cluster runs step s's stage chain from the pre-state on the row
+// band of H(t) (the chain schedule's products in the same order) into
+// iterate slot s % HELP_W once the chain emptied step s - HELP_W.
+// flags (ints, zeroed by the wrapper): a ticket counter, then per group a
+// claim word, the iterate slots' full and empty counts, and the tiles
+// claimed, the tiles done and the chain CTAs that published each step's
+// pairs (S + 2 each). A cluster takes group and role by ticket in the order
+// it starts: ticket (nrep + 1 + helpers) m is group m's replay (with
+// replay), the next its chain, the next `helpers` its helpers, so a chain
+// waits only on a replay that started before it and a helper on a chain.
+// The replay's wait on the chain: at step HELP_W, if the chain has not
+// claimed the group (the card holds too few clusters), the replay writes
+// HELP_W + 1 into the claim word and ends, and the chain replays the steps
+// from HELP_W on in its own chain (the claim word says from which). Tiles
+// are claimed by an atomic counter, by the helpers and, while its pass is
+// not done, by the chain's CTAs themselves. So no cluster waits on one that
+// has not started, and a tile's result does not depend on which CTA ran it.
+// Numerics: g0 and the iterates are the chain schedule's products in the
+// same order on the same values of H; each entry of Hb is its fmaf chain in
+// pair then state order: the chain schedule's bits with any number of
+// helper clusters (none included) and with or without the hand-over.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int HTILE_P = 32;     // rows pp of a pass tile
+constexpr int HTILE_Q = 64;     // columns q of a pass tile
+constexpr int HTILE_LD = HTILE_P + 1;   // row stride of a staged tile
+constexpr int HELP_W = 4;       // slots of the iterate ring
+constexpr int CLAIMED = 1 << 30;
+
+struct SMHelp {
+  int helpers;    // helper clusters per group
+  int nrep;       // replay clusters per group: 1 with replay, else 0
+  int hsmem;      // the chain's column band copied into shared memory
+  int rslots;     // the replay's row band slots in shared memory (0: L2)
+  int ldr;        // row stride of the H^T ring: N rounded up to 4
+  int tq;         // tiles across a row of the matrix
+  int ntiles;     // tiles of a pass
+  int S;          // steps of the longest track's sequence
+};
+
+__host__ __device__ inline int help_ldr(int N) { return (N + 3) & ~3; }
+
+// floats of one group's hand-off memory: the H^T ring, the pairs ring and,
+// with replay, the iterate ring
+__host__ __device__ inline size_t help_ring_floats(int BC, int N, int it,
+                                                   bool replay) {
+  return 2 * 2 * (size_t)N * help_ldr(N) + 2 * (size_t)(it + 1) * 4 * BC * N +
+         (replay ? (size_t)HELP_W * it * 2 * BC * N : 0);
+}
+
+// ints of one group's counters: the claim word, full and empty per
+// iterate slot, then claimed, done and ready per pass
+__host__ __device__ inline size_t help_flag_ints(int S) {
+  return 1 + 2 * (size_t)HELP_W + 3 * ((size_t)S + 2);
+}
+
+// floats of a tile's scratch: the tile of H staged transposed (re, im),
+// the it + 1 pairs' cotangents on its rows and inputs on its columns
+__host__ __device__ inline size_t help_tile_floats(int BC, int it) {
+  return 2 * HTILE_Q * HTILE_LD +
+         (size_t)(it + 1) * 2 * BC * (HTILE_P + HTILE_Q);
+}
+
+// The chain's shared memory: two exchange buffers (re, im) x BC x N, the
+// bands of g, kb, bb (with replay also b, k), the solver rows, two slots
+// of a step's operands (j, the pre-state and the stored iterates, by band),
+// then one region, 16-byte aligned, that holds either the step's column
+// band of H^T (hsmem) or a tile's scratch.
+__host__ __device__ inline size_t help_chain_floats(int BC, int N, int R,
+                                                    int it, bool replay,
+                                                    bool stored, bool hsmem) {
+  const size_t BNv = (size_t)BC * N, BR = (size_t)BC * R;
+  const size_t head = 4 * BNv + (replay ? 10 : 6) * BR + 4 * (size_t)R +
+                      2 * (4 + 2 * (size_t)(stored ? it : 0)) * BR;
+  const size_t band = hsmem ? 2 * (size_t)R * help_ldr(N) : 0;
+  const size_t tile = help_tile_floats(BC, it);
+  return pad4(head) + (band > tile ? band : tile);
+}
+
+// The replay's: two exchange buffers, the bands of b and k, the solver
+// rows, then `rslots` slots of the row band of H(t), 16-byte aligned.
+__host__ __device__ inline size_t help_replay_floats(int BC, int N, int R,
+                                                     int rslots) {
+  return pad4(4 * (size_t)BC * N + 4 * (size_t)BC * R + 4 * (size_t)R) +
+         rslots * sm_band_floats(N, R, false, false);
+}
+
+// A CTA's shared memory on the helpers schedule: a header of 8 words, then
+// the largest of the chain's, the replay's (with replay) and a tile's.
+__host__ __device__ inline size_t help_floats(int BC, int N, int R, int it,
+                                              bool replay, bool stored,
+                                              bool hsmem, int rslots) {
+  size_t f = help_chain_floats(BC, N, R, it, replay, stored, hsmem);
+  const size_t rp = replay ? help_replay_floats(BC, N, R, rslots) : 0;
+  const size_t tile = help_tile_floats(BC, it);
+  if (rp > f) f = rp;
+  if (tile > f) f = tile;
+  return 8 + f;
+}
+
+// One tile of a pass, by the whole CTA: rows [p0, p0 + HTILE_P) x columns
+// [q0, q0 + HTILE_Q) of the N x N matrix. With Hr: the tile of H(t) (its
+// planes Hr, Hi, row-major) written transposed into HT (row q: column q of
+// H, row stride ldr; im NL floats on), 16 bytes a lane. With P (a pairs
+// slot, npairs pairs): Hb[pp, q] = the sum over the pairs and the BC states
+// of c[b][pp] (x) u[b][q], one fmaf chain per entry in pair then state
+// order (the chain schedule's), written into Hb (re at Hbr, im at Hbi, row
+// stride N) where `first`, else added to it. The planes are read 16 bytes a
+// lane where N % 4 == 0. Ends with a barrier.
+template <int BC>
+__device__ void help_tile(const float* __restrict__ Hr,
+                          const float* __restrict__ Hi, float* HT, int ldr,
+                          const float* P, int npairs, float* Hbr, float* Hbi,
+                          bool first, int N, int tile, int tq, float* ts) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t NL = (size_t)N * ldr;
+  const int p0 = (tile / tq) * HTILE_P, q0 = (tile % tq) * HTILE_Q;
+  float* Tr = ts;                               // the tile of H, transposed
+  float* Ti = Tr + HTILE_Q * HTILE_LD;
+  float* Pc = Ti + HTILE_Q * HTILE_LD;          // npairs x 2 x BC x HTILE_P
+  float* Pu = Pc + npairs * 2 * BC * HTILE_P;   // npairs x 2 x BC x HTILE_Q
+  const bool vec = (N & 3) == 0;
+  constexpr int QR = HTILE_Q / 4;               // quads of a tile row
+  if (P != nullptr) {
+    for (int i = tid; i < npairs * 2 * BC * HTILE_P; i += nth) {
+      const int m = i / HTILE_P, pp = p0 + i - m * HTILE_P;
+      const int pr = m / (2 * BC), rest = m - pr * 2 * BC;
+      Pc[i] = pp < N ? __ldcg(P + (size_t)(pr * 4 * BC + rest) * N + pp)
+                     : 0.f;
+    }
+    for (int i = tid; i < npairs * 2 * BC * HTILE_Q; i += nth) {
+      const int m = i / HTILE_Q, q = q0 + i - m * HTILE_Q;
+      const int pr = m / (2 * BC), rest = m - pr * 2 * BC;
+      Pu[i] = q < N ? __ldcg(P + (size_t)(pr * 4 * BC + 2 * BC + rest) * N +
+                             q)
+                    : 0.f;
+    }
+  }
+  if (Hr != nullptr) {
+    for (int idx = tid; idx < HTILE_P * QR; idx += nth) {
+      const int pl = idx / QR, c4 = idx - pl * QR;
+      const int pp = p0 + pl, qa = q0 + 4 * c4;
+      if (pp >= N || qa >= N) continue;
+      const size_t off = (size_t)pp * N + qa;
+      float vr[4], vi[4];
+      if (vec) {
+        const float4 a = __ldcs(reinterpret_cast<const float4*>(Hr + off));
+        const float4 b = __ldcs(reinterpret_cast<const float4*>(Hi + off));
+        vr[0] = a.x; vr[1] = a.y; vr[2] = a.z; vr[3] = a.w;
+        vi[0] = b.x; vi[1] = b.y; vi[2] = b.z; vi[3] = b.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          vr[e] = qa + e < N ? __ldcs(Hr + off + e) : 0.f;
+          vi[e] = qa + e < N ? __ldcs(Hi + off + e) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        Tr[(4 * c4 + e) * HTILE_LD + pl] = vr[e];
+        Ti[(4 * c4 + e) * HTILE_LD + pl] = vi[e];
+      }
+    }
+  }
+  __syncthreads();      // the pairs and the tile of H are staged
+  if (P != nullptr) {
+    for (int idx = tid; idx < HTILE_P * QR; idx += nth) {
+      const int pl = idx / QR, c4 = idx - pl * QR;
+      const int pp = p0 + pl, qa = q0 + 4 * c4;
+      if (pp >= N || qa >= N) continue;
+      float hbr[4] = {0.f, 0.f, 0.f, 0.f}, hbi[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int pr = 0; pr < npairs; ++pr) {
+#pragma unroll
+        for (int b = 0; b < BC; ++b) {
+          const int mr = (pr * 2) * BC + b, mi = mr + BC;
+          const float cr = Pc[mr * HTILE_P + pl], ci = Pc[mi * HTILE_P + pl];
+          const float4 u4r =
+              *reinterpret_cast<const float4*>(Pu + mr * HTILE_Q + 4 * c4);
+          const float4 u4i =
+              *reinterpret_cast<const float4*>(Pu + mi * HTILE_Q + 4 * c4);
+          const float ur[4] = {u4r.x, u4r.y, u4r.z, u4r.w};
+          const float ui[4] = {u4i.x, u4i.y, u4i.z, u4i.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hbr[e] = fmaf(cr, ui[e], hbr[e]);
+            hbr[e] = fmaf(-ci, ur[e], hbr[e]);
+            hbi[e] = fmaf(cr, ur[e], hbi[e]);
+            hbi[e] = fmaf(ci, ui[e], hbi[e]);
+          }
+        }
+      }
+      const size_t o = (size_t)pp * N + qa;
+      if (vec) {
+        float4* wr = reinterpret_cast<float4*>(Hbr + o);
+        float4* wi = reinterpret_cast<float4*>(Hbi + o);
+        float4 ar = make_float4(hbr[0], hbr[1], hbr[2], hbr[3]);
+        float4 ai = make_float4(hbi[0], hbi[1], hbi[2], hbi[3]);
+        if (!first) {
+          const float4 br = __ldcg(wr), bi = __ldcg(wi);
+          ar = make_float4(br.x + ar.x, br.y + ar.y, br.z + ar.z,
+                           br.w + ar.w);
+          ai = make_float4(bi.x + ai.x, bi.y + ai.y, bi.z + ai.z,
+                           bi.w + ai.w);
+        }
+        *wr = ar;
+        *wi = ai;
+      } else {
+        for (int e = 0; e < 4 && qa + e < N; ++e) {
+          Hbr[o + e] = first ? hbr[e] : __ldcg(Hbr + o + e) + hbr[e];
+          Hbi[o + e] = first ? hbi[e] : __ldcg(Hbi + o + e) + hbi[e];
+        }
+      }
+    }
+  }
+  if (Hr != nullptr) {  // row q of H^T: HTILE_P floats from column pp = p0
+    constexpr int QP = HTILE_P / 4;
+    for (int idx = tid; idx < HTILE_Q * QP; idx += nth) {
+      const int ql = idx / QP, c4 = idx - ql * QP;
+      const int q = q0 + ql, pa = p0 + 4 * c4;
+      if (q >= N || pa >= N) continue;
+      const float* tr = Tr + ql * HTILE_LD + 4 * c4;
+      const float* ti = Ti + ql * HTILE_LD + 4 * c4;
+      *reinterpret_cast<float4*>(HT + (size_t)q * ldr + pa) =
+          make_float4(tr[0], tr[1], tr[2], tr[3]);
+      *reinterpret_cast<float4*>(HT + NL + (size_t)q * ldr + pa) =
+          make_float4(ti[0], ti[1], ti[2], ti[3]);
+    }
+  }
+  __syncthreads();      // the scratch is free for the next tile
+}
+
+}  // namespace
+
+// Backward, 'helpers' schedule: the chain schedule's contract (inputs, g0,
+// Hb, the tracks and each step's chain in the same order), with the
+// replay, the pass and the column band's transposition beside the chain
+// (see above). ring, flags: the groups' hand-off memory and counters, sized
+// by the wrapper.
+template <int BC>
+__global__ void __launch_bounds__(SM_MAX_THREADS)
+stream_mid_bwd_helpers(
+    const float* __restrict__ gHr, const float* __restrict__ gHi,
+    const float* __restrict__ x0r, const float* __restrict__ x0i,
+    const float* __restrict__ hr, const float* __restrict__ hi,
+    const float* __restrict__ jr, const float* __restrict__ ji,
+    const float* __restrict__ gTr, const float* __restrict__ gTi,
+    const float* __restrict__ rows, const float* __restrict__ ksr,
+    const float* __restrict__ ksi, float* __restrict__ g0r,
+    float* __restrict__ g0i, float* __restrict__ Hbr,
+    float* __restrict__ Hbi, float* ring, int* flags, SMDims d, SMHelp s) {
+  extern __shared__ __align__(16) float sm[];
+  const cg::cluster_group cl = cg::this_cluster();
+  int* hdr = reinterpret_cast<int*>(sm);
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  if (rank == 0 && tid == 0) hdr[0] = atomicAdd(flags, 1);
+  cl.sync();
+  const int ticket = *cl.map_shared_rank(hdr, 0);
+  cl.sync();    // rank 0's ticket is read before any CTA moves on
+  const int roles = s.nrep + 1 + s.helpers;
+  const int grp = ticket / roles, role = ticket - grp * roles;
+
+  const int N = d.N, R = d.R, nt = d.nt, it = d.iters, G = d.G;
+  const int ldr = s.ldr;
+  const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
+  const bool replay = d.store == 0 && it > 0;
+  const bool stored = d.store != 0 && it > 0;
+  const int e = grp / d.tracks, l = grp - e * d.tracks;
+  const int S = (d.nchunks - l + d.tracks - 1) / d.tracks * nt;
+  const size_t NL = (size_t)N * ldr, BNv = (size_t)BC * N;
+  const size_t BN = (size_t)d.B * N, NN = (size_t)N * N;
+  const int BI = BC * R;
+  const size_t hslot = 2 * NL, pslot = (size_t)(it + 1) * 4 * BNv;
+  const size_t kslot = (size_t)it * 2 * BNv;
+  float* HTring = ring + grp * help_ring_floats(BC, N, it, replay);
+  float* Pring = HTring + 2 * hslot;
+  float* Kring = Pring + 2 * pslot;
+  int* claimw = flags + 1 + grp * help_flag_ints(s.S);
+  int* full = claimw + 1;
+  int* empty = full + HELP_W;
+  int* claimed = empty + HELP_W;
+  int* done = claimed + s.S + 2;
+  int* ready = done + s.S + 2;
+  // step st of the group's sequence: its chunk and time step
+  auto chunk_of = [&](int st) { return l + d.tracks * (st / nt); };
+  auto t_of = [&](int st) { return nt - 1 - st % nt; };
+  SMBand gb;      // this CTA's band of the group's candidate
+  gb.e = e;
+  gb.r0 = rank * R;
+  gb.nr = min(R, N - gb.r0);
+
+  // the tiles of pass i this CTA can claim, until none is left
+  auto run_pass = [&](int i, float* ts) {
+    const bool tr = i < S, hb = i >= 2 && i - 2 < S;
+    if (!tr && !hb) return;
+    if (hb) {     // step i - 2's pairs, and the previous chunk's Hb(t)
+      if (tid == 0) {
+        wait_count(ready + i - 2, G);
+        if (i - 2 >= nt) wait_count(done + i - nt, s.ntiles);
+      }
+      __syncthreads();
+    }
+    const float *Hr = nullptr, *Hi = nullptr;
+    if (tr) {
+      Hr = plane_rows(gHr, d, e, t_of(i), 0);
+      Hi = plane_rows(gHi, d, e, t_of(i), 0);
+    }
+    float *br = nullptr, *bi = nullptr;
+    if (hb) {
+      const size_t ho = (((size_t)e * d.tracks + l) * nt + t_of(i - 2)) * NN;
+      br = Hbr + ho;
+      bi = Hbi + ho;
+    }
+    for (;;) {
+      if (tid == 0) hdr[1] = atomicAdd(claimed + i, 1);
+      __syncthreads();
+      const int tile = hdr[1];
+      __syncthreads();
+      if (tile >= s.ntiles) break;
+      help_tile<BC>(Hr, Hi, HTring + (i & 1) * hslot, ldr,
+                    hb ? Pring + (i & 1) * pslot : nullptr, it + 1, br, bi,
+                    i - 2 < nt, N, tile, s.tq, ts);
+      if (tid == 0) signal_count(done + i);
+    }
+  };
+
+  auto owned = [&](int nr, auto fn) {
+    for (int il = warp; il < nr; il += nwarps)
+      if (lane < BC) fn(il, lane, lane * R + il);
+  };
+  auto put = [&](float* buf, int b, int il, float vr, float vi) {
+    push(cl, buf + b * N + gb.r0 + il, vr, G);
+    push(cl, buf + BNv + b * N + gb.r0 + il, vi, G);
+  };
+  // the stage chain of one step from the pre-state pushed into exchange
+  // buffer p & 1 (the chain schedule's replay): k_j of entry (b, il) to
+  // out(j, il, b, kr, ki); p counts the exchanges
+  auto replay_step = [&](float* X, float* Bb, float* Kb, const float* rw,
+                         const float* Rr, const float* Ri, int nr, int& p,
+                         auto out) {
+    for (int j = 0; j < it; ++j) {
+      const float* Vr = X + 2 * (p & 1) * BNv;
+      float* Vn = X + 2 * ((p + 1) & 1) * BNv;
+      rows_dot<BC, false>(
+          Rr, Ri, N, nr, Vr, Vr + BNv, N, warp, nwarps, lane,
+          [&](int il, int b, float sr, float si) {
+            const int ib = b * R + il;
+            const float tr = si, ti = -sr;
+            float kr = Kb[ib], ki = Kb[BI + ib];
+            if (j == 0) {
+              Bb[ib] = tr;
+              Bb[BI + ib] = ti;
+              mid_first(jac, rw, R, il, tr, ti, kr, ki);
+            } else {
+              mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
+                       ki);
+            }
+            Kb[ib] = kr;
+            Kb[BI + ib] = ki;
+            out(j, il, b, kr, ki);
+            if (j + 1 < it) put(Vn, b, il, kr, ki);
+          });
+      ++p;
+      if (j + 1 < it) cl.sync();
+    }
+  };
+  // the pre-state of step t of the chunk at g, rotated where split
+  auto pre_state = [&](const SMBand& g, int t, int il, int b, float& xr,
+                       float& xi, const float* rw) {
+    xr = xi = 0.f;
+    if (b < g.nb) {
+      const size_t col = (size_t)(g.b0 + b) * N + g.r0 + il;
+      const size_t st = (size_t)e * nt + t;
+      xr = t == 0 ? x0r[col] : hr[(st - 1) * BN + col];
+      xi = t == 0 ? x0i[col] : hi[(st - 1) * BN + col];
+    }
+    if (split) cmul(rw[il], rw[R + il], xr, xi);
+  };
+  const int nrows = jac ? 4 : split ? 2 : 0;
+
+  if (role > s.nrep) {          // a helper: the passes in order
+    for (int i = 0; i < S + 2; ++i) run_pass(i, sm + 8);
+    return;
+  }
+
+  if (role < s.nrep) {          // the replay: iterates into the ring
+    float* X = sm + 8;          // two exchange buffers x (re, im) x BC x N
+    float* Bb = X + 4 * BNv;    // the bands of b, k
+    float* Kb = Bb + 2 * BI;
+    float* rw = Kb + 2 * BI;    // solver rows, 4 x R
+    float* Hs = sm + 8 + pad4(4 * BNv + 4 * (size_t)BI + 4 * (size_t)R);
+    const size_t bandf = sm_band_floats(N, R, false, false);
+    const size_t rowp = pad4((size_t)R * N);
+    for (int i = tid; i < nrows * R; i += blockDim.x) {
+      const int m = i / R, il = i - m * R;
+      if (il < gb.nr) rw[i] = rows[m * N + gb.r0 + il];
+    }
+    auto fetch = [&](int st) {  // the row band of step st's H into its slot
+      float* dst = Hs + (s.rslots > 1 ? (st & 1) : 0) * bandf;
+      copy_run(dst, plane_rows(gHr, d, e, t_of(st), gb.r0), gb.nr * N);
+      copy_run(dst + rowp, plane_rows(gHi, d, e, t_of(st), gb.r0),
+               gb.nr * N);
+      cp_commit();
+    };
+    if (s.rslots == 2 && S > 0) fetch(0);
+    __syncthreads();
+    int p = 0;
+    for (int st = 0; st < S; ++st) {
+      const int sl = st % HELP_W, t = t_of(st);
+      const SMBand g = sm_chunk(gb, d, BC, chunk_of(st));
+      if (st == HELP_W) {       // the chain has not claimed: hand over
+        if (rank == 0 && tid == 0) {
+          const int was = atomicCAS(claimw, 0, HELP_W + 1);
+          hdr[2] = ((was == 0 ? HELP_W + 1 : was) & ~CLAIMED) == HELP_W + 1;
+        }
+        cl.sync();
+        if (*cl.map_shared_rank(hdr + 2, 0)) break;
+      }
+      if (st >= HELP_W) {       // the chain has emptied step st - HELP_W
+        if (tid == 0) wait_count(empty + sl, G * (st / HELP_W));
+        __syncthreads();
+      }
+      const float *Rr, *Ri;
+      if (s.rslots == 0) {
+        Rr = plane_rows(gHr, d, e, t, gb.r0);
+        Ri = plane_rows(gHi, d, e, t, gb.r0);
+      } else {
+        __syncthreads();        // step st - 1's stages are done with H
+        if (s.rslots == 1) {
+          fetch(st);
+          cp_wait_group<0>();
+        } else if (st + 1 < S) {
+          fetch(st + 1);
+          cp_wait_group<1>();
+        } else {
+          cp_wait_group<0>();
+        }
+        __syncthreads();        // H(t)'s row band is in its slot
+        Rr = Hs + (s.rslots > 1 ? (st & 1) : 0) * bandf;
+        Ri = Rr + rowp;
+      }
+      float* Ks = Kring + sl * kslot;
+      float* Xp = X + 2 * (p & 1) * BNv;
+      owned(g.nr, [&](int il, int b, int ib) {
+        float xr, xi;
+        pre_state(g, t, il, b, xr, xi, rw);
+        put(Xp, b, il, xr, xi);
+      });
+      cl.sync();
+      replay_step(X, Bb, Kb, rw, Rr, Ri, g.nr, p,
+                  [&](int j, int il, int b, float kr, float ki) {
+                    float* o = Ks + j * 2 * BNv + b * N + g.r0 + il;
+                    o[0] = kr;
+                    o[BNv] = ki;
+                  });
+      __syncthreads();
+      if (tid == 0) signal_count(full + sl);
+    }
+    cp_wait_group<0>();
+    cl.sync();    // no CTA leaves while another may still address it
+    return;
+  }
+
+  // the chain
+  float* X = sm + 8;                        // two exchange buffers
+  float* Gb = X + 4 * BNv;                  // the bands of g, kb, bb
+  float* KB = Gb + 2 * BI;
+  float* BB = KB + 2 * BI;
+  float* Bb = BB + 2 * BI;                  // replay: the bands of b, k
+  float* Kb = Bb + 2 * BI;
+  float* rw = BB + 2 * BI + (replay ? 4 * BI : 0);   // solver rows, 4 x R
+  float* OP = rw + 4 * R;                   // two slots of step operands
+  const int opw = (4 + 2 * (stored ? it : 0)) * BI;
+  float* region = sm + 8 + pad4(OP + 2 * opw - (sm + 8));
+  for (size_t i = 8 + tid; i < (size_t)(region - sm); i += blockDim.x)
+    sm[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < nrows * R; i += blockDim.x) {
+    const int m = i / R, il = i - m * R;
+    if (il < gb.nr) rw[i] = rows[m * N + gb.r0 + il];
+  }
+  if (replay && rank == 0 && tid == 0) {    // claim the group's replay
+    const int was = atomicOr(claimw, CLAIMED) & ~CLAIMED;
+    hdr[2] = was != 0 ? was - 1 : S;
+  }
+  // pair q's cotangent (cu = 0) or input (cu = 2) entry into the pairs ring
+  auto put_pair = [&](float* P, int q, int cu, int b, int il, float vr,
+                      float vi) {
+    float* o = P + (size_t)(q * 4 + cu) * BNv + b * N + gb.r0 + il;
+    o[0] = vr;
+    o[BNv] = vi;
+  };
+  // step st's operands (j, the pre-state, the stored iterates) into slot sl
+  // by their owners' cp.async, a step ahead
+  auto fetch = [&](int st) {
+    if (st >= S) return;
+    float* o = OP + (st & 1) * opw;
+    const SMBand g = sm_chunk(gb, d, BC, chunk_of(st));
+    const int t = t_of(st);
+    const size_t sq = (size_t)e * nt + t;
+    owned(g.nr, [&](int il, int b, int ib) {
+      if (b >= g.nb) return;
+      const size_t col = (size_t)(g.b0 + b) * N + g.r0 + il;
+      cp_async4(o + ib, jr + sq * BN + col);
+      cp_async4(o + BI + ib, ji + sq * BN + col);
+      cp_async4(o + 2 * BI + ib, t == 0 ? x0r + col : hr + (sq - 1) * BN + col);
+      cp_async4(o + 3 * BI + ib, t == 0 ? x0i + col : hi + (sq - 1) * BN + col);
+      if (stored)
+        for (int q = 0; q < it; ++q) {    // pair q's input is k_{it-1-q}
+          const size_t k = (sq * it + it - 1 - q) * BN + col;
+          cp_async4(o + (4 + 2 * q) * BI + ib, ksr + k);
+          cp_async4(o + (5 + 2 * q) * BI + ib, ksi + k);
+        }
+    });
+  };
+  fetch(0);
+  cl.sync();    // rank 0's claim; every CTA has zeroed its buffers
+  const int first = replay ? *cl.map_shared_rank(hdr + 2, 0) : S;
+
+  int p = 0;                      // exchanges so far
+  for (int st = 0; st < S; ++st) {
+    const int t = t_of(st), sl = st % HELP_W;
+    const SMBand g = sm_chunk(gb, d, BC, chunk_of(st));
+    const bool own = replay && st >= first;     // replays step t itself
+    const bool from_ring = replay && !own;
+    if (st % nt == 0)             // a chunk begins: its final cotangent
+      owned(g.nr, [&](int il, int b, int ib) {
+        const size_t o = ((size_t)e * d.B + g.b0 + b) * N + g.r0 + il;
+        Gb[ib] = b < g.nb ? gTr[o] : 0.f;
+        Gb[BI + ib] = b < g.nb ? gTi[o] : 0.f;
+      });
+    // H(t)^T: pass st, run by the helpers, or by this CTA where tiles are
+    // left (no claim where the helpers have done it)
+    if (tid == 0) hdr[3] = ld_acquire(done + st) >= s.ntiles;
+    __syncthreads();
+    if (!hdr[3]) {
+      run_pass(st, region);
+      if (tid == 0) wait_count(done + st, s.ntiles);
+    }
+    if (tid == 0 && from_ring) wait_count(full + sl, G * (st / HELP_W + 1));
+    __syncthreads();
+    const float* HTs = HTring + (st & 1) * hslot + (size_t)g.r0 * ldr;
+    const float *HTr = HTs, *HTi = HTs + NL;
+    if (s.hsmem) {          // the column band into shared memory
+      const int nb4 = g.nr * ldr / 4;
+      for (int i = tid; i < 2 * nb4; i += blockDim.x) {
+        const int m = i / nb4, o = 4 * (i - m * nb4);
+        cp_async16_l2(region + (size_t)m * R * ldr + o, HTs + m * NL + o);
+      }
+      HTr = region;
+      HTi = region + (size_t)R * ldr;
+    }
+    cp_async_wait();        // the band, and this thread's operands of step st
+    float* Pw = Pring + (st & 1) * pslot;       // this step's pairs
+    const float* o = OP + (st & 1) * opw;
+    const float* Ks = Kring + sl * kslot;
+    float* Xp = X + 2 * (p & 1) * BNv;
+    owned(g.nr, [&](int il, int b, int ib) {
+      float gr = Gb[ib], gi = Gb[BI + ib], xr = 0.f, xi = 0.f;
+      if (b < g.nb) {
+        gr += o[ib];
+        gi += o[BI + ib];
+        xr = o[2 * BI + ib];
+        xi = o[3 * BI + ib];
+      }
+      if (split) {          // cotangent and pre-state into the rotated frame
+        cmul_conj(rw[il], rw[R + il], gr, gi);
+        cmul(rw[il], rw[R + il], xr, xi);
+      }
+      Gb[ib] = gr;
+      Gb[BI + ib] = gi;
+      put_pair(Pw, it, 2, b, il, xr, xi);
+      for (int q = 0; q < it && !own; ++q) {  // pair q's input: k_{it-1-q}
+        float ur = 0.f, ui = 0.f;
+        if (from_ring) {
+          const float* k = Ks + (it - 1 - q) * 2 * BNv + b * N + g.r0 + il;
+          ur = __ldcg(k);
+          ui = __ldcg(k + BNv);
+        } else if (b < g.nb) {
+          ur = o[(4 + 2 * q) * BI + ib];
+          ui = o[(5 + 2 * q) * BI + ib];
+        }
+        put_pair(Pw, q, 2, b, il, ur, ui);
+      }
+      if (own) put(Xp, b, il, xr, xi);
+    });
+    fetch(st + 1);
+    if (from_ring) {        // the slot is read: the replay may refill it
+      __syncthreads();
+      if (tid == 0) signal_count(empty + sl);
+    }
+    if (own) {              // k_0..k_{it-1} from xp, on the row band in L2
+      cl.sync();
+      replay_step(X, Bb, Kb, rw, plane_rows(gHr, d, e, t, g.r0),
+                  plane_rows(gHi, d, e, t, g.r0), g.nr, p,
+                  [&](int j, int il, int b, float kr, float ki) {
+                    put_pair(Pw, it - 1 - j, 2, b, il, kr, ki);
+                  });
+    }
+    // the transposed chain: pair q < it has cotangent a kb (its input
+    // k_{it-1-q}), pair it the cotangent bb (its input xp)
+    owned(g.nr, [&](int il, int b, int ib) {
+      KB[ib] = d.dt * Gb[ib];
+      KB[BI + ib] = d.dt * Gb[BI + ib];
+      BB[ib] = BB[BI + ib] = 0.f;
+    });
+    for (int q = 0; q <= it; ++q) {
+      float* cq = X + 2 * (p & 1) * BNv;
+      owned(g.nr, [&](int il, int b, int ib) {
+        float kr = KB[ib], ki = KB[BI + ib];
+        if (jac) cmul_conj(rw[2 * R + il], rw[3 * R + il], kr, ki);   // Wt
+        const float br = BB[ib] + kr, bi = BB[BI + ib] + ki;
+        BB[ib] = br;
+        BB[BI + ib] = bi;
+        const float cr = q < it ? d.a * kr : br;
+        const float ci = q < it ? d.a * ki : bi;
+        put(cq, b, il, cr, ci);
+        put_pair(Pw, q, 0, b, il, cr, ci);
+      });
+      cl.sync();
+      auto stage = [&](int il, int b, float sr, float si) {
+        const int ib = b * R + il;
+        float tr = -si, ti = sr;           // Tt(c) from conj(H)^T c
+        if (q < it) {
+          if (jac) {      // minus the transpose of v -> d v
+            const float cr = cq[b * N + g.r0 + il];
+            const float ci = cq[BNv + b * N + g.r0 + il];
+            tr -= rw[il] * cr + rw[R + il] * ci;
+            ti -= rw[il] * ci - rw[R + il] * cr;
+          }
+          KB[ib] = tr;
+          KB[BI + ib] = ti;
+        } else {
+          float gr = Gb[ib] + tr, gi = Gb[BI + ib] + ti;
+          if (split) cmul_conj(rw[il], rw[R + il], gr, gi);
+          Gb[ib] = gr;
+          Gb[BI + ib] = gi;
+        }
+      };
+      if (s.hsmem)
+        rows_dot<BC, true>(HTr, HTi, ldr, g.nr, cq, cq + BNv, N, warp,
+                           nwarps, lane, stage);
+      else
+        rows_dot_l2<BC, true>(HTr, HTi, ldr, g.nr, cq, cq + BNv, N, warp,
+                              nwarps, lane, stage);
+      ++p;
+    }
+    __syncthreads();
+    if (tid == 0) signal_count(ready + st);     // the step's pairs
+    if (st % nt == nt - 1)        // the chunk's x0 cotangent
+      owned(g.nr, [&](int il, int b, int ib) {
+        if (b < g.nb) {
+          const size_t o = ((size_t)e * d.B + g.b0 + b) * N + g.r0 + il;
+          g0r[o] = Gb[ib];
+          g0i[o] = Gb[BI + ib];
+        }
+      });
+  }
+  // the Hb of the last two steps' pairs, where no helper took it
+  run_pass(S, region);
+  run_pass(S + 1, region);
+  cl.sync();    // no CTA leaves while another may still address it
+}
+
 // Plain C entry points, bound from Python with ctypes. Each launches on the
 // given stream a grid of clusters of G CTAs, E * ceil(B / BC) for the
 // forward and E * tracks for the backward, and returns cudaGetLastError() (0
@@ -624,9 +1324,13 @@ stream_mid_bwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
 // in {1, 2, 4, 8, 16} or past N bands, BC not in {1, 2, 4, 8}, threads not
 // whole warps up to SM_MAX_THREADS, slots not in {0, 1, 2}, tracks not in
 // [1, ceil(B / BC)], shared memory below the layout or above 227 KB, or the
-// backward's global layout without scratch. The launch configuration and
-// the clusters the card holds: mid_cluster.cuh's cluster_config and
-// max_clusters.
+// backward's global layout without scratch. The backward's helpers >= 0
+// takes its 'helpers' schedule: E * tracks * (nrep + 1 + helpers) clusters
+// (nrep 1 with replayed iterates, else 0), hsmem and rslots its layout
+// (help_floats), ring and flags as the kernel reads them (flags zeroed;
+// slots and scratch unused); -1 the chain schedule. The launch
+// configuration and the clusters the card holds: mid_cluster.cuh's
+// cluster_config and max_clusters.
 namespace {
 
 // The dims of a launch, or false for a shape the kernels do not take.
@@ -695,6 +1399,49 @@ int launch_bwd(const void* Hr, const void* Hi, const void* x0r,
   return (int)cudaGetLastError();
 }
 
+// The 'helpers' schedule's dims of a launch, or false for a shape it does
+// not take.
+bool help_dims(SMHelp& s, const SMDims& d, int BC, int helpers, int hsmem,
+               int rslots, int smem_bytes, const void* ring,
+               const void* flags) {
+  const bool replay = d.store == 0 && d.iters > 0;
+  if (ring == nullptr || flags == nullptr || helpers < 0 || helpers > 64 ||
+      rslots < 0 || rslots > 2 || (size_t)smem_bytes <
+          4 * help_floats(BC, d.N, d.R, d.iters, replay,
+                          d.store != 0 && d.iters > 0, hsmem != 0, rslots))
+    return false;
+  const int tq = (d.N + HTILE_Q - 1) / HTILE_Q;
+  s = SMHelp{helpers, replay ? 1 : 0, hsmem != 0, rslots, help_ldr(d.N), tq,
+             (d.N + HTILE_P - 1) / HTILE_P * tq,
+             (d.nchunks + d.tracks - 1) / d.tracks * d.nt};
+  return true;
+}
+
+template <int BC>
+int launch_bwd_helpers(const void* Hr, const void* Hi, const void* x0r,
+                       const void* x0i, const void* hr, const void* hi,
+                       const void* jr, const void* ji, const void* gTr,
+                       const void* gTi, const void* rows, const void* ksr,
+                       const void* ksi, void* g0r, void* g0i, void* Hbr,
+                       void* Hbi, void* ring, void* flags, const SMDims& d,
+                       const SMHelp& s, int threads, int smem_bytes,
+                       void* stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      stream_mid_bwd_helpers<BC>, attr,
+      d.E * d.tracks * (s.nrep + 1 + s.helpers), d.G, threads, smem_bytes,
+      (cudaStream_t)stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stream_mid_bwd_helpers<BC>, (const float*)Hr, (const float*)Hi,
+      (const float*)x0r, (const float*)x0i, (const float*)hr,
+      (const float*)hi, (const float*)jr, (const float*)ji,
+      (const float*)gTr, (const float*)gTi, (const float*)rows,
+      (const float*)ksr, (const float*)ksi, (float*)g0r, (float*)g0i,
+      (float*)Hbr, (float*)Hbi, (float*)ring, (int*)flags, d, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <bool HIST>
 int fwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
             const void* rows, void* xTr, void* xTi, void* hr, void* hi,
@@ -725,8 +1472,29 @@ int bwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
             const void* ksr, const void* ksi, void* g0r, void* g0i,
             void* Hbr, void* Hbi, void* scratch, int E, int nt, int B, int N,
             int iters, int mode, int store, float dt, float a, int G, int BC,
-            int threads, int smem_bytes, int slots, int tracks, void* stream) {
+            int threads, int smem_bytes, int slots, int tracks, void* stream,
+            int helpers, int hsmem, int rslots, void* ring, void* flags) {
   SMDims d;
+  if (helpers >= 0) {
+    SMHelp s;
+    if (!sm_dims(d, E, nt, B, N, iters, mode, store, dt, a, G, BC, threads,
+                 227 * 1024, 0, tracks, true, ring) ||
+        !help_dims(s, d, BC, helpers, hsmem, rslots, smem_bytes, ring,
+                   flags) ||
+        smem_bytes > 227 * 1024 || (store && iters > 0 && ksr == nullptr))
+      return (int)cudaErrorInvalidValue;
+#define SM_HELP_ARGS                                                        \
+  Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr, ksi, g0r, g0i, Hbr, \
+      Hbi, ring, flags, d, s, threads, smem_bytes, stream
+    switch (BC) {
+      case 1: return launch_bwd_helpers<1>(SM_HELP_ARGS);
+      case 2: return launch_bwd_helpers<2>(SM_HELP_ARGS);
+      case 4: return launch_bwd_helpers<4>(SM_HELP_ARGS);
+      case 8: return launch_bwd_helpers<8>(SM_HELP_ARGS);
+    }
+#undef SM_HELP_ARGS
+    return (int)cudaErrorInvalidValue;
+  }
   if (!sm_dims(d, E, nt, B, N, iters, mode, store, dt, a, G, BC, threads,
                smem_bytes, slots, tracks, true, scratch) ||
       (store && iters > 0 && ksr == nullptr))
@@ -759,14 +1527,16 @@ int bwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
       const void *ksi, void *g0r, void *g0i, void *Hbr, void *Hbi,          \
       void *scratch, int E, int nt, int B, int N, int iters, int mode,      \
       int store, float dt, float a, int G, int BC, int threads,             \
-      int smem_bytes, int slots, int tracks, void *stream
+      int smem_bytes, int slots, int tracks, void *stream, int helpers,     \
+      int hsmem, int rslots, void *ring, void *flags
 #define SM_FWD_CALL                                                         \
   Hr, Hi, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, E, nt, B, N, iters,   \
       mode, store, dt, a, G, BC, threads, smem_bytes, slots, stream
 #define SM_BWD_CALL                                                         \
   Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr, ksi, g0r, g0i,     \
       Hbr, Hbi, scratch, E, nt, B, N, iters, mode, store, dt, a, G, BC,     \
-      threads, smem_bytes, slots, tracks, stream
+      threads, smem_bytes, slots, tracks, stream, helpers, hsmem, rslots,   \
+      ring, flags
 
 // B3: any solver, stored or replayed stage iterates.
 extern "C" int stream_mid_fwd_launch(SM_FWD_PARAMS) {
@@ -796,15 +1566,18 @@ extern "C" int dense_mid_fwd_launch(SM_FWD_PARAMS) {
 }
 
 // How many clusters of G CTAs of one kernel (kind 0: the forward with
-// history, 1: without, 2: the backward) of instance BC, with `threads`
+// history, 1: without, 2: the backward's chain schedule, 3: its 'helpers'
+// schedule) of instance BC, with `threads`
 // threads and smem_bytes of shared memory each, the card can hold at once;
 // 0 where it holds none (the launch would fail).
 extern "C" int stream_mid_max_clusters(int kind, int BC, int G, int threads,
                                        int smem_bytes) {
 #define SM_MAX(bc)                                                          \
   case bc:                                                                  \
-    return kind == 2 ? max_clusters(stream_mid_bwd<bc>, G, threads,         \
+    return kind == 3 ? max_clusters(stream_mid_bwd_helpers<bc>, G, threads, \
                                     smem_bytes)                             \
+           : kind == 2 ? max_clusters(stream_mid_bwd<bc>, G, threads,       \
+                                      smem_bytes)                           \
            : kind == 1                                                      \
                ? max_clusters(stream_mid_fwd<bc, false>, G, threads,        \
                               smem_bytes)                                   \

@@ -392,28 +392,191 @@ def mid_tracks(E, B, N, nt, G, bc):
     return max(1, min(chunks, fill, room))
 
 
+# The mid backward's 'helpers' schedule (csrc/stream_mid.cu
+# stream_mid_bwd_helpers): the chain clusters run only each step's operand
+# loads and its transposed chain; a replay cluster per chain cluster
+# (replayed iterates) fills a ring of MID_HELP_W steps of stage iterates
+# ahead of it, and helper clusters, with the chain's own CTAs for any tile
+# left, run each step's pass in tiles of the whole matrix: H(t) copied
+# transposed into a two-slot ring in device memory, from which the chain
+# reads its column band, and Hb of the step two back from a two-slot ring
+# of the chain's (cotangent, input) pairs. It takes the chain schedule's G,
+# Bc and tracks, so Hb keeps its bits between the schedules.
+MID_SCHEDULES = ("helpers", "chain")
+MID_HELP_TILE = (32, 64)            # a pass tile: rows x columns
+MID_HELP_W = 4                      # steps of the iterate ring
+
+
+def _help_ldr(N):
+    """Row stride of the H^T ring: N rounded up to 4."""
+    return -(-N // 4) * 4
+
+
+def _help_tile_floats(bc, it):
+    """csrc/stream_mid.cu help_tile_floats: a pass tile's scratch."""
+    P, Q = MID_HELP_TILE
+    return 2 * Q * (P + 1) + (it + 1) * 2 * bc * (P + Q)
+
+
+def _help_floats(bc, N, R, it, replay, stored, hsmem, rslots):
+    """csrc/stream_mid.cu help_floats: a CTA's shared memory in floats on
+    the helpers schedule, the chain's column band in it (hsmem) or not, the
+    replay's row band in `rslots` slots."""
+    head = (4 * bc * N + (10 if replay else 6) * bc * R + 4 * R
+            + 2 * (4 + 2 * (it if stored else 0)) * bc * R)
+    tile = _help_tile_floats(bc, it)
+    chain = _pad4(head) + max(2 * R * _help_ldr(N) if hsmem else 0, tile)
+    rep = (_pad4(4 * bc * N + 4 * bc * R + 4 * R)
+           + rslots * _mid_band_floats(N, R, False, False)) if replay else 0
+    return 8 + max(chain, rep, tile)
+
+
+def _mid_help_shape(E, B, N, iters, store, layout=None):
+    """(G, Bc, threads, shared-memory bytes, layout, replay slots) of the
+    backward's helpers schedule, or None where it does not fit a CTA: the
+    chain schedule's G, Bc and threads (_mid_shape); layout 'smem' where
+    the chain's column band fits shared memory beside the rest (copied in
+    from the ring), else 'global' (read from the ring in L2); the replay's
+    row band in the most slots of shared memory (2, 1) that fit, else 0
+    (read from the planes). `layout` 'global' forces both into L2."""
+    shape = _mid_shape(E, B, N, iters, store, True)
+    if shape is None:
+        return None
+    G, bc, threads = shape[:3]
+    R = -(-N // G)
+    replay, stored = not store and iters > 0, store and iters > 0
+    fits = lambda h, rs: 4 * _help_floats(bc, N, R, iters, replay, stored,
+                                          h, rs) <= _MAX_SMEM
+    hsmem = layout != "global" and fits(True, 0)
+    rslots = next((n for n in (2, 1) if replay and layout != "global"
+                   and fits(hsmem, n)), 0)
+    if not fits(hsmem, rslots):
+        return None
+    return (G, bc, threads,
+            4 * _help_floats(bc, N, R, iters, replay, stored, hsmem, rslots),
+            "smem" if hsmem else "global", rslots)
+
+
+def _help_ring_floats(bc, N, it, replay):
+    """csrc/stream_mid.cu help_ring_floats: a group's two slots of H^T, two
+    of the step's pairs and, with replay, MID_HELP_W of stage iterates."""
+    return (4 * N * _help_ldr(N) + 2 * (it + 1) * 4 * bc * N
+            + (MID_HELP_W * it * 2 * bc * N if replay else 0))
+
+
+def _help_flag_ints(S):
+    """csrc/stream_mid.cu help_flag_ints: a group's counters for a sequence
+    of S steps."""
+    return 1 + 2 * MID_HELP_W + 3 * (S + 2)
+
+
+def _help_groups(E, B, N, iters, nt, store):
+    """(groups, steps of the longest track's sequence) of the helpers
+    schedule: one group per (candidate, track)."""
+    G, bc = _mid_shape(E, B, N, iters, store, True)[:2]
+    tracks = mid_tracks(E, B, N, nt, G, bc)
+    return E * tracks, -(-(-(-B // bc)) // tracks) * nt
+
+
+def _mid_bwd_scratch(E, B, N, iters, nt, store, schedule):
+    """Device bytes of the mid backward's own scratch on a schedule: the
+    tracks' partial plane cotangents (more than one track); 'chain' its
+    column bands in the global layout, 'helpers' the groups' rings and
+    counters."""
+    shape = _mid_shape(E, B, N, iters, store, True)
+    if shape is None:
+        return 0
+    G, bc, _, _, layout = shape
+    tracks = mid_tracks(E, B, N, nt, G, bc)
+    more = 2 * E * tracks * nt * N * N * 4 if tracks > 1 else 0
+    if schedule == "helpers":
+        groups, S = _help_groups(E, B, N, iters, nt, store)
+        more += 4 * (groups * _help_ring_floats(bc, N, iters,
+                                                not store and iters > 0)
+                     + 1 + groups * _help_flag_ints(S))
+    elif layout == "global":
+        more += 4 * E * tracks * G * 2 * _pad4(-(-N // G) * (N + 1))
+    return more
+
+
+def mid_helpers_fit(E, B, N, iters, nt, store, kind="stream"):
+    """Whether the backward's helpers schedule can run: its layout fits a
+    CTA, the chain clusters (E x tracks of G CTAs) leave the card's SMs
+    (streamk.MID_SMS) room for at least one more cluster each (a replay or
+    a helper), and its rings keep the sweep within
+    streamk.DEVICE_BUDGET_BYTES."""
+    shape = _mid_help_shape(E, B, N, iters, store)
+    if shape is None:
+        return False
+    groups = _help_groups(E, B, N, iters, nt, store)[0]
+    return (2 * groups * shape[0] <= streamk.MID_SMS
+            and mid_sweep_bytes(E, B, N, iters, nt, store, kind, "helpers")
+            <= streamk.DEVICE_BUDGET_BYTES)
+
+
+def mid_helper_clusters(groups, G, holds, replay):
+    """Helper clusters per group of the helpers schedule: as many as the SMs
+    the `groups` chain clusters of G CTAs and their replay clusters (with
+    `replay`) leave idle, at most streamk.MID_MAX_HELPERS, and no more than
+    the card holds beside them (`holds` clusters of the launch's shape at
+    once); -1 where no second cluster fits beside each chain cluster."""
+    cap = min(streamk.MID_SMS // (groups * G), holds // groups)
+    if cap < 2:
+        return -1
+    return min(streamk.MID_MAX_HELPERS, cap - 1 - int(replay))
+
+
+def mid_bwd_schedule(E, B, N, iters, nt, store, kind="stream", forced=None,
+                     holds=None):
+    """The mid backward's schedule: `forced` as it is where it fits (the
+    card tests and scripts compare them; one that does not, or 'helpers'
+    where its rings would take the sweep past
+    streamk.DEVICE_BUDGET_BYTES, raising ValueError); else 'helpers' where
+    mid_helpers_fit and the card holds a replay or helper cluster per chain
+    cluster beside them (`holds`: clusters of the helpers launch's shape
+    the card holds at once; None reads no card), else 'chain' (the card is
+    full: each cluster runs its replay and pass in its chain). A size rule:
+    stored and replayed iterates of one size take one schedule where the
+    card holds them."""
+    if forced is not None:
+        ok = forced in MID_SCHEDULES and _mid_shape(
+            E, B, N, iters, store, True) is not None
+        if forced == "helpers":
+            ok = ok and _mid_help_shape(E, B, N, iters, store) is not None \
+                and mid_sweep_bytes(E, B, N, iters, nt, store, kind,
+                                    "helpers") <= streamk.DEVICE_BUDGET_BYTES
+        if not ok:
+            raise ValueError(f"{kind}_mid_bwd: schedule {forced!r} does not "
+                             f"fit (N = {N}, B = {B}, E = {E}, ntime = {nt})")
+        return forced
+    if not mid_helpers_fit(E, B, N, iters, nt, store, kind):
+        return "chain"
+    if holds is not None:
+        groups = _help_groups(E, B, N, iters, nt, store)[0]
+        G = _mid_shape(E, B, N, iters, store, True)[0]
+        if mid_helper_clusters(groups, G, holds,
+                               not store and iters > 0) < 0:
+            return "chain"
+    return "helpers"
+
+
 def _mid_directions(kind):
     return (False,) if kind == "dense" else (False, True)
 
 
-def mid_sweep_bytes(E, B, N, iters, nt, store, kind="stream"):
+def mid_sweep_bytes(E, B, N, iters, nt, store, kind="stream",
+                    schedule=None):
     """Device bytes of one sweep's own tensors on the mid pair besides the
     planes and their cotangent: the history and its cotangent, the stored
-    stage iterates and, of the backward, the tracks' partial plane
-    cotangents (more than one track) and the column bands' scratch (global
-    layout)."""
+    stage iterates and the backward's scratch on `schedule`
+    (_mid_bwd_scratch; default: the one mid_bwd_schedule picks without
+    reading the card)."""
     if kind == "dense":
         return 0
     total = streamk.history_bytes(E, B, N, iters, nt, store)
-    shape = _mid_shape(E, B, N, iters, store, True)
-    if shape is None:
-        return total
-    G, bc, _, _, layout = shape
-    tracks = mid_tracks(E, B, N, nt, G, bc)
-    more = 2 * E * tracks * nt * N * N * 4 if tracks > 1 else 0
-    if layout == "global":
-        more += 4 * E * tracks * G * 2 * _pad4(-(-N // G) * (N + 1))
-    return total + more
+    if schedule is None:
+        schedule = mid_bwd_schedule(E, B, N, iters, nt, store, kind)
+    return total + _mid_bwd_scratch(E, B, N, iters, nt, store, schedule)
 
 
 def mid_refusal(E, B, N, iters, nt, store, kind="stream"):
@@ -445,8 +608,8 @@ def mid_refusal(E, B, N, iters, nt, store, kind="stream"):
     need = mid_sweep_bytes(E, B, N, iters, nt, store, kind)
     if need > streamk.DEVICE_BUDGET_BYTES:
         return (f"stream mid kernels: a sweep's history, cotangents, stored "
-                f"iterates, partial plane cotangents and scratch take {need} "
-                f"bytes of device memory, past DEVICE_BUDGET_BYTES = "
+                f"iterates, partial plane cotangents, scratch and rings take "
+                f"{need} bytes of device memory, past DEVICE_BUDGET_BYTES = "
                 f"{streamk.DEVICE_BUDGET_BYTES} (E = {E}, ntime = {nt}, "
                 f"B = {B}, N = {N})")
     return None

@@ -40,9 +40,11 @@ _COUNTERS = ("stream_mid_fwd_launches", "stream_mid_bwd_launches",
 _SRC = os.path.join(cuda_build.CSRC_DIR, "stream_mid.cu")
 # the shape of the last launch of each direction, as the wrapper ran it
 # (member, cluster size G, states per cluster Bc, threads, shared-memory
-# bytes, layout, band rows R, clusters, CTAs; the backward's tracks)
+# bytes, layout, band rows R, clusters, CTAs; the backward's tracks, its
+# schedule and the replay and helper clusters per chain cluster)
 mid_layouts = {}
 _SCHEDULED = set()      # launch shapes whose clusters the card holds
+_HOLDS = {}             # clusters of a launch shape the card holds at once
 
 
 def launch_counts() -> dict:
@@ -64,13 +66,14 @@ def add_launches(counts: dict, times: int = 1) -> None:
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * 7 + [f, f] + [i] * 5
-    for name, npt, more in (("stream_mid_fwd_launch", 11, []),
-                            ("chunk_mid_fwd_launch", 11, []),
-                            ("dense_mid_fwd_launch", 11, []),
-                            ("stream_mid_bwd_launch", 18, [i]),
-                            ("chunk_mid_bwd_launch", 18, [i])):
+    helpers = [i, i, i, p, p]       # helpers, hsmem, rslots, ring, flags
+    for name, npt, more, tail in (("stream_mid_fwd_launch", 11, [], []),
+                                  ("chunk_mid_fwd_launch", 11, [], []),
+                                  ("dense_mid_fwd_launch", 11, [], []),
+                                  ("stream_mid_bwd_launch", 18, [i], helpers),
+                                  ("chunk_mid_bwd_launch", 18, [i], helpers)):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = [p] * npt + dims + more + [p], i
+        fn.argtypes, fn.restype = [p] * npt + dims + more + [p] + tail, i
     lib.stream_mid_max_clusters.argtypes = [i] * 5
     lib.stream_mid_max_clusters.restype = i
 
@@ -113,12 +116,12 @@ def _launch_shape(lib, plan, E, B, N, nt, backward, layout=None):
     return shape
 
 
-def _log(key, plan, E, B, N, shape, tracks=None):
-    G, bc, threads, smem, layout = shape
+def _log(key, plan, E, B, N, shape, tracks=None, **more):
+    G, bc, threads, smem, layout = shape[:5]
     clusters = E * (tracks or -(-B // bc))
     mid_layouts[key] = dict(kind=plan.kind, G=G, Bc=bc, threads=threads,
                             smem=smem, layout=layout, R=-(-N // G),
-                            clusters=clusters, ctas=clusters * G)
+                            clusters=clusters, ctas=clusters * G, **more)
     if tracks:
         mid_layouts[key]["tracks"] = tracks
 
@@ -155,10 +158,27 @@ def _kernel_fwd(plan, Hr, Hi, x0r, x0i, _layout=None):
     return xTr, xTi, hr, hi, ksr, ksi
 
 
+def _holds(lib, kind, bc, G, threads, smem):
+    """Clusters of a launch shape the card holds at once
+    (stream_mid_max_clusters), asked once per shape."""
+    key = (kind, bc, G, threads, smem)
+    if key not in _HOLDS:
+        _HOLDS[key] = lib.stream_mid_max_clusters(kind, bc, G, threads, smem)
+    return _HOLDS[key]
+
+
 def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
-                _layout=None, _tracks=None):
+                _layout=None, _tracks=None, _schedule=None, _helpers=None,
+                _handoff=False):
     """One backward launch: (x0 cotangent (B, N) pair summed over the
-    candidates, plane cotangent (E, nt, N, N) pair). Each track
+    candidates, plane cotangent (E, nt, N, N) pair), on the schedule
+    stream.mid_bwd_schedule picks from the card's count of clusters
+    (`_schedule` forces one; a forced `_layout`, the chain's band layout,
+    or `_tracks` implies 'chain' unless `_schedule` says otherwise).
+    'helpers': `_helpers` forces the helper clusters per chain cluster
+    (any count gives the same bits), `_handoff` has every replay cluster
+    hand its steps from stream.MID_HELP_W on over to its chain, as where the
+    card holds too few clusters (the same bits). Each track
     (stream.mid_tracks; `_tracks` forces a count) writes its own partial
     plane cotangent, summed here in a fixed order where there is more than
     one."""
@@ -171,8 +191,20 @@ def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
     lib = _lib()
     E, nt, N = Hr.shape[0], Hr.shape[1], Hr.shape[-1]
     B = x0r.shape[0]
-    shape = _launch_shape(lib, plan, E, B, N, nt, True, _layout)
-    G, bc, threads, smem, layout = shape
+    iters = plan.iters
+    if _schedule is None and (_layout is not None or _tracks is not None):
+        _schedule = "chain"
+    shape = _launch_shape(lib, plan, E, B, N, nt, True,
+                          _layout if _schedule == "chain" else None)
+    G, bc = shape[:2]
+    replay = not store and iters > 0
+    holds = None
+    if _schedule is None and stream.mid_helpers_fit(E, B, N, iters, nt,
+                                                    store, plan.kind):
+        hs = stream._mid_help_shape(E, B, N, iters, store)
+        holds = _holds(lib, 3, hs[1], hs[0], hs[2], hs[3])
+    schedule = stream.mid_bwd_schedule(E, B, N, iters, nt, store, plan.kind,
+                                       _schedule, holds)
     dev = Hr.device
     tracks = _tracks or stream.mid_tracks(E, B, N, nt, G, bc)
     if not 1 <= tracks <= -(-B // bc):
@@ -182,23 +214,51 @@ def _kernel_bwd(plan, Hr, Hi, x0r, x0i, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
     g0i = torch.empty_like(g0r)
     Hbr = torch.empty((E, tracks, nt, N, N), dtype=torch.float32, device=dev)
     Hbi = torch.empty_like(Hbr)
-    scratch = None
-    if layout == "global":
-        R = -(-N // G)
-        scratch = torch.empty(E * tracks * G * 2 * stream._pad4(R * (N + 1)),
-                              dtype=torch.float32, device=dev)
+    scratch = ring = flags = None
+    if schedule == "helpers":
+        shape = stream._mid_help_shape(
+            E, B, N, iters, store, "global" if _layout == "global" else None)
+        G, bc, threads, smem, layout, rslots = shape
+        groups = E * tracks
+        if _helpers is None:
+            if holds is None:
+                holds = _holds(lib, 3, bc, G, threads, smem)
+            _helpers = stream.mid_helper_clusters(groups, G, holds, replay)
+        helpers = max(0, _helpers)
+        S = -(-(-(-B // bc)) // tracks) * nt
+        ring = torch.empty(groups * stream._help_ring_floats(bc, N, iters,
+                                                             replay),
+                           dtype=torch.float32, device=dev)
+        fi = stream._help_flag_ints(S)
+        flags = torch.zeros(1 + groups * fi, dtype=torch.int32, device=dev)
+        if _handoff:        # every group's replay hands over at MID_HELP_W
+            flags[1::fi] = stream.MID_HELP_W + 1
+        tail = (helpers, int(layout == "smem"), rslots)
+        more = dict(schedule=schedule, helpers=helpers, replays=int(replay),
+                    rslots=rslots)
+    else:
+        G, bc, threads, smem, layout = shape
+        if layout == "global":
+            R = -(-N // G)
+            scratch = torch.empty(
+                E * tracks * G * 2 * stream._pad4(R * (N + 1)),
+                dtype=torch.float32, device=dev)
+        tail = (-1, 0, 0)
+        more = dict(schedule=schedule, helpers=0, replays=0)
     err = getattr(lib, f"{plan.kind}_mid_bwd_launch")(
         *map(streamk._ptr, (Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi,
                             plan.rows, ksr, ksi, g0r, g0i, Hbr, Hbi,
                             scratch)),
         *stream._dims(plan, E, nt, B, N), G, bc, threads, smem,
-        stream.MID_SLOTS[layout], tracks,
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.MID_SLOTS.get(layout, 0), tracks,
+        torch.cuda.current_stream(dev).cuda_stream, *tail,
+        streamk._ptr(ring), streamk._ptr(flags))
     if err != 0:
         raise RuntimeError(f"{plan.kind}_mid_bwd launch failed: CUDA error "
                            f"{err}")
     globals()[f"{plan.kind}_mid_bwd_launches"] += 1
-    _log("bwd", plan, E, B, N, shape, tracks)
+    _log("bwd", plan, E, B, N, (G, bc, threads, smem, layout), tracks,
+         **more)
     if tracks == 1:
         return g0r.sum(0), g0i.sum(0), Hbr[:, 0], Hbi[:, 0]
     return g0r.sum(0), g0i.sum(0), Hbr.sum(1), Hbi.sum(1)

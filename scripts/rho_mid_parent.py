@@ -53,15 +53,17 @@ import concurrent.futures
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import torch  # noqa: E402
 
-from quandary_tpu_torch.ops import cuda_build, rho, rho_mid  # noqa: E402
+import parent_common as pc  # noqa: E402
+from parent_common import smi_line  # noqa: E402,F401
+from quandary_tpu_torch.ops import rho, rho_mid  # noqa: E402
 
 
 def parent_bind(lib):
@@ -82,19 +84,14 @@ def parent_bind(lib):
 def build_parent(src, name):
     """Compile the parent's rho_mid.cu at `src` into its own library in
     build/quandary_tpu_torch/<name>/ and load it."""
-    out = os.path.join(cuda_build.BUILD_DIR, name, f"lib{name}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run(cuda_build.nvcc_command(src, out),
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc {src} failed:\n{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(out)
-    parent_bind(lib)
-    with open(src) as f:
-        lib.two_role = "int split, int ring" in f.read()
-    if lib.two_role:        # the backward's launcher is the checkout's
-        rho_mid._bind(lib)
-    return lib
+
+    def bind(lib, text):
+        parent_bind(lib)
+        lib.two_role = "int split, int ring" in text
+        if lib.two_role:    # the backward's launcher is the checkout's
+            rho_mid._bind(lib)
+
+    return pc.build_parent(src, name, bind)
 
 
 def parent_layout_bytes(N, G, K, jb, threads):
@@ -186,12 +183,6 @@ def parent_bwd(lib, plan, x0r, x0i, C, hr, hi, ksr, ksi, gTr, gTi, jr, ji,
         raise RuntimeError(f"parent rho_mid_bwd launch failed: CUDA error "
                            f"{err}")
     return g0r.sum(0), g0i.sum(0), Cb.sum(1)
-
-
-def smi_line():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
 
 
 def inputs(name, E, steps=1000, seed=7):

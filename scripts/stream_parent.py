@@ -44,19 +44,19 @@ name and power limit; exits non-zero if any bits differ.
 import argparse
 import concurrent.futures
 import contextlib
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import parent_common as pc  # noqa: E402
 from quandary_tpu_torch.ops import (cuda_build, rho, stream,  # noqa: E402
                                     streamk)
 from quandary_tpu_torch.problem import Problem  # noqa: E402
@@ -66,12 +66,7 @@ MODULES = {"stream": stream, "streamk": streamk, "rho": rho}
 
 def nvcc(src, out, *flags):
     """Build `src` into the shared library `out` and load it: (lib, out)."""
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run(cuda_build.nvcc_command(src, out) + list(flags),
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc {src} failed:\n{res.stdout}{res.stderr}")
-    return ctypes.CDLL(out), out
+    return pc.nvcc(src, out, *flags)[0], out
 
 
 def build_all(parent):
@@ -242,9 +237,7 @@ def main():
     if not os.path.isfile(os.path.join(args.parent, "quandary_tpu_torch",
                                        "csrc", "stream.cu")):
         sys.exit(f"{args.parent} holds no quandary_tpu_torch/csrc/stream.cu")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = pc.smi_line()
     libs = build_all(args.parent)
     to_card = lambda a: torch.as_tensor(a, device="cuda",
                                         dtype=torch.float32)

@@ -80,12 +80,10 @@ written to chiprun_out/streamk_mid_fwd_split.json.
 
 import argparse
 import concurrent.futures
-import ctypes
 import dataclasses
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,6 +93,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import parent_common as pc  # noqa: E402
 import streamk_mid_parent as sp  # noqa: E402
 
 VARIANTS = {
@@ -213,28 +212,10 @@ FWD_CONFIGS = ("n256_pure", "n512_pure", "n1024_pure", "n256_basis",
 
 
 def variant_sources(src, variants=VARIANTS, after=None, until=None):
-    """{name: path of its source}, written beside the source (its headers
-    are included by relative path); with `after` (and `until`), the
-    substitutions touch only the text from its first occurrence on (up to
-    the first occurrence of `until` after it)."""
-    with open(src) as f:
-        text0 = f.read()
-    paths = {}
-    for name, subs in variants.items():
-        head, text, tail = "", text0, ""
-        if after is not None:
-            head, text = text[:text.index(after)], text[text.index(after):]
-        if until is not None:
-            text, tail = text[:text.index(until)], text[text.index(until):]
-        for old, new in subs:
-            if text.count(old) != 1:
-                sys.exit(f"{name}: {src} does not hold {old!r} once")
-            text = text.replace(old, new)
-        paths[name] = os.path.join(os.path.dirname(src),
-                                   f"streamk_mid_split_{name}.cu")
-        with open(paths[name], "w") as f:
-            f.write(head + text + tail)
-    return paths
+    """parent_common.variant_sources, the variants named
+    streamk_mid_split_<name>.cu."""
+    return pc.variant_sources(src, variants, after, until,
+                              "streamk_mid_split")
 
 
 def new_split(args):
@@ -249,12 +230,7 @@ def new_split(args):
                             NEW_VARIANTS, "streamk_mid_bwd_helpers(")
 
     def build(path, name):
-        out = os.path.join(out_dir, f"lib{name}.so")
-        res = subprocess.run(cuda_build.nvcc_command(path, out),
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc {path}: {res.stdout}{res.stderr}")
-        lib = ctypes.CDLL(out)
+        lib = pc.nvcc(path, os.path.join(out_dir, f"lib{name}.so"))[0]
         streamk_mid._bind(lib)
         return lib
 

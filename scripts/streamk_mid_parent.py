@@ -56,16 +56,18 @@ import ctypes
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from quandary_tpu_torch.ops import cuda_build, streamk, streamk_mid  # noqa
+import parent_common as pc  # noqa: E402
+from parent_common import interleaved, smi_line  # noqa: E402,F401
+from quandary_tpu_torch.ops import streamk, streamk_mid  # noqa: E402
 
 CASES = ("n256_pure", "n256_basis", "n512_pure", "n1024_pure", "swap02",
          "swap02_packed", "superop27", "open2_superop", "open8_packed")
@@ -105,16 +107,7 @@ def build_parent(src, name, verbose=False):
     """Compile the parent's streamk_mid.cu at `src` (its headers beside it)
     into its own library in build/quandary_tpu_torch/<name>/ and load it;
     with `verbose` also return ptxas's report."""
-    out = os.path.join(cuda_build.BUILD_DIR, name, f"lib{name}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = subprocess.run(cuda_build.nvcc_command(src, out, verbose),
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc {src} failed:\n{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(out)
-    with open(src) as f:
-        parent_bind(lib, f.read())
-    return (lib, res.stdout + res.stderr) if verbose else lib
+    return pc.build_parent(src, name, parent_bind, verbose)
 
 
 def parent_floats(bc, N, R, it, replay, hsmem):
@@ -205,24 +198,6 @@ def parent_fwd(lib, plan, x0r, x0i, C):
         raise RuntimeError(f"parent streamk_mid_fwd launch failed: CUDA "
                            f"error {err}")
     return xTr, xTi, hr, hi, ksr, ksi
-
-
-def smi_line():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-
-
-def interleaved(runs, first, reps):
-    """CUDA-event ms of each run in the order first, the others, the others
-    reversed, first: {name: [ms, ms]}."""
-    import chip_smoke as cs
-    rest = [k for k in runs if k != first]
-    ms = {k: [] for k in runs}
-    for k in [first] + rest + rest[::-1] + [first]:
-        ms[k].append(cs.event_ms(runs[k], reps))
-    torch.cuda.synchronize()
-    return ms
 
 
 def case_inputs(name, steps):

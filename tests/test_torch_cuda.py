@@ -1655,7 +1655,8 @@ def _stream_mid_run(plan, H, x0, gT, jh, layout=None):
         "dense-N1024"])
 def test_stream_mid_matches_plain_on_card(cuda, case, layouts):
     """Each mid entry point against the plain version on the card at the
-    layouts the planner gives its shape (or forced 'global'): xT and the
+    layouts the planner gives its shape (or forced 'global'; the backward
+    on the planner's schedule and on 'chain' at its layout): xT and the
     history to 1e-5 of max, x0-bar and the plane cotangents to 1e-4 of max;
     one launch of the member's mid kernels and none of the one-block
     pair."""
@@ -1678,11 +1679,16 @@ def test_stream_mid_matches_plain_on_card(cuda, case, layouts):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     if kind == "dense":
         return
-    assert stream_mid.mid_layouts["bwd"]["layout"] == layouts[1]
     ref_b = stream.plain_backward(plan, *H, *x0, hr, hi, *gT, *jh)
-    for a, b in zip(bwd, ref_b):
-        assert bool(torch.isfinite(a).all())
-        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    # the planner's backward schedule above, and 'chain' at its layout
+    chain = stream_mid._kernel_bwd(
+        plan, *H, *x0, *fwd[2:], *gT, *jh, _schedule="chain",
+        _layout="global" if "forced" in layouts else None)
+    assert stream_mid.mid_layouts["bwd"]["layout"] == layouts[1]
+    for out in (bwd, chain):
+        for a, b in zip(out, ref_b):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.cuda
@@ -1709,6 +1715,137 @@ def test_stream_mid_same_bits_on_card(cuda, solver, iters, B, n, layout):
         assert (x is None and y is None) or torch.equal(x, y)
     for x, y in zip(f1[:4] + b1, f3[:4] + b3):
         assert torch.equal(x, y)
+
+
+# the backward's schedules (stream.mid_bwd_schedule): stored and replayed,
+# 'stream' and 'chunk', the column band in shared memory and (N = 1024, or
+# forced) in L2, N % 4 != 0 (the planes read one entry at a time), chunks of
+# states on tracks (E = 2, B = 16), the replay's row band in two slots, one
+# and L2
+STREAM_MID_SCHEDULE_CASES = [
+    dict(kind="stream", solver="split", iters=4, B=1, n=256, E=1),
+    dict(kind="stream", solver="split", iters=4, B=1, n=256, E=1,
+         store=False),
+    dict(kind="stream", solver="jacobi", iters=3, B=1, n=512, E=1,
+         store=False),
+    dict(kind="stream", solver="neumann", iters=6, B=16, n=130, E=2),
+    dict(kind="stream", solver="jacobi", iters=4, B=4, n=200, E=1,
+         store=False, layout="global"),
+    dict(kind="chunk", solver="neumann", iters=8, B=1, n=300, E=1),
+    dict(kind="chunk", solver="neumann", iters=8, B=3, n=1024, E=1, nt=6),
+]
+STREAM_MID_SCHEDULE_IDS = ["split4-N256-stored", "split4-N256-replayed",
+                           "jacobi3-N512-replayed", "neumann6-N130-B16-E2",
+                           "jacobi4-N200-B4-global", "chunk-N300",
+                           "chunk-N1024-B3"]
+
+
+def _stream_mid_bwd(plan, H, x0, fwd, gT, jh, **kw):
+    """One backward launch of the mid pair on forced arguments: (outputs,
+    its logged shape, launches moved)."""
+    from quandary_tpu_torch.ops import stream_mid
+    before = _stream_mid_counts()
+    out = stream_mid._kernel_bwd(plan, *H, *x0, *fwd[2:], *gT, *jh, **kw)
+    torch.cuda.synchronize()
+    return (out, dict(stream_mid.mid_layouts["bwd"]),
+            _moved(before, _stream_mid_counts()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_MID_SCHEDULE_CASES,
+                         ids=STREAM_MID_SCHEDULE_IDS)
+def test_stream_mid_bwd_helpers_same_bits_on_card(cuda, case):
+    """The backward's 'helpers' schedule (the replay, the pass and the
+    column band's transposition on clusters of their own) gives g0 and Hb
+    in the bits of 'chain' (the same products in the same order, each
+    entry of Hb one fmaf chain in pair then state order) with 0 helper
+    clusters (the chain's CTAs run every tile), 1 and the planner's count,
+    one launch each, on the planner's tracks and on one track (the chunks
+    of states in turn, the first writing Hb, the others adding to it), and
+    matches the plain backward to 1e-4 of max."""
+    from quandary_tpu_torch.ops import stream, stream_mid
+    case = dict(case)
+    layout = case.pop("layout", None)
+    plan, H, x0, gT, jh = _stream_mid_case(cuda, **case, seed=11)
+    fwd = stream_mid._kernel_fwd(plan, *H, *x0)
+    key = f"{plan.kind}_mid_bwd_launches"
+    for tracks in (None, 1):
+        ref, shape, moved = _stream_mid_bwd(plan, H, x0, fwd, gT, jh,
+                                            _schedule="chain",
+                                            _tracks=tracks)
+        assert shape["schedule"] == "chain"
+        for helpers in (0, 1, None):
+            got, shape, moved = _stream_mid_bwd(
+                plan, H, x0, fwd, gT, jh, _schedule="helpers",
+                _helpers=helpers, _layout=layout, _tracks=tracks)
+            assert moved == {key: 1}
+            assert shape["schedule"] == "helpers"
+            assert shape["layout"] == ("global" if layout
+                                       or case["n"] == 1024 else "smem")
+            assert shape["replays"] == int(not plan.store_iters)
+            if helpers is not None:
+                assert shape["helpers"] == helpers
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        if case["E"] == case["B"] == 1:     # the card's SMs mostly idle
+            assert shape["helpers"] >= 1
+    hr, hi = stream.plain_forward(plan, *H, *x0)
+    plain = stream.plain_backward(plan, *H, *x0, hr, hi, *gT, *jh)
+    for a, b in zip(got, plain):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in STREAM_MID_SCHEDULE_CASES
+                                  if c.get("store") is False
+                                  or c["kind"] == "chunk"],
+                         ids=[i for i, c in zip(STREAM_MID_SCHEDULE_IDS,
+                                                STREAM_MID_SCHEDULE_CASES)
+                              if c.get("store") is False
+                              or c["kind"] == "chunk"])
+def test_stream_mid_bwd_replay_handoff_on_card(cuda, case):
+    """The replay ring's hand-over: where a replay cluster finds its chain
+    not started at step MID_HELP_W (forced here), it ends and the chain
+    replays the remaining steps in its own chain: the same bits as 'chain'
+    and as the ring, with and without helper clusters, and with the chunks
+    of states run in turn on one track (the first writing Hb, the others
+    adding to it)."""
+    from quandary_tpu_torch.ops import stream, stream_mid
+    case = dict(case)
+    layout = case.pop("layout", None)
+    plan, H, x0, gT, jh = _stream_mid_case(cuda, **case, seed=12)
+    assert H[0].shape[1] > stream.MID_HELP_W
+    fwd = stream_mid._kernel_fwd(plan, *H, *x0)
+    for tracks in (None, 1):
+        ref = _stream_mid_bwd(plan, H, x0, fwd, gT, jh, _schedule="chain",
+                              _tracks=tracks)[0]
+        for helpers in (0, None):
+            got, shape, _ = _stream_mid_bwd(
+                plan, H, x0, fwd, gT, jh, _schedule="helpers",
+                _helpers=helpers, _layout=layout, _tracks=tracks,
+                _handoff=True)
+            assert shape["schedule"] == "helpers" and shape["replays"] == 1
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_stream_mid_bwd_planner_on_card(cuda):
+    """The planner's backward schedule from the card's count of clusters:
+    'helpers' with a replay cluster and helper clusters at B = 1 (N = 256,
+    replayed; the card's SMs mostly idle), 'chain' at B = 256 (the card
+    full); the launch gives the bits of the other schedule forced."""
+    from quandary_tpu_torch.ops import stream_mid
+    for B, want in ((1, "helpers"), (256, "chain")):
+        plan, H, x0, gT, jh = _stream_mid_case(cuda, "stream", "split", 4, B,
+                                               256, 1, store=False, seed=13)
+        fwd = stream_mid._kernel_fwd(plan, *H, *x0)
+        got, shape, _ = _stream_mid_bwd(plan, H, x0, fwd, gT, jh)
+        assert shape["schedule"] == want
+        if want == "helpers":
+            assert shape["replays"] == 1 and shape["helpers"] >= 1
+        other = _stream_mid_bwd(plan, H, x0, fwd, gT, jh, _schedule={
+            "helpers": "chain", "chain": "helpers"}[want])[0]
+        assert all(torch.equal(a, b) for a, b in zip(got, other))
 
 
 @pytest.mark.cuda

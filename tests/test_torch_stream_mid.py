@@ -186,7 +186,7 @@ def test_mid_tracks_bound_the_partials(E, B, N, iters, nt):
     one only while the launch's CTAs fill at most the card's SMs and the
     partial plane cotangents stay within MID_PARTIAL_BYTES; and
     mid_sweep_bytes counts them (besides the history, its cotangent and the
-    stored iterates)."""
+    stored iterates) on the chain schedule, and on the planner's."""
     from quandary_tpu_torch.ops import streamk
     for store in (True, False):
         G, bc, _, _, layout = stream._mid_shape(E, B, N, iters, store, True)
@@ -203,8 +203,143 @@ def test_mid_tracks_bound_the_partials(E, B, N, iters, nt):
         hist = streamk.history_bytes(E, B, N, iters, nt, store)
         scratch = (4 * E * tracks * G * 2 * stream._pad4(-(-N // G) * (N + 1))
                    if layout == "global" else 0)
-        assert stream.mid_sweep_bytes(E, B, N, iters, nt, store) == \
+        assert stream.mid_sweep_bytes(E, B, N, iters, nt, store,
+                                      schedule="chain") == \
             hist + (partial if tracks > 1 else 0) + scratch
+        assert stream.mid_sweep_bytes(E, B, N, iters, nt, store) == \
+            stream.mid_sweep_bytes(E, B, N, iters, nt, store, schedule=(
+                stream.mid_bwd_schedule(E, B, N, iters, nt, store)))
+
+
+# (E, B, N, iters, ntime, store, kind) of scripts/stream_mid_parent.py's
+# cases: stream256, stream512, chunk256, stream512r, chunk1024, open2
+SCHEDULE_CASES = {
+    "stream256": (1, 1, 256, 4, 1000, True, "stream"),
+    "stream512": (1, 1, 512, 4, 1000, True, "stream"),
+    "chunk256": (1, 1, 256, 8, 1000, False, "chunk"),
+    "stream512r": (1, 1, 512, 8, 1000, False, "stream"),
+    "chunk1024": (1, 1, 1024, 8, 300, False, "chunk"),
+    "open2": (1, 16, 256, 8, 1221, False, "stream"),
+}
+
+
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_mid_bwd_schedule_picks(name):
+    """The backward's schedule by size: 'helpers' where the chain clusters
+    leave the card's SMs room for a replay or helper cluster each (B = 1:
+    16 of 132 SMs), 'chain' at open configuration 2 on superop (6 tracks of
+    16 CTAs, 96 SMs); the card's count of clusters can only take 'helpers'
+    away (a card that holds no second cluster per chain cluster), and a
+    replayed case needs room for its replay cluster."""
+    E, B, N, iters, nt, store, kind = SCHEDULE_CASES[name]
+    want = "chain" if name == "open2" else "helpers"
+    assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind) == want
+    assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind,
+                                   holds=8) == want
+    assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind,
+                                   holds=1) == "chain"
+    replay = not store and iters > 0
+    if want == "helpers":
+        groups = stream._help_groups(E, B, N, iters, nt, store)[0]
+        G = stream._mid_help_shape(E, B, N, iters, store)[0]
+        assert groups == 1 and G == 16
+        assert stream.mid_helper_clusters(groups, G, 7, replay) == \
+            6 - int(replay)
+        assert stream.mid_helper_clusters(groups, G, 100, replay) == \
+            7 - int(replay)
+        assert stream.mid_helper_clusters(groups, G, 2, replay) == \
+            1 - int(replay)
+        assert stream.mid_helper_clusters(groups, G, 1, replay) == -1
+        assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind,
+                                       holds=2) == "helpers"
+
+
+def test_mid_bwd_schedule_forced(monkeypatch):
+    """A forced schedule is taken as it is where it fits; an unknown one,
+    or 'helpers' where its rings would take the sweep past
+    DEVICE_BUDGET_BYTES, raises (the chain still fits there, and the
+    planner takes it)."""
+    from quandary_tpu_torch.ops import streamk
+    E, B, N, iters, nt, store, kind = SCHEDULE_CASES["stream512r"]
+    for s in stream.MID_SCHEDULES:
+        assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind,
+                                       s) == s
+    assert stream.mid_bwd_schedule(1, 16, 256, 8, 1221, False, "stream",
+                                   "helpers") == "helpers"
+    with pytest.raises(ValueError, match="schedule 'split'"):
+        stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind, "split")
+    chain = stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind, "chain")
+    helpers = stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind,
+                                     "helpers")
+    assert helpers > chain
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", helpers - 1)
+    with pytest.raises(ValueError, match="schedule 'helpers' does not fit"):
+        stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind, "helpers")
+    assert stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind) == \
+        "chain"
+    assert stream.mid_refusal(E, B, N, iters, nt, store, kind) is None
+    monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", chain - 1)
+    assert "rings take" in stream.mid_refusal(E, B, N, iters, nt, store,
+                                              kind)
+
+
+@pytest.mark.parametrize("name", list(SCHEDULE_CASES))
+def test_mid_sweep_bytes_count_the_rings(name):
+    """On 'helpers' a sweep's bytes hold each group's rings (H^T and the
+    pairs, two slots each; with replay MID_HELP_W steps of iterates) and
+    counters instead of the chain's column-band scratch; mid_refusal
+    counts the planner's."""
+    E, B, N, iters, nt, store, kind = SCHEDULE_CASES[name]
+    G, bc, _, _, layout = stream._mid_shape(E, B, N, iters, store, True)
+    tracks = stream.mid_tracks(E, B, N, nt, G, bc)
+    groups, S = E * tracks, -(-(-(-B // bc)) // tracks) * nt
+    replay = not store and iters > 0
+    ldr = -(-N // 4) * 4
+    ring = (2 * 2 * N * ldr + 2 * (iters + 1) * 4 * bc * N
+            + (4 * iters * 2 * bc * N if replay else 0))
+    flags = 1 + groups * (1 + 2 * 4 + 3 * (S + 2))
+    scratch = 2 * G * stream._pad4(-(-N // G) * (N + 1)) \
+        if layout == "global" else 0
+    d = (stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind, "helpers")
+         - stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind, "chain"))
+    assert d == 4 * (groups * ring + flags) - 4 * E * tracks * scratch
+    planner = stream.mid_bwd_schedule(E, B, N, iters, nt, store, kind)
+    assert stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind) == \
+        stream.mid_sweep_bytes(E, B, N, iters, nt, store, kind, planner)
+
+
+@pytest.mark.parametrize("store", [True, False])
+@pytest.mark.parametrize("E,B,N,iters", PLAN_SHAPES)
+def test_mid_help_shape_covers_and_fits(E, B, N, iters, store):
+    """The helpers schedule's launch shape: the chain schedule's G, Bc and
+    threads (Hb keeps its bits between them); at least the shared memory
+    csrc/stream_mid.cu's help_floats carves (the chain's column band in it
+    for 'smem', the replay's row band in `rslots` slots) and at most 227
+    KB; 'global' only where the band does not fit, and the replay's row
+    band in the most slots that fit."""
+    shape = stream._mid_help_shape(E, B, N, iters, store)
+    assert shape is not None
+    G, bc, threads, smem, layout, rslots = shape
+    assert (G, bc, threads) == stream._mid_shape(E, B, N, iters, store,
+                                                 True)[:3]
+    R = -(-N // G)
+    replay, stored = not store and iters > 0, store and iters > 0
+    fl = lambda h, rs: stream._help_floats(bc, N, R, iters, replay, stored,
+                                           h, rs)
+    hsmem = layout == "smem"
+    assert 4 * fl(hsmem, rslots) == smem <= 232448
+    assert hsmem or 4 * fl(True, 0) > 232448
+    assert rslots == 0 if not replay else (
+        rslots == 2 or 4 * fl(hsmem, rslots + 1) > 232448)
+    # the chain's layout: header, exchange buffers, bands, rows, operand
+    # slots, then the band or a tile; the replay's and a tile's within it
+    head = (4 * bc * N + (10 if replay else 6) * bc * R + 4 * R
+            + 2 * (4 + 2 * (iters if stored else 0)) * bc * R)
+    tile = 2 * 64 * 33 + (iters + 1) * 2 * bc * (32 + 64)
+    assert fl(hsmem, rslots) >= 8 + stream._pad4(head) + max(
+        2 * R * -(-N // 4) * 4 if hsmem else 0, tile)
+    assert stream._mid_help_shape(E, B, N, iters, store, "global")[4] == \
+        "global"
 
 
 class _Fake:
