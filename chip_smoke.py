@@ -204,7 +204,10 @@ a band of the state entries reading its bands of the planes):
    on 'stream' (superop, dim 256, 16 basis matrices, 1221 steps) against
    phase 14's rho route and f64 reference; fused_mode='chunk' on N = 256 at
    CHUNK_MID_T (1000 steps where plain Neumann converges) against plain on
-   the card; pallas_propagate_dense past one block.
+   the card; pallas_propagate_dense past one block; the forward in every
+   band layout and band-row count that fits (SMID_FWD_LAYOUT_CASES) in the
+   bits of the planner's launch; 'chunk' at N = 1024 (300 steps) timed
+   and against plain.
 
 Per-sample stacks and the open superop route past one thread block (the
 mid streamK pair reading each candidate's stack and solver rows at a
@@ -2309,6 +2312,87 @@ def smid_checks(rng):
     return worst, seen, bits, bad
 
 
+# the forward's band layouts held to the bits of the planner's launch (the
+# same products whatever slot or array a row lies in): two slots, one and a
+# partial second, resident rows and L2; N % 4 != 0 (rows by cp.async), a
+# partial chunk of states, dense
+SMID_FWD_LAYOUT_CASES = (("stream", "split", 4, 256, 1, 1, True),
+                         ("stream", "jacobi", 3, 512, 1, 1, True),
+                         ("stream", "neumann", 6, 130, 16, 1, True),
+                         ("chunk", "neumann", 8, 300, 1, 1, False),
+                         ("chunk", "neumann", 8, 1024, 3, 1, False),
+                         ("dense", "neumann", 8, 1024, 1, 1, False))
+# the 'chunk' forward at N = 1024 through Problem, 300 steps of 0.00025 ns
+# (dt/2 |d|max = 0.163; past 341 steps its planes exceed the port's plane
+# budget)
+CHUNK_WIDE_NT, CHUNK_WIDE_DT = 300, 0.00025
+
+
+def smid_fwd_layout_bits(rng):
+    """The mid forward in every band layout and band-row count that fits
+    each SMID_FWD_LAYOUT_CASES case at the planner's G: xT, history and
+    stored iterates in the bits of the planner's launch. Returns ({case:
+    bits equal}, {case: the (layout, rows) driven})."""
+    bits, driven = {}, {}
+    for kind, solver, iters, N, B, E, store in SMID_FWD_LAYOUT_CASES:
+        plan, Sr, Si, C, x0r, x0i = smid_synthetic(kind, solver, iters, N, B,
+                                                   E, rng)
+        plan = dataclasses.replace(plan, store_iters=store)
+        key = f"{kind}_{solver}{iters}_N{N}_B{B}"
+        with torch.no_grad():
+            H = [h.contiguous() for h in stream.planes(plan, Sr, Si, C)]
+        ref = stream_mid._kernel_fwd(plan, *H, x0r, x0i)
+        G = stream_mid.mid_layouts["fwd"]["G"]
+        R, ok, seen = -(-N // G), True, []
+        for layout in stream.MID_SLOTS:
+            for rows in sorted({0, R // 2, R - 1, R}) + [None]:
+                try:
+                    out = stream_mid._kernel_fwd(plan, *H, x0r, x0i,
+                                                 _layout=layout, _rows=rows)
+                except NotImplementedError:
+                    continue
+                lay = stream_mid.mid_layouts["fwd"]
+                seen.append(f"{layout}/{lay['rows']}")
+                ok = ok and lay["G"] == G and all(
+                    (a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(out, ref))
+        bits[key], driven[key] = ok, seen
+        del H, ref
+    return bits, driven
+
+
+def chunk_wide_fwd(to_card):
+    """The 'chunk' forward at N = 1024 (midsize_bench's [32, 32] pure, B =
+    1, CHUNK_WIDE_NT steps of CHUNK_WIDE_DT): CUDA-event ms (3 reps), its
+    bound, one plain run, xT and history against plain (x max) and the
+    launch shape."""
+    pw = Problem(dataclasses.replace(midsize_closed_setup(
+        1024, "pure", ntime=CHUNK_WIDE_NT, T=CHUNK_WIDE_DT * CHUNK_WIDE_NT,
+        linsolver="neumann", iters=8), fused_mode="chunk"))
+    if not (pw.fused_form == "chunk" and pw.fused_ok
+            and stream.uses_mid(pw._plan, pw.ninit, pw.N)):
+        raise RuntimeError(f"chunk N = 1024: {pw.fused_refusal}")
+    P = to_card(bench_params(pw.setup.nparams))[None]
+    with torch.no_grad():
+        H = [h.contiguous() for h in stream.planes(
+            pw._plan, pw._Sr, pw._Si,
+            pw.coeff_rows_mid(P)[..., 0, :].contiguous())]
+        got = stream_mid._kernel_fwd(pw._plan, *H, pw._x0r, pw._x0i)
+        shape = dict(stream_mid.mid_layouts["fwd"])
+        ms = event_ms(lambda: stream_mid._kernel_fwd(
+            pw._plan, *H, pw._x0r, pw._x0i), 3)
+        plain_ms = event_ms(lambda: stream.plain_forward(
+            pw._plan, *H, pw._x0r, pw._x0i), 1, warm=False)
+        hr, hi = stream.plain_forward(pw._plan, *H, pw._x0r, pw._x0i)
+        err = max(max_rel(got[0], hr[:, -1]), max_rel(got[1], hi[:, -1]),
+                  max_rel(got[2], hr), max_rel(got[3], hi))
+    del H, got, hr, hi
+    return dict(N=pw.N, B=pw.ninit, ntime=CHUNK_WIDE_NT, ms=ms,
+                bound=work_bound(pw._plan, 1, CHUNK_WIDE_NT, pw.ninit, pw.N,
+                                 False), plain_ms=plain_ms, state_rel=err,
+                shape=shape)
+
+
 def smid_tracks_check(rng):
     """The mid backward with its chunks of states run in turn on fewer
     tracks than chunks: N = 256, 16 states (4 chunks of 4), E = 2, split-4
@@ -2580,8 +2664,20 @@ def stream_mid_phase(smi, build, open16):
         raise RuntimeError(f"chunk route past one block: {err_c}, dense xT "
                            f"{err_d}, backward {t_c['bwd_shape']}, "
                            f"schedules {t_c['schedules']}")
+    # the forward's band layouts in bits, and 'chunk' at N = 1024
+    lay_bits, lay_driven = smid_fwd_layout_bits(np.random.default_rng(31))
+    wide = chunk_wide_fwd(to_card)
+    phase(27, f"the mid forward in every band layout and band-row count "
+              f"that fits, against the planner's launch: same bits "
+              f"{json.dumps(lay_bits)}, driven {json.dumps(lay_driven)}; "
+              f"'chunk' N = 1024, {CHUNK_WIDE_NT} steps: "
+              f"{json.dumps(wide)}; card: {smi}")
+    if not all(lay_bits.values()) or wide["state_rel"] > TOL_STATE_REL:
+        raise RuntimeError(f"mid forward layouts' bits {lay_bits}, 'chunk' "
+                           f"N = 1024 against plain {wide['state_rel']}")
     return dict(worst=worst, full=full, launches=launches, open=open_rep,
-                chunk=t_c, dense=t_d, chunk_rep=chunk_rep)
+                chunk=t_c, dense=t_d, chunk_rep=chunk_rep,
+                fwd_layout_bits=lay_bits, chunk1024=wide)
 
 
 # Phase 28, the end of queue B: per-sample stacks on the mid streamK pair
@@ -3848,6 +3944,13 @@ def run_phases(smi, worker, ref_path):
                         ms_helpers=statistics.mean(v["ms"]["helpers"]),
                         ms_chain=statistics.mean(v["ms"]["chain"]),
                         ratio=v["ratio"]) for k, v in scheds.items()})
+        if i == 0:      # 'chunk' at N = 1024, the layouts' bits
+            wide = sm["chunk1024"]
+            more = dict(ms_chunk1024=wide["ms"],
+                        bound_ms_chunk1024=wide["bound"][0],
+                        plain_ms_chunk1024=wide["plain_ms"],
+                        shape_chunk1024=wide["shape"],
+                        layouts_same_bits=sm["fwd_layout_bits"])
         return dict(more, shape=t256[f"{key}_shape"],
                     sweeps_per_s=t256["sweeps_per_s"],
                     ms_n512=t512[key], bound_ms_n512=t512[f"{key}_bound"][0],

@@ -26,8 +26,10 @@
 // wait on each other and run in waves. CTA q owns the entries [q R, q R + R)
 // of every state vector (R = ceil(N / G), the last band ragged). Every stage
 // product needs the whole operand: each CTA computes its band of the result
-// and pushes it into every CTA's copy through distributed shared memory, and
-// one cluster barrier per exchange makes the copies whole.
+// and pushes it into every CTA's copy through distributed shared memory.
+// The backward ends each exchange with a cluster barrier; the forward
+// pushes by st.async and waits on an mbarrier at CTA scope, with no cluster
+// barrier in its time loop (see stream_mid_fwd).
 //   forward: the CTA reads its ROW band of H(t) (R x N of each plane) and
 //     computes its band of T(v) = -i H v for each stage;
 //   backward: it reads its COLUMN band of H(t), transposed (R x (N + 1)),
@@ -43,34 +45,43 @@
 //     and the others adding to it; with more than one track the wrapper
 //     sums the partials in a fixed order. Each entry of a partial has one
 //     writer, so no float atomics: two launches give the same bits.
-// Where the bands fit shared memory they are copied there by cp.async:
-// "smem2" two slots, the next step's band streamed in while the step runs;
-// "smem1" one slot, copied at the step's start. Otherwise ("global") the
-// row band is read straight from the plane array (contiguous rows, served
-// by L2) and the column band is transposed into a per-CTA scratch in device
-// memory at the step's start. The wrapper picks the layout, G and BC
-// (ops/stream.py::_mid_shape).
+// Where the bands fit shared memory they are copied there: "smem2" two
+// slots, the next step's band streamed in while the step runs; "smem1" one
+// slot (the forward: the rows that fit a second slot copied a step ahead,
+// the others refilled in place as the step's last stage has read them; the
+// backward: copied at the step's start). Otherwise ("global") the forward
+// keeps the band rows that fit in shared memory (refilled in place) and
+// reads the rest straight from the plane array (contiguous rows, served by
+// L2), and the backward transposes its column band into a per-CTA scratch
+// in device memory at the step's start. The wrapper picks the layout, G,
+// BC and the forward's band rows (ops/stream.py::_mid_shape).
 // Mapping (mid_cluster.cuh's rows_dot, as streamk_mid.cu's): the warps of a
 // CTA take the band's rows in turn, the lanes stride the contraction index,
 // each lane holds the partial sums of all BC states, a butterfly of
 // shuffles gives every lane the row's sums, and lane b owns entry (b, row):
-// its stage values
-// live in band arrays in shared memory, and it runs the elementwise stage
-// update, writes history and stored iterates, and pushes the entry. The
-// forward and the backward's replay run one chain (rows_dot on the same row
-// band), so stored and replayed iterates are equal in bits. Exact f32 FMA
-// on the CUDA cores; no tensor cores.
+// it runs the elementwise stage update and writes history and stored
+// iterates. The backward's lane b pushes the entry too; the forward
+// (rows_dot_all, its operand's re and im side by side) spreads the row's
+// pushes over the lanes. The
+// forward and the backward's replay run the same products in the same
+// order on the same row band, and the same updates, so stored and replayed
+// iterates are equal in bits. Exact f32 FMA on the CUDA cores; no tensor
+// cores.
 //
 // What bounds it on the H100: bytes, as a bound. The forward reads the
 // plane pair once, 2 x nt x N^2 x 4 bytes per candidate (1 GB at N = 512,
 // 1000 steps: 0.63 ms at 3.35 TB/s); the backward reads it again (and the
 // row band once more on a replay) and writes as many bytes of Hb. In
 // practice the dependent chain sets the time: iters + 1 stage products a
-// step (backward: up to 2 iters + 1), each ended by a cluster barrier. The
-// design keeps the band reads off that chain where it can: in smem2 the
-// next step's band arrives during the current step.
+// step (backward: up to 2 iters + 1), each ended by an exchange. The design
+// keeps the band reads off that chain where it can: in smem2 the next
+// step's band arrives during the current step, and the forward's smem1 and
+// global rows arrive while the step's last stage and the next exchange
+// run.
 
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "mid_cluster.cuh"
 
@@ -79,10 +90,14 @@ namespace {
 constexpr int SM_MAX_THREADS = 512;
 
 // slots: bands of H in shared memory (2 or 1 slots), or 0 (global layout).
+// The forward's band instead: `ahead` rows in two slots, `inplace` in one,
+// the rest in L2; bulk: its rows copied by the bulk-copy engine (N % 4 == 0
+// and 16-byte aligned planes), else by cp.async.
 struct SMDims {
   int E, nt, B, N, iters, mode, store;
   float dt, a;
   int G, R, nchunks, slots, tracks;
+  int ahead, inplace, bulk;
 };
 
 __host__ __device__ inline size_t pad4(size_t n) {
@@ -98,13 +113,18 @@ __host__ __device__ inline size_t sm_band_floats(int N, int R, bool backward,
   return backward ? 2 * col + (replay ? 2 * row : 0) : 2 * row;
 }
 
-// Floats of the forward's shared memory: `slots` band slots, two operand
-// buffers (re, im) x BC x N, the bands of x, b and k (re, im) x BC x R and
-// the solver rows 4 x R.
+// The forward's mbarriers (two of the exchange, one a warp's band, up to 16
+// warps) in the first SM_FWD_HEAD floats of its shared memory.
+constexpr int SM_FWD_HEAD = 40;
+
+// Floats of the forward's shared memory: the mbarriers, 2 ahead + inplace
+// band rows (re N, im N each), two operand buffers BC x N of (re, im)
+// pairs, the bands of x, b and k (re, im) x BC x R and the solver rows
+// 4 x R.
 __host__ __device__ inline size_t sm_fwd_floats(int BC, int N, int R,
-                                                int slots) {
-  return slots * sm_band_floats(N, R, false, false) + 4 * (size_t)BC * N +
-         6 * (size_t)BC * R + 4 * (size_t)R;
+                                                int ahead, int inplace) {
+  return SM_FWD_HEAD + (2 * (size_t)ahead + inplace) * 2 * N +
+         4 * (size_t)BC * N + 6 * (size_t)BC * R + 4 * (size_t)R;
 }
 
 // Floats of the backward's shared memory: `slots` band slots, the it + 1
@@ -187,12 +207,50 @@ __device__ __forceinline__ const float* plane_rows(const float* gH,
 // rows: jacobi (d_r, d_i, minv_r, minv_i) or split (e_r, e_i), each (N,).
 // Writes xT (E, B, N), with HIST the history (E, nt, B, N) and, with store,
 // the stage iterates k_0..k_{iters-1} (E, nt, iters, B, N), each CTA its
-// band of its chunk's states. Per step: the row band of H(t) in place, x
-// (rotated where split) exchanged, then stage j = 0..iters: the band of T
-// of the operand, the stage update, and k_j exchanged for stage j + 1:
-// iters + 1 cluster barriers.
-template <int BC, bool HIST>
-__global__ void __launch_bounds__(SM_MAX_THREADS)
+// band of its chunk's states.
+//
+// One chain of exchanges, no cluster barrier in the time loop. Exchange 0
+// is x0 (rotated where split); the stage that reads exchange e makes
+// exchange e + 1: k_j for stages j < iters, and at the step's last stage
+// (j = iters, whose k is not exchanged) the next step's x, rotated where
+// split. A step runs 1 + iters stages and the launch nt (1 + iters)
+// exchanges, whatever the parity of 1 + iters. Exchange e goes into the
+// operand buffer e & 1 and completes phase e >> 1 of that buffer's
+// mbarrier: a warp's lanes push the row's entries of every state, lane l the
+// (state, CTA) pairs l, l + 32, ..., by st.async of (re, im) into the other
+// CTAs' buffers (8 bytes counted on the destination's mbarrier) and a
+// local store into its own; each warp then arrives on its CTA's mbarrier
+// (the arrival of warp 0's lane 0 expecting the bytes the other CTAs push,
+// (N - nr) nb x 8) and every thread waits for the phase at CTA scope.
+// Why a buffer is not rewritten before every CTA has read it: CTA X writes
+// exchange e + 2 (buffer e & 1) only in the stage that reads exchange e + 1,
+// so after its wait for e + 1, which needs every byte of e + 1 from every
+// other CTA Y. Each warp of Y pushes its rows' entries of e + 1 after its
+// products of those rows, the last of its reads of exchange e; so all of
+// Y's warps are done with buffer e & 1, and they waited for phase e before,
+// so X's bytes of e + 2 count on the phase after (they may land before Y's
+// expect_tx: the phase cannot complete before Y's warps arrive). X's own
+// warps arrived on e + 1 after their reads of e. ops/stream.py
+// mid_fwd_exchanges is the Python twin of the sequence
+// (tests/test_torch_stream_mid.py checks it on a model of the cluster).
+//
+// The row band of H(t): rows [0, ahead) have two slots (A and P, by the
+// step's parity) and are copied a step ahead, rows [ahead, ahead + inplace)
+// one (A), refilled for step t + 1 as soon as step t's last stage has read
+// them, the rest read from the plane array (L2). smem2: ahead = R; smem1:
+// the ahead rows that fit beside one slot, the rest in place; global:
+// inplace = the rows that fit, none where the launch's CTAs exceed one a
+// SM. A row is read only by the warp that owns it (rows_dot_all's mapping),
+// so each warp copies its own rows, counted on its own mbarrier (a phase a
+// step): by the bulk-copy engine where rows are 16-byte aligned, else by
+// cp.async with an arrival once they land.
+//
+// MINB: the CTAs an SM must hold at once. 1 (up to 128 registers a
+// thread) unless the launch's clusters are more than the card holds of
+// that instance and two CTAs fit an SM's shared memory: then 2 (at most
+// 64), so that the card packs them two CTAs an SM (fwd_min_blocks).
+template <int BC, bool HIST, int MINB>
+__global__ void __launch_bounds__(SM_MAX_THREADS, MINB)
 stream_mid_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
                const float* __restrict__ x0r, const float* __restrict__ x0i,
                const float* __restrict__ rows, float* __restrict__ xTr,
@@ -205,20 +263,28 @@ stream_mid_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const bool jac = d.mode == MODE_JACOBI, split = d.mode == MODE_SPLIT;
-  const SMBand g = sm_band(d, BC, (int)cl.block_rank());
-  const size_t BNv = (size_t)BC * N, BN = (size_t)d.B * N;
-  const int BI = BC * R;
-  const size_t bandf = sm_band_floats(N, R, false, false);
-  const size_t rowp = pad4((size_t)R * N);
-  float* Hs = sm;                          // slots x (row band re, im)
-  float* V = Hs + d.slots * bandf;         // two buffers x (re, im) x BC x N
-  float* X = V + 4 * BNv;                  // the bands of x, b, k: re, im
-  float* Bb = X + 2 * BI;
+  const int rank = (int)cl.block_rank();
+  const SMBand g = sm_band(d, BC, rank);
+  const size_t BN = (size_t)d.B * N;
+  const int BI = BC * R, nA = d.ahead, nS = d.ahead + d.inplace;
+  // mbarriers: the exchange's two, then one a warp for its band rows
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
+  float* A = sm + SM_FWD_HEAD;             // nS band rows: re N, im N each
+  float* P = A + (size_t)nS * 2 * N;       // the second slot of the ahead rows
+  float2* V = reinterpret_cast<float2*>(P + (size_t)nA * 2 * N);
+  float* X = reinterpret_cast<float*>(V + 2 * (size_t)BC * N);
+  float* Bb = X + 2 * BI;                  // the bands of x, b, k: re, im
   float* Kb = Bb + 2 * BI;
   float* rw = Kb + 2 * BI;                 // solver rows, 4 x R
 
-  const size_t nsm = sm_fwd_floats(BC, N, R, d.slots);
-  for (size_t i = tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
+  const size_t nsm = sm_fwd_floats(BC, N, R, d.ahead, d.inplace);
+  for (size_t i = (float*)V - sm + tid; i < nsm; i += blockDim.x) sm[i] = 0.f;
+  if (tid == 0) {
+    mb_init(smem_addr(bars), nwarps);
+    mb_init(smem_addr(bars + 1), nwarps);
+    for (int w = 0; w < nwarps; ++w) mb_init(smem_addr(bars + 2 + w), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
   for (int i = tid; i < BI; i += blockDim.x) {
     const int b = i / R, il = i - b * R;
@@ -233,108 +299,206 @@ stream_mid_fwd(const float* __restrict__ gHr, const float* __restrict__ gHi,
     const int m = i / R, il = i - m * R;
     if (il < g.nr) rw[i] = rows[m * N + g.r0 + il];
   }
-  // the row band of H(t) into its slot, one copy group
-  auto fetch = [&](int t) {
-    float* dst = Hs + (d.slots > 1 ? (t & 1) : 0) * bandf;
-    copy_run(dst, plane_rows(gHr, d, g.e, t, g.r0), g.nr * N);
-    copy_run(dst + rowp, plane_rows(gHi, d, g.e, t, g.r0), g.nr * N);
-    cp_commit();
-  };
-  if (d.slots == 2 && nt > 0) fetch(0);
-  cl.sync();    // every CTA's buffers are zeroed before the first push
+  cl.sync();    // every CTA's mbarriers and zeroed buffers exist
 
-  auto owned = [&](auto fn) {
-    for (int il = warp; il < g.nr; il += nwarps)
-      if (lane < BC) fn(il, lane, lane * R + il);
+  // the band: row il of step t, where it lies, and its copy into its slot
+  auto slot = [&](int il, int t) {
+    return (il < nA && (t & 1) ? P : A) + (size_t)il * 2 * N;
   };
-  auto put = [&](float* buf, int b, int il, float vr, float vi) {
-    push(cl, buf + b * N + g.r0 + il, vr, G);
-    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);
-  };
-  int p = 0;                      // the operand buffer the next stage reads
-  for (int t = 0; t < nt; ++t) {
-    const float *Hr, *Hi;
-    if (d.slots == 0) {
-      Hr = plane_rows(gHr, d, g.e, t, g.r0);
-      Hi = plane_rows(gHi, d, g.e, t, g.r0);
+  auto band_row = [&](int t, int il, const float*& mr, const float*& mi) {
+    if (il < nS) {
+      mr = slot(il, t);
+      mi = mr + N;
     } else {
-      __syncthreads();            // step t - 1's stages are done with H
-      if (d.slots == 1) {
-        fetch(t);
-        cp_wait_group<0>();
-      } else if (t + 1 < nt) {    // H(t + 1) into the slot step t - 1 read
-        fetch(t + 1);
-        cp_wait_group<1>();
-      } else {
-        cp_wait_group<0>();
-      }
-      __syncthreads();            // H(t) is in its slot
-      Hr = Hs + (d.slots > 1 ? (t & 1) : 0) * bandf;
-      Hi = Hr + rowp;
+      mr = plane_rows(gHr, d, g.e, t, g.r0 + il);
+      mi = plane_rows(gHi, d, g.e, t, g.r0 + il);
     }
-    owned([&](int il, int b, int ib) {
+  };
+  const unsigned wbar = smem_addr(bars + 2 + warp);
+  auto copy_row = [&](int il, int t) {
+    float* s = slot(il, t);
+    const float* gr = plane_rows(gHr, d, g.e, t, g.r0 + il);
+    const float* gi = plane_rows(gHi, d, g.e, t, g.r0 + il);
+    if (d.bulk) {
+      if (lane == 0) {
+        bulk_g2s(smem_addr(s), gr, 4 * N, wbar);
+        bulk_g2s(smem_addr(s + N), gi, 4 * N, wbar);
+      }
+    } else {
+      for (int j = lane; j < N; j += 32) {
+        cp_async4(s + j, gr + j);
+        cp_async4(s + N + j, gi + j);
+      }
+    }
+  };
+  int wrows = 0;                // this warp's rows in shared memory
+  for (int il = warp; il < min(g.nr, nS); il += nwarps) ++wrows;
+  // the warp's arrival on its band mbarrier for a step: on the bulk path
+  // before its copies, expecting all their bytes; on cp.async after them,
+  // each lane's copies arriving as they land
+  auto band_arrive = [&](bool before) {
+    if (before != (d.bulk != 0)) return;
+    if (!d.bulk) cp_async_arrive(wbar);
+    __syncwarp();
+    if (lane == 0) mb_arrive(wbar, d.bulk ? 8u * N * wrows : 0u);
+  };
+
+  // the exchange: push_row puts a row's entries of every state into
+  // exchange e; wait_exchange waits for the whole of it
+  const unsigned tx = 8u * (N - g.nr) * g.nb;
+  const int per = 32 / G, q = lane & (G - 1), bq = lane / G;
+  auto push_row = [&](int e, int il, const float (&vr)[BC],
+                      const float (&vi)[BC]) {
+    float2* buf = V + (size_t)(e & 1) * BC * N + g.r0 + il;
+    const unsigned bar = smem_addr(bars + (e & 1));
+    for (int b0 = 0; b0 < g.nb; b0 += per) {
+      const int b = b0 + bq;
+      if (b >= g.nb) break;
+      float pr = vr[0], pi = vi[0];
+#pragma unroll
+      for (int c = 1; c < BC; ++c)
+        if (b == c) {
+          pr = vr[c];
+          pi = vi[c];
+        }
+      float2* dst = buf + (size_t)b * N;
+      if (q == rank)
+        *dst = make_float2(pr, pi);
+      else
+        st_async2(rank_addr(smem_addr(dst), q), pr, pi, rank_addr(bar, q));
+    }
+  };
+  auto wait_exchange = [&](int e) {
+    const unsigned bar = smem_addr(bars + (e & 1));
+    __syncwarp();
+    if (lane == 0) mb_arrive(bar, warp == 0 ? tx : 0u);
+    mb_wait(bar, (e >> 1) & 1);
+  };
+
+  // every lane: the row's entries of every state in X (the bands of x)
+  // into exchange e
+  auto push_x = [&](int e, int il) {
+    float xr[BC], xi[BC];
+#pragma unroll
+    for (int b = 0; b < BC; ++b) {
+      xr[b] = X[b * R + il];
+      xi[b] = X[BI + b * R + il];
+    }
+    push_row(e, il, xr, xi);
+  };
+  // lane b < BC: its entry of the row rotated where split, as the step
+  // starts
+  auto rotate_x = [&](int il) {
+    if (lane < BC) {
+      const int ib = lane * R + il;
       float xr = X[ib], xi = X[BI + ib];
       if (split) cmul(rw[il], rw[R + il], xr, xi);
       X[ib] = xr;
       X[BI + ib] = xi;
-      put(V + 2 * p * BNv, b, il, xr, xi);
-    });
-    cl.sync();
+    }
+    __syncwarp();
+  };
+
+  // a warp's rows two at a time (each operand entry loaded once for both)
+  // where it owns two or more, one state a cluster
+  const bool pairs = BC == 1 && R >= 2 * nwarps;
+  int e = 0;                    // the exchange the next stage reads
+  if (nt > 0) {                 // step 0's band rows; x0 into exchange 0
+    band_arrive(true);
+    for (int il = warp; il < min(g.nr, nS); il += nwarps) copy_row(il, 0);
+    band_arrive(false);
+    for (int il = warp; il < g.nr; il += nwarps) {
+      rotate_x(il);
+      push_x(0, il);
+    }
+    wait_exchange(0);
+  }
+  for (int t = 0; t < nt; ++t) {
+    mb_wait(wbar, t & 1);       // the warp's rows of H(t) have landed
+    const bool more = t + 1 < nt;
+    if (more) {                 // its ahead rows of H(t + 1), into the
+      band_arrive(true);        // other slot
+      for (int il = warp; il < min(g.nr, nA); il += nwarps)
+        copy_row(il, t + 1);
+    }
     const size_t st = (size_t)g.e * nt + t;
     for (int j = 0; j <= it; ++j) {
-      const float* Vr = V + 2 * p * BNv;
-      float* Vn = V + 2 * (p ^ 1) * BNv;
-      rows_dot<BC, false>(
-          Hr, Hi, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,
-          [&](int il, int b, float sr, float si) {
-            const int ib = b * R + il;
-            const float tr = si, ti = -sr;     // T(v) = -i H v
-            float kr = Kb[ib], ki = Kb[BI + ib];
-            if (j == 0) {
-              Bb[ib] = tr;
-              Bb[BI + ib] = ti;
-              mid_first(jac, rw, R, il, tr, ti, kr, ki);
-            } else {
-              mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
-                        ki);
-            }
-            Kb[ib] = kr;
-            Kb[BI + ib] = ki;
-            if (j < it) {
-              if (d.store && b < g.nb) {
-                const size_t o = (st * it + j) * BN +
-                                 (size_t)(g.b0 + b) * N + g.r0 + il;
-                ksr[o] = kr;
-                ksi[o] = ki;
-              }
-              put(Vn, b, il, kr, ki);
-            }
-          });
-      if (j < it) {
-        p ^= 1;
-        cl.sync();
-      }
+      const bool last = j == it;
+      auto row = [&](int il, const float*& mr, const float*& mi) {
+        band_row(t, il, mr, mi);
+      };
+      auto update = [&](int il, int b, float sr, float si) {  // lane b
+        const int ib = b * R + il;
+        const float tr = si, ti = -sr;     // T(v) = -i H v
+        float kr = Kb[ib], ki = Kb[BI + ib];
+        if (j == 0) {
+          Bb[ib] = tr;
+          Bb[BI + ib] = ti;
+          mid_first(jac, rw, R, il, tr, ti, kr, ki);
+        } else {
+          mid_next(jac, d.a, rw, R, il, Bb[ib], Bb[BI + ib], tr, ti, kr,
+                   ki);
+        }
+        Kb[ib] = kr;
+        Kb[BI + ib] = ki;
+        if (!last && d.store && b < g.nb) {
+          const size_t o = (st * it + j) * BN + (size_t)(g.b0 + b) * N +
+                           g.r0 + il;
+          ksr[o] = kr;
+          ksi[o] = ki;
+        }
+      };
+      auto finish = [&](int il) {  // every lane
+        if (!last) {                // k_j into the next exchange
+          float kr[BC], ki[BC];
+#pragma unroll
+          for (int b = 0; b < BC; ++b) {
+            kr[b] = Kb[b * R + il];
+            ki[b] = Kb[BI + b * R + il];
+          }
+          push_row(e + 1, il, kr, ki);
+          return;
+        }
+        // the step's end: x + dt k (rotated where split), its
+        // history, and the next step's x (rotated again) into the next
+        // exchange; then, in place, this row's band for the next step
+        if (lane < BC) {
+          const int ib = lane * R + il;
+          float xr = X[ib] + d.dt * Kb[ib];
+          float xi = X[BI + ib] + d.dt * Kb[BI + ib];
+          if (split) cmul(rw[il], rw[R + il], xr, xi);
+          X[ib] = xr;
+          X[BI + ib] = xi;
+          if (HIST && lane < g.nb) {
+            const size_t o = st * BN + (size_t)(g.b0 + lane) * N +
+                             g.r0 + il;
+            hr[o] = xr;
+            hi[o] = xi;
+          }
+        }
+        if (more) {
+          rotate_x(il);
+          push_x(e + 1, il);
+          if (il >= nA && il < nS) copy_row(il, t + 1);
+        }
+      };
+      const float2* Ve = V + (size_t)(e & 1) * BC * N;
+      if (pairs)
+        rows_dot_all<BC, 2>(row, g.nr, Ve, N, warp, nwarps, lane,
+                            update, finish);
+      else
+        rows_dot_all<BC, 1>(row, g.nr, Ve, N, warp, nwarps, lane,
+                            update, finish);
+      if (last && more) band_arrive(false);
+      if (!last || more) wait_exchange(++e);
     }
-    p ^= 1;
-    owned([&](int il, int b, int ib) {
-      float xr = X[ib] + d.dt * Kb[ib], xi = X[BI + ib] + d.dt * Kb[BI + ib];
-      if (split) cmul(rw[il], rw[R + il], xr, xi);
-      X[ib] = xr;
-      X[BI + ib] = xi;
-      if (HIST && b < g.nb) {
-        const size_t o = st * BN + (size_t)(g.b0 + b) * N + g.r0 + il;
-        hr[o] = xr;
-        hi[o] = xi;
-      }
-    });
   }
-  owned([&](int il, int b, int ib) {
-    if (b < g.nb) {
-      const size_t o = ((size_t)g.e * d.B + g.b0 + b) * N + g.r0 + il;
-      xTr[o] = X[ib];
-      xTi[o] = X[BI + ib];
+  for (int il = warp; il < g.nr; il += nwarps)
+    if (lane < g.nb) {
+      const size_t o = ((size_t)g.e * d.B + g.b0 + lane) * N + g.r0 + il;
+      xTr[o] = X[lane * R + il];
+      xTi[o] = X[BI + lane * R + il];
     }
-  });
   cl.sync();    // no CTA leaves while another may still address it
 }
 
@@ -1324,7 +1488,11 @@ stream_mid_bwd_helpers(
 // in {1, 2, 4, 8, 16} or past N bands, BC not in {1, 2, 4, 8}, threads not
 // whole warps up to SM_MAX_THREADS, slots not in {0, 1, 2}, tracks not in
 // [1, ceil(B / BC)], shared memory below the layout or above 227 KB, or the
-// backward's global layout without scratch. The backward's helpers >= 0
+// backward's global layout without scratch. The forward's band_rows are its
+// band rows in shared memory past its whole slots: with one slot the rows
+// copied a step ahead (below R; the others refilled in place), with none
+// the rows resident (up to R; the others read from L2), with two none. The
+// backward's helpers >= 0
 // takes its 'helpers' schedule: E * tracks * (nrep + 1 + helpers) clusters
 // (nrep 1 with replayed iterates, else 0), hsmem and rslots its layout
 // (help_floats), ring and flags as the kernel reads them (flags zeroed;
@@ -1337,7 +1505,7 @@ namespace {
 bool sm_dims(SMDims& d, int E, int nt, int B, int N, int iters, int mode,
              int store, float dt, float a, int G, int BC, int threads,
              int smem_bytes, int slots, int tracks, bool backward,
-             const void* scratch) {
+             const void* scratch, int rows = 0) {
   if (G != 1 && G != 2 && G != 4 && G != 8 && G != 16) return false;
   if (BC != 1 && BC != 2 && BC != 4 && BC != 8) return false;
   const int R = (N + G - 1) / G;
@@ -1348,15 +1516,51 @@ bool sm_dims(SMDims& d, int E, int nt, int B, int N, int iters, int mode,
       iters < 0 || slots < 0 || slots > 2 || tracks < 1 || tracks > nchunks)
     return false;
   const bool replay = backward && store == 0 && iters > 0;
+  const int ahead = backward ? 0 : slots == 2 ? R : slots == 1 ? rows : 0;
+  const int inplace = backward ? 0 : slots == 1 ? R - rows : slots ? 0 : rows;
+  if (rows < 0 || (backward || slots == 2 ? rows != 0 : rows > R) ||
+      (slots == 1 && rows == R))
+    return false;
   const size_t floats = backward
                             ? sm_bwd_floats(BC, N, R, iters, replay, slots)
-                            : sm_fwd_floats(BC, N, R, slots);
+                            : sm_fwd_floats(BC, N, R, ahead, inplace);
   if ((size_t)smem_bytes < 4 * floats || smem_bytes > 227 * 1024 ||
       (backward && slots == 0 && scratch == nullptr))
     return false;
-  d = SMDims{E, nt, B, N, iters, mode, store, dt, a,
-             G, R, nchunks, slots, tracks};
+  d = SMDims{E, nt, B, N, iters, mode, store, dt, a, G, R, nchunks,
+             slots, tracks, ahead, inplace, 0};
   return true;
+}
+
+// The forward's MINB for `clusters` clusters of a launch shape: 2 where the
+// card holds fewer of the instance of one CTA an SM and two CTAs fit an
+// SM's 228 KB of shared memory (1 KB of it reserved a CTA), else 1.
+template <int BC, bool HIST>
+int fwd_min_blocks(int clusters, int G, int threads, int smem_bytes) {
+  return 2 * (smem_bytes + 1024) <= 228 * 1024 &&
+                 max_clusters(stream_mid_fwd<BC, HIST, 1>, G, threads,
+                              smem_bytes) < clusters
+             ? 2
+             : 1;
+}
+
+template <int BC, bool HIST, int MINB>
+int launch_fwd_minb(const void* Hr, const void* Hi, const void* x0r,
+                    const void* x0i, const void* rows, void* xTr, void* xTi,
+                    void* hr, void* hi, void* ksr, void* ksi,
+                    const SMDims& d, int threads, int smem_bytes,
+                    void* stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(stream_mid_fwd<BC, HIST, MINB>, attr, d.E * d.nchunks,
+                     d.G, threads, smem_bytes, (cudaStream_t)stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, stream_mid_fwd<BC, HIST, MINB>, (const float*)Hr,
+      (const float*)Hi, (const float*)x0r, (const float*)x0i,
+      (const float*)rows, (float*)xTr, (float*)xTi, (float*)hr, (float*)hi,
+      (float*)ksr, (float*)ksi, d);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <int BC, bool HIST>
@@ -1364,16 +1568,14 @@ int launch_fwd(const void* Hr, const void* Hi, const void* x0r,
                const void* x0i, const void* rows, void* xTr, void* xTi,
                void* hr, void* hi, void* ksr, void* ksi, const SMDims& d,
                int threads, int smem_bytes, void* stream) {
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(stream_mid_fwd<BC, HIST>, attr, d.E * d.nchunks, d.G,
-                     threads, smem_bytes, (cudaStream_t)stream);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, stream_mid_fwd<BC, HIST>, (const float*)Hr, (const float*)Hi,
-      (const float*)x0r, (const float*)x0i, (const float*)rows, (float*)xTr,
-      (float*)xTi, (float*)hr, (float*)hi, (float*)ksr, (float*)ksi, d);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return fwd_min_blocks<BC, HIST>(d.E * d.nchunks, d.G, threads,
+                                  smem_bytes) == 2
+             ? launch_fwd_minb<BC, HIST, 2>(Hr, Hi, x0r, x0i, rows, xTr, xTi,
+                                            hr, hi, ksr, ksi, d, threads,
+                                            smem_bytes, stream)
+             : launch_fwd_minb<BC, HIST, 1>(Hr, Hi, x0r, x0i, rows, xTr, xTi,
+                                            hr, hi, ksr, ksi, d, threads,
+                                            smem_bytes, stream);
 }
 
 template <int BC>
@@ -1447,12 +1649,14 @@ int fwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
             const void* rows, void* xTr, void* xTi, void* hr, void* hi,
             void* ksr, void* ksi, int E, int nt, int B, int N, int iters,
             int mode, int store, float dt, float a, int G, int BC,
-            int threads, int smem_bytes, int slots, void* stream) {
+            int threads, int smem_bytes, int slots, int band_rows,
+            void* stream) {
   SMDims d;
   if (!sm_dims(d, E, nt, B, N, iters, mode, store, dt, a, G, BC, threads,
-               smem_bytes, slots, 0, false, nullptr) ||
+               smem_bytes, slots, 0, false, nullptr, band_rows) ||
       (store && iters > 0 && ksr == nullptr) || (HIST && hr == nullptr))
     return (int)cudaErrorInvalidValue;
+  d.bulk = N % 4 == 0 && (((uintptr_t)Hr | (uintptr_t)Hi) & 15) == 0;
 #define SM_FWD_ARGS                                                           \
   Hr, Hi, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, d, threads, smem_bytes, \
       stream
@@ -1519,7 +1723,7 @@ int bwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
       const void *rows, void *xTr, void *xTi, void *hr, void *hi,           \
       void *ksr, void *ksi, int E, int nt, int B, int N, int iters,         \
       int mode, int store, float dt, float a, int G, int BC, int threads,   \
-      int smem_bytes, int slots, void *stream
+      int smem_bytes, int slots, int band_rows, void *stream
 #define SM_BWD_PARAMS                                                       \
   const void *Hr, const void *Hi, const void *x0r, const void *x0i,         \
       const void *hr, const void *hi, const void *jr, const void *ji,       \
@@ -1531,7 +1735,8 @@ int bwd_any(const void* Hr, const void* Hi, const void* x0r, const void* x0i,
       int hsmem, int rslots, void *ring, void *flags
 #define SM_FWD_CALL                                                         \
   Hr, Hi, x0r, x0i, rows, xTr, xTi, hr, hi, ksr, ksi, E, nt, B, N, iters,   \
-      mode, store, dt, a, G, BC, threads, smem_bytes, slots, stream
+      mode, store, dt, a, G, BC, threads, smem_bytes, slots, band_rows,     \
+      stream
 #define SM_BWD_CALL                                                         \
   Hr, Hi, x0r, x0i, hr, hi, jr, ji, gTr, gTi, rows, ksr, ksi, g0r, g0i,     \
       Hbr, Hbi, scratch, E, nt, B, N, iters, mode, store, dt, a, G, BC,     \
@@ -1567,22 +1772,25 @@ extern "C" int dense_mid_fwd_launch(SM_FWD_PARAMS) {
 
 // How many clusters of G CTAs of one kernel (kind 0: the forward with
 // history, 1: without, 2: the backward's chain schedule, 3: its 'helpers'
-// schedule) of instance BC, with `threads`
-// threads and smem_bytes of shared memory each, the card can hold at once;
-// 0 where it holds none (the launch would fail).
+// schedule) of instance BC (the forward: the more of its two MINB
+// instances), with `threads` threads and smem_bytes of shared memory each,
+// the card can hold at once; 0 where it holds none (the launch would
+// fail).
 extern "C" int stream_mid_max_clusters(int kind, int BC, int G, int threads,
                                        int smem_bytes) {
+#define SM_FWD_MAX(bc, hist)                                                \
+  std::max(max_clusters(stream_mid_fwd<bc, hist, 1>, G, threads,            \
+                        smem_bytes),                                        \
+           max_clusters(stream_mid_fwd<bc, hist, 2>, G, threads,            \
+                        smem_bytes))
 #define SM_MAX(bc)                                                          \
   case bc:                                                                  \
     return kind == 3 ? max_clusters(stream_mid_bwd_helpers<bc>, G, threads, \
                                     smem_bytes)                             \
            : kind == 2 ? max_clusters(stream_mid_bwd<bc>, G, threads,       \
                                       smem_bytes)                           \
-           : kind == 1                                                      \
-               ? max_clusters(stream_mid_fwd<bc, false>, G, threads,        \
-                              smem_bytes)                                   \
-               : max_clusters(stream_mid_fwd<bc, true>, G, threads,         \
-                              smem_bytes);
+           : kind == 1 ? SM_FWD_MAX(bc, false)                              \
+                       : SM_FWD_MAX(bc, true);
   switch (BC) {
     SM_MAX(1)
     SM_MAX(2)
@@ -1590,5 +1798,6 @@ extern "C" int stream_mid_max_clusters(int kind, int BC, int G, int threads,
     SM_MAX(8)
   }
 #undef SM_MAX
+#undef SM_FWD_MAX
   return 0;
 }

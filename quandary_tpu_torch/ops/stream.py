@@ -351,22 +351,112 @@ def _mid_band_floats(N, R, backward, replay):
 
 def _mid_floats(bc, N, R, it, backward, replay, slots):
     """csrc/stream_mid.cu sm_fwd_floats / sm_bwd_floats: a CTA's shared
-    memory in floats with `slots` band slots."""
-    bands = slots * _mid_band_floats(N, R, backward, replay)
+    memory in floats with `slots` band slots (the forward's with no band row
+    past them, _mid_fwd_band)."""
     if not backward:
-        return bands + 4 * bc * N + 6 * bc * R + 4 * R
+        return _mid_fwd_floats(bc, N, R, *_mid_fwd_band(R, slots, 0))
+    bands = slots * _mid_band_floats(N, R, backward, replay)
     return (bands + 2 * (it + 1) * bc * N + (4 * bc * N if replay else 0)
             + 2 * (it + 1) * bc * R + (10 if replay else 6) * bc * R + 4 * R)
 
 
-def _mid_shape(E, B, N, iters, store, backward=False, layout=None):
+# The mid forward's mbarriers (csrc/stream_mid.cu SM_FWD_HEAD): two of the
+# operand exchange and one a warp's band copies, in the first floats of its
+# shared memory
+MID_FWD_HEAD = 40
+
+
+def _mid_fwd_floats(bc, N, R, ahead, inplace):
+    """csrc/stream_mid.cu sm_fwd_floats: the forward's shared memory in
+    floats, `ahead` band rows in two slots and `inplace` in one (re and im,
+    N each), two operand buffers of bc x N (re, im) pairs, the bands of x,
+    b and k and the solver rows."""
+    return (MID_FWD_HEAD + (2 * ahead + inplace) * 2 * N + 4 * bc * N
+            + 6 * bc * R + 4 * R)
+
+
+def _mid_fwd_band(R, slots, rows):
+    """(ahead, inplace) band rows of the forward (csrc/stream_mid.cu
+    sm_dims): 'smem2' (2 slots) every row a step ahead; 'smem1' `rows` a
+    step ahead in a partial second slot and the others refilled in place;
+    'global' (none) `rows` resident, refilled in place, the rest read from
+    L2."""
+    return (R, 0) if slots == 2 else (rows, R - rows) if slots else (0, rows)
+
+
+def mid_fwd_rows(E, B, N, G, bc, layout):
+    """The forward's band rows past its whole slots (the C entry points'
+    band_rows): 'smem1' as many rows of a second slot as fit beside the
+    first (below R), 'global' as many resident rows as fit (up to R) where
+    the launch's CTAs fit the card's SMs once, else none (the rows would
+    take the room of a second CTA on an SM); 'smem2' none."""
+    if layout == "smem2":
+        return 0
+    R, slots = -(-N // G), MID_SLOTS[layout]
+    room = streamk._MAX_SMEM // 4 - _mid_floats(bc, N, R, 0, False, False,
+                                                 slots)
+    fit = max(0, room // (2 * N))
+    if layout == "smem1":
+        return min(R - 1, fit)
+    return min(R, fit) if E * -(-B // bc) * G <= streamk.MID_SMS else 0
+
+
+def _mid_fwd_shape(E, B, N, iters, store, layout=None, rows=None):
+    """(G, Bc, threads, shared-memory bytes, layout, band rows) of one mid
+    forward launch, or None where it does not fit: _mid_shape's, with the
+    band rows mid_fwd_rows gives (`rows` forces a count; None where it does
+    not fit the layout)."""
+    shape = _mid_shape(E, B, N, iters, store, False, layout, rows=rows)
+    if shape is None:
+        return None
+    G, bc, threads, smem, layout = shape
+    if rows is None:
+        rows = mid_fwd_rows(E, B, N, G, bc, layout)
+    return G, bc, threads, smem, layout, rows
+
+
+def mid_fwd_tx(N, G, rank, nb):
+    """Bytes the other CTAs of a forward cluster push into CTA `rank` per
+    exchange (its arrival's expect_tx): every other band's rows of the
+    chunk's nb states, 8 bytes an entry (re, im)."""
+    R = -(-N // G)
+    return 8 * (N - min(R, N - rank * R)) * nb
+
+
+def mid_fwd_push_pairs(G, nb):
+    """The (state, CTA) pairs each lane of a warp pushes for one band row
+    in csrc/stream_mid.cu stream_mid_fwd's push_row, in order: lane l the
+    CTA l mod G (its own by a local store) for the states l // G,
+    l // G + 32 / G, ... below nb."""
+    per = 32 // G
+    return [[(b0 + lane // G, lane % G) for b0 in range(0, nb, per)
+             if b0 + lane // G < nb] for lane in range(32)]
+
+
+def mid_fwd_exchanges(nt, iters):
+    """The forward's stages in order as csrc/stream_mid.cu stream_mid_fwd
+    runs them: (step, stage, exchange read, exchange written or None).
+    Exchange 0 is x0; exchange e lies in operand buffer e & 1 and completes
+    phase e >> 1 of that buffer's mbarrier (parity (e >> 1) & 1)."""
+    out, e = [], 0
+    for t in range(nt):
+        for j in range(iters + 1):
+            w = e + 1 if j < iters or t + 1 < nt else None
+            out.append((t, j, e, w))
+            e = w if w is not None else e
+    return out
+
+
+def _mid_shape(E, B, N, iters, store, backward=False, layout=None,
+               rows=None):
     """(G, Bc, threads, shared-memory bytes, layout) of one mid launch
     (streamk.cluster_shape, up to two band slots), or None where no layout
     fits a CTA: 'smem2' where two slots fit (the next step's band streamed
     in during the step), else 'smem1'; 'global' where no G fits one slot.
     `layout` forces one ('global' at the G the planner would give the bands
     in shared memory, where there is one), or gives None where it does not
-    fit."""
+    fit. The forward's bytes hold its band rows past the slots
+    (mid_fwd_rows; `rows` forces a count, None where it does not fit)."""
     replay = backward and not store and iters > 0
     shape = streamk.cluster_shape(
         E, B, N, lambda G, bc, slots: _mid_floats(
@@ -375,7 +465,18 @@ def _mid_shape(E, B, N, iters, store, backward=False, layout=None):
     if shape is None:
         return None
     G, bc, slots, threads, smem = shape
-    return G, bc, threads, smem, _LAYOUTS[slots]
+    layout = _LAYOUTS[slots]
+    if not backward:
+        R = -(-N // G)
+        if rows is None:
+            rows = mid_fwd_rows(E, B, N, G, bc, layout)
+        elif rows < 0 or rows > (R - 1 if slots == 1 else 0 if slots == 2
+                                 else R):
+            return None
+        smem = 4 * _mid_fwd_floats(bc, N, R, *_mid_fwd_band(R, slots, rows))
+        if smem > streamk._MAX_SMEM:
+            return None
+    return G, bc, threads, smem, layout
 
 
 def mid_tracks(E, B, N, nt, G, bc):

@@ -67,9 +67,9 @@ def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * 7 + [f, f] + [i] * 5
     helpers = [i, i, i, p, p]       # helpers, hsmem, rslots, ring, flags
-    for name, npt, more, tail in (("stream_mid_fwd_launch", 11, [], []),
-                                  ("chunk_mid_fwd_launch", 11, [], []),
-                                  ("dense_mid_fwd_launch", 11, [], []),
+    for name, npt, more, tail in (("stream_mid_fwd_launch", 11, [i], []),
+                                  ("chunk_mid_fwd_launch", 11, [i], []),
+                                  ("dense_mid_fwd_launch", 11, [i], []),
                                   ("stream_mid_bwd_launch", 18, [i], helpers),
                                   ("chunk_mid_bwd_launch", 18, [i], helpers)):
         fn = getattr(lib, name)
@@ -89,21 +89,25 @@ def _lib():
     return cuda_build.library(_SRC, _bind)
 
 
-def _launch_shape(lib, plan, E, B, N, nt, backward, layout=None):
-    """stream._mid_shape of a launch; raises NotImplementedError where the
-    mid pair refuses the plan (or the forced `layout` does not fit), and
-    RuntimeError where the card cannot hold one cluster of the shape
-    (cudaOccupancyMaxActiveClusters, asked once per shape)."""
+def _launch_shape(lib, plan, E, B, N, nt, backward, layout=None,
+                  rows=None):
+    """stream._mid_shape of a launch (the forward's: stream._mid_fwd_shape,
+    with its band rows); raises NotImplementedError where the mid pair
+    refuses the plan (or the forced `layout` or forward band `rows` do not
+    fit), and RuntimeError where the card cannot hold one cluster of the
+    shape (cudaOccupancyMaxActiveClusters, asked once per shape)."""
     store = plan.store_iters and plan.iters > 0
     why = stream.mid_refusal(E, B, N, plan.iters, nt, store, plan.kind)
     if why is not None:
         raise NotImplementedError(why)
-    shape = stream._mid_shape(E, B, N, plan.iters, store, backward, layout)
+    shape = (stream._mid_shape(E, B, N, plan.iters, store, True, layout)
+             if backward else
+             stream._mid_fwd_shape(E, B, N, plan.iters, store, layout, rows))
     if shape is None:
         raise NotImplementedError(
-            f"stream mid kernels: layout {layout!r} does not fit a CTA at "
-            f"N = {N}, B = {B}, iters = {plan.iters}")
-    G, bc, threads, smem, _ = shape
+            f"stream mid kernels: layout {layout!r} (band rows {rows}) does "
+            f"not fit a CTA at N = {N}, B = {B}, iters = {plan.iters}")
+    G, bc, threads, smem = shape[:4]
     kind = 2 if backward else int(plan.kind == "dense")
     key = (kind, bc, G, threads, smem)
     if key not in _SCHEDULED:
@@ -122,21 +126,25 @@ def _log(key, plan, E, B, N, shape, tracks=None, **more):
     mid_layouts[key] = dict(kind=plan.kind, G=G, Bc=bc, threads=threads,
                             smem=smem, layout=layout, R=-(-N // G),
                             clusters=clusters, ctas=clusters * G, **more)
+    if key == "fwd":
+        mid_layouts[key]["rows"] = shape[5]
     if tracks:
         mid_layouts[key]["tracks"] = tracks
 
 
-def _kernel_fwd(plan, Hr, Hi, x0r, x0i, _layout=None):
+def _kernel_fwd(plan, Hr, Hi, x0r, x0i, _layout=None, _rows=None):
     """One forward launch of the plan's member: (xTr, xTi, hr, hi, ksr, ksi);
     the history is None for 'dense', the stage iterates unless stored.
     `_layout` forces the bands' layout ('smem2', 'smem1', 'global'; the
-    planner's by default)."""
+    planner's by default), `_rows` its band rows past the whole slots
+    (stream.mid_fwd_rows; 0 in 'global': the whole band from L2). Every
+    layout and count gives the same bits."""
     stream._check_cuda(plan.rows, Hr, Hi, x0r, x0i)
     lib = _lib()
     E, nt, N = Hr.shape[0], Hr.shape[1], Hr.shape[-1]
     B = x0r.shape[0]
-    shape = _launch_shape(lib, plan, E, B, N, nt, False, _layout)
-    G, bc, threads, smem, layout = shape
+    shape = _launch_shape(lib, plan, E, B, N, nt, False, _layout, _rows)
+    G, bc, threads, smem, layout, rows = shape
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=Hr.device)
     xTr, xTi = new(E, B, N), new(E, B, N)
     hr = hi = ksr = ksi = None
@@ -148,7 +156,7 @@ def _kernel_fwd(plan, Hr, Hi, x0r, x0i, _layout=None):
         *map(streamk._ptr, (Hr, Hi, x0r, x0i, plan.rows, xTr, xTi, hr, hi,
                             ksr, ksi)),
         *stream._dims(plan, E, nt, B, N), G, bc, threads, smem,
-        stream.MID_SLOTS[layout],
+        stream.MID_SLOTS[layout], rows,
         torch.cuda.current_stream(Hr.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{plan.kind}_mid_fwd launch failed: CUDA error "

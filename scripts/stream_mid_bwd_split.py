@@ -40,6 +40,49 @@ DIR holds the quandary_tpu_torch/csrc/stream_mid.cu to split and its
 headers (default: the checkout's parent, unpacked as
 scripts/parent_common.py says, in build/parent).
 
+With --fwd, a step of the forward stream_mid_fwd as a890352 has it (a
+cluster barrier after each exchange, the band copied by cp.async), by
+variants of its text between FWD_SCOPE's two marks, launched through that
+source's launcher (`stream_mid_parent.parent_fwd`) (FWD_VARIANTS):
+  source            as it is
+  no_fetch          the band's copies into shared memory (smem2, smem1;
+                    the global layout reads its band in the products)
+  no_product        the stage products (rows_dot over no entry)
+  no_push           the pushes into the other CTAs (each a local store)
+  no_barrier        the cluster barriers of the time loop (each the CTA's)
+  no_stores         the history and stored-iterate writes
+Parts, us per step: fetch, product, push, barrier, stores and "rest" (the
+step less those: the stage updates, shuffle trees, band waits, the loop).
+Cases FWD_SPLIT_CASES (stream256, stream512, chunk256, chunk1024,
+dense1024, open2; stream_mid_parent.fwd_case_inputs), each variant timed
+in the order source, the others, the others reversed, source. Written to
+chiprun_out/stream_mid_fwd_split.json.
+
+    python3 scripts/stream_mid_bwd_split.py --fwd [--new] [--src DIR]
+        [--steps N]
+
+With --fwd --new, a step of the checkout's forward (st.async exchange on
+mbarriers, band rows a step ahead, in place or from L2) by variants of its
+text from NEW_FWD_SCOPE's mark on, launched through ops/stream_mid.py
+(NEW_FWD_VARIANTS):
+  source            as it is
+  no_product        the stage products (rows_dot_all over no entry)
+  local_exchange    each push a local store, no byte expected from another
+                    CTA (the exchange a CTA's own arrival and wait)
+  no_band           the band rows' copies (bulk or cp.async), no byte
+                    expected
+  no_stores         the history and stored-iterate writes
+  minb1             the instances of one CTA an SM everywhere (up to 128
+                    registers; the source takes two, at most 64, where
+                    the card holds too few clusters of those and two fit
+                    an SM's shared memory)
+  single            a warp's rows one at a time everywhere
+  pairs             a warp's rows two at a time wherever Bc = 1 (each
+                    operand entry loaded once for both)
+and the source on other band layouts (NEW_FWD_LAYOUTS: 'smem1' with every
+row refilled in place, 'global' with every row from L2), where they fit.
+Written to chiprun_out/stream_mid_fwd_split_new.json.
+
 With --new, a step of the checkout's backward on its 'helpers' schedule
 instead, by variants of stream_mid_bwd_helpers launched through
 ops/stream_mid.py (NEW_VARIANTS):
@@ -126,6 +169,180 @@ VARIANTS = {
         "      cl.sync();    // every CTA's pass has read the cotangent "
         "slots\n", ""),),
 }
+
+
+FWD_SCOPE = ("stream_mid_fwd(const float* __restrict__ gHr",
+             "// Backward: the steps in reverse")
+FWD_VARIANTS = {
+    "source": (),
+    "no_fetch": ((
+        "    copy_run(dst, plane_rows(gHr, d, g.e, t, g.r0), g.nr * N);\n"
+        "    copy_run(dst + rowp, plane_rows(gHi, d, g.e, t, g.r0), g.nr * "
+        "N);\n", ""),),
+    "no_product": ((
+        "Hr, Hi, N, g.nr, Vr, Vr + BNv, N, warp, nwarps, lane,",
+        "Hr, Hi, N, g.nr, Vr, Vr + BNv, 0, warp, nwarps, lane,"),),
+    "no_push": ((
+        "    push(cl, buf + b * N + g.r0 + il, vr, G);\n"
+        "    push(cl, buf + BNv + b * N + g.r0 + il, vi, G);\n",
+        "    buf[b * N + g.r0 + il] = vr;\n"
+        "    buf[BNv + b * N + g.r0 + il] = vi;\n"),),
+    "no_barrier": ((
+        "    cl.sync();\n    const size_t st",
+        "    __syncthreads();\n    const size_t st"), (
+        "        p ^= 1;\n        cl.sync();\n",
+        "        p ^= 1;\n        __syncthreads();\n")),
+    "no_stores": ((
+        "                ksr[o] = kr;\n                ksi[o] = ki;\n",
+        "                if (kr == 1.2345e-30f) ksr[o] = ki;\n"), (
+        "        hr[o] = xr;\n        hi[o] = xi;\n",
+        "        if (xr == 1.2345e-30f) hr[o] = xi;\n")),
+}
+NEW_FWD_SCOPE = ("// Forward: planes H (E, nt, N, N) x2;", None)
+NEW_FWD_VARIANTS = {
+    "source": (),
+    "no_product": (("rows_dot_all<BC, 2>(row, g.nr, Ve, N, warp",
+                    "rows_dot_all<BC, 2>(row, g.nr, Ve, 0, warp"),
+                   ("rows_dot_all<BC, 1>(row, g.nr, Ve, N, warp",
+                    "rows_dot_all<BC, 1>(row, g.nr, Ve, 0, warp")),
+    "local_exchange": ((
+        "  const unsigned tx = 8u * (N - g.nr) * g.nb;",
+        "  const unsigned tx = 0;"), (
+        "        st_async2(rank_addr(smem_addr(dst), q), pr, pi, "
+        "rank_addr(bar, q));", "        *dst = make_float2(pr, pi);")),
+    "no_band": ((
+        "        bulk_g2s(smem_addr(s), gr, 4 * N, wbar);\n"
+        "        bulk_g2s(smem_addr(s + N), gi, 4 * N, wbar);\n", ""), (
+        "        cp_async4(s + j, gr + j);\n"
+        "        cp_async4(s + N + j, gi + j);\n", ""), (
+        "mb_arrive(wbar, d.bulk ? 8u * N * wrows : 0u);",
+        "mb_arrive(wbar, 0u);")),
+    "no_stores": ((
+        "          ksr[o] = kr;\n          ksi[o] = ki;\n",
+        "          if (kr == 1.2345e-30f) ksr[o] = ki;\n"), (
+        "            hr[o] = xr;\n            hi[o] = xi;\n",
+        "            if (xr == 1.2345e-30f) hr[o] = xi;\n")),
+    "minb1": (("  return 2 * (smem_bytes + 1024) <= 228 * 1024 &&",
+               "  return false &&"),),
+    "single": (("  const bool pairs = BC == 1 && R >= 2 * nwarps;",
+                "  const bool pairs = false;"),),
+    "pairs": (("  const bool pairs = BC == 1 && R >= 2 * nwarps;",
+               "  const bool pairs = BC == 1;"),),
+}
+NEW_FWD_LAYOUTS = {"inplace": ("smem1", 0), "l2": ("global", 0)}
+FWD_SPLIT_CASES = ("stream256", "stream512", "chunk256", "chunk1024",
+                   "dense1024", "open2")
+
+
+def fwd_split(args, src):
+    """The --fwd report: a step of a890352's forward by source variants."""
+    import chip_smoke as cs
+    paths = pc.variant_sources(src, FWD_VARIANTS, *FWD_SCOPE,
+                               stem="stream_mid_fsplit")
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        futs = {k: pool.submit(pc.build_parent, p, f"stream_mid_fsplit_{k}",
+                               smp.parent_fwd_bind)
+                for k, p in paths.items()}
+        libs = {k: f.result() for k, f in futs.items()}
+    report = {"card": pc.smi_line()}
+    for name in args.cases.split(","):
+        plan, ins = smp.fwd_case_inputs(name, args.steps)
+        runs = {k: (lambda k=k: smp.parent_fwd(libs[k], plan, *ins))
+                for k in FWD_VARIANTS}
+        ms = pc.interleaved(runs, "source", 1)
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        E, nt, N = ins[0].shape[0], ins[0].shape[1], ins[0].shape[-1]
+        B = ins[2].shape[0]
+        us = lambda t: 1e3 * t / nt
+        parts = dict(step=us(mean["source"]))
+        for k in FWD_VARIANTS:
+            if k != "source":
+                parts[k[3:]] = us(mean["source"] - mean[k])
+        parts["rest"] = parts["step"] - sum(v for k, v in parts.items()
+                                            if k != "step")
+        store = plan.store_iters and plan.iters > 0
+        report[name] = dict(
+            N=N, B=B, iters=plan.iters, nt=nt, kind=plan.kind, stored=store,
+            shape=smp.parent_fwd_shape(E, B, N, plan.iters, store), ms=ms,
+            us_per_step=parts)
+        del ins
+        torch.cuda.empty_cache()
+        print(json.dumps({name: report[name]}), flush=True)
+    line = json.dumps(report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "stream_mid_fwd_split.json"),
+              "w") as f:
+        f.write(line + "\n")
+    print(line)
+
+
+def fwd_new_split(args):
+    """The --fwd --new report: a step of the checkout's forward."""
+    import shutil
+    import chip_smoke as cs
+    from quandary_tpu_torch.ops import cuda_build, stream_mid
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "stream_mid_fsplit_new")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(cuda_build.CSRC_DIR):
+        if name.endswith(".cuh") or name == "stream_mid.cu":
+            shutil.copy(os.path.join(cuda_build.CSRC_DIR, name), out_dir)
+    paths = pc.variant_sources(os.path.join(out_dir, "stream_mid.cu"),
+                               NEW_FWD_VARIANTS, *NEW_FWD_SCOPE,
+                               stem="stream_mid_fsplit_new")
+
+    def build(path, name):
+        lib = pc.nvcc(path, os.path.join(out_dir, f"lib{name}.so"))[0]
+        stream_mid._bind(lib)
+        return lib
+
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        futs = {k: pool.submit(build, p, f"fsplit_new_{k}")
+                for k, p in paths.items()}
+        libs = {k: f.result() for k, f in futs.items()}
+    report = {"card": pc.smi_line()}
+    own = stream_mid._lib
+    for name in args.cases.split(","):
+        plan, ins = smp.fwd_case_inputs(name, args.steps)
+        runs, shapes = {}, {}
+        for k in NEW_FWD_VARIANTS:
+            runs[k] = (k, {})
+        for k, (lay, rows) in NEW_FWD_LAYOUTS.items():
+            try:
+                stream_mid._kernel_fwd(plan, *ins, _layout=lay, _rows=rows)
+                runs[k] = ("source", dict(_layout=lay, _rows=rows))
+            except NotImplementedError:
+                pass
+        ms = {k: [] for k in runs}
+        try:
+            for k in list(runs) + list(runs)[::-1]:
+                lib, kw = runs[k]
+                stream_mid._lib = lambda lib=lib: libs[lib]
+                ms[k].append(cs.event_ms(lambda kw=kw: stream_mid._kernel_fwd(
+                    plan, *ins, **kw), 1))
+                shapes[k] = dict(stream_mid.mid_layouts["fwd"])
+        finally:
+            stream_mid._lib = own
+        torch.cuda.synchronize()
+        nt = ins[0].shape[1]
+        us = {k: 1e3 * sum(v) / len(v) / nt for k, v in ms.items()}
+        parts = {k: us["source"] - us[k] for k in NEW_FWD_VARIANTS
+                 if k not in ("source", "minb1", "single", "pairs")}
+        parts["rest"] = us["source"] - sum(parts.values())
+        report[name] = dict(N=ins[0].shape[-1], B=ins[2].shape[0],
+                            iters=plan.iters, nt=nt, kind=plan.kind,
+                            shape=shapes["source"], ms=ms, us_per_step=us,
+                            parts=parts,
+                            layouts={k: shapes[k] for k in NEW_FWD_LAYOUTS
+                                     if k in shapes})
+        del ins
+        torch.cuda.empty_cache()
+        print(json.dumps({name: report[name]}), flush=True)
+    line = json.dumps(report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "stream_mid_fwd_split_new.json"), "w") as f:
+        f.write(line + "\n")
+    print(line)
 
 
 NEW_VARIANTS = {
@@ -225,9 +442,16 @@ def main():
     ap.add_argument("--cases", default=",".join(smp.CASES))
     ap.add_argument("--new", action="store_true",
                     help="split the checkout's helpers schedule instead")
+    ap.add_argument("--fwd", action="store_true",
+                    help="split a step of a890352's forward instead (with "
+                         "--new: the checkout's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
+    if args.fwd and args.new:
+        if args.cases == ",".join(smp.CASES):
+            args.cases = ",".join(FWD_SPLIT_CASES)
+        return fwd_new_split(args)
     if args.new:
         if args.cases == ",".join(smp.CASES):
             args.cases = ",".join(c for c in smp.CASES if c != "open2")
@@ -237,6 +461,10 @@ def main():
     if not os.path.isfile(src):
         sys.exit(f"{args.src} holds no quandary_tpu_torch/csrc/"
                  "stream_mid.cu")
+    if args.fwd:
+        if args.cases == ",".join(smp.CASES):
+            args.cases = ",".join(FWD_SPLIT_CASES)
+        return fwd_split(args, src)
     paths = pc.variant_sources(src, VARIANTS, *SCOPE,
                                stem="stream_mid_split")
     with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:

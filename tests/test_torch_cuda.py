@@ -1828,6 +1828,108 @@ def test_stream_mid_bwd_replay_handoff_on_card(cuda, case):
             assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+# the forward's band layouts (stream._mid_fwd_shape): two slots (N = 256,
+# 130 with N % 4 != 0: rows by cp.async), one and a partial second slot
+# (N = 512), resident rows and L2 (N = 1024, 'chunk' and dense), chunks of
+# states (B = 16, Bc 8; B = 3, a partial chunk), ragged last bands (N = 200,
+# 300)
+STREAM_MID_FWD_CASES = [
+    dict(kind="stream", solver="split", iters=4, B=1, n=256, E=1),
+    dict(kind="stream", solver="jacobi", iters=3, B=1, n=512, E=1),
+    dict(kind="stream", solver="neumann", iters=4, B=16, n=130, E=1),
+    dict(kind="stream", solver="split", iters=3, B=3, n=200, E=2),
+    dict(kind="chunk", solver="neumann", iters=8, B=1, n=300, E=1),
+    dict(kind="chunk", solver="neumann", iters=8, B=3, n=1024, E=1, nt=4),
+    dict(kind="dense", solver="neumann", iters=8, B=1, n=1024, E=1, nt=4),
+]
+STREAM_MID_FWD_IDS = ["split4-N256", "jacobi3-N512", "neumann4-N130-B16",
+                      "split3-N200-B3-E2", "chunk-N300", "chunk-N1024-B3",
+                      "dense-N1024"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_MID_FWD_CASES,
+                         ids=STREAM_MID_FWD_IDS)
+def test_stream_mid_fwd_layouts_same_bits_on_card(cuda, case):
+    """The forward in every band layout that fits the shape at the
+    planner's G, with 0, R / 4, R / 2, the planner's, R - 1 and R band rows
+    past the whole slots where they fit: xT, the history and the stored
+    iterates in the bits of the planner's launch (the same products in the
+    same order whatever slot or array a row lies in), and the planner's
+    within 1e-5 x max of plain."""
+    from quandary_tpu_torch.ops import stream, stream_mid
+    plan, H, x0, _, _ = _stream_mid_case(cuda, **case, seed=17)
+    ref = stream_mid._kernel_fwd(plan, *H, *x0)
+    torch.cuda.synchronize()
+    G = stream_mid.mid_layouts["fwd"]["G"]
+    hr, hi = stream.plain_forward(plan, *H, *x0)
+    want = (hr[:, -1], hi[:, -1]) + (() if plan.kind == "dense" else (hr, hi))
+    for a, b in zip(ref, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    R, seen = -(-case["n"] // G), []
+    for layout in stream.MID_SLOTS:
+        for rows in (0, R // 4, R // 2, None, R - 1, R):
+            try:
+                out = stream_mid._kernel_fwd(plan, *H, *x0, _layout=layout,
+                                             _rows=rows)
+            except NotImplementedError:
+                continue
+            torch.cuda.synchronize()
+            shape = stream_mid.mid_layouts["fwd"]
+            assert shape["G"] == G and shape["layout"] == layout
+            seen.append((layout, shape["rows"]))
+            for a, b in zip(out, ref):
+                assert (a is None and b is None) or torch.equal(a, b)
+    assert len(seen) >= 3, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_MID_FWD_CASES[:4],
+                         ids=STREAM_MID_FWD_IDS[:4])
+@pytest.mark.parametrize("schedule", ["helpers", "chain"])
+def test_stream_mid_fwd_stored_equal_replayed_on_card(cuda, case, schedule):
+    """The forward's stored stage iterates are the ones each backward
+    schedule replays: the backward from them gives g0 and Hb in the bits of
+    the backward that replays them, on 'helpers' and on 'chain', and the
+    two forwards the same xT and history."""
+    from quandary_tpu_torch.ops import stream_mid
+    out = {}
+    for store in (True, False):
+        plan, H, x0, gT, jh = _stream_mid_case(cuda, **case, store=store,
+                                               seed=19)
+        assert plan.store_iters == store
+        fwd = stream_mid._kernel_fwd(plan, *H, *x0)
+        bwd = stream_mid._kernel_bwd(plan, *H, *x0, *fwd[2:], *gT, *jh,
+                                     _schedule=schedule)
+        torch.cuda.synchronize()
+        out[store] = (fwd[:4], bwd)
+    for a, b in zip(out[True][0] + out[True][1],
+                    out[False][0] + out[False][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_stream_mid_fwd_full_card_on_card(cuda):
+    """E = 8 at N = 256 (8 clusters of 16 CTAs: 128 of the 132 SMs): each
+    candidate's xT, history and stored iterates in the bits of its launch
+    alone (clusters never wait on each other), and within 1e-5 x max of
+    plain."""
+    from quandary_tpu_torch.ops import stream, stream_mid
+    plan, H, x0, _, _ = _stream_mid_case(cuda, "stream", "split", 4, 1, 256,
+                                         8, seed=23)
+    full = stream_mid._kernel_fwd(plan, *H, *x0)
+    torch.cuda.synchronize()
+    assert stream_mid.mid_layouts["fwd"]["ctas"] == 128
+    hr, hi = stream.plain_forward(plan, *H, *x0)
+    for a, b in zip(full, (hr[:, -1], hi[:, -1], hr, hi)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for e in (0, 5, 7):
+        one = stream_mid._kernel_fwd(
+            plan, *(h[e:e + 1].contiguous() for h in H), *x0)
+        for a, b in zip(full, one):
+            assert torch.equal(a[e:e + 1], b)
+
+
 @pytest.mark.cuda
 def test_stream_mid_bwd_planner_on_card(cuda):
     """The planner's backward schedule from the card's count of clusters:

@@ -35,6 +35,8 @@ chip_smoke.py phase 27 hold them against the plain version there). Here:
 """
 
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
@@ -117,6 +119,229 @@ def test_mid_shape_layouts():
     assert s(1, 1, 512, 4, True, False, "global")[::4] == (16, "global")
     assert s(1, 1, 512, 4, True, False, "smem2") is None
     assert s(1, 16, 256, 4, True)[:2] == (16, 8)
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "quandary_tpu_torch", "csrc", "stream_mid.cu")
+
+
+def _c_function_body(name):
+    """The return expression of the inline function `name` of
+    csrc/stream_mid.cu, as Python (casts dropped)."""
+    with open(CSRC) as f:
+        text = f.read()
+    body = text[text.index(f"inline size_t {name}("):]
+    expr = body[body.index("return ") + 7:body.index(";", body.index(
+        "return "))]
+    return " ".join(re.sub(r"\(size_t\)", "", expr).split())
+
+
+@pytest.mark.parametrize("E,B,N,iters", PLAN_SHAPES)
+def test_mid_fwd_floats_are_the_kernels(E, B, N, iters):
+    """stream._mid_fwd_floats is csrc/stream_mid.cu's sm_fwd_floats (its
+    expression evaluated, SM_FWD_HEAD read from the source) and the sum of
+    the regions stream_mid_fwd carves: the mbarriers (2 + one a warp, 8
+    bytes each), ahead + inplace band rows and ahead more (re N, im N
+    each), two operand buffers of Bc x N (re, im) pairs, the bands of x, b,
+    k and the solver rows; the band rows 16-byte aligned where N % 4 == 0,
+    the operand's pairs 8-byte aligned."""
+    with open(CSRC) as f:
+        head = int(re.search(r"constexpr int SM_FWD_HEAD = (\d+);",
+                             f.read()).group(1))
+    assert stream.MID_FWD_HEAD == head
+    assert 4 * head >= 8 * (2 + 16)
+    expr = _c_function_body("sm_fwd_floats")
+    G, bc, threads = stream._mid_shape(E, B, N, iters, True)[:3]
+    R = -(-N // G)
+    for slots in (2, 1, 0):
+        for rows in {0, R // 2, R - 1, R}:
+            ahead, inplace = stream._mid_fwd_band(R, slots, rows)
+            want = eval(expr, dict(SM_FWD_HEAD=head, BC=bc, N=N, R=R,
+                                   ahead=ahead, inplace=inplace))
+            assert stream._mid_fwd_floats(bc, N, R, ahead, inplace) == want
+            band = head + (ahead + inplace) * 2 * N + ahead * 2 * N
+            assert want == band + 2 * bc * N * 2 + 6 * bc * R + 4 * R
+            if N % 4 == 0:
+                assert all((head + k * N) % 4 == 0
+                           for k in range(2 * (2 * ahead + inplace)))
+            assert band % 2 == 0
+
+
+@pytest.mark.parametrize("backward", [False])
+@pytest.mark.parametrize("E,B,N,iters", PLAN_SHAPES + [(8, 1, 1024, 8),
+                                                       (16, 1, 1024, 8)])
+def test_mid_fwd_band_rows_per_layout(E, B, N, iters, backward):
+    """The forward's band rows past its whole slots (stream.mid_fwd_rows,
+    the C entry points' band_rows): 'smem2' none; 'smem1' the most rows of
+    a partial second slot that fit beside the first (below R); 'global' the
+    most resident rows that fit (up to R) where the launch's CTAs fit the
+    card's SMs once, else none. The planner's bytes hold them, forcing a
+    count that does not fit gives None, and every count is 0 to R."""
+    fwd = stream._mid_fwd_shape(E, B, N, iters, True)
+    G, bc, threads, smem, layout, rows = fwd
+    R = -(-N // G)
+    fl = lambda r: 4 * stream._mid_fwd_floats(
+        bc, N, R, *stream._mid_fwd_band(R, stream.MID_SLOTS[layout], r))
+    assert smem == fl(rows) <= 232448
+    assert stream._mid_shape(E, B, N, iters, True) == fwd[:5]
+    if layout == "smem2":
+        assert rows == 0
+    elif layout == "smem1":
+        assert 0 <= rows < R and (rows == R - 1 or fl(rows + 1) > 232448)
+    elif E * -(-B // bc) * G > 132:
+        assert rows == 0
+    else:
+        assert 0 <= rows <= R and (rows == R or fl(rows + 1) > 232448)
+    too_many = R if layout == "smem1" else R + 1 if layout == "global" else 1
+    assert stream._mid_fwd_shape(E, B, N, iters, True, layout,
+                                 too_many) is None
+    assert stream._mid_fwd_shape(E, B, N, iters, True, layout, 0)[5] == 0
+
+
+def test_mid_fwd_band_rows_at_the_cases():
+    """The rows of the slice's cases: N = 512 (smem1) 22 of 32 a step
+    ahead, N = 1024 (global) 26 of 64 resident, also at E = 8 (128 CTAs),
+    none at E = 16 (256 CTAs); N = 256 two whole slots."""
+    f = stream._mid_fwd_shape
+    assert f(1, 1, 512, 4, True)[4:] == ("smem1", 22)
+    assert f(1, 1, 1024, 8, False)[4:] == ("global", 26)
+    assert f(8, 1, 1024, 8, False)[4:] == ("global", 26)
+    assert f(16, 1, 1024, 8, False)[4:] == ("global", 0)
+    assert f(1, 1, 256, 4, True)[4:] == ("smem2", 0)
+    assert f(1, 16, 256, 8, False)[:2] == (16, 8)
+
+
+@pytest.mark.parametrize("N,G", [(256, 16), (200, 16), (130, 8), (1024, 16),
+                                 (22, 8), (13, 4), (65, 2), (7, 1)])
+@pytest.mark.parametrize("bc", [1, 2, 4, 8])
+def test_mid_fwd_expected_bytes(N, G, bc):
+    """The bytes each CTA's arrival expects per exchange
+    (stream.mid_fwd_tx) are the bytes the other CTAs push into it: every
+    row of every other band (the last band ragged) for each of the chunk's
+    nb states (a partial chunk: nb < Bc), 8 bytes a (re, im) pair; and a
+    warp's lanes (stream.mid_fwd_push_pairs) push each (state, CTA) pair of
+    a row exactly once."""
+    R = -(-N // G)
+    if (G - 1) * R >= N:
+        pytest.skip("not a launch shape (an empty band)")
+    nr = [min(R, N - q * R) for q in range(G)]
+    assert sum(nr) == N and min(nr) > 0
+    for nb in range(1, bc + 1):
+        pairs = stream.mid_fwd_push_pairs(G, nb)
+        flat = [p for lane in pairs for p in lane]
+        assert sorted(flat) == [(b, q) for b in range(nb) for q in range(G)]
+        for rank in range(G):
+            landed = sum(8 * nr[src] for src in range(G) if src != rank
+                         for b, q in flat if q == rank)
+            assert stream.mid_fwd_tx(N, G, rank, nb) == landed
+            assert landed < 1 << 20
+
+
+def _ring_model(G, W, nt, iters, rng, buffers=2, rowless=0):
+    """A model of csrc/stream_mid.cu stream_mid_fwd's exchange ring: G CTAs
+    of W warps (the last `rowless` of each own no band row: they read no
+    operand and push nothing, but arrive), the stages of
+    stream.mid_fwd_exchanges, events in a random order: a warp waits for
+    the exchange its stage reads (the parity wait on that buffer's
+    mbarrier), reads the buffer, pushes its rows' entries of the next
+    exchange (each push landing later, in any order) and arrives. Raises
+    AssertionError where a push lands in a buffer some warp of its CTA has
+    not finished reading, lands on an mbarrier whose previous phase is
+    open, or a parity wait would answer wrongly; returns the events run."""
+    stages = stream.mid_fwd_exchanges(nt, iters)
+    n_ex = 1 + sum(w is not None for *_, w in stages)
+    owners = [w for w in range(W) if w < W - rowless]
+    done_read = [[-1] * W for _ in range(G)]      # last exchange read
+    phase = [[0] * buffers for _ in range(G)]     # phases completed
+    landed = [[0] * n_ex for _ in range(G)]       # pushes landed
+    arrived = [[0] * n_ex for _ in range(G)]      # warps arrived
+    pos = [[-1] * W for _ in range(G)]            # -1: prologue
+    state = [["push"] * W for _ in range(G)]
+    pending = []                                  # (exchange, CTA)
+
+    def complete(c, e):
+        b, k = e % buffers, e // buffers
+        while (phase[c][b] == k and arrived[c][e] == W
+               and landed[c][e] == G * len(owners)):
+            phase[c][b] += 1
+
+    def push(c, w, e):
+        if w in owners:
+            pending.extend((e, y) for y in range(G))
+        arrived[c][e] += 1
+        complete(c, e)
+
+    events = 0
+    while True:
+        moves = [("land", i) for i in range(len(pending))]
+        for c in range(G):
+            for w in range(W):
+                if pos[c][w] < len(stages):
+                    moves.append(("warp", (c, w)))
+        if not moves:
+            break
+        kind, arg = moves[rng.integers(len(moves))]
+        events += 1
+        if kind == "land":
+            e, y = pending.pop(arg)
+            assert all(done_read[y][w] >= e - buffers for w in owners), \
+                "a push landed in a buffer still being read"
+            assert phase[y][e % buffers] == e // buffers, \
+                "a push landed on an open earlier phase"
+            landed[y][e] += 1
+            complete(y, e)
+            continue
+        c, w = arg
+        p = pos[c][w]
+        if p < 0:                       # x0 into exchange 0
+            push(c, w, 0)
+            pos[c][w] = 0
+            state[c][w] = "wait"
+            continue
+        t, j, e, wr = stages[p]
+        if state[c][w] == "wait":
+            b = e % buffers
+            ready = phase[c][b] > e // buffers
+            parity = phase[c][b] % 2 != (e // buffers) % 2
+            assert phase[c][b] - e // buffers in (0, 1) and parity == ready
+            if ready:
+                state[c][w] = "read"
+        elif state[c][w] == "read":
+            if w in owners:
+                done_read[c][w] = e
+            if wr is not None:
+                push(c, w, wr)
+            pos[c][w] += 1
+            state[c][w] = "wait"
+    assert all(p == len(stages) for row in pos for p in row), "deadlock"
+    assert not pending
+    return events
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2, 3, 4, 7])
+@pytest.mark.parametrize("G,W,rowless", [(2, 1, 0), (3, 2, 0), (4, 3, 1)])
+def test_mid_fwd_exchange_ring_model(G, W, rowless, iters):
+    """The forward's exchange sequence (stream.mid_fwd_exchanges: exchange
+    0 is x0, each stage's k_j and each step's next x one exchange after
+    the other, 1 + iters a step, odd and even) on two buffers with their
+    mbarriers' parity: over random orders of several steps no push lands
+    in a buffer before every warp of its CTA has read it, nor on an
+    mbarrier before the buffer's previous phase completed, every parity
+    wait answers right, and every warp runs to the end. One buffer (the
+    kernel without its ring) fails the model."""
+    rng = np.random.default_rng(iters + 10 * G)
+    stages = stream.mid_fwd_exchanges(4, iters)
+    assert len(stages) == 4 * (iters + 1)
+    assert [r for _, _, r, _ in stages] == list(range(len(stages)))
+    assert stages[-1][3] is None and all(
+        w == r + 1 for _, _, r, w in stages[:-1])
+    for _ in range(20):
+        _ring_model(G, W, 4, iters, rng, rowless=rowless)
+    if G > 1:
+        with pytest.raises(AssertionError):
+            for _ in range(50):
+                _ring_model(G, W, 4, iters, rng, buffers=1,
+                            rowless=rowless)
 
 
 def _jax_stream_admits(N, nt):
