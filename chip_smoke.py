@@ -12,7 +12,8 @@ optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
 ops.dense.pallas_propagate_dense and calibration.KerrCalibration, and
 systems past one thread block: closed up to N = 1024 on 'streamk', open
 up to N = 128, on the streamed-plane routes, per-sample stacks and the
-open superop route. Phases:
+open superop route, and the structured engines past N = 1024 (the repo's
+32^4 configuration, N = 2^20). Phases:
 
 1. the device: CUDA must be available; prints the card's name and power
    limit as nvidia-smi gives them;
@@ -86,7 +87,8 @@ operators; 3 initial conditions, ntime = 1000, 6 iterations).
    and time per step, sweeps/s of the
    three configurations, the plain version's times, the bounds; the history
    and cotangents of the timed kernels against those of the timed plain
-   runs, at the configurations' full depth.
+   runs, at configuration 2's full depth and configuration 3's first
+   PLAIN16_NT = 250 steps (cut for the run's time).
 
 The streamed-plane kernels (csrc/stream.cu: H planes built outside the
 kernel, plane cotangents out, so the operator stacks are differentiable):
@@ -99,9 +101,10 @@ kernel, plane cotangents out, so the operator stacks are differentiable):
    of each stream kernel per sweep and no streamK launch; J and gradient
    against the streamK route on the card and phase 4's f64 reference; open
    configuration 1 on 'stream' against phase 13;
-19. fused_mode='chunk' at ntime 4884 against plain on the card and a new f64
-   reference; pallas_propagate_dense's xT against the chunk forward's and
-   plain;
+19. fused_mode='chunk' at dt/4 cut to a quarter of the horizon (1221 steps,
+   T = 50 ns, for the run's time; phase 21 times the kernels at 4884)
+   against plain on the card and a new f64 reference;
+   pallas_propagate_dense's xT against the chunk forward's and plain;
 20. the calibration on the card: the Kerr recovery of
    examples/example_calibration.py (n = 4, ntime 200, 6 iterations) to rel
    err < 1e-4, and make_stream_propagate's stack cotangents at the
@@ -228,8 +231,32 @@ stride), and the packed robust objective of open systems:
    launches per gradient, J and gradient against build_robust_objective,
    walls and kernel times.
 
+The large-N structured engines (ops/tensor_rhs.py, ops/grouped_rhs.py,
+ops/grouped_lindblad.py, with ops/grouped_adjoint.py and ops/reversible.py):
+products the reference computes outside any Pallas kernel, so they launch
+no kernel of csrc/ (each path below is driven with the counters at 0 and
+fails if any kernel launched); float32 products must be full f32:
+29. (a) `python -m quandary_tpu_torch` on scripts/perf/nlevels_32_32_32_32.cfg
+   (four 32-level transmons, N = 2^20, complex128, 50 steps) as it stands
+   and with runtype gradient: GroupedEngine, the guard's 'split', the
+   grouped adjoint, walls; the forward sweep of
+   scripts/perf/large_n_bench.py (complex64, the real-plane step on the
+   ground and a high corner state): wall, ms a step, norm drifts, the
+   bound of the forward at 67 TFLOP/s; (b) Problem(...).build_value_and_grad()
+   on that setup in complex64 (the hand-written grouped adjoint), median
+   wall of 3 and the bounds, J and gradient against complex128 on the
+   card ((a)'s gradient run), against 'reversible-ad' at full depth and
+   against 'remat' at
+   LARGE_REMAT_NT steps; (c) engine='tensor' against 'grouped' at 32^4,
+   forward xT; (d) scripts/perf/lindblad_large_n.py's open N = 1024 (rho of
+   2^20 entries, 50 steps) on GroupedLindbladEngine: trace, J and gradient
+   against complex128 on the card, the forward against engine='tensor';
+   (e) Quandary(precision="single") at nlevels 6,6,6,6 (N = 1296, the
+   tensor engine, the reversible adjoint): J and gradient against the
+   port's f64 on the CPU (the worker's, after phase 26's).
+
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26,
-27, 28) is driven with the launch counters set to 0 just before and read
+27, 28, 29) is driven with the launch counters set to 0 just before and read
 just after. Before the device record one line lists the twenty-two kernels
 with their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
@@ -267,6 +294,9 @@ from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
 from quandary_tpu_torch.ops import (cuda_build, dense, rho, rho_mid, stream,
                                     stream_mid, streamk, streamk_mid)
+from quandary_tpu_torch.ops.grouped_rhs import (make_real_imr_step,
+                                                make_real_split_step)
+from quandary_tpu_torch.ops.tensor_rhs import build_structured_model
 from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
@@ -390,22 +420,23 @@ TOL_MID_FE_INFID = 3e-7
 TOL_MID_FE_TRAJ = 2.5e-5
 NT_SHORT = 40           # steps of the comparisons with the plain version
 NT_F64 = 400            # steps of configurations 2 and 3 against f64
+PLAIN16_NT = 250        # steps of configuration 3's plain runs in phase 16
 E_OPEN = 8
 
 
 def flagship_setup(linsolver="split", linsolve_iters=3, dtype=torch.complex64,
                    freq01=FREQ01, ntime=1221, fused_mode="streamk",
-                   fused=True):
+                   fused=True, T=200.0):
     """bench.py:59-93, built with the port's own functions. `freq01` detunes
     the qubits against the rotating frame and the carriers, which stay at
     the nominal frequencies (a system realization of the robust ensemble).
-    `ntime` refines the time step at the same horizon."""
+    `ntime` refines the time step at the horizon T (ns, the bench's 200 by
+    default)."""
     Ne, Ng = [2, 2], [2, 2]
     nlevels = [e + g for e, g in zip(Ne, Ng)]
     model = build_standard_model(
         nlevels=nlevels, freq01_ghz=freq01, rotfreq_ghz=FREQ01,
         selfkerr_ghz=SELFKERR, jkl_ghz=[0.005], crosskerr_ghz=[])
-    T = 200.0
     oscs = tuple(
         OscillatorControl(
             segments=(ControlSegment("spline", nsplines=30, tstart=0.0,
@@ -864,7 +895,9 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
     iterates stored where the gate on bytes stores them), their bounds and,
     with `plain`, one timed run of each plain version at the same depth,
     whose history and cotangents the kernels' are held against
-    (`full_depth`: states abs, cotangents x max)."""
+    (`full_depth`: states abs, cotangents x max); `plain` an int: the plain
+    run and that comparison at the first `plain` steps only (`plain_steps`:
+    the depth they ran at)."""
     E, nt = C.shape[:2]
     B = x0r.shape[0]
     fwd = rho._kernel_fwd(plan, x0r, x0i, C)
@@ -895,6 +928,13 @@ def rho_kernel_ms(plan, x0r, x0i, C, reps, plain):
         if mid and key == "bwd":
             out["bwd_cluster"].update(schedule=m["schedule"], ring=m["ring"])
         out[f"{key}_us_per_step"] = 1e3 * out[key] / nt
+    if plain is not True and plain:
+        # the comparison at a cut depth: the kernels again on its rows
+        C = C[:, :plain]
+        out["plain_steps"] = C.shape[1]
+        fwd = rho._kernel_fwd(plan, x0r, x0i, C)
+        hr, hi, ksr, ksi = fwd[2:]
+        oT, oh = torch.ones_like(fwd[0]), torch.ones_like(hr)
     if plain:
         got = rho._kernel_bwd(plan, x0r, x0i, C, hr, hi, ksr, ksi, oT, oT, oh,
                               oh)
@@ -1765,7 +1805,8 @@ def cpu_references(path):
     FILE): on the CPU only, first phase 14's f64 value_and_grad of open
     configurations 2 and 3 at NT_F64 steps, pickled to FILE.open14; then
     qudits125's at NT_F64 steps and the front end's precision="double"
-    simulate for phase 26, pickled to FILE."""
+    simulate for phase 26, pickled to FILE; last phase 29's f64 gradient of
+    Quandary at N = 1296, pickled to FILE.large_n."""
     import pickle
     torch.set_num_threads(4)
 
@@ -1786,6 +1827,8 @@ def cpu_references(path):
     out["front_end"] = dict(p0=p0, result=r64,
                             seconds=time.perf_counter() - t0)
     dump(out, path)
+    # phase 29(e): Quandary at N = 1296 in f64
+    dump(large_n_reference(), path + ".large_n")
 
 
 def worker_references(worker, path, timeout=900):
@@ -2997,6 +3040,394 @@ def per_block_phase(smi, p16, open16):
     return out
 
 
+# Phase 29, the large-N structured engines (ops/tensor_rhs.py,
+# ops/grouped_rhs.py, ops/grouped_lindblad.py) with their adjoints
+# (ops/grouped_adjoint.py, ops/reversible.py). The reference computes
+# them as XLA products outside any Pallas kernel, so they launch no kernel
+# of csrc/: their products are torch.matmul / einsum, in full f32.
+LARGE_CFG = os.path.join("scripts", "perf", "nlevels_32_32_32_32.cfg")
+LARGE_REMAT_NT = 4      # steps of the 'remat' gradient at 32^4: it keeps
+#                         the graph of a step's 20 split iterations
+F32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# Bounds, about 5x the errors measured on an H100 80GB HBM3 (700 W) (J
+# relative; gradients x max|g| of the reference; states abs):
+TOL_LARGE = dict(
+    # 32^4 complex64 against complex128 on the card (measured 1.8e-8 /
+    # 5.2e-7); a TF32 product (about 5e-4 relative) would break them
+    J_f64=1e-7, g_f64=3e-6,
+    # the hand-written grouped adjoint against 'reversible-ad' (the same
+    # forward map; 0 / 4.5e-7) and against 'remat' at LARGE_REMAT_NT
+    # steps (0 / 1.4e-7)
+    J_ad=1e-7, g_ad=2.5e-6, J_remat=1e-7, g_remat=1e-6,
+    # the forward sweep's norm drift, ground and level-7 corner (1.8e-7,
+    # 4.9e-6)
+    drift=2.5e-5,
+    # forward xT, tensor engine against grouped (8.3e-9)
+    xT_tensor=5e-8,
+    # the open N = 1024 sweep: |trace - 1| (9e-7), complex64 against
+    # complex128 (4.2e-8 / 6.9e-7), tensor against grouped xT (2.4e-10)
+    trace=5e-6, J_open=2.5e-7, g_open=3.5e-6, xT_open=1.5e-9,
+    # Quandary at nlevels 6,6,6,6 (N = 1296), the card's complex64
+    # against the port's f64 on the CPU (at 50 steps 4.7e-8 / 3.3e-7)
+    J_fe=2.5e-7, g_fe=2e-6)
+
+
+def large_n_fe_kwargs():
+    """Quandary's arguments of phase 29(e): four transmons of 2 essential
+    and 4 guard levels (N = 1296, the tensor engine), T = 0.5 ns in 10
+    steps, |1000> to a random pure target on the essential levels, no
+    dpdm term (the reversible adjoint). The depth is cut for time: the
+    tensor engine at this size is bound by the host's launches (27 s for
+    50 steps, 13 s for 20, on an H100 80GB HBM3 at 700 W)."""
+    rng = np.random.default_rng(42)
+    tgt = rng.normal(size=16) + 1j * rng.normal(size=16)
+    f = [4.1, 4.2, 4.3, 4.4]
+    return dict(Ne=[2] * 4, Ng=[4] * 4, freq01=f, rotfreq=f,
+                selfkerr=[0.2] * 4, crosskerr=[0.001] * 6, Jkl=[0.001] * 6,
+                T=0.5, dT=0.05, gamma_dpdm=0.0,
+                initialcondition="pure, 1, 0, 0, 0",
+                targetstate=list(tgt / np.linalg.norm(tgt)),
+                carrier_frequency=[[0.0, -0.2]] * 4, rand_seed=1234)
+
+
+def large_n_vg(q):
+    """(problem, params, ((J, aux), g)) of a Quandary's gradient at its
+    initial parameters, built through its own setup and Problem."""
+    st = q._build_setup()
+    prob = q._problem(st)
+    p0 = np.asarray(q._initial_params(st.oscillators), np.float32)
+    return prob, p0, prob.build_value_and_grad()(p0.astype(np.float64),
+                                                 p0.astype(np.float64))
+
+
+def large_n_reference():
+    """Phase 29(e)'s reference: the port's f64 value and gradient on the
+    CPU, at the card's float32 parameters."""
+    q = Quandary(precision="double", device="cpu", **large_n_fe_kwargs())
+    t0 = time.perf_counter()
+    prob, p0, ((J, aux), g) = large_n_vg(q)
+    return dict(J=float(J), g=g.numpy(), engine=type(prob.engine).__name__,
+                route=prob.adjoint_route, seconds=time.perf_counter() - t0)
+
+
+def lindblad_large_setup(dtype, **kw):
+    """scripts/perf/lindblad_large_n.py's setup: two 32-level oscillators
+    under decay and dephasing (N = 1024, rho of 2^20 entries), 50 steps of
+    8 iterations, |10> to |00>."""
+    freqs = [4.1, 4.2]
+    ntime = 50
+    T = ntime * 0.01
+    model = build_structured_model(
+        nlevels=[32, 32], freq01_ghz=freqs, rotfreq_ghz=freqs,
+        selfkerr_ghz=[0.2, 0.2], crosskerr_ghz=[0.001], jkl_ghz=[0.001],
+        decay_time=[100.0, 120.0], dephase_time=[50.0, 60.0], lindblad=True)
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=10, tstart=0.0,
+                                 tstop=T),),
+        carrier_freqs=(0.0, -0.2 * 2 * np.pi)) for _ in range(2))
+    return Setup(model=model, nessential=(32, 32), ntime=ntime, dt=0.01,
+                 oscillators=oscs,
+                 ground_freqs_radns=tuple(2 * np.pi * f for f in freqs),
+                 initcond_type="pure", pure_levels=(1, 0),
+                 target_type="pure", pure_target_levels=(0, 0),
+                 objective_type="Jtrace", dtype=dtype, linsolve_iters=8,
+                 **kw)
+
+
+def grouped_matvec_flops(eng, B):
+    """Operations of one apply_planes on B states: 4 left and 4 right
+    real products for H_L, H_R and 8 more per cross-JC pair."""
+    m1, m2 = eng.m1, eng.m2
+    return (1 + len(eng.cross_idx)) * 8 * (m1 * m1 * m2 + m1 * m2 * m2) * B
+
+
+def timed(fn, reps=1):
+    """(last result, walls s) of reps calls, each ending in a synchronize."""
+    walls, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def no_launches(what):
+    """Fails if any kernel of csrc/ launched since reset_counts: the
+    structured engines run none."""
+    counts = {**streamk.launch_counts(), **streamk_mid.launch_counts(),
+              **rho.launch_counts(), **rho_mid.launch_counts(),
+              **stream.launch_counts(), **stream_mid.launch_counts()}
+    if any(counts.values()):
+        raise RuntimeError(f"{what} launched kernels: {counts}")
+
+
+def vg_rel(J, g, Jr, gr):
+    return (abs(float(J) - float(Jr)) / abs(float(Jr)),
+            max_rel(g.double().cpu(), torch.as_tensor(gr).double().cpu()))
+
+
+def large_n_phase(smi, reference):
+    """Phase 29: the large-N structured engines at full width. `reference`
+    is (e)'s CPU reference (large_n_reference's dict)."""
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("float32 products must be full f32 (matmul "
+                           "precision 'highest', no TF32)")
+    out = {}
+    bad = []
+
+    def check(name, value, tol):
+        if not value <= tol:
+            bad.append(f"{name} {value:.3e} > {tol:.0e}")
+
+    # ---- (a) the CLI on the repo's 32^4 configuration ----
+    with open(LARGE_CFG) as f:
+        text = f.read()
+    walls, Js = {}, {}
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     dir=cuda_build.BUILD_DIR) as tmp:
+        for rt in ("simulation", "gradient"):
+            d = os.path.join(tmp, rt)
+            os.makedirs(d)
+            cfg = os.path.join(d, "config.cfg")
+            with open(cfg, "w") as f:     # simulation: the file as it stands
+                f.write(re.sub(r"^runtype\s*=\s*\w+", f"runtype = {rt}",
+                               text, flags=re.M))
+            reset_counts()
+            argv = sys.argv
+            sys.argv = ["quandary_tpu_torch", cfg, "--quiet"]
+            t0 = time.perf_counter()
+            try:    # what `python -m quandary_tpu_torch config.cfg` runs
+                runpy.run_module("quandary_tpu_torch", run_name="__main__",
+                                 alter_sys=True)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            finally:
+                sys.argv = argv
+            torch.cuda.synchronize()
+            walls[rt] = time.perf_counter() - t0
+            no_launches(f"CLI {rt}")
+            if code != 0:
+                raise RuntimeError(f"CLI {rt} at 32^4: exit {code}")
+            hist = np.loadtxt(os.path.join(d, "data_out",
+                                           "optim_history.dat"), ndmin=2)
+            Js[rt] = float(hist[0, 1])
+            if rt == "gradient":
+                g_cli = np.loadtxt(os.path.join(d, "data_out", "grad.dat"))
+        setup, spec = setup_from_config(Config.read(cfg), os.path.dirname(cfg))
+    prob = Problem(setup)
+    eng_name, solver, route = (type(prob.engine).__name__, prob.linsolver,
+                               prob.adjoint_route)
+    del prob
+    if (eng_name, solver, route) != ("GroupedEngine", "split", "grouped") \
+            or abs(Js["simulation"] - Js["gradient"]) > 1e-12 \
+            or not np.all(np.isfinite(g_cli)):
+        raise RuntimeError(f"CLI at 32^4: engine {eng_name}, linsolver "
+                           f"{solver}, adjoint {route}, J {Js}")
+    out["cli"] = dict(walls=walls, J=Js["simulation"], engine=eng_name,
+                      linsolver=solver, adjoint=route)
+    phase(29, f"python -m quandary_tpu_torch {LARGE_CFG} (N = "
+              f"{setup.model.N}, complex128, {setup.ntime} steps): engine "
+              f"{eng_name}, the "
+              f"guard's linsolver {solver!r}, adjoint {route!r}; wall s "
+              f"{json.dumps({k: round(v, 3) for k, v in walls.items()})}; "
+              f"J {Js['simulation']:.12f} (the gradient run's within 1e-12); "
+              f"|grad|max {np.abs(g_cli).max():.3e}; card: {smi}")
+
+    # ---- (a') the forward sweep of large_n_bench.py: the real-plane
+    # step on the ground and a high corner state, complex64 ----
+    s32 = dataclasses.replace(setup, dtype=torch.complex64)
+    p32 = Problem(s32)
+    eng = p32.engine
+    P = torch.as_tensor(spec.params0, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        C = p32.coeff_rows_mid(P)[:, 0, :]
+        mk = make_real_split_step if p32.linsolver == "split" \
+            else make_real_imr_step
+        step = mk(eng, s32.dt, s32.linsolve_iters)
+        hi = 7 * 33            # levels (7, 7) in each group
+        Xr = torch.zeros((2, eng.m1, eng.m2), device="cuda")
+        Xr[0, 0, 0] = 1.0
+        Xr[1, hi, hi] = 1.0
+        Xi = torch.zeros_like(Xr)
+
+        def sweep():
+            xr, xi = Xr, Xi
+            for n in range(C.shape[0]):
+                xr, xi = step(xr, xi, C[n])
+            return xr, xi
+
+        (ar, ai), fw = timed(sweep)
+        norms = (ar * ar + ai * ai).sum(dim=(-2, -1)).double().cpu() - 1.0
+    nt = s32.ntime
+    mv = 1 + s32.linsolve_iters
+    fwd_bound = nt * mv * grouped_matvec_flops(eng, 1) / F32_PEAK_FLOPS
+    out["fwd"] = dict(walls=fw, ms_per_step=fw[-1] / nt * 1e3,
+                      drift_ground=float(norms[0]),
+                      drift_level7=float(norms[1]), bound_s_B1=fwd_bound)
+    check("norm drift", float(norms.abs().max()), TOL_LARGE["drift"])
+    phase(29, f"forward sweep at N = {eng.N}, complex64, real-plane "
+              f"{p32.linsolver} step, 2 states: {fw[-1]:.3f} s "
+              f"({fw[-1] / nt * 1e3:.2f} ms/step, unwarmed); "
+              f"norm drift ground {float(norms[0]):+.2e}, level 7 corner "
+              f"{float(norms[1]):+.2e}; bound of one state's forward "
+              f"{fwd_bound:.3f} s ({mv} matvecs of "
+              f"{grouped_matvec_flops(eng, 1) / 1e9:.1f} GFLOP a step at "
+              f"67 TFLOP/s); card: {smi}")
+
+    # ---- (b) the gradient: the hand-written grouped adjoint, against
+    # the same Problem in complex128 on the card: (a)'s gradient run ----
+    x = np.asarray(spec.params0, np.float64)
+    if p32.adjoint_route != "grouped":
+        raise RuntimeError(f"32^4 adjoint {p32.adjoint_route}")
+    reset_counts()
+    vg = p32.build_value_and_grad()
+    ((J32, _), g32), gw = timed(lambda: vg(x, x), 3)
+    no_launches("the grouped adjoint")
+    del p32, vg
+    torch.cuda.empty_cache()
+    J64, g64 = Js["gradient"], g_cli
+    pad = Problem(dataclasses.replace(s32, adjoint="reversible-ad"))
+    (Jad, _), gad = pad.build_value_and_grad()(x, x)
+    if pad.adjoint_route != "grouped-ad":
+        raise RuntimeError(f"reversible-ad route {pad.adjoint_route}")
+    del pad
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(s32, ntime=LARGE_REMAT_NT)
+    (Jc, _), gc = Problem(cut).build_value_and_grad()(x, x)
+    prem = Problem(dataclasses.replace(cut, adjoint="remat"))
+    (Jr, _), gr = prem.build_value_and_grad()(x, x)
+    if prem.adjoint_route != "stored":
+        raise RuntimeError(f"remat route {prem.adjoint_route}")
+    del prem
+    torch.cuda.empty_cache()
+    e64 = vg_rel(J32, g32, J64, g64)
+    ead = vg_rel(J32, g32, Jad, gad)
+    erm = vg_rel(Jc, gc, Jr, gr)
+    check("J c64-c128", e64[0], TOL_LARGE["J_f64"])
+    check("g c64-c128", e64[1], TOL_LARGE["g_f64"])
+    check("J grouped-ad", ead[0], TOL_LARGE["J_ad"])
+    check("g grouped-ad", ead[1], TOL_LARGE["g_ad"])
+    check("J remat", erm[0], TOL_LARGE["J_remat"])
+    check("g remat", erm[1], TOL_LARGE["g_remat"])
+    mvb = 1 + 2 * s32.linsolve_iters + 1       # y, the 2B solve, w
+    grad_bound = fwd_bound + nt * mvb * grouped_matvec_flops(eng, 1) \
+        / F32_PEAK_FLOPS
+    out["grad"] = dict(walls=gw, median_s=statistics.median(gw),
+                       fwd_bound_s=fwd_bound, sweep_bound_s=grad_bound,
+                       err_f64=e64, err_reversible_ad=ead, err_remat=erm,
+                       J=float(J32), J64=float(J64))
+    phase(29, f"Problem(32^4, complex64).build_value_and_grad(): the "
+              f"hand-written grouped adjoint, median wall of 3 "
+              f"{statistics.median(gw):.3f} s ({[round(w, 3) for w in gw]}); "
+              f"the forward's bound {fwd_bound:.3f} s, the sweep's "
+              f"(forward + {mvb} matvecs a reversed step) {grad_bound:.3f} "
+              f"s; J {float(J32):.9f}; against complex128 on the card J "
+              f"{e64[0]:.2e} g {e64[1]:.2e}, against 'reversible-ad' J "
+              f"{ead[0]:.2e} g {ead[1]:.2e}, against 'remat' at "
+              f"{LARGE_REMAT_NT} steps J {erm[0]:.2e} g {erm[1]:.2e} (x "
+              f"max|g|); card: {smi}")
+
+    # ---- (c) the tensor engine against the grouped one at 32^4 ----
+    fwds = {}
+    for name in ("tensor", "grouped"):
+        pe = Problem(dataclasses.replace(s32, engine=name, linsolver="split"))
+        xT, w = timed(lambda: pe.build_propagate_final()(x))
+        fwds[name] = (type(pe.engine).__name__, xT, w[0])
+        del pe
+        torch.cuda.empty_cache()
+    dx = float((fwds["tensor"][1] - fwds["grouped"][1]).abs().max())
+    check("xT tensor-grouped", dx, TOL_LARGE["xT_tensor"])
+    if fwds["tensor"][0] != "TensorEngine":
+        raise RuntimeError(f"engine='tensor' built {fwds['tensor'][0]}")
+    out["tensor"] = dict(xT_abs=dx, wall_tensor=fwds["tensor"][2],
+                         wall_grouped=fwds["grouped"][2])
+    phase(29, f"engine='tensor' against 'grouped' at 32^4 (complex64, "
+              f"the complex split step, {nt} steps): xT within abs {dx:.2e}; "
+              f"forward wall tensor {fwds['tensor'][2]:.3f} s, grouped "
+              f"{fwds['grouped'][2]:.3f} s; card: {smi}")
+    del fwds
+
+    # ---- (d) open systems: lindblad_large_n.py's N = 1024 ----
+    pl = Problem(lindblad_large_setup(torch.complex64))
+    if type(pl.engine).__name__ != "GroupedLindbladEngine":
+        raise RuntimeError(f"open N = 1024 engine {type(pl.engine)}")
+    xo = np.random.default_rng(3).uniform(-1, 1, pl.setup.nparams) * 0.02
+    xo = xo.astype(np.float32).astype(np.float64)
+    reset_counts()
+    xT, ow = timed(lambda: pl.build_propagate_final()(np.zeros_like(xo)))
+    tr = float(torch.diagonal(xT[0]).real.sum())
+    ((Jo, _), go), ogw = timed(lambda: pl.build_value_and_grad()(xo, xo))
+    no_launches("the open N = 1024 sweep")
+    solver_o = pl.linsolver
+    del pl, xT
+    torch.cuda.empty_cache()
+    (Jo64, _), go64 = Problem(lindblad_large_setup(
+        torch.complex128)).build_value_and_grad()(xo, xo)
+    torch.cuda.empty_cache()
+    xTs = {}
+    for name in ("tensor", "grouped"):
+        pe = Problem(lindblad_large_setup(torch.complex64, engine=name,
+                                          linsolver=solver_o))
+        xTs[name] = pe.build_propagate_final()(xo)
+        del pe
+    dxo = float((xTs["tensor"] - xTs["grouped"]).abs().max())
+    del xTs
+    torch.cuda.empty_cache()
+    eo = vg_rel(Jo, go, Jo64, go64)
+    check("open trace", abs(tr - 1.0), TOL_LARGE["trace"])
+    check("open J c64-c128", eo[0], TOL_LARGE["J_open"])
+    check("open g c64-c128", eo[1], TOL_LARGE["g_open"])
+    check("open xT tensor-grouped", dxo, TOL_LARGE["xT_open"])
+    out["open"] = dict(trace=tr, fwd_s=ow[0], grad_walls=ogw, err_f64=eo,
+                       xT_tensor_abs=dxo, linsolver=solver_o)
+    phase(29, f"open N = 1024 (two 32-level oscillators, rho of 2^20 "
+              f"entries, {solver_o}, 8 iterations, 50 steps) on "
+              f"GroupedLindbladEngine, complex64: forward {ow[0]:.3f} s, "
+              f"trace {tr:.7f}; gradient ('remat': one state a step, the "
+              f"step recomputed) walls s {[round(w, 3) for w in ogw]}; "
+              f"against complex128 on the card J {eo[0]:.2e} g {eo[1]:.2e} "
+              f"(x max|g|); xT against engine='tensor' abs {dxo:.2e}; "
+              f"card: {smi}")
+
+    # ---- (e) the front end at N = 1296 against the CPU ----
+    q = Quandary(precision="single", **large_n_fe_kwargs())
+    reset_counts()
+    (pf, _, ((Jf, _), gf)), fw_ = timed(lambda: large_n_vg(q))
+    no_launches("Quandary at N = 1296")
+    ef = vg_rel(Jf, gf, reference["J"], reference["g"])
+    check("Quandary N = 1296 J", ef[0], TOL_LARGE["J_fe"])
+    check("Quandary N = 1296 g", ef[1], TOL_LARGE["g_fe"])
+    if (type(pf.engine).__name__, pf.adjoint_route) != (
+            reference["engine"], reference["route"]):
+        raise RuntimeError(f"N = 1296: {type(pf.engine).__name__} "
+                           f"{pf.adjoint_route} against {reference}")
+    out["front_end"] = dict(err_f64=ef, wall_s=fw_[0],
+                            cpu_s=reference["seconds"])
+    phase(29, f"Quandary(precision='single') at nlevels 6,6,6,6 (N = 1296, "
+              f"{type(pf.engine).__name__}, adjoint {pf.adjoint_route!r}, "
+              f"{q.nsteps} steps): gradient wall {fw_[0]:.3f} s (the f64 CPU "
+              f"reference {reference['seconds']:.1f} s); against it J "
+              f"{ef[0]:.2e} g {ef[1]:.2e} (x max|g|); card: {smi}")
+    if bad:
+        raise RuntimeError("phase 29 out of bounds: " + "; ".join(bad))
+    return out
+
+
+def large_n_phase_alone():
+    """Phase 29 by itself (after a change to the structured engines):
+    (e)'s CPU reference here, then large_n_phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return large_n_phase(smi, large_n_reference())
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -3096,7 +3527,7 @@ def per_block_phase_alone():
 
 
 def run_phases(smi, worker, ref_path):
-    """Phases 2-27 and the last lines."""
+    """Phases 2-29 and the last lines."""
     # ---- 2. build ----
     t0 = time.perf_counter()
     ((path, secs, log), rho_build, stream_build, mid_build, rmid_build,
@@ -3531,14 +3962,16 @@ def run_phases(smi, worker, ref_path):
 
     # ---- 16. times ----
     ms_r, rates_open = {}, {}
-    for name, pr, E, reps in (("cnot16", p16, 1, 3), ("cnot16_E8", p16,
-                                                      E_OPEN, 3),
-                              ("qutrits27", full["qutrits27"], 1, 2),
-                              ("qudits64", full["qudits64"], 1, 2)):
+    # the plain runs of configuration 3 at PLAIN16_NT of their 1000 steps
+    # (host-bound: 44 s at full depth on an H100 80GB HBM3 at 700 W)
+    for name, pr, E, reps, plain in (
+            ("cnot16", p16, 1, 3, True), ("cnot16_E8", p16, E_OPEN, 3, False),
+            ("qutrits27", full["qutrits27"], 1, 2, PLAIN16_NT),
+            ("qudits64", full["qudits64"], 1, 2, PLAIN16_NT)):
         P = to_card(bench_params(pr.setup.nparams, E, seed=7))
         C = pr.coeff_rows_mid(P)[..., 0, :].contiguous()
         ms_r[name] = rho_kernel_ms(pr._plan, pr._x0r, pr._x0i, C, reps,
-                                   plain=E == 1)
+                                   plain=plain)
         rates_open[name] = E / median_seconds(lambda: open_vg(pr, P), reps=3)
     rates_open["cnot4"] = 1 / median_seconds(lambda: open_vg(p4, P1), reps=3)
     C4 = streamk.extend_coeffs(p4._plan, p4.coeff_rows_mid(P1)[..., 0, :])
@@ -3649,9 +4082,12 @@ def run_phases(smi, worker, ref_path):
               f"(superop) launches {json.dumps(launches_4s)} "
               f"{json.dumps(open_s)}")
 
-    # ---- 19. the chunk route at dt/4 and the dense forward ----
-    pc = Problem(flagship_setup("neumann", 8, ntime=NT_FINE,
-                                fused_mode="chunk"))
+    # ---- 19. the chunk route at dt/4 and the dense forward, cut to a
+    # quarter of the horizon (the plain loop on the card and the f64 port
+    # at NT_FINE took 42-48 s of the run on an H100 80GB HBM3 at 700 W;
+    # phase 21 times the kernels at NT_FINE) ----
+    pc = Problem(flagship_setup("neumann", 8, ntime=NT_FINE // 4,
+                                fused_mode="chunk", T=50.0))
     if pc.fused_form != "chunk" or pc.linsolver != "neumann":
         raise RuntimeError(f"chunk route {pc.fused_form}, {pc.linsolver}")
     reset_counts()
@@ -3661,7 +4097,7 @@ def run_phases(smi, worker, ref_path):
     with plain_on_card():
         (Jcp, _), gcp = pc.build_value_and_grad()(x, x)
     pc64 = Problem(flagship_setup("neumann", 8, torch.complex128,
-                                  ntime=NT_FINE), device="cpu")
+                                  ntime=NT_FINE // 4, T=50.0), device="cpu")
     t0 = time.perf_counter()
     (Jc64, _), gc64 = pc64.build_value_and_grad()(x, x)
     secs_c64 = time.perf_counter() - t0
@@ -3681,7 +4117,8 @@ def run_phases(smi, worker, ref_path):
                  plain=float((xd - torch.complex(hp[0][0, -1], hp[1][0, -1])
                               ).abs().max()))
     del hp
-    phase(19, f"fused_mode='chunk' at ntime {NT_FINE}: J={float(Jc):.8f} "
+    phase(19, f"fused_mode='chunk' at dt/4, ntime {pc.setup.ntime} (T = "
+              f"{pc.setup.total_time:g} ns): J={float(Jc):.8f} "
               f"launches {json.dumps(launches_c)}; against plain and f64 "
               f"{json.dumps(errs_c)} (f64 on the CPU in {secs_c64:.1f} s); "
               f"pallas_propagate_dense launches {json.dumps(launches_d)}, xT "
@@ -3810,6 +4247,9 @@ def run_phases(smi, worker, ref_path):
     # the open packed robust objective ----
     pb = per_block_phase(smi, p16, open16)
 
+    # ---- 29. the large-N structured engines (no kernel of csrc/) ----
+    large_n_phase(smi, worker_references(worker, ref_path + ".large_n"))
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -3835,6 +4275,8 @@ def run_phases(smi, worker, ref_path):
         for name, t in ms_r.items():
             if "full_depth" in t:
                 more[f"full_depth_{name}"] = t["full_depth"]
+            if "plain_steps" in t:
+                more[f"plain_steps_{name}"] = t["plain_steps"]
             if name != "cnot16":
                 more[f"launches_{name}"] = open_launches[name][B4[i]]
                 more[f"ms_{name}"] = t[key]

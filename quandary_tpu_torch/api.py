@@ -34,6 +34,7 @@ import torch
 from .models import gates as gates_mod
 from .models.controls import eval_controls
 from .models.hamiltonian import build_file_model, build_standard_model
+from .ops.tensor_rhs import build_structured_model
 from .ops import solvers as slv
 from .optim.device_driver import run_optimization_device
 from .optim.driver import OptimHistoryRow, build_bounds, run_optimization
@@ -302,11 +303,13 @@ class Quandary:
         lind = self._lindblad_solver
         if self.standardmodel:
             if int(np.prod(nlv)) > 1024:
-                raise NotImplementedError(
-                    f"a standard model of N = {int(np.prod(nlv))} > 1024 runs "
-                    "on the JAX package's structured engines "
-                    "(ops/tensor_rhs.py), which are not ported to "
-                    "quandary_tpu_torch (ROADMAP A3)")
+                # the structured engines (ops/tensor_rhs.py): no dense
+                # (K, N, N) stack past N = 1024
+                model = build_structured_model(
+                    nlevels=nlv, freq01_ghz=self.freq01, rotfreq_ghz=self.rotfreq,
+                    selfkerr_ghz=self.selfkerr, crosskerr_ghz=self.crosskerr,
+                    jkl_ghz=self.Jkl, decay_time=self.T1, dephase_time=self.T2,
+                    lindblad=lind)
             else:
                 model = build_standard_model(
                     nlevels=nlv, freq01_ghz=self.freq01, rotfreq_ghz=self.rotfreq,

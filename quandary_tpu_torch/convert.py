@@ -5,7 +5,10 @@ other front end, a saved file, or the JAX package's Setup can be reduced
 to) and returns :class:`quandary_tpu_torch.problem.Setup`:
 
 * the model: ``stack`` (K, N, N) complex, ``etas``, ``dims``, ``n_osc``,
-  and optionally ``collapse_ops`` and ``lindblad``;
+  and optionally ``collapse_ops`` and ``lindblad``; or, for the structured
+  engines, ``structured``: a dict of the StructuredModel's fields (dims,
+  detune, selfkerr, crosskerr, jkl, etas, jc_pairs, gamma_decay,
+  gamma_dephase, lindblad), as ``dataclasses.asdict`` gives them;
 * ``oscillators``: a list of dicts with ``segments`` (each a dict of
   ControlSegment fields), ``carrier_freqs`` and ``enforce_bc``;
 * ``dtype``: 'complex64' or 'complex128';
@@ -27,22 +30,40 @@ import numpy as np
 import torch
 
 from .models.hamiltonian import HamiltonianModel
+from .ops.tensor_rhs import StructuredModel
 from .problem import Setup
 from .utils.splines import ControlSegment, OscillatorControl
 
 _DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 
 
+def _structured(m: dict) -> StructuredModel:
+    floats = lambda v: tuple(float(x) for x in v)
+    return StructuredModel(
+        dims=tuple(int(n) for n in m["dims"]),
+        detune=floats(m["detune"]), selfkerr=floats(m["selfkerr"]),
+        crosskerr=floats(m["crosskerr"]), jkl=floats(m["jkl"]),
+        etas=floats(m["etas"]),
+        jc_pairs=tuple((int(k), int(l)) for k, l in m["jc_pairs"]),
+        gamma_decay=floats(m["gamma_decay"]),
+        gamma_dephase=floats(m["gamma_dephase"]),
+        lindblad=bool(m["lindblad"]))
+
+
 def setup_from_arrays(d: dict) -> Setup:
     d = dict(d)
-    model = HamiltonianModel(
-        dims=tuple(int(n) for n in d.pop("dims")),
-        stack=np.asarray(d.pop("stack")),
-        etas=np.asarray(d.pop("etas"), dtype=float),
-        n_osc=int(d.pop("n_osc")),
-        collapse_ops=tuple(np.asarray(L) for L in d.pop("collapse_ops", ())),
-        lindblad=bool(d.pop("lindblad", False)),
-    )
+    if "structured" in d:
+        model = _structured(d.pop("structured"))
+    else:
+        model = HamiltonianModel(
+            dims=tuple(int(n) for n in d.pop("dims")),
+            stack=np.asarray(d.pop("stack")),
+            etas=np.asarray(d.pop("etas"), dtype=float),
+            n_osc=int(d.pop("n_osc")),
+            collapse_ops=tuple(np.asarray(L)
+                               for L in d.pop("collapse_ops", ())),
+            lindblad=bool(d.pop("lindblad", False)),
+        )
     oscs = tuple(
         OscillatorControl(
             segments=tuple(ControlSegment(**seg) for seg in o["segments"]),

@@ -6,8 +6,8 @@ construction logic of the reference driver (main.cpp:24-442), as
 quandary_tpu/io/configfile.py does. The Setup is complex128 with
 ``fused='auto'``: the plain time loop, on the CPU or the card.
 
-A standard model with N > 1024 (the JAX package's structured engines,
-ops/tensor_rhs.py) is refused with NotImplementedError (ROADMAP A3).
+A standard model with N > 1024 takes the structured engines
+(ops/tensor_rhs.py), as the JAX package's front end does.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 
 from ..models import gates as gates_mod
 from ..models.hamiltonian import build_file_model, build_standard_model
+from ..ops.tensor_rhs import build_structured_model
 from ..problem import Setup
 from ..utils.indexing import ess_to_full_map
 from ..utils.splines import ControlSegment, OscillatorControl
@@ -321,16 +322,20 @@ def setup_from_config(cfg: Config, workdir: str = ".") -> Tuple[Setup, RunSpec]:
             dephase_time=dephase if use_dephase else [0.0] * Q,
             lindblad=lindblad)
     else:
-        # Standard model: the dense operator stack. 'usematfree' (the
+        # Standard model: the dense operator stack, and past N = 1024 the
+        # structured engines (ops/tensor_rhs.py; the dense (K, N, N) stack
+        # would not fit for e.g. nlevels 32,32,32,32). 'usematfree' (the
         # reference's matrix-free-kernels hint, main.cpp:290-314) is
         # consumed but ADVISORY: it selects between the reference's two
         # mathematically-identical RHS implementations.
         cfg.get_bool("usematfree", False)
         if N > 1024:
-            raise NotImplementedError(
-                f"a standard model of N = {N} > 1024 runs on the JAX "
-                "package's structured engines (ops/tensor_rhs.py), which are "
-                "not ported to quandary_tpu_torch (ROADMAP A3)")
+            model = build_structured_model(
+                nlevels=nlevels, freq01_ghz=transfreq, rotfreq_ghz=rotfreq,
+                selfkerr_ghz=selfkerr, crosskerr_ghz=crosskerr, jkl_ghz=jkl,
+                decay_time=decay if use_decay else [0.0] * Q,
+                dephase_time=dephase if use_dephase else [0.0] * Q,
+                lindblad=lindblad)
         else:
             model = build_standard_model(
                 nlevels=nlevels, freq01_ghz=transfreq, rotfreq_ghz=rotfreq,

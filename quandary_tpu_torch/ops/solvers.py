@@ -70,6 +70,18 @@ def propagate_trajectory(step_fn: Callable, x0, C):
     return torch.stack(xs, dim=0)
 
 
+def propagate_trajectory_remat(step_fn: Callable, x0, C):
+    """propagate_trajectory for a gradient that keeps one state per step:
+    each step is recomputed in the backward (torch.utils.checkpoint), as
+    the reference's 'remat' scan checkpoints its step
+    (quandary_tpu/ops/solvers.py:40)."""
+    from torch.utils.checkpoint import checkpoint
+    xs = [x0]
+    for n in range(C.shape[0]):
+        xs.append(checkpoint(step_fn, xs[-1], C[n], use_reentrant=False))
+    return torch.stack(xs, dim=0)
+
+
 def _trajectory_graph(step_fn, x0, C, S=GRAPH_STEPS):
     nt = C.shape[0]
     out = torch.empty((nt + 1,) + tuple(x0.shape), dtype=x0.dtype,

@@ -225,12 +225,13 @@ def make_step_fn(rhs: Callable, dt: float, timestepper: str = "IMR",
         solved by Neumann.
     vec_ndim: for 'gmres', the trailing axes of the state that form one
         system's vector (gmres_solve).
-    engine: optional, the object whose `rhs` this is, with assemble(c),
-        apply(A, x) and apply_adjoint(A, y) (ops/rhs.py DenseEngine): each
-        stage then assembles H_eff once for all of its matvecs (the same
-        bits as rhs), and the Neumann, Jacobi and split stage solves run as
-        one autograd node each with a hand-written transpose (_StageSolve),
-        instead of a node per operation of every iteration.
+    engine: optional, the object whose `rhs` this is, with assemble(c)
+        and apply(A, x): each stage then assembles its operator once for
+        all of its matvecs (the same bits as rhs). Where the engine also
+        has apply_adjoint(A, y) and apply_vjp_A (ops/rhs.py DenseEngine),
+        the Neumann, Jacobi and split stage solves run as one autograd node
+        each with a hand-written transpose (_StageSolve), instead of a node
+        per operation of every iteration.
     Returns step(x, c_stages) with c_stages of shape (..., nstages, K). The
     diagonal and the split factors go to a device once, at the first step
     there, so a step on the card copies nothing from the host.
@@ -258,8 +259,10 @@ def make_step_fn(rhs: Callable, dt: float, timestepper: str = "IMR",
             consts[key] = (d, E)
         return consts[key]
 
+    node = engine is not None and hasattr(engine, "apply_adjoint")
+
     def solve(mv, b, h, A, d, jacobi):
-        if A is not None:
+        if node:
             return _StageSolve.apply(A, b, engine, h / 2.0, linsolve_iters,
                                      d, jacobi)
         if jacobi:

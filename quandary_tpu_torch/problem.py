@@ -2,7 +2,9 @@
 functions, in PyTorch.
 
 Counterpart of quandary_tpu/problem.py for closed and open (Lindblad)
-systems with the dense operator-stack engine. The multi-initial-condition
+systems: the dense operator-stack engine, and past N = 1024 the structured
+engines (ops/tensor_rhs.py, ops/grouped_rhs.py, ops/grouped_lindblad.py)
+of a StructuredModel. The multi-initial-condition
 objective (forward propagation of the whole batch, final-time cost,
 fidelity, the penalty integrals and the regularizers) is one torch function
 of the control parameters, evaluated for a (E, nparams) batch of control
@@ -35,6 +37,19 @@ Two propagation paths, as in the JAX package:
 route where that gate admits the problem (IMR, a stage solve the kernel
 family takes, complex64, the dense engine, the family's size budget) and
 the problem is on a CUDA device, the plain route everywhere else.
+
+On the plain route the gradient takes one of three adjoints
+(``Setup.adjoint``, ``Problem.adjoint_route``): 'stored', autograd through
+the loop over the stored states (per-step recomputation on the structured
+engines, the reference's 'remat'); 'reversible', the states recomputed
+backward by the inverse step (ops/reversible.py); 'grouped', the
+hand-written solve-based adjoint of the grouped engine's real-plane step
+(ops/grouped_adjoint.py), or 'grouped-ad', the reversible adjoint over
+that step. 'auto' picks what the reference's 'auto' picks on the
+structured engines (quandary_tpu/problem.py:1194-1290), and 'stored' on the
+dense engine, whose plain route carries the CUDA graphs of the step loop
+and of the device driver (ROADMAP C4 item 12: the same numbers to
+rounding, another memory footprint).
 ``fused=True`` (the default) forces the fused route and refuses by name
 what it does not take; ``Problem.fused_form`` records the route taken
 (None on the plain route).
@@ -48,10 +63,8 @@ The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
 that argument the constructor raises.
 
-Not ported yet, and refused with NotImplementedError: the structured
-engines (ROADMAP A3-A5), the reversible adjoint (A5) and the time-parallel
-scan (A6) (``Setup.engine``, ``adjoint``, ``time_parallel`` other than
-'auto'). On
+Not ported yet, and refused with NotImplementedError: the time-parallel
+scan (ROADMAP A6; ``Setup.time_parallel`` other than 'auto'). On
 CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
 what the route's kernels do not hold (``Problem.fused_refusal``): 'streamk',
 closed or superop, only a sweep past the device-memory budget
@@ -68,7 +81,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,9 +91,16 @@ from .models.controls import (control_variation_penalty, eval_controls,
                               eval_controls_labframe, plan_on_device)
 from .models.hamiltonian import HamiltonianModel
 from .ops import rho, solvers, stream, streamk
+from .ops.grouped_adjoint import make_grouped_adjoint_propagate
+from .ops.grouped_lindblad import GroupedLindbladEngine
+from .ops.grouped_rhs import (GroupedEngine, make_real_imr_step,
+                              make_real_split_step)
+from .ops.reversible import make_reversible_propagate
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
+from .ops.tensor_rhs import StructuredModel, TensorEngine
 from .utils.indexing import flat_index, guard_mask
+from .utils.operators import drift_diagonal
 from .utils.splines import OscillatorControl, build_control_plan
 
 
@@ -89,7 +109,7 @@ class Setup:
     """Fully-resolved problem specification in internal units (rad/ns, ns).
     Field names and meanings follow quandary_tpu.problem.Setup; ``fused``
     plays the role of its ``pallas`` flag."""
-    model: HamiltonianModel
+    model: Union[HamiltonianModel, StructuredModel]
     nessential: Tuple[int, ...]
     ntime: int
     dt: float
@@ -143,11 +163,19 @@ class Setup:
     # only); 'chunk' is the cross-check path (ops/adjoint.py; closed
     # systems with plain Neumann only).
     fused_mode: str = "streamk"
-    # quandary_tpu's adjoint mode, time-parallel scan and engine choice:
-    # only 'auto' (one sequential loop, dense engine) is ported (ROADMAP
-    # A5, A6 and A3-A5)
+    # the plain route's adjoint (quandary_tpu's): 'auto' | 'remat' (autograd
+    # over the stored states) | 'reversible' (states recomputed backward;
+    # on the grouped engine the hand-written adjoint) | 'reversible-ad'
+    # (the reversible adjoint through the step, the grouped cross-check);
+    # closed IMR-family systems without dpdm, as the reference
     adjoint: str = "auto"
+    # quandary_tpu's time-parallel scan: only 'auto' (one sequential loop)
+    # is ported (ROADMAP A6)
     time_parallel: object = "auto"
+    # the engine of a StructuredModel (quandary_tpu's): 'auto' (tensor;
+    # grouped for closed N >= 2^15 and open N >= 512 with two or more
+    # oscillators) | 'tensor' | 'grouped'; a HamiltonianModel takes the
+    # dense engine
     engine: str = "auto"
 
     @property
@@ -188,14 +216,17 @@ class Problem:
         if s.fused not in (True, False, "auto"):
             raise ValueError(f"fused must be True, False or 'auto', got "
                              f"{s.fused!r}")
-        for name, item in (("adjoint", "A5: the reversible adjoint"),
-                           ("time_parallel", "A6: the time-parallel scan"),
-                           ("engine", "A3-A5: the structured engines")):
-            if getattr(s, name) != "auto":
-                raise NotImplementedError(
-                    f"Setup.{name}={getattr(s, name)!r} is not ported to "
-                    f"quandary_tpu_torch (ROADMAP {item}); only "
-                    f"{name}='auto' runs")
+        if s.adjoint not in ("auto", "remat", "reversible", "reversible-ad"):
+            raise ValueError("adjoint must be 'auto', 'remat', 'reversible' "
+                             f"or 'reversible-ad', got {s.adjoint!r}")
+        if s.engine not in ("auto", "tensor", "grouped"):
+            raise ValueError("engine must be 'auto', 'tensor' or 'grouped', "
+                             f"got {s.engine!r}")
+        if s.time_parallel != "auto":
+            raise NotImplementedError(
+                f"Setup.time_parallel={s.time_parallel!r} is not ported to "
+                "quandary_tpu_torch (ROADMAP A6: the time-parallel scan); "
+                "only time_parallel='auto' runs")
         if cuda and s.fused is True and s.dtype != torch.complex64:
             raise NotImplementedError(
                 "fused=True: complex128 is not ported to the CUDA kernels, "
@@ -207,7 +238,7 @@ class Problem:
         self.N = model.N
         self.rdtype = (torch.float64 if s.dtype == torch.complex128
                        else torch.float32)
-        self.engine = DenseEngine(model, s.dtype, self.device)
+        self.engine = self._make_engine()
         npdt = np.complex64 if s.dtype == torch.complex64 else np.complex128
         nprdt = np.float32 if s.dtype == torch.complex64 else np.float64
 
@@ -287,16 +318,20 @@ class Problem:
 
         # --- stiffness guard (problem.py:386-438 of the JAX package): past
         # u = dt/2 * max|H_diag| the truncated Neumann series is inaccurate
-        # long before it diverges; switch to the Jacobi-preconditioned
-        # solve where the generator's diagonal is known (always, for the
-        # dense engine), else to GMRES once the series stops converging ---
+        # long before it diverges; the grouped engines switch to the
+        # diagonally-split stepper (the stiff diagonal integrated exactly),
+        # the others to the Jacobi-preconditioned solve where the
+        # generator's diagonal is known (always, here), else to GMRES once
+        # the series stops converging ---
         self.linsolver = s.linsolver
         self.gen_diag = self.engine.gen_diag()
-        lam = float(np.abs(np.diagonal(self.engine.stack_np[0])).max())
-        u_stiff = 0.5 * dt * lam
+        u_stiff = 0.5 * dt * self._diag_scale_estimate()
         u_ok = float(np.exp(np.log(1e-6) / (s.linsolve_iters + 1)))
         if self.linsolver == "neumann" and u_stiff > u_ok:
-            if self.gen_diag is not None:
+            if isinstance(self.engine, (GroupedEngine,
+                                        GroupedLindbladEngine)):
+                self.linsolver = "split"
+            elif self.gen_diag is not None:
                 self.linsolver = "jacobi"
             elif u_stiff > 0.9:
                 warnings.warn(
@@ -309,11 +344,7 @@ class Problem:
                     f"~{u_stiff ** (s.linsolve_iters + 1):.1e} relative "
                     "truncation error per Neumann stage solve; consider more "
                     "linsolve_iters.")
-        self.step_fn = make_step_fn(self.engine.rhs, dt, s.timestepper,
-                                    s.linsolve_iters, self.linsolver,
-                                    gen_diag=self.gen_diag,
-                                    vec_ndim=3 if self.lindblad else 2,
-                                    engine=self.engine)
+        self.step_fn = self._make_step_fn(dt)
 
         # --- fused or plain: the JAX package's pallas gate
         # (problem.py:440-500); 'auto' admits where that gate does, on CUDA
@@ -363,10 +394,12 @@ class Problem:
             else rt(self.measure_weights)
         self._diag_idx = torch.arange(self.N, device=self.device) \
             * (self.N + 1)
-        stack_k = streamk.lindblad_prime_stack(
-            self.engine.stack_np, self.engine.Ls_np) if self._flat \
-            else self.engine.stack_np
-        self._Sr, self._Si = rt(stack_k.real), rt(stack_k.imag)
+        self._Sr = self._Si = None
+        if isinstance(self.engine, DenseEngine):
+            stack_k = streamk.lindblad_prime_stack(
+                self.engine.stack_np, self.engine.Ls_np) if self._flat \
+                else self.engine.stack_np
+            self._Sr, self._Si = rt(stack_k.real), rt(stack_k.imag)
         # the control plans and the JC phase columns as device tensors, so
         # that an objective evaluation copies nothing from the host
         self._plan_mid = plan_on_device(self.plan_mid, self.rdtype,
@@ -374,6 +407,9 @@ class Problem:
         self._plan_stop = plan_on_device(self.plan_stop, self.rdtype,
                                          self.device)
         self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
+        self.adjoint_route = self._adjoint_route()
+        self._reversible = None if self.adjoint_route == "stored" \
+            else self._make_reversible()
         # the route's launch plan (stacks, solver rows or planes), built once
         self._plan = None
         gd = self.gen_diag.T.reshape(-1) if self._flat else self.gen_diag
@@ -390,6 +426,68 @@ class Problem:
                 else stream.make_plan(self._Sr, s.dt, iters, gd,
                                       self.linsolver, kind=s.fused_mode,
                                       store_iters=store)
+
+    def _make_engine(self):
+        """The JAX Problem's engine choice (quandary_tpu/problem.py:272-293):
+        a HamiltonianModel takes the dense engine; a StructuredModel the
+        tensor engine, or the grouped one (closed: engine 'grouped' or, under
+        'auto', N >= 2^15; open with two or more oscillators: 'grouped' or,
+        under 'auto', N >= 512)."""
+        s, model = self.setup, self.model
+        if not isinstance(model, StructuredModel):
+            return DenseEngine(model, s.dtype, self.device)
+        two = len(model.dims) >= 2
+        if not model.lindblad and two and (s.engine == "grouped" or (
+                s.engine == "auto" and model.N >= 1 << 15)):
+            return GroupedEngine(model, s.dtype, self.device)
+        if model.lindblad and two and (s.engine == "grouped" or (
+                s.engine == "auto" and model.N >= 1 << 9)):
+            return GroupedLindbladEngine(model, s.dtype, self.device)
+        return TensorEngine(model, s.dtype, self.device)
+
+    def _diag_scale_estimate(self) -> float:
+        """max |diag(H_d)| (rad/ns), the host bound of the generator's
+        dominant scale that the stiffness guard reads (the JAX Problem's,
+        problem.py:636-646)."""
+        m = self.model
+        if isinstance(m, StructuredModel):
+            return float(np.abs(drift_diagonal(
+                m.dims, m.detune, m.selfkerr, m.crosskerr)).max())
+        return float(np.abs(np.diagonal(self.engine.stack_np[0])).max())
+
+    def _make_step_fn(self, dt):
+        """The plain loop's step at `dt` (negative: the inverse step of the
+        reversible adjoint). Engines with assemble / apply (dense, grouped)
+        assemble each stage's operator once for its solve."""
+        s = self.setup
+        eng = self.engine if hasattr(self.engine, "assemble") else None
+        return make_step_fn(self.engine.rhs, dt, s.timestepper,
+                            s.linsolve_iters, self.linsolver,
+                            gen_diag=self.gen_diag,
+                            vec_ndim=3 if self.lindblad else 2, engine=eng)
+
+    def _adjoint_route(self) -> str:
+        """The plain route's adjoint (Setup.adjoint), as the JAX Problem
+        picks it (problem.py:1194-1290): the reversible adjoints on closed
+        IMR-family systems without dpdm; on the grouped engine with IMR
+        the real-plane step, with the hand-written adjoint ('grouped') or
+        the reversible one through that step ('grouped-ad' under
+        'reversible-ad'); else the generic reversible adjoint. 'stored'
+        elsewhere, under 'remat', on the fused route, and under 'auto' on
+        the dense engine (ROADMAP C4 item 12)."""
+        s = self.setup
+        imr = s.timestepper.upper()
+        if (self.use_fused or self.lindblad or s.adjoint == "remat"
+                or imr not in ("IMR", "IMR4", "IMR8")
+                or s.gamma_penalty_dpdm > 1e-13
+                or (s.adjoint == "auto"
+                    and isinstance(self.engine, DenseEngine))):
+            return "stored"
+        if isinstance(self.engine, GroupedEngine) and imr == "IMR" \
+                and self.linsolver in ("neumann", "jacobi", "split"):
+            return "grouped-ad" if s.adjoint == "reversible-ad" \
+                else "grouped"
+        return "reversible"
 
     def _fused_form(self) -> str:
         """The fused route's form (the JAX package's pallas_form gate,
@@ -433,6 +531,9 @@ class Problem:
         problems to the fused route as that gate."""
         s = self.setup
         auto = s.fused == "auto"
+        if not isinstance(self.engine, DenseEngine):
+            return (f"the {type(self.engine).__name__} of a StructuredModel "
+                    "(the kernels take the dense operator stack)")
         if s.timestepper.upper() != "IMR":
             return f"timestepper {s.timestepper!r} (the kernels run IMR)"
         family = ("neumann",) if auto and s.fused_mode == "chunk" \
@@ -660,16 +761,92 @@ class Problem:
                                    C[..., 0, :].to(self.rdtype))
             xTr, xTi, hr, hi = stream.stream_propagate(
                 self._plan, Hr, Hi, self._x0r, self._x0i)
+        elif self._reversible is not None:
+            xTr, xTi, pen_leak, pen_jt = self._reversible(C)
+            return self._assemble_objective_real(
+                Ps, params_ref, xTr, xTi, pen_leak, pen_jt, None, energy_int)
         else:
             x0 = self._x0c.expand((Ps.shape[0],) + self._x0c.shape)
-            traj = solvers.propagate_trajectory(self.step_fn, x0,
-                                                C.movedim(-3, 0))
+            remat = not isinstance(self.engine, DenseEngine) \
+                and torch.is_grad_enabled()
+            traj = (solvers.propagate_trajectory_remat if remat else
+                    solvers.propagate_trajectory)(self.step_fn, x0,
+                                                  C.movedim(-3, 0))
             hist = traj[1:].movedim(0, 1)
             hr, hi = hist.real, hist.imag
             xTr, xTi = hr[:, -1], hi[:, -1]
         pens = self._history_penalties_real(hr, hi)
         return self._assemble_objective_real(Ps, params_ref, xTr, xTi,
                                              *pens, energy_int)
+
+    def _make_reversible(self):
+        """The propagation of `adjoint_route` ('reversible', 'grouped',
+        'grouped-ad'), built once: a function of the candidates'
+        coefficient rows C (E, ntime, nstages, K) returning the final-state
+        planes (E, B, N) and the leakage and weighted-J penalties (E, B)
+        summed at the post-step states (each None when off). Candidates
+        ride the leading axis of the state."""
+        s = self.setup
+        use_leak = self.has_guard and s.gamma_penalty > 1e-13
+        use_jt = self._jt_weight is not None and s.gamma_penalty > 1e-13
+        extras = (self._jt_weight,) if use_jt else ()
+
+        def pens(xr, xi, extra):
+            out = []
+            if use_leak:
+                out.append(torch.sum((xr * xr + xi * xi) * self._gmask, -1)
+                           / s.ntime)
+            if use_jt:
+                out.append(extra[0] * self._finalize_J(
+                    *self._eval_J_parts_real(xr, xi)) * s.dt)
+            return tuple(out)
+
+        on = use_leak or use_jt
+        if self.adjoint_route == "reversible":
+            step_bwd = self._make_step_fn(-s.dt)
+            # the inverse of a composed step runs the stages in reverse
+            # order at -dt: flip the per-stage rows
+            prop = make_reversible_propagate(
+                self.step_fn, lambda x, c: step_bwd(x, c.flip(-2)),
+                (lambda x, extra: pens(x.real.to(self.rdtype),
+                                       x.imag.to(self.rdtype), extra))
+                if on else None)
+
+            def states(C):
+                x0 = self._x0c.expand((C.shape[0],) + self._x0c.shape)
+                out = prop(x0, C.movedim(-3, 0), extras)
+                return (out[0].real.to(self.rdtype),
+                        out[0].imag.to(self.rdtype)) + tuple(out[1:])
+        else:
+            eng, split = self.engine, self.linsolver == "split"
+            plane_pen = (lambda x, extra: pens(
+                x[0].flatten(-2), x[1].flatten(-2), extra)) if on else None
+            if self.adjoint_route == "grouped":
+                prop = make_grouped_adjoint_propagate(
+                    eng, s.dt, s.linsolve_iters, plane_pen, split=split)
+            else:
+                mk = make_real_split_step if split else make_real_imr_step
+                fwd = mk(eng, s.dt, s.linsolve_iters)
+                bwd = mk(eng, -s.dt, s.linsolve_iters)
+                prop = make_reversible_propagate(
+                    lambda x, c: fwd(x[0], x[1], c),
+                    lambda x, c: bwd(x[0], x[1], c), plane_pen)
+
+            def states(C):
+                shape = (C.shape[0], self.ninit, eng.m1, eng.m2)
+                out = prop((self._x0r.reshape(shape[1:]).expand(shape),
+                            self._x0i.reshape(shape[1:]).expand(shape)),
+                           C[..., 0, :].movedim(-2, 0), extras)
+                return (out[0].flatten(-2), out[1].flatten(-2)) \
+                    + tuple(out[2:])
+
+        def run(C):
+            xTr, xTi, *rest = states(C)
+            pen_leak = rest.pop(0) if use_leak else None
+            pen_jt = rest.pop(0) if use_jt else None
+            return xTr, xTi, pen_leak, pen_jt
+
+        return run
 
     def objective(self, params, params_ref):
         """Full objective of one control vector: (J, aux) with every term

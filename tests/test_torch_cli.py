@@ -161,14 +161,35 @@ def test_fused_auto_gate_matches_jax():
 @pytest.mark.parametrize("change,match", [
     (dict(timestepper="IMR8"), "timestepper"),
     (dict(linsolver="gmres"), "gmres"),
-    (dict(engine="grouped"), "A3-A5"),
+    (dict(engine="grouped"), None),
     (dict(time_parallel=True), "A6"),
-    (dict(adjoint="reversible"), "A5"),
+    (dict(adjoint="reversible"), None),
 ])
 def test_forced_fused_and_unported_refused(change, match):
+    """What the forced fused route or the port does not take raises by
+    name (match); the engine and adjoint settings run (match None): a
+    HamiltonianModel keeps the dense engine under any engine, as in the
+    JAX package, and the reversible adjoint on the plain route gives the
+    stored adjoint's J and gradient."""
     from quandary_tpu_torch.problem import Problem
-    with pytest.raises(NotImplementedError, match=match):
-        Problem(_flagship(**change), device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Problem(_flagship(**change), device="cpu")
+        return
+    p = Problem(_flagship(**change), device="cpu")
+    assert type(p.engine).__name__ == "DenseEngine" and p.use_fused
+    # in f64, without dpdm, which keeps the stored states (as in the JAX
+    # package)
+    plain = [Problem(_flagship(fused=False, gamma_penalty_dpdm=0.0,
+                               dtype=torch.complex128, **kw), device="cpu")
+             for kw in (change, {})]
+    route = "reversible" if "adjoint" in change else "stored"
+    assert [q.adjoint_route for q in plain] == [route, "stored"]
+    x = np.random.default_rng(0).uniform(-1, 1, p.setup.nparams) * 0.02
+    (J0, _), g0 = plain[0].build_value_and_grad()(x, x)
+    (J1, _), g1 = plain[1].build_value_and_grad()(x, x)
+    np.testing.assert_allclose(float(J0), float(J1), rtol=1e-12)
+    assert (g0 - g1).abs().max() <= 1e-9 * g1.abs().max()
 
 
 def test_plain_route_problem_surface():

@@ -2422,3 +2422,69 @@ def test_open_packed_robust_on_card_matches_cpu(cuda, nlevels, deltas, mid):
             torch.testing.assert_close(auxc[k].detach().cpu(),
                                        aux[k].detach().cpu(), rtol=1e-4,
                                        atol=1e-6)
+
+
+def _grouped_setup(dtype, nlevels=(8, 8, 8, 8), ntime=6, T=0.3):
+    """A closed standard model on the grouped engine (the construction of
+    scripts/perf/nlevels_32_32_32_32.cfg at 8 levels: four transmons,
+    crosskerr and Jkl on every pair, |1000> to |0000>, stiff enough that
+    the guard picks 'split')."""
+    from quandary_tpu_torch.ops.tensor_rhs import build_structured_model
+    from quandary_tpu_torch.problem import Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    f = [4.1, 4.2, 4.3, 4.4]
+    model = build_structured_model(
+        nlevels=list(nlevels), freq01_ghz=f, rotfreq_ghz=f,
+        selfkerr_ghz=[0.2] * 4, crosskerr_ghz=[0.001] * 6,
+        jkl_ghz=[0.001] * 6)
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=5, tstart=0.0,
+                                 tstop=T),),
+        carrier_freqs=(0.0, -0.2 * 2 * np.pi)) for _ in range(4))
+    return Setup(model=model, nessential=tuple(nlevels), ntime=ntime,
+                 dt=T / ntime, oscillators=oscs,
+                 ground_freqs_radns=tuple(2 * np.pi * x for x in f),
+                 initcond_type="pure", pure_levels=(1, 0, 0, 0),
+                 target_type="pure", pure_target_levels=(0, 0, 0, 0),
+                 dtype=dtype, linsolve_iters=20, engine="grouped")
+
+
+@pytest.mark.cuda
+def test_float32_products_are_full_f32_on_card(cuda):
+    """The structured engines' products run in full f32, as the reference
+    pins jax_default_matmul_precision='highest': no TF32. A product of
+    random 1024 x 1024 matrices stays within 1e-5 of max of its f64 value
+    (a TF32 product errs by about 5e-4 relative)."""
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(0)
+    a, b = (rng.normal(size=(1024, 1024)) for _ in range(2))
+    got = (cuda(a).float() @ cuda(b).float()).double().cpu().numpy()
+    want = a @ b
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_grouped_f32_matches_f64_on_card(cuda):
+    """The grouped engine at nlevels [8, 8, 8, 8] (m1 x m2 = 64 x 64) on the
+    card: the hand-written adjoint's J and gradient in complex64 against
+    complex128, J within 1e-5 relative and the gradient within 1e-3 of
+    max, and the complex64 'reversible-ad' gradient against the
+    hand-written one within 1e-4 of max."""
+    from quandary_tpu_torch.problem import Problem
+    out = {}
+    for dtype, adj in ((torch.complex64, "auto"),
+                       (torch.complex128, "auto"),
+                       (torch.complex64, "reversible-ad")):
+        p = Problem(dataclasses.replace(_grouped_setup(dtype), adjoint=adj))
+        assert type(p.engine).__name__ == "GroupedEngine"
+        assert p.linsolver == "split" and not p.use_fused
+        x = np.random.default_rng(1).uniform(-1, 1, p.setup.nparams) * 0.01
+        x = x.astype(np.float32).astype(np.float64)
+        (J, _), g = p.build_value_and_grad()(x, x)
+        out[dtype, adj] = (float(J), g.double().cpu())
+    (J32, g32), (J64, g64), (Jad, gad) = out.values()
+    assert abs(J32 - J64) <= 1e-5 * abs(J64)
+    assert (g32 - g64).abs().max() <= 1e-3 * g64.abs().max()
+    assert (g32 - gad).abs().max() <= 1e-4 * gad.abs().max()

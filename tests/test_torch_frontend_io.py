@@ -285,13 +285,55 @@ def test_setup_from_config_equal(tmp_path, name):
         assert np.array_equal(pt.target, np.asarray(pj.target))
 
 
+BIG = """
+nlevels = 33, 32
+nessential = 2, 2
+ntime = 3
+dt = 0.05
+transfreq = 4.1, 4.2
+rotfreq = 4.1, 4.2
+selfkerr = 0.22, 0.21
+crosskerr = 0.001
+Jkl = 0.002
+carrier_frequency0 = 0.0
+carrier_frequency1 = 0.0
+control_segments0 = spline, 5
+control_segments1 = spline, 5
+control_initialization0 = constant, 0.01
+control_initialization1 = constant, 0.01
+initialcondition = basis
+optim_target = pure, 0, 0
+runtype = simulation
+"""
+
+
 def test_large_standard_model_refused(tmp_path):
+    """Past N = 1024 (here 33 x 32) the config builds the reference's
+    StructuredModel, field for field, and a 3-step simulate matches the
+    JAX Problem's (the tensor engine; J and every aux term to 1e-10)."""
+    import jax.numpy as jnp
+    from quandary_tpu.io.configfile import Config as JConfig
+    from quandary_tpu.io.configfile import setup_from_config as jsetup
+    from quandary_tpu.problem import Problem as JProblem
     from quandary_tpu_torch.io.configfile import Config, setup_from_config
+    from quandary_tpu_torch.ops.tensor_rhs import StructuredModel
+    from quandary_tpu_torch.problem import Problem as TProblem
     p = tmp_path / "big.cfg"
-    p.write_text(BASE.replace("nlevels = 3", "nlevels = 33, 32").replace(
-        "nessential = 2", "nessential = 2, 2"))
-    with pytest.raises(NotImplementedError, match="A3"):
-        setup_from_config(Config.read(str(p)), str(tmp_path))
+    p.write_text(BIG)
+    st, rt = setup_from_config(Config.read(str(p)), str(tmp_path))
+    sj, rj = jsetup(JConfig.read(str(p)), str(tmp_path))
+    assert isinstance(st.model, StructuredModel) and st.model.N == 1056
+    assert dataclasses.asdict(st.model) == dataclasses.asdict(sj.model)
+    pt, pj = TProblem(st, device="cpu"), JProblem(sj)
+    assert type(pt.engine).__name__ == type(pj.engine).__name__ \
+        == "TensorEngine"
+    Jt, auxt = pt.build_objective()(rt.params0, rt.params0)
+    x = jnp.asarray(rj.params0)
+    Jj, auxj = pj.objective(x, x)
+    np.testing.assert_allclose(float(Jt), float(Jj), rtol=1e-10)
+    for k in auxj:
+        np.testing.assert_allclose(float(auxt[k]), float(auxj[k]),
+                                   rtol=1e-10, atol=1e-14, err_msg=k)
 
 
 # ---- 6. steppers ----

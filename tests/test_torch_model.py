@@ -107,7 +107,9 @@ def arrays_from_jax_setup(setup):
     d = {}
     for f in dataclasses.fields(setup):
         v = getattr(setup, f.name)
-        if f.name == "model":
+        if f.name == "model" and not hasattr(v, "stack"):
+            d["structured"] = dataclasses.asdict(v)   # a StructuredModel
+        elif f.name == "model":
             d.update(stack=np.asarray(v.stack), etas=np.asarray(v.etas),
                      dims=tuple(v.dims), n_osc=v.n_osc,
                      collapse_ops=tuple(v.collapse_ops), lindblad=v.lindblad)

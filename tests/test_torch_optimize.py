@@ -147,7 +147,10 @@ def test_package_imports_without_jax():
         "assert 'quandary_tpu' not in sys.modules\n"
         "assert {'quandary_tpu_torch.ops.stream', 'quandary_tpu_torch.ops."
         "adjoint', 'quandary_tpu_torch.ops.dense', 'quandary_tpu_torch."
-        "calibration'} <= set(names)\n"
+        "calibration', 'quandary_tpu_torch.ops.tensor_rhs', "
+        "'quandary_tpu_torch.ops.grouped_rhs', 'quandary_tpu_torch.ops."
+        "grouped_lindblad', 'quandary_tpu_torch.ops.reversible', "
+        "'quandary_tpu_torch.ops.grouped_adjoint'} <= set(names)\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

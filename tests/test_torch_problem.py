@@ -111,7 +111,7 @@ def test_plain_time_loop_matches_jax_solvers():
 
 @pytest.mark.parametrize("change,device", [
     (dict(dtype=torch.complex128), "cuda"),
-    (dict(engine="tensor"), "cuda"),
+    (dict(time_parallel=False), "cuda"),
     (dict(timestepper="IMR4"), "cpu"),
     (dict(linsolver="gmres"), "cpu"),
 ])
