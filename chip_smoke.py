@@ -134,7 +134,8 @@ and the config-file CLI), on the card:
    iterations (one launch per direction per sweep);
 24. `python -m quandary_tpu_torch` (run in-process as `-m` runs it) on
    config_template.cfg for simulation, gradient and optimization
-   (optim_maxiter lowered): complex128, so the plain loop on the card, no
+   (optim_maxiter lowered): complex128, so off the kernels, on the
+   time-parallel scan that 'auto' takes there (as the reference does), no
    kernel launched; grad.dat, optim_history.dat and the population files
    against cli.run(device="cpu"); each runtype's wall.
 
@@ -255,8 +256,30 @@ fails if any kernel launched); float32 products must be full f32:
    tensor engine, the reversible adjoint): J and gradient against the
    port's f64 on the CPU (the worker's, after phase 26's).
 
+The time-parallel scan (ops/propagator.py: step matrices and prefix
+products by batched torch.matmul, as the reference's XLA products; no
+kernel of csrc/ in (a)-(d)), the host-loop runner (ops/hostloop.py) and
+the Hessian tools (optim/hessian.py):
+30. (a) config_template.cfg's Problem on the card (complex128), which
+   'auto' sends to the scan, against time_parallel=False: J, every aux
+   term, gradient and trajectory within tests/test_time_parallel.py's
+   bounds, the median wall of 3 gradients each, one chunk of 2 device
+   iterations with graph=True on the scan; (b) that test's open case (N =
+   6, dim 36) forced, against the sequential loop; (c) SWAP02's physics
+   (N = 64, B = 8, jacobi-3, complex128): against the sequential loop at
+   TP_CUT_NT steps, the forward at the budget's edge (TP_EDGE_NT steps,
+   2^27 entries, 2 GiB a (T, N, N) array) with every state's norm, the
+   gradient at TP_GRAD_NT steps, walls and peak device memory, the
+   complex64 scan's gradient against complex128 (a TF32 product breaks
+   it); (d) HostLoopRunner forward and gradient on tests/test_hostloop.py's
+   problem against the plain route; (e) hessian against fd_hessian on
+   tests/test_hessian_sanity.py's problem in f64 (the scan), hessian
+   refused by name on the streamK route, and fd_hessian through it in
+   complex64 (eps TP_FD_EPS32; 2 nparams launches of each kernel) against
+   the f64 AD Hessian.
+
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26,
-27, 28, 29) is driven with the launch counters set to 0 just before and read
+27, 28, 29, 30) is driven with the launch counters set to 0 just before and read
 just after. Before the device record one line lists the twenty-two kernels
 with their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
@@ -294,6 +317,7 @@ from quandary_tpu_torch.models.hamiltonian import build_standard_model
 from quandary_tpu_torch import calibration
 from quandary_tpu_torch.ops import (cuda_build, dense, rho, rho_mid, stream,
                                     stream_mid, streamk, streamk_mid)
+from quandary_tpu_torch.ops.hostloop import HostLoopRunner
 from quandary_tpu_torch.ops.grouped_rhs import (make_real_imr_step,
                                                 make_real_split_step)
 from quandary_tpu_torch.ops.tensor_rhs import build_structured_model
@@ -301,6 +325,8 @@ from quandary_tpu_torch.optim import robust
 from quandary_tpu_torch.optim.batched_lbfgs import batched_lbfgsb
 from quandary_tpu_torch.optim.device_driver import run_optimization_device
 from quandary_tpu_torch.optim.driver import build_bounds, run_optimization
+from quandary_tpu_torch.optim.hessian import (fd_hessian, hessian,
+                                              hessian_eigen)
 from quandary_tpu_torch.problem import Problem, Setup
 from quandary_tpu_torch.utils.splines import ControlSegment, OscillatorControl
 
@@ -1295,7 +1321,11 @@ def front_end(smi):
                     f.write(body)
             setup_c, spec = setup_from_config(Config.read(cfgs["card"]),
                                               os.path.dirname(cfgs["card"]))
-            forms[rt] = Problem(setup_c).fused_form
+            pr = Problem(setup_c)
+            forms[rt] = pr.fused_form
+            if not pr.time_parallel:
+                raise RuntimeError(f"CLI {rt}: 'auto' did not take the "
+                                   "time-parallel scan")
             reset_counts()
             argv = sys.argv
             sys.argv = ["quandary_tpu_torch", cfgs["card"], "--quiet"]
@@ -1331,7 +1361,8 @@ def front_end(smi):
                 raise RuntimeError(f"CLI {rt} on the card against the CPU: "
                                    f"{json.dumps(errs[rt])}")
         phase(24, f"python -m quandary_tpu_torch config_template.cfg "
-                  f"(complex128, fused_form {forms}, no kernel launched; "
+                  f"(complex128, fused_form {forms}, the time-parallel "
+                  f"scan, no kernel launched; "
                   f"optimization at optim_maxiter {CLI_MAXITER}, "
                   f"optim_driver = {spec.optim_driver}: the host driver, so "
                   f"no device driver and no CUDA graph of it); wall s "
@@ -3428,6 +3459,350 @@ def large_n_phase_alone():
     return large_n_phase(smi, large_n_reference())
 
 
+# Phase 30, the time-parallel scan (ops/propagator.py) under 'auto', the
+# host-loop runner (ops/hostloop.py) and the Hessian tools
+# (optim/hessian.py). The reference computes the scan with XLA products
+# outside any Pallas kernel, so its products are torch.matmul in full f32 /
+# f64 and (a)-(d) launch no kernel of csrc/ (checked); (e)'s FD Hessian on
+# the fused route launches the streamK pair once per gradient.
+TP_CUT_NT = 256         # SWAP02's physics against the sequential loop
+TP_GRAD_NT = 8192       # its scan gradient: 0.5 GiB a (T, N, N) array
+TP_EDGE_NT = 32768      # its scan forward at the budget: 2^27 entries
+TP_FD_EPS32 = 1e-2      # eps of the complex64 FD Hessian (section 6)
+# Bounds: the scan against the sequential loop in f64, those of
+# tests/test_time_parallel.py (J and aux abs; gradient rtol / atol;
+# trajectory abs). The rest about 5x the errors measured on an H100 80GB
+# HBM3 (700 W), PERF.md slice 25.
+TOL_TP = dict(J=1e-10, aux=1e-10, g_rtol=1e-7, g_atol=1e-12, traj=1e-10,
+              # SWAP02's complex64 scan against complex128 (J relative,
+              # gradient x max; measured 6.0e-7 / 1.8e-6): a TF32 product,
+              # about 5e-4 relative, breaks them
+              J_c64=3e-6, g_c64=1e-5,
+              # |norm - 1| of every state at the budget's edge (4.7e-13)
+              norm=2.5e-12,
+              # the host-loop runner against the plain route (states abs,
+              # gradient relative: tests/test_hostloop.py's; measured 0)
+              host_x=1e-12, host_g=1e-8,
+              # the AD Hessian: symmetry abs and FD against AD in f64 x
+              # max(1, max|H|) (the reference test's; measured 9.0e-17,
+              # 2.0e-11); the complex64 FD on the streamK kernels against
+              # the f64 AD x max|H| (6.0e-4)
+              sym=1e-9, fd=1e-5, fd32=3e-3)
+
+
+def tp_open_setup(**kw):
+    """tests/test_time_parallel.py's open case: two transmons [3, 2] (one
+    guard level on the first; N = 6, 36 basis density matrices) with
+    T1 / T2, 100 steps, the CNOT, Jtrace with leakage and energy
+    penalties, complex128."""
+    Ne, nlevels = [2, 2], [3, 2]
+    model = build_standard_model(
+        nlevels=nlevels, freq01_ghz=[4.8, 5.1], rotfreq_ghz=[4.79, 5.09],
+        selfkerr_ghz=[0.22, 0.25], crosskerr_ghz=[0.01], jkl_ghz=[0.005],
+        decay_time=[100.0, 80.0], dephase_time=[50.0, 60.0], lindblad=True)
+    T, ntime = 20.0, 100
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=6, tstart=0.0,
+                                 tstop=T),),
+        carrier_freqs=(0.0, 2 * np.pi * 0.05)) for _ in range(2))
+    return Setup(
+        model=model, nessential=tuple(Ne), ntime=ntime, dt=T / ntime,
+        oscillators=oscs, ground_freqs_radns=(2 * np.pi * 4.8,
+                                              2 * np.pi * 5.1),
+        initcond_type="basis", target_type="gate",
+        target_gate_full=gates.assemble_gate(gates.cnot(), nlevels, Ne,
+                                             [0.0, 0.0], T),
+        objective_type="Jtrace", gamma_tik=1e-4, gamma_penalty=0.1,
+        gamma_penalty_energy=0.1, **kw)
+
+
+def hostloop_setup():
+    """tests/test_hostloop.py's problem: two transmons [3, 2], 30 steps,
+    Jfrobenius to the ground state, complex128, the sequential loop."""
+    T, ntime = 4.0, 30
+    model = build_standard_model(
+        nlevels=[3, 2], freq01_ghz=[4.1, 5.0], rotfreq_ghz=[4.05, 4.95],
+        selfkerr_ghz=[0.2, 0.15], jkl_ghz=[0.01], crosskerr_ghz=[0.002])
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=5, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+        for _ in range(2))
+    return Setup(
+        model=model, nessential=(3, 2), ntime=ntime, dt=T / ntime,
+        oscillators=oscs, ground_freqs_radns=(1.0, 1.0),
+        initcond_type="basis", target_type="pure", pure_target_levels=(0, 0),
+        objective_type="Jfrobenius", time_parallel=False)
+
+
+def hessian_setup(**kw):
+    """tests/test_hessian_sanity.py's problem: one qubit, 12 steps, from
+    the ground state to the excited one, Jfrobenius, complex128 unless
+    `kw` says otherwise."""
+    T, ntime = 2.0, 12
+    model = build_standard_model(
+        nlevels=[2], freq01_ghz=[4.1], rotfreq_ghz=[4.08],
+        selfkerr_ghz=[0.2], crosskerr_ghz=[], jkl_ghz=[])
+    osc = OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=3, tstart=0.0,
+                                 tstop=T),), carrier_freqs=(0.0,))
+    return Setup(
+        model=model, nessential=(2,), ntime=ntime, dt=T / ntime,
+        oscillators=(osc,), ground_freqs_radns=(1.0,),
+        initcond_type="pure", pure_levels=(0,), target_type="pure",
+        pure_target_levels=(1,), objective_type="Jfrobenius",
+        gamma_tik=1e-4, **kw)
+
+
+def tp_against_sequential(pt, ps, x, name, check):
+    """J, every aux term, the gradient and the trajectory of a problem on
+    the scan (pt) against the sequential loop (ps), checked against
+    TOL_TP's bounds of tests/test_time_parallel.py; returns the errors."""
+    if not pt.time_parallel or ps.time_parallel:
+        raise RuntimeError(f"{name}: time_parallel {pt.time_parallel} / "
+                           f"{ps.time_parallel}, expected True / False")
+    (Jt, at), gt = pt.build_value_and_grad()(x, x)
+    (Js, as_), gs = ps.build_value_and_grad()(x, x)
+    gt, gs = gt.double().cpu(), gs.double().cpu()
+    tt = pt.build_propagate_trajectory()(x)
+    ts = ps.build_propagate_trajectory()(x)
+    err = dict(J=abs(float(Jt) - float(Js)),
+               aux=max(abs(float(at[k]) - float(as_[k])) for k in at),
+               g_excess=float(((gt - gs).abs() - TOL_TP["g_rtol"]
+                               * gs.abs()).max()),
+               g_rel=max_rel(gt, gs),
+               traj=float((tt - ts).abs().max()))
+    check(f"{name} J", err["J"], TOL_TP["J"])
+    check(f"{name} aux", err["aux"], TOL_TP["aux"])
+    check(f"{name} g (rtol 1e-7)", err["g_excess"], TOL_TP["g_atol"])
+    check(f"{name} traj", err["traj"], TOL_TP["traj"])
+    return err
+
+
+def time_parallel_phase(smi):
+    """Phase 30: the time-parallel scan on the card against the sequential
+    loop, at the budget's edge, in complex64; the host-loop runner; the
+    Hessian tools, the FD Hessian also through the streamK kernels."""
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("float32 products must be full f32 (matmul "
+                           "precision 'highest', no TF32)")
+    out, bad = {}, []
+
+    def check(name, value, tol):
+        if not value <= tol:
+            bad.append(f"{name} {value:.3e} > {tol:.0e}")
+
+    # ---- (a) config_template.cfg's Problem: 'auto' takes the scan ----
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     dir=cuda_build.BUILD_DIR) as tmp:
+        setup, spec = setup_from_config(Config.read("config_template.cfg"),
+                                        tmp)
+    reset_counts()
+    pa = Problem(setup)
+    ps = Problem(dataclasses.replace(setup, time_parallel=False))
+    x = spec.params0
+    out["cfg"] = tp_against_sequential(pa, ps, x, "(a)", check)
+    walls = {}
+    for name, p in (("scan", pa), ("sequential", ps)):
+        vg = p.build_value_and_grad()
+        walls[name] = timed(lambda: vg(x, x), reps=3)[1]
+    out["cfg"]["walls"] = walls
+    lb, ub = build_bounds(setup.oscillators, spec.control_bounds)
+    res = run_optimization_device(pa, x, lb, ub, chunk=2, maxiter=2,
+                                  graph=True, gatol=0.0, grtol=0.0,
+                                  fatol=0.0, inftol=0.0, verbose=False)
+    torch.cuda.synchronize()
+    objs = [h.objective for h in res.history]
+    if res.niter != 2 or not np.all(np.isfinite(objs)) \
+            or not objs[-1] < objs[0]:
+        raise RuntimeError(f"(a) device driver on the scan: niter "
+                           f"{res.niter}, J {objs}")
+    no_launches("phase 30(a)")
+    phase(30, f"config_template.cfg's Problem on the card (complex128, N = "
+              f"{pa.N}, B = {pa.ninit}, {setup.ntime} steps, "
+              f"{pa.linsolver}-{setup.linsolve_iters}): 'auto' takes the "
+              f"scan; against time_parallel=False J {out['cfg']['J']:.2e} "
+              f"aux {out['cfg']['aux']:.2e} g {out['cfg']['g_rel']:.2e} x "
+              f"max traj {out['cfg']['traj']:.2e}; gradient walls s scan "
+              f"{[round(w, 4) for w in walls['scan']]} median "
+              f"{statistics.median(walls['scan']):.4f}, sequential "
+              f"{[round(w, 4) for w in walls['sequential']]} median "
+              f"{statistics.median(walls['sequential']):.4f}; a chunk of 2 "
+              f"device iterations with graph=True: J {objs[0]:.6f} -> "
+              f"{objs[-1]:.6f}; no kernel launched; card: {smi}")
+
+    # ---- (b) tests/test_time_parallel.py's open case, forced ----
+    reset_counts()
+    po = Problem(tp_open_setup(time_parallel=True))
+    pos = Problem(tp_open_setup(time_parallel=False))
+    xo = np.random.default_rng(11).normal(size=po.setup.nparams) * 0.01
+    out["open"] = tp_against_sequential(po, pos, xo, "(b)", check)
+    no_launches("phase 30(b)")
+    phase(30, f"open N = {po.N} (dim {po.N ** 2}, {po.ninit} density "
+              f"matrices, {po.setup.ntime} steps), time_parallel=True "
+              f"against False on the card: J {out['open']['J']:.2e} aux "
+              f"{out['open']['aux']:.2e} g {out['open']['g_rel']:.2e} x max "
+              f"traj {out['open']['traj']:.2e}")
+
+    # ---- (c) SWAP02's physics in complex128: the sequential loop at
+    # TP_CUT_NT steps, the budget's edge, the gradient at TP_GRAD_NT, and
+    # the complex64 scan ----
+    def swap(nt, dtype=torch.complex128, **kw):
+        return dataclasses.replace(
+            swap02_setup(ntime=nt, fused="auto"), dtype=dtype,
+            linsolver="jacobi", **kw)
+
+    reset_counts()
+    p256 = Problem(swap(TP_CUT_NT))
+    rng = np.random.default_rng(30)
+    xs = rng.uniform(-1, 1, p256.setup.nparams) * 0.02
+    xs = xs.astype(np.float32).astype(np.float64)
+    out["swap"] = tp_against_sequential(
+        p256, Problem(swap(TP_CUT_NT, time_parallel=False)), xs, "(c)",
+        check)
+    p32 = Problem(swap(TP_CUT_NT, torch.complex64, fused=False))
+    if not p32.time_parallel:
+        raise RuntimeError("(c) the complex64 problem is not on the scan")
+    (J64, _), g64 = p256.build_value_and_grad()(xs, xs)
+    (J32, _), g32 = p32.build_value_and_grad()(xs, xs)
+    out["swap"]["J_c64"], out["swap"]["g_c64"] = vg_rel(J32, g32, J64,
+                                                        g64.cpu())
+    check("(c) complex64 J", out["swap"]["J_c64"], TOL_TP["J_c64"])
+    check("(c) complex64 g", out["swap"]["g_c64"], TOL_TP["g_c64"])
+    for key, nt in (("edge", TP_EDGE_NT), ("grad", TP_GRAD_NT)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p = Problem(swap(nt))
+        if not p.time_parallel:
+            raise RuntimeError(f"(c) ntime {nt} is not on the scan")
+        if key == "edge":
+            run = p.build_propagate_trajectory()
+            traj, w = timed(lambda: run(xs))
+            nrm = torch.linalg.vector_norm(traj, dim=-1)
+            out["swap"]["norm"] = float((nrm - 1).abs().max())
+            check("(c) norms at the edge", out["swap"]["norm"],
+                  TOL_TP["norm"])
+            if not bool(torch.isfinite(traj).all()):
+                bad.append("(c) non-finite states at the edge")
+            del traj, nrm
+        else:
+            vg = p.build_value_and_grad()
+            (_, g), w = timed(lambda: vg(xs, xs))
+            if not bool(torch.isfinite(g).all()):
+                bad.append("(c) non-finite gradient")
+        out["swap"][key] = dict(ntime=nt, wall=w[0],
+                                peak_gib=torch.cuda.max_memory_allocated()
+                                / 2 ** 30)
+        del p
+    no_launches("phase 30(c)")
+    sw = out["swap"]
+    phase(30, f"SWAP02's physics (N = {p256.N}, B = {p256.ninit}, complex128,"
+              f" {p256.linsolver}-{p256.setup.linsolve_iters}): against the "
+              f"sequential loop at {TP_CUT_NT} steps J {sw['J']:.2e} aux "
+              f"{sw['aux']:.2e} g {sw['g_rel']:.2e} x max traj "
+              f"{sw['traj']:.2e}; complex64 scan against complex128 J "
+              f"{sw['J_c64']:.2e} g {sw['g_c64']:.2e} x max; forward at "
+              f"ntime {TP_EDGE_NT} (ntime N^2 = "
+              f"2^{math.log2(TP_EDGE_NT * p256.N ** 2):.0f}, the budget "
+              f"2^{math.log2(p256.setup.time_parallel_budget):.0f}) "
+              f"{sw['edge']['wall']:.3f} s, peak "
+              f"{sw['edge']['peak_gib']:.2f} GiB, max |norm - 1| "
+              f"{sw['norm']:.2e}; gradient at ntime {TP_GRAD_NT} "
+              f"{sw['grad']['wall']:.3f} s, peak {sw['grad']['peak_gib']:.2f}"
+              f" GiB")
+
+    # ---- (d) the host-loop runner on tests/test_hostloop.py's problem ----
+    reset_counts()
+    ph = Problem(hostloop_setup())
+    xh = np.random.default_rng(1).normal(size=ph.setup.nparams) * 0.02
+    runner = HostLoopRunner(ph)
+    xT, stored = runner.forward(xh, store_states=True)
+    host_x = float((xT - ph.build_propagate_final()(xh)).abs().max())
+
+    def loss(xT, p):
+        re, _ = ph._eval_J_parts_real(xT.real, xT.imag)
+        return torch.sum(ph._weights * re) + 1e-4 * torch.sum(p * p)
+
+    (Jh, gh), wh = timed(lambda: runner.gradient(xh, loss), reps=2)
+    p = ph._param_tensor(xh).requires_grad_(True)
+    (g_ad,) = torch.autograd.grad(loss(ph.propagate_final(p), p), p)
+    host_g = max_rel(gh.cpu(), g_ad.cpu())
+    check("(d) host-loop forward", host_x, TOL_TP["host_x"])
+    check("(d) host-loop gradient", host_g, TOL_TP["host_g"])
+    no_launches("phase 30(d)")
+    out["hostloop"] = dict(x=host_x, g=host_g, wall=wh[-1])
+    phase(30, f"HostLoopRunner (N = {ph.N}, {ph.setup.ntime} steps, states "
+              f"on the host: {len(stored)} on {stored[0].device}): forward "
+              f"against the plain route {host_x:.2e}, gradient against "
+              f"autograd {host_g:.2e} x max, gradient walls s "
+              f"{[round(w, 3) for w in wh]}")
+
+    # ---- (e) the Hessian tools ----
+    reset_counts()
+    pe = Problem(hessian_setup())
+    xe = (np.random.default_rng(0).normal(size=pe.setup.nparams) * 0.02
+          ).astype(np.float32).astype(np.float64)
+    (H, Hfd, (w_eig, _)), we = timed(lambda: (
+        hessian(pe, xe), fd_hessian(pe, xe, eps=1e-5),
+        hessian_eigen(pe, xe)))
+    no_launches("phase 30(e) in f64")
+    scale = np.abs(H).max()
+    sym = float(np.abs(H - H.T).max())
+    fd = float(np.abs(H - Hfd).max() / max(1.0, scale))
+    check("(e) symmetry", sym, TOL_TP["sym"])
+    check("(e) FD against AD", fd, TOL_TP["fd"])
+    if not np.all(np.diff(w_eig) >= 0):
+        bad.append("(e) eigenvalues not ascending")
+    pf = Problem(hessian_setup(dtype=torch.complex64, fused=True))
+    if pf.fused_form != "streamk":
+        raise RuntimeError(f"(e) fused_form {pf.fused_form}")
+    try:
+        hessian(pf, xe)
+        bad.append("(e) hessian ran on the fused route")
+    except NotImplementedError as e:
+        if "fused route" not in str(e):
+            raise
+    reset_counts()
+    Hf32, wf = timed(lambda: fd_hessian(pf, xe, eps=TP_FD_EPS32))
+    n = pf.setup.nparams
+    counts = main_path_launches(["streamk_fwd_launches",
+                                 "streamk_bwd_launches"])
+    if (counts["streamk_fwd_launches"], counts["streamk_bwd_launches"]) \
+            != (2 * n, 2 * n):
+        raise RuntimeError(f"(e) fd_hessian launched {counts}, expected "
+                           f"{2 * n} + {2 * n}")
+    fd32 = float(np.abs(Hf32 - H).max() / scale)
+    check("(e) complex64 FD on streamK against AD", fd32, TOL_TP["fd32"])
+    out["hessian"] = dict(sym=sym, fd=fd, fd32=fd32, eig=w_eig.tolist(),
+                          wall=we[0], wall32=wf[0])
+    phase(30, f"hessian on the scan (N = {pe.N}, {pe.setup.ntime} steps, "
+              f"{n} parameters, f64): symmetry {sym:.2e}, fd_hessian (eps "
+              f"1e-5) against AD {fd:.2e} x max(1, max|H|), eigenvalues "
+              f"{np.array2string(w_eig, precision=3)}, {we[0]:.3f} s for "
+              f"the three; hessian on the streamK route raises; fd_hessian "
+              f"through it in complex64 (eps {TP_FD_EPS32}, "
+              f"{counts['streamk_fwd_launches']} + "
+              f"{counts['streamk_bwd_launches']} launches) against the f64 "
+              f"AD {fd32:.2e} x max, {wf[0]:.3f} s")
+    if bad:
+        raise RuntimeError("phase 30 out of bounds: " + "; ".join(bad))
+    return out
+
+
+def time_parallel_phase_alone():
+    """Phase 30 by itself (after a change to the time-parallel scan, the
+    host-loop runner or the Hessian tools): the streamK build (for (e)),
+    then time_parallel_phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    streamk.build_kernels(verbose=True)
+    return time_parallel_phase(smi)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -3527,7 +3902,7 @@ def per_block_phase_alone():
 
 
 def run_phases(smi, worker, ref_path):
-    """Phases 2-29 and the last lines."""
+    """Phases 2-30 and the last lines."""
     # ---- 2. build ----
     t0 = time.perf_counter()
     ((path, secs, log), rho_build, stream_build, mid_build, rmid_build,
@@ -4249,6 +4624,10 @@ def run_phases(smi, worker, ref_path):
 
     # ---- 29. the large-N structured engines (no kernel of csrc/) ----
     large_n_phase(smi, worker_references(worker, ref_path + ".large_n"))
+
+    # ---- 30. the time-parallel scan, the host-loop runner, the Hessian
+    # tools ----
+    time_parallel_phase(smi)
 
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",

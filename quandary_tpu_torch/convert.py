@@ -15,8 +15,10 @@ to) and returns :class:`quandary_tpu_torch.problem.Setup`:
 * every other key is a Setup field of the same name (initial conditions,
   targets, objective, the gammas, the solver settings, ``fused_mode``, the
   kernel family 'streamk' | 'stream' | 'chunk' that the JAX package calls
-  ``pallas_mode``, and for open systems ``fused_rho``, the route gate
-  'auto' | 'rho' | 'superop' that the JAX package calls ``pallas_rho``).
+  ``pallas_mode``, for open systems ``fused_rho``, the route gate
+  'auto' | 'rho' | 'superop' that the JAX package calls ``pallas_rho``,
+  and the time-parallel scan's ``time_parallel`` ('auto' | True | False)
+  and ``time_parallel_budget``, under the JAX package's names).
 
 The control vector keeps the JAX package's layout (that of params.dat), so
 parameters carry across unchanged. An ensemble of system realizations

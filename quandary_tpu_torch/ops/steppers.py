@@ -162,6 +162,22 @@ def jacobi_neumann_solve(matvec: Callable, diag, b, half_dt, iters: int):
     return k
 
 
+def _stage_iterates(A, b, engine, a, iters, d, jacobi):
+    """The stage recursion of _StageSolve: (k, the iterates k enters each
+    iteration with, P)."""
+    if d is None:
+        mv = lambda y: engine.apply(A, y)
+    else:
+        mv = lambda y: engine.apply(A, y) - d * y
+    P = 1.0 / (1.0 - a * d) if jacobi else None
+    k = P * b if jacobi else b
+    ks = []
+    for _ in range(iters):
+        ks.append(k)
+        k = P * (b + a * mv(k)) if jacobi else b + a * mv(k)
+    return k, ks, P
+
+
 class _StageSolve(torch.autograd.Function):
     """The stage solve of an assembled H_eff A as one autograd node:
     Neumann k <- b + a V k from k = b, or its Jacobi form
@@ -170,28 +186,35 @@ class _StageSolve(torch.autograd.Function):
     forward computes what neumann_solve / jacobi_neumann_solve compute, in
     the same order (the same bits); the backward is the transposed
     recursion with engine.apply_adjoint, and A's cotangent is
-    engine.apply_vjp_A over all stored iterates at once."""
+    engine.apply_vjp_A over all stored iterates at once. A backward that
+    builds a graph itself (create_graph, as a Hessian's double backward
+    asks) differentiates the recursion run again in differentiable ops
+    instead, so that second derivatives reach the iterates."""
 
     @staticmethod
     def forward(ctx, A, b, engine, a, iters, d, jacobi):
-        if d is None:
-            mv = lambda y: engine.apply(A, y)
-        else:
-            mv = lambda y: engine.apply(A, y) - d * y
-        P = 1.0 / (1.0 - a * d) if jacobi else None
-        k = P * b if jacobi else b
-        ks = []
-        for _ in range(iters):
-            ks.append(k)
-            k = P * (b + a * mv(k)) if jacobi else b + a * mv(k)
+        k, ks, P = _stage_iterates(A, b, engine, a, iters, d, jacobi)
         ctx.engine, ctx.a, ctx.d, ctx.P, ctx.ks = engine, a, d, P, ks
-        ctx.save_for_backward(A)
+        ctx.iters, ctx.jacobi = iters, jacobi
+        ctx.save_for_backward(A, b)
         return k
 
     @staticmethod
     def backward(ctx, kbar):
-        (A,) = ctx.saved_tensors
+        A, b = ctx.saved_tensors
         engine, a, d, P, ks = ctx.engine, ctx.a, ctx.d, ctx.P, ctx.ks
+        if torch.is_grad_enabled():
+            # fresh nodes on A and b: b's own history may lead to A (b =
+            # M(A) x), a path the outer graph already differentiates
+            A, b = A.clone(), b.clone()
+            want = [t for t, n in zip((A, b), ctx.needs_input_grad) if n]
+            k, _, _ = _stage_iterates(A, b, engine, a, ctx.iters, d,
+                                      ctx.jacobi)
+            got = iter(torch.autograd.grad(k, want, kbar, create_graph=True,
+                                           allow_unused=True))
+            return (next(got) if ctx.needs_input_grad[0] else None,
+                    next(got) if ctx.needs_input_grad[1] else None,
+                    None, None, None, None, None)
         Pc = None if P is None else P.conj()
         dc = None if d is None else d.conj()
         lam, bbar, mus = kbar, 0.0, []

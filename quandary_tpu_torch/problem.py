@@ -10,7 +10,7 @@ fidelity, the penalty integrals and the regularizers) is one torch function
 of the control parameters, evaluated for a (E, nparams) batch of control
 candidates at once.
 
-Two propagation paths, as in the JAX package:
+Three propagation paths, as in the JAX package:
 
 * fused (the default): one kernel launch per direction, the CUDA kernel
   pair on the GPU and its plain torch version on the CPU; the objective
@@ -30,8 +30,24 @@ Two propagation paths, as in the JAX package:
 * plain (``fused=False``): the complex-arithmetic step function in a
   Python time loop, differentiated by autograd (density matrices in matrix
   form), on the CPU or on the card: the counterpart of the JAX package's
-  XLA scan, and the only route of IMR4, IMR8, explicit Euler, GMRES and
-  complex128 on the card.
+  XLA scan, for what neither the fused route nor the time-parallel scan
+  takes (GMRES, the split stepper off the kernels, the structured engines,
+  large systems);
+* time-parallel (``Setup.time_parallel``, ops/propagator.py): every step's
+  operator S_n as a matrix, all at once, and the prefix products
+  P_n = S_n ... S_1 by an associative scan, so that the whole history
+  comes from batched matrix products and the gradient from autograd
+  through them. 'auto' takes it where the reference does
+  (quandary_tpu/problem.py:574-590): off the fused route, on the dense
+  engine with a Neumann or Jacobi stage solve, with ntime dim^2 within
+  ``time_parallel_budget`` (dim = N closed, N^2 open) and dim <= 64 or
+  dim <= 4 ninit; True takes it wherever that is feasible, False never.
+  On the card that is the small dense problems in complex128 (a config
+  file's) and those the fused route does not take. A sweep keeps about
+  (3 + linsolve_iters) complex arrays of ntime dim^2 entries per
+  candidate for the gradient (16 bytes an entry in complex128: 2 GiB an
+  array at the budget's 2^27 entries), and the scan's operands, about two
+  more.
 
 ``fused='auto'`` is the JAX package's ``pallas='auto'`` gate: the fused
 route where that gate admits the problem (IMR, a stage solve the kernel
@@ -50,7 +66,9 @@ structured engines (quandary_tpu/problem.py:1194-1290), and 'stored' on the
 dense engine, whose plain route carries the CUDA graphs of the step loop
 and of the device driver (ROADMAP C4 item 12: the same numbers to
 rounding, another memory footprint).
-``fused=True`` (the default) forces the fused route and refuses by name
+The time-parallel scan takes 'stored' under any ``Setup.adjoint`` (autograd
+through its products), as the reference's scan precedes its adjoints.
+``fused=True`` forces the fused route and refuses by name
 what it does not take; ``Problem.fused_form`` records the route taken
 (None on the plain route).
 
@@ -63,9 +81,7 @@ The problem lives on the CUDA device unless the caller names another
 (``device="cpu"``, as the CPU tests do); without a CUDA device and without
 that argument the constructor raises.
 
-Not ported yet, and refused with NotImplementedError: the time-parallel
-scan (ROADMAP A6; ``Setup.time_parallel`` other than 'auto'). On
-CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
+On CUDA a fused route (forced, or admitted by 'auto') refuses complex128 and
 what the route's kernels do not hold (``Problem.fused_refusal``): 'streamk',
 closed or superop, only a sweep past the device-memory budget
 (ops/streamk.py::route_refusal; one thread block or a thread-block cluster
@@ -95,6 +111,9 @@ from .ops.grouped_adjoint import make_grouped_adjoint_propagate
 from .ops.grouped_lindblad import GroupedLindbladEngine
 from .ops.grouped_rhs import (GroupedEngine, make_real_imr_step,
                               make_real_split_step)
+from .ops.propagator import (build_step_matrices_dense,
+                             lindblad_superop_builder, prefix_propagators,
+                             propagate_states)
 from .ops.reversible import make_reversible_propagate
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
@@ -169,9 +188,11 @@ class Setup:
     # (the reversible adjoint through the step, the grouped cross-check);
     # closed IMR-family systems without dpdm, as the reference
     adjoint: str = "auto"
-    # quandary_tpu's time-parallel scan: only 'auto' (one sequential loop)
-    # is ported (ROADMAP A6)
+    # the time-parallel scan (quandary_tpu's, ops/propagator.py): 'auto'
+    # takes it on small dense plain-route problems, True wherever it is
+    # feasible, False never (the sequential step loop)
     time_parallel: object = "auto"
+    time_parallel_budget: int = 1 << 27        # max ntime * dim^2 entries
     # the engine of a StructuredModel (quandary_tpu's): 'auto' (tensor;
     # grouped for closed N >= 2^15 and open N >= 512 with two or more
     # oscillators) | 'tensor' | 'grouped'; a HamiltonianModel takes the
@@ -222,11 +243,9 @@ class Problem:
         if s.engine not in ("auto", "tensor", "grouped"):
             raise ValueError("engine must be 'auto', 'tensor' or 'grouped', "
                              f"got {s.engine!r}")
-        if s.time_parallel != "auto":
-            raise NotImplementedError(
-                f"Setup.time_parallel={s.time_parallel!r} is not ported to "
-                "quandary_tpu_torch (ROADMAP A6: the time-parallel scan); "
-                "only time_parallel='auto' runs")
+        if s.time_parallel not in (True, False, "auto"):
+            raise ValueError("time_parallel must be True, False or 'auto', "
+                             f"got {s.time_parallel!r}")
         if cuda and s.fused is True and s.dtype != torch.complex64:
             raise NotImplementedError(
                 "fused=True: complex128 is not ported to the CUDA kernels, "
@@ -367,6 +386,7 @@ class Problem:
                                                    route_why)
         self.fused_form = form if self.use_fused else None
         self._refusal = route_why if self.use_fused else None
+        self.time_parallel = self._time_parallel_decision()
 
         # superop states are FLAT: diagonals become the strided j*(N+1)
         # gather and the Hilbert-Schmidt overlap the same flat sum
@@ -407,6 +427,17 @@ class Problem:
         self._plan_stop = plan_on_device(self.plan_stop, self.rdtype,
                                          self.device)
         self._jc_mid = rt(model.jc_columns(self.plan_mid.ts))
+        # the scan's constants: the open generator builder (its
+        # superoperator stacks on the device) and the Jacobi diagonal,
+        # flattened as the state is (column-major vec(rho) for open systems)
+        self._superop = self._tp_diag = None
+        if self.time_parallel:
+            eng = self.engine
+            if self.lindblad:
+                self._superop = lindblad_superop_builder(eng.stack, eng.Ls)
+            self._tp_diag = torch.as_tensor(
+                self.gen_diag.T.reshape(-1) if self.lindblad
+                else self.gen_diag, **dev)
         self.adjoint_route = self._adjoint_route()
         self._reversible = None if self.adjoint_route == "stored" \
             else self._make_reversible()
@@ -466,6 +497,26 @@ class Problem:
                             gen_diag=self.gen_diag,
                             vec_ndim=3 if self.lindblad else 2, engine=eng)
 
+    def _time_parallel_decision(self) -> bool:
+        """Whether the objective runs the time-parallel scan, as the JAX
+        Problem decides (quandary_tpu/problem.py:574-590, with use_fused
+        for its use_pallas): feasible on the dense engine with a Neumann
+        or Jacobi stage solve (after the stiffness guard) and ntime dim^2
+        within time_parallel_budget, dim = N closed and N^2 open; under
+        'auto' also profitable, dim <= 64 or dim <= 4 ninit (building the
+        propagators costs O(dim^2) a step against the loop's O(dim B)).
+        The fused route owns propagation where it is taken."""
+        s = self.setup
+        dim = self.N * self.N if self.lindblad else self.N
+        feasible = (isinstance(self.engine, DenseEngine)
+                    and self.linsolver in ("neumann", "jacobi")
+                    and s.ntime * dim * dim <= s.time_parallel_budget)
+        if s.time_parallel == "auto":
+            on = feasible and (dim <= 64 or dim <= 4 * self.ninit)
+        else:
+            on = bool(s.time_parallel) and feasible
+        return on and not self.use_fused
+
     def _adjoint_route(self) -> str:
         """The plain route's adjoint (Setup.adjoint), as the JAX Problem
         picks it (problem.py:1194-1290): the reversible adjoints on closed
@@ -473,11 +524,14 @@ class Problem:
         the real-plane step, with the hand-written adjoint ('grouped') or
         the reversible one through that step ('grouped-ad' under
         'reversible-ad'); else the generic reversible adjoint. 'stored'
-        elsewhere, under 'remat', on the fused route, and under 'auto' on
-        the dense engine (ROADMAP C4 item 12)."""
+        elsewhere, under 'remat', on the fused route, on the time-parallel
+        scan (autograd through its products, as the reference's scan
+        precedes its reversible adjoints) and under 'auto' on the dense
+        engine (ROADMAP C4 item 12)."""
         s = self.setup
         imr = s.timestepper.upper()
-        if (self.use_fused or self.lindblad or s.adjoint == "remat"
+        if (self.use_fused or self.time_parallel or self.lindblad
+                or s.adjoint == "remat"
                 or imr not in ("IMR", "IMR4", "IMR8")
                 or s.gamma_penalty_dpdm > 1e-13
                 or (s.adjoint == "auto"
@@ -748,7 +802,11 @@ class Problem:
         """Objective of the (E, nparams) candidates Ps: (J (E,), aux)."""
         C = self.coeff_rows_mid(Ps)
         energy_int = self._energy_integral(Ps)
-        if self.fused_form == "rho":
+        if self.time_parallel:
+            hist = self._states_time_parallel(C)
+            hr, hi = hist.real, hist.imag
+            xTr, xTi = hr[:, -1], hi[:, -1]
+        elif self.fused_form == "rho":
             xTr, xTi, hr, hi = rho.rho_propagate(
                 self._plan, self._x0r, self._x0i,
                 C[..., 0, :].to(self.rdtype).contiguous())
@@ -778,6 +836,24 @@ class Problem:
         pens = self._history_penalties_real(hr, hi)
         return self._assemble_objective_real(Ps, params_ref, xTr, xTi,
                                              *pens, energy_int)
+
+    def _states_time_parallel(self, C):
+        """The states after steps 1..ntime, (..., ntime, B, N) closed or
+        (..., ntime, B, N, N) open, from the coefficient rows C (..., ntime,
+        nstages, K) by the time-parallel scan (ops/propagator.py); open
+        systems propagate the column-major vec(rho)."""
+        s = self.setup
+        S = build_step_matrices_dense(
+            self.engine.stack, C, s.dt, s.timestepper, s.linsolve_iters,
+            lindblad_superop=self._superop, gen_diag=self._tp_diag,
+            linsolver=self.linsolver)
+        P = prefix_propagators(S)
+        if not self.lindblad:
+            return propagate_states(P, self._x0c)
+        N = self.N
+        sv = propagate_states(P, self._x0c.transpose(-1, -2).reshape(
+            self.ninit, N * N))
+        return sv.reshape(sv.shape[:-1] + (N, N)).transpose(-1, -2)
 
     def _make_reversible(self):
         """The propagation of `adjoint_route` ('reversible', 'grouped',
@@ -953,16 +1029,23 @@ class Problem:
         return self._finalize_J(re, im)
 
     def propagate_final(self, params):
-        """Forward-only propagation by the plain step loop: final states
-        (B, ...)."""
+        """Forward-only propagation: final states (B, ...), by the
+        time-parallel scan where the problem takes it, else by the plain
+        step loop."""
         C = self.coeff_rows_mid(params)
+        if self.time_parallel:
+            return self._states_time_parallel(C)[-1]
         return solvers.propagate(self.step_fn, self._x0c, C)
 
     def propagate_trajectory(self, params):
-        """All states (ntime+1, B, ...) by the plain step loop, for the
-        trajectory output (as the JAX package, also where the objective
-        runs fused)."""
+        """All states (ntime+1, B, ...) for the trajectory output: from the
+        time-parallel scan's prefix products where the problem takes it,
+        else by the plain step loop (as the JAX package, also where the
+        objective runs fused)."""
         C = self.coeff_rows_mid(params)
+        if self.time_parallel:
+            states = self._states_time_parallel(C)
+            return torch.cat([self._x0c[None], states], dim=0)
         return solvers.propagate_trajectory(self.step_fn, self._x0c, C)
 
     def build_propagate_trajectory(self):

@@ -2,8 +2,9 @@
 chunks against the same chunk captured as a CUDA graph.
 
 The problem is config_template.cfg's as setup_from_config builds it
-(complex128, so the plain time loop: 2 transmons, N = 4, 4 basis states,
-ntime 1000, 20 stage iterations). For each chunk length (iterations per
+(complex128, so off the kernels: 2 transmons, N = 4, 4 basis states,
+ntime 1000, 20 stage iterations), on the sequential time loop
+(time_parallel=False; 'auto' takes the time-parallel scan at this size). For each chunk length (iterations per
 chunk) the script times, after synchronizing the card:
 
 * eager_s: one chunk of build_device_optimizer(graph=False);
@@ -117,6 +118,7 @@ def main():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     setup, spec = setup_from_config(
         Config.read(os.path.join(root, "config_template.cfg")), root)
+    setup = dataclasses.replace(setup, time_parallel=False)
     if args.ntime:
         setup = dataclasses.replace(setup, ntime=args.ntime,
                                     dt=setup.dt * setup.ntime / args.ntime)

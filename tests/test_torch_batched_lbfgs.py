@@ -118,13 +118,18 @@ def test_hooks_derived_from_a_plain_objective():
 def test_packed_batch_fns_are_the_ensemble_entry_points(case):
     """The hook triple: objective_batch is the forward alone (no graph
     kept), vg_batch equals build_ensemble_value_and_grad, grad_batch is
-    its gradient; all three on both paths of the problem."""
+    its gradient; all three on every path of the problem (fused, and off
+    it on the sequential loop and, where 'auto' takes it, the
+    time-parallel scan)."""
     import dataclasses
     _, pt, x0s, _, _ = case
     ref = np.zeros(pt.setup.nparams)
     (J, _), g = pt.build_ensemble_value_and_grad()(x0s, ref)
-    plain = TProblem(dataclasses.replace(pt.setup, fused=False), device="cpu")
-    for p in (pt, plain):
+    plain = [TProblem(dataclasses.replace(pt.setup, fused=False, **kw),
+                      device="cpu")
+             for kw in ({}, dict(time_parallel=False))]
+    assert not plain[1].time_parallel
+    for p in (pt, *plain):
         kw = p.packed_batch_fns(ref)
         assert set(kw) == {"objective_batch", "grad_batch", "vg_batch"}
         xs = torch.as_tensor(x0s)

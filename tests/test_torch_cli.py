@@ -162,15 +162,17 @@ def test_fused_auto_gate_matches_jax():
     (dict(timestepper="IMR8"), "timestepper"),
     (dict(linsolver="gmres"), "gmres"),
     (dict(engine="grouped"), None),
-    (dict(time_parallel=True), "A6"),
+    (dict(time_parallel=True, linsolver="jacobi"), None),
     (dict(adjoint="reversible"), None),
 ])
 def test_forced_fused_and_unported_refused(change, match):
     """What the forced fused route or the port does not take raises by
-    name (match); the engine and adjoint settings run (match None): a
-    HamiltonianModel keeps the dense engine under any engine, as in the
-    JAX package, and the reversible adjoint on the plain route gives the
-    stored adjoint's J and gradient."""
+    name (match); the engine, time-parallel and adjoint settings run (match
+    None): a HamiltonianModel keeps the dense engine under any engine, as
+    in the JAX package, the fused route owns propagation under
+    time_parallel=True, and on the plain route the time-parallel scan and
+    the reversible adjoint give the J and gradient of the sequential loop
+    with the stored adjoint."""
     from quandary_tpu_torch.problem import Problem
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
@@ -178,13 +180,18 @@ def test_forced_fused_and_unported_refused(change, match):
         return
     p = Problem(_flagship(**change), device="cpu")
     assert type(p.engine).__name__ == "DenseEngine" and p.use_fused
+    assert not p.time_parallel
     # in f64, without dpdm, which keeps the stored states (as in the JAX
-    # package)
+    # package), against the same problem on the sequential loop
+    same = {k: v for k, v in change.items()
+            if k not in ("adjoint", "time_parallel")}
     plain = [Problem(_flagship(fused=False, gamma_penalty_dpdm=0.0,
                                dtype=torch.complex128, **kw), device="cpu")
-             for kw in (change, {})]
+             for kw in (change, dict(same, time_parallel=False))]
     route = "reversible" if "adjoint" in change else "stored"
     assert [q.adjoint_route for q in plain] == [route, "stored"]
+    assert [q.time_parallel for q in plain] == ["time_parallel" in change,
+                                                False]
     x = np.random.default_rng(0).uniform(-1, 1, p.setup.nparams) * 0.02
     (J0, _), g0 = plain[0].build_value_and_grad()(x, x)
     (J1, _), g1 = plain[1].build_value_and_grad()(x, x)
@@ -194,14 +201,18 @@ def test_forced_fused_and_unported_refused(change, match):
 
 def test_plain_route_problem_surface():
     """propagate_trajectory / _final, eval_J_per_state and initids on the
-    plain route against the JAX Problem in f64."""
+    plain route's sequential loop (time_parallel=False; 'auto' takes the
+    scan at this size, tests/test_torch_time_parallel.py) against the JAX
+    Problem in f64."""
     import jax.numpy as jnp
     from quandary_tpu.problem import Problem as JProblem
     from quandary_tpu_torch.problem import Problem
     from test_torch_model import port_setup, qudit_setup
     sj = qudit_setup("jax")
     pj = JProblem(sj)
-    pt = Problem(port_setup(sj, fused="auto"), device="cpu")
+    pt = Problem(port_setup(sj, fused="auto", time_parallel=False),
+                 device="cpu")
+    assert not pt.time_parallel
     x = np.random.default_rng(1).normal(size=sj.nparams) * 0.05
     tj = np.asarray(pj.build_propagate_trajectory()(jnp.asarray(x)))
     tt = pt.build_propagate_trajectory()(x).numpy()

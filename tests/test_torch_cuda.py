@@ -20,7 +20,9 @@ across cluster sizes and between stored and replayed iterates; the mid
 streamK pair on per-candidate stacks and on open superop plans past one
 block, and the open packed robust objective on both pairs; a
 trajectory's CUDA-graph capture while an orphaned graph is collected; the
-device optimizer's plain-route chunk as segmented CUDA graphs.
+device optimizer's plain-route chunk as segmented CUDA graphs; the
+time-parallel scan against the sequential loop, and the device optimizer
+on it.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -392,8 +394,9 @@ def test_device_optimizer_graph_matches_eager(cuda):
 def _plain_route_problem():
     """config_template.cfg's problem on the card, as
     scripts/plain_route_graph.py builds it: the plain route (complex128,
-    N = 4, 4 initial states, 1000 steps of 20 stage iterations), with its
-    bounds and initial parameters."""
+    N = 4, 4 initial states, 1000 steps of 20 stage iterations) on the
+    sequential loop (time_parallel=False: 'auto' takes the scan here), with
+    its bounds and initial parameters."""
     import os
     from quandary_tpu_torch.io.configfile import Config, setup_from_config
     from quandary_tpu_torch.optim.driver import build_bounds
@@ -401,8 +404,9 @@ def _plain_route_problem():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     setup, spec = setup_from_config(
         Config.read(os.path.join(root, "config_template.cfg")), root)
-    prob = Problem(setup)
+    prob = Problem(dataclasses.replace(setup, time_parallel=False))
     assert prob.fused_form is None and prob.device.type == "cuda"
+    assert not prob.time_parallel
     return prob, spec.params0, build_bounds(setup.oscillators,
                                             spec.control_bounds)
 
@@ -457,6 +461,51 @@ def test_device_optimizer_plain_route_graph_replays_on_card(cuda):
     from quandary_tpu_torch.optim.device_driver import GRAPH_NODE_LIMIT
     assert max(out["segments"]) * out["nodes_per_iteration"] \
         <= GRAPH_NODE_LIMIT // 2
+
+
+@pytest.mark.cuda
+def test_time_parallel_matches_sequential_on_card(cuda):
+    """The time-parallel scan on the card: config_template.cfg's problem
+    (complex128, N = 4, 4 states, 1000 steps), which 'auto' sends to the
+    scan, against the same problem on the sequential loop on the card, with
+    tests/test_time_parallel.py's bounds (J and every aux term 1e-10, the
+    gradient rtol 1e-7 / atol 1e-12, the trajectory 1e-10) and no kernel
+    launched; then one chunk of two device-driver iterations with
+    graph=True on the scan: the cost falls, still no kernel."""
+    import os
+    from quandary_tpu_torch.io.configfile import Config, setup_from_config
+    from quandary_tpu_torch.ops import stream
+    from quandary_tpu_torch.optim.device_driver import run_optimization_device
+    from quandary_tpu_torch.optim.driver import build_bounds
+    from quandary_tpu_torch.problem import Problem
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    setup, spec = setup_from_config(
+        Config.read(os.path.join(root, "config_template.cfg")), root)
+    pt = Problem(setup)
+    ps = Problem(dataclasses.replace(setup, time_parallel=False))
+    assert pt.device.type == "cuda" and pt.time_parallel
+    assert not ps.time_parallel and pt.fused_form is None
+    x = spec.params0
+    before = {**streamk.launch_counts(), **stream.launch_counts()}
+    (Jt, at), gt = pt.build_value_and_grad()(x, x)
+    (Js, as_), gs = ps.build_value_and_grad()(x, x)
+    assert abs(float(Jt) - float(Js)) < 1e-10
+    for k in at:
+        assert abs(float(at[k]) - float(as_[k])) < 1e-10, k
+    np.testing.assert_allclose(gt.cpu().numpy(), gs.cpu().numpy(),
+                               rtol=1e-7, atol=1e-12)
+    tt = pt.build_propagate_trajectory()(x)
+    ts = ps.build_propagate_trajectory()(x)
+    assert tt.shape == ts.shape and float((tt - ts).abs().max()) < 1e-10
+    lb, ub = build_bounds(setup.oscillators, spec.control_bounds)
+    res = run_optimization_device(pt, x, lb, ub, chunk=2, maxiter=2,
+                                  graph=True, gatol=0.0, grtol=0.0,
+                                  fatol=0.0, inftol=0.0, verbose=False)
+    torch.cuda.synchronize()
+    objs = [h.objective for h in res.history]
+    assert res.niter == 2 and np.all(np.isfinite(objs))
+    assert objs[-1] < objs[0]
+    assert {**streamk.launch_counts(), **stream.launch_counts()} == before
 
 
 @pytest.mark.cuda
@@ -1234,9 +1283,10 @@ def test_trajectory_graph_capture_outlives_a_collected_graph(cuda):
 
 @pytest.mark.cuda
 def test_front_end_double_precision_plain_on_card(cuda, tmp_path):
-    """precision='double' (and every config file) runs the plain loop on
-    the card: no route, no kernel launch, the CPU's numbers to 1e-10;
-    forcing the fused route in complex128 still raises."""
+    """precision='double' (and every config file) runs off the kernels on
+    the card (at this size the time-parallel scan, as on the CPU): no
+    route, no kernel launch, the CPU's numbers to 1e-10; forcing the fused
+    route in complex128 still raises."""
     from quandary_tpu_torch import Quandary
     from quandary_tpu_torch.ops import rho, stream
     from quandary_tpu_torch.problem import Problem
@@ -1563,10 +1613,13 @@ def test_auto_runs_plain_loop_where_the_budget_refuses_on_card(
     fused=True raises with the route's message."""
     from quandary_tpu_torch.ops import streamk_mid
     from quandary_tpu_torch.problem import Problem
-    setup = dataclasses.replace(_swap02_mid_setup(), fused="auto")
+    # on the sequential loop: 'auto' takes the time-parallel scan at N = 64
+    setup = dataclasses.replace(_swap02_mid_setup(), fused="auto",
+                                time_parallel=False)
     monkeypatch.setattr(streamk, "DEVICE_BUDGET_BYTES", 1 << 16)
     pa = Problem(setup)
     assert pa.device.type == "cuda" and not pa.use_fused
+    assert not pa.time_parallel
     assert pa.fused_form is None and not pa.fused_ok
     assert "DEVICE_BUDGET_BYTES" in pa.fused_refusal
     assert pa.fused_refusal.startswith("fused='auto': ")

@@ -98,10 +98,11 @@ def qudit_setup(pkg, **setup_kw):
 def arrays_from_jax_setup(setup):
     """The plain-data dict of a quandary_tpu Setup that
     quandary_tpu_torch.convert.setup_from_arrays takes. Fields that only
-    schedule the JAX package's work (pallas, engine, time_parallel, ...)
-    are dropped; the route gate of open systems, pallas_rho, and the kernel
+    schedule the JAX package's work (pallas, engine, adjoint, ...) are
+    dropped; the route gate of open systems, pallas_rho, and the kernel
     family, pallas_mode, carry across under the port's names fused_rho and
-    fused_mode."""
+    fused_mode, and the time-parallel scan's time_parallel and
+    time_parallel_budget under their own."""
     from quandary_tpu_torch.problem import Setup as TorchSetup
     port_fields = {f.name for f in dataclasses.fields(TorchSetup)}
     d = {}
@@ -124,7 +125,7 @@ def arrays_from_jax_setup(setup):
             d["fused_rho"] = v
         elif f.name == "pallas_mode":   # the fused kernel family
             d["fused_mode"] = v
-        elif f.name in ("adjoint", "time_parallel", "engine"):
+        elif f.name in ("adjoint", "engine"):
             continue    # the JAX package's own schedule; the port: 'auto'
         elif f.name in port_fields:
             d[f.name] = v

@@ -150,7 +150,9 @@ def test_package_imports_without_jax():
         "calibration', 'quandary_tpu_torch.ops.tensor_rhs', "
         "'quandary_tpu_torch.ops.grouped_rhs', 'quandary_tpu_torch.ops."
         "grouped_lindblad', 'quandary_tpu_torch.ops.reversible', "
-        "'quandary_tpu_torch.ops.grouped_adjoint'} <= set(names)\n"
+        "'quandary_tpu_torch.ops.grouped_adjoint', 'quandary_tpu_torch."
+        "ops.propagator', 'quandary_tpu_torch.ops.hostloop', "
+        "'quandary_tpu_torch.optim.hessian'} <= set(names)\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -742,9 +742,10 @@ def test_problem_ensemble_refusal():
 
 def test_default_setup_takes_the_plain_loop():
     """Setup(model=..., oscillators=..., nessential, ntime, dt) with every
-    other field at its default (complex128, fused='auto') builds on the CPU
-    on the plain time loop, as the reference's default Setup
-    (pallas='auto', quandary_tpu/problem.py:207) takes its scan off a
+    other field at its default (complex128, fused='auto',
+    time_parallel='auto') builds on the CPU off the fused route, on the
+    time-parallel scan at this size, as the reference's default Setup
+    (pallas='auto', quandary_tpu/problem.py:207) takes its scans off a
     TPU."""
     from quandary_tpu_torch.models.hamiltonian import build_standard_model
     from quandary_tpu_torch.problem import Setup
@@ -761,6 +762,7 @@ def test_default_setup_takes_the_plain_loop():
     p = TProblem(setup, device="cpu")
     assert not p.use_fused and p.fused_form is None
     assert "complex128" in p.fused_refusal
+    assert setup.time_parallel == "auto" and p.time_parallel
 
 
 def test_default_graph_rule():
