@@ -9,8 +9,9 @@ Problem(...).build_value_and_grad(),
 optim.driver.run_optimization, optim.robust.build_packed_robust_objective,
 optim.device_driver.run_optimization_device,
 optim.batched_lbfgs.batched_lbfgsb, ops.stream.make_stream_propagate,
-ops.dense.pallas_propagate_dense and calibration.KerrCalibration, and
-systems past one thread block: closed up to N = 1024 on 'streamk', open
+ops.dense.pallas_propagate_dense and calibration.KerrCalibration,
+parallel.mesh (the 'init' and candidate axes on torch.distributed) and
+profiling.trace, and systems past one thread block: closed up to N = 1024 on 'streamk', open
 up to N = 128, on the streamed-plane routes, per-sample stacks and the
 open superop route, and the structured engines past N = 1024 (the repo's
 32^4 configuration, N = 2^20). Phases:
@@ -278,8 +279,23 @@ the Hessian tools (optim/hessian.py):
    complex64 (eps TP_FD_EPS32; 2 nparams launches of each kernel) against
    the f64 AD Hessian.
 
+Multi-device on torch.distributed (parallel/multihost.py, parallel/mesh.py)
+and the profiler (profiling.py); the machine holds one card:
+31. (a) a one-rank NCCL mesh (make_mesh(1, 1)): the flagship's 'init' axis
+   (shard_problem), its ensemble at E = 128 (mesh=) and two sweeps, each a
+   main path of its own, must be the unsharded runs' bits at 1 + 1 launches
+   a sweep; (b) two ranks sharing the card over gloo (processes of their
+   own, `python3 chip_smoke.py --mesh-rank RANK PORT FILE`, loading the
+   kernels phase 2 built): the flagship's 'init' axis (B = 4, 2 a rank),
+   the ensemble at MESH_E = 16, its sweeps and 6 iterations of the
+   population optimizer on make_mesh(2, 1), the two ranks the same bits and
+   within TOL_MESH_* of one process; (c) profiling.trace around one warm
+   flagship sweep at E = 1: one streamk_fwd and one streamk_bwd in the
+   trace, the card's busy and idle share of the sweep's window, and
+   profiling.sweep_timer's rate beside phase 6's.
+
 Each main path (4-5, 8, 9, 10, 13, 14, 15, 18, 19, 20, 22, 23, 24, 25, 26,
-27, 28, 29, 30) is driven with the launch counters set to 0 just before and read
+27, 28, 29, 30, 31) is driven with the launch counters set to 0 just before and read
 just after. Before the device record one line lists the twenty-two kernels
 with their launches, error, time, plain time and bound.
 Any failure raises (non-zero exit). The last line is the device record:
@@ -287,7 +303,8 @@ Any failure raises (non-zero exit). The last line is the device record:
 
 Run from the repository root:  python3 chip_smoke.py
 (`python3 chip_smoke.py --cpu-references FILE` is the worker phase 2
-starts; it computes on the CPU only.)
+starts; it computes on the CPU only. `python3 chip_smoke.py --mesh-rank
+RANK PORT FILE` is one of phase 31's two ranks.)
 """
 
 import contextlib
@@ -299,6 +316,7 @@ import os
 import re
 import runpy
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -308,8 +326,9 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from quandary_tpu_torch import Quandary, cli
+from quandary_tpu_torch import Quandary, cli, profiling
 from quandary_tpu_torch.io import native
 from quandary_tpu_torch.io.configfile import Config, setup_from_config
 from quandary_tpu_torch.models import gates
@@ -327,6 +346,7 @@ from quandary_tpu_torch.optim.device_driver import run_optimization_device
 from quandary_tpu_torch.optim.driver import build_bounds, run_optimization
 from quandary_tpu_torch.optim.hessian import (fd_hessian, hessian,
                                               hessian_eigen)
+from quandary_tpu_torch.parallel import mesh, multihost
 from quandary_tpu_torch.problem import Problem, Setup
 from quandary_tpu_torch.utils.splines import ControlSegment, OscillatorControl
 
@@ -3803,6 +3823,267 @@ def time_parallel_phase_alone():
     return time_parallel_phase(smi)
 
 
+# Phase 31, multi-device on torch.distributed (parallel/mesh.py,
+# parallel/multihost.py) and the profiler (profiling.py). The machine holds
+# one card: (a) on a one-rank NCCL mesh, whose collectives sum one rank's
+# share, the 'init' axis, the ensemble and the sweeps must be the
+# unsharded run's bits; (b) two ranks sharing the card over gloo
+# (processes of their own, `python3 chip_smoke.py --mesh-rank RANK PORT
+# FILE`, loading the kernels phase 2 built) run the flagship's 'init' axis
+# (B = 4, 2 a rank), the ensemble at MESH_E, its sweeps and the population
+# optimizer on the streamK pair; (c) a profiler trace of one warm flagship
+# sweep at E = 1.
+MESH_E = 16             # (b)'s ensemble and population
+MESH_POP_ITERS = 6
+# (b) against one process: J abs, gradient x max (C4 item 11's class: the
+# last bits of C-bar depend on E and B through the launch layout); the
+# population's f trace and f_best relative (tests/test_sharding.py:235's)
+TOL_MESH_J = 1e-6
+TOL_MESH_G = 1e-5
+TOL_MESH_POP = 2e-5
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_work(m):
+    """(b)'s runs on mesh `m` (None: one process, unsharded): the
+    flagship's value_and_grad on the 'init' axis, the ensemble of MESH_E
+    candidates, two sweeps of it and MESH_POP_ITERS iterations of the
+    population optimizer from phase 10's draw; numpy results, the route and
+    batch a rank takes, and each run's launches."""
+    p = Problem(flagship_setup())
+    n = p.setup.nparams
+    if m is not None:
+        mesh.shard_problem(p, m)
+    x = bench_params(n)
+    out = dict(route=p.fused_form, ninit=p.ninit, launches={})
+
+    def run(name, fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        out["launches"][name] = {k: v for k, v in {
+            **streamk.launch_counts(), **streamk_mid.launch_counts()}.items()
+            if v}
+        return res
+
+    (J, aux), g = run("init", lambda: p.build_value_and_grad()(x, x))
+    ens = Problem(flagship_setup())
+    Ps = bench_params(n, MESH_E, seed=7)
+    (Je, _), ge = run("ensemble", lambda: ens.build_ensemble_value_and_grad(
+        mesh=m)(Ps, x))
+    sw = run("sweeps", lambda: ens.build_ensemble_sweeps(mesh=m)(
+        np.stack([Ps, Ps[::-1]]), x))
+    bound = 15e-3 * 2 * np.pi / np.sqrt(2.0) / 2.0 * 3.0    # phase 10's box
+    x0s = np.random.default_rng(1234).uniform(-1, 1, (MESH_E, n)) * 0.03
+    pop = run("population", lambda: batched_lbfgsb(
+        None, None, torch.as_tensor(x0s, device=p.device, dtype=torch.float32),
+        -bound * np.ones(n, np.float32), bound * np.ones(n, np.float32),
+        iters=MESH_POP_ITERS, ls_lengths=8,
+        **ens.packed_batch_fns(np.zeros(n), mesh=m)))
+    cpu = lambda t: t.detach().cpu().numpy()
+    out.update(J=cpu(J), g=cpu(g), fidelity=cpu(aux["fidelity"]), Je=cpu(Je),
+               ge=cpu(ge), sweeps=cpu(sw), pop=[cpu(t) for t in pop])
+    return out
+
+
+def mesh_rank(rank, port, out_path):
+    """One of (b)'s two ranks: mesh_work on make_mesh(2, 1) over gloo,
+    saved to `out_path` (np.save)."""
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        np.save(out_path, mesh_work(mesh.make_mesh(2, 1)), allow_pickle=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def one_rank_nccl(x):
+    """(a): the flagship's 'init' axis, the ensemble at E_BIG and two
+    sweeps on a one-rank NCCL mesh, each a main path of its own (counts set
+    to 0 before, read after), against the unsharded run's bits."""
+    prob = Problem(flagship_setup())
+    n = prob.setup.nparams
+    Ps = bench_params(n, E_BIG, seed=7)
+    Pr = np.stack([Ps, Ps[::-1]])
+    (J0, aux0), g0 = prob.build_value_and_grad()(x, x)
+    (Je0, auxe0), ge0 = prob.build_ensemble_value_and_grad()(Ps, x)
+    sw0 = prob.build_ensemble_sweeps()(Pr, x)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        m1 = mesh.make_mesh(1, 1)
+        ps = mesh.shard_problem(Problem(flagship_setup()), m1)
+        reset_counts()
+        (J1, aux1), g1 = ps.build_value_and_grad()(x, x)
+        torch.cuda.synchronize()
+        launches = dict(init=sweep_launches(B1))
+        reset_counts()
+        (Je1, auxe1), ge1 = prob.build_ensemble_value_and_grad(mesh=m1)(Ps, x)
+        torch.cuda.synchronize()
+        launches["ensemble"] = sweep_launches(B1)
+        reset_counts()
+        sw1 = prob.build_ensemble_sweeps(mesh=m1)(Pr, x)
+        launches["sweeps"] = main_path_launches(B1)
+    finally:
+        dist.destroy_process_group()
+    same = lambda a, b: bool(torch.equal(a, b))
+    bits = dict(
+        init=same(J1, J0) and same(g1, g0) and all(
+            same(aux1[k], aux0[k]) for k in aux0),
+        ensemble=same(Je1, Je0) and same(ge1, ge0) and all(
+            same(auxe1[k], auxe0[k]) for k in auxe0),
+        sweeps=same(sw1, sw0))
+    if backend != "nccl" or ps.fused_form != "streamk" \
+            or not all(bits.values()) \
+            or any(launches["sweeps"][k] != 2 for k in B1):
+        raise RuntimeError(f"phase 31(a): one-rank {backend} mesh against "
+                           f"the unsharded run: bits {bits}, route "
+                           f"{ps.fused_form}, launches {launches}")
+    return dict(backend=backend, bits=bits, launches=launches)
+
+
+def mesh_ranks_check(ranks, ref):
+    """(b)'s two ranks against each other (bits) and against the one
+    process's run (TOL_MESH_*); returns the errors."""
+    r0, r1 = ranks
+    keys = ("J", "g", "fidelity", "Je", "ge", "sweeps")
+    bits = all(np.array_equal(r0[k], r1[k]) for k in keys) and all(
+        np.array_equal(a, b) for a, b in zip(r0["pop"], r1["pop"]))
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    scale = 2 * (np.abs(ref["Je"]).sum() + np.abs(ref["ge"]).sum())
+    errs = dict(
+        J=float(abs(r0["J"] - ref["J"])), g_rel=rel(r0["g"], ref["g"]),
+        Je=float(np.abs(r0["Je"] - ref["Je"]).max()),
+        ge_rel=rel(r0["ge"], ref["ge"]),
+        sweeps_rel=float(abs(r0["sweeps"] - ref["sweeps"]) / scale),
+        pop_trace_rel=float(np.max(np.abs(r0["pop"][2] - ref["pop"][2])
+                                   / np.abs(ref["pop"][2]))),
+        pop_f_rel=float(np.max(np.abs(r0["pop"][1] - ref["pop"][1])
+                               / np.abs(ref["pop"][1]))))
+    ok = (bits and errs["J"] <= TOL_MESH_J and errs["Je"] <= TOL_MESH_J
+          and max(errs["g_rel"], errs["ge_rel"], errs["sweeps_rel"])
+          <= TOL_MESH_G
+          and max(errs["pop_trace_rel"], errs["pop_f_rel"]) <= TOL_MESH_POP
+          and all(r["route"] == "streamk" and r["ninit"] == 2
+                  and r["launches"]["init"] == dict(zip(B1, (1, 1)))
+                  and r["launches"]["ensemble"] == dict(zip(B1, (1, 1)))
+                  for r in ranks))
+    if not ok:
+        raise RuntimeError(f"phase 31(b): two ranks on the card: bits "
+                           f"{bits}, errors {errs}, routes "
+                           f"{[r['route'] for r in ranks]}, launches "
+                           f"{[r['launches'] for r in ranks]}")
+    return dict(errs, bits=bits)
+
+
+def trace_sweep(vg, x, logdir):
+    """(c): profiling.trace around one warm flagship sweep at E = 1 (the
+    user annotation 'sweep' spans it to its synchronization): each kernel's
+    launches and device ms, the card's busy and idle share of the window,
+    the streamK pair's share of it."""
+    vg(x, x)
+    torch.cuda.synchronize()
+    with profiling.trace(logdir):
+        with torch.profiler.record_function("sweep"):
+            vg(x, x)
+            torch.cuda.synchronize()
+    summ = profiling.trace_summary(logdir, window="sweep")
+    by_name = {}
+    for name, (count, ms) in summ["kernels"].items():
+        base = re.match(r"(?:void )?([A-Za-z_]\w*)", name).group(1)
+        n0, ms0 = by_name.get(base, (0, 0.0))
+        by_name[base] = (n0 + count, ms0 + ms)
+    pair = {k: by_name.get(k, (0, 0.0)) for k in ("streamk_fwd", "streamk_bwd")}
+    if any(c != 1 for c, _ in pair.values()):
+        raise RuntimeError(f"phase 31(c): the trace of one sweep holds "
+                           f"{pair} streamK launches: {by_name}")
+    pair_ms = sum(ms for _, ms in pair.values())
+    glue = {k: v for k, v in by_name.items() if k not in pair}
+    return dict(window_ms=summ["window_ms"], busy_ms=summ["busy_ms"],
+                busy_share=summ["busy_share"], idle_share=summ["idle_share"],
+                streamk_ms={k: ms for k, (_, ms) in pair.items()},
+                streamk_share=pair_ms / summ["window_ms"],
+                other_kernels=sum(c for c, _ in glue.values()),
+                other_kernel_ms=sum(ms for _, ms in glue.values()))
+
+
+def mesh_phase(smi, rate_e1=None):
+    """Phase 31: (b)'s two ranks start first; (a) and (b)'s one-process
+    run go on beside them; (c) and sweep_timer's rate (against phase 6's
+    `rate_e1`, sweeps/s at E = 1, measured here where None) once the ranks
+    are done, the card to itself."""
+    t0 = time.perf_counter()
+    x = bench_params(flagship_setup().nparams)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_",
+                           dir=cuda_build.BUILD_DIR)
+    port = free_port()
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(port), os.path.join(tmp, f"rank{r}.npy")], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        one = one_rank_nccl(x)
+        ref = mesh_work(None)
+        for r, p in enumerate(procs):
+            if p.wait(timeout=300) != 0:
+                logs[r].flush()
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    raise RuntimeError(f"phase 31(b): rank {r} exited "
+                                       f"{p.returncode}:\n{f.read()[-4000:]}")
+        wall_b = time.perf_counter() - t0
+        ranks = [np.load(os.path.join(tmp, f"rank{r}.npy"),
+                         allow_pickle=True).item() for r in (0, 1)]
+        two = mesh_ranks_check(ranks, ref)
+        prob = Problem(flagship_setup())
+        vg = prob.build_value_and_grad()
+        tr = trace_sweep(vg, x, os.path.join(tmp, "trace"))
+        rate = profiling.sweep_timer(vg, lambda i: (x, x), reps=20)
+        if rate_e1 is None:
+            rate_e1 = 1.0 / median_seconds(lambda: vg(x, x))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    phase(31, f"(a) one-rank {one['backend']} mesh, the flagship on "
+              f"'streamk': 'init' axis, E = {E_BIG} ensemble and 2 sweeps "
+              f"the unsharded run's bits {json.dumps(one['bits'])}, launches "
+              f"{json.dumps(one['launches'])}; (b) 2 ranks on the card over "
+              f"gloo (B = 4, 2 a rank; E = {MESH_E}; {MESH_POP_ITERS} "
+              f"population iterations), ranks the same bits "
+              f"{two['bits']}, against one process "
+              f"{json.dumps({k: v for k, v in two.items() if k != 'bits'})}"
+              f" (bounds J {TOL_MESH_J}, gradient {TOL_MESH_G} x max, "
+              f"population {TOL_MESH_POP}), launches a rank "
+              f"{json.dumps(ranks[0]['launches'])}, {wall_b:.1f} s with (a); "
+              f"(c) profiler trace of one warm sweep at E = 1: "
+              f"{json.dumps(tr)}; sweep_timer {rate:.3f} sweeps/s against "
+              f"phase 6's {rate_e1:.3f}; phase 31 {wall:.1f} s; card: {smi}")
+    return dict(one=one, two=two, trace=tr, rate=rate, wall=wall)
+
+
+def mesh_phase_alone():
+    """Phase 31 by itself (after a change to parallel/, profiling.py or the
+    ensemble entry points): the streamK build, then mesh_phase."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    streamk.build_kernels(verbose=True)
+    return mesh_phase(smi)
+
+
 def main():
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -3902,7 +4183,7 @@ def per_block_phase_alone():
 
 
 def run_phases(smi, worker, ref_path):
-    """Phases 2-30 and the last lines."""
+    """Phases 2-31 and the last lines."""
     # ---- 2. build ----
     t0 = time.perf_counter()
     ((path, secs, log), rho_build, stream_build, mid_build, rmid_build,
@@ -4629,6 +4910,9 @@ def run_phases(smi, worker, ref_path):
     # tools ----
     time_parallel_phase(smi)
 
+    # ---- 31. multi-device on torch.distributed, the profiler ----
+    mp = mesh_phase(smi, rates["kernel_E1"])
+
     def record(name, line, n_launch, err, t, key,
                src="quandary_tpu_torch/csrc/streamk.cu",
                tpu="quandary_tpu/ops/pallas_stream.py", **more):
@@ -4818,12 +5102,16 @@ def run_phases(smi, worker, ref_path):
                launches_front_end=fe["cnot"]["optimize"][B1[0]],
                launches_front_end_simulate=fe["cnot"]["simulate"][B1[0]],
                launches_device_optimizer=launches_dev[B1[0]],
-               launches_population=launches_pop[B1[0]], **streamk_more(0)),
+               launches_population=launches_pop[B1[0]],
+               launches_mesh=mp["one"]["launches"]["init"][B1[0]],
+               **streamk_more(0)),
         record("streamk_bwd", 967, launches[B1[1]],
                max(worst["cbar"], worst["x0bar"]), ms, "bwd",
                launches_front_end=fe["cnot"]["optimize"][B1[1]],
                launches_device_optimizer=launches_dev[B1[1]],
-               launches_population=launches_pop[B1[1]], **streamk_more(1)),
+               launches_population=launches_pop[B1[1]],
+               launches_mesh=mp["one"]["launches"]["init"][B1[1]],
+               **streamk_more(1)),
         record("streamk_packed_fwd", 1324, launches_robust[B2[0]],
                worst_p["state"], ms_p, "fwd", ms_S128=ms_pbig["fwd"],
                bound_ms_S128=ms_pbig["fwd_bound"][0],
@@ -4933,5 +5221,7 @@ def run_phases(smi, worker, ref_path):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-references"]:
         cpu_references(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
         main()

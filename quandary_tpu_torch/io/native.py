@@ -1,8 +1,8 @@
 """ctypes bindings for the native IO/RNG support library
 (csrc/quandary_native.cpp, the port's own copy of native/quandary_native.cpp).
 
-The library is built with g++ the first time it is needed, into
-``build/quandary_tpu_torch/`` under a name keyed on a hash of the source
+The library is built with g++ the first time it is needed, into the build
+directory of utils/cache.py under a name keyed on a hash of the source
 (as ops/cuda_build.py keys the CUDA libraries), and loaded once per process.
 Every entry point has a pure-Python fallback: where the library cannot be
 built, `get_lib()` is None, the writers fall back to Python formatting and

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA sources: one shared library per
-``csrc/*.cu`` file, compiled with nvcc for sm_90a at first use into
-``build/quandary_tpu_torch/`` (keyed on a hash of the source and the shared
-``csrc/*.cuh`` headers) and bound with ctypes. The sources have a plain C
+``csrc/*.cu`` file, compiled with nvcc for sm_90a at first use into the
+build directory of utils/cache.py (``build/quandary_tpu_torch/`` unless
+the environment names another; keyed on a hash of the source and the
+shared ``csrc/*.cuh`` headers) and bound with ctypes. The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds;
 ``build_parallel`` runs one nvcc per source, all at once."""
 
@@ -16,10 +17,10 @@ import shutil
 import subprocess
 import time
 
+from ..utils.cache import build_dir
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "build", "quandary_tpu_torch")
+BUILD_DIR = build_dir()     # resolved once per process
 MAX_SMEM = 227 * 1024       # dynamic shared memory one block can use
 LIBS = {}       # source path -> (loaded library, its path): one per process
 

@@ -53,8 +53,15 @@ class HostLoopRunner:
         products (autograd of step_fn at each stored state, in x and in the
         step's coefficient rows), and the rows' cotangents chained through
         coeff_rows_mid. The gradient is a tensor on the problem's device;
-        device memory stays O(1) in ntime but for the rows."""
+        device memory stays O(1) in ntime but for the rows. Raises on a
+        problem sharded over the 'init' axis: the loss sees this rank's
+        share of the batch only (ROADMAP C4 item 16)."""
         prob = self.problem
+        if prob.mesh is not None:
+            raise NotImplementedError(
+                "HostLoopRunner.gradient on a problem sharded over the "
+                "'init' axis: loss_on_final would see one rank's share of "
+                "the batch (ROADMAP C4 item 16)")
         dev = prob.device
         p = prob._param_tensor(params).requires_grad_(True)
         C = prob.coeff_rows_mid(p)

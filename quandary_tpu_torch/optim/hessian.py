@@ -12,8 +12,10 @@ and the plain route's stored adjoint. The fused route's kernels and the
 reversible and grouped adjoints are autograd.Functions with a hand-written
 first backward only (the JAX package's jax.hessian cannot pass its
 custom_vjps either), so there it raises NotImplementedError naming the
-route. `fd_hessian` takes central differences of build_value_and_grad's
-gradient and runs on every route, the kernels included.
+route; so it does on a problem sharded over the 'init' axis, whose pair of
+collectives (parallel/mesh.py) has a first backward only. `fd_hessian`
+takes central differences of build_value_and_grad's gradient and runs on
+every route, the kernels included.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ def hessian(problem, params, params_ref=None):
     elif problem.adjoint_route != "stored":
         why = (f"the {problem.adjoint_route!r} adjoint: its "
                "autograd.Function has no double backward")
+    elif problem.mesh is not None:
+        why = ("a problem sharded over the 'init' axis: its collectives "
+               "(parallel/mesh.py copy_to / reduce_from) have no double "
+               "backward (ROADMAP C4 item 16)")
     if why is not None:
         raise NotImplementedError(f"hessian: {why}; fd_hessian runs on "
                                   "every route")

@@ -176,11 +176,13 @@ def build_packed_robust_objective(problems: Sequence,
     (Setup.fused_mode 'streamk': the packed route is streamK's only) on the
     same device, with the same discretization and shape, identical initial
     conditions, all open or all closed, all with a generator diagonal or
-    none. The size limit is the kernels' (``packed_refusal``): the
-    reference packs while S * dim <= 128 (one 128-lane tile); the port
-    takes whatever the one-block or the mid pair holds within
-    streamk.DEVICE_BUDGET_BYTES, and raises ValueError naming the limit
-    past that. The returned objective carries its launch's inputs
+    none, all sharded over one mesh's 'init' axis or none (each rank then
+    packs its share of the batch; coeff_rows_mid and the objective tail
+    hold the collectives). The size limit is the kernels'
+    (``packed_refusal``): the reference packs while S * dim <= 128 (one
+    128-lane tile); the port takes whatever the one-block or the mid pair
+    holds within streamk.DEVICE_BUDGET_BYTES, and raises ValueError naming
+    the limit past that. The returned objective carries its launch's inputs
     (`.plan`, `.x0`, `.coeff_rows(params)`) for timing the kernels alone."""
     S = len(problems)
     p0 = problems[0]
@@ -202,6 +204,9 @@ def build_packed_robust_objective(problems: Sequence,
                 or p.device != p0.device or p.rdtype != p0.rdtype):
             raise ValueError("sample Problems must share shape, "
                              "discretization, device and dtype for packing")
+        if p.mesh is not p0.mesh:
+            raise ValueError("sample Problems must be sharded over the same "
+                             "mesh (parallel/mesh.py::shard_problem) or none")
         if not np.array_equal(p.x0, p0.x0):
             raise ValueError("sample Problems must share initial conditions")
         if (p.gen_diag is None) != (p0.gen_diag is None):

@@ -118,6 +118,7 @@ from .ops.reversible import make_reversible_propagate
 from .ops.rhs import DenseEngine
 from .ops.steppers import make_step_fn, stage_midpoint_times
 from .ops.tensor_rhs import StructuredModel, TensorEngine
+from .parallel import mesh as mesh_ops
 from .utils.indexing import flat_index, guard_mask
 from .utils.operators import drift_diagonal
 from .utils.splines import OscillatorControl, build_control_plan
@@ -366,16 +367,32 @@ class Problem:
         self.step_fn = self._make_step_fn(dt)
 
         # --- fused or plain: the JAX package's pallas gate
-        # (problem.py:440-500); 'auto' admits where that gate does, on CUDA
-        # where it asks for a TPU, and where the route's kernels hold the
-        # problem (route_refusal), before the state layout is fixed ---
-        why_not = self._fused_gate_refusal(cuda)
-        forced = s.fused != "auto" and bool(s.fused)
-        if forced and why_not is not None:
+        # (problem.py:440-500), decided at the whole batch; 'auto' admits
+        # where that gate does, on CUDA where it asks for a TPU ---
+        self._gate = self._fused_gate_refusal(cuda)
+        if s.fused is True and self._gate is not None:
             raise NotImplementedError(
                 f"fused=True: the fused route does not take this "
-                f"problem: {why_not} (fused='auto' or False runs the "
+                f"problem: {self._gate} (fused='auto' or False runs the "
                 "plain time loop)")
+        # the 'init' axis (parallel/mesh.py::shard_problem): the mesh, the
+        # group of the ranks sharing the batch, and the whole batch's size
+        self.mesh = self._init_group = None
+        self.ninit_global = self.ninit
+        self._place()
+
+    def _place(self):
+        """The route at the problem's batch of initial conditions (this
+        rank's share of it under the 'init' axis) and the constants on the
+        device in the route's state layout: whether the route's kernels
+        hold the problem (route_refusal) and their plan's stored-iterate
+        rule (store_iters_ok) are decided at that batch, which can change
+        the route family."""
+        s, model = self.setup, self.model
+        cuda = self.device.type == "cuda"
+        forced = s.fused != "auto" and bool(s.fused)
+        why_not = self._gate
+        nprdt = np.float32 if s.dtype == torch.complex64 else np.float64
         iters, K = s.linsolve_iters, model.K
         form = self._fused_form() if why_not is None and (
             forced or (s.fused == "auto" and cuda)) else None
@@ -504,7 +521,9 @@ class Problem:
         or Jacobi stage solve (after the stiffness guard) and ntime dim^2
         within time_parallel_budget, dim = N closed and N^2 open; under
         'auto' also profitable, dim <= 64 or dim <= 4 ninit (building the
-        propagators costs O(dim^2) a step against the loop's O(dim B)).
+        propagators costs O(dim^2) a step against the loop's O(dim B)), at
+        the whole batch's ninit as the reference decides it before any
+        sharding.
         The fused route owns propagation where it is taken."""
         s = self.setup
         dim = self.N * self.N if self.lindblad else self.N
@@ -512,7 +531,7 @@ class Problem:
                     and self.linsolver in ("neumann", "jacobi")
                     and s.ntime * dim * dim <= s.time_parallel_budget)
         if s.time_parallel == "auto":
-            on = feasible and (dim <= 64 or dim <= 4 * self.ninit)
+            on = feasible and (dim <= 64 or dim <= 4 * self.ninit_global)
         else:
             on = bool(s.time_parallel) and feasible
         return on and not self.use_fused
@@ -743,11 +762,17 @@ class Problem:
         s = self.setup
         w = self._weights
         J_re_b, J_im_b = self._eval_J_parts_real(xTr, xTi)
-        obj_cost = self._finalize_J(torch.sum(w * J_re_b, dim=-1),
-                                    torch.sum(w * J_im_b, dim=-1))
         ov_re, ov_im = self._overlaps_real(xTr, xTi)
-        fid_re = torch.sum(ov_re, dim=-1) / self.ninit
-        fid_im = torch.sum(ov_im, dim=-1) / self.ninit
+        # every sum over the batch, all-reduced over the 'init' axis before
+        # the nonlinear tail
+        pens = [torch.sum(w * p, -1) for p in (pen_leak, pen_jt, pen_dpdm)
+                if p is not None]
+        J_re, J_im, ov_re, ov_im, *pens = self._batch_sums(
+            [torch.sum(w * J_re_b, dim=-1), torch.sum(w * J_im_b, dim=-1),
+             torch.sum(ov_re, dim=-1), torch.sum(ov_im, dim=-1)] + pens)
+        obj_cost = self._finalize_J(J_re, J_im)
+        fid_re = ov_re / self.ninit_global
+        fid_im = ov_im / self.ninit_global
         fidelity = fid_re if self.lindblad else fid_re ** 2 + fid_im ** 2
 
         dx = params - params_ref if s.gamma_tik_interpolate else params
@@ -755,11 +780,11 @@ class Problem:
         zero = torch.zeros_like(obj_cost)
         obj_penal = zero
         if pen_leak is not None:
-            obj_penal = obj_penal + s.gamma_penalty * torch.sum(w * pen_leak, -1)
+            obj_penal = obj_penal + s.gamma_penalty * pens.pop(0)
         if pen_jt is not None:
-            obj_penal = obj_penal + s.gamma_penalty * torch.sum(w * pen_jt, -1)
+            obj_penal = obj_penal + s.gamma_penalty * pens.pop(0)
         obj_penal_dpdm = zero if pen_dpdm is None else (
-            s.gamma_penalty_dpdm * torch.sum(w * pen_dpdm, -1) / s.ntime)
+            s.gamma_penalty_dpdm * pens.pop(0) / s.ntime)
         obj_penal_energy = s.gamma_penalty_energy * energy_int
         obj_penal_variation = zero
         if s.gamma_penalty_variation > 1e-13:
@@ -779,6 +804,53 @@ class Problem:
         return J, aux
 
     # ------------------------------------------------------------------
+    # the 'init' axis (parallel/mesh.py)
+    # ------------------------------------------------------------------
+
+    def _shard_init(self, rows: slice, mesh, group):
+        """Keep this rank's `rows` of the batch of initial conditions and
+        rebuild the route at that batch (parallel/mesh.py::shard_problem).
+        The weights were normalized over the whole batch."""
+        self.x0 = self.x0[rows]
+        if self.target is not None:
+            self.target = self.target[rows]
+        self.weights = self.weights[rows]
+        self.purity = self.purity[rows]
+        self.initids = list(self.initids)[rows]
+        self.ninit = self.x0.shape[0]
+        self.mesh, self._init_group = mesh, group
+        self._place()
+
+    def _shared_input(self, C):
+        """The coefficient rows, the replicated input of every rank's
+        share of the batch: under the 'init' axis their gradient sums over
+        the ranks (mesh.copy_to), the conjugate of _batch_sums; else C
+        itself."""
+        if self._init_group is None:
+            return C
+        return mesh_ops.copy_to(C, self._init_group)
+
+    def _batch_sums(self, sums):
+        """The objective's sums over the batch (each (...,)): under the
+        'init' axis each the sum over the ranks' shares, in one all-reduce
+        (mesh.reduce_from); else `sums` themselves."""
+        if self._init_group is None:
+            return sums
+        return list(mesh_ops.reduce_from(torch.stack(sums, dim=-1),
+                                         self._init_group).unbind(-1))
+
+    def _candidate_axis(self, mesh, axis):
+        """The candidate axis' MeshAxis of `mesh` (None without one)."""
+        if mesh is None:
+            return None
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a problem sharded over the 'init' axis takes no mesh on "
+                "the ensemble entry points: the candidates and the initial "
+                "conditions cannot share the axis (ROADMAP C4 item 15)")
+        return mesh_ops.MeshAxis(mesh, axis, self.device)
+
+    # ------------------------------------------------------------------
     # objective
     # ------------------------------------------------------------------
 
@@ -789,14 +861,18 @@ class Problem:
         return dev_plan if same else host_plan
 
     def coeff_rows_mid(self, params):
-        """(..., ntime, nstages, K) coefficient rows at the stage midpoints."""
+        """(..., ntime, nstages, K) coefficient rows at the stage midpoints.
+        Under the 'init' axis their gradient sums over the ranks
+        (_shared_input), so that every objective built on them and on
+        _assemble_objective_real has both halves of the pair."""
         plan = self._host_or_device(self._plan_mid, self.plan_mid, params)
         p, q = eval_controls(plan, params, self.setup.pipulses)
         C = self.model.coeff_rows(
             p, q, self.plan_mid.ts,
             jc=self._jc_mid if plan is self._plan_mid else None)
-        return C.reshape(params.shape[:-1]
-                         + (self.setup.ntime, self.nstages, self.model.K))
+        return self._shared_input(C.reshape(
+            params.shape[:-1] + (self.setup.ntime, self.nstages,
+                                 self.model.K)))
 
     def _objective_batch(self, Ps, params_ref):
         """Objective of the (E, nparams) candidates Ps: (J (E,), aux)."""
@@ -955,37 +1031,75 @@ class Problem:
                                       self._param_tensor(params_ref))
         return obj
 
-    def build_ensemble_value_and_grad(self):
-        """fn(Ps, params_ref) -> ((J (E,), aux (E,)), grad (E, nparams)):
-        E control candidates through one kernel launch per direction. Each
-        J_e depends on Ps[e] only, so the gradient of sum(J) is the stack of
-        per-candidate gradients."""
-        def evg(Ps, params_ref):
-            P = self._param_tensor(Ps).requires_grad_(True)
-            J, aux = self._objective_batch(P, self._param_tensor(params_ref))
+    def _ensemble_fn(self, grad: bool, mesh=None, axis="init"):
+        """fn(Ps (E, nparams), params_ref) -> (J (E,), aux (E,), gradient
+        (E, nparams) or None without `grad`): E control candidates through
+        one kernel launch per direction. Each J_e depends on Ps[e] only, so
+        the gradient of sum(J) is the stack of per-candidate gradients.
+
+        With `mesh`, the candidates shard over the mesh's `axis`, as the
+        reference's _ensemble_shard (quandary_tpu/problem.py:1639-1667):
+        each rank runs this program unchanged, kernels included, on its
+        E / n rows, and every rank gets the whole results back
+        (mesh.gather_rows); E must divide by n. Ranks along the other axis
+        compute replicas."""
+        ax = self._candidate_axis(mesh, axis)
+
+        def local(P, ref):
+            if not grad:
+                with torch.no_grad():
+                    J, aux = self._objective_batch(P, ref)
+                return J, aux, None
+            P = P.detach().requires_grad_(True)
+            J, aux = self._objective_batch(P, ref)
             (g,) = torch.autograd.grad(J.sum(), P)
-            return self._detached(J, aux), g
+            return (*self._detached(J, aux), g)
+
+        def fn(Ps, params_ref):
+            Ps, ref = self._param_tensor(Ps), self._param_tensor(params_ref)
+            if ax is None:
+                return local(Ps, ref)
+            E = Ps.shape[0]
+            rows = ax.rows(E, "ensemble size E")
+            J, aux, g = local(Ps[rows], ref)
+            keys = list(aux)
+            out = mesh_ops.gather_rows(
+                [J] + [aux[k] for k in keys] + ([g] if grad else []),
+                rows, E, ax.group)
+            return (out[0], dict(zip(keys, out[1:1 + len(keys)])),
+                    out[-1] if grad else None)
+        return fn
+
+    def build_ensemble_value_and_grad(self, mesh=None, axis="init"):
+        """fn(Ps, params_ref) -> ((J (E,), aux (E,)), grad (E, nparams)):
+        E control candidates through one kernel launch per direction; with
+        `mesh`, sharded over its `axis` (_ensemble_fn)."""
+        fn = self._ensemble_fn(True, mesh, axis)
+
+        def evg(Ps, params_ref):
+            J, aux, g = fn(Ps, params_ref)
+            return (J, aux), g
         return evg
 
-    def _ensemble_objective(self):
+    def _ensemble_objective(self, mesh=None, axis="init"):
         """fn(Ps, params_ref) -> (J (E,), aux (E,)): the objective-only
         companion of the ensemble value_and_grad, one forward launch and no
         backward (batched line searches, population evaluation)."""
-        def eobj(Ps, params_ref):
-            with torch.no_grad():
-                return self._objective_batch(
-                    self._param_tensor(Ps), self._param_tensor(params_ref))
-        return eobj
+        fn = self._ensemble_fn(False, mesh, axis)
+        return lambda Ps, params_ref: fn(Ps, params_ref)[:2]
 
-    def packed_batch_fns(self, params_ref):
+    def packed_batch_fns(self, params_ref, mesh=None, axis="init"):
         """The batch hooks of optim.batched_lbfgs.batched_lbfgsb: a
         population's objective and gradient evaluations as ensemble
         launches. Returns dict(objective_batch, grad_batch, vg_batch), to
         be splatted into batched_lbfgsb(**kw); they take and return
-        tensors on the problem's device."""
+        tensors on the problem's device. With `mesh`, every evaluation
+        shards the population over the mesh's `axis` (_ensemble_fn), and
+        batched_lbfgsb runs replicated on every rank over the whole
+        results."""
         ref = self._param_tensor(params_ref)
-        eobj = self._ensemble_objective()
-        evg = self.build_ensemble_value_and_grad()
+        eobj = self._ensemble_objective(mesh, axis)
+        evg = self.build_ensemble_value_and_grad(mesh, axis)
 
         def vg_batch(xs):
             (J, _), g = evg(xs, ref)
@@ -995,20 +1109,27 @@ class Problem:
                     grad_batch=lambda xs: vg_batch(xs)[1],
                     vg_batch=vg_batch)
 
-    def build_ensemble_sweeps(self):
+    def build_ensemble_sweeps(self, mesh=None, axis="init"):
         """f(Ps (reps, E, nparams), params_ref) -> scalar tensor: reps
         ensemble gradient sweeps enqueued back to back, summed into one
         scalar (J and the gradients), with one synchronization at the end.
-        The throughput probe: nothing is fetched between the sweeps."""
+        The throughput probe: nothing is fetched between the sweeps. With
+        `mesh`, each rank sweeps its E / n rows of every Ps and the scalar
+        is summed over the mesh's `axis` by one all-reduce at the end."""
+        ax = self._candidate_axis(mesh, axis)
         evg = self.build_ensemble_value_and_grad()
 
         def reps(Ps, params_ref):
             Ps = self._param_tensor(Ps)
             ref = self._param_tensor(params_ref)
+            if ax is not None:
+                Ps = Ps[:, ax.rows(Ps.shape[1], "ensemble size E")]
             acc = torch.zeros((), dtype=self.rdtype, device=self.device)
             for P in Ps:
                 (J, _), g = evg(P, ref)
                 acc = acc + J.sum() + g.sum()
+            if ax is not None:
+                acc = mesh_ops.reduce_from(acc, ax.group)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return acc

@@ -22,7 +22,7 @@ block, and the open packed robust objective on both pairs; a
 trajectory's CUDA-graph capture while an orphaned graph is collected; the
 device optimizer's plain-route chunk as segmented CUDA graphs; the
 time-parallel scan against the sequential loop, and the device optimizer
-on it.
+on it; the flagship on a one-rank NCCL mesh against its unsharded bits.
 Every test here is marked `cuda` and skips without a device (the
 kernels have no CPU mode). This file imports no JAX, so it also runs where
 only torch is installed:
@@ -2541,3 +2541,86 @@ def test_grouped_f32_matches_f64_on_card(cuda):
     assert abs(J32 - J64) <= 1e-5 * abs(J64)
     assert (g32 - g64).abs().max() <= 1e-3 * g64.abs().max()
     assert (g32 - gad).abs().max() <= 1e-4 * gad.abs().max()
+
+
+def _flagship_setup():
+    """The CNOT flagship of bench.py:59-93 at full width (N = 16, B = 4,
+    1221 steps, split-3, complex64) on the fused route."""
+    from quandary_tpu_torch.models import gates
+    from quandary_tpu_torch.models.hamiltonian import build_standard_model
+    from quandary_tpu_torch.problem import Setup
+    from quandary_tpu_torch.utils.splines import (ControlSegment,
+                                                  OscillatorControl)
+    freq, kerr, T, ntime = [4.80595, 4.8601], [0.2198, 0.2252], 200.0, 1221
+    model = build_standard_model(
+        nlevels=[4, 4], freq01_ghz=freq, rotfreq_ghz=freq, selfkerr_ghz=kerr,
+        jkl_ghz=[0.005], crosskerr_ghz=[])
+    oscs = tuple(OscillatorControl(
+        segments=(ControlSegment("spline", nsplines=30, tstart=0.0,
+                                 tstop=T),),
+        carrier_freqs=(0.0, 2 * np.pi * (freq[1 - k] - freq[k]),
+                       -2 * np.pi * kerr[k])) for k in range(2))
+    return Setup(
+        model=model, nessential=(2, 2), ntime=ntime, dt=T / ntime,
+        oscillators=oscs, ground_freqs_radns=tuple(2 * np.pi * f for f in freq),
+        initcond_type="basis", target_type="gate",
+        target_gate_full=gates.assemble_gate(gates.cnot(), [4, 4], [2, 2],
+                                             [0.0, 0.0], T),
+        gamma_tik=1e-4, gamma_penalty=0.1, gamma_penalty_energy=0.1,
+        gamma_penalty_dpdm=0.01, dtype=torch.complex64, linsolve_iters=3,
+        linsolver="split", fused=True)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_is_the_unsharded_flagship_on_card(cuda):
+    """parallel/mesh.py on a one-rank NCCL group: the flagship's 'init'
+    axis, its ensemble at E = 128 and two sweeps on make_mesh(1, 1) are the
+    unsharded runs' bits (a collective over one rank sums one share), with
+    one launch of each streamK kernel per sweep."""
+    import socket
+
+    import torch.distributed as dist
+
+    from quandary_tpu_torch.parallel import mesh, multihost
+    from quandary_tpu_torch.problem import Problem
+
+    setup = _flagship_setup()
+    prob = Problem(setup)
+    n = setup.nparams
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1, 1, n) * 0.005
+    Ps = rng.uniform(-1, 1, (128, n)) * 0.005
+    Pr = np.stack([Ps, Ps[::-1]])
+    (J0, aux0), g0 = prob.build_value_and_grad()(x, x)
+    (Je0, _), ge0 = prob.build_ensemble_value_and_grad()(Ps, x)
+    sw0 = prob.build_ensemble_sweeps()(Pr, x)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    device = multihost.initialize(f"localhost:{port}", 1, 0)
+    try:
+        assert device.type == "cuda" and dist.get_backend() == "nccl"
+        m = mesh.make_mesh(1, 1)
+        assert m.device_type == "cuda"
+        ps = mesh.shard_problem(Problem(setup), m)
+        assert ps.fused_form == "streamk" and ps.ninit == 4
+        runs = (lambda: ps.build_value_and_grad()(x, x),
+                lambda: prob.build_ensemble_value_and_grad(mesh=m)(Ps, x),
+                lambda: prob.build_ensemble_sweeps(mesh=m)(Pr, x))
+        out = []
+        for run, per in zip(runs, (1, 1, 2)):
+            before = streamk.launch_counts()
+            out.append(run())
+            torch.cuda.synchronize()
+            after = streamk.launch_counts()
+            assert {k: after[k] - before[k] for k in after} == {
+                "streamk_fwd_launches": per, "streamk_bwd_launches": per,
+                "streamk_packed_fwd_launches": 0,
+                "streamk_packed_bwd_launches": 0}
+    finally:
+        dist.destroy_process_group()
+    ((J1, aux1), g1), ((Je1, _), ge1), sw1 = out
+    assert torch.equal(J1, J0) and torch.equal(g1, g0)
+    assert all(torch.equal(aux1[k], aux0[k]) for k in aux0)
+    assert torch.equal(Je1, Je0) and torch.equal(ge1, ge0)
+    assert torch.equal(sw1, sw0)
